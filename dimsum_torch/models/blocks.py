@@ -24,6 +24,16 @@ from dimsum_torch.ops.norms import fused_add_norm, modulate, norm_modulate
 from dimsum_torch.ops.wavelet import dwt_tokens_windowed, idwt_tokens_windowed
 
 
+def drop_path_fn(x, rate: float, generator: torch.Generator | None = None):
+    """Per-sample stochastic depth (timm semantics, the JAX `drop_path_fn`,
+    blocks.py:77-85): keep each sample with probability 1 - rate and scale
+    the kept ones by 1 / (1 - rate).  Callers apply it only in training."""
+    keep = 1.0 - rate
+    mask = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1),
+                      generator=generator, device=x.device) < keep
+    return x * (mask.to(x.dtype) / keep)
+
+
 class Norm(nn.Module):
     """RMSNorm (weight only) with fp32 math.  With `branch` or `shift` it
     is the fused (gate-add +) add + norm + modulate and returns
@@ -145,12 +155,18 @@ class DiMBlockCombined(nn.Module):
     """The published DiMSUM block: add + RMSNorm -> split channels ->
     spatial half through a mixer block and frequency half through a wavelet
     block -> CrossAttentionFusion -> residual -> adaLN-gated GatedMLP.  The
-    frequency half scans column first in the reversed blocks."""
+    frequency half scans column first in the reversed blocks.
+
+    In training, stochastic depth at `drop_path_rate` drops the incoming
+    hidden states per sample where they merge into the residual, and only
+    when a residual exists (blocks.py:94-98, :784-793)."""
 
     def __init__(self, dim: int, reverse: bool = False,
                  transpose: bool = False, d_cond: int | None = None,
+                 drop_path_rate: float = 0.0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.drop_path_rate = drop_path_rate
         half = dim // 2
         self.norm = Norm(dim)
         self.spatial_mamba = MixerBlockCore(
@@ -165,7 +181,12 @@ class DiMBlockCombined(nn.Module):
         self.norm_2 = Norm(dim)
         self.mlp = GatedMLP(dim, 4 * dim, dtype=dtype)
 
-    def forward(self, hidden_states, residual=None, c=None):
+    def forward(self, hidden_states, residual=None, c=None,
+                train: bool = False,
+                generator: torch.Generator | None = None):
+        if train and self.drop_path_rate > 0.0 and residual is not None:
+            hidden_states = drop_path_fn(hidden_states, self.drop_path_rate,
+                                         generator)
         hidden_states, residual = self.norm(hidden_states, residual)
         x1, x2 = hidden_states.chunk(2, dim=2)
         x1 = self.spatial_mamba(x1, c)

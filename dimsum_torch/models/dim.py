@@ -5,7 +5,11 @@ residual, sin-cos APE): PatchEmbed -> APE -> N combined blocks with a shared
 the CFG wrapper, the model zoo and a seeded random init.
 
 Block i runs reverse = (i % 2 > 0) and transpose = (i % 4 >= 2), the
-scan_type "none" schedule of the JAX `make_dim_block`.  The other block
+scan_type "none" schedule of the JAX `make_dim_block`, and stochastic depth
+at inter_dpr[i], inter_dpr = [0] + linspace(0, drop_path, depth) (the JAX
+`_drop_path_rates`, dim.py:270-277).  The JAX model's other drop-path site,
+the final norm_f merge, exists only with `use_final_norm`, which the
+published configuration leaves off, so the port has no norm_f.  The other block
 types, scan types, position encodings and learn_sigma are not ported yet.
 """
 
@@ -14,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -36,6 +41,7 @@ class DiMConfig:
     label_dropout: float = 0.1  # > 0: the label table has a null class
     num_classes: int = 1000
     use_attn_every_k_layers: int = 4
+    drop_path: float = 0.0  # stochastic depth (scripts/train.sh: 0.1)
     dtype: torch.dtype = torch.float32
 
     @property
@@ -57,28 +63,37 @@ class DiM(nn.Module):
         self.y_embedder = LabelEmbedder(cfg.num_classes, D, cfg.label_dropout)
         self.pos_embed = nn.Parameter(
             torch.tensor(get_2d_sincos_pos_embed(D, cfg.grid_size))[None])
+        inter_dpr = [0.0] + np.linspace(0.0, cfg.drop_path,
+                                        cfg.depth).tolist()
         self.blocks = nn.ModuleList([
             DiMBlockCombined(D, reverse=i % 2 > 0, transpose=i % 4 >= 2,
-                             d_cond=D, dtype=dt)
+                             d_cond=D, drop_path_rate=inter_dpr[i], dtype=dt)
             for i in range(cfg.depth)])
         if cfg.use_attn_every_k_layers > 0:
             self.attn_block = DiTBlock(D, 16, dtype=dt)
         self.final_layer = FinalLayer(D, cfg.patch_size, cfg.in_channels, dt)
 
-    def forward(self, x, t, y=None):
+    def forward(self, x, t, y=None, train: bool = False,
+                generator: torch.Generator | None = None,
+                force_drop_ids=None):
         """x: (N, C, H, W) latents; t: (N,) times in [0, 1]; y: (N,) labels
-        (None: the null class)."""
+        (None: the null class).  `train` turns on label dropout and
+        stochastic depth, drawn from `generator` (on x's device);
+        `force_drop_ids` (N,), 1 = drop, replaces the label draw."""
         cfg = self.cfg
         if y is None:
             y = torch.full((x.shape[0],),
                            self.y_embedder.embedding_table.num_embeddings - 1,
                            dtype=torch.long, device=x.device)
-        c = (self.t_embedder(t) + self.y_embedder(y)).to(cfg.dtype)
+        y_emb = self.y_embedder(y, train=train, force_drop_ids=force_drop_ids,
+                                generator=generator)
+        c = (self.t_embedder(t) + y_emb).to(cfg.dtype)
         x = self.x_embedder(x.to(cfg.dtype)) + self.pos_embed.to(cfg.dtype)
         residual = None
         k = cfg.use_attn_every_k_layers
         for i, block in enumerate(self.blocks):
-            x, residual = block(x, residual, c)
+            x, residual = block(x, residual, c, train=train,
+                                generator=generator)
             if k > 0 and (i + 1) % k == 0:
                 x = self.attn_block(x, c)
         x = self.final_layer(x, c)
@@ -151,11 +166,18 @@ def random_init_(model: DiM, seed: int) -> DiM:
     return model
 
 
-def build_dim(cfg: DiMConfig, device="cuda", seed: int = 0) -> DiM:
+def build_dim(cfg: DiMConfig, device="cuda", seed: int = 0,
+              train: bool = False) -> DiM:
     """A DiM on `device` (CUDA unless the caller asks for the CPU) with the
-    seeded `random_init_` weights, Linear weights stored in cfg.dtype."""
+    seeded `random_init_` weights.  For inference (the default) the Linear
+    weights are stored in cfg.dtype and the model is in eval mode; with
+    `train=True` every parameter stays fp32 (the master weights the
+    optimizer updates; `Linear` casts to cfg.dtype at each call, as the JAX
+    package does) and the model is in train mode."""
     dev = resolve_device(device)
     with torch.device(dev):
         model = DiM(cfg)
     random_init_(model, seed)
+    if train:
+        return model.train()
     return cast_weights_(model).eval()

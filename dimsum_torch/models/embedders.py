@@ -85,16 +85,30 @@ class TimestepEmbedder(nn.Module):
 
 class LabelEmbedder(nn.Module):
     """Class-label table with a null class at index `num_classes` (used by
-    CFG) when `dropout_prob > 0`.  Inference only: no label dropout."""
+    CFG) when `dropout_prob > 0`.  In training each label is replaced by the
+    null class with probability `dropout_prob` (the JAX `LabelEmbedder`,
+    dimsum_tpu/models/embedders.py:153-165); `force_drop_ids` (1 = drop)
+    decides instead of the draw, in training or not."""
 
     def __init__(self, num_classes: int, hidden_size: int,
                  dropout_prob: float):
         super().__init__()
         self.num_classes = num_classes
+        self.dropout_prob = dropout_prob
         self.embedding_table = nn.Embedding(
             num_classes + int(dropout_prob > 0), hidden_size)
 
-    def forward(self, labels):
+    def forward(self, labels, train: bool = False, force_drop_ids=None,
+                generator: torch.Generator | None = None):
+        if force_drop_ids is not None:
+            drop = force_drop_ids == 1
+        elif train and self.dropout_prob > 0:
+            drop = torch.rand(labels.shape, generator=generator,
+                              device=labels.device) < self.dropout_prob
+        else:
+            drop = None
+        if drop is not None:
+            labels = torch.where(drop, self.num_classes, labels)
         return self.embedding_table(labels)
 
 

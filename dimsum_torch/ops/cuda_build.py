@@ -21,7 +21,8 @@ CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dimsum_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("selective_scan_fwd",)
+SOURCES = ("selective_scan_fwd", "selective_scan_fwd_train",
+           "selective_scan_bwd")
 
 
 def _nvcc() -> str:

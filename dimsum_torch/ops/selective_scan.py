@@ -16,18 +16,39 @@ Layout as in the JAX package: u, delta, z (batch, L, dim); B, C
                              (`csrc/selective_scan_fwd.cu`), the port of the
                              Pallas `_scan_body`, with delta = dt_low @ dt_w
                              expanded in the kernel.
+  * `selective_scan_fwd_train` / `selective_scan_bwd` : the training pair,
+                             ports of the Pallas `_fwd_train_kernel` and
+                             `_bwd_kernel` (`csrc/selective_scan_fwd_train.cu`,
+                             `csrc/selective_scan_bwd.cu`); CPU tensors take
+                             their plain versions (`..._ref`).
+  * `SelectiveScanDtLowFn` : the autograd Function over that pair.
   * `selective_scan_dtlow` : the front end the mixer calls.  CPU tensors take
-                             the plain version, CUDA tensors the kernel.
+                             the plain version with ordinary autograd; CUDA
+                             tensors take kernel 1 when no gradient is
+                             needed and the Function when one is.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
 
-__all__ = ["selective_scan_ref", "selective_scan_cuda", "selective_scan_dtlow"]
+__all__ = ["selective_scan_ref", "selective_scan_cuda", "selective_scan_dtlow",
+           "selective_scan_fwd_train", "selective_scan_fwd_train_ref",
+           "selective_scan_fwd_train_cuda", "selective_scan_bwd",
+           "selective_scan_bwd_ref", "selective_scan_bwd_core_ref",
+           "selective_scan_bwd_core_cuda",
+           "SelectiveScanDtLowFn", "selective_scan_dtlow_train",
+           "TRAIN_CHUNK"]
+
+# Timesteps between the chunk-start states that the training forward saves
+# and the backward replays from: the contract between kernels 2 and 3.  The
+# backward keeps a chunk's replayed states in shared memory, (chunk + 1) x N
+# x 64 channels x 4 B = 68 KB at N 16 (csrc/selective_scan_bwd.cu).
+TRAIN_CHUNK = 16
 
 
 def softplus(x):
@@ -81,47 +102,43 @@ def selective_scan_ref(u, delta, A, B, C, D=None, z=None, delta_bias=None,
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernel
+# CUDA kernels: one wrapper per source, each counting its launches
 # ---------------------------------------------------------------------------
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_STATE, _MAX_RANK = 32, 64
 
 
-def _library():
+def _launch(name: str, dev, tensors, ints):
+    """Call `dimsum_<name>` of csrc/<name>.cu's library (built at first use)
+    with the tensors' pointers (None for an absent one), the int arguments
+    and the current stream; raise if the launch failed."""
     from dimsum_torch.ops import cuda_build
 
-    lib = cuda_build.load("selective_scan_fwd")
-    fn = lib.dimsum_selective_scan_fwd
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p]
+    fn = getattr(cuda_build.load(name), f"dimsum_{name}")
+    fn.argtypes = ([ctypes.c_void_p] * len(tensors)
+                   + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return fn
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*[None if t is None else t.data_ptr() for t in tensors],
+                *ints, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
-def _check(name, t, device, dtype, shape):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
-def selective_scan_cuda(u, dt_low, dt_w, A, B, C, D=None, z=None,
-                        delta_bias=None, delta_softplus=False):
-    """Launch the CUDA kernel: selective_scan(u, dt_low @ dt_w, ...) with
-    the dt expansion, bias and softplus in fp32 inside the kernel.
-
-    u, z: (batch, L, dim); dt_low: (batch, L, r); dt_w: (r, dim); B, C:
-    (batch, L, N) -- all contiguous, on one CUDA device, in one dtype
-    (float32 or bfloat16).  A: (dim, N), D and delta_bias: (dim,), float32.
-    Raises on anything else; grouped B/C is not implemented here."""
+def _check_kernel_args(u, dt_low, dt_w, A, B, C, D, z, delta_bias):
+    """The layout, types and sizes every selective-scan kernel takes:
+    u, z (batch, L, dim); dt_low (batch, L, r); dt_w (r, dim); B, C
+    (batch, L, N), all in u's dtype (float32 or bfloat16); A (dim, N),
+    D and delta_bias (dim,) in float32; contiguous, on u's CUDA device."""
     if not u.is_cuda:
-        raise ValueError("selective_scan_cuda takes CUDA tensors only")
+        raise ValueError("the CUDA selective scan takes CUDA tensors only")
     if B.ndim != 3 or C.ndim != 3:
         raise NotImplementedError(
             "grouped B/C is not implemented in the CUDA selective scan")
@@ -149,18 +166,47 @@ def selective_scan_cuda(u, dt_low, dt_w, A, B, C, D=None, z=None,
     if delta_bias is not None:
         _check("delta_bias", delta_bias, dev, torch.float32, (dim,))
 
-    fn = _library()
-    out = torch.empty_like(u)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(ptr(u), ptr(dt_low), ptr(dt_w), ptr(A), ptr(B), ptr(C),
-                ptr(D), ptr(z), ptr(delta_bias), ptr(out), batch, L, dim,
-                n_state, rank, _DTYPE_CODE[dt], int(bool(delta_softplus)),
-                stream)
-    if rc != 0:
+
+def _check(name, t, device, dtype, shape):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def selective_scan_cuda(u, dt_low, dt_w, A, B, C, D=None, z=None,
+                        delta_bias=None, delta_softplus=False):
+    """Launch the CUDA kernel: selective_scan(u, dt_low @ dt_w, ...) with
+    the dt expansion, bias and softplus in fp32 inside the kernel.
+
+    u, z: (batch, L, dim); dt_low: (batch, L, r); dt_w: (r, dim); B, C:
+    (batch, L, N) -- all contiguous, on one CUDA device, in one dtype
+    (float32 or bfloat16).  A: (dim, N), D and delta_bias: (dim,), float32.
+    Raises on anything else; grouped B/C is not implemented here.  It has
+    no backward: under grad mode with an input that requires grad it
+    raises (the training route is `selective_scan_dtlow_train`)."""
+    if _needs_grad(u, dt_low, dt_w, A, B, C, D, z, delta_bias):
         raise RuntimeError(
-            f"selective_scan_fwd launch failed: CUDA error {rc}")
+            "selective_scan_cuda is the inference kernel and has no "
+            "backward; take selective_scan_dtlow_train (kernels 2 and 3) "
+            "or run under torch.no_grad()")
+    if not u.is_cuda:
+        raise ValueError("selective_scan_cuda takes CUDA tensors only")
+    _check_kernel_args(u, dt_low, dt_w, A, B, C, D, z, delta_bias)
+    batch, L, dim = u.shape
+    rank, n_state = dt_w.shape[0], A.shape[1]
+    dev, dt = u.device, u.dtype
+
+    out = torch.empty_like(u)
+    _launch("selective_scan_fwd", dev,
+            (u, dt_low, dt_w, A, B, C, D, z, delta_bias, out),
+            (batch, L, dim, n_state, rank, _DTYPE_CODE[dt],
+             int(bool(delta_softplus))))
     selective_scan_cuda.launches += 1
     return out
 
@@ -172,6 +218,245 @@ def _flip(v):
     return None if v is None else v.flip(1)
 
 
+def _dt_expand(dt_low, dt_w, delta_bias, delta_softplus):
+    """(dt, raw) in fp32: raw = dt_low @ dt_w (+ bias), dt = softplus(raw)
+    or raw, the expansion the kernels make in fp32."""
+    raw = torch.einsum("blr,rd->bld", dt_low.float(), dt_w.float())
+    if delta_bias is not None:
+        raw = raw + delta_bias.float()
+    return (softplus(raw) if delta_softplus else raw), raw
+
+
+# ---------------------------------------------------------------------------
+# Training pair: forward with saved states (kernel 2) and backward (kernel 3)
+# ---------------------------------------------------------------------------
+
+def selective_scan_fwd_train_ref(u, dt_low, dt_w, A, B, C, D=None, z=None,
+                                 delta_bias=None, delta_softplus=False,
+                                 chunk: int = TRAIN_CHUNK):
+    """Plain version of kernel 2, the JAX `selective_scan_fwd_train`:
+    returns (y, o, boundaries).  y is selective_scan's output in u's dtype;
+    o = s + D*u is the fp32 pre-gate output (batch, L, dim); boundaries are
+    the fp32 states at the start of each `chunk`-step chunk (the first one
+    zero), (batch, ceil(L / chunk), N, dim)."""
+    batch, L, dim = u.shape
+    dt, _ = _dt_expand(dt_low, dt_w, delta_bias, delta_softplus)
+    uf, Af, Bf, Cf = u.float(), A.float(), B.float(), C.float()
+    du = dt * uf
+    h = torch.zeros(batch, dim, A.shape[1], dtype=torch.float32,
+                    device=u.device)
+    ys, bnd = [], []
+    for t in range(L):
+        if t % chunk == 0:
+            bnd.append(h.transpose(1, 2))
+        h = torch.exp(dt[:, t, :, None] * Af) * h \
+            + du[:, t, :, None] * Bf[:, t, None, :]
+        ys.append((h * Cf[:, t, None, :]).sum(-1))
+    o = torch.stack(ys, dim=1)
+    if D is not None:
+        o = o + uf * D.float()
+    y = o
+    if z is not None:
+        zf = z.float()
+        y = o * (zf * torch.sigmoid(zf))
+    return y.to(u.dtype), o, torch.stack(bnd, dim=1)
+
+
+def selective_scan_bwd_core_ref(u, dt_low, dt_w, A, B, C, delta_bias,
+                                delta_softplus, go, boundaries,
+                                chunk: int = TRAIN_CHUNK):
+    """Plain version of kernel 3: the reverse recurrence of the JAX
+    `selective_scan_bwd` docstring (selective_scan_bwd.py:27-36), chunk by
+    chunk from the last, each chunk's states replayed from its saved start.
+    go = dL/ds (fp32).  Returns fp32 (du_scan, ddelta, dA, dB, dC)."""
+    batch, L, dim = u.shape
+    n = A.shape[1]
+    dt, raw = _dt_expand(dt_low, dt_w, delta_bias, delta_softplus)
+    uf, Af, Bf, Cf = u.float(), A.float(), B.float(), C.float()
+    du_s = torch.empty(batch, L, dim, device=u.device)
+    ddt = torch.empty(batch, L, dim, device=u.device)
+    dB = torch.empty(batch, L, n, device=u.device)
+    dC = torch.empty(batch, L, n, device=u.device)
+    dA = torch.zeros(dim, n, device=u.device)
+    sig = torch.sigmoid(raw)
+    carry = torch.zeros(batch, dim, n, device=u.device)  # a_{t+1} e_{t+1}
+    for c in reversed(range(boundaries.shape[1])):
+        t0, t1 = c * chunk, min(L, (c + 1) * chunk)
+        hs = [boundaries[:, c].transpose(1, 2).float()]
+        for t in range(t0, t1):
+            a = torch.exp(dt[:, t, :, None] * Af)
+            hs.append(a * hs[-1] + (dt[:, t] * uf[:, t])[..., None]
+                      * Bf[:, t, None, :])
+        for t in reversed(range(t0, t1)):
+            a = torch.exp(dt[:, t, :, None] * Af)
+            e = go[:, t, :, None] * Cf[:, t, None, :] + carry
+            da_a = e * hs[t - t0] * a
+            eB = (e * Bf[:, t, None, :]).sum(-1)
+            du_s[:, t] = eB * dt[:, t]
+            ddt_p = eB * uf[:, t] + (da_a * Af).sum(-1)
+            ddt[:, t] = ddt_p * sig[:, t] if delta_softplus else ddt_p
+            dB[:, t] = (e * (dt[:, t] * uf[:, t])[..., None]).sum(1)
+            dC[:, t] = (hs[t - t0 + 1] * go[:, t, :, None]).sum(1)
+            dA += (da_a * dt[:, t, :, None]).sum(0)
+            carry = a * e
+    return du_s, ddt, dA, dB, dC
+
+
+def _bwd(core, u, dt_low, dt_w, A, B, C, D, z, delta_bias, delta_softplus,
+         o, boundaries, g):
+    """The JAX `selective_scan_bwd_pallas` around a reverse-scan core: the
+    gate, D-skip and bias gradients in PyTorch, the dtype casts of
+    selective_scan_bwd.py:277-280 (ddelta in the compute dtype of the
+    delta = dt_low @ dt_w it is the gradient of)."""
+    gf = g.float()
+    if z is not None:
+        zf = z.float()
+        sig = torch.sigmoid(zf)
+        go = gf * (zf * sig)
+        dz = (gf * o * (sig * (1 + zf * (1 - sig)))).to(z.dtype)
+    else:
+        go, dz = gf, None
+    go = go.contiguous()
+    dD = (go * u.float()).sum((0, 1)) if D is not None else None
+    du_s, ddt, dA, dB, dC = core(u, dt_low, dt_w, A, B, C, delta_bias,
+                                 delta_softplus, go, boundaries)
+    du = du_s + go * D.float() if D is not None else du_s
+    dbias = ddt.sum((0, 1)) if delta_bias is not None else None
+    return (du.to(u.dtype), ddt.to(dt_low.dtype), dA.to(A.dtype),
+            dB.to(B.dtype), dC.to(C.dtype),
+            None if dD is None else dD.to(D.dtype), dz,
+            None if dbias is None else dbias.to(delta_bias.dtype))
+
+
+def selective_scan_bwd_ref(u, dt_low, dt_w, A, B, C, D=None, z=None,
+                           delta_bias=None, delta_softplus=False, *, o,
+                           boundaries, g, chunk: int = TRAIN_CHUNK):
+    """Plain version of the backward: given the forward's inputs, its o and
+    boundaries, and g = dL/dy, returns (du, ddelta, dA, dB, dC, dD, dz,
+    dbias), None for an absent optional; ddelta is dL/d(dt_low @ dt_w)."""
+    return _bwd(functools.partial(selective_scan_bwd_core_ref, chunk=chunk),
+                u, dt_low, dt_w, A, B, C, D, z, delta_bias, delta_softplus, o,
+                boundaries, g)
+
+
+def selective_scan_fwd_train_cuda(u, dt_low, dt_w, A, B, C, D=None, z=None,
+                                  delta_bias=None, delta_softplus=False):
+    """Launch kernel 2 (`csrc/selective_scan_fwd_train.cu`): kernel 1's y
+    plus the fp32 o and the states of `selective_scan_fwd_train_ref` at
+    every TRAIN_CHUNK-th step.  Takes what `selective_scan_cuda` takes;
+    raises on anything else."""
+    _check_kernel_args(u, dt_low, dt_w, A, B, C, D, z, delta_bias)
+    batch, L, dim = u.shape
+    rank, n_state = dt_w.shape[0], A.shape[1]
+    y = torch.empty_like(u)
+    o = torch.empty(batch, L, dim, device=u.device)
+    bnd = torch.empty(batch, -(-L // TRAIN_CHUNK), n_state, dim,
+                      device=u.device)
+    _launch("selective_scan_fwd_train", u.device,
+            (u, dt_low, dt_w, A, B, C, D, z, delta_bias, y, o, bnd),
+            (batch, L, dim, n_state, rank, _DTYPE_CODE[u.dtype],
+             int(bool(delta_softplus))))
+    selective_scan_fwd_train_cuda.launches += 1
+    return y, o, bnd
+
+
+selective_scan_fwd_train_cuda.launches = 0
+
+
+def selective_scan_bwd_core_cuda(u, dt_low, dt_w, A, B, C, delta_bias,
+                                 delta_softplus, go, boundaries):
+    """Launch kernel 3 (`csrc/selective_scan_bwd.cu`), the CUDA counterpart
+    of `selective_scan_bwd_core_ref`.  dB/dC come back as one partial per
+    warp of 32 channels and dA as one per batch row; the sums here make
+    them deterministic (no float atomics)."""
+    _check_kernel_args(u, dt_low, dt_w, A, B, C, None, None, delta_bias)
+    batch, L, dim = u.shape
+    rank, n_state = dt_w.shape[0], A.shape[1]
+    _check("go", go, u.device, torch.float32, (batch, L, dim))
+    _check("boundaries", boundaries, u.device, torch.float32,
+           (batch, -(-L // TRAIN_CHUNK), n_state, dim))
+    parts = -(-dim // 32)
+    du_s = torch.empty(batch, L, dim, device=u.device)
+    ddt = torch.empty(batch, L, dim, device=u.device)
+    dB_p = torch.empty(parts, batch, L, n_state, device=u.device)
+    dC_p = torch.empty(parts, batch, L, n_state, device=u.device)
+    dA_p = torch.empty(batch, dim, n_state, device=u.device)
+    _launch("selective_scan_bwd", u.device,
+            (u, dt_low, dt_w, A, B, C, delta_bias, go, boundaries, du_s,
+             ddt, dB_p, dC_p, dA_p),
+            (batch, L, dim, n_state, rank, _DTYPE_CODE[u.dtype],
+             int(bool(delta_softplus))))
+    selective_scan_bwd_core_cuda.launches += 1
+    return du_s, ddt, dA_p.sum(0), dB_p.sum(0), dC_p.sum(0)
+
+
+selective_scan_bwd_core_cuda.launches = 0
+
+
+def selective_scan_fwd_train(u, dt_low, dt_w, A, B, C, D=None, z=None,
+                             delta_bias=None, delta_softplus=False):
+    """Kernel 2 for CUDA tensors, its plain version for CPU tensors."""
+    fn = selective_scan_fwd_train_cuda if u.is_cuda else \
+        selective_scan_fwd_train_ref
+    return fn(u, dt_low, dt_w, A, B, C, D, z, delta_bias, delta_softplus)
+
+
+def selective_scan_bwd(u, dt_low, dt_w, A, B, C, D=None, z=None,
+                       delta_bias=None, delta_softplus=False, *, o,
+                       boundaries, g):
+    """`selective_scan_bwd_ref` with its reverse scan on kernel 3 for CUDA
+    tensors (on the plain version for CPU tensors)."""
+    core = selective_scan_bwd_core_cuda if u.is_cuda else \
+        selective_scan_bwd_core_ref
+    return _bwd(core, u, dt_low, dt_w, A, B, C, D, z, delta_bias,
+                delta_softplus, o, boundaries, g)
+
+
+class SelectiveScanDtLowFn(torch.autograd.Function):
+    """selective_scan(u, dt_low @ dt_w, ...) with the JAX package's training
+    rules (`_dtlow_fwd`/`_dtlow_bwd`, selective_scan.py:812-835): the
+    forward saves o and the chunk-start states, the backward replays them;
+    ddelta goes back through the expansion as two fp32 products,
+    ddt_low = ddelta @ dt_w^T and ddt_w = dt_low^T @ ddelta."""
+
+    @staticmethod
+    def forward(ctx, u, dt_low, dt_w, A, B, C, D, z, delta_bias,
+                delta_softplus):
+        y, o, bnd = selective_scan_fwd_train(
+            u, dt_low, dt_w, A, B, C, D, z, delta_bias, delta_softplus)
+        ctx.delta_softplus = delta_softplus
+        ctx.save_for_backward(u, dt_low, dt_w, A, B, C, D, z, delta_bias,
+                              o, bnd)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        u, dt_low, dt_w, A, B, C, D, z, delta_bias, o, bnd = \
+            ctx.saved_tensors
+        du, ddelta, dA, dB, dC, dD, dz, dbias = selective_scan_bwd(
+            u, dt_low, dt_w, A, B, C, D, z, delta_bias, ctx.delta_softplus,
+            o=o, boundaries=bnd, g=g.contiguous())
+        dd = ddelta.float()
+        ddt_low = torch.matmul(dd, dt_w.float().t()).to(dt_low.dtype)
+        ddt_w = torch.einsum("blr,bld->rd", dt_low.float(), dd).to(
+            dt_w.dtype)
+        return du, ddt_low, ddt_w, dA, dB, dC, dD, dz, dbias, None
+
+
+def selective_scan_dtlow_train(u, dt_low, dt_w, A, B, C, D=None, z=None,
+                               delta_bias=None, delta_softplus=False,
+                               reverse: bool = False):
+    """`SelectiveScanDtLowFn`, with `reverse` as flips around it (autograd
+    differentiates the flips), as `_dtlow_fwd`/`_dtlow_bwd` do.  Kernels 2
+    and 3 for CUDA tensors, their plain versions for CPU tensors."""
+    if reverse:
+        u, dt_low, B, C, z = (_flip(u), _flip(dt_low), _flip(B), _flip(C),
+                              _flip(z))
+    y = SelectiveScanDtLowFn.apply(u, dt_low, dt_w, A, B, C, D, z,
+                                   delta_bias, delta_softplus)
+    return _flip(y) if reverse else y
+
+
 def selective_scan_dtlow(u, dt_low, dt_w, A, B, C, D=None, z=None,
                          delta_bias=None, delta_softplus=False,
                          reverse: bool = False, impl: Optional[str] = None):
@@ -181,11 +466,24 @@ def selective_scan_dtlow(u, dt_low, dt_w, A, B, C, D=None, z=None,
     weight; the expansion is computed in fp32 (as the Pallas kernel does on
     its MXU).  `reverse=True` computes flip_L(scan(flip_L(inputs))).
 
-    `impl`: None takes the CUDA kernel for CUDA tensors and the plain
-    version for CPU tensors; "ref" takes the plain version on any device;
-    "cuda" takes the kernel and raises for CPU tensors."""
+    `impl`: None takes the CUDA kernels for CUDA tensors and the plain
+    version for CPU tensors; "ref" takes the plain version on any device,
+    differentiated by autograd; "cuda" takes the kernels and raises for CPU
+    tensors.  On the kernel route, kernel 1 runs when no input needs a
+    gradient (no_grad, inference_mode, or frozen inputs) and
+    `selective_scan_dtlow_train` (kernels 2 and 3) when one does.  There is
+    no fallback: a shape or dtype the kernels do not take raises."""
     if impl is None:
         impl = "cuda" if u.is_cuda else "ref"
+    if impl == "cuda":
+        if not u.is_cuda:
+            raise ValueError("impl='cuda' takes CUDA tensors only")
+        if _needs_grad(u, dt_low, dt_w, A, B, C, D, z, delta_bias):
+            return selective_scan_dtlow_train(
+                u, dt_low, dt_w, A, B, C, D=D, z=z, delta_bias=delta_bias,
+                delta_softplus=delta_softplus, reverse=reverse)
+    elif impl != "ref":
+        raise ValueError(f"unknown selective scan impl {impl!r}")
     if reverse:
         u, dt_low, B, C, z = (_flip(u), _flip(dt_low), _flip(B), _flip(C),
                               _flip(z))
@@ -193,11 +491,9 @@ def selective_scan_dtlow(u, dt_low, dt_w, A, B, C, D=None, z=None,
         y = selective_scan_cuda(u, dt_low, dt_w, A, B, C, D=D, z=z,
                                 delta_bias=delta_bias,
                                 delta_softplus=delta_softplus)
-    elif impl == "ref":
+    else:
         delta = torch.einsum("blr,rd->bld", dt_low.float(), dt_w.float())
         y = selective_scan_ref(u, delta, A, B, C, D=D, z=z,
                                delta_bias=delta_bias,
                                delta_softplus=delta_softplus)
-    else:
-        raise ValueError(f"unknown selective scan impl {impl!r}")
     return _flip(y) if reverse else y

@@ -1,4 +1,5 @@
-"""Flow-matching transport for sampling (port of `dimsum_tpu/transport`)."""
+"""Flow-matching transport for training and sampling (port of
+`dimsum_tpu/transport`)."""
 
 from __future__ import annotations
 
@@ -9,12 +10,14 @@ from dimsum_torch.transport.transport import (  # noqa: F401
     Sampler,
     Transport,
     WeightType,
+    mean_flat,
 )
 
 
 def create_transport(path_type: str = "Linear", prediction: str = "velocity",
                      loss_weight=None, train_eps=None, sample_eps=None,
-                     path_args=None) -> Transport:
+                     path_args=None, t_sample_mode: str = "uniform"
+                     ) -> Transport:
     """As the JAX `create_transport`, with the reference's eps defaults:
     1e-3 for noise or score prediction, 0 for velocity.  The "VP" path is
     not ported yet."""
@@ -35,4 +38,5 @@ def create_transport(path_type: str = "Linear", prediction: str = "velocity",
     sample_eps = eps if sample_eps is None else sample_eps
     return Transport(model_type=model_type, path_type=ptype,
                      loss_type=loss_type, train_eps=train_eps,
-                     sample_eps=sample_eps, path_sampler=plan_cls(**path_args))
+                     sample_eps=sample_eps, path_sampler=plan_cls(**path_args),
+                     t_sample_mode=t_sample_mode)

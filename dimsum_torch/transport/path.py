@@ -1,7 +1,7 @@
 """Coupling plans (interpolants), port of `dimsum_tpu/transport/path.py`:
 alpha_t multiplies the data, sigma_t the noise, and time runs noise (t=0)
 -> data (t=1).  Sampling a velocity model needs only the plan's type (for
-the time interval); the schedules are kept as the plans' definition.  The
+the time interval); training takes x_t and its velocity from `plan`.  The
 VP plan and the DCT-blurred interpolant are not ported yet.
 """
 
@@ -23,6 +23,15 @@ class ICPlan:
 
     def compute_sigma_t(self, t):
         return 1 - t, -torch.ones_like(t)
+
+    def plan(self, t, x0, x1):
+        """(t, x_t, u_t): x_t = alpha_t x1 + sigma_t x0 and its velocity
+        u_t = alpha'_t x1 + sigma'_t x0, t (N,) broadcast over x's other
+        axes (the JAX `plan`, path.py:110-132, without blurring)."""
+        te = t.reshape(t.shape[0], *([1] * (x1.ndim - 1)))
+        alpha_t, d_alpha_t = self.compute_alpha_t(te)
+        sigma_t, d_sigma_t = self.compute_sigma_t(te)
+        return t, alpha_t * x1 + sigma_t * x0, d_alpha_t * x1 + d_sigma_t * x0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,15 +1,17 @@
-"""Transport (flow matching) for sampling, port of
-`dimsum_tpu/transport/transport.py`: the time interval, the velocity
-model's probability-flow ODE drift, and `Sampler.sample_ode` with Euler and
-Heun.  The noise and score drifts, training losses, SDE sampling,
-likelihoods and dopri5 are not ported yet.
+"""Transport (flow matching), port of `dimsum_tpu/transport/transport.py`:
+the time interval, the training draws and the velocity model's loss, the
+velocity model's probability-flow ODE drift, and `Sampler.sample_ode` with
+Euler and Heun.  The noise and score drifts and loss weightings, SDE
+sampling, likelihoods and dopri5 are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Any
+from typing import Any, Callable, Dict, Optional
+
+import torch
 
 from dimsum_torch.transport.integrators import ode_euler, ode_heun
 
@@ -31,6 +33,11 @@ class WeightType(enum.Enum):
     LIKELIHOOD = enum.auto()
 
 
+def mean_flat(x):
+    """Mean over every axis but the first."""
+    return x.mean(dim=tuple(range(1, x.ndim)))
+
+
 @dataclasses.dataclass(frozen=True)
 class Transport:
     model_type: ModelType
@@ -39,6 +46,7 @@ class Transport:
     train_eps: float
     sample_eps: float
     path_sampler: Any = None
+    t_sample_mode: str = "uniform"  # or "logitnormal"
 
     def check_interval(self, train_eps, sample_eps, *, diffusion_form="SBDM",
                        sde=False, reverse=False, eval=False,
@@ -55,6 +63,39 @@ class Transport:
         if reverse:
             t0, t1 = 1 - t0, 1 - t1
         return t0, t1
+
+    def sample(self, x1, generator: Optional[torch.Generator] = None):
+        """Draw (t, x0, x1) for training (transport.py:91-102): x0 ~ N(0, 1)
+        like x1, t (N,) fp32 in the training interval, uniform or
+        sigmoid(N(-0.5, 1)) scaled to it ("logitnormal")."""
+        x0 = torch.randn(x1.shape, generator=generator, device=x1.device,
+                         dtype=x1.dtype)
+        t0, t1 = self.check_interval(self.train_eps, self.sample_eps)
+        n = x1.shape[0]
+        if self.t_sample_mode == "logitnormal":
+            t = torch.randn(n, generator=generator, device=x1.device) - 0.5
+            t = torch.sigmoid(t) * (t1 - t0) + t0
+        elif self.t_sample_mode == "uniform":
+            t = torch.rand(n, generator=generator, device=x1.device) \
+                * (t1 - t0) + t0
+        else:
+            raise ValueError(f"t_sample_mode {self.t_sample_mode!r}")
+        return t.float(), x0, x1
+
+    def training_losses(self, model_fn: Callable, x1,
+                        generator: Optional[torch.Generator] = None,
+                        model_kwargs: Optional[Dict] = None):
+        """Per-sample flow-matching loss (transport.py:104-117): draw
+        (t, x0), build x_t and u_t from the plan, and return {"pred",
+        "loss"} with loss = mean_flat((model_fn(x_t, t) - u_t)^2) for the
+        velocity model.  model_fn(x, t, **model_kwargs) -> prediction."""
+        if self.model_type != ModelType.VELOCITY:
+            raise NotImplementedError(
+                f"{self.model_type}: only the velocity loss is ported")
+        t, x0, x1 = self.sample(x1, generator)
+        t, xt, ut = self.path_sampler.plan(t, x0, x1)
+        pred = model_fn(xt, t, **(model_kwargs or {}))
+        return {"pred": pred, "loss": mean_flat((pred - ut) ** 2)}
 
     def get_drift(self):
         """Probability-flow ODE drift: drift(x, t, model_fn, **kw).  For a

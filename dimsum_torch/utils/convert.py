@@ -73,7 +73,9 @@ def state_dict_from_jax_params(params: Dict, in_channels: int = 4
                                ) -> Dict[str, torch.Tensor]:
     """Convert a flax params tree (nested dicts of arrays, with or without
     the top-level "params" collection) to the port's state dict of CPU
-    tensors.  `in_channels` recovers the PatchEmbed conv shape."""
+    tensors.  `in_channels` recovers the PatchEmbed conv shape.  A gradient
+    tree (`jax.grad` of a function of the params) has the params' structure
+    and converts the same way, to gradients under the port's names."""
     if set(params.keys()) == {"params"}:
         params = params["params"]
     out: Dict[str, torch.Tensor] = {}

@@ -26,6 +26,20 @@ PUBLISHED = dict(rms_norm=True, block_type="combined", cond_mamba=True,
                  learnable_pe=True)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def torch_one_thread():
+    """One PyTorch intra-op thread for a port test module, restored after.
+    These tests run many small ops; beside the suite's other xdist workers,
+    PyTorch's default of one thread per core oversubscribes the CPU and
+    slowed them ~40x (measured: 9.6 s with one thread, > 140 s with eight,
+    for the same two tests beside seven busy processes).  Port test modules
+    import this fixture, which applies it to them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def randomize(tree, seed):
     """A copy of a flax params tree with seeded random leaves, so that no
     branch is silenced by the adaLN-Zero init: kernels N(0, 1/fan_in),

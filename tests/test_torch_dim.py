@@ -23,7 +23,8 @@ from dimsum_tpu.transport import Sampler as JaxSampler
 from dimsum_tpu.transport import create_transport as jax_create_transport
 from dimsum_torch.models.dim import forward_with_cfg
 from dimsum_torch.transport import Sampler, create_transport
-from tests.test_torch_convert import small_models
+from tests.test_torch_convert import (small_models,  # noqa: F401
+                                      torch_one_thread)
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -116,3 +116,107 @@ def test_kernel_raises_on_what_it_does_not_take(cuda):
     big = scan_inputs(cuda, torch.float32, n=64)
     with pytest.raises(NotImplementedError, match="N <="):
         selective_scan_cuda(*_args(big)[:6])
+
+
+# ---------------------------------------------------------------------------
+# The training pair: kernel 2 (forward with saved states) and kernel 3
+# (backward).  Tolerances relative to each tensor's scale: fp32 1e-4 (exp2
+# against exp, other summation orders: the warp sums of dB/dC, the fp32
+# products of ddt_low/ddt_w); bf16 outputs 1.6e-2 (one bf16 rounding step
+# either way), while the fp32 outputs o and the states keep 1e-4.
+# ---------------------------------------------------------------------------
+
+from dimsum_torch.ops.selective_scan import (  # noqa: E402
+    TRAIN_CHUNK, selective_scan_bwd, selective_scan_bwd_core_cuda,
+    selective_scan_bwd_ref, selective_scan_fwd_train_cuda,
+    selective_scan_fwd_train_ref)
+
+
+def _close(got, want, tol):
+    scale = max(want.float().abs().max().item(), 1e-30)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol * scale)
+
+
+def _train_kw(x):
+    return dict(z=x["z"], delta_bias=x["delta_bias"], delta_softplus=True)
+
+
+def test_inference_kernel_refuses_grad_mode():
+    x = scan_inputs("cpu", torch.float32)
+    x["u"].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        selective_scan_cuda(*_args(x))
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA tensors"):
+        selective_scan_cuda(*_args(x))
+
+
+def test_cuda_route_refuses_cpu_tensors_in_training():
+    x = scan_inputs("cpu", torch.float32)
+    x["u"].requires_grad_(True)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        selective_scan_dtlow(*_args(x), impl="cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dim, n, r, L", [
+    (256, 16, 32, 256), (200, 16, 32, 300), (130, 8, 5, 77),
+    (64, 32, 64, 48), (20, 1, 1, 5)])
+def test_fwd_train_kernel_matches_plain_on_card(cuda, dtype, dim, n, r, L):
+    x = scan_inputs(cuda, dtype, batch=3, L=L, dim=dim, n=n, r=r)
+    got = selective_scan_fwd_train_cuda(*_args(x), **_train_kw(x))
+    want = selective_scan_fwd_train_ref(*_args(x), **_train_kw(x))
+    torch.cuda.synchronize()
+    assert got[2].shape == (3, -(-L // TRAIN_CHUNK), n, dim)
+    _close(got[0], want[0], 1e-4 if dtype == torch.float32 else 1.6e-2)
+    _close(got[1], want[1], 1e-4)
+    _close(got[2], want[2], 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dim, n, r, L", [
+    (256, 16, 32, 256), (200, 16, 32, 300), (130, 8, 5, 77),
+    (64, 32, 64, 48), (20, 1, 1, 5)])
+def test_bwd_kernel_matches_plain_on_card(cuda, dtype, dim, n, r, L):
+    x = scan_inputs(cuda, dtype, batch=3, L=L, dim=dim, n=n, r=r)
+    _, o, bnd = selective_scan_fwd_train_ref(*_args(x), **_train_kw(x))
+    g = torch.randn(x["u"].shape, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(1)).to(dtype)
+    kw = dict(_train_kw(x), o=o, boundaries=bnd, g=g)
+    b0 = selective_scan_bwd_core_cuda.launches
+    got = selective_scan_bwd(*_args(x), **kw)
+    assert selective_scan_bwd_core_cuda.launches == b0 + 1
+    want = selective_scan_bwd_ref(*_args(x), **kw)
+    torch.cuda.synchronize()
+    names = ("du", "ddelta", "dA", "dB", "dC", "dD", "dz", "dbias")
+    for name, a, b in zip(names, got, want):
+        low = a.dtype == torch.bfloat16
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        _close(a, b, 1.6e-2 if low else 1e-4)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_train_route_grads_match_plain_autograd_on_card(cuda, reverse):
+    """selective_scan_dtlow on CUDA with grad: kernels 2 and 3, once each,
+    against autograd through the plain recurrence."""
+    x = scan_inputs(cuda, torch.float32, batch=2, L=96, dim=192, n=16, r=12)
+    leaves = [x[k].requires_grad_(True) for k in
+              ("u", "dt_low", "dt_w", "A", "B", "C", "D", "z",
+               "delta_bias")]
+    g = torch.randn(x["u"].shape, device=cuda)
+
+    def grads(impl):
+        y = selective_scan_dtlow(*_args(x), **_train_kw(x), reverse=reverse,
+                                 impl=impl)
+        return torch.autograd.grad(y, leaves, g)
+
+    f0 = selective_scan_fwd_train_cuda.launches
+    b0 = selective_scan_bwd_core_cuda.launches
+    k0 = selective_scan_cuda.launches
+    got = grads("cuda")
+    assert selective_scan_fwd_train_cuda.launches == f0 + 1
+    assert selective_scan_bwd_core_cuda.launches == b0 + 1
+    assert selective_scan_cuda.launches == k0
+    want = grads("ref")
+    for a, b in zip(got, want):
+        _close(a, b, 1e-4)

@@ -21,7 +21,7 @@ from dimsum_tpu.models.mamba import Mamba as JaxMamba
 from dimsum_torch.models.blocks import DiMBlockCombined, DiTBlock
 from dimsum_torch.models.mamba import Mamba
 from dimsum_torch.utils.convert import state_dict_from_jax_params
-from tests.test_torch_convert import randomize
+from tests.test_torch_convert import randomize, torch_one_thread  # noqa: F401
 
 L, DIM = 256, 32
 TOL = dict(rtol=1e-4, atol=1e-4)

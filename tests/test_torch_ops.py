@@ -21,6 +21,7 @@ from dimsum_torch.models.mlp import gelu_tanh
 from dimsum_torch.ops import norms
 from dimsum_torch.ops.causal_conv1d import causal_conv1d
 from dimsum_torch.ops.wavelet import dwt_tokens_windowed, idwt_tokens_windowed
+from tests.test_torch_convert import torch_one_thread  # noqa: F401
 
 DT = {"fp32": (jnp.float32, torch.float32),
       "bf16": (jnp.bfloat16, torch.bfloat16)}

@@ -18,6 +18,7 @@ from dimsum_tpu.ops.selective_scan import selective_scan_dtlow as jax_dtlow
 from dimsum_tpu.ops.selective_scan import selective_scan_ref as jax_ref
 from dimsum_torch.ops.selective_scan import (selective_scan_dtlow,
                                              selective_scan_ref)
+from tests.test_torch_convert import torch_one_thread  # noqa: F401
 
 
 def make_inputs(rng, batch=2, L=64, dim=16, n=8, rank=4, grouped=0):
