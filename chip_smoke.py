@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`dimsum_torch`) on one NVIDIA card:
-its sampling and training paths at full DiM-L/2 width.
+its sampling and training paths at full DiM-L/2 width, at 256 px and, for
+sampling, at 512 px.
 
     python3 chip_smoke.py
 
@@ -39,7 +40,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
               read just after: 32 launches per step of kernels 2 and 3, none
               of kernel 1; finite losses and grad norms; the parameters and
               their EMA move.
-  9. kernels  one {"kernels": [...]} line, then the nvidia-smi line, then
+  9. kernel-attn  the full-block attention kernel against its plain
+              PyTorch version at the 512-px shapes, DiT (24, 1024, 16, 64)
+              and cross (24, 1024, 8, 64), in bf16 and fp32: max error
+              against the stated tolerance, kernel, plain and SDPA times
+              (SDPA is a yardstick only: the port never calls it at these
+              shapes), and the bound; plus the autograd Function's gradient
+              against the plain version's at a small shape.
+ 10. model-512  full-width DiM-L/2 at 512 px (latent 64, L 1024) in fp32
+              with TF32 off, one CFG forward of 2 images (4 rows) through
+              both kernels (scan and attention) and through both plain
+              routes: they must agree, with 36 attention and 32 scan
+              launches per forward.
+ 11. sample-512  the 512-px sampling path: `dimsum_torch.bench.run`
+              with image_size 512 (batch 12, CFG 1.4, GVP velocity, 250
+              Euler grid points, bf16).  Counts set to 0 just before and
+              read just after: 32 scan and 36 attention launches per
+              forward; the samples must be finite.
+ 12. kernels  one {"kernels": [...]} line, then the nvidia-smi line, then
               {"ok": true, "device": {...}} as the last line.
 
 Exits with an error and prints no result when CUDA is not available, or
@@ -56,6 +74,10 @@ import time
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_TC_FLOP_PER_S = 989e12
+# exp on the special-function units: 16 per SM per clock (CUDA programming
+# guide, sm_90), 132 SMs at the 1.98 GHz boost clock
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
 STEPS = 250  # Euler grid points of the bench protocol
 # timed and untimed steps of the train phase, as train_bench's defaults
 TRAIN_STEPS, TRAIN_WARMUP = 10, 3
@@ -485,6 +507,206 @@ def phase_train():
                                      "selective_scan_bwd")}
 
 
+def attn_bound(B, L, H, Dh, dtype):
+    """Least time for one full-block attention call: q, k, v read once and
+    o written once over HBM bandwidth; 4 L^2 Dh flop per (batch, head) (the
+    two products) over the tensor-core bf16 peak, or the fp32 peak for
+    fp32, which the kernel computes on the CUDA cores; and the L^2 exp per
+    (batch, head) over the special-function units.  The largest bounds."""
+    import torch
+
+    esize = torch.tensor([], dtype=dtype).element_size()
+    nbytes = 4 * B * L * H * Dh * esize
+    flops = 4 * B * H * L * L * Dh
+    n_exp = B * H * L * L
+    peak = BF16_TC_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(flops / peak, n_exp / SFU_EXP_PER_S) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes, flops, n_exp
+
+
+def attn_inputs(B, L, H, Dh, dtype, seed):
+    """q, k, v (B, L, H, Dh) as channel slices of one (B, L, 3 H Dh)
+    N(0, 1) projection, the layout the modules give the kernel."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((B, L, 3 * H * Dh), generator=g, device="cuda").to(
+        dtype)
+    return [qkv[..., i * H * Dh:(i + 1) * H * Dh].reshape(B, L, H, Dh)
+            for i in range(3)]
+
+
+def phase_kernel_attn():
+    import torch
+    import torch.nn.functional as F
+
+    from dimsum_torch.ops.full_attention import (full_attention_ref,
+                                                 full_block_attention,
+                                                 full_block_attention_cuda)
+
+    cases = [
+        ("dit-bf16", 24, 1024, 16, 64, torch.bfloat16),
+        ("cross-bf16", 24, 1024, 8, 64, torch.bfloat16),
+        ("dit-fp32", 24, 1024, 16, 64, torch.float32),
+        ("cross-fp32", 24, 1024, 8, 64, torch.float32),
+    ]
+    results = {}
+    for i, (name, B, L, H, Dh, dtype) in enumerate(cases):
+        q, k, v = attn_inputs(B, L, H, Dh, dtype, seed=300 + i)
+        scale = Dh ** -0.5
+        with torch.inference_mode():
+            got = full_block_attention_cuda(q, k, v, scale).float()
+            want = full_attention_ref(q, k, v, scale).float()
+            torch.cuda.synchronize()
+            # relative to the output's largest value: fp32 2e-5 (the same
+            # fp32 products summed in other orders, exp2 against exp); bf16
+            # 1.6e-2 (P rounded to bf16 against the running row max in the
+            # kernel, the final one in the plain version; bf16 output)
+            tol = 2e-5 if dtype == torch.float32 else 1.6e-2
+            scale_ref = want.abs().max().item()
+            err = (got - want).abs().max().item()
+            ok = bool(torch.isfinite(got).all()) and err <= tol * scale_ref
+            ms = cuda_ms(lambda: full_block_attention_cuda(q, k, v, scale),
+                         iters=20)
+            plain_ms = cuda_ms(lambda: full_attention_ref(q, k, v, scale),
+                               iters=3, warmup=1)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            library_ms = cuda_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                iters=20)
+        bound_ms, bound_by, nbytes, flops, n_exp = attn_bound(B, L, H, Dh,
+                                                              dtype)
+        rec = {"phase": "kernel-attn", "case": name, "shape": [B, L, H, Dh],
+               "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
+               "max_abs_ref": scale_ref, "tol_rel": tol, "ok": ok,
+               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+               "flop": flops, "exp": n_exp,
+               "tflop_per_s": flops / ms / 1e9}
+        emit(rec)
+        if not ok:
+            raise AssertionError(f"attention kernel disagrees on {name}")
+        results[name] = rec
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+
+    # the Function: kernel forward, backward recomputed through the plain
+    # version; against autograd through the plain version alone
+    grad = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        leaves = [x.detach().requires_grad_(True) for x in
+                  attn_inputs(2, 256, 2, 64, dtype, seed=310)]
+        g = torch.randn(leaves[0].shape, device="cuda", generator=torch
+                        .Generator(device="cuda").manual_seed(311)).to(dtype)
+        before = full_block_attention_cuda.launches
+        got = torch.autograd.grad(full_block_attention(*leaves, 0.125),
+                                  leaves, g)
+        launched = full_block_attention_cuda.launches - before
+        want = torch.autograd.grad(full_attention_ref(*leaves, 0.125),
+                                   leaves, g)
+        torch.cuda.synchronize()
+        tol = 2e-5 if dtype == torch.float32 else 1.6e-2
+        errs = [_scaled_err(a, b) for a, b in zip(got, want)]
+        grad[str(dtype).split(".")[-1]] = {"scaled_err": errs, "tol": tol,
+                                           "launches": launched}
+        if launched != 1 or not max(errs) <= tol:
+            raise AssertionError(f"attention gradient disagrees: {grad}")
+    emit({"phase": "kernel-attn", "case": "grad", "shape": [2, 256, 2, 64],
+          **grad})
+    return results
+
+
+def _attention_modules(model):
+    from dimsum_torch.models.attention import Attention, CrossAttentionFusion
+
+    return [m for m in model.modules()
+            if isinstance(m, (Attention, CrossAttentionFusion))]
+
+
+def phase_model_512():
+    import torch
+
+    from dimsum_torch.models.dim import DiM_models, build_dim, forward_with_cfg
+    from dimsum_torch.ops.full_attention import full_block_attention_cuda
+    from dimsum_torch.ops.selective_scan import selective_scan_cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = DiM_models["DiM-L/2"](img_resolution=64, num_classes=1000,
+                                use_attn_every_k_layers=4,
+                                dtype=torch.float32)
+    model = build_dim(cfg, "cuda", seed=0)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    half = torch.randn((2, 4, 64, 64), generator=g, device="cuda")
+    x = torch.cat([half, half])
+    t = torch.rand(2, generator=g, device="cuda").repeat(2)
+    y = torch.cat([torch.randint(0, 1000, (2,), generator=g, device="cuda"),
+                   torch.full((2,), 1000, device="cuda")])
+    with torch.inference_mode():
+        selective_scan_cuda.launches = 0
+        full_block_attention_cuda.launches = 0
+        got = forward_with_cfg(model, x, t, y, cfg_scale=1.4)
+        torch.cuda.synchronize()
+        launches = {"selective_scan_fwd": selective_scan_cuda.launches,
+                    "full_block_attention":
+                        full_block_attention_cuda.launches}
+        for m in _mixers(model):
+            m.scan_impl = "ref"
+        for m in _attention_modules(model):
+            m.attn_impl = "ref"
+        want = forward_with_cfg(model, x, t, y, cfg_scale=1.4)
+        torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    # fp32 kernels differ from the plain versions by ~1e-6 relative (exp2
+    # against exp, summation order); 16 blocks of random weights amplify
+    # that, not past 1e-3 of the scale
+    tol = 1e-3 * max(1.0, scale)
+    rec = {"phase": "model-512", "model": "DiM-L/2", "image_size": 512,
+           "tokens": cfg.num_patches, "rows": x.shape[0], "dtype": "float32",
+           "tf32": False, "launches_per_forward": launches,
+           "max_abs_err": err, "max_abs_ref": scale, "tol": tol,
+           "finite": bool(torch.isfinite(got).all()),
+           "shape": list(got.shape)}
+    emit(rec)
+    if (launches != {"selective_scan_fwd": 32, "full_block_attention": 36}
+            or not rec["finite"] or not err <= tol
+            or rec["shape"] != [4, 4, 64, 64]):
+        raise AssertionError(f"model-512 phase failed: {rec}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_sample_512():
+    import torch
+
+    from dimsum_torch import bench
+    from dimsum_torch.ops.full_attention import full_block_attention_cuda
+    from dimsum_torch.ops.selective_scan import selective_scan_cuda
+
+    selective_scan_cuda.launches = 0
+    full_block_attention_cuda.launches = 0
+    record, samples = bench.run(batch=12, steps=STEPS, dtype="bf16",
+                                cfg_scale=1.4, device="cuda", seed=0,
+                                image_size=512)
+    torch.cuda.synchronize()
+    launches = {"selective_scan_fwd": selective_scan_cuda.launches,
+                "full_block_attention": full_block_attention_cuda.launches}
+    finite = bool(torch.isfinite(samples).all())
+    rec = {"phase": "sample-512", **record, "launches": launches,
+           "shape": list(samples.shape), "finite": finite,
+           "sample_std": samples.float().std().item()}
+    emit(rec)
+    # one warm-up drift call plus STEPS - 1 Euler steps
+    if (not finite or list(samples.shape) != [12, 4, 64, 64]
+            or launches["selective_scan_fwd"] != 32 * STEPS
+            or launches["full_block_attention"] != 36 * STEPS):
+        raise AssertionError(f"sample-512 phase failed: {rec}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -514,6 +736,10 @@ def main() -> int:
     train_scans = phase_kernel_train()
     phase_train_grad()
     launches.update(phase_train())
+    attn = phase_kernel_attn()
+    phase_model_512()
+    launches["full_block_attention"] = \
+        phase_sample_512()["full_block_attention"]
 
     main_case = scans["mixer-bf16"]
     kernels = [{
@@ -547,6 +773,17 @@ def main() -> int:
             "bound_ms": train_case[key]["bound_ms"],
             "bound_by": train_case[key]["bound_by"],
             "library_ms": None})
+    attn_case = attn["dit-bf16"]
+    kernels.append({
+        "name": "full_block_attention", "route": "cuda",
+        "source": "dimsum_torch/csrc/full_attention.cu",
+        "replaces": "dimsum_tpu/ops/full_attention.py:82",
+        "launches": launches["full_block_attention"],
+        "max_abs_err": max(r["max_abs_err"] for r in attn.values()),
+        "ms": attn_case["ms"], "plain_ms": attn_case["plain_ms"],
+        "bound_ms": attn_case["bound_ms"],
+        "bound_by": attn_case["bound_by"],
+        "library_ms": attn_case["library_ms"]})
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,15 +1,17 @@
 """Sampling benchmark of the port: the protocol of the JAX package's
 `bench.py` on PyTorch/CUDA.
 
-DiM-L/2 "combined" at 256 px (latent 32x32, patch 2, L = 256 tokens,
-hidden 1024, depth 16, CondMamba, RMSNorm with an fp32 residual, learnable
-sin-cos APE, a shared 16-head DiTBlock after every 4th block), seeded random
-weights (no checkpoint ships with the repo), CFG 1.4 on a doubled batch,
-GVP velocity transport, Euler over 250 grid points.  One untimed warm-up
-drift call precedes the timed run.
+DiM-L/2 "combined" at 256 px (latent 32x32, patch 2, L = 256 tokens) or,
+with `--image-size 512`, at 512 px (latent 64x64, L = 1024 tokens, where
+the attention takes the full-block kernel and the frequency half the
+dwt_tokens + local_scan route): hidden 1024, depth 16, CondMamba, RMSNorm
+with an fp32 residual, learnable sin-cos APE, a shared 16-head DiTBlock
+after every 4th block, seeded random weights (no checkpoint ships with the
+repo), CFG 1.4 on a doubled batch, GVP velocity transport, Euler over 250
+grid points.  One untimed warm-up drift call precedes the timed run.
 
     python -m dimsum_torch.bench --batch 12 --steps 250 --dtype bf16 \
-        --cfg 1.4 --device cuda
+        --cfg 1.4 --device cuda [--image-size 512]
 
 Prints one JSON line: images per second on this card, with the card's name
 and power limit.
@@ -28,6 +30,7 @@ from dimsum_torch.transport import Sampler, create_transport
 from dimsum_torch.utils.device import card_name_and_power_limit, resolve_device
 
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
+IMAGE_SIZES = (256, 512)  # pixels; the latent is a size / 8 square
 
 
 def _sync(dev):
@@ -37,13 +40,15 @@ def _sync(dev):
 
 def run(batch: int = 12, steps: int = 250, dtype: str = "bf16",
         cfg_scale: float = 1.4, device="cuda", seed: int = 0,
-        model: str = "DiM-L/2"):
-    """Build the model (`model` names a zoo entry at 256 px: DiM-L/2, or a
-    narrower one for a rehearsal on the CPU), sample once untimed for one
-    drift call, then time one full sample.  Returns (record, samples of the
-    conditional half)."""
+        model: str = "DiM-L/2", image_size: int = 256):
+    """Build the model (`model` names a zoo entry: DiM-L/2, or a narrower
+    one for a rehearsal on the CPU) at `image_size` pixels, sample once
+    untimed for one drift call, then time one full sample.  Returns
+    (record, samples of the conditional half)."""
+    if image_size not in IMAGE_SIZES:
+        raise ValueError(f"image_size must be one of {IMAGE_SIZES}")
     dev = resolve_device(device)
-    latent = 32
+    latent = image_size // 8
     cfg = DiM_models[model](img_resolution=latent, num_classes=1000,
                             use_attn_every_k_layers=4, dtype=DTYPES[dtype])
     net = build_dim(cfg, dev, seed)
@@ -71,13 +76,15 @@ def run(batch: int = 12, steps: int = 250, dtype: str = "bf16",
         _sync(dev)
         seconds = time.perf_counter() - t0
     record = {
-        "metric": f"imagenet256_sampling_throughput_{steps}step_cfg",
+        "metric": f"imagenet{image_size}_sampling_throughput_{steps}"
+                  "step_cfg",
         "value": batch / seconds,
         "unit": "img/s",
         "seconds": seconds,
         "batch": batch,
         "steps": steps,
         "model": model,
+        "image_size": image_size,
         "dtype": dtype,
         "cfg_scale": cfg_scale,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
@@ -97,9 +104,13 @@ def main(argv=None):
     ap.add_argument("--cfg", type=float, default=1.4)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--image-size", type=int, default=256,
+                    choices=IMAGE_SIZES,
+                    help="pixels; 512 -> latent 64, L = 1024 tokens")
     args = ap.parse_args(argv)
     record, _ = run(batch=args.batch, steps=args.steps, dtype=args.dtype,
-                    cfg_scale=args.cfg, device=args.device, seed=args.seed)
+                    cfg_scale=args.cfg, device=args.device, seed=args.seed,
+                    image_size=args.image_size)
     print(json.dumps(record))
 
 

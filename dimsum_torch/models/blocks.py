@@ -21,7 +21,10 @@ from dimsum_torch.models.linear import Linear
 from dimsum_torch.models.mamba import Mamba
 from dimsum_torch.models.mlp import GatedMLP
 from dimsum_torch.ops.norms import fused_add_norm, modulate, norm_modulate
-from dimsum_torch.ops.wavelet import dwt_tokens_windowed, idwt_tokens_windowed
+from dimsum_torch.ops.scan_orders import local_reverse, local_scan
+from dimsum_torch.ops.wavelet import (dwt_tokens, dwt_tokens_windowed,
+                                      idwt_tokens, idwt_tokens_windowed,
+                                      windows_are_blocks)
 
 
 def drop_path_fn(x, rate: float, generator: torch.Generator | None = None):
@@ -113,7 +116,12 @@ class MixerBlockCore(_InnerMixerBlock):
 
 class WaveDiMBlock(_InnerMixerBlock):
     """The frequency half: 2-level Haar pack in windowed scan order (column
-    first when `transpose`), the side == 16 route of 256 px."""
+    first when `transpose`), the JAX default routing (blocks.py:398-436,
+    :481-492): where the windows are the dwt blocks (side == patch**2, 256
+    px) one rearrange does both; otherwise (512 px: side 32, window 8)
+    `dwt_tokens`, then `local_scan` over side // patch windows."""
+
+    num_lv = 2
 
     def __init__(self, dim: int, c_dim: int, reverse: bool = False,
                  transpose: bool = False, d_cond: int | None = None,
@@ -121,11 +129,22 @@ class WaveDiMBlock(_InnerMixerBlock):
         super().__init__(dim, c_dim, reverse, d_cond, dtype)
         self.column_first = bool(transpose)
 
+    def _window(self, side):
+        return dict(w=side // 2 ** self.num_lv, H=side, W=side,
+                    column_first=self.column_first)
+
     def _order(self, x, side):
-        return dwt_tokens_windowed(x, 2, column_first=self.column_first)
+        if windows_are_blocks(x.shape[1], self.num_lv):
+            return dwt_tokens_windowed(x, self.num_lv,
+                                       column_first=self.column_first)
+        return local_scan(dwt_tokens(x, self.num_lv), **self._window(side))
 
     def _unorder(self, x, side):
-        return idwt_tokens_windowed(x, 2, column_first=self.column_first)
+        if windows_are_blocks(x.shape[1], self.num_lv):
+            return idwt_tokens_windowed(x, self.num_lv,
+                                        column_first=self.column_first)
+        return idwt_tokens(local_reverse(x, **self._window(side)),
+                           self.num_lv)
 
 
 class DiTBlock(nn.Module):

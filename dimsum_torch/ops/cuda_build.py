@@ -22,7 +22,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dimsum_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("selective_scan_fwd", "selective_scan_fwd_train",
-           "selective_scan_bwd")
+           "selective_scan_bwd", "full_attention")
 
 
 def _nvcc() -> str:

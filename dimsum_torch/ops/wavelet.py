@@ -8,9 +8,13 @@ non-overlapping 2x2 block [[a, b], [c, d]]:
 
 The 2-level pack keeps the reference's channel interleave bit for bit
 (group permutation i%4*4 + i//4, then "(c p1 p2)" mixing channels and
-subbands), so checkpoints carry over.  This slice ports the windowed pack
-for side == patch**2 (the 256-px route of WaveDiMBlock); the generic
-`dwt_tokens` + `local_scan` route of 512 px is not ported yet.
+subbands), so checkpoints carry over.  Two routes, as WaveDiMBlock takes
+them by default: the one-rearrange windowed pack where the scan's windows
+are the dwt blocks (side == patch**2: 256 px), and `dwt_tokens` followed by
+`ops.scan_orders.local_scan` otherwise (512 px: side 32, patch 4, window 8).
+The JAX package's opt-in variants (the generalised one-rearrange of
+DIMSUM_WAVELET_ONE_REARRANGE, the channel-last pack of DIMSUM_DWT_CL and
+the basis pack of DIMSUM_FUSED_WAVELET) are not ported.
 """
 
 from __future__ import annotations
@@ -18,7 +22,9 @@ from __future__ import annotations
 import torch
 from einops import rearrange
 
-__all__ = ["dwt2d", "idwt2d", "dwt_tokens_windowed", "idwt_tokens_windowed"]
+__all__ = ["dwt2d", "idwt2d", "dwt_tokens", "idwt_tokens",
+           "dwt_tokens_windowed", "idwt_tokens_windowed",
+           "windows_are_blocks"]
 
 
 def dwt2d(x):
@@ -74,14 +80,40 @@ def _idwt_unpack_subbands(sub, num_lv: int):
     return rearrange(out, "b c h w -> b (h w) c")
 
 
-def _windows_are_blocks(L: int, num_lv: int) -> int:
+def dwt_tokens(x, num_lv: int = 2):
+    """Token-grid DWT pack (the JAX `dwt_tokens`, wavelet.py:109-117):
+    (B, L, C) with L a square -> (B, L, C) packed subband tokens in
+    (h p1 w p2) order."""
+    patch = 2 ** num_lv
+    out = _dwt_pack_subbands(x, num_lv)
+    return rearrange(out, "b (c p1 p2) h w -> b (h p1 w p2) c",
+                     p1=patch, p2=patch)
+
+
+def idwt_tokens(x, num_lv: int = 2):
+    """Inverse of `dwt_tokens` (wavelet.py:187-195)."""
+    patch = 2 ** num_lv
+    lowest = int(round(x.shape[1] ** 0.5)) // patch
+    sub = rearrange(x * float(2 ** num_lv),
+                    "b (h p1 w p2) c -> b (c p1 p2) h w",
+                    p1=patch, p2=patch, h=lowest)
+    return _idwt_unpack_subbands(sub, num_lv)
+
+
+def windows_are_blocks(L: int, num_lv: int) -> bool:
+    """Whether the local scan's windows (side // patch) are the dwt blocks
+    (patch), so that the windowed pack applies: side == patch**2."""
     side = int(round(L ** 0.5))
     patch = 2 ** num_lv
-    if side // patch != patch:
+    return side // patch == patch
+
+
+def _windows_are_blocks(L: int, num_lv: int) -> int:
+    if not windows_are_blocks(L, num_lv):
         raise NotImplementedError(
-            "only side == patch**2 (the 256-px route) is ported; the "
-            "dwt_tokens + local_scan route waits")
-    return patch
+            "the windowed pack takes side == patch**2 only; other sides "
+            "take dwt_tokens + local_scan")
+    return 2 ** num_lv
 
 
 def dwt_tokens_windowed(x, num_lv: int = 2, column_first: bool = False):

@@ -2,14 +2,17 @@
 card.
 
 Profiles with `torch.profiler` either the CFG forward of the bench protocol
-(DiM-L/2 at 256 px, seeded random weights, 2 x batch rows) or, with
-`--train`, one train step of `dimsum_torch.train_bench` (batch rows, bf16
-over fp32 weights, AdamW, clip, EMA).  Prints JSON lines: the host wall
-time per step (CUDA-synchronized, unprofiled), the device time per step by
-kernel class (the selective-scan kernels, matmul, attention, optimizer,
-the rest) and the device's idle share, then the top kernels by device time.
+(DiM-L/2 at 256 px, or 512 px with `--image-size 512`, seeded random
+weights, 2 x batch rows) or, with `--train`, one train step of
+`dimsum_torch.train_bench` (batch rows, bf16 over fp32 weights, AdamW,
+clip, EMA).  Prints JSON lines: the host wall time per step
+(CUDA-synchronized, unprofiled), the device time per step by kernel class
+(the selective-scan kernels, the full-block attention kernel, matmul,
+library attention, optimizer, the rest) and the device's idle share, then
+the top kernels by device time.
 
     python -m dimsum_torch.profile_forward --batch 12 --dtype bf16
+    python -m dimsum_torch.profile_forward --image-size 512
     python -m dimsum_torch.profile_forward --train --batch 16
 """
 
@@ -24,7 +27,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from dimsum_torch import train_bench
-from dimsum_torch.bench import DTYPES
+from dimsum_torch.bench import DTYPES, IMAGE_SIZES
 from dimsum_torch.models.dim import DiM_models, build_dim, forward_with_cfg
 from dimsum_torch.utils.device import card_name_and_power_limit, resolve_device
 
@@ -33,6 +36,7 @@ CLASSES = (
     ("selective_scan", ("scan_fwd_kernel",)),
     ("selective_scan_fwd_train", ("scan_fwd_train_kernel",)),
     ("selective_scan_bwd", ("scan_bwd_kernel",)),
+    ("full_block_attention", ("attn_bf16_kernel", "attn_f32_kernel")),
     ("optimizer", ("multi_tensor_apply",)),
     ("attention", ("flash", "fmha", "attention", "attn")),
     ("matmul", ("gemm", "nvjet", "sm90_xmma", "cutlass", "cublas")),
@@ -54,20 +58,26 @@ def main(argv=None):
     ap.add_argument("--train", action="store_true",
                     help="profile train steps (batch rows) instead of CFG "
                          "forwards (2 x batch rows)")
+    ap.add_argument("--image-size", type=int, default=256,
+                    choices=IMAGE_SIZES,
+                    help="pixels; 512 -> latent 64, L = 1024 tokens")
     args = ap.parse_args(argv)
+    latent = args.image_size // 8
     dev = resolve_device("cuda")
 
     if args.train:
         _, step = train_bench.setup(batch=args.batch,
-                                    bf16=args.dtype == "bf16", device=dev)
+                                    bf16=args.dtype == "bf16", device=dev,
+                                    image_size=args.image_size)
         rows, grad_mode = args.batch, torch.enable_grad()
     else:
-        cfg = DiM_models["DiM-L/2"](img_resolution=32, num_classes=1000,
+        cfg = DiM_models["DiM-L/2"](img_resolution=latent, num_classes=1000,
                                     use_attn_every_k_layers=4,
                                     dtype=DTYPES[args.dtype])
         net = build_dim(cfg, dev, seed=0)
         g = torch.Generator(device=dev).manual_seed(0)
-        half = torch.randn((args.batch, 4, 32, 32), generator=g, device=dev)
+        half = torch.randn((args.batch, 4, latent, latent), generator=g,
+                           device=dev)
         x = torch.cat([half, half])
         t = torch.full((2 * args.batch,), 0.5, device=dev)
         y = torch.cat([torch.randint(0, 1000, (args.batch,), generator=g,
@@ -110,7 +120,7 @@ def main(argv=None):
     print(json.dumps({
         "card": card_name_and_power_limit(dev.index or 0),
         "step": "train" if args.train else "cfg_forward",
-        "rows": rows, "dtype": args.dtype,
+        "image_size": args.image_size, "rows": rows, "dtype": args.dtype,
         "wall_ms_per_step": wall_ms, "device_ms_per_step": busy_ms,
         "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
         "kernel_launches_per_step": launches / ITERS,

@@ -220,3 +220,121 @@ def test_train_route_grads_match_plain_autograd_on_card(cuda, reverse):
     want = grads("ref")
     for a, b in zip(got, want):
         _close(a, b, 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Full-block attention (`csrc/full_attention.cu`) against its plain version.
+# q, k and v are slices of one qkv tensor, as the modules give them.
+# Tolerances, relative to the output's largest value: fp32 2e-5 (the same
+# fp32 products summed in other orders, exp2 against exp); bf16 1.6e-2 (the
+# kernel rounds P to bf16 against the running row max, the plain version
+# against the final one, and the output rounds to bf16: a few 2^-8 steps).
+# ---------------------------------------------------------------------------
+
+from dimsum_torch.ops.full_attention import (  # noqa: E402
+    full_attention_ref, full_block_attention, full_block_attention_cuda)
+
+
+def attn_inputs(device, dtype, B, L, H, Dh, seed=0, logit_scale=1.0):
+    """q, k, v (B, L, H, Dh) as channel slices of one (B, L, 3 H Dh)
+    projection; q and k scaled by `logit_scale`."""
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(B, L, 3, H * Dh, generator=g)
+    qkv[:, :, :2] *= logit_scale
+    qkv = qkv.reshape(B, L, 3 * H * Dh).to(device, dtype)
+    return [qkv[..., i * H * Dh:(i + 1) * H * Dh].reshape(B, L, H, Dh)
+            for i in range(3)]
+
+
+def test_attention_cpu_tensors_take_the_plain_version():
+    q, k, v = attn_inputs("cpu", torch.float32, 2, 128, 2, 64)
+    torch.testing.assert_close(full_block_attention(q, k, v, 0.125),
+                               full_attention_ref(q, k, v, 0.125),
+                               rtol=0, atol=0)
+
+
+def test_attention_kernel_refuses_cpu_tensors():
+    q, k, v = attn_inputs("cpu", torch.float32, 1, 128, 1, 64)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA tensors"):
+        full_block_attention_cuda(q, k, v, 0.125)
+    q.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        full_block_attention_cuda(q, k, v, 0.125)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B, L, H, Dh", [
+    (24, 1024, 16, 64), (24, 1024, 8, 64), (2, 1024, 2, 72),
+    (3, 256, 3, 64), (2, 128, 2, 128), (1, 384, 1, 80)])
+def test_attention_kernel_matches_plain_on_card(cuda, dtype, B, L, H, Dh):
+    q, k, v = attn_inputs(cuda, dtype, B, L, H, Dh, seed=L + Dh)
+    with torch.no_grad():
+        got = full_block_attention(q, k, v, Dh ** -0.5)
+        want = full_attention_ref(q, k, v, Dh ** -0.5)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, L, H, Dh)
+    assert torch.isfinite(got).all()
+    _close(got, want, 2e-5 if dtype == torch.float32 else 1.6e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_large_logits_on_card(cuda, dtype):
+    """Logits of order 1e3 (q and k 40x N(0, 1)): the row max keeps exp
+    finite; the softmax is near one-hot, so the output tracks the plain
+    version's as closely as at unit logits."""
+    q, k, v = attn_inputs(cuda, dtype, 1, 128, 2, 64, seed=2,
+                          logit_scale=40.0)
+    with torch.no_grad():
+        got = full_block_attention(q, k, v, 0.125)
+        want = full_attention_ref(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    _close(got, want, 2e-5 if dtype == torch.float32 else 1.6e-2)
+
+
+def test_attention_kernel_counts_its_launches(cuda):
+    q, k, v = attn_inputs(cuda, torch.bfloat16, 1, 1024, 2, 64)
+    before = full_block_attention_cuda.launches
+    with torch.no_grad():
+        full_block_attention(q, k, v, 0.125)
+    assert full_block_attention_cuda.launches == before + 1
+
+
+def test_attention_kernel_raises_on_what_it_does_not_take(cuda):
+    def call(*shape, dtype=torch.bfloat16):
+        full_block_attention_cuda(*attn_inputs(cuda, dtype, *shape), 0.1)
+
+    with torch.no_grad():
+        for L, Dh in ((1000, 64), (2048, 64), (1024, 56), (1024, 136),
+                      (1024, 60)):
+            with pytest.raises(NotImplementedError, match="takes"):
+                call(1, L, 1, Dh)
+        with pytest.raises(TypeError):
+            call(1, 128, 1, 64, dtype=torch.float16)
+        q, k, v = attn_inputs(cuda, torch.float32, 1, 128, 2, 64)
+        with pytest.raises(ValueError, match="contiguous"):
+            full_block_attention_cuda(q.transpose(2, 3).contiguous()
+                                      .transpose(2, 3), k, v, 0.1)
+        with pytest.raises(TypeError):
+            full_block_attention_cuda(q, k.bfloat16(), v, 0.1)
+        with pytest.raises(ValueError, match="shape"):
+            full_block_attention_cuda(q, k[:, :, :1], v, 0.1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_function_grads_match_plain_autograd_on_card(cuda, dtype):
+    """The Function (kernel forward, recomputed plain backward) against
+    autograd through the plain version: the same backward, so the
+    gradients agree as the forwards do."""
+    leaves = [t.detach().requires_grad_(True) for t in
+              attn_inputs(cuda, dtype, 2, 256, 2, 64, seed=5)]
+    g = torch.randn(leaves[0].shape, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(6)).to(dtype)
+    before = full_block_attention_cuda.launches
+    out = full_block_attention(*leaves, 0.125)
+    got = torch.autograd.grad(out, leaves, g)
+    assert full_block_attention_cuda.launches == before + 1
+    want = torch.autograd.grad(full_attention_ref(*leaves, 0.125), leaves, g)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        _close(a, b, 2e-5 if dtype == torch.float32 else 1.6e-2)

@@ -1,7 +1,9 @@
 """The port's dense ops against the JAX package's, from the same numpy
 inputs: the depthwise conv in both directions, the dtype rules of the fused
 add + norm and norm + modulate compositions in fp32 and bf16, the windowed
-2-level Haar pack (also against the numpy oracles), and the tanh GELU.
+2-level Haar pack (also against the numpy oracles), the 512-px route of the
+frequency half (`dwt_tokens` and `local_scan` at side 32, bit for bit, and
+their inverses), and the tanh GELU.
 
 Tolerances: fp32 results agree to rounding (1e-6 relative, or 2e-6 where a
 mean over channels is reduced in another order); bf16 results are held to
@@ -16,11 +18,14 @@ import jax.numpy as jnp
 from dimsum_tpu.models.mlp import gelu_tanh as jax_gelu_tanh
 from dimsum_tpu.ops.causal_conv1d import causal_conv1d as jax_causal_conv1d
 from dimsum_tpu.ops import norms as jax_norms
+from dimsum_tpu.ops import scan_orders as jax_scan_orders
 from dimsum_tpu.ops import wavelet as jax_wavelet
 from dimsum_torch.models.mlp import gelu_tanh
 from dimsum_torch.ops import norms
 from dimsum_torch.ops.causal_conv1d import causal_conv1d
-from dimsum_torch.ops.wavelet import dwt_tokens_windowed, idwt_tokens_windowed
+from dimsum_torch.ops.scan_orders import local_reverse, local_scan
+from dimsum_torch.ops.wavelet import (dwt_tokens, dwt_tokens_windowed,
+                                      idwt_tokens, idwt_tokens_windowed)
 from tests.test_torch_convert import torch_one_thread  # noqa: F401
 
 DT = {"fp32": (jnp.float32, torch.float32),
@@ -155,6 +160,58 @@ def test_dwt_tokens_windowed_matches_numpy_oracle(column_first):
         back.numpy(), jax_wavelet._np_idwt_tokens(
             jax_wavelet._np_dwt_tokens(x, 2), 2), rtol=1e-12, atol=1e-12)
     np.testing.assert_allclose(back.numpy(), x, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("num_lv", [1, 2])
+def test_dwt_tokens_matches_jax_at_side_32(num_lv):
+    """The 512-px grid (32 x 32 tokens): the same additions and halvings in
+    the same order, so fp32 agrees bit for bit; and the inverse returns
+    the tokens (to rounding: the butterflies halve twice)."""
+    x = np.random.default_rng(7).standard_normal((2, 1024, 8)).astype(
+        np.float32)
+    want = np.asarray(jax_wavelet.dwt_tokens(jnp.asarray(x), num_lv))
+    got = dwt_tokens(torch.from_numpy(x), num_lv)
+    np.testing.assert_array_equal(got.numpy(), want)
+    want_inv = np.asarray(jax_wavelet.idwt_tokens(jnp.asarray(want), num_lv))
+    got_inv = idwt_tokens(got, num_lv)
+    np.testing.assert_array_equal(got_inv.numpy(), want_inv)
+    np.testing.assert_allclose(got_inv.numpy(), x, rtol=1e-6, atol=1e-6)
+
+
+def test_dwt_tokens_matches_numpy_oracle():
+    x = np.random.default_rng(8).standard_normal((2, 1024, 8))
+    got = dwt_tokens(torch.from_numpy(x), 2)
+    np.testing.assert_allclose(got.numpy(), jax_wavelet._np_dwt_tokens(x, 2),
+                               rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(idwt_tokens(got, 2).numpy(), x, rtol=1e-12,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("flip", [False, True])
+@pytest.mark.parametrize("column_first", [False, True])
+def test_local_scan_matches_jax_at_side_32(column_first, flip):
+    """Window 8 on the 32 x 32 grid (WaveDiMBlock at 512 px: side 32,
+    patch 4): a permutation, so exactly equal, and local_reverse undoes
+    it."""
+    x = np.random.default_rng(9).standard_normal((2, 1024, 4)).astype(
+        np.float32)
+    kw = dict(w=8, H=32, W=32, flip=flip, column_first=column_first)
+    want = np.asarray(jax_scan_orders.local_scan(jnp.asarray(x), **kw))
+    got = local_scan(torch.from_numpy(x), **kw)
+    np.testing.assert_array_equal(got.numpy(), want)
+    back = local_reverse(got, **kw)
+    np.testing.assert_array_equal(
+        back.numpy(),
+        np.asarray(jax_scan_orders.local_reverse(jnp.asarray(want), **kw)))
+    np.testing.assert_array_equal(back.numpy(), x)
+
+
+def test_local_scan_refuses_a_grid_it_cannot_cut():
+    x = torch.zeros(1, 1024, 2)
+    with pytest.raises(ValueError, match="H % w"):
+        local_scan(x, w=6, H=32, W=32)
+    with pytest.raises(ValueError, match="grid"):
+        local_reverse(x, w=8, H=32, W=16)
 
 
 def test_gelu_tanh_matches_jax():
