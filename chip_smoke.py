@@ -57,8 +57,33 @@ Phases, each printing one JSON line; any failure exits non-zero:
               Euler grid points, bf16).  Counts set to 0 just before and
               read just after: 32 scan and 36 attention launches per
               forward; the samples must be finite.
- 12. kernels  one {"kernels": [...]} line, then the nvidia-smi line, then
-              {"ok": true, "device": {...}} as the last line.
+ 12. kernel-norm  the add + norm and norm + modulate kernels against their
+              plain PyTorch versions at the 256-px rows (24 x 256 x 1024):
+              the add + norm site and every norm + modulate call site
+              (norm_2, the DiT block's two LayerNorms, the FinalLayer's,
+              the deferred top of the pending tail), bf16 and fp32: max
+              error against the stated tolerance, kernel and plain times,
+              and the bound.
+ 13. kernel-convx  the conv + x_proj kernel against its plain version at the
+              mixer shape (24, 256, 1024, W 4, R 64, x a strided slice of
+              in_proj's output), forward and reversed, bf16 and fp32, plus
+              L 1024 and DiM-XL/2's R 68: the same fields.
+ 14. model-fused  full-width DiM-L/2 at 256 px in fp32 with TF32 off, one
+              CFG forward with the fused-kernel switches on (pallas_norm,
+              fused_norm, conv_xproj) through the kernels and through their
+              plain versions, and with the switches off: all must agree, at
+              pending_tail 0 (15 add + norm, 25 norm + modulate, 32 conv +
+              x_proj launches per forward) and 2 (3, 37, 32).
+ 15. train-grad-fused  phase 7's training gradient with the three switches
+              on, through the kernels and through their plain versions:
+              the loss and every gradient must agree; one forward's
+              launches, none from the backward.
+ 16. sample-fused  phase 5's sampling run with the three switches on.
+              Counts set to 0 just before and read just after: 15, 25 and
+              32 launches per forward; the samples must be finite.
+ 17. kernels  one {"kernels": [...]} line (all seven kernels), then the
+              nvidia-smi line, then {"ok": true, "device": {...}} as the
+              last line.
 
 Exits with an error and prints no result when CUDA is not available, or
 when the port's package is not beside this script.
@@ -707,6 +732,371 @@ def phase_sample_512():
     return launches
 
 
+def norm_bound(numel, rows, d, esize, flags):
+    """Least time for one add + norm or norm + modulate call: each input
+    read once and each output written once over HBM bandwidth, against the
+    fp32 operations per value (2 for the moment, 2 to normalize, 2 more for
+    LayerNorm's centred variance, 1 for each present gate, branch, residual,
+    weight and bias, 3 for the modulation) over the fp32 peak.  `flags`
+    maps each operand to its element size in bytes (absent: 0)."""
+    per_row = sum(flags.get(k, 0) for k in ("branch", "res", "total"))
+    per_batch = sum(flags.get(k, 0) for k in ("gate", "shift", "scale"))
+    per_chan = flags.get("w", 0) + flags.get("b", 0)
+    nbytes = (numel * (2 * esize + per_row) + rows * per_batch * d
+              + per_chan * d)
+    ops = 4 + 2 * (not flags["rms"]) + sum(
+        1 for k in ("branch", "gate", "res", "w", "b") if flags.get(k)) + (
+        3 if flags.get("shift") else 0)
+    flops = numel * ops
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes, flops
+
+
+# (name, has_branch, has_gate, has_res, has_mod, is_rms, has_w): the norm +
+# modulate call sites of the fused-kernel configuration
+NORM_SITES = (
+    ("norm_2", True, True, False, True, True, True),
+    ("dit-h2", True, True, False, True, False, False),
+    ("dit-h1-final", False, False, False, True, False, False),
+    ("deferred-top", True, True, True, False, True, True),
+)
+
+
+def norm_case_inputs(B, L, D, dtype, seed):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*shape, s=1.0):
+        return s * torch.randn(shape, generator=g, device="cuda")
+
+    v = dict(x=r(B, L, D), branch=r(B, L, D), residual=r(B, L, D),
+             gate=r(B, D, s=0.5), shift=r(B, D, s=0.3), scale=r(B, D, s=0.3),
+             weight=1 + r(D, s=0.1), bias=r(D, s=0.1))
+    fp32 = ("residual", "weight", "bias")
+    return {k: (t if k in fp32 else t.to(dtype)) for k, t in v.items()}
+
+
+def _case_record(name, dtype, shape, got, want, tols, ms, plain_ms, bound):
+    """One kernel case: each output's max error against the plain
+    version's, within its tolerance relative to that output's largest
+    value; the kernel and plain times; the bound."""
+    import torch
+
+    errs, ok = [], True
+    for a, b, tol in zip(got, want, tols):
+        err = (a.float() - b.float()).abs().max().item()
+        scale = b.float().abs().max().item()
+        errs.append(err)
+        ok = ok and bool(torch.isfinite(a.float()).all()) and \
+            err <= tol * max(scale, 1e-30)
+    return {"case": name, "shape": shape,
+            "dtype": str(dtype).split(".")[-1], "max_abs_err": max(errs),
+            "errs_out_total": errs, "tol_rel": tols, "ok": ok, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "bytes": bound[2], "flop": bound[3]}
+
+
+def phase_kernel_norm():
+    import torch
+
+    from dimsum_torch.ops.norms import (add_norm_cuda, add_norm_ref,
+                                        norm_modulate_cuda, norm_modulate_ref)
+
+    B, L, D = 24, 256, 1024
+    results = {"add_norm": {}, "norm_modulate": {}}
+    for i, dtype in enumerate((torch.bfloat16, torch.float32)):
+        esize = torch.tensor([], dtype=dtype).element_size()
+        # relative to each output's largest value: fp32 1e-5 (rsqrt and
+        # summation order); stored in bf16 1.6e-2 (one rounding step)
+        low = 1.6e-2 if dtype == torch.bfloat16 else 1e-5
+        v = norm_case_inputs(B, L, D, dtype, seed=400 + i)
+        x2 = v["x"].reshape(-1, D)
+        r2 = v["residual"].reshape(-1, D)
+        with torch.inference_mode():
+            args = (x2, r2, v["weight"], None, 1e-5, True)
+            got = add_norm_cuda(*args)
+            want = add_norm_ref(*args, dtype)
+            torch.cuda.synchronize()
+            ms = cuda_ms(lambda: add_norm_cuda(*args), iters=20)
+            plain_ms = cuda_ms(lambda: add_norm_ref(*args, dtype), iters=5)
+        bound = norm_bound(B * L * D, B, D, esize,
+                           dict(res=4, total=4, w=4, rms=True))
+        rec = _case_record("add_norm", dtype, [B, L, D], got, want,
+                           (low, 1e-5), ms, plain_ms, bound)
+        emit({"phase": "kernel-norm", "kernel": "add_norm", **rec})
+        if not rec["ok"]:
+            raise AssertionError(f"add_norm kernel disagrees: {rec}")
+        results["add_norm"][rec["dtype"]] = rec
+
+        for name, br, gt, res, mod, rms, w in NORM_SITES:
+            kw = dict(weight=v["weight"] if w else None,
+                      bias=v["bias"] if w and not rms else None,
+                      branch=v["branch"] if br else None,
+                      gate=v["gate"] if gt else None,
+                      residual=v["residual"] if res else None,
+                      shift=v["shift"] if mod else None,
+                      scale=v["scale"] if mod else None,
+                      eps=1e-5 if rms else 1e-6, is_rms=rms,
+                      total_dtype=torch.float32 if res else None)
+            with torch.inference_mode():
+                got = norm_modulate_cuda(v["x"], **kw)
+                want = norm_modulate_ref(v["x"], **kw)
+                torch.cuda.synchronize()
+                ms = cuda_ms(lambda: norm_modulate_cuda(v["x"], **kw),
+                             iters=20)
+                plain_ms = cuda_ms(lambda: norm_modulate_ref(v["x"], **kw),
+                                   iters=5)
+            tot_size = 4 if res else esize
+            bound = norm_bound(B * L * D, B, D, esize, dict(
+                branch=esize * br, gate=esize * gt, res=4 * res,
+                shift=esize * mod, scale=esize * mod, w=4 * w,
+                b=4 * (w and not rms), total=tot_size, rms=rms))
+            rec = _case_record(name, dtype, [B, L, D], got, want,
+                               (low, 1e-5 if res else low), ms, plain_ms,
+                               bound)
+            emit({"phase": "kernel-norm", "kernel": "norm_modulate", **rec})
+            if not rec["ok"]:
+                raise AssertionError(f"norm_modulate kernel disagrees: {rec}")
+            results["norm_modulate"][f"{name}-{rec['dtype']}"] = rec
+        del v, x2, r2
+        torch.cuda.empty_cache()
+    return results
+
+
+def convx_bound(B, L, D, W, R, esize, peak):
+    """Least time for one conv + x_proj call: x read once, x_conv and x_dbl
+    (fp32) written once, the weights read once, over HBM bandwidth; against
+    the product's 2 B L D R flop at `peak` (tensor cores for bf16, the fp32
+    peak for fp32) plus the conv's 2 W + 5 fp32 operations per value (taps,
+    bias, SiLU)."""
+    nbytes = (2 * B * L * D * esize + B * L * R * 4 + D * (W + 1) * 4
+              + R * D * esize)
+    flops = 2 * B * L * D * R + B * L * D * (2 * W + 5)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (2 * B * L * D * R / peak
+             + B * L * D * (2 * W + 5) / FP32_FLOP_PER_S) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes, flops
+
+
+def phase_kernel_convx():
+    import torch
+
+    from dimsum_torch.ops.conv_xproj import conv_xproj_cuda, conv_xproj_ref
+
+    cases = [
+        ("mixer-bf16", 24, 256, 1024, 64, torch.bfloat16, False),
+        ("mixer-bf16-reverse", 24, 256, 1024, 64, torch.bfloat16, True),
+        ("mixer-fp32", 24, 256, 1024, 64, torch.float32, False),
+        ("mixer-fp32-reverse", 24, 256, 1024, 64, torch.float32, True),
+        ("L1024-bf16", 24, 1024, 1024, 64, torch.bfloat16, False),
+        ("xl-R68-bf16", 24, 256, 1152, 68, torch.bfloat16, False),
+    ]
+    results = {}
+    for i, (name, B, L, D, R, dtype, reverse) in enumerate(cases):
+        g = torch.Generator(device="cuda").manual_seed(500 + i)
+        # x_in as the mixer gets it: the first half of in_proj's output
+        xz = torch.randn((B, L, 2 * D), generator=g, device="cuda").to(dtype)
+        x = xz[..., :D]
+        cw = 0.3 * torch.randn((D, 4), generator=g, device="cuda")
+        cb = 0.1 * torch.randn(D, generator=g, device="cuda")
+        w = (torch.randn((R, D), generator=g, device="cuda")
+             / math.sqrt(D)).to(dtype)
+        with torch.inference_mode():
+            got = conv_xproj_cuda(x, cw, cb, w, reverse)
+            want = conv_xproj_ref(x, cw, cb, w, reverse)
+            torch.cuda.synchronize()
+            ms = cuda_ms(lambda: conv_xproj_cuda(x, cw, cb, w, reverse),
+                         iters=20)
+            plain_ms = cuda_ms(lambda: conv_xproj_ref(x, cw, cb, w, reverse),
+                               iters=5)
+        bf16 = dtype == torch.bfloat16
+        bound = convx_bound(B, L, D, 4, R, x.element_size(),
+                            BF16_TC_FLOP_PER_S if bf16 else FP32_FLOP_PER_S)
+        # relative to each output's largest value: x_conv fp32 1e-5 (exp),
+        # bf16 1.6e-2 (one rounding step); x_dbl fp32 1e-5 (summation
+        # order), from bf16 x_conv 1e-2 (an entry rounded the other way)
+        rec = _case_record(name, dtype, [B, L, D, 4, R], got, want,
+                           (1.6e-2, 1e-2) if bf16 else (1e-5, 1e-5), ms,
+                           plain_ms, bound)
+        rec["reverse"] = reverse
+        emit({"phase": "kernel-convx", **rec})
+        if not rec["ok"]:
+            raise AssertionError(f"conv_xproj kernel disagrees on {name}")
+        results[name] = rec
+        del xz, x, got, want
+        torch.cuda.empty_cache()
+    return results
+
+
+FUSED_ON = dict(pallas_norm=True, fused_norm=True, conv_xproj=True)
+
+
+def _fused_counts():
+    from dimsum_torch.ops.conv_xproj import conv_xproj_cuda
+    from dimsum_torch.ops.norms import add_norm_cuda, norm_modulate_cuda
+
+    return {"add_norm": add_norm_cuda, "norm_modulate": norm_modulate_cuda,
+            "conv_xproj": conv_xproj_cuda}
+
+
+def _plain_fused(model):
+    """Send every fused-kernel site of `model` to the kernels' plain
+    versions."""
+    for m in model.modules():
+        if hasattr(m, "norm_impl"):
+            m.norm_impl = "ref"
+        if hasattr(m, "conv_impl"):
+            m.conv_impl = "ref"
+
+
+# launches per DiM-L/2 forward with the three switches on
+FUSED_LAUNCHES = {0: {"add_norm": 15, "norm_modulate": 25, "conv_xproj": 32},
+                  2: {"add_norm": 3, "norm_modulate": 37, "conv_xproj": 32}}
+
+
+def phase_model_fused():
+    import torch
+
+    from dimsum_torch.models.dim import DiM_models, build_dim, forward_with_cfg
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(6)
+    half = torch.randn((12, 4, 32, 32), generator=g, device="cuda")
+    x = torch.cat([half, half])
+    t = torch.rand(12, generator=g, device="cuda").repeat(2)
+    y = torch.cat([torch.randint(0, 1000, (12,), generator=g, device="cuda"),
+                   torch.full((12,), 1000, device="cuda")])
+
+    def build(**switches):
+        cfg = DiM_models["DiM-L/2"](img_resolution=32, num_classes=1000,
+                                    use_attn_every_k_layers=4,
+                                    dtype=torch.float32, **switches)
+        return build_dim(cfg, "cuda", seed=0)
+
+    counts = _fused_counts()
+    with torch.inference_mode():
+        model = build()
+        default = forward_with_cfg(model, x, t, y, cfg_scale=1.4)
+        del model
+        for pending_tail in (0, 2):
+            model = build(**FUSED_ON, pending_tail=pending_tail)
+            for c in counts.values():
+                c.launches = 0
+            got = forward_with_cfg(model, x, t, y, cfg_scale=1.4)
+            torch.cuda.synchronize()
+            launches = {k: c.launches for k, c in counts.items()}
+            _plain_fused(model)
+            plain = forward_with_cfg(model, x, t, y, cfg_scale=1.4)
+            torch.cuda.synchronize()
+            del model
+            scale = default.abs().max().item()
+            # fp32 kernels and plain versions differ by ~1e-6 relative per
+            # call (rsqrt, exp, summation order); 16 blocks of random
+            # weights amplify that, not past 1e-3 of the scale
+            tol = 1e-3 * max(1.0, scale)
+            errs = {"kernels_vs_plain": (got - plain).abs().max().item(),
+                    "kernels_vs_default": (got - default).abs().max().item(),
+                    "plain_vs_default": (plain - default).abs().max().item()}
+            rec = {"phase": "model-fused", "model": "DiM-L/2",
+                   "rows": x.shape[0], "dtype": "float32", "tf32": False,
+                   "switches": {**FUSED_ON, "pending_tail": pending_tail},
+                   "launches_per_forward": launches, "max_abs_err": errs,
+                   "max_abs_ref": scale, "tol": tol,
+                   "finite": bool(torch.isfinite(got).all())}
+            emit(rec)
+            if (launches != FUSED_LAUNCHES[pending_tail] or not rec["finite"]
+                    or not max(errs.values()) <= tol):
+                raise AssertionError(f"model-fused phase failed: {rec}")
+    torch.cuda.empty_cache()
+
+
+def phase_train_grad_fused():
+    import torch
+
+    from dimsum_torch.models.dim import DiM_models, build_dim
+    from dimsum_torch.transport import create_transport
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = DiM_models["DiM-L/2"](img_resolution=32, num_classes=1000,
+                                use_attn_every_k_layers=4,
+                                label_dropout=0.1, drop_path=0.1,
+                                dtype=torch.float32, **FUSED_ON)
+    model = build_dim(cfg, "cuda", seed=0, train=True)
+    transport = create_transport("GVP", "velocity")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((2, 4, 32, 32), generator=g, device="cuda")
+    y = torch.randint(0, 1000, (2,), generator=g, device="cuda")
+
+    def loss_and_grads():
+        gen = torch.Generator(device="cuda").manual_seed(4)  # same draws
+        model.zero_grad(set_to_none=True)
+        loss = transport.training_losses(
+            lambda xt, t, **kw: model(xt, t, train=True, generator=gen,
+                                      **kw), x, gen, {"y": y})["loss"].mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), {n: p.grad.clone() for n, p in
+                             model.named_parameters() if p.grad is not None}
+
+    counts = _fused_counts()
+    for c in counts.values():
+        c.launches = 0
+    loss, grads = loss_and_grads()
+    launches = {k: c.launches for k, c in counts.items()}
+    _plain_fused(model)
+    want_loss, want = loss_and_grads()
+    # as train-grad: ~1e-6 relative per call, amplified by 16 blocks and
+    # the backward, not past 2e-3 of each tensor's scale
+    tol = 2e-3
+    errs = {n: _scaled_err(grads[n], want[n]) for n in want}
+    worst = max(errs, key=errs.get)
+    rec = {"phase": "train-grad-fused", "model": "DiM-L/2", "batch": 2,
+           "dtype": "float32", "tf32": False, "switches": FUSED_ON,
+           "loss": loss, "loss_plain": want_loss,
+           "loss_rel_err": abs(loss - want_loss) / abs(want_loss),
+           "n_grads": len(want), "same_grad_set": set(grads) == set(want),
+           "worst_grad": worst, "worst_grad_scaled_err": errs[worst],
+           "tol": tol, "launches_per_step": launches}
+    emit(rec)
+    if (launches != FUSED_LAUNCHES[0] or not rec["same_grad_set"]
+            or not rec["loss_rel_err"] <= 1e-4 or not errs[worst] <= tol):
+        raise AssertionError(f"train-grad-fused phase failed: {rec}")
+    del model, grads, want
+    torch.cuda.empty_cache()
+
+
+def phase_sample_fused():
+    import torch
+
+    from dimsum_torch import bench
+
+    counts = _fused_counts()
+    for c in counts.values():
+        c.launches = 0
+    record, samples = bench.run(batch=12, steps=STEPS, dtype="bf16",
+                                cfg_scale=1.4, device="cuda", seed=0,
+                                **FUSED_ON)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counts.items()}
+    finite = bool(torch.isfinite(samples).all())
+    rec = {"phase": "sample-fused", **record, "launches": launches,
+           "shape": list(samples.shape), "finite": finite,
+           "sample_std": samples.float().std().item()}
+    emit(rec)
+    # one warm-up drift call plus STEPS - 1 Euler steps
+    want = {k: n * STEPS for k, n in FUSED_LAUNCHES[0].items()}
+    if not finite or list(samples.shape) != [12, 4, 32, 32] \
+            or launches != want:
+        raise AssertionError(f"sample-fused phase failed: {rec}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -740,6 +1130,11 @@ def main() -> int:
     phase_model_512()
     launches["full_block_attention"] = \
         phase_sample_512()["full_block_attention"]
+    norms = phase_kernel_norm()
+    convx = phase_kernel_convx()
+    phase_model_fused()
+    phase_train_grad_fused()
+    launches.update(phase_sample_fused())
 
     main_case = scans["mixer-bf16"]
     kernels = [{
@@ -784,6 +1179,24 @@ def main() -> int:
         "bound_ms": attn_case["bound_ms"],
         "bound_by": attn_case["bound_by"],
         "library_ms": attn_case["library_ms"]})
+    # the main-path cases: bf16, the add + norm site and norm_2 (no single
+    # PyTorch call computes any of the three functions: library_ms null)
+    for name, source, replaces, cases, main_case in (
+            ("add_norm", "dimsum_torch/csrc/add_norm.cu",
+             "dimsum_tpu/ops/norms.py:81", norms["add_norm"], "bfloat16"),
+            ("norm_modulate", "dimsum_torch/csrc/norm_modulate.cu",
+             "dimsum_tpu/ops/norms.py:349", norms["norm_modulate"],
+             "norm_2-bfloat16"),
+            ("conv_xproj", "dimsum_torch/csrc/conv_xproj.cu",
+             "dimsum_tpu/ops/conv_xproj.py:123", convx, "mixer-bf16")):
+        case = cases[main_case]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in cases.values()),
+            "ms": case["ms"], "plain_ms": case["plain_ms"],
+            "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
+            "library_ms": None})
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

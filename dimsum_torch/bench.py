@@ -10,8 +10,15 @@ after every 4th block, seeded random weights (no checkpoint ships with the
 repo), CFG 1.4 on a doubled batch, GVP velocity transport, Euler over 250
 grid points.  One untimed warm-up drift call precedes the timed run.
 
+The JAX package's fused-kernel configuration runs with its four switches as
+flags: `--pallas-norm` (the add + norm kernel), `--fused-norm` (the norm +
+modulate kernel), `--conv-xproj` (the conv + SiLU + x_proj kernel) and
+`--pending-tail 1|2` (each block's tail FFN add deferred into the next
+block's top norm).
+
     python -m dimsum_torch.bench --batch 12 --steps 250 --dtype bf16 \
-        --cfg 1.4 --device cuda [--image-size 512]
+        --cfg 1.4 --device cuda [--image-size 512] \
+        [--pallas-norm --fused-norm --conv-xproj --pending-tail 2]
 
 Prints one JSON line: images per second on this card, with the card's name
 and power limit.
@@ -31,6 +38,35 @@ from dimsum_torch.utils.device import card_name_and_power_limit, resolve_device
 
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 IMAGE_SIZES = (256, 512)  # pixels; the latent is a size / 8 square
+# the DiMConfig fields of the fused-kernel configuration, all off by default
+FUSED_DEFAULTS = dict(pallas_norm=False, fused_norm=False, conv_xproj=False,
+                      pending_tail=0)
+
+
+def add_fused_flags(ap: argparse.ArgumentParser) -> None:
+    """The four switches of the fused-kernel configuration as flags."""
+    ap.add_argument("--pallas-norm", action="store_true",
+                    help="add + norm kernel at each block's top norm")
+    ap.add_argument("--fused-norm", action="store_true",
+                    help="norm + modulate kernel at the other norms")
+    ap.add_argument("--conv-xproj", action="store_true",
+                    help="conv + SiLU + x_proj kernel in every mixer")
+    ap.add_argument("--pending-tail", type=int, default=0, choices=(0, 1, 2),
+                    help="defer each block's tail FFN add into the next "
+                         "top norm (2: through the norm + modulate kernel)")
+
+
+def fused_settings(args: argparse.Namespace) -> dict:
+    return {k: getattr(args, k) for k in FUSED_DEFAULTS}
+
+
+def fused_config(**fused) -> dict:
+    """All four switches, each given or at its default; raises on a name
+    that is not one of them."""
+    unknown = set(fused) - set(FUSED_DEFAULTS)
+    if unknown:
+        raise TypeError(f"unknown switches {sorted(unknown)}")
+    return {**FUSED_DEFAULTS, **fused}
 
 
 def _sync(dev):
@@ -40,17 +76,21 @@ def _sync(dev):
 
 def run(batch: int = 12, steps: int = 250, dtype: str = "bf16",
         cfg_scale: float = 1.4, device="cuda", seed: int = 0,
-        model: str = "DiM-L/2", image_size: int = 256):
+        model: str = "DiM-L/2", image_size: int = 256, **fused):
     """Build the model (`model` names a zoo entry: DiM-L/2, or a narrower
-    one for a rehearsal on the CPU) at `image_size` pixels, sample once
-    untimed for one drift call, then time one full sample.  Returns
-    (record, samples of the conditional half)."""
+    one for a rehearsal on the CPU) at `image_size` pixels, with the
+    fused-kernel switches `fused` (pallas_norm, fused_norm, conv_xproj,
+    pending_tail; off by default), sample once untimed for one drift call,
+    then time one full sample.  Returns (record, samples of the conditional
+    half)."""
     if image_size not in IMAGE_SIZES:
         raise ValueError(f"image_size must be one of {IMAGE_SIZES}")
     dev = resolve_device(device)
     latent = image_size // 8
+    fused = fused_config(**fused)
     cfg = DiM_models[model](img_resolution=latent, num_classes=1000,
-                            use_attn_every_k_layers=4, dtype=DTYPES[dtype])
+                            use_attn_every_k_layers=4, dtype=DTYPES[dtype],
+                            **fused)
     net = build_dim(cfg, dev, seed)
     g = torch.Generator(device=dev).manual_seed(seed)
     z = torch.randn((batch, cfg.in_channels, latent, latent), generator=g,
@@ -87,6 +127,7 @@ def run(batch: int = 12, steps: int = 250, dtype: str = "bf16",
         "image_size": image_size,
         "dtype": dtype,
         "cfg_scale": cfg_scale,
+        "fused": fused,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
         "card": (card_name_and_power_limit(dev.index or 0)
@@ -107,10 +148,11 @@ def main(argv=None):
     ap.add_argument("--image-size", type=int, default=256,
                     choices=IMAGE_SIZES,
                     help="pixels; 512 -> latent 64, L = 1024 tokens")
+    add_fused_flags(ap)
     args = ap.parse_args(argv)
     record, _ = run(batch=args.batch, steps=args.steps, dtype=args.dtype,
                     cfg_scale=args.cfg, device=args.device, seed=args.seed,
-                    image_size=args.image_size)
+                    image_size=args.image_size, **fused_settings(args))
     print(json.dumps(record))
 
 

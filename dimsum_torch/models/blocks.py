@@ -8,6 +8,16 @@ Token reorderings (transpose, reverse) are explicit rearranges and flips.
 MixerBlockCore and WaveDiMBlock are ported as the combined block uses
 them: no FFN, and their identity "norm" (`_add_identity_norm`) is left out:
 no residual enters them there and the one it would return is discarded.
+
+The JAX package's fused-kernel switches are constructor arguments here (the
+model's `DiMConfig` fields): `pallas_norm` (`DIMSUM_PALLAS_NORM`, the add +
+norm kernel at the combined block's top norm), `fused_norm`
+(`DIMSUM_FUSED_NORM`, the norm + modulate kernel at norm_2, the DiT block's
+two norms and the FinalLayer's), `conv_xproj` (`DIMSUM_CONV_XPROJ`, in every
+mixer) and `pending_tail` (`DIMSUM_PENDING_TAIL`: 1 defers each combined
+block's tail FFN add into the next block's top norm, 2 also takes the norm +
+modulate kernel there).  A `norm_impl` attribute of "ref" on a Norm,
+DiTBlock or FinalLayer selects the kernels' plain versions on any device.
 """
 
 from __future__ import annotations
@@ -37,26 +47,44 @@ def drop_path_fn(x, rate: float, generator: torch.Generator | None = None):
     return x * (mask.to(x.dtype) / keep)
 
 
+def materialize_pending(x, pending):
+    """Fold a deferred block tail: x + gate * branch (x itself when nothing
+    is pending), the JAX `materialize_pending` (blocks.py:116-122)."""
+    if pending is None:
+        return x
+    branch, gate = pending
+    return x + gate[:, None, :] * branch
+
+
 class Norm(nn.Module):
     """RMSNorm (weight only) with fp32 math.  With `branch` or `shift` it
     is the fused (gate-add +) add + norm + modulate and returns
-    (modulated, total); otherwise fused add + norm."""
+    (modulated, total), through the norm + modulate kernel when `fuse`
+    (default: the `fused_norm` switch) says so; otherwise fused add + norm,
+    through the add + norm kernel with the `pallas_norm` switch (the JAX
+    `Norm.__call__`, blocks.py:55-74)."""
 
-    def __init__(self, dim: int, eps: float = 1e-5):
+    def __init__(self, dim: int, eps: float = 1e-5, pallas_norm: bool = False,
+                 fused_norm: bool = False):
         super().__init__()
         self.eps = eps
+        self.pallas_norm, self.fused_norm = pallas_norm, fused_norm
+        self.norm_impl: str | None = None
         self.weight = nn.Parameter(torch.ones(dim))
 
     def forward(self, x, residual=None, prenorm=True, branch=None, gate=None,
-                shift=None, scale=None):
+                shift=None, scale=None, fuse: bool | None = None):
         if branch is not None or shift is not None:
             total_dtype = torch.float32 if residual is not None else x.dtype
             return norm_modulate(
                 x, self.weight, branch=branch, gate=gate, residual=residual,
                 shift=shift, scale=scale, eps=self.eps,
-                total_dtype=total_dtype)
+                total_dtype=total_dtype,
+                fuse=self.fused_norm if fuse is None else fuse,
+                impl=self.norm_impl)
         return fused_add_norm(x, self.weight, residual=residual, eps=self.eps,
-                              prenorm=prenorm)
+                              prenorm=prenorm, kernel=self.pallas_norm,
+                              impl=self.norm_impl)
 
 
 def AdaLN(c_dim: int, dim: int, n_chunks: int,
@@ -79,10 +107,11 @@ class _InnerMixerBlock(nn.Module):
     give the token order."""
 
     def __init__(self, dim: int, c_dim: int, reverse: bool, d_cond: int | None,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, conv_xproj: bool = False):
         super().__init__()
         self.reverse = reverse
-        self.mixer = Mamba(dim, d_cond=d_cond, dtype=dtype)
+        self.mixer = Mamba(dim, d_cond=d_cond, dtype=dtype,
+                           conv_xproj=conv_xproj)
         self.adaLN_modulation = AdaLN(c_dim, dim, 3, dtype)
 
     def forward(self, hidden_states, c):
@@ -104,8 +133,8 @@ class MixerBlockCore(_InnerMixerBlock):
 
     def __init__(self, dim: int, c_dim: int, reverse: bool = False,
                  transpose: bool = False, d_cond: int | None = None,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__(dim, c_dim, reverse, d_cond, dtype)
+                 dtype: torch.dtype = torch.float32, conv_xproj: bool = False):
+        super().__init__(dim, c_dim, reverse, d_cond, dtype, conv_xproj)
         self.transpose = transpose
 
     def _order(self, x, side):
@@ -125,8 +154,8 @@ class WaveDiMBlock(_InnerMixerBlock):
 
     def __init__(self, dim: int, c_dim: int, reverse: bool = False,
                  transpose: bool = False, d_cond: int | None = None,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__(dim, c_dim, reverse, d_cond, dtype)
+                 dtype: torch.dtype = torch.float32, conv_xproj: bool = False):
+        super().__init__(dim, c_dim, reverse, d_cond, dtype, conv_xproj)
         self.column_first = bool(transpose)
 
     def _window(self, side):
@@ -148,11 +177,15 @@ class WaveDiMBlock(_InnerMixerBlock):
 
 
 class DiTBlock(nn.Module):
-    """adaLN-Zero attention block; its LayerNorms use eps 1e-6, no affine."""
+    """adaLN-Zero attention block; its LayerNorms use eps 1e-6, no affine,
+    each fused with its modulate (through the kernel with `fused_norm`)."""
 
     def __init__(self, hidden_size: int, num_heads: int,
-                 mlp_ratio: float = 4.0, dtype: torch.dtype = torch.float32):
+                 mlp_ratio: float = 4.0, dtype: torch.dtype = torch.float32,
+                 fused_norm: bool = False):
         super().__init__()
+        self.fused_norm = fused_norm
+        self.norm_impl: str | None = None
         self.attn = Attention(hidden_size, num_heads, qkv_bias=True,
                               dtype=dtype)
         self.mlp = GatedMLP(hidden_size, int(hidden_size * mlp_ratio),
@@ -162,11 +195,11 @@ class DiTBlock(nn.Module):
     def forward(self, x, c):
         (shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp,
          gate_mlp) = self.adaLN_modulation(c).chunk(6, -1)
-        h1, _ = norm_modulate(x, None, shift=shift_msa, scale=scale_msa,
-                              eps=1e-6, is_rms=False)
+        kw = dict(eps=1e-6, is_rms=False, fuse=self.fused_norm,
+                  impl=self.norm_impl)
+        h1, _ = norm_modulate(x, None, shift=shift_msa, scale=scale_msa, **kw)
         h2, x = norm_modulate(x, None, branch=self.attn(h1), gate=gate_msa,
-                              shift=shift_mlp, scale=scale_mlp, eps=1e-6,
-                              is_rms=False)
+                              shift=shift_mlp, scale=scale_mlp, **kw)
         return x + gate_mlp[:, None, :] * self.mlp(h2)
 
 
@@ -178,35 +211,53 @@ class DiMBlockCombined(nn.Module):
 
     In training, stochastic depth at `drop_path_rate` drops the incoming
     hidden states per sample where they merge into the residual, and only
-    when a residual exists (blocks.py:94-98, :784-793)."""
+    when a residual exists (blocks.py:94-98, :784-793).
+
+    With `pending_tail` > 0 the block returns its tail FFN add unmade, as a
+    third result (mlp_out, gate_mlp), and takes the previous block's as
+    `pending`: its top norm then adds it with the residual in one
+    norm + modulate (blocks.py:778-805, :855-858)."""
 
     def __init__(self, dim: int, reverse: bool = False,
                  transpose: bool = False, d_cond: int | None = None,
                  drop_path_rate: float = 0.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, pallas_norm: bool = False,
+                 fused_norm: bool = False, conv_xproj: bool = False,
+                 pending_tail: int = 0):
         super().__init__()
         self.drop_path_rate = drop_path_rate
+        self.pending_tail = pending_tail
         half = dim // 2
-        self.norm = Norm(dim)
+        self.norm = Norm(dim, pallas_norm=pallas_norm, fused_norm=fused_norm)
         self.spatial_mamba = MixerBlockCore(
             half, dim, reverse=reverse, transpose=transpose, d_cond=d_cond,
-            dtype=dtype)
+            dtype=dtype, conv_xproj=conv_xproj)
         self.freq_mamba = WaveDiMBlock(
             half, dim, reverse=False, transpose=reverse, d_cond=d_cond,
-            dtype=dtype)
+            dtype=dtype, conv_xproj=conv_xproj)
         self.proj = CrossAttentionFusion(dim, num_heads=8, qkv_bias=True,
                                          dtype=dtype)
         self.adaLN_modulation = AdaLN(dim, dim, 3, dtype)
-        self.norm_2 = Norm(dim)
+        self.norm_2 = Norm(dim, pallas_norm=pallas_norm, fused_norm=fused_norm)
         self.mlp = GatedMLP(dim, 4 * dim, dtype=dtype)
 
     def forward(self, hidden_states, residual=None, c=None,
                 train: bool = False,
-                generator: torch.Generator | None = None):
-        if train and self.drop_path_rate > 0.0 and residual is not None:
-            hidden_states = drop_path_fn(hidden_states, self.drop_path_rate,
-                                         generator)
-        hidden_states, residual = self.norm(hidden_states, residual)
+                generator: torch.Generator | None = None, pending=None):
+        drop = train and self.drop_path_rate > 0.0 and residual is not None
+        if pending is not None and drop:
+            # stochastic depth drops the whole previous block output
+            hidden_states = materialize_pending(hidden_states, pending)
+            pending = None
+        if pending is None:
+            if drop:
+                hidden_states = drop_path_fn(
+                    hidden_states, self.drop_path_rate, generator)
+            hidden_states, residual = self.norm(hidden_states, residual)
+        else:
+            hidden_states, residual = self.norm(
+                hidden_states, residual, branch=pending[0], gate=pending[1],
+                fuse=True if self.pending_tail == 2 else None)
         x1, x2 = hidden_states.chunk(2, dim=2)
         x1 = self.spatial_mamba(x1, c)
         x2 = self.freq_mamba(x2, c)
@@ -215,5 +266,8 @@ class DiMBlockCombined(nn.Module):
         moded, hidden_states = self.norm_2(
             hidden_states, prenorm=False, branch=fused, shift=shift_mlp,
             scale=scale_mlp)
-        hidden_states = hidden_states + gate_mlp[:, None, :] * self.mlp(moded)
+        mlp_out = self.mlp(moded)
+        if self.pending_tail > 0:
+            return hidden_states, residual, (mlp_out, gate_mlp)
+        hidden_states = hidden_states + gate_mlp[:, None, :] * mlp_out
         return hidden_states, residual

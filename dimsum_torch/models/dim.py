@@ -11,6 +11,12 @@ at inter_dpr[i], inter_dpr = [0] + linspace(0, drop_path, depth) (the JAX
 the final norm_f merge, exists only with `use_final_norm`, which the
 published configuration leaves off, so the port has no norm_f.  The other block
 types, scan types, position encodings and learn_sigma are not ported yet.
+
+The JAX package's fused-kernel configuration is four `DiMConfig` fields named
+after its switches, all off by default: `pallas_norm` (DIMSUM_PALLAS_NORM),
+`fused_norm` (DIMSUM_FUSED_NORM), `conv_xproj` (DIMSUM_CONV_XPROJ) and
+`pending_tail` (DIMSUM_PENDING_TAIL, 0, 1 or 2; the deferred tail is
+materialized before each DiT block and at the end, dim.py:340-396).
 """
 
 from __future__ import annotations
@@ -22,7 +28,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from dimsum_torch.models.blocks import DiMBlockCombined, DiTBlock, Norm
+from dimsum_torch.models.blocks import (DiMBlockCombined, DiTBlock, Norm,
+                                       materialize_pending)
 from dimsum_torch.models.embedders import (FinalLayer, LabelEmbedder,
                                            PatchEmbed, TimestepEmbedder,
                                            get_2d_sincos_pos_embed,
@@ -43,6 +50,10 @@ class DiMConfig:
     use_attn_every_k_layers: int = 4
     drop_path: float = 0.0  # stochastic depth (scripts/train.sh: 0.1)
     dtype: torch.dtype = torch.float32
+    pallas_norm: bool = False  # add + norm kernel at the blocks' top norm
+    fused_norm: bool = False   # norm + modulate kernel at the other norms
+    conv_xproj: bool = False   # conv + SiLU + x_proj kernel in every mixer
+    pending_tail: int = 0      # 1, 2: defer each block's tail FFN add
 
     @property
     def grid_size(self) -> int:
@@ -65,13 +76,22 @@ class DiM(nn.Module):
             torch.tensor(get_2d_sincos_pos_embed(D, cfg.grid_size))[None])
         inter_dpr = [0.0] + np.linspace(0.0, cfg.drop_path,
                                         cfg.depth).tolist()
+        if cfg.pending_tail not in (0, 1, 2):
+            raise ValueError(f"pending_tail must be 0, 1 or 2, got "
+                             f"{cfg.pending_tail}")
         self.blocks = nn.ModuleList([
             DiMBlockCombined(D, reverse=i % 2 > 0, transpose=i % 4 >= 2,
-                             d_cond=D, drop_path_rate=inter_dpr[i], dtype=dt)
+                             d_cond=D, drop_path_rate=inter_dpr[i], dtype=dt,
+                             pallas_norm=cfg.pallas_norm,
+                             fused_norm=cfg.fused_norm,
+                             conv_xproj=cfg.conv_xproj,
+                             pending_tail=cfg.pending_tail)
             for i in range(cfg.depth)])
         if cfg.use_attn_every_k_layers > 0:
-            self.attn_block = DiTBlock(D, 16, dtype=dt)
-        self.final_layer = FinalLayer(D, cfg.patch_size, cfg.in_channels, dt)
+            self.attn_block = DiTBlock(D, 16, dtype=dt,
+                                       fused_norm=cfg.fused_norm)
+        self.final_layer = FinalLayer(D, cfg.patch_size, cfg.in_channels, dt,
+                                      fused_norm=cfg.fused_norm)
 
     def forward(self, x, t, y=None, train: bool = False,
                 generator: torch.Generator | None = None,
@@ -89,14 +109,21 @@ class DiM(nn.Module):
                                 generator=generator)
         c = (self.t_embedder(t) + y_emb).to(cfg.dtype)
         x = self.x_embedder(x.to(cfg.dtype)) + self.pos_embed.to(cfg.dtype)
-        residual = None
+        residual = pending = None
         k = cfg.use_attn_every_k_layers
         for i, block in enumerate(self.blocks):
-            x, residual = block(x, residual, c, train=train,
-                                generator=generator)
+            if cfg.pending_tail > 0:
+                x, residual, pending = block(x, residual, c, train=train,
+                                             generator=generator,
+                                             pending=pending)
+            else:
+                x, residual = block(x, residual, c, train=train,
+                                    generator=generator)
             if k > 0 and (i + 1) % k == 0:
+                x = materialize_pending(x, pending)
+                pending = None
                 x = self.attn_block(x, c)
-        x = self.final_layer(x, c)
+        x = self.final_layer(materialize_pending(x, pending), c)
         return unpatchify(x.float(), cfg.patch_size, cfg.in_channels)
 
 

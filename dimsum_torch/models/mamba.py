@@ -21,25 +21,34 @@ import torch.nn as nn
 
 from dimsum_torch.models.linear import Linear
 from dimsum_torch.ops.causal_conv1d import causal_conv1d
+from dimsum_torch.ops.conv_xproj import conv_xproj, conv_xproj_supported
 from dimsum_torch.ops.selective_scan import selective_scan_dtlow
 
 
 class Mamba(nn.Module):
     """Set `d_cond` for the CondMamba variant (adds `cond_proj`).
 
-    `scan_impl` (an attribute) picks the selective scan: None, the kernel
-    for CUDA tensors and the plain version for CPU tensors; "ref", the plain
-    version on any device, which checks hold the kernel against."""
+    `conv_xproj` (the JAX `DIMSUM_CONV_XPROJ`) computes the conv, SiLU and
+    x_proj in one fused op (`ops/conv_xproj.py`) where the JAX gate's shape
+    test holds (mamba.py:187-192); the parameters keep their names.
+
+    `scan_impl` and `conv_impl` (attributes) pick the selective scan and
+    the fused conv: None, the kernel for CUDA tensors and the plain version
+    for CPU tensors; "ref", the plain version on any device, which checks
+    hold the kernels against."""
 
     def __init__(self, d_model: int, d_state: int = 16, d_conv: int = 4,
                  expand: int = 2, dt_rank: Optional[int] = None,
                  d_cond: Optional[int] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 conv_xproj: bool = False):
         super().__init__()
         self.d_inner = d_inner = expand * d_model
         self.d_state = d_state
         self.dt_rank = math.ceil(d_model / 16) if dt_rank is None else dt_rank
+        self.conv_xproj = conv_xproj
         self.scan_impl: Optional[str] = None
+        self.conv_impl: Optional[str] = None
         self.in_proj = Linear(d_model, 2 * d_inner, bias=False, dtype=dtype)
         self.conv1d = nn.Conv1d(d_inner, d_inner, d_conv, groups=d_inner,
                                 padding=d_conv - 1)
@@ -58,10 +67,19 @@ class Mamba(nn.Module):
         """x: (B, L, d_model).  cond_emb is accepted and unused (see the
         module docstring)."""
         x_in, z = self.in_proj(x).chunk(2, dim=-1)
-        x_conv = causal_conv1d(x_in, self.conv1d.weight[:, 0, :],
-                               self.conv1d.bias, activation="silu")
         r, n = self.dt_rank, self.d_state
-        dt_low, Bm, Cm = self.x_proj(x_conv).split([r, n, n], dim=-1)
+        conv_w = self.conv1d.weight[:, 0, :]
+        if self.conv_xproj and conv_xproj_supported(x_in, r + 2 * n):
+            # the JAX `_XProj`: x_dbl in fp32, cast to the compute dtype
+            x_conv, x_dbl = conv_xproj(x_in, conv_w, self.conv1d.bias,
+                                       self.x_proj.weight,
+                                       impl=self.conv_impl)
+            x_dbl = x_dbl.to(self.x_proj.compute_dtype)
+        else:
+            x_conv = causal_conv1d(x_in, conv_w, self.conv1d.bias,
+                                   activation="silu")
+            x_dbl = self.x_proj(x_conv)
+        dt_low, Bm, Cm = x_dbl.split([r, n, n], dim=-1)
         dt_w = self.dt_proj.weight.t().to(dt_low.dtype).contiguous()
         A = -torch.exp(self.A_log.float())
         y = selective_scan_dtlow(

@@ -1,9 +1,11 @@
-"""Build the port's CUDA sources with nvcc and load them with ctypes.
+"""Build the port's CUDA sources with nvcc, load them with ctypes, and call
+their entry points.
 
-Each `dimsum_torch/csrc/<name>.cu` has a plain C interface and becomes
-`build/dimsum_torch/<name>-<hash>.so` at the root of the checkout, built at
-first use for sm_90a.  The hash covers the source, so an edited source is
-rebuilt and a stale library is never loaded.
+Each `dimsum_torch/csrc/<name>.cu` has a plain C interface, an entry point
+`dimsum_<name>` that takes the stream last and returns a cudaError_t, and
+becomes `build/dimsum_torch/<name>-<hash>.so` at the root of the checkout,
+built at first use for sm_90a.  The hash covers the source, so an edited
+source is rebuilt and a stale library is never loaded.
 """
 
 from __future__ import annotations
@@ -15,14 +17,19 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dimsum_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("selective_scan_fwd", "selective_scan_fwd_train",
-           "selective_scan_bwd", "full_attention")
+           "selective_scan_bwd", "full_attention", "add_norm",
+           "norm_modulate", "conv_xproj")
+# the entry points' dtype argument
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _nvcc() -> str:
@@ -81,3 +88,45 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of one source, built first if needed."""
     build([name])
     return ctypes.CDLL(str(library_path(name)))
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(name: str, argtypes: tuple):
+    fn = getattr(load(name), f"dimsum_{name}")
+    fn.argtypes = [*argtypes, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(name: str, argtypes: Sequence, device, *args) -> None:
+    """Call `dimsum_<name>` (built first if needed) with `args`, whose
+    ctypes are `argtypes` (a tensor, or None, goes as its pointer), on
+    `device`'s current stream; raise if it returns a CUDA error."""
+    fn = _entry(name, tuple(argtypes))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
+                  for a in args], stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def needs_grad(*tensors) -> bool:
+    """Grad mode is on and one of `tensors` (None allowed) requires grad:
+    a kernel wrapper without a backward must not run then."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def check_tensor(name: str, t, device, dtype, shape) -> None:
+    """Raise unless `t` is a contiguous tensor of `dtype` and `shape` on
+    `device`: what a kernel wrapper checks before passing a pointer."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -19,9 +19,11 @@ layout.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
+
+from dimsum_torch.ops import cuda_build
+from dimsum_torch.ops.cuda_build import DTYPE_CODE, needs_grad
 
 __all__ = ["full_block_supported", "full_attention_ref",
            "full_block_attention_cuda", "full_block_attention",
@@ -31,7 +33,10 @@ __all__ = ["full_block_supported", "full_attention_ref",
 _MAX_FULL_BLOCK_L = 1024
 # the head sizes the kernel is compiled for (csrc/full_attention.cu)
 _KERNEL_HEAD_DIMS = tuple(range(64, 129, 8))
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# q, k, v, out; the batch and row strides of q, k, v; B, L, H, Dh, dtype;
+# the scale
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 6
+             + [ctypes.c_int] * 5 + [ctypes.c_float])
 
 
 def full_block_supported(L: int, Dh: int) -> bool:
@@ -55,10 +60,6 @@ def full_attention_ref(q, k, v, sm_scale: float):
     return (o / denom).to(q.dtype).transpose(1, 2)
 
 
-def _needs_grad(*tensors) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
-
-
 def _check(name, t, device, dtype, shape):
     """Device, dtype and shape; each (H, Dh) row packed; batch and row
     strides that keep every row 16-byte aligned."""
@@ -76,17 +77,6 @@ def _check(name, t, device, dtype, shape):
                          "of 8 elements on a 16-byte aligned pointer")
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    from dimsum_torch.ops import cuda_build
-
-    fn = cuda_build.load("full_attention").dimsum_full_attention
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 6
-                   + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def full_block_attention_cuda(q, k, v, sm_scale: float):
     """Launch the CUDA kernel on q, k, v: (B, L, H, Dh) CUDA tensors of one
     dtype (float32 or bfloat16), each (H, Dh) row contiguous (the batch and
@@ -95,7 +85,7 @@ def full_block_attention_cuda(q, k, v, sm_scale: float):
     Returns a new contiguous (B, L, H, Dh) tensor.  Raises on anything
     else.  It has no backward: under grad mode with an input that requires
     grad it raises (the training route is `full_block_attention`)."""
-    if _needs_grad(q, k, v):
+    if needs_grad(q, k, v):
         raise RuntimeError(
             "full_block_attention_cuda has no backward; take "
             "full_block_attention or run under torch.no_grad()")
@@ -103,7 +93,7 @@ def full_block_attention_cuda(q, k, v, sm_scale: float):
         raise ValueError("full_block_attention_cuda takes CUDA tensors only")
     if q.ndim != 4:
         raise ValueError(f"q must be (B, L, H, Dh), got {tuple(q.shape)}")
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype not in DTYPE_CODE:
         raise TypeError(f"unsupported dtype {q.dtype}: float32 or bfloat16")
     B, L, H, Dh = q.shape
     if not full_block_supported(L, Dh) or Dh not in _KERNEL_HEAD_DIMS:
@@ -116,15 +106,10 @@ def full_block_attention_cuda(q, k, v, sm_scale: float):
     out = torch.empty(B, L, H, Dh, device=q.device, dtype=q.dtype)
     # the scale rounded to q's dtype, as the plain version multiplies by it
     scale = torch.tensor(sm_scale, dtype=q.dtype).item()
-    fn = _kernel()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-                v.stride(0), v.stride(1), B, L, H, Dh, _DTYPE_CODE[q.dtype],
-                scale, stream)
-    if rc != 0:
-        raise RuntimeError(f"full_attention launch failed: CUDA error {rc}")
+    cuda_build.launch("full_attention", _ARGTYPES, q.device, q, k, v, out,
+                      q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+                      v.stride(0), v.stride(1), B, L, H, Dh,
+                      DTYPE_CODE[q.dtype], scale)
     full_block_attention_cuda.launches += 1
     return out
 

@@ -36,6 +36,9 @@ from typing import Optional
 
 import torch
 
+from dimsum_torch.ops import cuda_build
+from dimsum_torch.ops.cuda_build import DTYPE_CODE, check_tensor, needs_grad
+
 __all__ = ["selective_scan_ref", "selective_scan_cuda", "selective_scan_dtlow",
            "selective_scan_fwd_train", "selective_scan_fwd_train_ref",
            "selective_scan_fwd_train_cuda", "selective_scan_bwd",
@@ -105,31 +108,14 @@ def selective_scan_ref(u, delta, A, B, C, D=None, z=None, delta_bias=None,
 # CUDA kernels: one wrapper per source, each counting its launches
 # ---------------------------------------------------------------------------
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_STATE, _MAX_RANK = 32, 64
 
 
 def _launch(name: str, dev, tensors, ints):
-    """Call `dimsum_<name>` of csrc/<name>.cu's library (built at first use)
-    with the tensors' pointers (None for an absent one), the int arguments
-    and the current stream; raise if the launch failed."""
-    from dimsum_torch.ops import cuda_build
-
-    fn = getattr(cuda_build.load(name), f"dimsum_{name}")
-    fn.argtypes = ([ctypes.c_void_p] * len(tensors)
-                   + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*[None if t is None else t.data_ptr() for t in tensors],
-                *ints, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-
-
-def _needs_grad(*tensors) -> bool:
-    return torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in tensors)
+    """`dimsum_<name>` with the tensors' pointers (None for an absent one),
+    then the int arguments."""
+    cuda_build.launch(name, [ctypes.c_void_p] * len(tensors)
+                      + [ctypes.c_int] * len(ints), dev, *tensors, *ints)
 
 
 def _check_kernel_args(u, dt_low, dt_w, A, B, C, D, z, delta_bias):
@@ -146,37 +132,25 @@ def _check_kernel_args(u, dt_low, dt_w, A, B, C, D, z, delta_bias):
         raise ValueError("u, dt_low: (batch, L, ·); dt_w, A: 2-D")
     batch, L, dim = u.shape
     rank, n_state = dt_w.shape[0], A.shape[1]
-    if u.dtype not in _DTYPE_CODE:
+    if u.dtype not in DTYPE_CODE:
         raise TypeError(f"unsupported dtype {u.dtype}: float32 or bfloat16")
     if not (1 <= n_state <= _MAX_STATE and 1 <= rank <= _MAX_RANK):
         raise NotImplementedError(
             f"CUDA selective scan takes 1 <= N <= {_MAX_STATE} and "
             f"1 <= dt_rank <= {_MAX_RANK}; got N={n_state}, r={rank}")
     dev, dt = u.device, u.dtype
-    _check("u", u, dev, dt, (batch, L, dim))
-    _check("dt_low", dt_low, dev, dt, (batch, L, rank))
-    _check("dt_w", dt_w, dev, dt, (rank, dim))
-    _check("A", A, dev, torch.float32, (dim, n_state))
-    _check("B", B, dev, dt, (batch, L, n_state))
-    _check("C", C, dev, dt, (batch, L, n_state))
+    check_tensor("u", u, dev, dt, (batch, L, dim))
+    check_tensor("dt_low", dt_low, dev, dt, (batch, L, rank))
+    check_tensor("dt_w", dt_w, dev, dt, (rank, dim))
+    check_tensor("A", A, dev, torch.float32, (dim, n_state))
+    check_tensor("B", B, dev, dt, (batch, L, n_state))
+    check_tensor("C", C, dev, dt, (batch, L, n_state))
     if D is not None:
-        _check("D", D, dev, torch.float32, (dim,))
+        check_tensor("D", D, dev, torch.float32, (dim,))
     if z is not None:
-        _check("z", z, dev, dt, (batch, L, dim))
+        check_tensor("z", z, dev, dt, (batch, L, dim))
     if delta_bias is not None:
-        _check("delta_bias", delta_bias, dev, torch.float32, (dim,))
-
-
-def _check(name, t, device, dtype, shape):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+        check_tensor("delta_bias", delta_bias, dev, torch.float32, (dim,))
 
 
 def selective_scan_cuda(u, dt_low, dt_w, A, B, C, D=None, z=None,
@@ -190,7 +164,7 @@ def selective_scan_cuda(u, dt_low, dt_w, A, B, C, D=None, z=None,
     Raises on anything else; grouped B/C is not implemented here.  It has
     no backward: under grad mode with an input that requires grad it
     raises (the training route is `selective_scan_dtlow_train`)."""
-    if _needs_grad(u, dt_low, dt_w, A, B, C, D, z, delta_bias):
+    if needs_grad(u, dt_low, dt_w, A, B, C, D, z, delta_bias):
         raise RuntimeError(
             "selective_scan_cuda is the inference kernel and has no "
             "backward; take selective_scan_dtlow_train (kernels 2 and 3) "
@@ -205,7 +179,7 @@ def selective_scan_cuda(u, dt_low, dt_w, A, B, C, D=None, z=None,
     out = torch.empty_like(u)
     _launch("selective_scan_fwd", dev,
             (u, dt_low, dt_w, A, B, C, D, z, delta_bias, out),
-            (batch, L, dim, n_state, rank, _DTYPE_CODE[dt],
+            (batch, L, dim, n_state, rank, DTYPE_CODE[dt],
              int(bool(delta_softplus))))
     selective_scan_cuda.launches += 1
     return out
@@ -354,7 +328,7 @@ def selective_scan_fwd_train_cuda(u, dt_low, dt_w, A, B, C, D=None, z=None,
                       device=u.device)
     _launch("selective_scan_fwd_train", u.device,
             (u, dt_low, dt_w, A, B, C, D, z, delta_bias, y, o, bnd),
-            (batch, L, dim, n_state, rank, _DTYPE_CODE[u.dtype],
+            (batch, L, dim, n_state, rank, DTYPE_CODE[u.dtype],
              int(bool(delta_softplus))))
     selective_scan_fwd_train_cuda.launches += 1
     return y, o, bnd
@@ -372,8 +346,8 @@ def selective_scan_bwd_core_cuda(u, dt_low, dt_w, A, B, C, delta_bias,
     _check_kernel_args(u, dt_low, dt_w, A, B, C, None, None, delta_bias)
     batch, L, dim = u.shape
     rank, n_state = dt_w.shape[0], A.shape[1]
-    _check("go", go, u.device, torch.float32, (batch, L, dim))
-    _check("boundaries", boundaries, u.device, torch.float32,
+    check_tensor("go", go, u.device, torch.float32, (batch, L, dim))
+    check_tensor("boundaries", boundaries, u.device, torch.float32,
            (batch, -(-L // TRAIN_CHUNK), n_state, dim))
     parts = -(-dim // 32)
     du_s = torch.empty(batch, L, dim, device=u.device)
@@ -384,7 +358,7 @@ def selective_scan_bwd_core_cuda(u, dt_low, dt_w, A, B, C, delta_bias,
     _launch("selective_scan_bwd", u.device,
             (u, dt_low, dt_w, A, B, C, delta_bias, go, boundaries, du_s,
              ddt, dB_p, dC_p, dA_p),
-            (batch, L, dim, n_state, rank, _DTYPE_CODE[u.dtype],
+            (batch, L, dim, n_state, rank, DTYPE_CODE[u.dtype],
              int(bool(delta_softplus))))
     selective_scan_bwd_core_cuda.launches += 1
     return du_s, ddt, dA_p.sum(0), dB_p.sum(0), dC_p.sum(0)
@@ -478,7 +452,7 @@ def selective_scan_dtlow(u, dt_low, dt_w, A, B, C, D=None, z=None,
     if impl == "cuda":
         if not u.is_cuda:
             raise ValueError("impl='cuda' takes CUDA tensors only")
-        if _needs_grad(u, dt_low, dt_w, A, B, C, D, z, delta_bias):
+        if needs_grad(u, dt_low, dt_w, A, B, C, D, z, delta_bias):
             return selective_scan_dtlow_train(
                 u, dt_low, dt_w, A, B, C, D=D, z=z, delta_bias=delta_bias,
                 delta_softplus=delta_softplus, reverse=reverse)

@@ -9,11 +9,15 @@ clip, EMA).  Prints JSON lines: the host wall time per step
 (CUDA-synchronized, unprofiled), the device time per step by kernel class
 (the selective-scan kernels, the full-block attention kernel, matmul,
 library attention, optimizer, the rest) and the device's idle share, then
-the top kernels by device time.
+the top kernels by device time.  The flags of `dimsum_torch.bench` select
+the fused-kernel configuration, whose three kernels (add + norm, norm +
+modulate, conv + x_proj) are classes of their own.
 
     python -m dimsum_torch.profile_forward --batch 12 --dtype bf16
     python -m dimsum_torch.profile_forward --image-size 512
     python -m dimsum_torch.profile_forward --train --batch 16
+    python -m dimsum_torch.profile_forward --pallas-norm --fused-norm \
+        --conv-xproj [--pending-tail 2]
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from dimsum_torch import train_bench
-from dimsum_torch.bench import DTYPES, IMAGE_SIZES
+from dimsum_torch.bench import (DTYPES, IMAGE_SIZES, add_fused_flags,
+                                fused_settings)
 from dimsum_torch.models.dim import DiM_models, build_dim, forward_with_cfg
 from dimsum_torch.utils.device import card_name_and_power_limit, resolve_device
 
@@ -37,6 +42,10 @@ CLASSES = (
     ("selective_scan_fwd_train", ("scan_fwd_train_kernel",)),
     ("selective_scan_bwd", ("scan_bwd_kernel",)),
     ("full_block_attention", ("attn_bf16_kernel", "attn_f32_kernel")),
+    # before the library classes: these names hold none of their keys
+    ("add_norm", ("add_norm_kernel",)),
+    ("norm_modulate", ("norm_mod_kernel",)),
+    ("conv_xproj", ("conv_xproj_bf16_kernel", "conv_xproj_f32_kernel")),
     ("optimizer", ("multi_tensor_apply",)),
     ("attention", ("flash", "fmha", "attention", "attn")),
     ("matmul", ("gemm", "nvjet", "sm90_xmma", "cutlass", "cublas")),
@@ -61,19 +70,21 @@ def main(argv=None):
     ap.add_argument("--image-size", type=int, default=256,
                     choices=IMAGE_SIZES,
                     help="pixels; 512 -> latent 64, L = 1024 tokens")
+    add_fused_flags(ap)
     args = ap.parse_args(argv)
+    fused = fused_settings(args)
     latent = args.image_size // 8
     dev = resolve_device("cuda")
 
     if args.train:
         _, step = train_bench.setup(batch=args.batch,
                                     bf16=args.dtype == "bf16", device=dev,
-                                    image_size=args.image_size)
+                                    image_size=args.image_size, **fused)
         rows, grad_mode = args.batch, torch.enable_grad()
     else:
         cfg = DiM_models["DiM-L/2"](img_resolution=latent, num_classes=1000,
                                     use_attn_every_k_layers=4,
-                                    dtype=DTYPES[args.dtype])
+                                    dtype=DTYPES[args.dtype], **fused)
         net = build_dim(cfg, dev, seed=0)
         g = torch.Generator(device=dev).manual_seed(0)
         half = torch.randn((args.batch, 4, latent, latent), generator=g,
@@ -121,6 +132,7 @@ def main(argv=None):
         "card": card_name_and_power_limit(dev.index or 0),
         "step": "train" if args.train else "cfg_forward",
         "image_size": args.image_size, "rows": rows, "dtype": args.dtype,
+        "fused": fused,
         "wall_ms_per_step": wall_ms, "device_ms_per_step": busy_ms,
         "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
         "kernel_launches_per_step": launches / ITERS,

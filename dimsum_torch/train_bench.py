@@ -15,6 +15,11 @@ CUDA events.
 
     python -m dimsum_torch.train_bench --batch 16 --steps 10 --warmup 3
     python -m dimsum_torch.train_bench --image-size 512 --batch 4
+    python -m dimsum_torch.train_bench --pallas-norm --fused-norm \
+        --conv-xproj [--pending-tail 2]
+
+The last runs the JAX package's fused-kernel configuration (the flags of
+`dimsum_torch.bench`).
 
 Prints one JSON line: s/step and img/s on this card, with the card's name
 and power limit, the loss and grad norm of every step, and the peak device
@@ -29,7 +34,8 @@ import time
 
 import torch
 
-from dimsum_torch.bench import IMAGE_SIZES
+from dimsum_torch.bench import (IMAGE_SIZES, add_fused_flags, fused_config,
+                                fused_settings)
 from dimsum_torch.models.dim import DiM_models, build_dim
 from dimsum_torch.parallel import (create_optimizer, create_train_state,
                                    make_train_step)
@@ -39,11 +45,12 @@ from dimsum_torch.utils.device import card_name_and_power_limit, resolve_device
 
 def setup(model: str = "DiM-L/2", batch: int = 16, bf16: bool = True,
           grad_accum: int = 1, device="cuda", seed: int = 0,
-          image_size: int = 256):
+          image_size: int = 256, **fused):
     """The model, its train state and one batch of seeded random latents and
-    labels at `image_size` pixels.  Returns (state, one_step), where
-    one_step() runs one train step on that batch and returns its
-    {"loss", "grad_norm"}."""
+    labels at `image_size` pixels; `fused` sets the DiMConfig switches of
+    the fused-kernel configuration (`bench.fused_config`).  Returns (state,
+    one_step), where one_step() runs one train step on that batch and
+    returns its {"loss", "grad_norm"}."""
     if image_size not in IMAGE_SIZES:
         raise ValueError(f"image_size must be one of {IMAGE_SIZES}")
     dev = resolve_device(device)
@@ -51,7 +58,8 @@ def setup(model: str = "DiM-L/2", batch: int = 16, bf16: bool = True,
     cfg = DiM_models[model](
         img_resolution=latent, num_classes=1000, use_attn_every_k_layers=4,
         label_dropout=0.1, drop_path=0.1,
-        dtype=torch.bfloat16 if bf16 else torch.float32)
+        dtype=torch.bfloat16 if bf16 else torch.float32,
+        **fused_config(**fused))
     net = build_dim(cfg, dev, seed, train=True)
     transport = create_transport("GVP", "velocity")
     optimizer = create_optimizer(net, lr=1e-4, weight_decay=0.0)
@@ -69,13 +77,14 @@ def setup(model: str = "DiM-L/2", batch: int = 16, bf16: bool = True,
 
 def run(model: str = "DiM-L/2", batch: int = 16, bf16: bool = True,
         steps: int = 10, warmup: int = 3, grad_accum: int = 1,
-        device="cuda", seed: int = 0, image_size: int = 256):
+        device="cuda", seed: int = 0, image_size: int = 256, **fused):
     """Build the model and its train state, run `warmup` steps, then time
     `steps` steps.  `model` names a zoo entry (DiM-L/2, or a narrower one
-    for a rehearsal on the CPU).  Returns (record, state)."""
+    for a rehearsal on the CPU); `fused` as in `setup`.  Returns (record,
+    state)."""
     dev = resolve_device(device)
     state, one_step = setup(model, batch, bf16, grad_accum, dev, seed,
-                            image_size)
+                            image_size, **fused)
     metrics = [one_step() for _ in range(warmup)]
     cuda = dev.type == "cuda"
     if cuda:
@@ -101,6 +110,7 @@ def run(model: str = "DiM-L/2", batch: int = 16, bf16: bool = True,
         "steps": steps, "warmup": warmup, "batch": batch,
         "grad_accum": grad_accum, "model": model, "image_size": image_size,
         "dtype": "bf16" if bf16 else "fp32", "params_M": n_params / 1e6,
+        "fused": fused_config(**fused),
         "loss": [m["loss"].item() for m in metrics],
         "grad_norm": [m["grad_norm"].item() for m in metrics],
         "max_memory_allocated_GB": (torch.cuda.max_memory_allocated(dev)
@@ -125,11 +135,13 @@ def main(argv=None):
     ap.add_argument("--image-size", type=int, default=256,
                     choices=IMAGE_SIZES,
                     help="pixels; 512 -> latent 64, L = 1024 tokens")
+    add_fused_flags(ap)
     args = ap.parse_args(argv)
     record, _ = run(model=args.model, batch=args.batch, bf16=not args.fp32,
                     steps=args.steps, warmup=args.warmup,
                     grad_accum=args.grad_accum, device=args.device,
-                    seed=args.seed, image_size=args.image_size)
+                    seed=args.seed, image_size=args.image_size,
+                    **fused_settings(args))
     print(json.dumps(record))
 
 

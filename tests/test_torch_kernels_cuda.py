@@ -338,3 +338,282 @@ def test_attention_function_grads_match_plain_autograd_on_card(cuda, dtype):
     for a, b in zip(got, want):
         assert a.dtype == dtype
         _close(a, b, 2e-5 if dtype == torch.float32 else 1.6e-2)
+
+
+# ---------------------------------------------------------------------------
+# The fused-kernel configuration: add + norm (`csrc/add_norm.cu`), norm +
+# modulate (`csrc/norm_modulate.cu`) and conv + x_proj
+# (`csrc/conv_xproj.cu`), each against its plain version.  Tolerances
+# relative to each tensor's largest value: fp32 1e-5 (rsqrt, exp and
+# summation order); outputs stored in bf16 1.6e-2 (one rounding step either
+# way); x_dbl from bf16 inputs 1e-2 (exact products summed in another
+# order, and an x_conv entry that rounds to the neighbouring bf16 value
+# moves it by 2^-8 of that product).
+# ---------------------------------------------------------------------------
+
+from dimsum_torch.ops.conv_xproj import (  # noqa: E402
+    conv_xproj, conv_xproj_cuda, conv_xproj_ref)
+from dimsum_torch.ops.norms import (  # noqa: E402
+    add_norm_cuda, add_norm_ref, fused_add_norm, norm_modulate,
+    norm_modulate_cuda, norm_modulate_ref)
+
+# (has_branch, has_gate, has_res, has_mod, is_rms, has_w): the call sites
+NORM_CASES = [
+    (True, True, False, True, True, True),    # norm_2
+    (True, False, False, True, True, True),   # gate-less fused add
+    (False, False, True, False, True, True),  # plain add + norm
+    (True, True, False, True, False, False),  # DiT second LN
+    (False, False, False, True, False, False),  # DiT first LN / FinalLayer
+    (True, True, True, False, True, True),    # deferred top (pending tail)
+    (True, True, True, True, False, True),    # everything, LayerNorm + bias
+]
+
+
+def norm_inputs(device, dtype, B=3, L=40, D=256, seed=0):
+    g = torch.Generator().manual_seed(seed)
+
+    def r(*shape, s=1.0):
+        return s * torch.randn(*shape, generator=g)
+
+    x = dict(x=r(B, L, D), branch=r(B, L, D), residual=r(B, L, D),
+             gate=r(B, D, s=0.5), shift=r(B, D, s=0.3), scale=r(B, D, s=0.3),
+             weight=1 + r(D, s=0.1), bias=r(D, s=0.1))
+    fp32 = ("residual", "weight", "bias")
+    return {k: v.to(device, torch.float32 if k in fp32 else dtype)
+            for k, v in x.items()}
+
+
+def norm_kwargs(v, case):
+    has_branch, has_gate, has_res, has_mod, is_rms, has_w = case
+    return dict(weight=v["weight"] if has_w else None,
+                bias=v["bias"] if has_w and not is_rms else None,
+                branch=v["branch"] if has_branch else None,
+                gate=v["gate"] if has_gate else None,
+                residual=v["residual"] if has_res else None,
+                shift=v["shift"] if has_mod else None,
+                scale=v["scale"] if has_mod else None,
+                eps=1e-5 if is_rms else 1e-6, is_rms=is_rms,
+                total_dtype=torch.float32 if has_res else None)
+
+
+def _low(t):
+    return 1.6e-2 if t.dtype == torch.bfloat16 else 1e-5
+
+
+def test_fused_kernels_refuse_cpu_tensors():
+    v = norm_inputs("cpu", torch.float32)
+    D = v["x"].shape[-1]
+    x2, r2 = v["x"].reshape(-1, D), v["residual"].reshape(-1, D)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        add_norm_cuda(x2, r2, v["weight"])
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        norm_modulate_cuda(v["x"], v["weight"], shift=v["shift"],
+                           scale=v["scale"])
+    w = torch.randn(36, D)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        conv_xproj_cuda(v["x"], torch.randn(D, 4), torch.randn(D), w)
+    x2.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        add_norm_cuda(x2, r2, v["weight"])
+    v["x"].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        norm_modulate_cuda(v["x"], v["weight"])
+    with pytest.raises(RuntimeError, match="no backward"):
+        conv_xproj_cuda(v["x"], torch.randn(D, 4), torch.randn(D), w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", NORM_CASES)
+@pytest.mark.parametrize("D", [128, 1152, 4096])
+def test_norm_modulate_kernel_matches_plain_on_card(cuda, dtype, case, D):
+    v = norm_inputs(cuda, dtype, D=D, seed=D)
+    kw = norm_kwargs(v, case)
+    before = norm_modulate_cuda.launches
+    out, tot = norm_modulate_cuda(v["x"], **kw)
+    assert norm_modulate_cuda.launches == before + 1
+    want_out, want_tot = norm_modulate_ref(v["x"], **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == want_out.dtype and tot.dtype == want_tot.dtype
+    _close(out, want_out, _low(out))
+    _close(tot, want_tot, _low(tot))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_norm_modulate_kernel_reads_adaln_chunks_in_place(cuda, dtype):
+    """gate, shift and scale as the blocks give them: chunks of one adaLN
+    projection, rows 3 D apart."""
+    v = norm_inputs(cuda, dtype, B=3, L=40, D=256, seed=11)
+    g = torch.Generator().manual_seed(12)
+    shift, scale, gate = (0.3 * torch.randn(3, 3 * 256, generator=g)).to(
+        cuda, dtype).chunk(3, -1)
+    assert not gate.is_contiguous() and gate.stride(0) == 3 * 256
+    kw = dict(weight=v["weight"], branch=v["branch"], gate=gate,
+              shift=shift, scale=scale)
+    got = norm_modulate_cuda(v["x"], **kw)
+    want = norm_modulate_ref(v["x"], **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        _close(a, b, _low(a))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("is_rms", [True, False])
+@pytest.mark.parametrize("rows, D", [(120, 128), (6144, 1024), (24, 4096),
+                                     (5, 1152)])
+def test_add_norm_kernel_matches_plain_on_card(cuda, dtype, is_rms, rows, D):
+    g = torch.Generator().manual_seed(rows + D)
+    x2 = torch.randn(rows, D, generator=g).to(cuda, dtype)
+    r2 = torch.randn(rows, D, generator=g).to(cuda)
+    w = (1 + 0.1 * torch.randn(D, generator=g)).to(cuda)
+    b = None if is_rms else (0.1 * torch.randn(D, generator=g)).to(cuda)
+    before = add_norm_cuda.launches
+    out, tot = add_norm_cuda(x2, r2, w, b, 1e-5, is_rms)
+    assert add_norm_cuda.launches == before + 1
+    want_out, want_tot = add_norm_ref(x2, r2, w, b, 1e-5, is_rms, dtype)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and tot.dtype == torch.float32
+    _close(out, want_out, _low(out))
+    torch.testing.assert_close(tot, want_tot, rtol=0, atol=0)
+
+
+def conv_inputs(device, dtype, B, L, D, W, R, seed=0, strided=False):
+    """x (B, L, D), as the first half of a (B, L, 2 D) projection when
+    `strided`; conv_w (D, W), conv_b (D,) fp32; w_xp (R, D) fp32."""
+    g = torch.Generator().manual_seed(seed)
+    xz = torch.randn(B, L, 2 * D if strided else D, generator=g)
+    x = xz.to(device, dtype)[..., :D]
+    return (x, (0.3 * torch.randn(D, W, generator=g)).to(device),
+            (0.1 * torch.randn(D, generator=g)).to(device),
+            (torch.randn(R, D, generator=g) / math.sqrt(D)).to(device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("B, L, D, W, R, strided", [
+    (2, 256, 1024, 4, 64, True), (2, 256, 1152, 4, 68, True),
+    (3, 100, 128, 4, 36, False), (1, 33, 192, 3, 100, True),
+    (2, 7, 64, 8, 8, False), (1, 1024, 256, 4, 200, False)])
+def test_conv_xproj_kernel_matches_plain_on_card(cuda, dtype, reverse, B, L,
+                                                 D, W, R, strided):
+    x, cw, cb, w = conv_inputs(cuda, dtype, B, L, D, W, R, seed=L + R,
+                               strided=strided)
+    assert x.is_contiguous() != strided
+    before = conv_xproj_cuda.launches
+    got_c, got_d = conv_xproj_cuda(x, cw, cb, w, reverse)
+    assert conv_xproj_cuda.launches == before + 1
+    want_c, want_d = conv_xproj_ref(x, cw, cb, w, reverse)
+    torch.cuda.synchronize()
+    assert got_c.dtype == dtype and got_d.dtype == torch.float32
+    assert got_d.shape == (B, L, R)
+    _close(got_c, want_c, _low(got_c))
+    _close(got_d, want_d, 1e-2 if dtype == torch.bfloat16 else 1e-5)
+
+
+def test_conv_xproj_kernel_without_bias_repeats_bit_for_bit(cuda):
+    x, cw, _, w = conv_inputs(cuda, torch.bfloat16, 2, 64, 256, 4, 64)
+    a = conv_xproj_cuda(x, cw, None, w)
+    b = conv_xproj_cuda(x, cw, None, w)
+    want = conv_xproj_ref(x, cw, None, w)
+    for got, again, ref, tol in zip(a, b, want, (1.6e-2, 1e-2)):
+        assert torch.equal(got, again)
+        _close(got, ref, tol)
+
+
+def test_fused_kernels_raise_on_what_they_do_not_take(cuda):
+    v = norm_inputs(cuda, torch.float32, D=256)
+    x, res = v["x"], v["residual"]
+    x2, r2 = x.reshape(-1, 256), res.reshape(-1, 256)
+    with torch.no_grad():
+        with pytest.raises(NotImplementedError, match="D % 128"):
+            add_norm_cuda(x2[:, :200].contiguous(), r2[:, :200].contiguous(),
+                          v["weight"][:200].contiguous())
+        with pytest.raises(TypeError):
+            add_norm_cuda(x2.half(), r2, v["weight"])
+        with pytest.raises(TypeError):
+            add_norm_cuda(x2, r2.bfloat16(), v["weight"])
+        with pytest.raises(ValueError, match="contiguous"):
+            add_norm_cuda(x2.t().contiguous().t(), r2, v["weight"])
+        with pytest.raises(NotImplementedError, match="D % 128"):
+            norm_modulate_cuda(torch.zeros(2, 8, 4224, device=cuda))
+        with pytest.raises(TypeError, match="total_dtype"):
+            norm_modulate_cuda(x, total_dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="gate needs a branch"):
+            norm_modulate_cuda(x, gate=v["gate"])
+        with pytest.raises(ValueError, match="together"):
+            norm_modulate_cuda(x, shift=v["shift"])
+        with pytest.raises(TypeError):
+            norm_modulate_cuda(x, shift=v["shift"].bfloat16(),
+                               scale=v["scale"])
+        with pytest.raises(ValueError, match="shape"):
+            norm_modulate_cuda(x, branch=v["branch"][:, :-1].contiguous())
+        with pytest.raises(ValueError, match="aligned"):  # rows 257 apart
+            norm_modulate_cuda(x, shift=torch.zeros(3, 257, device=cuda)
+                               [:, 1:], scale=v["scale"])
+        xc, cw, cb, w = conv_inputs(cuda, torch.float32, 2, 16, 96, 4, 8)
+        with pytest.raises(NotImplementedError, match="D % 64"):
+            conv_xproj_cuda(xc, cw, cb, w)
+        xc, cw, cb, w = conv_inputs(cuda, torch.float32, 2, 16, 128, 9, 8)
+        with pytest.raises(NotImplementedError, match="W <="):
+            conv_xproj_cuda(xc, cw, cb, w)
+        xc, cw, cb, w = conv_inputs(cuda, torch.float32, 2, 16, 128, 4, 8)
+        with pytest.raises(ValueError, match="channels"):
+            conv_xproj_cuda(xc.transpose(1, 2).contiguous().transpose(1, 2),
+                            cw, cb, w)
+        with pytest.raises(TypeError):
+            conv_xproj_cuda(xc, cw.bfloat16(), cb, w)
+        with pytest.raises(TypeError):
+            conv_xproj_cuda(xc.half(), cw, cb, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_functions_grads_match_plain_autograd_on_card(cuda, dtype):
+    """Each Function (kernel forward; analytic or recomputed plain
+    backward) against autograd through its plain version."""
+    tol = 1e-5 if dtype == torch.float32 else 1.6e-2
+    v = norm_inputs(cuda, dtype, B=2, L=16, D=256, seed=7)
+    kw = norm_kwargs(v, NORM_CASES[-1])
+    names = ("weight", "bias", "branch", "gate", "residual", "shift",
+             "scale")
+    x = v["x"].detach().requires_grad_(True)
+    leaves = {k: kw[k].detach().requires_grad_(True) for k in names}
+    rest = dict(eps=kw["eps"], is_rms=kw["is_rms"],
+                total_dtype=kw["total_dtype"])
+    before = norm_modulate_cuda.launches
+    out, tot = norm_modulate(x, **leaves, **rest, fuse=True)
+    assert norm_modulate_cuda.launches == before + 1
+    got = torch.autograd.grad((out.float().square().sum()
+                               + tot.float().sin().sum()),
+                              [x, *leaves.values()])
+    out, tot = norm_modulate_ref(x, **leaves, **rest)
+    want = torch.autograd.grad((out.float().square().sum()
+                                + tot.float().sin().sum()),
+                               [x, *leaves.values()])
+    for a, b in zip(got, want):
+        _close(a, b, tol)
+
+    x2 = v["x"].reshape(-1, 256).detach().requires_grad_(True)
+    r2 = v["residual"].reshape(-1, 256).detach().requires_grad_(True)
+    w = v["weight"].detach().requires_grad_(True)
+    before = add_norm_cuda.launches
+    out, tot = fused_add_norm(x2, w, residual=r2, kernel=True)
+    assert add_norm_cuda.launches == before + 1
+    got = torch.autograd.grad(out.float().square().sum() + tot.sin().sum(),
+                              [x2, r2, w])
+    out, tot = add_norm_ref(x2, r2, w, None, 1e-5, True, dtype)
+    want = torch.autograd.grad(out.float().square().sum() + tot.sin().sum(),
+                               [x2, r2, w])
+    for a, b in zip(got, want):
+        _close(a, b, max(tol, 1e-4))
+
+    xc, cw, cb, wx = (t.detach().requires_grad_(True) for t in
+                      conv_inputs(cuda, dtype, 2, 64, 256, 4, 36, seed=8))
+    before = conv_xproj_cuda.launches
+    got_c, got_d = conv_xproj(xc, cw, cb, wx)
+    assert conv_xproj_cuda.launches == before + 1
+    got = torch.autograd.grad(got_c.float().sum() + got_d.square().sum(),
+                              [xc, cw, cb, wx])
+    want_c, want_d = conv_xproj_ref(xc, cw, cb, wx)
+    want = torch.autograd.grad(want_c.float().sum() + want_d.square().sum(),
+                               [xc, cw, cb, wx])
+    for a, b in zip(got, want):
+        _close(a, b, max(tol, 1e-4))
