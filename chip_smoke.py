@@ -40,50 +40,69 @@ Phases, each printing one JSON line; any failure exits non-zero:
               read just after: 32 launches per step of kernels 2 and 3, none
               of kernel 1; finite losses and grad norms; the parameters and
               their EMA move.
-  9. kernel-attn  the full-block attention kernel against its plain
+  9. kernel-attn  the full-block attention kernels against their plain
               PyTorch version at the 512-px shapes, DiT (24, 1024, 16, 64)
-              and cross (24, 1024, 8, 64), in bf16 and fp32: max error
-              against the stated tolerance, kernel, plain and SDPA times
-              (SDPA is a yardstick only: the port never calls it at these
-              shapes), and the bound; plus the autograd Function's gradient
+              and cross (24, 1024, 8, 64): bf16 through the sm90 kernel
+              (TMA + wgmma, csrc/full_attention_sm90.cu), fp32 through the
+              first one (csrc/full_attention.cu); each record names the
+              kernel that ran.  Max error against the stated tolerance,
+              kernel, plain and SDPA times (SDPA is a yardstick only: the
+              port never calls it at these shapes), and the bound; for bf16
+              also the first kernel, held to the same tolerance and timed
+              on the same inputs.  Plus the autograd Function's gradient
               against the plain version's at a small shape.
  10. model-512  full-width DiM-L/2 at 512 px (latent 64, L 1024) in fp32
               with TF32 off, one CFG forward of 2 images (4 rows) through
               both kernels (scan and attention) and through both plain
-              routes: they must agree, with 36 attention and 32 scan
-              launches per forward.
- 11. sample-512  the 512-px sampling path: `dimsum_torch.bench.run`
+              routes: they must agree, with 36 attention (all through the
+              first kernel) and 32 scan launches per forward.
+ 11. model-512-bf16  the same forward in bf16 at three seeds of inputs,
+              its q and k projections scaled by 4 so that attention is
+              peaked, through the sm90 attention kernel and through the
+              plain attention (the scan kernel on both sides): they must
+              agree within MODEL_512_BF16_TOL, with 36 sm90 launches; and
+              each of the 36 calls, on the inputs the model gave it, within
+              the kernel tolerance of the plain version.  Two faulty
+              attentions (no online rescale; the last key tile dropped)
+              must miss both limits.
+ 12. sample-512  the 512-px sampling path: `dimsum_torch.bench.run`
               with image_size 512 (batch 12, CFG 1.4, GVP velocity, 250
               Euler grid points, bf16).  Counts set to 0 just before and
               read just after: 32 scan and 36 attention launches per
-              forward; the samples must be finite.
- 12. kernel-norm  the add + norm and norm + modulate kernels against their
+              forward, all 36 through the sm90 kernel; the samples must be
+              finite.
+ 13. kernel-norm  the add + norm and norm + modulate kernels against their
               plain PyTorch versions at the 256-px rows (24 x 256 x 1024):
               the add + norm site and every norm + modulate call site
               (norm_2, the DiT block's two LayerNorms, the FinalLayer's,
               the deferred top of the pending tail), bf16 and fp32: max
               error against the stated tolerance, kernel and plain times,
               and the bound.
- 13. kernel-convx  the conv + x_proj kernel against its plain version at the
+ 14. kernel-convx  the conv + x_proj kernel against its plain version at the
               mixer shape (24, 256, 1024, W 4, R 64, x a strided slice of
               in_proj's output), forward and reversed, bf16 and fp32, plus
               L 1024 and DiM-XL/2's R 68: the same fields.
- 14. model-fused  full-width DiM-L/2 at 256 px in fp32 with TF32 off, one
+ 15. model-fused  full-width DiM-L/2 at 256 px in fp32 with TF32 off, one
               CFG forward with the fused-kernel switches on (pallas_norm,
               fused_norm, conv_xproj) through the kernels and through their
               plain versions, and with the switches off: all must agree, at
               pending_tail 0 (15 add + norm, 25 norm + modulate, 32 conv +
               x_proj launches per forward) and 2 (3, 37, 32).
- 15. train-grad-fused  phase 7's training gradient with the three switches
+ 16. train-grad-fused  phase 7's training gradient with the three switches
               on, through the kernels and through their plain versions:
               the loss and every gradient must agree; one forward's
               launches, none from the backward.
- 16. sample-fused  phase 5's sampling run with the three switches on.
+ 17. sample-fused  phase 5's sampling run with the three switches on.
               Counts set to 0 just before and read just after: 15, 25 and
               32 launches per forward; the samples must be finite.
- 17. kernels  one {"kernels": [...]} line (all seven kernels), then the
-              nvidia-smi line, then {"ok": true, "device": {...}} as the
-              last line.
+ 18. sample-fused-512  phase 17's run at 512 px: 15, 25 and 32 fused
+              and 36 sm90 attention launches per forward; finite samples.
+ 19. kernels  one {"kernels": [...]} line (all eight kernels; the two
+              attention kernels with their cross-shape times beside the
+              DiT ones; the first attention kernel, on no main path now,
+              with 0 launches and its model-512 count as check_launches),
+              then the nvidia-smi line, then {"ok": true, "device": {...}}
+              as the last line.
 
 Exits with an error and prints no result when CUDA is not available, or
 when the port's package is not beside this script.
@@ -563,13 +582,32 @@ def attn_inputs(B, L, H, Dh, dtype, seed):
             for i in range(3)]
 
 
+def _first_attention_kernel(q, k, v, scale):
+    """csrc/full_attention.cu on bf16 Dh-64 inputs, which the route sends
+    to the sm90 kernel: its bf16 body checked, and its time for comparison
+    in the same run.  Uncounted."""
+    import torch
+
+    from dimsum_torch.ops import cuda_build
+    from dimsum_torch.ops.cuda_build import DTYPE_CODE
+    from dimsum_torch.ops.full_attention import _ARGTYPES
+
+    B, L, H, Dh = q.shape
+    out = torch.empty(B, L, H, Dh, device=q.device, dtype=q.dtype)
+    cuda_build.launch("full_attention", _ARGTYPES, q.device, q, k, v, out,
+                      q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+                      v.stride(0), v.stride(1), B, L, H, Dh,
+                      DTYPE_CODE[q.dtype], scale)
+    return out
+
+
 def phase_kernel_attn():
     import torch
     import torch.nn.functional as F
 
-    from dimsum_torch.ops.full_attention import (full_attention_ref,
-                                                 full_block_attention,
-                                                 full_block_attention_cuda)
+    from dimsum_torch.ops.full_attention import (
+        full_attention_ref, full_attention_sm90, full_block_attention,
+        full_block_attention_cuda, takes_sm90_kernel)
 
     cases = [
         ("dit-bf16", 24, 1024, 16, 64, torch.bfloat16),
@@ -581,35 +619,54 @@ def phase_kernel_attn():
     for i, (name, B, L, H, Dh, dtype) in enumerate(cases):
         q, k, v = attn_inputs(B, L, H, Dh, dtype, seed=300 + i)
         scale = Dh ** -0.5
+        sm90 = takes_sm90_kernel(dtype, Dh)
+        kernel = "full_attention_sm90" if sm90 else "full_attention"
+        # relative to the output's largest value: fp32 2e-5 (the same fp32
+        # products summed in other orders, exp2 against exp); bf16 1.6e-2
+        # (P rounded to bf16 against the running row max in the kernel, the
+        # final one in the plain version; bf16 output)
+        tol = 2e-5 if dtype == torch.float32 else 1.6e-2
         with torch.inference_mode():
+            before = full_attention_sm90.launches
             got = full_block_attention_cuda(q, k, v, scale).float()
+            took_sm90 = full_attention_sm90.launches - before == 1
             want = full_attention_ref(q, k, v, scale).float()
             torch.cuda.synchronize()
-            # relative to the output's largest value: fp32 2e-5 (the same
-            # fp32 products summed in other orders, exp2 against exp); bf16
-            # 1.6e-2 (P rounded to bf16 against the running row max in the
-            # kernel, the final one in the plain version; bf16 output)
-            tol = 2e-5 if dtype == torch.float32 else 1.6e-2
             scale_ref = want.abs().max().item()
             err = (got - want).abs().max().item()
-            ok = bool(torch.isfinite(got).all()) and err <= tol * scale_ref
+            ok = (bool(torch.isfinite(got).all())
+                  and err <= tol * scale_ref and took_sm90 == sm90)
             ms = cuda_ms(lambda: full_block_attention_cuda(q, k, v, scale),
-                         iters=20)
+                         iters=50)
             plain_ms = cuda_ms(lambda: full_attention_ref(q, k, v, scale),
                                iters=3, warmup=1)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             library_ms = cuda_ms(
                 lambda: F.scaled_dot_product_attention(qt, kt, vt),
-                iters=20)
+                iters=50)
+            first = {}
+            if sm90:
+                # the first kernel (csrc/full_attention.cu), which bf16 at
+                # Dh 72-128 still takes, held to the same tolerance and
+                # timed on the same inputs
+                s = torch.tensor(scale, dtype=dtype).item()
+                got_first = _first_attention_kernel(q, k, v, s).float()
+                torch.cuda.synchronize()
+                first_err = (got_first - want).abs().max().item()
+                ok = ok and first_err <= tol * scale_ref
+                first = {"max_abs_err": first_err, "ms": cuda_ms(
+                    lambda: _first_attention_kernel(q, k, v, s), iters=50)}
+                del got_first
         bound_ms, bound_by, nbytes, flops, n_exp = attn_bound(B, L, H, Dh,
                                                               dtype)
         rec = {"phase": "kernel-attn", "case": name, "shape": [B, L, H, Dh],
-               "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
-               "max_abs_ref": scale_ref, "tol_rel": tol, "ok": ok,
-               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-               "flop": flops, "exp": n_exp,
-               "tflop_per_s": flops / ms / 1e9}
+               "dtype": str(dtype).split(".")[-1], "kernel": kernel,
+               "max_abs_err": err, "max_abs_ref": scale_ref, "tol_rel": tol,
+               "ok": ok, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "bytes": nbytes, "flop": flops,
+               "exp": n_exp, "tflop_per_s": flops / ms / 1e9,
+               "first_kernel": first}
         emit(rec)
         if not ok:
             raise AssertionError(f"attention kernel disagrees on {name}")
@@ -654,7 +711,8 @@ def phase_model_512():
     import torch
 
     from dimsum_torch.models.dim import DiM_models, build_dim, forward_with_cfg
-    from dimsum_torch.ops.full_attention import full_block_attention_cuda
+    from dimsum_torch.ops.full_attention import (full_attention_sm90,
+                                                 full_block_attention_cuda)
     from dimsum_torch.ops.selective_scan import selective_scan_cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -672,11 +730,14 @@ def phase_model_512():
     with torch.inference_mode():
         selective_scan_cuda.launches = 0
         full_block_attention_cuda.launches = 0
+        full_attention_sm90.launches = 0
         got = forward_with_cfg(model, x, t, y, cfg_scale=1.4)
         torch.cuda.synchronize()
+        # fp32: every call through the first kernel, none through sm90
         launches = {"selective_scan_fwd": selective_scan_cuda.launches,
                     "full_block_attention":
-                        full_block_attention_cuda.launches}
+                        full_block_attention_cuda.launches,
+                    "full_attention_sm90": full_attention_sm90.launches}
         for m in _mixers(model):
             m.scan_impl = "ref"
         for m in _attention_modules(model):
@@ -696,10 +757,179 @@ def phase_model_512():
            "finite": bool(torch.isfinite(got).all()),
            "shape": list(got.shape)}
     emit(rec)
-    if (launches != {"selective_scan_fwd": 32, "full_block_attention": 36}
+    if (launches != {"selective_scan_fwd": 32, "full_block_attention": 36,
+                     "full_attention_sm90": 0}
             or not rec["finite"] or not err <= tol
             or rec["shape"] != [4, 4, 64, 64]):
         raise AssertionError(f"model-512 phase failed: {rec}")
+    del model
+    torch.cuda.empty_cache()
+    return launches["full_block_attention"]
+
+
+def _attention_without_rescale(q, k, v, sm_scale):
+    """A faulty full-block attention, a control for model-512-bf16's
+    tolerance: each 64-key tile's P taken against that tile's own row max
+    and the tiles added without the rescale an online softmax owes them."""
+    import torch
+
+    qs = q * torch.tensor(sm_scale, dtype=q.dtype, device=q.device)
+    qt, kt, vt = (t.transpose(1, 2).float() for t in (qs, k, v))
+    s = torch.matmul(qt, kt.transpose(-1, -2)).unflatten(-1, (-1, 64))
+    p = torch.exp(s - s.amax(-1, keepdim=True)).flatten(-2)
+    o = torch.matmul(p.to(v.dtype).float(), vt) / p.sum(-1, keepdim=True)
+    return o.to(q.dtype).transpose(1, 2)
+
+
+def _attention_last_tile_dropped(q, k, v, sm_scale):
+    """The other control: the plain attention over all keys but the last
+    64, what a key loop that stops one tile short computes."""
+    from dimsum_torch.ops.full_attention import full_attention_ref
+
+    return full_attention_ref(q, k[:, :-64], v[:, :-64], sm_scale)
+
+
+# model-512-bf16's limits, relative to the largest value of what they
+# compare, from the phase's readings on an H100 (PERF.md section 6).  The
+# seeded weights give near-uniform attention (logit spread 0.38), where a
+# faulty attention reads no worse than bf16 rounding (end to end 0.0092
+# against 0.0086 sound); the q and k projections are therefore scaled by
+# QK_GAIN 4 (spread 6.1, peaked as a trained model's).  There: end to end,
+# sound 0.0082-0.0112 and the faulty attentions at least 0.054; per call
+# (each of the 36 calls, kernel against plain version on the inputs the
+# model gave it), sound at most 0.0074 and faulty at least 0.34.
+MODEL_512_BF16_TOL = 2.5e-2
+MODEL_512_BF16_CALL_TOL = 1.6e-2  # the kernel tolerance
+MODEL_512_BF16_SEEDS = (2, 3, 4)
+MODEL_512_BF16_QK_GAIN = 4.0
+
+
+def _sharpen_attention(model, gain):
+    """Multiply the q and k projections of every attention module by `gain`
+    (a power of two, exact in bf16): its logits by gain^2."""
+    import torch
+
+    from dimsum_torch.models.attention import Attention
+
+    with torch.no_grad():
+        for m in _attention_modules(model):
+            lins = [m.qkv] if isinstance(m, Attention) else [m.qkv1, m.qkv2]
+            for lin in lins:
+                rows = 2 * lin.weight.shape[0] // 3
+                lin.weight[:rows] *= gain
+                if lin.bias is not None:
+                    lin.bias[:rows] *= gain
+
+
+def phase_model_512_bf16(qk_gain=MODEL_512_BF16_QK_GAIN):
+    """The bf16 512-px CFG forward, the sampling path's own dtype, through
+    the sm90 attention kernel and through the plain attention; the scan
+    kernel runs on both sides, so only the attention differs.  Three seeds
+    of inputs, the attention sharpened by `qk_gain`.  In the kernel's
+    forward each attention call is also held against the plain version on
+    the strided q, k, v the model gave it, and two faulty attentions on the
+    same inputs and through the whole forward show that both limits catch
+    them."""
+    import torch
+
+    from dimsum_torch.models import attention
+    from dimsum_torch.models.dim import DiM_models, build_dim, forward_with_cfg
+    from dimsum_torch.ops.full_attention import (full_attention_ref,
+                                                 full_attention_sm90,
+                                                 full_block_attention_cuda)
+
+    cfg = DiM_models["DiM-L/2"](img_resolution=64, num_classes=1000,
+                                use_attn_every_k_layers=4,
+                                dtype=torch.bfloat16)
+    model = build_dim(cfg, "cuda", seed=0)
+    _sharpen_attention(model, qk_gain)
+    kernel_attention = attention.full_block_attention
+    controls = {"no_rescale": _attention_without_rescale,
+                "last_tile_dropped": _attention_last_tile_dropped}
+
+    def rel_err(got, want):
+        return (got.float() - want).abs().max() / want.abs().max()
+
+    calls = []
+
+    def checked_attention(q, k, v, sm_scale):
+        out = kernel_attention(q, k, v, sm_scale)
+        want = full_attention_ref(q, k, v, sm_scale).float()
+        logits = torch.einsum("lhd,mhd->hlm", q[0].float(), k[0].float())
+        calls.append(torch.stack(
+            [rel_err(out, want)] + [rel_err(fn(q, k, v, sm_scale), want)
+                                    for fn in controls.values()]
+            + [(logits * sm_scale).std()]))
+        return out
+
+    def forward_through(fn, x, t, y):
+        attention.full_block_attention = fn
+        try:
+            return forward_with_cfg(model, x, t, y, cfg_scale=1.4).float()
+        finally:
+            attention.full_block_attention = kernel_attention
+
+    readings, finite, shape = [], True, None
+    with torch.inference_mode():
+        for seed in MODEL_512_BF16_SEEDS:
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            half = torch.randn((2, 4, 64, 64), generator=g, device="cuda")
+            x = torch.cat([half, half])
+            t = torch.rand(2, generator=g, device="cuda").repeat(2)
+            y = torch.cat([
+                torch.randint(0, 1000, (2,), generator=g, device="cuda"),
+                torch.full((2,), 1000, device="cuda")])
+            calls.clear()
+            full_attention_sm90.launches = 0
+            full_block_attention_cuda.launches = 0
+            got = forward_through(checked_attention, x, t, y)
+            torch.cuda.synchronize()
+            counts = {"full_attention_sm90": full_attention_sm90.launches,
+                      "full_block_attention":
+                          full_block_attention_cuda.launches}
+            # over the calls: (kernel, faulty..., logit spread) columns
+            call_max = torch.stack(calls).amax(0).tolist()
+            call_min = torch.stack(calls).amin(0).tolist()
+            finite = finite and bool(torch.isfinite(got).all())
+            shape = list(got.shape)
+            want = forward_through(full_attention_ref, x, t, y)
+            scale = want.abs().max().item()
+            reading = {"seed": seed, "launches": counts, "max_abs_ref": scale,
+                       "calls": len(calls),
+                       "rel_err": (got - want).abs().max().item() / scale,
+                       "call_max_rel_err": call_max[0],
+                       # how peaked the attention is: the spread of the
+                       # first row's logits, the largest over the calls
+                       "call_max_logit_std": call_max[-1]}
+            for i, name in enumerate(controls):
+                bad = forward_through(controls[name], x, t, y)
+                reading[f"{name}_rel_err"] = \
+                    (bad - want).abs().max().item() / scale
+                reading[f"call_{name}_least_rel_err"] = call_min[1 + i]
+            readings.append(reading)
+    worst = max(r["rel_err"] for r in readings)
+    control = min(r[f"{name}_rel_err"] for r in readings for name in controls)
+    call_worst = max(r["call_max_rel_err"] for r in readings)
+    call_control = min(r[f"call_{name}_least_rel_err"] for r in readings
+                       for name in controls)
+    rec = {"phase": "model-512-bf16", "model": "DiM-L/2", "image_size": 512,
+           "tokens": cfg.num_patches, "rows": 4, "dtype": "bfloat16",
+           "qk_gain": qk_gain, "readings": readings, "max_rel_err": worst,
+           "least_control_rel_err": control, "tol_rel": MODEL_512_BF16_TOL,
+           "call_max_rel_err": call_worst,
+           "call_least_control_rel_err": call_control,
+           "call_tol_rel": MODEL_512_BF16_CALL_TOL, "finite": finite,
+           "shape": shape}
+    emit(rec)
+    if (any(r["launches"] != {"full_attention_sm90": 36,
+                              "full_block_attention": 36}
+            or r["calls"] != 36 for r in readings)
+            or not finite or not worst <= MODEL_512_BF16_TOL
+            or not control > MODEL_512_BF16_TOL
+            or not call_worst <= MODEL_512_BF16_CALL_TOL
+            or not call_control > MODEL_512_BF16_CALL_TOL
+            or shape != [4, 4, 64, 64]):
+        raise AssertionError(f"model-512-bf16 phase failed: {rec}")
     del model
     torch.cuda.empty_cache()
 
@@ -708,17 +938,20 @@ def phase_sample_512():
     import torch
 
     from dimsum_torch import bench
-    from dimsum_torch.ops.full_attention import full_block_attention_cuda
+    from dimsum_torch.ops.full_attention import (full_attention_sm90,
+                                                 full_block_attention_cuda)
     from dimsum_torch.ops.selective_scan import selective_scan_cuda
 
     selective_scan_cuda.launches = 0
     full_block_attention_cuda.launches = 0
+    full_attention_sm90.launches = 0
     record, samples = bench.run(batch=12, steps=STEPS, dtype="bf16",
                                 cfg_scale=1.4, device="cuda", seed=0,
                                 image_size=512)
     torch.cuda.synchronize()
     launches = {"selective_scan_fwd": selective_scan_cuda.launches,
-                "full_block_attention": full_block_attention_cuda.launches}
+                "full_block_attention": full_block_attention_cuda.launches,
+                "full_attention_sm90": full_attention_sm90.launches}
     finite = bool(torch.isfinite(samples).all())
     rec = {"phase": "sample-512", **record, "launches": launches,
            "shape": list(samples.shape), "finite": finite,
@@ -727,7 +960,8 @@ def phase_sample_512():
     # one warm-up drift call plus STEPS - 1 Euler steps
     if (not finite or list(samples.shape) != [12, 4, 64, 64]
             or launches["selective_scan_fwd"] != 32 * STEPS
-            or launches["full_block_attention"] != 36 * STEPS):
+            or launches["full_block_attention"] != 36 * STEPS
+            or launches["full_attention_sm90"] != 36 * STEPS):
         raise AssertionError(f"sample-512 phase failed: {rec}")
     return launches
 
@@ -1097,6 +1331,36 @@ def phase_sample_fused():
     return launches
 
 
+def phase_sample_fused_512():
+    """phase_sample_fused's run at 512 px: the fused kernels and the sm90
+    attention kernel together, as the fused 512-px sampling path runs."""
+    import torch
+
+    from dimsum_torch import bench
+    from dimsum_torch.ops.full_attention import full_attention_sm90
+
+    counts = {**_fused_counts(), "full_attention_sm90": full_attention_sm90}
+    for c in counts.values():
+        c.launches = 0
+    record, samples = bench.run(batch=12, steps=STEPS, dtype="bf16",
+                                cfg_scale=1.4, device="cuda", seed=0,
+                                image_size=512, **FUSED_ON)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counts.items()}
+    finite = bool(torch.isfinite(samples).all())
+    rec = {"phase": "sample-fused-512", **record, "launches": launches,
+           "shape": list(samples.shape), "finite": finite,
+           "sample_std": samples.float().std().item()}
+    emit(rec)
+    # one warm-up drift call plus STEPS - 1 Euler steps
+    want = {k: n * STEPS for k, n in FUSED_LAUNCHES[0].items()}
+    want["full_attention_sm90"] = 36 * STEPS
+    if not finite or list(samples.shape) != [12, 4, 64, 64] \
+            or launches != want:
+        raise AssertionError(f"sample-fused-512 phase failed: {rec}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1127,14 +1391,16 @@ def main() -> int:
     phase_train_grad()
     launches.update(phase_train())
     attn = phase_kernel_attn()
-    phase_model_512()
-    launches["full_block_attention"] = \
-        phase_sample_512()["full_block_attention"]
+    first_attn_launches = phase_model_512()
+    phase_model_512_bf16()
+    launches["full_attention_sm90"] = \
+        phase_sample_512()["full_attention_sm90"]
     norms = phase_kernel_norm()
     convx = phase_kernel_convx()
     phase_model_fused()
     phase_train_grad_fused()
     launches.update(phase_sample_fused())
+    phase_sample_fused_512()
 
     main_case = scans["mixer-bf16"]
     kernels = [{
@@ -1168,17 +1434,30 @@ def main() -> int:
             "bound_ms": train_case[key]["bound_ms"],
             "bound_by": train_case[key]["bound_by"],
             "library_ms": None})
-    attn_case = attn["dit-bf16"]
-    kernels.append({
-        "name": "full_block_attention", "route": "cuda",
-        "source": "dimsum_torch/csrc/full_attention.cu",
-        "replaces": "dimsum_tpu/ops/full_attention.py:82",
-        "launches": launches["full_block_attention"],
-        "max_abs_err": max(r["max_abs_err"] for r in attn.values()),
-        "ms": attn_case["ms"], "plain_ms": attn_case["plain_ms"],
-        "bound_ms": attn_case["bound_ms"],
-        "bound_by": attn_case["bound_by"],
-        "library_ms": attn_case["library_ms"]})
+    # the attention: bf16 at Dh 64 (the sampling paths) through the sm90
+    # kernel, with its cross-shape numbers beside the DiT ones.  The first
+    # kernel now serves fp32 and bf16 at Dh 72-128, which no DiM-L/2 main
+    # path runs: 0 launches there; `check_launches` counts its calls in
+    # model-512's fp32 forward (zeroed just before it, read just after)
+    for name, source, cases, n, extra in (
+            ("full_attention_sm90", "dimsum_torch/csrc/full_attention_sm90.cu",
+             ("dit-bf16", "cross-bf16"), launches["full_attention_sm90"], {}),
+            ("full_block_attention", "dimsum_torch/csrc/full_attention.cu",
+             ("dit-fp32", "cross-fp32"), 0,
+             {"check_launches": first_attn_launches,
+              "check_path": "model-512: fp32 512-px CFG forward"})):
+        dit, cross = attn[cases[0]], attn[cases[1]]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": "dimsum_tpu/ops/full_attention.py:82",
+            "launches": n,
+            "max_abs_err": max(dit["max_abs_err"], cross["max_abs_err"]),
+            "ms": dit["ms"], "plain_ms": dit["plain_ms"],
+            "bound_ms": dit["bound_ms"], "bound_by": dit["bound_by"],
+            "library_ms": dit["library_ms"], "cross_ms": cross["ms"],
+            "cross_plain_ms": cross["plain_ms"],
+            "cross_bound_ms": cross["bound_ms"],
+            "cross_library_ms": cross["library_ms"], **extra})
     # the main-path cases: bf16, the add + norm site and norm_2 (no single
     # PyTorch call computes any of the three functions: library_ms null)
     for name, source, replaces, cases, main_case in (

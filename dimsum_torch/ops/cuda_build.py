@@ -26,7 +26,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dimsum_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("selective_scan_fwd", "selective_scan_fwd_train",
-           "selective_scan_bwd", "full_attention", "add_norm",
+           "selective_scan_bwd", "full_attention", "full_attention_sm90",
+           "add_norm",
            "norm_modulate", "conv_xproj")
 # the entry points' dtype argument
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}

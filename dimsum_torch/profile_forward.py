@@ -41,7 +41,8 @@ CLASSES = (
     ("selective_scan", ("scan_fwd_kernel",)),
     ("selective_scan_fwd_train", ("scan_fwd_train_kernel",)),
     ("selective_scan_bwd", ("scan_bwd_kernel",)),
-    ("full_block_attention", ("attn_bf16_kernel", "attn_f32_kernel")),
+    ("full_block_attention", ("attn_sm90_kernel", "attn_bf16_kernel",
+                              "attn_f32_kernel")),
     # before the library classes: these names hold none of their keys
     ("add_norm", ("add_norm_kernel",)),
     ("norm_modulate", ("norm_mod_kernel",)),

@@ -38,7 +38,8 @@ from dimsum_torch.models.attention import (Attention, CrossAttentionFusion,
                                            takes_full_block)
 from dimsum_torch.ops.full_attention import (full_attention_ref,
                                              full_block_attention,
-                                             full_block_supported)
+                                             full_block_supported,
+                                             takes_sm90_kernel)
 from dimsum_torch.utils.convert import state_dict_from_jax_params
 from tests.test_torch_convert import randomize, torch_one_thread  # noqa: F401
 
@@ -175,3 +176,18 @@ def test_routing(monkeypatch, L, Dh, full):
     assert calls == want
     with pytest.raises(ValueError, match="impl"):
         port_attention._sdpa(q, q, q, "cuda")
+
+
+@pytest.mark.parametrize("dtype, Dh, sm90", [
+    (torch.bfloat16, 64, True),     # DiM-L/2 at 512 px: DiT and cross
+    (torch.bfloat16, 72, False),    # DiM-XL/2's heads
+    (torch.bfloat16, 128, False),
+    (torch.float32, 64, False),     # the fp32 checks
+    (torch.float32, 72, False),
+    (torch.float16, 64, False),     # refused later, by the dtype check
+])
+def test_kernel_route_by_dtype_and_head_size(dtype, Dh, sm90):
+    """Inside the CUDA wrapper: bf16 at Dh 64 goes to the TMA + wgmma
+    kernel, everything else to `csrc/full_attention.cu`; a plain function
+    of dtype and Dh, fixed before any launch."""
+    assert takes_sm90_kernel(dtype, Dh) is sm90

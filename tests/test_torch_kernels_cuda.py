@@ -223,8 +223,10 @@ def test_train_route_grads_match_plain_autograd_on_card(cuda, reverse):
 
 
 # ---------------------------------------------------------------------------
-# Full-block attention (`csrc/full_attention.cu`) against its plain version.
-# q, k and v are slices of one qkv tensor, as the modules give them.
+# Full-block attention against its plain version: bf16 at Dh 64 through
+# `csrc/full_attention_sm90.cu` (TMA + wgmma), everything else through
+# `csrc/full_attention.cu`.  q, k and v are slices of one qkv tensor, as the
+# modules give them.
 # Tolerances, relative to the output's largest value: fp32 2e-5 (the same
 # fp32 products summed in other orders, exp2 against exp); bf16 1.6e-2 (the
 # kernel rounds P to bf16 against the running row max, the plain version
@@ -232,7 +234,8 @@ def test_train_route_grads_match_plain_autograd_on_card(cuda, reverse):
 # ---------------------------------------------------------------------------
 
 from dimsum_torch.ops.full_attention import (  # noqa: E402
-    full_attention_ref, full_block_attention, full_block_attention_cuda)
+    full_attention_ref, full_attention_sm90,
+    full_block_attention, full_block_attention_cuda, takes_sm90_kernel)
 
 
 def attn_inputs(device, dtype, B, L, H, Dh, seed=0, logit_scale=1.0):
@@ -268,10 +271,13 @@ def test_attention_kernel_refuses_cpu_tensors():
     (3, 256, 3, 64), (2, 128, 2, 128), (1, 384, 1, 80)])
 def test_attention_kernel_matches_plain_on_card(cuda, dtype, B, L, H, Dh):
     q, k, v = attn_inputs(cuda, dtype, B, L, H, Dh, seed=L + Dh)
+    before = full_attention_sm90.launches
     with torch.no_grad():
         got = full_block_attention(q, k, v, Dh ** -0.5)
         want = full_attention_ref(q, k, v, Dh ** -0.5)
     torch.cuda.synchronize()
+    assert full_attention_sm90.launches - before == int(
+        takes_sm90_kernel(dtype, Dh))
     assert got.dtype == dtype and got.shape == (B, L, H, Dh)
     assert torch.isfinite(got).all()
     _close(got, want, 2e-5 if dtype == torch.float32 else 1.6e-2)
@@ -289,6 +295,82 @@ def test_attention_kernel_large_logits_on_card(cuda, dtype):
         want = full_attention_ref(q, k, v, 0.125)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
+    _close(got, want, 2e-5 if dtype == torch.float32 else 1.6e-2)
+
+
+@pytest.mark.parametrize("L", [128, 256, 384, 1024])
+@pytest.mark.parametrize("scale", [0.125, 0.1])
+def test_sm90_attention_matches_plain_on_card(cuda, L, scale):
+    """bf16 at Dh 64 through the TMA + wgmma kernel, at every L the K/V ring
+    wraps differently (2, 4, 6 and 16 tiles of 64 keys); a power-of-two
+    scale folded into the exponent, any other applied to q first."""
+    q, k, v = attn_inputs(cuda, torch.bfloat16, 2, L, 3, 64, seed=L)
+    before = full_attention_sm90.launches
+    with torch.no_grad():
+        got = full_block_attention(q, k, v, scale)
+    assert full_attention_sm90.launches == before + 1
+    want = full_attention_ref(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    _close(got, want, 1.6e-2)
+
+
+def test_sm90_attention_large_logits_at_L1024_on_card(cuda):
+    """Logits of order 1e3 over 16 key tiles: the running max grows from
+    tile to tile and the output is rescaled each time."""
+    q, k, v = attn_inputs(cuda, torch.bfloat16, 2, 1024, 2, 64, seed=3,
+                          logit_scale=40.0)
+    with torch.no_grad():
+        got = full_block_attention(q, k, v, 0.125)
+    want = full_attention_ref(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    _close(got, want, 1.6e-2)
+
+
+def test_sm90_attention_reads_cross_fusion_slices_on_card(cuda):
+    """q from one projection and k, v from another, as the cross fusion
+    pairs q1 with k2 and v2: other base pointers and other row strides
+    (3 H Dh and, here, 5 H Dh)."""
+    B, L, H = 3, 1024, 8
+    q1 = attn_inputs(cuda, torch.bfloat16, B, L, H, 64, seed=11)[0]
+    g = torch.Generator().manual_seed(12)
+    wide = torch.randn(B, L, 5 * H * 64, generator=g).to(cuda, torch.bfloat16)
+    k2 = wide[..., 2 * H * 64:3 * H * 64].reshape(B, L, H, 64)
+    v2 = wide[..., 4 * H * 64:].reshape(B, L, H, 64)
+    assert q1.stride(1) != k2.stride(1)
+    before = full_attention_sm90.launches
+    with torch.no_grad():
+        got = full_block_attention(q1, k2, v2, 0.125)
+    assert full_attention_sm90.launches == before + 1
+    want = full_attention_ref(q1, k2, v2, 0.125)
+    torch.cuda.synchronize()
+    _close(got, want, 1.6e-2)
+
+
+def test_sm90_attention_repeats_bit_for_bit_on_card(cuda):
+    q, k, v = attn_inputs(cuda, torch.bfloat16, 4, 1024, 4, 64, seed=13)
+    with torch.no_grad():
+        a = full_block_attention(q, k, v, 0.125)
+        b = full_block_attention(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype, Dh", [(torch.bfloat16, 72),
+                                       (torch.float32, 64)])
+def test_attention_other_cases_keep_the_first_kernel_on_card(cuda, dtype,
+                                                             Dh):
+    """bf16 at Dh 72 (DiM-XL/2) and fp32 go to `csrc/full_attention.cu`."""
+    q, k, v = attn_inputs(cuda, dtype, 2, 1024, 2, Dh, seed=Dh)
+    sm90, every = full_attention_sm90.launches, \
+        full_block_attention_cuda.launches
+    with torch.no_grad():
+        got = full_block_attention(q, k, v, Dh ** -0.5)
+    assert full_attention_sm90.launches == sm90
+    assert full_block_attention_cuda.launches == every + 1
+    want = full_attention_ref(q, k, v, Dh ** -0.5)
+    torch.cuda.synchronize()
     _close(got, want, 2e-5 if dtype == torch.float32 else 1.6e-2)
 
 
