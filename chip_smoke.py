@@ -174,20 +174,34 @@ def scan_inputs(batch, L, dim, n, r, dtype, seed):
             for k, v in x.items()}
 
 
+def _bound(nbytes, flops, n_sfu):
+    """(bound ms, "bytes" or "operations", which operations): the largest
+    of the bytes over HBM bandwidth, the fp32 operations over the fp32
+    peak and the transcendentals over the special-function units."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_fp32 = flops / FP32_FLOP_PER_S * 1e3
+    t_sfu = n_sfu / SFU_EXP_PER_S * 1e3
+    t = max(t_bytes, t_fp32, t_sfu)
+    if t == t_bytes:
+        return t, "bytes", None
+    return t, "operations", "sfu" if t_sfu >= t_fp32 else "fp32"
+
+
 def scan_bound(x):
     """Least time for one scan call: each input read once and the output
-    written once, over HBM bandwidth; and the fp32 operations, 2r (dt
+    written once, over HBM bandwidth; the fp32 operations, 2r (dt
     expansion) + 7N (per state: dt*A, exp2, du*B, two FMAs) + 12 (bias,
-    softplus, du, skip, gate) per (b, t, d), over the fp32 peak."""
+    softplus, du, skip, gate) per (b, t, d), over the fp32 peak; and the
+    N + 3 transcendentals per (b, t, d) (an exp2 per state; exp and log in
+    softplus; exp in the gate) over the special-function units.  Returns
+    (ms, bound_by, which operations, bytes, flop, transcendentals)."""
     batch, L, dim = x["u"].shape
     r, n = x["dt_w"].shape[0], x["A"].shape[1]
     nbytes = sum(v.numel() * v.element_size() for v in x.values())
     nbytes += x["u"].numel() * x["u"].element_size()  # the output
     flops = batch * L * dim * (2 * r + 7 * n + 12)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations"), nbytes, flops
+    n_sfu = batch * L * dim * (n + 3)
+    return (*_bound(nbytes, flops, n_sfu), nbytes, flops, n_sfu)
 
 
 def phase_kernel():
@@ -224,20 +238,108 @@ def phase_kernel():
             ms = cuda_ms(lambda: selective_scan_cuda(*args, **kw), iters=20)
             plain_ms = cuda_ms(lambda: selective_scan_dtlow(
                 *args, impl="ref", **kw), iters=3, warmup=1)
-        bound_ms, bound_by, nbytes, flops = scan_bound(x)
         rec = {"phase": "kernel", "case": name, "shape": [batch, L, dim,
                                                           16, 32],
                "dtype": str(dtype).split(".")[-1], "reverse": reverse,
                "max_abs_err": err.max().item(),
                "max_abs_ref": want.abs().max().item(), "tol": tol,
                "ok": ok, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-               "flop": flops}
+               **_bound_fields(scan_bound(x))}
         emit(rec)
         if not ok:
             raise AssertionError(f"kernel disagrees with plain on {name}")
         results[name] = rec
     return results
+
+
+LADDER = ("first", "rung0-k1", "rung1-k2", "rung2-k4", "rung3-k8",
+          "rung4-k4-shfl", "rung5-k4-poly1", "rung6-k4-poly2",
+          "rung7-k4-tc16", "rung8-pack", "rung9-reload", "rung10-mma",
+          "rung11-pack-mma", "rung12-abl-no-recurrence",
+          "rung13-abl-no-expansion", "rung14-abl-neither", "rung15-prefetch",
+          "rung16-stagger", "rung17-pack-mma-prefetch",
+          "rung18-pack-mma-stagger", "rung19-pack-mma-prefetch-stagger",
+          "rung20-abl-skeleton-no-sg", "rung21-abl-skeleton-no-load",
+          "rung22-abl-skeleton-no-store", "rung23-abl-recurrence",
+          "rung24-abl-recurrence-no-load", "rung25-flat",
+          "rung26-pack-mma-flat", "rung27-pack-mma-flat-regpf",
+          "rung28-abl-neither-flat", "rung29-abl-neither-flat-regpf",
+          "rung30-pack-mma-fastsp", "rung31-pack-mma-flat-fastsp",
+          "rung32-k2-pack-flat-fastsp", "rung33-pack-flat-fastsp",
+          "rung34-tc16-pack-mma-fastsp", "rung35-tc16-pack-mma-flat-fastsp",
+          "route")
+
+
+def _scan_variant(name, x):
+    """LADDER BUILD: one step of the scan kernel's design on x (bf16, N 16,
+    r 32): the first design (csrc/selective_scan_fwd_first.cu), a rung of
+    csrc/selective_scan_fwd_ladder.cu, or the route.  Uncounted."""
+    import ctypes
+
+    import torch
+
+    from dimsum_torch.ops import cuda_build
+    from dimsum_torch.ops.selective_scan import selective_scan_cuda
+
+    args = [x[k] for k in ("u", "dt_low", "dt_w", "A", "B", "C", "D")]
+    if name == "route":
+        return selective_scan_cuda(*args, z=x["z"],
+                                   delta_bias=x["delta_bias"],
+                                   delta_softplus=True)
+    batch, L, dim = x["u"].shape
+    r, n = x["dt_w"].shape[0], x["A"].shape[1]
+    out = torch.empty_like(x["u"])
+    ptrs = [t.data_ptr() for t in (*args, x["z"], x["delta_bias"], out)]
+    ints = [batch, L, dim, n, r, 1, 1]
+    stream = torch.cuda.current_stream().cuda_stream
+    if name == "first":
+        fn = cuda_build.load("selective_scan_fwd_first") \
+            .dimsum_selective_scan_fwd_first
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 \
+            + [ctypes.c_void_p]
+        rc = fn(*ptrs, *ints, stream)
+    else:
+        fn = cuda_build.load("selective_scan_fwd_ladder") \
+            .dimsum_selective_scan_fwd_rung
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 \
+            + [ctypes.c_void_p]
+        rc = fn(*ptrs, *ints, int(name[4:].split("-")[0]), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    return out
+
+
+def phase_kernel_ladder(rounds=5, names=LADDER):
+    """LADDER BUILD: every step of the scan kernel's design against the
+    plain version (bf16 tolerance) and timed in turns on the same inputs,
+    at the mixer shape and at L 1024."""
+    import torch
+
+    from dimsum_torch.ops.selective_scan import selective_scan_dtlow
+
+    for name, L in (("mixer-bf16", 256), ("L1024-bf16", 1024)):
+        x = scan_inputs(24, L, 1024, 16, 32, torch.bfloat16, seed=400)
+        args = [x[k] for k in ("u", "dt_low", "dt_w", "A", "B", "C", "D")]
+        kw = dict(z=x["z"], delta_bias=x["delta_bias"], delta_softplus=True)
+        with torch.inference_mode():
+            want = selective_scan_dtlow(*args, impl="ref", **kw).float()
+            errs, times = {}, {v: [] for v in names}
+            for v in names:
+                got = _scan_variant(v, x).float()
+                torch.cuda.synchronize()
+                errs[v] = (got - want).abs().max().item()
+                ok = bool(torch.isfinite(got).all()) and bool(
+                    ((got - want).abs() <= 1.6e-2 * (1 + want.abs())).all())
+                if not ok and "abl" not in v:  # ablations time only
+                    raise AssertionError(f"{v} disagrees on {name}: "
+                                         f"{errs[v]}")
+            for _ in range(rounds):
+                for v in names:
+                    times[v].append(cuda_ms(lambda: _scan_variant(v, x),
+                                            iters=20))
+        emit({"phase": "kernel-ladder", "case": name,
+              **_bound_fields(scan_bound(x)), "max_abs_err": errs,
+              "ms": {v: sorted(t) for v, t in times.items()}})
 
 
 def _mixers(model):
@@ -314,14 +416,17 @@ def phase_sample():
 
 
 def train_bounds(x, chunk):
-    """Least time of the two training kernels on x's shapes, each input
-    read once and each output written once over HBM bandwidth, and the
-    fp32 operations over the fp32 peak.  Kernel 2: kernel 1's inputs, y
-    (u's type), o and the states (fp32); 2r + 7N + 12 flop per (b, t, d).
-    Kernel 3 (with its partial sums): u, dt_low, dt_w, A, B, C, bias, go
-    and the states in, du, ddt (fp32) and dA, dB, dC out; 2r + 20N + 18
-    flop per (b, t, d) (replay: expansion, softplus, sigmoid, 5 per state;
-    reverse step: 15 per state)."""
+    """Least time of the two training kernels on x's shapes: each input
+    read once and each output written once over HBM bandwidth, the fp32
+    operations over the fp32 peak, and the transcendentals over the
+    special-function units (`_bound`).  Kernel 2: kernel 1's inputs, y
+    (u's type), o and the states (fp32); 2r + 7N + 12 flop and N + 3
+    transcendentals per (b, t, d), as kernel 1.  Kernel 3 (with its partial
+    sums): u, dt_low, dt_w, A, B, C, bias, go and the states in, du, ddt
+    (fp32) and dA, dB, dC out; 2r + 20N + 18 flop per (b, t, d) (replay:
+    expansion, softplus, sigmoid, 5 per state; reverse step: 15 per state)
+    and 2N + 3 transcendentals (an exp2 per state in the replay and again
+    in the reverse step; exp and log in softplus; exp in the sigmoid)."""
     batch, L, dim = x["u"].shape
     r, n = x["dt_w"].shape[0], x["A"].shape[1]
     esize = x["u"].element_size()
@@ -335,15 +440,19 @@ def train_bounds(x, chunk):
     bwd_bytes = (common + big * 4 + states                  # go, states
                  + 2 * big * 4 + dim * n * 4 + 2 * small * 4)
     out = {}
-    for name, nbytes, flops in (
-            ("fwd_train", fwd_bytes, big * (2 * r + 7 * n + 12)),
-            ("bwd", bwd_bytes, big * (2 * r + 20 * n + 18))):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOP_PER_S * 1e3
-        out[name] = (max(t_bytes, t_ops),
-                     "bytes" if t_bytes >= t_ops else "operations",
-                     nbytes, flops)
+    for name, nbytes, flops, n_sfu in (
+            ("fwd_train", fwd_bytes, big * (2 * r + 7 * n + 12),
+             big * (n + 3)),
+            ("bwd", bwd_bytes, big * (2 * r + 20 * n + 18),
+             big * (2 * n + 3))):
+        out[name] = (*_bound(nbytes, flops, n_sfu), nbytes, flops, n_sfu)
     return out
+
+
+def _bound_fields(bound):
+    """A scan_bound / train_bounds tuple as record fields."""
+    return dict(zip(("bound_ms", "bound_by", "bound_ops", "bytes", "flop",
+                     "transcendentals"), bound))
 
 
 def _scaled_err(got, want):
@@ -416,14 +525,10 @@ def phase_kernel_train():
                "ok": ok, "low_precision_outputs": low,
                "fwd_train": {"max_abs_err": fwd_err, "ms": fwd_ms,
                              "plain_ms": fwd_plain,
-                             "bound_ms": bounds["fwd_train"][0],
-                             "bound_by": bounds["fwd_train"][1],
-                             "bytes": bounds["fwd_train"][2],
-                             "flop": bounds["fwd_train"][3]},
+                             **_bound_fields(bounds["fwd_train"])},
                "bwd": {"max_abs_err": bwd_err, "ms": bwd_ms,
-                       "plain_ms": bwd_plain, "bound_ms": bounds["bwd"][0],
-                       "bound_by": bounds["bwd"][1],
-                       "bytes": bounds["bwd"][2], "flop": bounds["bwd"][3]}}
+                       "plain_ms": bwd_plain,
+                       **_bound_fields(bounds["bwd"])}}
         emit(rec)
         if not ok:
             raise AssertionError(f"training kernels disagree on {name}")
@@ -1402,7 +1507,9 @@ def main() -> int:
     launches.update(phase_sample_fused())
     phase_sample_fused_512()
 
-    main_case = scans["mixer-bf16"]
+    # the scan at the 256-px mixer shape, with the 512-px one (L 1024)
+    # beside it
+    main_case, long_case = scans["mixer-bf16"], scans["L1024-bf16"]
     kernels = [{
         "name": "selective_scan_fwd",
         "route": "cuda",
@@ -1415,6 +1522,9 @@ def main() -> int:
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
         "library_ms": None,
+        "L1024_ms": long_case["ms"],
+        "L1024_plain_ms": long_case["plain_ms"],
+        "L1024_bound_ms": long_case["bound_ms"],
     }]
     train_case = train_scans["train-bf16"]
     for name, key, source, replaces in (

@@ -88,6 +88,47 @@ def test_kernel_without_optionals_on_card(cuda):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r", [1, 64])
+@pytest.mark.parametrize("n", [1, 5, 8, 16, 32])
+@pytest.mark.parametrize("L", [1, 20, 33, 65])
+def test_kernel_chunk_and_lane_edges_on_card(cuda, dtype, L, n, r):
+    """The kernel's edges: L of one step, below its 32-step chunk and just
+    above a multiple of it; N not a multiple of the lanes a channel's
+    states are spread over (padded with zero states); r of 1 and the
+    largest; a ragged last block of channels."""
+    x = scan_inputs(cuda, dtype, batch=2, L=L, dim=40, n=n, r=r)
+    kw = dict(z=x["z"], delta_bias=x["delta_bias"], delta_softplus=True)
+    got = selective_scan_cuda(*_args(x), **kw).float()
+    want = selective_scan_dtlow(*_args(x), impl="ref", **kw).float()
+    tol = 1e-4 if dtype == torch.float32 else 1.6e-2
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_softplus_at_large_pre_activations_on_card(cuda, dtype):
+    """dt pre-activations near +30 and -30 (half the channels each): the
+    kernel's softplus neither overflows nor cuts off at a threshold."""
+    x = scan_inputs(cuda, dtype, batch=2, L=70, dim=64)
+    x["dt_w"] = 0.01 * x["dt_w"]
+    x["delta_bias"] = torch.where(torch.arange(64, device=cuda) % 2 == 0,
+                                  30.0, -30.0)
+    kw = dict(z=x["z"], delta_bias=x["delta_bias"], delta_softplus=True)
+    got = selective_scan_cuda(*_args(x), **kw).float()
+    want = selective_scan_dtlow(*_args(x), impl="ref", **kw).float()
+    assert torch.isfinite(got).all()
+    tol = 1e-4 if dtype == torch.float32 else 1.6e-2
+    _close(got, want, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_repeats_bit_for_bit_on_card(cuda, dtype):
+    x = scan_inputs(cuda, dtype, batch=3, L=300, dim=200)
+    kw = dict(z=x["z"], delta_bias=x["delta_bias"], delta_softplus=True)
+    first = selective_scan_cuda(*_args(x), **kw)
+    assert torch.equal(first, selective_scan_cuda(*_args(x), **kw))
+
+
 def test_kernel_counts_its_launches(cuda):
     x = scan_inputs(cuda, torch.float32)
     before = selective_scan_cuda.launches
