@@ -13,8 +13,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
   3. kernel   the selective-scan kernel against its plain PyTorch version
               at the DiM-L/2 mixer shape (batch 24, L 256, dim 1024, N 16,
               r 32) in bf16 and fp32, forward and reversed, plus a ragged
-              dim and L 1024: max error against the stated tolerance,
-              kernel and plain times (CUDA events), and the bound.
+              dim and L 1024 (the 512-px mixer): max error against the
+              stated tolerance, kernel and plain times (CUDA events), and
+              the bound (bytes, fp32 operations and the transcendentals on
+              the special-function units, the largest).
   4. model    full-width DiM-L/2 at 256 px (depth 16, seeded random
               weights), one CFG forward in fp32 with TF32 off through the
               kernel and through the plain scan: they must agree, and the
@@ -97,9 +99,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
               32 launches per forward; the samples must be finite.
  18. sample-fused-512  phase 17's run at 512 px: 15, 25 and 32 fused
               and 36 sm90 attention launches per forward; finite samples.
- 19. kernels  one {"kernels": [...]} line (all eight kernels; the two
-              attention kernels with their cross-shape times beside the
-              DiT ones; the first attention kernel, on no main path now,
+ 19. kernels  one {"kernels": [...]} line (all eight kernels; the scan
+              with its L 1024 times and bound beside the mixer-shape ones,
+              the two attention kernels with their cross-shape times beside
+              the DiT ones; the first attention kernel, on no main path now,
               with 0 launches and its model-512 count as check_launches),
               then the nvidia-smi line, then {"ok": true, "device": {...}}
               as the last line.
@@ -187,6 +190,12 @@ def _bound(nbytes, flops, n_sfu):
     return t, "operations", "sfu" if t_sfu >= t_fp32 else "fp32"
 
 
+def _bound_fields(bound):
+    """A scan_bound / train_bounds tuple as record fields."""
+    return dict(zip(("bound_ms", "bound_by", "bound_ops", "bytes", "flop",
+                     "transcendentals"), bound))
+
+
 def scan_bound(x):
     """Least time for one scan call: each input read once and the output
     written once, over HBM bandwidth; the fp32 operations, 2r (dt
@@ -250,96 +259,6 @@ def phase_kernel():
             raise AssertionError(f"kernel disagrees with plain on {name}")
         results[name] = rec
     return results
-
-
-LADDER = ("first", "rung0-k1", "rung1-k2", "rung2-k4", "rung3-k8",
-          "rung4-k4-shfl", "rung5-k4-poly1", "rung6-k4-poly2",
-          "rung7-k4-tc16", "rung8-pack", "rung9-reload", "rung10-mma",
-          "rung11-pack-mma", "rung12-abl-no-recurrence",
-          "rung13-abl-no-expansion", "rung14-abl-neither", "rung15-prefetch",
-          "rung16-stagger", "rung17-pack-mma-prefetch",
-          "rung18-pack-mma-stagger", "rung19-pack-mma-prefetch-stagger",
-          "rung20-abl-skeleton-no-sg", "rung21-abl-skeleton-no-load",
-          "rung22-abl-skeleton-no-store", "rung23-abl-recurrence",
-          "rung24-abl-recurrence-no-load", "rung25-flat",
-          "rung26-pack-mma-flat", "rung27-pack-mma-flat-regpf",
-          "rung28-abl-neither-flat", "rung29-abl-neither-flat-regpf",
-          "rung30-pack-mma-fastsp", "rung31-pack-mma-flat-fastsp",
-          "rung32-k2-pack-flat-fastsp", "rung33-pack-flat-fastsp",
-          "rung34-tc16-pack-mma-fastsp", "rung35-tc16-pack-mma-flat-fastsp",
-          "route")
-
-
-def _scan_variant(name, x):
-    """LADDER BUILD: one step of the scan kernel's design on x (bf16, N 16,
-    r 32): the first design (csrc/selective_scan_fwd_first.cu), a rung of
-    csrc/selective_scan_fwd_ladder.cu, or the route.  Uncounted."""
-    import ctypes
-
-    import torch
-
-    from dimsum_torch.ops import cuda_build
-    from dimsum_torch.ops.selective_scan import selective_scan_cuda
-
-    args = [x[k] for k in ("u", "dt_low", "dt_w", "A", "B", "C", "D")]
-    if name == "route":
-        return selective_scan_cuda(*args, z=x["z"],
-                                   delta_bias=x["delta_bias"],
-                                   delta_softplus=True)
-    batch, L, dim = x["u"].shape
-    r, n = x["dt_w"].shape[0], x["A"].shape[1]
-    out = torch.empty_like(x["u"])
-    ptrs = [t.data_ptr() for t in (*args, x["z"], x["delta_bias"], out)]
-    ints = [batch, L, dim, n, r, 1, 1]
-    stream = torch.cuda.current_stream().cuda_stream
-    if name == "first":
-        fn = cuda_build.load("selective_scan_fwd_first") \
-            .dimsum_selective_scan_fwd_first
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 \
-            + [ctypes.c_void_p]
-        rc = fn(*ptrs, *ints, stream)
-    else:
-        fn = cuda_build.load("selective_scan_fwd_ladder") \
-            .dimsum_selective_scan_fwd_rung
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 \
-            + [ctypes.c_void_p]
-        rc = fn(*ptrs, *ints, int(name[4:].split("-")[0]), stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    return out
-
-
-def phase_kernel_ladder(rounds=5, names=LADDER):
-    """LADDER BUILD: every step of the scan kernel's design against the
-    plain version (bf16 tolerance) and timed in turns on the same inputs,
-    at the mixer shape and at L 1024."""
-    import torch
-
-    from dimsum_torch.ops.selective_scan import selective_scan_dtlow
-
-    for name, L in (("mixer-bf16", 256), ("L1024-bf16", 1024)):
-        x = scan_inputs(24, L, 1024, 16, 32, torch.bfloat16, seed=400)
-        args = [x[k] for k in ("u", "dt_low", "dt_w", "A", "B", "C", "D")]
-        kw = dict(z=x["z"], delta_bias=x["delta_bias"], delta_softplus=True)
-        with torch.inference_mode():
-            want = selective_scan_dtlow(*args, impl="ref", **kw).float()
-            errs, times = {}, {v: [] for v in names}
-            for v in names:
-                got = _scan_variant(v, x).float()
-                torch.cuda.synchronize()
-                errs[v] = (got - want).abs().max().item()
-                ok = bool(torch.isfinite(got).all()) and bool(
-                    ((got - want).abs() <= 1.6e-2 * (1 + want.abs())).all())
-                if not ok and "abl" not in v:  # ablations time only
-                    raise AssertionError(f"{v} disagrees on {name}: "
-                                         f"{errs[v]}")
-            for _ in range(rounds):
-                for v in names:
-                    times[v].append(cuda_ms(lambda: _scan_variant(v, x),
-                                            iters=20))
-        emit({"phase": "kernel-ladder", "case": name,
-              **_bound_fields(scan_bound(x)), "max_abs_err": errs,
-              "ms": {v: sorted(t) for v, t in times.items()}})
 
 
 def _mixers(model):
@@ -425,8 +344,10 @@ def train_bounds(x, chunk):
     sums): u, dt_low, dt_w, A, B, C, bias, go and the states in, du, ddt
     (fp32) and dA, dB, dC out; 2r + 20N + 18 flop per (b, t, d) (replay:
     expansion, softplus, sigmoid, 5 per state; reverse step: 15 per state)
-    and 2N + 3 transcendentals (an exp2 per state in the replay and again
-    in the reverse step; exp and log in softplus; exp in the sigmoid)."""
+    and N + 3 transcendentals: an exp2 per state, exp and log in softplus,
+    and the sigmoid's reciprocal (its exp is softplus's exp(-|x|)).  That
+    the kernel computes each state's exp2 again in the reverse step, and
+    the sigmoid's exp anew, is its own choice and not counted."""
     batch, L, dim = x["u"].shape
     r, n = x["dt_w"].shape[0], x["A"].shape[1]
     esize = x["u"].element_size()
@@ -444,15 +365,9 @@ def train_bounds(x, chunk):
             ("fwd_train", fwd_bytes, big * (2 * r + 7 * n + 12),
              big * (n + 3)),
             ("bwd", bwd_bytes, big * (2 * r + 20 * n + 18),
-             big * (2 * n + 3))):
+             big * (n + 3))):
         out[name] = (*_bound(nbytes, flops, n_sfu), nbytes, flops, n_sfu)
     return out
-
-
-def _bound_fields(bound):
-    """A scan_bound / train_bounds tuple as record fields."""
-    return dict(zip(("bound_ms", "bound_by", "bound_ops", "bytes", "flop",
-                     "transcendentals"), bound))
 
 
 def _scaled_err(got, want):

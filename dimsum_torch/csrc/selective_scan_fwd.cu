@@ -18,41 +18,43 @@
 // What bounds it on an H100 (PERF.md §6).  At the DiM-L/2 mixer shape
 // (batch 24, L 256, dim 1024, N 16, r 32, bf16) the N + 3 = 19
 // transcendentals a (b, t, d) (an exp2 a state; exp and log in softplus;
-// exp in the gate) take 28.6 us on the special-function units (16 an SM a
-// clock, 132 SMs, 1.98 GHz); the 188 fp32 flop a (b, t, d) take 17.7 us
-// and the 38.7 MB read and written 11.5 us.  At L 1024 the SFU floor is
-// 0.114 ms.  The recurrence alone runs at about that floor; what the first
-// design (one thread a channel, dt recomputed in the serial loop, 6 warps
-// an SM) added on top was latency, and what this one adds is instruction
-// issue: the chunk's staging, dt and output phases do not overlap the
-// recurrence's exp2 across the lock-stepped blocks of an SM.
+// exp in the gate) take 28.6 us on the special-function units (SFU: 16 an
+// SM a clock, 132 SMs, 1.98 GHz); the 188 fp32 flop a (b, t, d) take 17.7
+// us and the 38.7 MB read and written 11.5 us.  At L 1024 the SFU floor is
+// 0.114 ms.  The first design (one thread a channel, dt recomputed inside
+// the serial loop, ~6 warps an SM) ran at 8.7x that floor, waiting on the
+// loop's latency.
 //
 // Design.  A block takes 32 channels of one batch row and walks L in
-// chunks of 32 timesteps; each chunk runs three phases between barriers.
+// chunks of 16 timesteps; each chunk runs three phases between barriers.
 //  A  Parallel over (t, d): the chunk's dt_low rows times the block's dt_w
-//     columns (bf16: one mma.sync m16n8k16 tile row a warp, products exact
-//     in fp32 as the Pallas MXU dot's; fp32: FMAs), + bias, softplus; du =
-//     dt u into shared memory as one float2 with dt; the skip D u and the
-//     gate silu(z) kept in registers for phase C.
+//     columns (bf16: mma.sync m16n8k16, products exact in fp32 as the
+//     Pallas MXU dot's; fp32: FMAs), + bias, softplus; dt and du = dt u
+//     into shared memory as one float2; the skip D u and the gate silu(z)
+//     kept in registers for phase C.  All of the chunk's global loads are
+//     issued before the first is stored, so a chunk waits on memory once.
 //  B  The recurrence, each channel's N states spread over 4 lanes (N <= 8,
-//     16, 32: 2, 4, 8 states a lane, padded with zero states that stay
-//     zero), so 4 warps a block and ~23 an SM.  Only h = a h + du B is on
+//     16, 32: 2, 4, 8 states a lane; padded states have A = B = C = 0 and
+//     stay 0), so 4 warps a block and ~23 an SM.  Only h = a h + du B is on
 //     the serial chain; the chunk is unrolled, so later steps' exp2 run
-//     ahead.  Each lane writes its partial sum of C h a step.
+//     ahead.  Each lane writes its partial sum of C h for every step.
 //  C  Parallel over (t, d): the 4 partials + skip, times the gate, stored
 //     along d.
-// softplus and the gate use ex2 / lg2 / rcp.approx (ftz): log1p(e) as
-// lg2(1 + e) ln 2 for e >= 2^-6 and by its series below, so no threshold
-// and ~1e-6 relative; exp2 of the state is ex2.approx.  The ragged last
-// chunk runs the full 32 steps with dt = 0 past the end (the state stays);
-// a ragged dim masks its channels.  No atomics: the output repeats bit for
-// bit.
+// softplus and the gate run on the SFU (ex2 / lg2 / rcp.approx, ftz):
+// log1p(e) is lg2(1 + e) ln 2 for e >= 2^-6 and its series below, so
+// there is no threshold and the error is ~1e-6 relative; the state's exp2
+// is ex2.approx.  A ragged last chunk runs all 16 steps with dt = 0 past
+// the end (the state stays); a ragged dim masks its channels.  No
+// atomics: the output repeats bit for bit.
 //
-// Measured (PERF.md §6, H100 80GB HBM3, 700 W): 0.081 ms at the mixer
-// shape and 0.30 ms at L 1024, against 0.24 and 0.99 ms for the first
-// design, ~2.8x the SFU floor.  Left: overlapping the recurrence with the
-// other phases (a software pipeline across chunks, or producer warps), and
-// the variants the route refuses (h0 / last state, native reverse, grouped
+// Measured (PERF.md §6, H100 80GB HBM3, 700 W): ~0.075 ms at the mixer
+// shape and ~0.28 ms at L 1024 against 0.249 and 0.993 for the first
+// design in the same run, ~2.5x the SFU floor.  The recurrence alone runs
+// at about its floor; what is left is the other phases, which do not
+// overlap it (the blocks of an SM run in lock step, and the kernel is
+// bound by instruction issue).  Next: chunk i + 1's loads and phase A
+// inside chunk i's recurrence (double buffers), or producer warps; and the
+// variants the route refuses (h0 / last state, native reverse, grouped
 // B/C, N > 32).
 
 #include <cuda_bf16.h>
@@ -66,7 +68,7 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kLanes = 4;                      // lanes a channel (phase B)
 constexpr int kChannels = kThreads / kLanes;   // channels a block
-constexpr int kChunk = 32;                     // timesteps a chunk
+constexpr int kChunk = 16;                     // timesteps a chunk
 constexpr int kSteps = kChunk / kLanes;        // timesteps a thread (A, C)
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -157,12 +159,12 @@ __device__ __forceinline__ void lds(const float* p, float* v) {
 template <int NMAX, int RMAX>
 struct Plan {
   static constexpr int kW = 0;                            // [RMAX][32]
-  static constexpr int kDtl = kW + RMAX * kChannels;      // [32][RMAX]
-  static constexpr int kB = kDtl + kChunk * RMAX;         // [32][NMAX]
-  static constexpr int kC = kB + kChunk * NMAX;           // [32][NMAX]
-  static constexpr int kDd = kC + kChunk * NMAX;          // [32][32] float2
-  static constexpr int kY = kDd + 2 * kChunk * kChannels; // [32][128]
-  static constexpr int kBytes = (kY + kChunk * kThreads) * 4;
+  static constexpr int kDtl = kW + RMAX * kChannels;      // [16][RMAX]
+  static constexpr int kB = kDtl + kChunk * RMAX;         // [16][NMAX]
+  static constexpr int kC = kB + kChunk * NMAX;           // [16][NMAX]
+  static constexpr int kDd = kC + kChunk * NMAX;          // [16][32] float2
+  static constexpr int kY = kDd + 2 * kChunk * kChannels; // [16][128]
+  static constexpr int kBytes = (kY + kChunk * kThreads) * 4;  // <= 28 KB
 };
 
 // 6 blocks of 128 threads an SM (80 registers a thread): the 768 blocks of
@@ -222,58 +224,84 @@ scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
   const float dbias = (bias != nullptr && active) ? bias[da] : 0.f;
   const size_t row0 = (size_t)b * L;
 
+  // every global load of the chunk at c0 into registers, all issued before
+  // the first is stored (one memory latency a chunk)
+  constexpr int NDT = kChunk * RMAX / kThreads;
+  constexpr int NBC = kChunk * NMAX / kThreads;
+  T r_dt[NDT], r_b[NBC], r_c[NBC], r_u[kSteps], r_z[kSteps];
+  const T zero = from_f32<T>(0.f);
+  auto load_chunk = [&](int c0) {
+    const int n_t = min(kChunk, L - c0);
+    const T* pd = dt_low + (row0 + c0) * R;
+#pragma unroll
+    for (int j = 0; j < NDT; ++j) {
+      const int i = tid + j * kThreads, tt = i / RMAX, k = i % RMAX;
+      r_dt[j] = (tt < n_t && k < R) ? pd[tt * R + k] : zero;
+    }
+    const T* pb = Bm + (row0 + c0) * N;
+    const T* pc = Cm + (row0 + c0) * N;
+#pragma unroll
+    for (int j = 0; j < NBC; ++j) {
+      const int i = tid + j * kThreads, tt = i / NMAX, n = i % NMAX;
+      const bool ok = tt < n_t && n < N;
+      r_b[j] = ok ? pb[tt * N + n] : zero;
+      r_c[j] = ok ? pc[tt * N + n] : zero;
+    }
+    const size_t base = (row0 + c0) * dim + da;
+#pragma unroll
+    for (int i = 0; i < kSteps; ++i) {
+      const int tt = tg * kSteps + i;
+      const bool ok = active && tt < n_t;
+      r_u[i] = ok ? u[base + tt * dim] : zero;
+      r_z[i] = (ok && z != nullptr) ? z[base + tt * dim] : zero;
+    }
+  };
+
   for (int t0 = 0; t0 < L; t0 += kChunk) {
     const int nt = min(kChunk, L - t0);
-    // stage the chunk's shared rows (zero past its end) and this thread's
-    // u and z
-    for (int i = tid; i < kChunk * RMAX; i += kThreads) {
-      const int tt = i / RMAX, k = i % RMAX;
-      const bool ok = tt < nt && k < R;
+    load_chunk(t0);
+    // the chunk's shared rows in fp32 (bf16: the mma operand as it is)
+#pragma unroll
+    for (int j = 0; j < NDT; ++j) {
+      const int i = tid + j * kThreads, tt = i / RMAX, k = i % RMAX;
       if constexpr (kMma) {
-        dtl_bf[tt * LDB + k] = ok ? dt_low[(row0 + t0 + tt) * R + k]
-                                  : __float2bfloat16(0.f);
+        dtl_bf[tt * LDB + k] = r_dt[j];
       } else {
-        s_dtl[i] = ok ? dt_low[(row0 + t0 + tt) * R + k] : 0.f;
+        s_dtl[i] = r_dt[j];
       }
     }
-    for (int i = tid; i < kChunk * NMAX; i += kThreads) {
-      const int tt = i / NMAX, n = i % NMAX;
-      const bool ok = tt < nt && n < N;
-      const size_t src = (row0 + t0 + tt) * N + n;
-      s_B[i] = ok ? to_f32(Bm[src]) : 0.f;
-      s_C[i] = ok ? to_f32(Cm[src]) : 0.f;
+#pragma unroll
+    for (int j = 0; j < NBC; ++j) {
+      s_B[tid + j * kThreads] = to_f32(r_b[j]);
+      s_C[tid + j * kThreads] = to_f32(r_c[j]);
     }
     float uv[kSteps], zv[kSteps];
 #pragma unroll
     for (int i = 0; i < kSteps; ++i) {
-      const int tt = tg * kSteps + i;
-      const bool ok = active && tt < nt;
-      const size_t idx = (row0 + t0 + tt) * dim + da;
-      uv[i] = ok ? to_f32(u[idx]) : 0.f;
-      zv[i] = (ok && z != nullptr) ? to_f32(z[idx]) : 0.f;
+      uv[i] = to_f32(r_u[i]);
+      zv[i] = to_f32(r_z[i]);
     }
     __syncthreads();
 
     // phase A: dt_low . dt_w for the thread's kSteps timesteps of channel ca
     float acc[kSteps];
     if constexpr (kMma) {
-      // warp tg: its 8 timesteps as rows 0-7 of a 16-row tile (rows 8-15
-      // zero) against the block's 32 channels; the accumulators pass
+      // warp tg: its 4 timesteps as rows 0-3 of a 16-row tile (the other
+      // rows zero) against the block's 32 channels; the accumulators pass
       // through s_y (free until phase B) to the (t, ca) layout
       const int lane = tid & 31, g = lane >> 2, q = lane & 3;
-      const int row = tg * kSteps + g;
+      const bool own = g < kSteps;
+      const int row = tg * kSteps + (own ? g : 0);
       float c4[kChannels / 8][4];
 #pragma unroll
       for (int j = 0; j < kChannels / 8; ++j)
         c4[j][0] = c4[j][1] = c4[j][2] = c4[j][3] = 0.f;
 #pragma unroll
       for (int k0 = 0; k0 < RMAX; k0 += 16) {
+        const __nv_bfloat16* ap = &dtl_bf[row * LDB + k0 + 2 * q];
         const uint32_t a[4] = {
-            *reinterpret_cast<const uint32_t*>(&dtl_bf[row * LDB + k0 + 2 * q]),
-            0u,
-            *reinterpret_cast<const uint32_t*>(
-                &dtl_bf[row * LDB + k0 + 2 * q + 8]),
-            0u};
+            own ? *reinterpret_cast<const uint32_t*>(ap) : 0u, 0u,
+            own ? *reinterpret_cast<const uint32_t*>(ap + 8) : 0u, 0u};
 #pragma unroll
         for (int j = 0; j < kChannels / 8; ++j) {
           const __nv_bfloat16* wp = &w_bf[(j * 8 + g) * LDB + k0 + 2 * q];
@@ -283,8 +311,10 @@ scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
       }
 #pragma unroll
       for (int j = 0; j < kChannels / 8; ++j) {
-        s_y[row * kChannels + j * 8 + 2 * q] = c4[j][0];
-        s_y[row * kChannels + j * 8 + 2 * q + 1] = c4[j][1];
+        if (own) {
+          s_y[row * kChannels + j * 8 + 2 * q] = c4[j][0];
+          s_y[row * kChannels + j * 8 + 2 * q + 1] = c4[j][1];
+        }
       }
       __syncwarp();
 #pragma unroll
@@ -350,7 +380,7 @@ scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
       lds<kLanes>(s_y + tt * kThreads + ca * kLanes, part);
       const float s = ((part[0] + part[1]) + part[2]) + part[3];
       if (active && tt < nt)
-        out[(row0 + t0 + tt) * dim + da] =
+        out[(row0 + t0) * dim + da + tt * dim] =
             from_f32<T>((s + skip[i]) * gate[i]);
     }
   }
@@ -363,20 +393,6 @@ cudaError_t launch(const void* u, const void* dt_low, const void* dt_w,
                    int L, int dim, int N, int R, int use_softplus,
                    cudaStream_t stream) {
   constexpr int kBytes = Plan<NMAX, RMAX>::kBytes;
-  // once per instantiation: dynamic shared memory up to 48 KB (N 32, r 64)
-  // and the carveout that lets 6 blocks (6 x 36 KB at N 16, r 32) share an
-  // SM
-  static const cudaError_t attr = [] {
-    auto k = scan_fwd_kernel<T, NMAX, RMAX>;
-    cudaError_t e = cudaFuncSetAttribute(
-        k, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(k,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-    return e;
-  }();
-  if (attr != cudaSuccess) return attr;
   dim3 grid(batch, (dim + kChannels - 1) / kChannels);
   scan_fwd_kernel<T, NMAX, RMAX><<<grid, kThreads, kBytes, stream>>>(
       static_cast<const T*>(u), static_cast<const T*>(dt_low),

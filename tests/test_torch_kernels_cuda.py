@@ -91,10 +91,10 @@ def test_kernel_without_optionals_on_card(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("r", [1, 64])
 @pytest.mark.parametrize("n", [1, 5, 8, 16, 32])
-@pytest.mark.parametrize("L", [1, 20, 33, 65])
+@pytest.mark.parametrize("L", [1, 9, 17, 33, 65])
 def test_kernel_chunk_and_lane_edges_on_card(cuda, dtype, L, n, r):
-    """The kernel's edges: L of one step, below its 32-step chunk and just
-    above a multiple of it; N not a multiple of the lanes a channel's
+    """The kernel's edges: L of one step, below its 16-step chunk and just
+    above a multiple of it; N not a multiple of the 4 lanes a channel's
     states are spread over (padded with zero states); r of 1 and the
     largest; a ragged last block of channels."""
     x = scan_inputs(cuda, dtype, batch=2, L=L, dim=40, n=n, r=r)
@@ -108,7 +108,8 @@ def test_kernel_chunk_and_lane_edges_on_card(cuda, dtype, L, n, r):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_softplus_at_large_pre_activations_on_card(cuda, dtype):
     """dt pre-activations near +30 and -30 (half the channels each): the
-    kernel's softplus neither overflows nor cuts off at a threshold."""
+    kernel's softplus does not overflow and its output stays finite and
+    close to the plain version's."""
     x = scan_inputs(cuda, dtype, batch=2, L=70, dim=64)
     x["dt_w"] = 0.01 * x["dt_w"]
     x["delta_bias"] = torch.where(torch.arange(64, device=cuda) % 2 == 0,
@@ -119,6 +120,36 @@ def test_kernel_softplus_at_large_pre_activations_on_card(cuda, dtype):
     assert torch.isfinite(got).all()
     tol = 1e-4 if dtype == torch.float32 else 1.6e-2
     _close(got, want, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_softplus_branches_give_dt_on_card(cuda, dtype):
+    """y equals dt itself, so a softplus that cuts off or errs shows: dt_w
+    is zero (dt = softplus(bias)), u = B = C = 1 with N 1, D 0, no gate,
+    and A so negative that every step's decay is exactly 0.  The biases
+    fall on both sides of exp(-|x|) = 2^-6 (|x| = ln 64 = 4.159), where the
+    kernel's log1p switches from lg2 to its series, across the series
+    region (|x| 5 to 15), at 0 and at +-30; each channel's dt is held
+    to the exact softplus relative to its own size."""
+    edge = math.log(64.0)
+    pre = torch.cat([torch.linspace(-15.0, 15.0, 61),
+                     torch.tensor([edge - 1e-3, edge + 1e-3, -edge + 1e-3,
+                                   -edge - 1e-3, 30.0, -30.0, 0.0])])
+    dim, L = pre.numel(), 40
+    x = scan_inputs(cuda, dtype, batch=2, L=L, dim=dim, n=1, r=1)
+    for k in ("u", "B", "C"):
+        x[k] = torch.ones_like(x[k])
+    x["dt_w"] = torch.zeros_like(x["dt_w"])
+    x["A"] = torch.full_like(x["A"], -1e30)
+    x["D"] = torch.zeros_like(x["D"])
+    got = selective_scan_cuda(*_args(x), delta_bias=pre.to(cuda),
+                              delta_softplus=True)
+    dt = torch.logaddexp(pre.double(), torch.zeros((), dtype=torch.float64))
+    want = dt.to(dtype).to(cuda).expand(2, L, dim)
+    # fp32: the file's 1e-4; bf16: one step of the output type (2^-7)
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(got.double(), want.double(), rtol=tol,
+                               atol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
