@@ -52,6 +52,14 @@ def conv_xproj_supported(x, R: int) -> bool:
     return D % 128 == 0 and R <= _MAX_R and L * max(D, 512) * 4 <= 8 * 2**20
 
 
+def _tma_readable(x) -> bool:
+    """The bf16 kernel reads x through a TMA tensor map: its address must
+    be 16-byte aligned and its batch and row strides multiples of 16
+    bytes."""
+    return (x.data_ptr() % 16 == 0 and x.stride(0) % 8 == 0
+            and x.stride(1) % 8 == 0)
+
+
 def conv_xproj_ref(x, conv_w, conv_b, w_xp, reverse: bool = False):
     """x (B, L, D); conv_w (D, W); conv_b (D,) or None; w_xp (R, D).
     Returns (x_conv (B, L, D) in x's dtype, x_dbl (B, L, R) fp32): the
@@ -68,7 +76,8 @@ def conv_xproj_cuda(x, conv_w, conv_b, w_xp, reverse: bool = False):
     """Launch the CUDA kernel: `conv_xproj_ref`'s function.  x (B, L, D) a
     CUDA tensor of float32 or bfloat16 whose channels are contiguous (the
     batch and row strides are free, so the first half of `in_proj`'s output
-    goes in without a copy); conv_w (D, W) and conv_b (D,) float32
+    goes in without a copy; a bf16 x whose address or strides TMA cannot
+    take is copied first); conv_w (D, W) and conv_b (D,) float32
     contiguous (conv_b may be None); w_xp (R, D), cast to x's dtype here.
     D % 64 == 0 and W <= 8.  Returns new contiguous (x_conv, x_dbl).
     Raises on anything else, and under grad mode with an input that
@@ -89,6 +98,8 @@ def conv_xproj_cuda(x, conv_w, conv_b, w_xp, reverse: bool = False):
             f"1 <= W <= {_KERNEL_MAX_W}; got D={D}, W={W}, R={R}")
     if x.stride(2) != 1:
         raise ValueError("x: the channels of each row must be contiguous")
+    if x.dtype == torch.bfloat16 and not _tma_readable(x):
+        x = x.contiguous()
     dev = x.device
     check_tensor("conv_w", conv_w, dev, torch.float32, (D, W))
     if conv_b is not None:

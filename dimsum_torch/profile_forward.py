@@ -46,7 +46,7 @@ CLASSES = (
     # before the library classes: these names hold none of their keys
     ("add_norm", ("add_norm_kernel",)),
     ("norm_modulate", ("norm_mod_kernel",)),
-    ("conv_xproj", ("conv_xproj_bf16_kernel", "conv_xproj_f32_kernel")),
+    ("conv_xproj", ("conv_xproj_sm90_kernel", "conv_xproj_f32_kernel")),
     ("optimizer", ("multi_tensor_apply",)),
     ("attention", ("flash", "fmha", "attention", "attn")),
     ("matmul", ("gemm", "nvjet", "sm90_xmma", "cutlass", "cublas")),

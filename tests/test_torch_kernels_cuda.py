@@ -646,7 +646,16 @@ def conv_inputs(device, dtype, B, L, D, W, R, seed=0, strided=False):
 @pytest.mark.parametrize("B, L, D, W, R, strided", [
     (2, 256, 1024, 4, 64, True), (2, 256, 1152, 4, 68, True),
     (3, 100, 128, 4, 36, False), (1, 33, 192, 3, 100, True),
-    (2, 7, 64, 8, 8, False), (1, 1024, 256, 4, 200, False)])
+    (2, 7, 64, 8, 8, False), (1, 1024, 256, 4, 200, False),
+    # the bf16 route's edges: L one token past a 64-token tile, ragged L, L
+    # one past a 16-token unit; more tiles than resident blocks; the widest
+    # R (four 128-column passes); R that needs padding, on D an odd multiple
+    # of 64; W 1 and W 8
+    (2, 65, 256, 4, 64, True), (2, 127, 256, 4, 64, True),
+    (3, 17, 128, 4, 64, False), (24, 1024, 1024, 4, 64, True),
+    (2, 64, 256, 4, 512, False), (2, 80, 192, 4, 68, True),
+    (2, 100, 256, 4, 200, True), (2, 50, 128, 1, 64, True),
+    (2, 70, 128, 8, 64, True)])
 def test_conv_xproj_kernel_matches_plain_on_card(cuda, dtype, reverse, B, L,
                                                  D, W, R, strided):
     x, cw, cb, w = conv_inputs(cuda, dtype, B, L, D, W, R, seed=L + R,
@@ -671,6 +680,57 @@ def test_conv_xproj_kernel_without_bias_repeats_bit_for_bit(cuda):
     for got, again, ref, tol in zip(a, b, want, (1.6e-2, 1e-2)):
         assert torch.equal(got, again)
         _close(got, ref, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_conv_xproj_kernel_without_bias_matches_plain_on_card(cuda, dtype,
+                                                              reverse):
+    x, cw, _, w = conv_inputs(cuda, dtype, 2, 97, 192, 4, 68, seed=3,
+                              strided=True)
+    got_c, got_d = conv_xproj_cuda(x, cw, None, w, reverse)
+    want_c, want_d = conv_xproj_ref(x, cw, None, w, reverse)
+    torch.cuda.synchronize()
+    _close(got_c, want_c, _low(got_c))
+    _close(got_d, want_d, 1e-2 if dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_conv_xproj_kernel_with_bias_repeats_bit_for_bit_at_mixer_shape(
+        cuda, reverse):
+    x, cw, cb, w = conv_inputs(cuda, torch.bfloat16, 24, 256, 1024, 4, 64,
+                               seed=5, strided=True)
+    a = conv_xproj_cuda(x, cw, cb, w, reverse)
+    b = conv_xproj_cuda(x, cw, cb, w, reverse)
+    want = conv_xproj_ref(x, cw, cb, w, reverse)
+    for got, again, ref, tol in zip(a, b, want, (1.6e-2, 1e-2)):
+        assert torch.equal(got, again)
+        _close(got, ref, tol)
+
+
+def test_conv_xproj_kernel_takes_x_tma_cannot_read_on_card(cuda):
+    """A bf16 x at an odd element offset, or with a row stride that is no
+    multiple of 8, is copied before the kernel reads it."""
+    g = torch.Generator().manual_seed(9)
+    xz = torch.randn(2, 40, 2 * 128 + 4, generator=g).to(cuda, torch.bfloat16)
+    _, cw, cb, w = conv_inputs(cuda, torch.bfloat16, 2, 40, 128, 4, 64)
+    for x in (xz[..., 1:129], xz[..., :128]):
+        got_c, got_d = conv_xproj_cuda(x, cw, cb, w)
+        want_c, want_d = conv_xproj_ref(x, cw, cb, w)
+        torch.cuda.synchronize()
+        _close(got_c, want_c, 1.6e-2)
+        _close(got_d, want_d, 1e-2)
+
+
+def test_conv_xproj_tma_readable_checks_address_and_strides():
+    from dimsum_torch.ops.conv_xproj import _tma_readable
+
+    xz = torch.zeros(2, 40, 2 * 128 + 8, dtype=torch.bfloat16)
+    assert _tma_readable(xz[..., :128])
+    assert _tma_readable(xz[..., 8:136])
+    assert not _tma_readable(xz[..., 1:129])
+    assert not _tma_readable(torch.zeros(2, 40, 260,
+                                         dtype=torch.bfloat16)[..., :128])
 
 
 def test_fused_kernels_raise_on_what_they_do_not_take(cuda):
