@@ -83,7 +83,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
  14. kernel-convx  the conv + x_proj kernel against its plain version at the
               mixer shape (24, 256, 1024, W 4, R 64, x a strided slice of
               in_proj's output), forward and reversed, bf16 and fp32, plus
-              L 1024 and DiM-XL/2's R 68: the same fields.
+              L 1024, DiM-XL/2's R 68, ragged L (65, 127 reversed) and the
+              gate's widest R (512): the same fields.
  15. model-fused  full-width DiM-L/2 at 256 px in fp32 with TF32 off, one
               CFG forward with the fused-kernel switches on (pallas_norm,
               fused_norm, conv_xproj) through the kernels and through their
@@ -100,7 +101,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
  18. sample-fused-512  phase 17's run at 512 px: 15, 25 and 32 fused
               and 36 sm90 attention launches per forward; finite samples.
  19. kernels  one {"kernels": [...]} line (all eight kernels; the scan
-              with its L 1024 times and bound beside the mixer-shape ones,
+              and conv + x_proj with their L 1024 times and bound beside
+              the mixer-shape ones,
               the two attention kernels with their cross-shape times beside
               the DiT ones; the first attention kernel, on no main path now,
               with 0 launches and its model-512 count as check_launches),
@@ -1153,7 +1155,8 @@ def phase_kernel_convx():
         ("mixer-fp32-reverse", 24, 256, 1024, 64, torch.float32, True),
         ("L1024-bf16", 24, 1024, 1024, 64, torch.bfloat16, False),
         ("xl-R68-bf16", 24, 256, 1152, 68, torch.bfloat16, False),
-        # L one token past a 64-token tile and ragged; the gate's widest R
+        # ragged L (one token past four 16-token units, and 127); the
+        # gate's widest R
         ("ragged-L65-bf16", 24, 65, 1024, 64, torch.bfloat16, False),
         ("ragged-L127-bf16-reverse", 24, 127, 1024, 64, torch.bfloat16, True),
         ("R512-bf16", 24, 256, 1024, 512, torch.bfloat16, False),
@@ -1193,170 +1196,6 @@ def phase_kernel_convx():
         del xz, x, got, want
         torch.cuda.empty_cache()
     return results
-
-
-CONVX_LADDER = ("first", "rung0-lockstep", "rung1-streamed-s4",
-                "rung3-resident-s3", "rung6-tile16", "rung7-accurate-silu",
-                "rung8-abl-no-conv", "rung9-abl-no-product",
-                "rung10-abl-no-store", "rung24-ws", "rung13-ws-streamed",
-                "rung14-ws-abl-no-conv", "rung15-ws-abl-no-product",
-                "rung18-ws-abl-tma-only", "probe-64x64", "probe-256x64",
-                "copy", "copy-contiguous", "rung30-pw",
-                "rung51-pw-12w", "rung50-pw-12c-8w", "rung33-pw-abl-no-conv",
-                "rung34-pw-abl-no-product", "rung36-pw-abl-none",
-                "rung38-pw-abl-no-silu", "rung39-pw-abl-fma",
-                "rung55-pw-abl-no-loads", "rung70-wgmma", "route")
-
-
-_CONTIG = {}
-
-
-def _convx_variant(name, x, cw, cb, w):
-    """LADDER BUILD: one step of the conv + x_proj kernel's design on bf16
-    inputs: the first design (csrc/conv_xproj_first.cu), a rung of
-    csrc/conv_xproj_ladder.cu, or the route.  Uncounted."""
-    import ctypes
-
-    import torch
-
-    from dimsum_torch.ops import cuda_build
-    from dimsum_torch.ops.conv_xproj import _ARGTYPES, conv_xproj_cuda
-
-    if name == "copy":  # yardstick: x read and x_conv written by PyTorch
-        return (torch.empty(x.shape, device=x.device, dtype=x.dtype).copy_(x),
-                torch.empty((*x.shape[:2], w.shape[0]), device=x.device))
-    if name == "copy-contiguous":  # yardstick: 2 KB rows both ways
-        xc = _CONTIG.setdefault(x.shape, x.contiguous())
-        return (torch.empty(x.shape, device=x.device, dtype=x.dtype).copy_(xc),
-                torch.empty((*x.shape[:2], w.shape[0]), device=x.device))
-    if name.startswith("probe"):  # TMA reads alone, box ch x (rows + 3)
-        ch, rows = (int(v) for v in name[6:].split("x"))
-        fn = cuda_build.load("conv_xproj_ladder2").dimsum_conv_xproj_probe
-        fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_longlong] * 2
-                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-        rc = fn(x.data_ptr(), x.stride(0), x.stride(1), *x.shape, ch, rows,
-                torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-        return (x, torch.empty((*x.shape[:2], w.shape[0]), device=x.device))
-    if name == "route":
-        saved = conv_xproj_cuda.launches
-        out = conv_xproj_cuda(x, cw, cb, w)
-        conv_xproj_cuda.launches = saved
-        return out
-    B, L, D = x.shape
-    R = w.shape[0]
-    x_conv = torch.empty((B, L, D), device=x.device, dtype=x.dtype)
-    x_dbl = torch.empty((B, L, R), device=x.device, dtype=torch.float32)
-    args = [t.data_ptr() for t in (x, cw, cb, w, x_conv, x_dbl)] + [
-        x.stride(0), x.stride(1), B, L, D, cw.shape[1], R]
-    stream = torch.cuda.current_stream().cuda_stream
-    if name == "first":
-        fn = cuda_build.load("conv_xproj_first").dimsum_conv_xproj_first
-        fn.argtypes = [*_ARGTYPES, ctypes.c_void_p]
-        rc = fn(*args, 1, 0, stream)
-    else:
-        rung = int(name[4:].split("-")[0])
-        tag = ("" if rung <= 10 else "2" if rung < 30 else "3" if rung < 70
-               else "4")
-        fn = getattr(cuda_build.load("conv_xproj_ladder" + tag),
-                     "dimsum_conv_xproj_rung" + tag)
-        fn.argtypes = [*_ARGTYPES[:-2], ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
-        rc = fn(*args, 0, rung, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    return x_conv, x_dbl
-
-
-def phase_kernel_convx_ladder(rounds=3, names=CONVX_LADDER):
-    """LADDER BUILD: every step of the conv + x_proj kernel's design against
-    the plain version (bf16 tolerances) and timed in turns on the same
-    inputs, at the mixer shape and at L 1024."""
-    import torch
-
-    from dimsum_torch.ops.conv_xproj import conv_xproj_ref
-
-    for name, L in (("mixer-bf16", 256), ("L1024-bf16", 1024)):
-        B, D, R = 24, 1024, 64
-        g = torch.Generator(device="cuda").manual_seed(700)
-        xz = torch.randn((B, L, 2 * D), generator=g,
-                         device="cuda").to(torch.bfloat16)
-        x = xz[..., :D]
-        cw = 0.3 * torch.randn((D, 4), generator=g, device="cuda")
-        cb = 0.1 * torch.randn(D, generator=g, device="cuda")
-        w = (torch.randn((R, D), generator=g, device="cuda")
-             / math.sqrt(D)).to(torch.bfloat16)
-        with torch.inference_mode():
-            want = conv_xproj_ref(x, cw, cb, w)
-            errs, times = {}, {v: [] for v in names}
-            for v in names:
-                got = _convx_variant(v, x, cw, cb, w)
-                torch.cuda.synchronize()
-                errs[v] = [(a.float() - b.float()).abs().max().item()
-                           for a, b in zip(got, want)]
-                ok = all(e <= tol * b.float().abs().max().item()
-                         for e, b, tol in zip(errs[v], want, (1.6e-2, 1e-2)))
-                if not ok and "abl" not in v and not v.startswith(
-                        ("copy", "probe")):
-                    raise AssertionError(f"{v} disagrees on {name}: "
-                                         f"{errs[v]}")
-            for _ in range(rounds):
-                for v in names:
-                    times[v].append(cuda_ms(
-                        lambda: _convx_variant(v, x, cw, cb, w), iters=20))
-        bound = convx_bound(B, L, D, 4, R, 2, BF16_TC_FLOP_PER_S)
-        emit({"phase": "kernel-convx-ladder", "case": name,
-              "bound_ms": bound[0], "bound_by": bound[1],
-              "max_abs_err": errs,
-              "ms": {v: sorted(t) for v, t in times.items()}})
-        del xz, x, want
-        torch.cuda.empty_cache()
-
-
-def phase_kernel_convx_phases():
-    """LADDER BUILD: per-warp phase cycles (clock64) of the per-warp design
-    (csrc/conv_xproj_ladder3.cu rungs 59 and 60: with and without loads),
-    written by each warp into x_dbl: wait for the box, conv, A tile,
-    product, pass end and refill, loop; the mean over warps with work."""
-    import ctypes
-
-    import torch
-
-    from dimsum_torch.ops import cuda_build
-    from dimsum_torch.ops.conv_xproj import _ARGTYPES
-
-    fn = cuda_build.load("conv_xproj_ladder3").dimsum_conv_xproj_rung3
-    fn.argtypes = [*_ARGTYPES[:-2], ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    names = ["wait", "conv", "a_tile", "product", "tail", "loop", "total"]
-    for L in (256, 1024):
-        B, D, R = 24, 1024, 64
-        g = torch.Generator(device="cuda").manual_seed(700)
-        xz = torch.randn((B, L, 2 * D), generator=g,
-                         device="cuda").to(torch.bfloat16)
-        x = xz[..., :D]
-        cw = 0.3 * torch.randn((D, 4), generator=g, device="cuda")
-        cb = 0.1 * torch.randn(D, generator=g, device="cuda")
-        w = (torch.randn((R, D), generator=g, device="cuda")
-             / math.sqrt(D)).to(torch.bfloat16)
-        for rung in (59, 60):
-            xc = torch.empty((B, L, D), device="cuda", dtype=torch.bfloat16)
-            xd = torch.zeros((B, L, R), device="cuda")
-            for _ in range(3):
-                rc = fn(x.data_ptr(), cw.data_ptr(), cb.data_ptr(),
-                        w.data_ptr(), xc.data_ptr(), xd.data_ptr(),
-                        x.stride(0), x.stride(1), B, L, D, 4, R, 0, rung,
-                        torch.cuda.current_stream().cuda_stream)
-                if rc != 0:
-                    raise RuntimeError(f"rung {rung}: CUDA error {rc}")
-            torch.cuda.synchronize()
-            ph = xd.flatten()[:132 * 8 * 8].view(132 * 8, 8)[:, :7].cpu()
-            busy = ph[ph[:, 6] > 0]
-            emit({"phase": "kernel-convx-phases", "L": L, "rung": rung,
-                  "warps": len(busy), "names": names,
-                  "mean_cycles": busy.mean(0).tolist(),
-                  "max_total_cycles": busy[:, 6].max().item()})
 
 
 FUSED_ON = dict(pallas_norm=True, fused_norm=True, conv_xproj=True)

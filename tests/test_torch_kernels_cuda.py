@@ -647,10 +647,11 @@ def conv_inputs(device, dtype, B, L, D, W, R, seed=0, strided=False):
     (2, 256, 1024, 4, 64, True), (2, 256, 1152, 4, 68, True),
     (3, 100, 128, 4, 36, False), (1, 33, 192, 3, 100, True),
     (2, 7, 64, 8, 8, False), (1, 1024, 256, 4, 200, False),
-    # the bf16 route's edges: L one token past a 64-token tile, ragged L, L
-    # one past a 16-token unit; more tiles than resident blocks; the widest
-    # R (four 128-column passes); R that needs padding, on D an odd multiple
-    # of 64; W 1 and W 8
+    # the bf16 route's edges: L one token past four 16-token units, ragged
+    # L, L one past a unit; more units than the card's warps take at once;
+    # the widest R (eight 72-column passes); R that needs padding, on D an
+    # odd multiple of 64 (an odd number of chunks for the warp pair to
+    # split); W 1 and W 8
     (2, 65, 256, 4, 64, True), (2, 127, 256, 4, 64, True),
     (3, 17, 128, 4, 64, False), (24, 1024, 1024, 4, 64, True),
     (2, 64, 256, 4, 512, False), (2, 80, 192, 4, 68, True),
