@@ -126,8 +126,7 @@ FP32_FLOP_PER_S = 67e12
 BF16_TC_FLOP_PER_S = 989e12
 # exp on the special-function units: 16 per SM per clock (CUDA programming
 # guide, sm_90), 132 SMs at the 1.98 GHz boost clock
-SM_CLOCK_HZ = 1.98e9
-SFU_EXP_PER_S = 16 * 132 * SM_CLOCK_HZ
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
 STEPS = 250  # Euler grid points of the bench protocol
 # timed and untimed steps of the train phase, as train_bench's defaults
 TRAIN_STEPS, TRAIN_WARMUP = 10, 3
@@ -138,15 +137,11 @@ def emit(obj):
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Device ms per call of fn: the timed calls are queued behind a 20-ms
-    sleep on the card, so that the events time the card's work alone and
-    not the host's launch gaps."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    torch.cuda._sleep(int(20e-3 * SM_CLOCK_HZ))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
