@@ -656,7 +656,10 @@ def conv_inputs(device, dtype, B, L, D, W, R, seed=0, strided=False):
     (3, 17, 128, 4, 64, False), (24, 1024, 1024, 4, 64, True),
     (2, 64, 256, 4, 512, False), (2, 80, 192, 4, 68, True),
     (2, 100, 256, 4, 200, True), (2, 50, 128, 1, 64, True),
-    (2, 70, 128, 8, 64, True)])
+    (2, 70, 128, 8, 64, True),
+    # the taps in shared memory at W 8 beside 64-row w_xp tiles, and read
+    # from conv_w where they do not fit beside 72-row tiles
+    (2, 40, 1024, 8, 64, True), (2, 70, 1152, 8, 68, True)])
 def test_conv_xproj_kernel_matches_plain_on_card(cuda, dtype, reverse, B, L,
                                                  D, W, R, strided):
     x, cw, cb, w = conv_inputs(cuda, dtype, B, L, D, W, R, seed=L + R,
