@@ -26,11 +26,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
               counts are set to 0 just before and read just after; the
               samples must be finite.
   6. kernel-train  the training pair, kernels 2 (forward with saved
-              states) and 3 (backward), against their plain versions at
-              the training mixer shape (batch 16, L 256, dim 1024, N 16,
-              r 32) in bf16 and fp32, forward and reversed, plus a ragged
-              dim: max error against the stated tolerance, kernel and
-              plain times, and the bound.
+              states) and 3 (backward: its carry pass and main pass),
+              against their plain versions at the training mixer shape
+              (batch 16, L 256, dim 1024, N 16, r 32) in bf16 and fp32,
+              forward and reversed, plus a ragged dim, and at the 512-px
+              one (batch 4, L 1024) in bf16 and fp32: max error against
+              the stated tolerance, kernel and plain times, and the bound.
   7. train-grad  full-width DiM-L/2 in fp32 with TF32 off at batch 2, one
               training loss (label dropout 0.1, stochastic depth 0.1, the
               same seeded draws) through the kernels and through the plain
@@ -100,9 +101,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
               32 launches per forward; the samples must be finite.
  18. sample-fused-512  phase 17's run at 512 px: 15, 25 and 32 fused
               and 36 sm90 attention launches per forward; finite samples.
- 19. kernels  one {"kernels": [...]} line (all eight kernels; the scan
-              and conv + x_proj with their L 1024 times and bound beside
-              the mixer-shape ones,
+ 19. kernels  one {"kernels": [...]} line (all eight kernels; the scan,
+              both training kernels and conv + x_proj with their L 1024
+              times and bound beside the mixer-shape ones,
               the two attention kernels with their cross-shape times beside
               the DiT ones; the first attention kernel, on no main path now,
               with 0 launches and its model-512 count as check_launches),
@@ -390,6 +391,9 @@ def phase_kernel_train():
         ("train-fp32", 16, 256, 1024, torch.float32, False),
         ("train-fp32-reverse", 16, 256, 1024, torch.float32, True),
         ("train-ragged-dim-bf16", 16, 256, 1000, torch.bfloat16, False),
+        # the 512-px training mixer: the same tokens in 4 rows of L 1024
+        ("L1024-bf16", 4, 1024, 1024, torch.bfloat16, False),
+        ("L1024-fp32", 4, 1024, 1024, torch.float32, False),
     ]
     results = {}
     for i, (name, batch, L, dim, dtype, reverse) in enumerate(cases):
@@ -450,6 +454,80 @@ def phase_kernel_train():
         if not ok:
             raise AssertionError(f"training kernels disagree on {name}")
         results[name] = rec
+    return results
+
+
+def phase_kernel_train_ladder():
+    """LADDER (timing only, removed with the ladder): the scan backward's
+    designs through their C entry points with pre-allocated outputs, bf16,
+    N 16, r 32, at (16, 256, 1024) and (4, 1024, 1024): three timed runs
+    of 20 launches in turns, median ms.  Variants of the route
+    (csrc/selective_scan_bwd_ladder.cu): 3 a_t computed again and each
+    chunk loaded when it starts; 1 a_t computed again; 2 each chunk loaded
+    when it starts; 0 the route; 4 no dB/dC reduction; 8 the main pass
+    alone; 16 the carry pass alone."""
+    import ctypes
+    import statistics
+
+    import torch
+
+    from dimsum_torch.ops import cuda_build
+    from dimsum_torch.ops import selective_scan as ss
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    dev = torch.device("cuda")
+    results = {}
+    for batch, L, dim in ((16, 256, 1024), (4, 1024, 1024)):
+        x = scan_inputs(batch, L, dim, 16, 32, torch.bfloat16, seed=300)
+        args = [x[k] for k in ("u", "dt_low", "dt_w", "A", "B", "C", "D")]
+        kw = dict(z=x["z"], delta_bias=x["delta_bias"], delta_softplus=True)
+        with torch.no_grad():
+            _, _, bnd = ss.selective_scan_fwd_train_cuda(*args, **kw)
+        go = torch.randn(batch, L, dim, device=dev)
+        nc = -(-L // 16)
+        ints = (batch, L, dim, 16, 32, 1, 1)
+        ins = (*args[:6], x["delta_bias"], go, bnd)
+
+        def f32(*shape):
+            return torch.empty(shape, device=dev)
+
+        du, ddt = f32(batch, L, dim), f32(batch, L, dim)
+        first_out = (du, ddt, f32(dim // 32, batch, L, 16),
+                     f32(dim // 32, batch, L, 16), f32(batch, dim, 16))
+        route_out = (f32(batch, nc, 16, dim), du, ddt,
+                     f32(dim // 64, batch, L, 16),
+                     f32(dim // 64, batch, L, 16),
+                     f32(batch, -(-nc // 4), dim, 16))
+
+        def first():
+            cuda_build.launch("selective_scan_bwd_first", [P] * 14 + [I] * 7,
+                              dev, *ins, *first_out, *ints)
+
+        def variant(v):
+            return lambda: cuda_build.launch(
+                "selective_scan_bwd_ladder", [I] + [P] * 15 + [I] * 7, dev,
+                v, *ins, *route_out, *ints)
+
+        runs = {"first": first}
+        runs.update({f"v{v}": variant(v) for v in (3, 1, 2, 0, 4, 8, 16)})
+        # the route's entry agrees with the wrapper before it is timed
+        want = ss.selective_scan_bwd_core_cuda(*ins[:6], ins[6], True, go,
+                                               bnd)
+        variant(0)()
+        torch.cuda.synchronize()
+        agree = bool(torch.equal(du, want[0]) and torch.equal(ddt, want[1]))
+        times = {k: [] for k in runs}
+        with torch.no_grad():
+            for _ in range(3):
+                for k, fn in runs.items():
+                    times[k].append(cuda_ms(fn, iters=20))
+        rec = {"phase": "kernel-train-ladder", "shape": [batch, L, dim, 16,
+                                                         32],
+               "route_agrees": agree,
+               "ms": {k: statistics.median(v) for k, v in times.items()},
+               "runs": times}
+        emit(rec)
+        results[L] = rec
     return results
 
 
@@ -1448,7 +1526,8 @@ def main() -> int:
         "L1024_plain_ms": long_case["plain_ms"],
         "L1024_bound_ms": long_case["bound_ms"],
     }]
-    train_case = train_scans["train-bf16"]
+    train_case, train_long = train_scans["train-bf16"], \
+        train_scans["L1024-bf16"]
     for name, key, source, replaces in (
             ("selective_scan_fwd_train", "fwd_train",
              "dimsum_torch/csrc/selective_scan_fwd_train.cu",
@@ -1465,7 +1544,10 @@ def main() -> int:
             "plain_ms": train_case[key]["plain_ms"],
             "bound_ms": train_case[key]["bound_ms"],
             "bound_by": train_case[key]["bound_by"],
-            "library_ms": None})
+            "library_ms": None,
+            "L1024_ms": train_long[key]["ms"],
+            "L1024_plain_ms": train_long[key]["plain_ms"],
+            "L1024_bound_ms": train_long[key]["bound_ms"]})
     # the attention: bf16 at Dh 64 (the sampling paths) through the sm90
     # kernel, with its cross-shape numbers beside the DiT ones.  The first
     # kernel now serves fp32 and bf16 at Dh 72-128, which no DiM-L/2 main

@@ -43,15 +43,19 @@ __all__ = ["selective_scan_ref", "selective_scan_cuda", "selective_scan_dtlow",
            "selective_scan_fwd_train", "selective_scan_fwd_train_ref",
            "selective_scan_fwd_train_cuda", "selective_scan_bwd",
            "selective_scan_bwd_ref", "selective_scan_bwd_core_ref",
-           "selective_scan_bwd_core_cuda",
+           "selective_scan_bwd_core_cuda", "selective_scan_bwd_carry_ref",
            "SelectiveScanDtLowFn", "selective_scan_dtlow_train",
            "TRAIN_CHUNK"]
 
 # Timesteps between the chunk-start states that the training forward saves
 # and the backward replays from: the contract between kernels 2 and 3.  The
-# backward keeps a chunk's replayed states in shared memory, (chunk + 1) x N
-# x 64 channels x 4 B = 68 KB at N 16 (csrc/selective_scan_bwd.cu).
+# backward runs the chunks in parallel, each lane keeping its states of one
+# chunk in registers (csrc/selective_scan_bwd.cu).
 TRAIN_CHUNK = 16
+# The backward kernel's partial sums: dB and dC one per tile of
+# _BWD_TILE channels, dA one per batch row and group of _BWD_GROUP chunks
+# (kBlockCh and kGroup in csrc/selective_scan_bwd.cu).
+_BWD_TILE, _BWD_GROUP = 64, 4
 
 
 def softplus(x):
@@ -236,13 +240,56 @@ def selective_scan_fwd_train_ref(u, dt_low, dt_w, A, B, C, D=None, z=None,
     return y.to(u.dtype), o, torch.stack(bnd, dim=1)
 
 
+def selective_scan_bwd_carry_ref(dt_low, dt_w, A, C, delta_bias,
+                                 delta_softplus, go,
+                                 chunk: int = TRAIN_CHUNK):
+    """Plain version of kernel 3's carry pass: w (batch, ceil(L / chunk), N,
+    dim) fp32, the carry a_{t+1} e_{t+1} entering each chunk from the right
+    at its last step t (zero for the last chunk).  The reverse recurrence
+    e_t = C_t go_t + a_{t+1} e_{t+1} needs only dt, C and go, so every
+    chunk's decay alpha = exp(A sum_t dt_t) and its carry out of its first
+    step from a zero seed, beta, come in parallel; then
+    w_{c-1} = alpha_c w_c + beta_c from the right.  A ragged last chunk runs
+    with dt = 0 and go = 0 past the end, as the kernel does."""
+    batch, L, _ = dt_low.shape
+    dim, n = A.shape
+    nc = -(-L // chunk)
+    pad = nc * chunk - L
+    dt, _ = _dt_expand(dt_low, dt_w, delta_bias, delta_softplus)
+
+    def chunks(x):  # (batch, L, k) -> (batch, nc, chunk, k), zero-padded
+        x = torch.nn.functional.pad(x.float(), (0, 0, 0, pad))
+        return x.view(batch, nc, chunk, x.shape[-1])
+
+    dt, gof, Cf = chunks(dt), chunks(go), chunks(C)
+    Af = A.float()
+    beta = torch.zeros(batch, nc, dim, n, device=dt.device)
+    for t in reversed(range(chunk)):
+        beta = torch.exp(dt[:, :, t, :, None] * Af) * (
+            gof[:, :, t, :, None] * Cf[:, :, t, None, :] + beta)
+    alpha = torch.exp(dt.sum(2)[..., None] * Af)
+    w = torch.empty(batch, nc, dim, n, device=dt.device)
+    carry = torch.zeros(batch, dim, n, device=dt.device)
+    for c in reversed(range(nc)):
+        w[:, c] = carry
+        carry = alpha[:, c] * carry + beta[:, c]
+    return w.transpose(2, 3).contiguous()
+
+
 def selective_scan_bwd_core_ref(u, dt_low, dt_w, A, B, C, delta_bias,
                                 delta_softplus, go, boundaries,
-                                chunk: int = TRAIN_CHUNK):
+                                chunk: int = TRAIN_CHUNK, carries=None,
+                                return_carries: bool = False):
     """Plain version of kernel 3: the reverse recurrence of the JAX
     `selective_scan_bwd` docstring (selective_scan_bwd.py:27-36), chunk by
     chunk from the last, each chunk's states replayed from its saved start.
-    go = dL/ds (fp32).  Returns fp32 (du_scan, ddelta, dA, dB, dC)."""
+    go = dL/ds (fp32).  Returns fp32 (du_scan, ddelta, dA, dB, dC).
+
+    The carry a_{t+1} e_{t+1} runs from chunk to chunk; with `carries`
+    (the carry pass's w, `selective_scan_bwd_carry_ref`) each chunk starts
+    from its own instead, as the kernel's chunks do.  `return_carries`
+    appends the carries that entered the chunks, (batch, ceil(L / chunk),
+    N, dim)."""
     batch, L, dim = u.shape
     n = A.shape[1]
     dt, raw = _dt_expand(dt_low, dt_w, delta_bias, delta_softplus)
@@ -254,8 +301,12 @@ def selective_scan_bwd_core_ref(u, dt_low, dt_w, A, B, C, delta_bias,
     dA = torch.zeros(dim, n, device=u.device)
     sig = torch.sigmoid(raw)
     carry = torch.zeros(batch, dim, n, device=u.device)  # a_{t+1} e_{t+1}
+    seen = torch.empty(batch, boundaries.shape[1], dim, n, device=u.device)
     for c in reversed(range(boundaries.shape[1])):
         t0, t1 = c * chunk, min(L, (c + 1) * chunk)
+        if carries is not None:
+            carry = carries[:, c].transpose(1, 2).float()
+        seen[:, c] = carry
         hs = [boundaries[:, c].transpose(1, 2).float()]
         for t in range(t0, t1):
             a = torch.exp(dt[:, t, :, None] * Af)
@@ -273,6 +324,8 @@ def selective_scan_bwd_core_ref(u, dt_low, dt_w, A, B, C, delta_bias,
             dC[:, t] = (hs[t - t0 + 1] * go[:, t, :, None]).sum(1)
             dA += (da_a * dt[:, t, :, None]).sum(0)
             carry = a * e
+    if return_carries:
+        return du_s, ddt, dA, dB, dC, seen.transpose(2, 3).contiguous()
     return du_s, ddt, dA, dB, dC
 
 
@@ -339,29 +392,35 @@ selective_scan_fwd_train_cuda.launches = 0
 
 def selective_scan_bwd_core_cuda(u, dt_low, dt_w, A, B, C, delta_bias,
                                  delta_softplus, go, boundaries):
-    """Launch kernel 3 (`csrc/selective_scan_bwd.cu`), the CUDA counterpart
-    of `selective_scan_bwd_core_ref`.  dB/dC come back as one partial per
-    warp of 32 channels and dA as one per batch row; the sums here make
-    them deterministic (no float atomics)."""
+    """Launch kernel 3 (`csrc/selective_scan_bwd.cu`: its carry pass, then
+    its main pass), the CUDA counterpart of `selective_scan_bwd_core_ref`.
+    The carry pass leaves the carry entering each chunk in a workspace
+    (`selective_scan_bwd_carry_ref`'s w).  dB/dC come back as one partial
+    per tile of _BWD_TILE channels and dA as one per batch row and group of
+    _BWD_GROUP chunks; the sums here make them deterministic (no float
+    atomics)."""
     _check_kernel_args(u, dt_low, dt_w, A, B, C, None, None, delta_bias)
     batch, L, dim = u.shape
     rank, n_state = dt_w.shape[0], A.shape[1]
+    n_chunks = -(-L // TRAIN_CHUNK)
     check_tensor("go", go, u.device, torch.float32, (batch, L, dim))
     check_tensor("boundaries", boundaries, u.device, torch.float32,
-           (batch, -(-L // TRAIN_CHUNK), n_state, dim))
-    parts = -(-dim // 32)
-    du_s = torch.empty(batch, L, dim, device=u.device)
-    ddt = torch.empty(batch, L, dim, device=u.device)
-    dB_p = torch.empty(parts, batch, L, n_state, device=u.device)
-    dC_p = torch.empty(parts, batch, L, n_state, device=u.device)
-    dA_p = torch.empty(batch, dim, n_state, device=u.device)
-    _launch("selective_scan_bwd", u.device,
-            (u, dt_low, dt_w, A, B, C, delta_bias, go, boundaries, du_s,
+                 (batch, n_chunks, n_state, dim))
+    dev = u.device
+    parts, groups = -(-dim // _BWD_TILE), -(-n_chunks // _BWD_GROUP)
+    w = torch.empty(batch, n_chunks, n_state, dim, device=dev)
+    du_s = torch.empty(batch, L, dim, device=dev)
+    ddt = torch.empty(batch, L, dim, device=dev)
+    dB_p = torch.empty(parts, batch, L, n_state, device=dev)
+    dC_p = torch.empty(parts, batch, L, n_state, device=dev)
+    dA_p = torch.empty(batch, groups, dim, n_state, device=dev)
+    _launch("selective_scan_bwd", dev,
+            (u, dt_low, dt_w, A, B, C, delta_bias, go, boundaries, w, du_s,
              ddt, dB_p, dC_p, dA_p),
             (batch, L, dim, n_state, rank, DTYPE_CODE[u.dtype],
              int(bool(delta_softplus))))
     selective_scan_bwd_core_cuda.launches += 1
-    return du_s, ddt, dA_p.sum(0), dB_p.sum(0), dC_p.sum(0)
+    return du_s, ddt, dA_p.sum((0, 1)), dB_p.sum(0), dC_p.sum(0)
 
 
 selective_scan_bwd_core_cuda.launches = 0

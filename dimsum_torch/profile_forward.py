@@ -40,7 +40,7 @@ ITERS = 5  # steps per timed and per profiled window
 CLASSES = (
     ("selective_scan", ("scan_fwd_kernel",)),
     ("selective_scan_fwd_train", ("scan_fwd_train_kernel",)),
-    ("selective_scan_bwd", ("scan_bwd_kernel",)),
+    ("selective_scan_bwd", ("scan_bwd_kernel", "scan_bwd_carry_kernel")),
     ("full_block_attention", ("attn_sm90_kernel", "attn_bf16_kernel",
                               "attn_f32_kernel")),
     # before the library classes: these names hold none of their keys

@@ -248,7 +248,11 @@ def test_fwd_train_kernel_matches_plain_on_card(cuda, dtype, dim, n, r, L):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dim, n, r, L", [
     (256, 16, 32, 256), (200, 16, 32, 300), (130, 8, 5, 77),
-    (64, 32, 64, 48), (20, 1, 1, 5)])
+    (64, 32, 64, 48), (20, 1, 1, 5),
+    # many chunks in parallel, a chunk exactly, one step past it, ragged L
+    # over many chunks; N 32 (the states' a_t computed again) at r 64
+    (256, 16, 32, 1024), (256, 16, 32, 16), (200, 16, 32, 17),
+    (130, 8, 5, 1000), (96, 32, 64, 300)])
 def test_bwd_kernel_matches_plain_on_card(cuda, dtype, dim, n, r, L):
     x = scan_inputs(cuda, dtype, batch=3, L=L, dim=dim, n=n, r=r)
     _, o, bnd = selective_scan_fwd_train_ref(*_args(x), **_train_kw(x))
@@ -265,6 +269,23 @@ def test_bwd_kernel_matches_plain_on_card(cuda, dtype, dim, n, r, L):
         low = a.dtype == torch.bfloat16
         assert a.dtype == b.dtype and a.shape == b.shape, name
         _close(a, b, 1.6e-2 if low else 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernel_repeats_bit_for_bit_on_card(cuda, dtype):
+    """At the 512-px training shape (4 x 1024 tokens, dim 1024, N 16, r
+    32): no float atomics, so two calls give the same bits."""
+    x = scan_inputs(cuda, dtype, batch=4, L=1024, dim=1024, n=16, r=32)
+    _, _, bnd = selective_scan_fwd_train_cuda(*_args(x), **_train_kw(x))
+    go = torch.randn(x["u"].shape, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(2))
+    core = (*_args(x)[:6], x["delta_bias"], True, go, bnd)
+    first = selective_scan_bwd_core_cuda(*core)
+    second = selective_scan_bwd_core_cuda(*core)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("reverse", [False, True])

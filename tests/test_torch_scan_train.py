@@ -21,7 +21,9 @@ from jax.experimental.pallas import tpu as pltpu
 from dimsum_tpu.ops.selective_scan import selective_scan_dtlow as jax_dtlow
 from dimsum_tpu.ops.selective_scan_bwd import (selective_scan_bwd_pallas,
                                                selective_scan_fwd_train)
-from dimsum_torch.ops.selective_scan import (SelectiveScanDtLowFn,
+from dimsum_torch.ops.selective_scan import (SelectiveScanDtLowFn, _bwd,
+                                             selective_scan_bwd_carry_ref,
+                                             selective_scan_bwd_core_ref,
                                              selective_scan_bwd_ref,
                                              selective_scan_dtlow,
                                              selective_scan_dtlow_train,
@@ -115,6 +117,84 @@ def test_plain_bwd_matches_pallas_interpret():
     got = selective_scan_bwd_ref(*args, **kw, o=torch.from_numpy(o),
                                  boundaries=torch.from_numpy(bnd),
                                  g=torch.from_numpy(g), chunk=16)
+    names = ("du", "ddelta", "dA", "dB", "dC", "dD", "dz", "dbias")
+    for name, a, b in zip(names, got, want):
+        assert_close_scaled(a.numpy(), np.asarray(b), name=name)
+
+
+def _core_args(x, go, bnd):
+    """The reverse-scan core's arguments from numpy inputs."""
+    t = _t(x)
+    return ([t[k] for k in ("u", "dt_low", "dt_w", "A", "B", "C")]
+            + [t["bias"], True, torch.from_numpy(go), torch.from_numpy(bnd)])
+
+
+def _chunk_parallel_core(u, dt_low, dt_w, A, B, C, delta_bias,
+                         delta_softplus, go, boundaries):
+    """Kernel 3's decomposition in plain PyTorch: the carry pass, then every
+    chunk seeded with its own carry."""
+    w = selective_scan_bwd_carry_ref(dt_low, dt_w, A, C, delta_bias,
+                                     delta_softplus, go)
+    return selective_scan_bwd_core_ref(u, dt_low, dt_w, A, B, C, delta_bias,
+                                       delta_softplus, go, boundaries,
+                                       carries=w)
+
+
+def _fwd_train_states(x, L):
+    """go and the chunk-start states of the port's plain forward at L."""
+    args, kw = _port_args(_t(x))
+    _, _, bnd = selective_scan_fwd_train_ref(*args, **kw)
+    go = np.random.default_rng(L).standard_normal(x["u"].shape).astype(
+        np.float32)
+    return go, bnd.numpy()
+
+
+@pytest.mark.parametrize("L", [1, 15, 16, 17, 40, 64, 71])
+def test_carry_ref_matches_sequential_carry_at_every_chunk(L):
+    """The carry pass (alpha and beta of every chunk in parallel, then the
+    chain from the right) against the carry the sequential reverse walk
+    brings into each chunk, ragged L included."""
+    x = make_inputs(10 + L, L=L, dim=24)
+    go, bnd = _fwd_train_states(x, L)
+    args = _core_args(x, go, bnd)
+    want = selective_scan_bwd_core_ref(*args, return_carries=True)[5]
+    got = selective_scan_bwd_carry_ref(*args[1:4], args[5], args[6], True,
+                                       args[8])
+    assert got.shape == (2, -(-L // 16), 8, 24)
+    assert not got[:, -1].any()
+    assert_close_scaled(got.numpy(), want.numpy(), name="w")
+
+
+@pytest.mark.parametrize("L", [1, 16, 17, 40, 71])
+def test_chunk_parallel_bwd_matches_sequential(L):
+    """Each chunk seeded with its carry from the carry pass gives what the
+    sequential walk gives: du, ddelta, dA, dB and dC."""
+    x = make_inputs(20 + L, L=L, dim=24)
+    go, bnd = _fwd_train_states(x, L)
+    args = _core_args(x, go, bnd)
+    want = selective_scan_bwd_core_ref(*args)
+    got = _chunk_parallel_core(*args)
+    for name, a, b in zip(("du", "ddelta", "dA", "dB", "dC"), got, want):
+        assert_close_scaled(a.numpy(), b.numpy(), name=name)
+
+
+@pytest.mark.parametrize("L", [32, 64])
+def test_chunk_parallel_bwd_matches_pallas_interpret(L):
+    """The chunk-parallel decomposition inside the whole backward (gate,
+    skip and bias gradients around it) against the Pallas backward in
+    interpret mode, from the JAX forward's o and states."""
+    x = make_inputs(30 + L, L=L)
+    delta, _, o, bnd = _jax_fwd_train(x, 16)
+    g = np.random.default_rng(31).standard_normal(x["u"].shape).astype(
+        np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want = selective_scan_bwd_pallas(
+            x["u"], delta, x["A"], x["B"], x["C"], x["D"], x["z"], x["bias"],
+            True, o, bnd, jnp.asarray(g), chunk=16, d_block=128)
+    args, kw = _port_args(_t(x))
+    got = _bwd(_chunk_parallel_core, *args, kw["D"], kw["z"],
+               kw["delta_bias"], True, torch.from_numpy(o),
+               torch.from_numpy(bnd), torch.from_numpy(g))
     names = ("du", "ddelta", "dA", "dB", "dC", "dD", "dz", "dbias")
     for name, a, b in zip(names, got, want):
         assert_close_scaled(a.numpy(), np.asarray(b), name=name)
