@@ -457,15 +457,15 @@ def phase_kernel_train():
     return results
 
 
+VARIANTS = (0, 4, 1000, 2000, 2004)
+
+
 def phase_kernel_train_ladder():
     """LADDER (timing only, removed with the ladder): the scan backward's
     designs through their C entry points with pre-allocated outputs, bf16,
     N 16, r 32, at (16, 256, 1024) and (4, 1024, 1024): three timed runs
-    of 20 launches in turns, median ms.  Variants of the route
-    (csrc/selective_scan_bwd_ladder.cu): 3 a_t computed again and each
-    chunk loaded when it starts; 1 a_t computed again; 2 each chunk loaded
-    when it starts; 0 the route; 4 no dB/dC reduction; 8 the main pass
-    alone; 16 the carry pass alone."""
+    of 20 launches in turns, median ms.  Variants of the route: see
+    csrc/selective_scan_bwd_ladder.cu and the kernel's LADDER flags."""
     import ctypes
     import statistics
 
@@ -508,14 +508,48 @@ def phase_kernel_train_ladder():
                 "selective_scan_bwd_ladder", [I] + [P] * 15 + [I] * 7, dev,
                 v, *ins, *route_out, *ints)
 
-        runs = {"first": first}
-        runs.update({f"v{v}": variant(v) for v in (3, 1, 2, 0, 4, 8, 16)})
+        def rung1(v):  # the two-pass design before cp.async staging
+            return lambda: cuda_build.launch(
+                "selective_scan_bwd_rung1", [I] + [P] * 15 + [I] * 7, dev,
+                v, *ins, *route_out, *ints)
+
+        runs = {"first": first, "rung1_v0": rung1(0), "rung1_v19": rung1(19)}
+        runs.update({f"v{v}": variant(v) for v in VARIANTS})
         # the route's entry agrees with the wrapper before it is timed
         want = ss.selective_scan_bwd_core_cuda(*ins[:6], ins[6], True, go,
                                                bnd)
         variant(0)()
         torch.cuda.synchronize()
         agree = bool(torch.equal(du, want[0]) and torch.equal(ddt, want[1]))
+        # each variant's du, ddt and dB partials against the route's
+        diffs = {}
+        for v in VARIANTS:
+            if v >= 1000:
+                continue
+            variant(v)()
+            torch.cuda.synchronize()
+            got = (du.clone(), ddt.clone(), route_out[3].sum(0))
+            diffs[f"v{v}"] = [_scaled_err(a, b) for a, b in
+                              zip(got, (want[0], want[1], want[3]))]
+        # clock64 phase counters of the carry pass and main pass (v19),
+        # cycles a warp and chunk, summed over lane 0 of every warp
+        phases_fn = cuda_build.load(
+            "selective_scan_bwd_ladder").dimsum_selective_scan_bwd_ladder_phases
+        phases_fn.argtypes, phases_fn.restype = [P], I
+        buf = (ctypes.c_ulonglong * 16)()
+        phases_fn(ctypes.addressof(buf))
+        variant(1064)()
+        torch.cuda.synchronize()
+        phases_fn(ctypes.addressof(buf))
+        vals = list(buf)
+        clocks = {
+            "main": {k: vals[i] / max(vals[7], 1) for i, k in enumerate(
+                ("stage_and_syncs", "phase_A", "replay", "reverse",
+                 "sync_before_C", "phase_C"))},
+            "carry": {k: vals[8 + i] / max(vals[15], 1) for i, k in
+                      enumerate(("sync_top", "loads", "phase_A", "walk",
+                                 "sync_chain", "chain"))},
+            "main_warp_chunks": vals[7], "carry_warp_iters": vals[15]}
         times = {k: [] for k in runs}
         with torch.no_grad():
             for _ in range(3):
@@ -523,7 +557,8 @@ def phase_kernel_train_ladder():
                     times[k].append(cuda_ms(fn, iters=20))
         rec = {"phase": "kernel-train-ladder", "shape": [batch, L, dim, 16,
                                                          32],
-               "route_agrees": agree,
+               "route_agrees": agree, "variant_scaled_err": diffs,
+               "clocks": clocks,
                "ms": {k: statistics.median(v) for k, v in times.items()},
                "runs": times}
         emit(rec)

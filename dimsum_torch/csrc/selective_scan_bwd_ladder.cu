@@ -1,51 +1,59 @@
 // Temporary ladder entry: the route's kernels with timing-only variants.
-// variant: 0 the route; 1 a_t computed again; 2 each chunk loaded when it
-// starts; 3 both; 4 no dB/dC reduction; 8 the main pass alone; 16 the carry pass
-// alone (bf16, N 16, r 32 only).
+// variant (bf16, N 16, r 32 only): 0 the route; 1000 the carry pass alone;
+// 1064 both passes with clock counters (main flags 64); otherwise the carry
+// pass and the main pass with the kernel's LADDER flags = variant, or the
+// main pass alone with flags = variant - 2000.
 #include "selective_scan_bwd.cu"
 
 namespace {
+using LT = __nv_bfloat16;
+using LMP = MainPlan<16, 32, true>;
+using LCP = CarryPlan<16, 32, true>;
+
+int ladder_vec(const void* const* p, int dim) {
+  bool vec = dim % 8 == 0;
+  for (int i : {0, 1, 4, 5, 7, 8, 9})
+    vec = vec && reinterpret_cast<uintptr_t>(p[i]) % 16 == 0;
+  return vec;
+}
+
 template <int F>
 int ladder_main(const void* const* p, int batch, int L, int dim, int N, int R,
                 int sp, cudaStream_t s) {
-  using T = __nv_bfloat16;
-  using MP = MainPlan<16, 32, true>;
-  auto k = scan_bwd_kernel<T, 16, 32, F>;
+  auto k = scan_bwd_kernel<LT, 16, 32, F>;
   cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       MP::kBytes);
+                       LMP::kBytes);
   const int nc = (L + kChunk - 1) / kChunk;
   dim3 grid((dim + kBlockCh - 1) / kBlockCh, (nc + kGroup - 1) / kGroup,
             batch);
-  k<<<grid, kThreads, MP::kBytes, s>>>(
-      static_cast<const T*>(p[0]), static_cast<const T*>(p[1]),
-      static_cast<const T*>(p[2]), static_cast<const float*>(p[3]),
-      static_cast<const T*>(p[4]), static_cast<const T*>(p[5]),
+  k<<<grid, kThreads, LMP::kBytes, s>>>(
+      static_cast<const LT*>(p[0]), static_cast<const LT*>(p[1]),
+      static_cast<const LT*>(p[2]), static_cast<const float*>(p[3]),
+      static_cast<const LT*>(p[4]), static_cast<const LT*>(p[5]),
       static_cast<const float*>(p[6]), static_cast<const float*>(p[7]),
       static_cast<const float*>(p[8]), static_cast<const float*>(p[9]),
       static_cast<float*>(const_cast<void*>(p[10])),
       static_cast<float*>(const_cast<void*>(p[11])),
       static_cast<float*>(const_cast<void*>(p[12])),
       static_cast<float*>(const_cast<void*>(p[13])),
-      static_cast<float*>(const_cast<void*>(p[14])), batch, L, dim, N, R, sp);
+      static_cast<float*>(const_cast<void*>(p[14])), batch, L, dim, N, R, sp,
+      ladder_vec(p, dim));
   return cudaGetLastError();
 }
 
+template <bool kClock = false>
 int ladder_carry(const void* const* p, int batch, int L, int dim, int N,
                  int R, int sp, cudaStream_t s) {
-  using T = __nv_bfloat16;
-  using CP = CarryPlan<16, 32, true>;
-  auto k = scan_bwd_carry_kernel<T, 16, 32>;
+  auto k = scan_bwd_carry_kernel<LT, 16, 32, kClock>;
   cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       CP::kBytes);
-  const int nc = (L + kChunk - 1) / kChunk;
-  int warps = nc < CP::kMaxWarps ? nc : CP::kMaxWarps;
-  if (warps < 4) warps = 4;
+                       LCP::kBytes);
   dim3 grid((dim + kWarpCh - 1) / kWarpCh, batch);
-  k<<<grid, warps * 32, CP::kBytes, s>>>(
-      static_cast<const T*>(p[1]), static_cast<const T*>(p[2]),
-      static_cast<const float*>(p[3]), static_cast<const T*>(p[5]),
+  k<<<grid, LCP::kWarps * 32, LCP::kBytes, s>>>(
+      static_cast<const LT*>(p[1]), static_cast<const LT*>(p[2]),
+      static_cast<const float*>(p[3]), static_cast<const LT*>(p[5]),
       static_cast<const float*>(p[6]), static_cast<const float*>(p[7]),
-      static_cast<float*>(const_cast<void*>(p[9])), L, dim, N, R, sp);
+      static_cast<float*>(const_cast<void*>(p[9])), L, dim, N, R, sp,
+      ladder_vec(p, dim));
   return cudaGetLastError();
 }
 }  // namespace
@@ -64,28 +72,33 @@ extern "C" int dimsum_selective_scan_bwd_ladder(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int a = batch, b = L, c = dim, d = n_state, e = dt_rank,
             f = use_softplus;
-  switch (variant) {
-    case 0: return dimsum_selective_scan_bwd(
-        u, dt_low, dt_w, A, B, C, bias, go, bnd, w, du, ddt, dB_part,
-        dC_part, dA_part, a, b, c, d, e, dtype, f, stream);
-    case 1: {
-      const int err = ladder_carry(p, a, b, c, d, e, f, s);
-      return err ? err : ladder_main<1>(p, a, b, c, d, e, f, s);
-    }
-    case 2: {
-      const int err = ladder_carry(p, a, b, c, d, e, f, s);
-      return err ? err : ladder_main<2>(p, a, b, c, d, e, f, s);
-    }
-    case 3: {
-      const int err = ladder_carry(p, a, b, c, d, e, f, s);
-      return err ? err : ladder_main<3>(p, a, b, c, d, e, f, s);
-    }
-    case 4: {
-      const int err = ladder_carry(p, a, b, c, d, e, f, s);
-      return err ? err : ladder_main<4>(p, a, b, c, d, e, f, s);
-    }
-    case 8: return ladder_main<0>(p, a, b, c, d, e, f, s);
-    case 16: return ladder_carry(p, a, b, c, d, e, f, s);
+  if (variant == 0)
+    return dimsum_selective_scan_bwd(u, dt_low, dt_w, A, B, C, bias, go, bnd,
+                                     w, du, ddt, dB_part, dC_part, dA_part, a,
+                                     b, c, d, e, dtype, f, stream);
+  if (variant == 1000) return ladder_carry(p, a, b, c, d, e, f, s);
+  if (variant == 1064) {
+    const int err = ladder_carry<true>(p, a, b, c, d, e, f, s);
+    return err ? err : ladder_main<64>(p, a, b, c, d, e, f, s);
+  }
+  const bool main_only = variant >= 2000;
+  const int flags = main_only ? variant - 2000 : variant;
+  if (!main_only) {
+    const int err = ladder_carry(p, a, b, c, d, e, f, s);
+    if (err) return err;
+  }
+  switch (flags) {
+    case 4: return ladder_main<4>(p, a, b, c, d, e, f, s);
+    case 0: return ladder_main<0>(p, a, b, c, d, e, f, s);
   }
   return cudaErrorInvalidValue;
+}
+
+// the phase counters since the last call, then zeroed
+extern "C" int dimsum_selective_scan_bwd_ladder_phases(void* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_phase, sizeof(g_phase));
+  unsigned long long zero[16] = {};
+  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbol(g_phase, zero, sizeof(zero));
+  return err;
 }

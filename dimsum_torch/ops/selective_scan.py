@@ -395,7 +395,7 @@ def selective_scan_bwd_core_cuda(u, dt_low, dt_w, A, B, C, delta_bias,
     """Launch kernel 3 (`csrc/selective_scan_bwd.cu`: its carry pass, then
     its main pass), the CUDA counterpart of `selective_scan_bwd_core_ref`.
     The carry pass leaves the carry entering each chunk in a workspace
-    (`selective_scan_bwd_carry_ref`'s w).  dB/dC come back as one partial
+    (`selective_scan_bwd_carry_ref`'s w, in tiles of 8 channels).  dB/dC come back as one partial
     per tile of _BWD_TILE channels and dA as one per batch row and group of
     _BWD_GROUP chunks; the sums here make them deterministic (no float
     atomics)."""
@@ -408,7 +408,9 @@ def selective_scan_bwd_core_cuda(u, dt_low, dt_w, A, B, C, delta_bias,
                  (batch, n_chunks, n_state, dim))
     dev = u.device
     parts, groups = -(-dim // _BWD_TILE), -(-n_chunks // _BWD_GROUP)
-    w = torch.empty(batch, n_chunks, n_state, dim, device=dev)
+    # the carry pass's w, in tiles of 8 channels: (batch, n_chunks,
+    # ceil(dim / 8), N, 8)
+    w = torch.empty(batch, n_chunks, -(-dim // 8) * n_state * 8, device=dev)
     du_s = torch.empty(batch, L, dim, device=dev)
     ddt = torch.empty(batch, L, dim, device=dev)
     dB_p = torch.empty(parts, batch, L, n_state, device=dev)
