@@ -457,115 +457,6 @@ def phase_kernel_train():
     return results
 
 
-VARIANTS = (0, 4, 1000, 2000, 2004)
-
-
-def phase_kernel_train_ladder():
-    """LADDER (timing only, removed with the ladder): the scan backward's
-    designs through their C entry points with pre-allocated outputs, bf16,
-    N 16, r 32, at (16, 256, 1024) and (4, 1024, 1024): three timed runs
-    of 20 launches in turns, median ms.  Variants of the route: see
-    csrc/selective_scan_bwd_ladder.cu and the kernel's LADDER flags."""
-    import ctypes
-    import statistics
-
-    import torch
-
-    from dimsum_torch.ops import cuda_build
-    from dimsum_torch.ops import selective_scan as ss
-
-    P, I = ctypes.c_void_p, ctypes.c_int
-    dev = torch.device("cuda")
-    results = {}
-    for batch, L, dim in ((16, 256, 1024), (4, 1024, 1024)):
-        x = scan_inputs(batch, L, dim, 16, 32, torch.bfloat16, seed=300)
-        args = [x[k] for k in ("u", "dt_low", "dt_w", "A", "B", "C", "D")]
-        kw = dict(z=x["z"], delta_bias=x["delta_bias"], delta_softplus=True)
-        with torch.no_grad():
-            _, _, bnd = ss.selective_scan_fwd_train_cuda(*args, **kw)
-        go = torch.randn(batch, L, dim, device=dev)
-        nc = -(-L // 16)
-        ints = (batch, L, dim, 16, 32, 1, 1)
-        ins = (*args[:6], x["delta_bias"], go, bnd)
-
-        def f32(*shape):
-            return torch.empty(shape, device=dev)
-
-        du, ddt = f32(batch, L, dim), f32(batch, L, dim)
-        first_out = (du, ddt, f32(dim // 32, batch, L, 16),
-                     f32(dim // 32, batch, L, 16), f32(batch, dim, 16))
-        route_out = (f32(batch, nc, 16, dim), du, ddt,
-                     f32(dim // 64, batch, L, 16),
-                     f32(dim // 64, batch, L, 16),
-                     f32(batch, -(-nc // 4), dim, 16))
-
-        def first():
-            cuda_build.launch("selective_scan_bwd_first", [P] * 14 + [I] * 7,
-                              dev, *ins, *first_out, *ints)
-
-        def variant(v):
-            return lambda: cuda_build.launch(
-                "selective_scan_bwd_ladder", [I] + [P] * 15 + [I] * 7, dev,
-                v, *ins, *route_out, *ints)
-
-        def rung1(v):  # the two-pass design before cp.async staging
-            return lambda: cuda_build.launch(
-                "selective_scan_bwd_rung1", [I] + [P] * 15 + [I] * 7, dev,
-                v, *ins, *route_out, *ints)
-
-        runs = {"first": first, "rung1_v0": rung1(0), "rung1_v19": rung1(19)}
-        runs.update({f"v{v}": variant(v) for v in VARIANTS})
-        # the route's entry agrees with the wrapper before it is timed
-        want = ss.selective_scan_bwd_core_cuda(*ins[:6], ins[6], True, go,
-                                               bnd)
-        variant(0)()
-        torch.cuda.synchronize()
-        agree = bool(torch.equal(du, want[0]) and torch.equal(ddt, want[1]))
-        # each variant's du, ddt and dB partials against the route's
-        diffs = {}
-        for v in VARIANTS:
-            if v >= 1000:
-                continue
-            variant(v)()
-            torch.cuda.synchronize()
-            got = (du.clone(), ddt.clone(), route_out[3].sum(0))
-            diffs[f"v{v}"] = [_scaled_err(a, b) for a, b in
-                              zip(got, (want[0], want[1], want[3]))]
-        # clock64 phase counters of the carry pass and main pass (v19),
-        # cycles a warp and chunk, summed over lane 0 of every warp
-        phases_fn = cuda_build.load(
-            "selective_scan_bwd_ladder").dimsum_selective_scan_bwd_ladder_phases
-        phases_fn.argtypes, phases_fn.restype = [P], I
-        buf = (ctypes.c_ulonglong * 16)()
-        phases_fn(ctypes.addressof(buf))
-        variant(1064)()
-        torch.cuda.synchronize()
-        phases_fn(ctypes.addressof(buf))
-        vals = list(buf)
-        clocks = {
-            "main": {k: vals[i] / max(vals[7], 1) for i, k in enumerate(
-                ("stage_and_syncs", "phase_A", "replay", "reverse",
-                 "sync_before_C", "phase_C"))},
-            "carry": {k: vals[8 + i] / max(vals[15], 1) for i, k in
-                      enumerate(("sync_top", "loads", "phase_A", "walk",
-                                 "sync_chain", "chain"))},
-            "main_warp_chunks": vals[7], "carry_warp_iters": vals[15]}
-        times = {k: [] for k in runs}
-        with torch.no_grad():
-            for _ in range(3):
-                for k, fn in runs.items():
-                    times[k].append(cuda_ms(fn, iters=20))
-        rec = {"phase": "kernel-train-ladder", "shape": [batch, L, dim, 16,
-                                                         32],
-               "route_agrees": agree, "variant_scaled_err": diffs,
-               "clocks": clocks,
-               "ms": {k: statistics.median(v) for k, v in times.items()},
-               "runs": times}
-        emit(rec)
-        results[L] = rec
-    return results
-
-
 def _train_model(dtype, seed=0):
     from dimsum_torch.models.dim import DiM_models, build_dim
 
