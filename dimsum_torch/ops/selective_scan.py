@@ -395,10 +395,10 @@ def selective_scan_bwd_core_cuda(u, dt_low, dt_w, A, B, C, delta_bias,
     """Launch kernel 3 (`csrc/selective_scan_bwd.cu`: its carry pass, then
     its main pass), the CUDA counterpart of `selective_scan_bwd_core_ref`.
     The carry pass leaves the carry entering each chunk in a workspace
-    (`selective_scan_bwd_carry_ref`'s w, in tiles of 8 channels).  dB/dC come back as one partial
-    per tile of _BWD_TILE channels and dA as one per batch row and group of
-    _BWD_GROUP chunks; the sums here make them deterministic (no float
-    atomics)."""
+    (`selective_scan_bwd_carry_ref`'s w, in tiles of 8 channels).  dB/dC
+    come back as one partial per tile of _BWD_TILE channels and dA as one
+    per batch row and group of _BWD_GROUP chunks; the sums here make them
+    deterministic (no float atomics)."""
     _check_kernel_args(u, dt_low, dt_w, A, B, C, None, None, delta_bias)
     batch, L, dim = u.shape
     rank, n_state = dt_w.shape[0], A.shape[1]
