@@ -457,6 +457,105 @@ def phase_kernel_train():
     return results
 
 
+def phase_kernel_train_ladder(shapes=((16, 256, 1024), (4, 1024, 1024)),
+                              dtype_name="bf16"):
+    """LADDER (timing only, removed with the ladder): the training
+    forward's designs through their C entry points with pre-allocated
+    outputs, N 16, r 32: the first design (csrc/selective_scan_fwd_train_
+    first.cu), the route, its passes alone and main-pass groups of 2-16
+    chunks.  Three timed runs of 20 launches in turns, median ms."""
+    import ctypes
+    import statistics
+
+    import torch
+
+    from dimsum_torch.ops import cuda_build
+    from dimsum_torch.ops import selective_scan as ss
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype_name]
+    code = 1 if dtype == torch.bfloat16 else 0
+    dev = torch.device("cuda")
+    results = {}
+    for batch, L, dim in shapes:
+        x = scan_inputs(batch, L, dim, 16, 32, dtype, seed=300)
+        ins = [x[k] for k in ("u", "dt_low", "dt_w", "A", "B", "C", "D",
+                              "z", "delta_bias")]
+        nc = -(-L // 16)
+        y = torch.empty_like(x["u"])
+        o = torch.empty(batch, L, dim, device=dev)
+        bnd = torch.empty(batch, nc, 16, dim, device=dev)
+        ints = (batch, L, dim, 16, 32, code, 1)
+
+        def first():
+            cuda_build.launch("selective_scan_fwd_train_first",
+                              [P] * 12 + [I] * 7, dev, *ins, y, o, bnd, *ints)
+
+        # cuda_build.launch names the entry dimsum_<name>: bind the ladder
+        # entry under the route's library
+        lib = cuda_build.load("selective_scan_fwd_train")
+        fn = lib.dimsum_selective_scan_fwd_train_ladder
+        fn.argtypes = [I, I, I] + [P] * 12 + [I] * 7 + [P]
+        fn.restype = I
+
+        def ladder(passes, group, v=0):
+            def run():
+                rc = fn(v, passes, group, *[t.data_ptr() for t in ins],
+                        y.data_ptr(), o.data_ptr(), bnd.data_ptr(), *ints,
+                        torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    raise RuntimeError(f"ladder launch failed: {rc}")
+            return run
+
+        runs = {"first": first, "route": ladder(3, 4),
+                "main_only": ladder(2, 4), "state_only": ladder(1, 4)}
+        if dtype == torch.bfloat16:
+            for v in (1, 3, 4, 11, 15, 17):
+                runs[f"v{v}"] = ladder(3, 4, v)
+                runs[f"v{v}_state"] = ladder(1, 4, v)
+            runs["v4_main"] = ladder(2, 4, 4)
+        with torch.no_grad():
+            want = ss.selective_scan_fwd_train_cuda(
+                *ins[:7], z=ins[7], delta_bias=ins[8], delta_softplus=True)
+            diffs = {}
+            for k in runs:
+                if "_" in k:
+                    continue
+                runs[k]()
+                torch.cuda.synchronize()
+                diffs[k] = [_scaled_err(a, b) for a, b in
+                            zip((y, o, bnd), want)]
+            times = {k: [] for k in runs}
+            for _ in range(3):
+                for k, f in runs.items():
+                    times[k].append(cuda_ms(f, iters=20))
+            clocks = {}
+            if dtype == torch.bfloat16:
+                read = lib.dimsum_selective_scan_fwd_train_clocks
+                read.argtypes, read.restype = [P], I
+                buf = (ctypes.c_ulonglong * 8)()
+                for v in (13, 16):
+                    read(ctypes.addressof(buf))
+                    ladder(1, 4, v)()
+                    torch.cuda.synchronize()
+                    read(ctypes.addressof(buf))
+                    vals = list(buf)
+                    clocks[f"v{v}"] = {
+                        k: vals[i] / max(vals[6], 1) for i, k in enumerate(
+                            ("barrier_top", "copies", "phase_A", "walk",
+                             "barrier_chain", "chain"))}
+                    clocks[f"v{v}"]["warp_iters"] = vals[6]
+        rec = {"phase": "kernel-train-ladder", "dtype": dtype_name,
+               "state_clocks": clocks,
+               "shape": [batch, L, dim, 16, 32],
+               "scaled_err_vs_route": diffs,
+               "ms": {k: statistics.median(v) for k, v in times.items()},
+               "runs": times}
+        emit(rec)
+        results[(batch, L, dim)] = rec
+    return results
+
+
 def _train_model(dtype, seed=0):
     from dimsum_torch.models.dim import DiM_models, build_dim
 

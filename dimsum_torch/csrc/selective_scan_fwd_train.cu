@@ -3,43 +3,81 @@
 // Replaces the Pallas TPU kernel
 // dimsum_tpu/ops/selective_scan_bwd.py::_fwd_train_kernel (launched from
 // selective_scan_fwd_train): kernel 1's output y (selective_scan_fwd.cu)
-// plus what the backward (selective_scan_bwd.cu) replays from:
+// plus what the backward (selective_scan_bwd.cu) replays from.  Per batch
+// b and channel d:
 //
-//   o_t   = sum_n C_tn * h_tn + D_d * u_t      fp32 pre-gate output
-//   bnd_c = h at the start of step 16 c        fp32, the first one zero
+//   dt_t  = softplus(<dt_low_t, dt_w[:, d]> + bias_d)   expanded in fp32
+//   h_t   = exp(dt_t A_dn) h_{t-1} + dt_t u_t B_tn
+//   o_t   = sum_n C_tn h_tn + D_d u_t                   fp32 pre-gate output
+//   y_t   = o_t silu(z_t)                               in u's type
+//   bnd_c = h at the start of step 16 c                 fp32, the first zero
 //
-// dt_t = softplus(<dt_low_t, dt_w[:, d]> + bias_d) is expanded in fp32 in
-// the kernel, h_t = exp(dt_t * A_dn) * h_{t-1} + dt_t * u_t * B_tn, and
-// y_t = o_t * silu(z_t).  Layouts: u, z, y (batch, L, dim) in T; o
-// (batch, L, dim) fp32; bnd (batch, ceil(L / 16), N, dim) fp32; dt_low
-// (batch, L, r), B, C (batch, L, N), dt_w (r, dim) in T; A (dim, N), D and
-// bias (dim,) fp32.  T is float or bf16.
+// Layouts: u, z, y (batch, L, dim) in T; o (batch, L, dim) fp32; bnd
+// (batch, ceil(L / 16), N, dim) fp32; dt_low (batch, L, r), B, C (batch,
+// L, N), dt_w (r, dim) in T; A (dim, N), D and bias (dim,) fp32.  T is
+// float or bf16.
 //
-// What bounds it on an H100 at the DiM-L/2 training mixer shape (batch 16,
-// L 256, dim 1024, N 16, r 32, bf16, chunk 16): inputs read once 17.4 MB,
-// y (8.4 MB), o (16.8 MB) and the states (16.8 MB) written once, 59.4 MB
-// or 17.7 us at 3.35 TB/s; 2r + 7N + 12 = 188 fp32 flop per (b, t, d),
-// 0.79 GFLOP or 11.8 us at 67 TFLOP/s.  Bytes bound it.
+// What bounds it on an H100 at the DiM-L/2 training mixer shapes (16 x 256
+// or 4 x 1024 tokens, dim 1024, N 16, r 32, bf16): inputs read once 17.4
+// MB, y (8.4 MB), o (16.8 MB) and the states (16.8 MB) written once, 59.4
+// MB or 17.7 us at 3.35 TB/s; 2r + 7N + 12 = 188 fp32 flop a (b, t, d),
+// 0.79 GFLOP or 11.8 us; N + 3 = 19 transcendentals a (b, t, d) (an exp2 a
+// state, exp and log in softplus, exp in the gate) on the special-function
+// units (SFU), 19.1 us.  The SFU bounds it.  The first design (one thread
+// a channel walking all of L, a block of 128 channels a batch row: 32
+// blocks at batch 4) took 0.272 ms at 16 x 256 and 1.02 ms at 4 x 1024,
+// L times the latency of one step of one thread's chain.
 //
-// Design: kernel 1's (one thread per channel, a block of 128 channels per
-// (batch, channel block), dt_low/B/C of 32 steps staged in shared memory
-// and read as float4 broadcasts, u and z staged per thread, the N states in
-// registers), with two more stores per step: o, coalesced along d, and
-// every kSaveEvery steps the N states, coalesced along d in the (N, dim)
-// layout.  It inherits kernel 1's low warp count (B * dim / 32 = 512 warps
-// for 132 SMs) and its latency-bound time loop.
+// Design: chunks in parallel along L, in two kernels.
+//   State pass.  A chunk's effect on the state is affine, h_end = alpha_c
+//     h_start + beta_c, with alpha_c = exp2(A log2e sum_{t in c} dt_t) and
+//     beta_c the chunk's end state from a zero seed; both need only
+//     dt_low, dt_w, bias, u and B.  A block takes 8 channels of a batch row
+//     and 4 chunks at once (8 at N 32), a warp a chunk, from the first:
+//     the warp expands dt for its 16 x 8 (t, d) (one m16n8k16 mma.sync per
+//     16 of r for bf16, FMAs for fp32), walks its chunk with each
+//     channel's states over 4 lanes and leaves (alpha, beta); the block
+//     chains bnd_{c+1} = alpha_c bnd_c + beta_c from the left and writes
+//     bnd.  The next chunks' rows come in by cp.async while these are
+//     walked.
+//   Main pass.  Kernel 1's design (selective_scan_fwd.cu), seeded from bnd:
+//     a block takes 32 channels of one batch row and a group of chunks,
+//     starting from the state bnd holds at the group's first chunk; each
+//     chunk runs three phases between barriers.
+//      A  Parallel over (t, d): dt (bf16: mma.sync m16n8k16, products
+//         exact in fp32; fp32: FMAs), + bias, softplus; (dt, dt u) into
+//         shared memory; the skip D u and the gate silu(z) kept for C.
+//      B  The recurrence, each channel's N states over 4 lanes; each lane
+//         writes its partial sum of C h for every step.
+//      C  Parallel over (t, d): the 4 partials + skip is o, times the gate
+//         y, both stored along d.
+//   Each state's exp2 is computed in both passes: the design's own floor is
+//   about twice the function's bound.
+// softplus and the gate run on the SFU (ex2 / lg2 / rcp.approx, ftz):
+// log1p(e) is lg2(1 + e) ln 2 for e >= 2^-6 and its series below, so there
+// is no threshold and the error is ~1e-6 relative.  A ragged last chunk
+// runs all 16 steps with dt = 0 past the end (the state stays); a ragged
+// dim masks its channels.  No atomics: the outputs repeat bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
-constexpr int kThreads = 128;  // channels per block
-constexpr int kChunk = 32;     // timesteps staged per shared-memory pass
 // steps between saved states: the contract with selective_scan_bwd.cu's
 // kChunk (and TRAIN_CHUNK in ops/selective_scan.py)
-constexpr int kSaveEvery = 16;
+constexpr int kChunk = 16;
+constexpr int kLanes = 4;                      // lanes a channel
+constexpr int kWarpCh = 32 / kLanes;           // channels a state-pass block
+constexpr int kThreads = 128;                  // a main-pass block
+constexpr int kChannels = kThreads / kLanes;   // channels a main-pass block
+constexpr int kSteps = kChunk / kLanes;        // steps a thread (A, C)
+constexpr int kGroup = 4;                      // chunks a main-pass block
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -54,183 +92,941 @@ from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-// log(1 + exp(x)) in the overflow-free form jax.nn.softplus uses
-__device__ __forceinline__ float softplus(float x) {
-  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
+// one special-function-unit instruction each (ftz)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float lg2(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-template <typename T, int NMAX, int RMAX>
-__global__ void __launch_bounds__(kThreads)
+// log(1 + exp(x)) = max(x, 0) + log1p(e), e = exp(-|x|) in (0, 1], the
+// overflow-free form of jax.nn.softplus with no threshold: log1p(e) is
+// lg2(1 + e) ln 2 (absolute error ~1e-7 against a value >= 0.0155) for
+// e >= 2^-6, and e - e^2/2 + e^3/3 - e^4/4 (relative error < 2^-24 / 5)
+// below
+__device__ __forceinline__ float softplus(float x) {
+  const float e = ex2(-fabsf(x) * kLog2e);
+  const float series =
+      e * fmaf(e, fmaf(e, fmaf(e, -0.25f, 1.f / 3.f), -0.5f), 1.f);
+  const float tail = e < 0.015625f ? series : lg2(1.f + e) * kLn2;
+  return fmaxf(x, 0.f) + tail;
+}
+
+// z sigmoid(z): exp2 of a large argument is inf and its reciprocal 0, so
+// the gate tends to -0, not NaN
+__device__ __forceinline__ float silu(float z) {
+  return z * rcp(1.f + ex2(-z * kLog2e));
+}
+
+// d += a b: a 16x16 (row), b 16x8 (col), bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
+                                              __nv_bfloat16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) |
+         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// NV consecutive floats of shared memory into registers as wide loads
+// (16-byte aligned when NV % 4 == 0, 8-byte when NV == 2)
+template <int NV>
+__device__ __forceinline__ void lds(const float* p, float* v) {
+  if constexpr (NV % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < NV / 4; ++q) {
+      const float4 f = reinterpret_cast<const float4*>(p)[q];
+      v[4 * q] = f.x;
+      v[4 * q + 1] = f.y;
+      v[4 * q + 2] = f.z;
+      v[4 * q + 3] = f.w;
+    }
+  } else {
+    static_assert(NV == 2, "lds");
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    v[0] = f.x;
+    v[1] = f.y;
+  }
+}
+
+// NV consecutive values of T in shared memory into fp32 registers as one
+// wide load (bf16: 4, 8 or 16 bytes, aligned to their size)
+template <int NV, typename T>
+__device__ __forceinline__ void lds_t(const T* p, float* v) {
+  if constexpr (std::is_same<T, float>::value) {
+    lds<NV>(p, v);
+  } else {
+    auto unpack = [](uint32_t w, float* f) {
+      f[0] = __uint_as_float(w << 16);
+      f[1] = __uint_as_float(w & 0xffff0000u);
+    };
+    if constexpr (NV == 2) {
+      unpack(*reinterpret_cast<const uint32_t*>(p), v);
+    } else if constexpr (NV == 4) {
+      const uint2 w = *reinterpret_cast<const uint2*>(p);
+      unpack(w.x, v);
+      unpack(w.y, v + 2);
+    } else {
+      static_assert(NV == 8, "lds_t");
+      const uint4 w = *reinterpret_cast<const uint4*>(p);
+      unpack(w.x, v);
+      unpack(w.y, v + 2);
+      unpack(w.z, v + 4);
+      unpack(w.w, v + 6);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// State pass
+// ---------------------------------------------------------------------------
+
+// raw[e] = <dt_low row tt, dt_w column c> for the four (tt, c) of a thread
+// in the m16n8 accumulator layout: e = 2 i + j -> tt = g + 8 i, c = 2 q + j.
+// bf16: one mma.sync per 16 of r, dt_low rows in shared memory (bf16, rows
+// of RMAX + 8), dt_w's fragments in registers.  fp32: FMAs over rows of
+// RMAX + 4 floats, w_rows the thread's channels 2q and 2q + 1.
+template <bool kMma, int RMAX>
+__device__ __forceinline__ void expand_dt(const float* s_dtl,
+                                          const float* w_rows,
+                                          const uint32_t (&bfr)[RMAX / 16][2],
+                                          int g, int q, float (&raw)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) raw[e] = 0.f;
+  if constexpr (kMma) {
+    constexpr int LDB = RMAX + 8;
+    const __nv_bfloat16* dtl = reinterpret_cast<const __nv_bfloat16*>(s_dtl);
+#pragma unroll
+    for (int k0 = 0; k0 < RMAX; k0 += 16) {
+      const __nv_bfloat16* ap = dtl + g * LDB + k0 + 2 * q;
+      const uint32_t a[4] = {ld32(ap), ld32(ap + 8 * LDB), ld32(ap + 8),
+                             ld32(ap + 8 * LDB + 8)};
+      mma_bf16(raw, a, bfr[k0 / 16][0], bfr[k0 / 16][1]);
+    }
+  } else {
+    constexpr int LDF = RMAX + 4;
+#pragma unroll
+    for (int k = 0; k < RMAX; k += 4) {
+      const float4 x0 = *reinterpret_cast<const float4*>(s_dtl + g * LDF + k);
+      const float4 x1 =
+          *reinterpret_cast<const float4*>(s_dtl + (g + 8) * LDF + k);
+      const float4 w0 = *reinterpret_cast<const float4*>(w_rows + k);
+      const float4 w1 = *reinterpret_cast<const float4*>(w_rows + LDF + k);
+      raw[0] = fmaf(x0.x, w0.x, fmaf(x0.y, w0.y,
+               fmaf(x0.z, w0.z, fmaf(x0.w, w0.w, raw[0]))));
+      raw[1] = fmaf(x0.x, w1.x, fmaf(x0.y, w1.y,
+               fmaf(x0.z, w1.z, fmaf(x0.w, w1.w, raw[1]))));
+      raw[2] = fmaf(x1.x, w0.x, fmaf(x1.y, w0.y,
+               fmaf(x1.z, w0.z, fmaf(x1.w, w0.w, raw[2]))));
+      raw[3] = fmaf(x1.x, w1.x, fmaf(x1.y, w1.y,
+               fmaf(x1.z, w1.z, fmaf(x1.w, w1.w, raw[3]))));
+    }
+  }
+}
+
+// dt_w's bf16 B fragments for channel d (column g of the m16n8 tile):
+// rows k0 + 2q, +1 and k0 + 2q + 8, +9 of each 16 of r, zero past r or dim
+template <typename T, int RMAX>
+__device__ __forceinline__ void load_w_frags(const T* dt_w, int d, int dim,
+                                             int R, int q,
+                                             uint32_t (&bfr)[RMAX / 16][2]) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    auto at = [&](int k) {
+      return (k < R && d < dim) ? dt_w[(size_t)k * dim + d]
+                                : __float2bfloat16(0.f);
+    };
+#pragma unroll
+    for (int i = 0; i < RMAX / 16; ++i) {
+      const int k = 16 * i + 2 * q;
+      bfr[i][0] = pack_bf16(at(k), at(k + 1));
+      bfr[i][1] = pack_bf16(at(k + 8), at(k + 9));
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < RMAX / 16; ++i) bfr[i][0] = bfr[i][1] = 0u;
+  }
+}
+
+// asynchronous 16-byte copies into shared memory (cp.async); a copy with
+// no source reads nothing and fills zeros
+__device__ __align__(16) float g_no_src[4];
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src != nullptr ? src : g_no_src),
+               "r"(src != nullptr ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int K>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(K));
+}
+
+template <typename T> __device__ __forceinline__ T zero_of() {
+  return from_f32<T>(0.f);
+}
+
+// Copies `count` elements of a chunk's arrays into shared memory: element i
+// of `src_of(i)` (nullptr: zero) to `dst_of(i)`.  As 16-byte cp.async
+// vectors of kPer elements when `vec` (every run of kPer is whole and
+// aligned), else as plain loads, all issued before any store.
+template <typename T, int COUNT, int NT, typename Src, typename Dst>
+__device__ __forceinline__ void stage(bool vec, int tid, Src src_of,
+                                      Dst dst_of) {
+  constexpr int kPer = 16 / sizeof(T);
+  if (vec) {
+    for (int v = tid; v < COUNT / kPer; v += NT) {
+      cp_async16(dst_of(v * kPer), src_of(v * kPer));
+    }
+  } else {
+    constexpr int M = (COUNT + NT - 1) / NT;
+    T r[M];
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int i = tid + m * NT;
+      const T* src = i < COUNT ? src_of(i) : nullptr;
+      r[m] = src != nullptr ? *src : zero_of<T>();
+    }
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+      if (tid + m * NT < COUNT) *dst_of(tid + m * NT) = r[m];
+  }
+}
+
+// Shared memory of a state-pass block, in floats: dt_w rows (fp32 only),
+// then per warp two stages of its CPW chunks (dt_low rows as the mma reads
+// them, B rows and u 16 x 8 in T), and per chunk (dt, dt u) per (t, c) and
+// (alpha, beta) per (c, n).  kWarps x CPW chunks at once, at least 8 N
+// threads for the chain.
+template <int NMAX, int RMAX, bool kMma, int WARPS = 4, int CPW = 1,
+          int STAGES = 2>
+struct StatePlan {
+  static constexpr int kWarps = NMAX / 4 > WARPS ? NMAX / 4 : WARPS;
+  static constexpr int kChunks = kWarps * CPW;  // chunks an iteration
+  static constexpr int kWSize = kMma ? 0 : kWarpCh * (RMAX + 4);
+  static constexpr int kDtlW = kMma ? kChunk * (RMAX + 8) / 2
+                                    : kChunk * (RMAX + 4);
+  static constexpr int kBRawW = kChunk * NMAX / (kMma ? 2 : 1);
+  static constexpr int kURawW = kChunk * kWarpCh / (kMma ? 2 : 1);
+  static constexpr int kStageW = kDtlW + kBRawW + kURawW;
+  static constexpr int kStW = kChunk * kWarpCh * 2;
+  static constexpr int kAbW = kWarpCh * NMAX * 2;
+  static constexpr int kW = 0;
+  static constexpr int kStage = kW + kWSize;
+  static constexpr int kSt = kStage + kChunks * STAGES * kStageW;
+  static constexpr int kAb = kSt + kChunks * kStW;
+  static constexpr int kHs = kAb + kChunks * kAbW;  // [chunk][n][8]
+  static constexpr int kBytes = (kHs + kChunks * NMAX * kWarpCh) * 4;
+};
+
+// grid (ceil(dim / 8), batch), StatePlan::kWarps warps: the chunks from the
+// first, kWarps x CPW at once, a warp CPW consecutive ones walked side by
+// side; the next ones' rows are copied in while these are walked.
+// LADDER: clock64 phase counters, lane 0 of every warp
+__device__ unsigned long long g_clk[8];
+
+template <typename T, int NMAX, int RMAX, int WARPS = 4, int MINB = 1,
+          int CPW = 1, bool DT_OUT = false, int STAGES = 2, bool CLK = false,
+          bool CHAINV = false>
+__global__ void __launch_bounds__(
+    StatePlan<NMAX, RMAX, true, WARPS, CPW>::kWarps * 32, MINB)
+scan_fwd_train_states_kernel(const T* __restrict__ u,
+                             const T* __restrict__ dt_low,
+                             const T* __restrict__ dt_w,
+                             const float* __restrict__ A,
+                             const T* __restrict__ Bm,
+                             const float* __restrict__ bias,
+                             float* __restrict__ bnd,
+                             float* __restrict__ dt_out, int L, int dim,
+                             int N, int R, int use_softplus, int vec) {
+  constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
+  using P = StatePlan<NMAX, RMAX, kMma, WARPS, CPW, STAGES>;
+  constexpr int NPL = NMAX / kLanes;
+  constexpr int nw = P::kWarps, kNT = nw * 32, kIt = P::kChunks;
+  constexpr int LDF = RMAX + 4, LDB = RMAX + 8, kPitch = kMma ? LDB : LDF;
+  static_assert(RMAX % 16 == 0 && NPL >= 2, "plan");
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int d0 = blockIdx.x * kWarpCh, b = blockIdx.y;
+  const int nc = (L + kChunk - 1) / kChunk;
+  const size_t row0 = (size_t)b * L;
+  float* s_w = smem + P::kW;
+  // the warp's chunk k of stage s at stage0 + (s * CPW + k) * kStageW
+  float* stage0 = smem + P::kStage + warp * STAGES * CPW * P::kStageW;
+  float2* s_st = reinterpret_cast<float2*>(smem + P::kSt) +
+                 warp * CPW * (P::kStW / 2);
+  const float2* s_ab_all = reinterpret_cast<const float2*>(smem + P::kAb);
+  float2* s_ab = reinterpret_cast<float2*>(smem + P::kAb) +
+                 warp * CPW * (P::kAbW / 2);
+
+  // chunk c's dt_low, B and u into a stage buffer
+  auto stage_chunk = [&](int c, float* buf) {
+    const int t0 = c * kChunk, nt = min(kChunk, L - t0);
+    T* dtl = reinterpret_cast<T*>(buf);
+    T* braw = reinterpret_cast<T*>(buf + P::kDtlW);
+    T* uraw = reinterpret_cast<T*>(buf + P::kDtlW + P::kBRawW);
+    stage<T, kChunk * RMAX, 32>(
+        vec, lane,
+        [&](int i) -> const T* {
+          const int tt = i / RMAX, k = i % RMAX;
+          return tt < nt && k < R ? dt_low + (row0 + t0 + tt) * R + k
+                                  : nullptr;
+        },
+        [&](int i) { return dtl + i / RMAX * kPitch + i % RMAX; });
+    stage<T, kChunk * NMAX, 32>(
+        vec, lane,
+        [&](int i) -> const T* {
+          const int tt = i / NMAX, n = i % NMAX;
+          return tt < nt && n < N ? Bm + (row0 + t0 + tt) * N + n : nullptr;
+        },
+        [&](int i) { return braw + i; });
+    stage<T, kChunk * kWarpCh, 32>(
+        vec, lane,
+        [&](int i) -> const T* {
+          const int tt = i / kWarpCh, d = d0 + i % kWarpCh;
+          return tt < nt && d < dim ? u + (row0 + t0 + tt) * dim + d
+                                    : nullptr;
+        },
+        [&](int i) { return uraw + i; });
+  };
+
+  uint32_t bfr[RMAX / 16][2];
+  load_w_frags<T, RMAX>(dt_w, d0 + g, dim, R, q, bfr);
+  if constexpr (!kMma) {
+    for (int i = tid; i < kWarpCh * RMAX; i += kNT) {
+      const int k = i / kWarpCh, c = i % kWarpCh;
+      s_w[c * LDF + k] = (k < R && d0 + c < dim)
+                             ? to_f32(dt_w[(size_t)k * dim + d0 + c]) : 0.f;
+    }
+  }
+  float bias2[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int d = d0 + 2 * q + j;
+    bias2[j] = (bias != nullptr && d < dim) ? bias[d] : 0.f;
+  }
+  float a2[NPL];
+#pragma unroll
+  for (int j = 0; j < NPL; ++j) {
+    const int n = q * NPL + j;
+    a2[j] = (d0 + g < dim && n < N) ? A[(size_t)(d0 + g) * N + n] * kLog2e
+                                    : 0.f;
+  }
+
+  float H = 0.f;  // the chain's state, for thread (n, c) = (tid / 8, tid % 8)
+  unsigned long long clk[7] = {0, 0, 0, 0, 0, 0, 0}, tc = 0;
+  auto tick = [&](int i) {
+    if constexpr (CLK) {
+      const unsigned long long now = clock64();
+      clk[i] += now - tc;
+      tc = now;
+    }
+  };
+  if (vec) {
+#pragma unroll
+    for (int s0 = 0; s0 < STAGES - 1; ++s0) {
+#pragma unroll
+      for (int k = 0; k < CPW; ++k)
+        if (s0 * kIt + warp * CPW + k < nc)
+          stage_chunk(s0 * kIt + warp * CPW + k,
+                      stage0 + (s0 * CPW + k) * P::kStageW);
+      cp_async_commit();
+    }
+  }
+  // CHAINV: the chain leaves the states of chunks lo .. hi in s_hs, written
+  // to bnd after the next barrier as 16-byte runs of 4 channels
+  float* s_hs = smem + P::kHs;
+  auto store_states = [&](int lo, int hi) {
+    for (int i = tid; i < (hi - lo) * N * 2; i += kNT) {
+      const int ci = i / (2 * N), n = (i / 2) % N, half = i % 2;
+      const int d = d0 + 4 * half;
+      const float* src = s_hs + (ci * NMAX + n) * kWarpCh + 4 * half;
+      float* dst = bnd + (((size_t)b * nc + lo + ci) * N + n) * dim + d;
+      if (vec && d + 4 <= dim) {  // dim % 4 == 0: 16-byte aligned
+        *reinterpret_cast<float4*>(dst) =
+            *reinterpret_cast<const float4*>(src);
+      } else {
+        for (int j = 0; j < 4; ++j)
+          if (d + j < dim) dst[j] = src[j];
+      }
+    }
+  };
+  int it = 0;
+  for (int lo = 0; lo < nc; lo += kIt, ++it) {
+    const int hi = min(nc, lo + kIt);
+    const int c0 = lo + warp * CPW;  // the warp's first chunk
+    float* buf = stage0 + (it % STAGES) * CPW * P::kStageW;
+    if constexpr (CLK) tc = clock64();
+    __syncthreads();  // the previous chain's reads are done; s_w is ready
+    if constexpr (CHAINV) {
+      if (lo > 0) store_states(lo - kIt, lo);
+    }
+    tick(0);
+    if (vec) {
+      const int ahead = lo + (STAGES - 1) * kIt + warp * CPW;
+#pragma unroll
+      for (int k = 0; k < CPW; ++k)
+        if (ahead + k < nc)
+          stage_chunk(ahead + k,
+                      stage0 + (((it + STAGES - 1) % STAGES) * CPW + k) *
+                                   P::kStageW);
+      cp_async_commit();
+      cp_async_wait<STAGES - 1>();
+    } else {
+#pragma unroll
+      for (int k = 0; k < CPW; ++k)
+        if (c0 + k < hi) stage_chunk(c0 + k, buf + k * P::kStageW);
+    }
+    __syncwarp();
+    tick(1);
+    if (c0 < hi) {
+      // dt and dt u of each chunk's 16 x 8 (t, d)
+#pragma unroll
+      for (int k = 0; k < CPW; ++k) {
+        const float* kb = buf + k * P::kStageW;
+        const T* uraw = reinterpret_cast<const T*>(kb + P::kDtlW + P::kBRawW);
+        const int t0 = (c0 + k) * kChunk, nt = min(kChunk, L - t0);
+        float raw[4];
+        expand_dt<kMma, RMAX>(kb, s_w + 2 * q * LDF, bfr, g, q, raw);
+        float dts[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int tt = g + 8 * (e >> 1), cc = 2 * q + (e & 1);
+          float dt = raw[e] + bias2[e & 1];
+          if (use_softplus) dt = softplus(dt);
+          if (tt >= nt || d0 + cc >= dim) dt = 0.f;  // the state stays
+          dts[e] = dt;
+          s_st[k * (P::kStW / 2) + tt * kWarpCh + cc] =
+              make_float2(dt, dt * to_f32(uraw[tt * kWarpCh + cc]));
+        }
+        if constexpr (DT_OUT) {  // the main pass reads dt from here
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int tt = g + 8 * i, d = d0 + 2 * q;
+            float* dst = dt_out + (row0 + t0 + tt) * dim + d;
+            if (tt >= nt || d >= dim) continue;
+            if (vec) {  // dim even: the pair is 8-byte aligned
+              *reinterpret_cast<float2*>(dst) =
+                  make_float2(dts[2 * i], dts[2 * i + 1]);
+            } else {
+              dst[0] = dts[2 * i];
+              if (d + 1 < dim) dst[1] = dts[2 * i + 1];
+            }
+          }
+        }
+      }
+      __syncwarp();
+      tick(2);
+      // the chunks' walks from a zero state, side by side (channel g,
+      // states q * NPL ..): beta = the end state, alpha = exp2(A log2e
+      // sum dt)
+      float h[CPW][NPL], dsum[CPW];
+#pragma unroll
+      for (int k = 0; k < CPW; ++k) {
+        dsum[k] = 0.f;
+#pragma unroll
+        for (int j = 0; j < NPL; ++j) h[k][j] = 0.f;
+      }
+#pragma unroll
+      for (int tt = 0; tt < kChunk; ++tt) {
+#pragma unroll
+        for (int k = 0; k < CPW; ++k) {
+          const float2 p = s_st[k * (P::kStW / 2) + tt * kWarpCh + g];
+          const T* braw =
+              reinterpret_cast<const T*>(buf + k * P::kStageW + P::kDtlW);
+          float bv[NPL];
+          lds_t<NPL>(braw + tt * NMAX + q * NPL, bv);
+          dsum[k] += p.x;
+#pragma unroll
+          for (int j = 0; j < NPL; ++j)
+            h[k][j] = fmaf(ex2(p.x * a2[j]), h[k][j], p.y * bv[j]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < CPW; ++k)
+#pragma unroll
+        for (int j = 0; j < NPL; ++j)
+          s_ab[k * (P::kAbW / 2) + g * NMAX + q * NPL + j] =
+              make_float2(ex2(a2[j] * dsum[k]), h[k][j]);
+      tick(3);
+    }
+    __syncthreads();
+    tick(4);
+    // the chain from the left: bnd_c, then bnd_{c+1} = alpha_c bnd_c +
+    // beta_c; a chunk's 8 channels of one state are one 32-byte run
+    if (tid < kWarpCh * N) {
+      const int n = tid / kWarpCh, cc = tid % kWarpCh, d = d0 + cc;
+      if constexpr (CHAINV) {
+        float2 ab[kIt];
+#pragma unroll
+        for (int ci = 0; ci < kIt; ++ci)
+          ab[ci] = s_ab_all[ci * (P::kAbW / 2) + cc * NMAX + n];
+#pragma unroll
+        for (int ci = 0; ci < kIt; ++ci) {
+          s_hs[(ci * NMAX + n) * kWarpCh + cc] = H;
+          if (lo + ci < hi) H = fmaf(ab[ci].x, H, ab[ci].y);
+        }
+      } else {
+        float* dst = bnd + ((size_t)b * nc * N + n) * dim + d;
+        for (int cw = lo; cw < hi; ++cw) {
+          if (d < dim) dst[(size_t)cw * N * dim] = H;
+          const float2 ab =
+              s_ab_all[(cw - lo) * (P::kAbW / 2) + cc * NMAX + n];
+          H = fmaf(ab.x, H, ab.y);
+        }
+      }
+    }
+    tick(5);
+    clk[6] += 1;
+  }
+  if constexpr (CHAINV) {
+    __syncthreads();
+    store_states(((nc - 1) / kIt) * kIt, nc);
+  }
+  if constexpr (CLK) {
+    if (lane == 0)
+      for (int i = 0; i < 7; ++i) atomicAdd(&g_clk[i], clk[i]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Main pass
+// ---------------------------------------------------------------------------
+
+// Shared memory of a main-pass block, in floats, each array 16-byte
+// aligned.  bf16 inputs keep dt_w (transposed) and dt_low as bf16 mma
+// operands, with rows of RMAX + 8 (conflict-free fragments), inside the
+// fp32 arrays' room.
+template <int NMAX, int RMAX>
+struct MainPlan {
+  static constexpr int kW = 0;                            // [RMAX][32]
+  static constexpr int kDtl = kW + RMAX * kChannels;      // [16][RMAX]
+  static constexpr int kB = kDtl + kChunk * RMAX;         // [16][NMAX]
+  static constexpr int kC = kB + kChunk * NMAX;           // [16][NMAX]
+  static constexpr int kDd = kC + kChunk * NMAX;          // [16][32] float2
+  static constexpr int kY = kDd + 2 * kChunk * kChannels; // [16][128]
+  static constexpr int kBytes = (kY + kChunk * kThreads) * 4;  // <= 28 KB
+};
+
+// grid (ceil(dim / 32), ceil(n_chunks / group), batch); 6 blocks of 128
+// threads an SM
+template <typename T, int NMAX, int RMAX, int MINB = 6, bool DT_IN = false>
+__global__ void __launch_bounds__(kThreads, MINB)
 scan_fwd_train_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
                       const T* __restrict__ dt_w, const float* __restrict__ A,
                       const T* __restrict__ Bm, const T* __restrict__ Cm,
                       const float* __restrict__ Dv, const T* __restrict__ z,
                       const float* __restrict__ bias, T* __restrict__ out,
-                      float* __restrict__ o, float* __restrict__ bnd, int L,
-                      int dim, int N, int R, int use_softplus) {
-  __shared__ __align__(16) float s_dt[kChunk][RMAX];
-  __shared__ __align__(16) float s_B[kChunk][NMAX];
-  __shared__ __align__(16) float s_C[kChunk][NMAX];
-  __shared__ T s_u[kChunk][kThreads];
-  __shared__ T s_z[kChunk][kThreads];
+                      float* __restrict__ o, const float* __restrict__ bnd,
+                      int L, int dim, int N, int R, int use_softplus,
+                      int group) {
+  using P = MainPlan<NMAX, RMAX>;
+  constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int NPL = NMAX / kLanes;  // states a lane
+  constexpr int LDB = RMAX + 8;       // bf16 operand rows
+  static_assert(RMAX % 16 == 0 && NPL >= 2, "plan");
+  extern __shared__ __align__(16) float smem[];
+  float* s_w = smem + P::kW;
+  float* s_dtl = smem + P::kDtl;
+  float* s_B = smem + P::kB;
+  float* s_C = smem + P::kC;
+  float2* s_dd = reinterpret_cast<float2*>(smem + P::kDd);
+  float* s_y = smem + P::kY;
+  __nv_bfloat16* w_bf = reinterpret_cast<__nv_bfloat16*>(s_w);
+  __nv_bfloat16* dtl_bf = reinterpret_cast<__nv_bfloat16*>(s_dtl);
 
-  const int b = blockIdx.x;
-  const int d = blockIdx.y * kThreads + threadIdx.x;
-  const bool active = d < dim;
-  const int n_saved = (L + kSaveEvery - 1) / kSaveEvery;
+  const int tid = threadIdx.x;
+  const int d0 = blockIdx.x * kChannels, b = blockIdx.z;
+  const int nc = (L + kChunk - 1) / kChunk;
+  const int c_begin = blockIdx.y * group;
+  const int c_end = min(nc, c_begin + group);
+  // phases A and C: channel ca, timesteps tg * kSteps .. + kSteps
+  const int ca = tid % kChannels, tg = tid / kChannels;
+  const int da = d0 + ca;
+  const bool active = da < dim;
+  // phase B: channel cb, states kb * NPL .. + NPL
+  const int cb = tid / kLanes, kb = tid % kLanes;
+  const int db = d0 + cb;
 
-  float w[RMAX], a2[NMAX], h[NMAX];
-#pragma unroll
-  for (int k = 0; k < RMAX; ++k)
-    w[k] = (active && k < R) ? to_f32(dt_w[(size_t)k * dim + d]) : 0.f;
-#pragma unroll
-  for (int n = 0; n < NMAX; ++n) {
-    a2[n] = (active && n < N) ? A[(size_t)d * N + n] * kLog2e : 0.f;
-    h[n] = 0.f;
+  for (int i = tid; i < (DT_IN ? 0 : RMAX * kChannels); i += kThreads) {
+    const int k = i / kChannels, c = i % kChannels;
+    const bool ok = k < R && d0 + c < dim;
+    if constexpr (kMma) {
+      w_bf[c * LDB + k] = ok ? dt_w[(size_t)k * dim + d0 + c]
+                             : __float2bfloat16(0.f);
+    } else {
+      s_w[i] = ok ? dt_w[(size_t)k * dim + d0 + c] : 0.f;
+    }
   }
-  const float skip = (Dv != nullptr && active) ? Dv[d] : 0.f;
-  const float dbias = (bias != nullptr && active) ? bias[d] : 0.f;
+  // the state entering the group's first chunk, from the state pass
+  float a2[NPL], h[NPL];
+#pragma unroll
+  for (int j = 0; j < NPL; ++j) {
+    const int n = kb * NPL + j;
+    const bool ok = db < dim && n < N;
+    a2[j] = ok ? A[(size_t)db * N + n] * kLog2e : 0.f;
+    h[j] = ok ? bnd[(((size_t)b * nc + c_begin) * N + n) * dim + db] : 0.f;
+  }
+  const float skip_w = (Dv != nullptr && active) ? Dv[da] : 0.f;
+  const float dbias = (bias != nullptr && active) ? bias[da] : 0.f;
   const size_t row0 = (size_t)b * L;
 
-  for (int t0 = 0; t0 < L; t0 += kChunk) {
-    const int nt = min(kChunk, L - t0);
-    __syncthreads();  // the previous chunk's readers are done
-    for (int i = threadIdx.x; i < kChunk * RMAX; i += kThreads) {
-      const int tt = i / RMAX, k = i % RMAX;
-      s_dt[tt][k] = (tt < nt && k < R)
-                        ? to_f32(dt_low[(row0 + t0 + tt) * R + k]) : 0.f;
-    }
-    for (int i = threadIdx.x; i < kChunk * NMAX; i += kThreads) {
-      const int tt = i / NMAX, n = i % NMAX;
-      const bool ok = tt < nt && n < N;
-      const size_t src = (row0 + t0 + tt) * N + n;
-      s_B[tt][n] = ok ? to_f32(Bm[src]) : 0.f;
-      s_C[tt][n] = ok ? to_f32(Cm[src]) : 0.f;
-    }
-    if (active) {
+  // every global load of the chunk at c0 into registers, all issued before
+  // the first is stored (one memory latency a chunk)
+  constexpr int NDT = kChunk * RMAX / kThreads;
+  constexpr int NBC = kChunk * NMAX / kThreads;
+  T r_dt[NDT], r_b[NBC], r_c[NBC], r_u[kSteps], r_z[kSteps];
+  float r_dv[kSteps];
+  const T zero = from_f32<T>(0.f);
+  auto load_chunk = [&](int c0) {
+    const int n_t = min(kChunk, L - c0);
+    const T* pd = dt_low + (row0 + c0) * R;
 #pragma unroll
-      for (int tt = 0; tt < kChunk; ++tt) {
-        if (tt < nt) {
-          const size_t idx = (row0 + t0 + tt) * dim + d;
-          s_u[tt][threadIdx.x] = u[idx];
-          if (z != nullptr) s_z[tt][threadIdx.x] = z[idx];
-        }
+    for (int j = 0; j < (DT_IN ? 0 : NDT); ++j) {
+      const int i = tid + j * kThreads, tt = i / RMAX, k = i % RMAX;
+      r_dt[j] = (tt < n_t && k < R) ? pd[tt * R + k] : zero;
+    }
+    const T* pb = Bm + (row0 + c0) * N;
+    const T* pc = Cm + (row0 + c0) * N;
+#pragma unroll
+    for (int j = 0; j < NBC; ++j) {
+      const int i = tid + j * kThreads, tt = i / NMAX, n = i % NMAX;
+      const bool ok = tt < n_t && n < N;
+      r_b[j] = ok ? pb[tt * N + n] : zero;
+      r_c[j] = ok ? pc[tt * N + n] : zero;
+    }
+    const size_t base = (row0 + c0) * dim + da;
+#pragma unroll
+    for (int i = 0; i < kSteps; ++i) {
+      const int tt = tg * kSteps + i;
+      const bool ok = active && tt < n_t;
+      r_u[i] = ok ? u[base + tt * dim] : zero;
+      r_z[i] = (ok && z != nullptr) ? z[base + tt * dim] : zero;
+      if constexpr (DT_IN) r_dv[i] = ok ? o[base + tt * dim] : 0.f;
+    }
+  };
+
+  for (int t0 = c_begin * kChunk; t0 < c_end * kChunk; t0 += kChunk) {
+    const int nt = min(kChunk, L - t0);
+    load_chunk(t0);
+    __syncthreads();  // the previous chunk's readers are done
+    // the chunk's shared rows in fp32 (bf16: the mma operand as it is)
+#pragma unroll
+    for (int j = 0; j < (DT_IN ? 0 : NDT); ++j) {
+      const int i = tid + j * kThreads, tt = i / RMAX, k = i % RMAX;
+      if constexpr (kMma) {
+        dtl_bf[tt * LDB + k] = r_dt[j];
+      } else {
+        s_dtl[i] = r_dt[j];
       }
+    }
+#pragma unroll
+    for (int j = 0; j < NBC; ++j) {
+      s_B[tid + j * kThreads] = to_f32(r_b[j]);
+      s_C[tid + j * kThreads] = to_f32(r_c[j]);
+    }
+    float uv[kSteps], zv[kSteps];
+#pragma unroll
+    for (int i = 0; i < kSteps; ++i) {
+      uv[i] = to_f32(r_u[i]);
+      zv[i] = to_f32(r_z[i]);
     }
     __syncthreads();
-    if (!active) continue;
 
-    for (int tt = 0; tt < nt; ++tt) {
-      const int t = t0 + tt;
-      if (t % kSaveEvery == 0) {
-        // the state entering step t
-        float* dst = bnd + (((size_t)b * n_saved + t / kSaveEvery) * N) * dim
-                     + d;
+    // phase A: dt_low . dt_w for the thread's kSteps timesteps of channel ca
+    float acc[kSteps];
+    if constexpr (DT_IN) {
 #pragma unroll
-        for (int n = 0; n < NMAX; ++n)
-          if (n < N) dst[(size_t)n * dim] = h[n];
-      }
-      const size_t idx = (row0 + t) * dim + d;
-      const float uv = to_f32(s_u[tt][threadIdx.x]);
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      const float4* dt4 = reinterpret_cast<const float4*>(s_dt[tt]);
+      for (int i = 0; i < kSteps; ++i) acc[i] = r_dv[i];
+    } else if constexpr (kMma) {
+      // warp tg: its 4 timesteps as rows 0-3 of a 16-row tile (the other
+      // rows zero) against the block's 32 channels; the accumulators pass
+      // through s_y (free until phase B) to the (t, ca) layout
+      const int lane = tid & 31, g = lane >> 2, q = lane & 3;
+      const bool own = g < kSteps;
+      const int row = tg * kSteps + (own ? g : 0);
+      float c4[kChannels / 8][4];
 #pragma unroll
-      for (int q = 0; q < RMAX / 4; ++q) {
-        const float4 v = dt4[q];
-        acc[0] = fmaf(v.x, w[4 * q], acc[0]);
-        acc[1] = fmaf(v.y, w[4 * q + 1], acc[1]);
-        acc[2] = fmaf(v.z, w[4 * q + 2], acc[2]);
-        acc[3] = fmaf(v.w, w[4 * q + 3], acc[3]);
-      }
-      float dt = (acc[0] + acc[1]) + (acc[2] + acc[3]) + dbias;
-      if (use_softplus) dt = softplus(dt);
-      const float du = dt * uv;
-      float ys[4] = {0.f, 0.f, 0.f, 0.f};
-      const float4* b4 = reinterpret_cast<const float4*>(s_B[tt]);
-      const float4* c4 = reinterpret_cast<const float4*>(s_C[tt]);
+      for (int j = 0; j < kChannels / 8; ++j)
+        c4[j][0] = c4[j][1] = c4[j][2] = c4[j][3] = 0.f;
 #pragma unroll
-      for (int q = 0; q < NMAX / 4; ++q) {
-        const float4 bq = b4[q], cq = c4[q];
-        const float bv[4] = {bq.x, bq.y, bq.z, bq.w};
-        const float cv[4] = {cq.x, cq.y, cq.z, cq.w};
+      for (int k0 = 0; k0 < RMAX; k0 += 16) {
+        const __nv_bfloat16* ap = &dtl_bf[row * LDB + k0 + 2 * q];
+        const uint32_t a[4] = {
+            own ? *reinterpret_cast<const uint32_t*>(ap) : 0u, 0u,
+            own ? *reinterpret_cast<const uint32_t*>(ap + 8) : 0u, 0u};
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int n = 4 * q + j;
-          h[n] = fmaf(exp2f(dt * a2[n]), h[n], du * bv[j]);
-          ys[j] = fmaf(h[n], cv[j], ys[j]);
+        for (int j = 0; j < kChannels / 8; ++j) {
+          const __nv_bfloat16* wp = &w_bf[(j * 8 + g) * LDB + k0 + 2 * q];
+          mma_bf16(c4[j], a, *reinterpret_cast<const uint32_t*>(wp),
+                   *reinterpret_cast<const uint32_t*>(wp + 8));
         }
       }
-      float y = fmaf(uv, skip, (ys[0] + ys[1]) + (ys[2] + ys[3]));
-      o[idx] = y;
-      if (z != nullptr) {
-        const float zv = to_f32(s_z[tt][threadIdx.x]);
-        y *= zv / (1.f + expf(-zv));
+#pragma unroll
+      for (int j = 0; j < kChannels / 8; ++j) {
+        if (own) {
+          s_y[row * kChannels + j * 8 + 2 * q] = c4[j][0];
+          s_y[row * kChannels + j * 8 + 2 * q + 1] = c4[j][1];
+        }
       }
-      out[idx] = from_f32<T>(y);
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < kSteps; ++i)
+        acc[i] = s_y[(tg * kSteps + i) * kChannels + ca];
+    } else {
+#pragma unroll
+      for (int i = 0; i < kSteps; ++i) acc[i] = 0.f;
+#pragma unroll
+      for (int k = 0; k < RMAX; k += 4) {
+        const float w0 = s_w[k * kChannels + ca];
+        const float w1 = s_w[(k + 1) * kChannels + ca];
+        const float w2 = s_w[(k + 2) * kChannels + ca];
+        const float w3 = s_w[(k + 3) * kChannels + ca];
+#pragma unroll
+        for (int i = 0; i < kSteps; ++i) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              &s_dtl[(tg * kSteps + i) * RMAX + k]);
+          acc[i] = fmaf(v.x, w0, acc[i]);
+          acc[i] = fmaf(v.y, w1, acc[i]);
+          acc[i] = fmaf(v.z, w2, acc[i]);
+          acc[i] = fmaf(v.w, w3, acc[i]);
+        }
+      }
+    }
+    // + bias, softplus, du; the skip and the gate for phase C
+    float skip[kSteps], gate[kSteps];
+#pragma unroll
+    for (int i = 0; i < kSteps; ++i) {
+      const int tt = tg * kSteps + i;
+      float dt = acc[i];
+      if constexpr (!DT_IN) {
+        dt += dbias;
+        if (use_softplus) dt = softplus(dt);
+      }
+      if (tt >= nt) dt = 0.f;  // past the end: the state stays as it is
+      s_dd[tt * kChannels + ca] = make_float2(dt, dt * uv[i]);
+      skip[i] = uv[i] * skip_w;
+      gate[i] = z != nullptr ? silu(zv[i]) : 1.f;
+    }
+    __syncthreads();
+
+    // phase B, the recurrence: only h = a h + du B depends on the previous
+    // step; the unrolled chunk lets later steps' exp2 run ahead
+#pragma unroll
+    for (int tt = 0; tt < kChunk; ++tt) {
+      const float2 dd = s_dd[tt * kChannels + cb];
+      float bv[NPL], cv[NPL];
+      lds<NPL>(s_B + tt * NMAX + kb * NPL, bv);
+      lds<NPL>(s_C + tt * NMAX + kb * NPL, cv);
+      float y = 0.f;
+#pragma unroll
+      for (int j = 0; j < NPL; ++j) {
+        h[j] = fmaf(ex2(dd.x * a2[j]), h[j], dd.y * bv[j]);
+        y = fmaf(h[j], cv[j], y);
+      }
+      s_y[tt * kThreads + tid] = y;  // = [tt][cb][kb]
+    }
+    __syncthreads();
+
+    // phase C: o = the 4 partials + skip, y = o * gate, stored along d
+#pragma unroll
+    for (int i = 0; i < kSteps; ++i) {
+      const int tt = tg * kSteps + i;
+      float part[kLanes];
+      lds<kLanes>(s_y + tt * kThreads + ca * kLanes, part);
+      const float s = (((part[0] + part[1]) + part[2]) + part[3]) + skip[i];
+      if (active && tt < nt) {
+        const size_t idx = (row0 + t0 + tt) * dim + da;
+        o[idx] = s;
+        out[idx] = from_f32<T>(s * gate[i]);
+      }
     }
   }
 }
 
-template <typename T, int NMAX, int RMAX>
-void launch(const void* const* p, int batch, int L, int dim, int N, int R,
-            int use_softplus, cudaStream_t stream) {
-  dim3 grid(batch, (dim + kThreads - 1) / kThreads);
-  scan_fwd_train_kernel<T, NMAX, RMAX><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(p[0]), static_cast<const T*>(p[1]),
-      static_cast<const T*>(p[2]), static_cast<const float*>(p[3]),
-      static_cast<const T*>(p[4]), static_cast<const T*>(p[5]),
-      static_cast<const float*>(p[6]), static_cast<const T*>(p[7]),
-      static_cast<const float*>(p[8]),
-      static_cast<T*>(const_cast<void*>(p[9])),
-      static_cast<float*>(const_cast<void*>(p[10])),
-      static_cast<float*>(const_cast<void*>(p[11])), L, dim, N, R,
-      use_softplus);
+// the shared-memory ceiling is set once per instantiation
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes, bool& done) {
+  if (done || bytes <= 48 * 1024) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  done = err == cudaSuccess;
+  return err;
+}
+
+// LADDER (timing only): bit 0 of `passes` launches the state pass, bit 1
+// the main pass; `group` chunks a main-pass block
+template <typename T, int NMAX, int RMAX, int SW = 4, int SMINB = 1,
+          int CPW = 1, int MMINB = 6, bool DTO = false, int STAGES = 2,
+          bool CLK = false, bool CHAINV = false>
+int launch(const void* const* p, int batch, int L, int dim, int N, int R,
+           int use_softplus, cudaStream_t stream, int passes, int group) {
+  constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
+  using SP = StatePlan<NMAX, RMAX, kMma, SW, CPW, STAGES>;
+  using MP = MainPlan<NMAX, RMAX>;
+  auto states_kernel =
+      scan_fwd_train_states_kernel<T, NMAX, RMAX, SW, SMINB, CPW, DTO, STAGES,
+                                   CLK, CHAINV>;
+  static bool states_set = false;
+  cudaError_t err = allow_smem(states_kernel, SP::kBytes, states_set);
+  if (err != cudaSuccess) return err;
+  const int nc = (L + kChunk - 1) / kChunk;
+  const T* u = static_cast<const T*>(p[0]);
+  const T* dt_low = static_cast<const T*>(p[1]);
+  const T* dt_w = static_cast<const T*>(p[2]);
+  const float* A = static_cast<const float*>(p[3]);
+  const T* Bm = static_cast<const T*>(p[4]);
+  const float* bias = static_cast<const float*>(p[8]);
+  float* bnd = static_cast<float*>(const_cast<void*>(p[11]));
+  // rows copied as 16-byte vectors where every row segment is whole ones
+  auto a16 = [](const void* v) {
+    return reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  };
+  bool vec = R == RMAX && N == NMAX && dim % (16 / (int)sizeof(T)) == 0;
+  for (int i : {0, 1, 4}) vec = vec && a16(p[i]);
+  if (passes & 1) {
+    dim3 sgrid((dim + kWarpCh - 1) / kWarpCh, batch);
+    states_kernel<<<sgrid, SP::kWarps * 32, SP::kBytes, stream>>>(
+        u, dt_low, dt_w, A, Bm, bias, bnd,
+        static_cast<float*>(const_cast<void*>(p[10])), L, dim, N, R,
+        use_softplus, vec);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (passes & 2) {
+    dim3 grid((dim + kChannels - 1) / kChannels, (nc + group - 1) / group,
+              batch);
+    scan_fwd_train_kernel<T, NMAX, RMAX, MMINB, DTO><<<grid, kThreads,
+                                                       MP::kBytes, stream>>>(
+        u, dt_low, dt_w, A, Bm, static_cast<const T*>(p[5]),
+        static_cast<const float*>(p[6]), static_cast<const T*>(p[7]), bias,
+        static_cast<T*>(const_cast<void*>(p[9])),
+        static_cast<float*>(const_cast<void*>(p[10])), bnd, L, dim, N, R,
+        use_softplus, group);
+  }
+  return cudaGetLastError();
 }
 
 template <typename T, int NMAX>
-bool dispatch_r(const void* const* p, int batch, int L, int dim, int N,
-                int R, int sp, cudaStream_t s) {
+int dispatch_r(const void* const* p, int batch, int L, int dim, int N, int R,
+               int sp, cudaStream_t s, int passes, int group) {
   if (R <= 16)
-    launch<T, NMAX, 16>(p, batch, L, dim, N, R, sp, s);
-  else if (R <= 32)
-    launch<T, NMAX, 32>(p, batch, L, dim, N, R, sp, s);
-  else if (R <= 64)
-    launch<T, NMAX, 64>(p, batch, L, dim, N, R, sp, s);
-  else
-    return false;
-  return true;
+    return launch<T, NMAX, 16>(p, batch, L, dim, N, R, sp, s, passes, group);
+  if (R <= 32)
+    return launch<T, NMAX, 32>(p, batch, L, dim, N, R, sp, s, passes, group);
+  if (R <= 64)
+    return launch<T, NMAX, 64>(p, batch, L, dim, N, R, sp, s, passes, group);
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
-bool dispatch(const void* const* p, int batch, int L, int dim, int N, int R,
-              int sp, cudaStream_t s) {
-  if (N <= 8) return dispatch_r<T, 8>(p, batch, L, dim, N, R, sp, s);
-  if (N <= 16) return dispatch_r<T, 16>(p, batch, L, dim, N, R, sp, s);
-  if (N <= 32) return dispatch_r<T, 32>(p, batch, L, dim, N, R, sp, s);
-  return false;
+int dispatch(const void* const* p, int batch, int L, int dim, int N, int R,
+             int sp, cudaStream_t s, int passes, int group) {
+  if (N <= 8) return dispatch_r<T, 8>(p, batch, L, dim, N, R, sp, s, passes,
+                                      group);
+  if (N <= 16) return dispatch_r<T, 16>(p, batch, L, dim, N, R, sp, s,
+                                        passes, group);
+  if (N <= 32) return dispatch_r<T, 32>(p, batch, L, dim, N, R, sp, s,
+                                        passes, group);
+  return cudaErrorInvalidValue;
+}
+
+int entry(const void* const* p, int batch, int L, int dim, int n_state,
+          int dt_rank, int dtype, int use_softplus, void* stream, int passes,
+          int group) {
+  if (batch < 1 || L < 1 || dim < 1 || n_state < 1 || dt_rank < 1 ||
+      group < 1 || (dtype != 0 && dtype != 1))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? dispatch<float>(p, batch, L, dim, n_state, dt_rank,
+                                      use_softplus, s, passes, group)
+                    : dispatch<__nv_bfloat16>(p, batch, L, dim, n_state,
+                                              dt_rank, use_softplus, s,
+                                              passes, group);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  D, z and bias may be null.  Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for shapes
-// the kernel does not take (1 <= N <= 32, 1 <= r <= 64).
+// dtype: 0 = float32, 1 = bfloat16.  D, z and bias may be null.  Launches
+// the state pass (which writes bnd), then the main pass (which reads it),
+// on `stream`.  Returns the CUDA error of the launches (0 on success), or
+// cudaErrorInvalidValue for shapes the kernels do not take (1 <= N <= 32,
+// 1 <= r <= 64).
 extern "C" int dimsum_selective_scan_fwd_train(
     const void* u, const void* dt_low, const void* dt_w, const void* A,
     const void* B, const void* C, const void* D, const void* z,
     const void* bias, void* out, void* o, void* bnd, int batch, int L,
     int dim, int n_state, int dt_rank, int dtype, int use_softplus,
     void* stream) {
-  if (batch < 1 || L < 1 || dim < 1 || n_state < 1 || dt_rank < 1 ||
-      (dtype != 0 && dtype != 1))
-    return cudaErrorInvalidValue;
   const void* p[12] = {u, dt_low, dt_w, A, B, C, D, z, bias, out, o, bnd};
+  return entry(p, batch, L, dim, n_state, dt_rank, dtype, use_softplus,
+               stream, 3, kGroup);
+}
+
+// LADDER (timing only): the passes named by `passes` (bit 0 state, bit 1
+// main) with `group` chunks a main-pass block; `variant` > 0 takes bf16,
+// N 16, r 32 only, (state warps, state blocks an SM at least, chunks a
+// state warp, main blocks an SM at least, dt through o, stages, clocks,
+// the chain's states written as 16-byte runs after the next barrier):
+extern "C" int dimsum_selective_scan_fwd_train_ladder(
+    int variant, int passes, int group, const void* u, const void* dt_low,
+    const void* dt_w, const void* A, const void* B, const void* C,
+    const void* D, const void* z, const void* bias, void* out, void* o,
+    void* bnd, int batch, int L, int dim, int n_state, int dt_rank, int dtype,
+    int use_softplus, void* stream) {
+  const void* p[12] = {u, dt_low, dt_w, A, B, C, D, z, bias, out, o, bnd};
+  if (variant == 0)
+    return entry(p, batch, L, dim, n_state, dt_rank, dtype, use_softplus,
+                 stream, passes, group);
+  if (dtype != 1 || n_state != 16 || dt_rank != 32)
+    return cudaErrorInvalidValue;
+  using bf = __nv_bfloat16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool ok =
-      dtype == 0 ? dispatch<float>(p, batch, L, dim, n_state, dt_rank,
-                                   use_softplus, s)
-                 : dispatch<__nv_bfloat16>(p, batch, L, dim, n_state, dt_rank,
-                                           use_softplus, s);
-  if (!ok) return cudaErrorInvalidValue;
-  return cudaGetLastError();
+#define LADDER_RUNG(V, ...)                                                 \
+  if (variant == V)                                                         \
+    return launch<bf, 16, 32, __VA_ARGS__>(p, batch, L, dim, 16, 32,        \
+                                            use_softplus, s, passes, group);
+  LADDER_RUNG(1, 4, 6, 1, 6, false)
+  LADDER_RUNG(3, 4, 8, 1, 6, true)
+  LADDER_RUNG(4, 4, 6, 1, 6, true)
+  LADDER_RUNG(11, 4, 6, 1, 6, true, 3)
+  LADDER_RUNG(12, 4, 8, 1, 6, true, 3)
+  LADDER_RUNG(13, 4, 6, 1, 6, true, 2, true)
+  LADDER_RUNG(14, 4, 6, 1, 6, true, 3, true)
+  LADDER_RUNG(15, 4, 6, 1, 6, true, 2, false, true)
+  LADDER_RUNG(16, 4, 6, 1, 6, true, 2, true, true)
+  LADDER_RUNG(17, 4, 8, 1, 6, true, 2, false, true)
+#undef LADDER_RUNG
+  return cudaErrorInvalidValue;
+}
+
+// LADDER: the clock64 counters into out[0..7), then zeroed
+extern "C" int dimsum_selective_scan_fwd_train_clocks(void* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_clk, 7 * sizeof(long long));
+  if (err != cudaSuccess) return err;
+  const unsigned long long zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  return cudaMemcpyToSymbol(g_clk, zero, sizeof(zero));
 }

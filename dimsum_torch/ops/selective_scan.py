@@ -41,6 +41,7 @@ from dimsum_torch.ops.cuda_build import DTYPE_CODE, check_tensor, needs_grad
 
 __all__ = ["selective_scan_ref", "selective_scan_cuda", "selective_scan_dtlow",
            "selective_scan_fwd_train", "selective_scan_fwd_train_ref",
+           "selective_scan_fwd_train_states_ref",
            "selective_scan_fwd_train_cuda", "selective_scan_bwd",
            "selective_scan_bwd_ref", "selective_scan_bwd_core_ref",
            "selective_scan_bwd_core_cuda", "selective_scan_bwd_carry_ref",
@@ -211,12 +212,17 @@ def _dt_expand(dt_low, dt_w, delta_bias, delta_softplus):
 
 def selective_scan_fwd_train_ref(u, dt_low, dt_w, A, B, C, D=None, z=None,
                                  delta_bias=None, delta_softplus=False,
-                                 chunk: int = TRAIN_CHUNK):
+                                 chunk: int = TRAIN_CHUNK, boundaries=None):
     """Plain version of kernel 2, the JAX `selective_scan_fwd_train`:
     returns (y, o, boundaries).  y is selective_scan's output in u's dtype;
     o = s + D*u is the fp32 pre-gate output (batch, L, dim); boundaries are
     the fp32 states at the start of each `chunk`-step chunk (the first one
-    zero), (batch, ceil(L / chunk), N, dim)."""
+    zero), (batch, ceil(L / chunk), N, dim).
+
+    With `boundaries` (the state pass's, `selective_scan_fwd_train_states_
+    ref`) every chunk starts from its own entry instead of the state the
+    walk brings, as the kernel's main pass does; they are returned as
+    given."""
     batch, L, dim = u.shape
     dt, _ = _dt_expand(dt_low, dt_w, delta_bias, delta_softplus)
     uf, Af, Bf, Cf = u.float(), A.float(), B.float(), C.float()
@@ -226,6 +232,8 @@ def selective_scan_fwd_train_ref(u, dt_low, dt_w, A, B, C, D=None, z=None,
     ys, bnd = [], []
     for t in range(L):
         if t % chunk == 0:
+            if boundaries is not None:
+                h = boundaries[:, t // chunk].transpose(1, 2).float()
             bnd.append(h.transpose(1, 2))
         h = torch.exp(dt[:, t, :, None] * Af) * h \
             + du[:, t, :, None] * Bf[:, t, None, :]
@@ -238,6 +246,43 @@ def selective_scan_fwd_train_ref(u, dt_low, dt_w, A, B, C, D=None, z=None,
         zf = z.float()
         y = o * (zf * torch.sigmoid(zf))
     return y.to(u.dtype), o, torch.stack(bnd, dim=1)
+
+
+def selective_scan_fwd_train_states_ref(u, dt_low, dt_w, A, B,
+                                        delta_bias=None,
+                                        delta_softplus=False,
+                                        chunk: int = TRAIN_CHUNK):
+    """Plain version of kernel 2's state pass: the states at the start of
+    every `chunk`-step chunk, (batch, ceil(L / chunk), N, dim) fp32, the
+    boundaries of `selective_scan_fwd_train_ref`.  A chunk's effect on the
+    state is affine, h_end = alpha h_start + beta, with alpha =
+    exp(A sum_t dt_t) and beta its end state from a zero seed; they need
+    only dt, u and B, so every chunk's come in parallel; then
+    bnd_{c+1} = alpha_c bnd_c + beta_c from bnd_0 = 0.  A ragged last chunk
+    runs with dt = 0 past the end, as the kernel does."""
+    batch, L, dim = u.shape
+    n = A.shape[1]
+    nc = -(-L // chunk)
+    pad = nc * chunk - L
+    dt, _ = _dt_expand(dt_low, dt_w, delta_bias, delta_softplus)
+
+    def chunks(x):  # (batch, L, k) -> (batch, nc, chunk, k), zero-padded
+        x = torch.nn.functional.pad(x.float(), (0, 0, 0, pad))
+        return x.view(batch, nc, chunk, x.shape[-1])
+
+    du, dt, Bf = chunks(dt * u.float()), chunks(dt), chunks(B)
+    Af = A.float()
+    beta = torch.zeros(batch, nc, dim, n, device=u.device)
+    for t in range(chunk):
+        beta = torch.exp(dt[:, :, t, :, None] * Af) * beta \
+            + du[:, :, t, :, None] * Bf[:, :, t, None, :]
+    alpha = torch.exp(dt.sum(2)[..., None] * Af)
+    bnd = torch.empty(batch, nc, dim, n, device=u.device)
+    h = torch.zeros(batch, dim, n, device=u.device)
+    for c in range(nc):
+        bnd[:, c] = h
+        h = alpha[:, c] * h + beta[:, c]
+    return bnd.transpose(2, 3).contiguous()
 
 
 def selective_scan_bwd_carry_ref(dt_low, dt_w, A, C, delta_bias,
@@ -368,10 +413,12 @@ def selective_scan_bwd_ref(u, dt_low, dt_w, A, B, C, D=None, z=None,
 
 def selective_scan_fwd_train_cuda(u, dt_low, dt_w, A, B, C, D=None, z=None,
                                   delta_bias=None, delta_softplus=False):
-    """Launch kernel 2 (`csrc/selective_scan_fwd_train.cu`): kernel 1's y
-    plus the fp32 o and the states of `selective_scan_fwd_train_ref` at
-    every TRAIN_CHUNK-th step.  Takes what `selective_scan_cuda` takes;
-    raises on anything else."""
+    """Launch kernel 2 (`csrc/selective_scan_fwd_train.cu`: its state
+    pass, which writes the boundaries, then its main pass, the chunks in
+    parallel from them), counted as one launch: kernel 1's y plus the fp32
+    o and the states of `selective_scan_fwd_train_ref` at every
+    TRAIN_CHUNK-th step (`selective_scan_fwd_train_states_ref`).  Takes
+    what `selective_scan_cuda` takes; raises on anything else."""
     _check_kernel_args(u, dt_low, dt_w, A, B, C, D, z, delta_bias)
     batch, L, dim = u.shape
     rank, n_state = dt_w.shape[0], A.shape[1]

@@ -27,7 +27,8 @@ from dimsum_torch.ops.selective_scan import (SelectiveScanDtLowFn, _bwd,
                                              selective_scan_bwd_ref,
                                              selective_scan_dtlow,
                                              selective_scan_dtlow_train,
-                                             selective_scan_fwd_train_ref)
+                                             selective_scan_fwd_train_ref,
+                                             selective_scan_fwd_train_states_ref)
 from tests.test_torch_convert import torch_one_thread  # noqa: F401
 
 TOL = 1e-4
@@ -69,6 +70,13 @@ def assert_close_scaled(got, want, tol=TOL, name=""):
     assert err <= tol * scale, f"{name}: {err} > {tol} * {scale}"
 
 
+def _states(args, kw):
+    """The state pass's boundaries for the forward's arguments."""
+    return selective_scan_fwd_train_states_ref(
+        *args[:5], delta_bias=kw.get("delta_bias"),
+        delta_softplus=kw["delta_softplus"])
+
+
 def _graph_nodes(y):
     """Names of the autograd nodes behind y."""
     seen, todo = set(), [y.grad_fn]
@@ -100,6 +108,67 @@ def test_plain_fwd_train_matches_pallas_interpret(chunk):
         assert a.dtype == torch.float32, name
         assert_close_scaled(a.numpy(), b, name=name)
     assert not got[2][:, 0].any()
+
+
+@pytest.mark.parametrize("L", [32, 64])
+def test_chunk_parallel_fwd_train_matches_pallas_interpret(L):
+    """Kernel 2's decomposition in plain PyTorch (the state pass, then every
+    chunk seeded with its state) against the Pallas forward in interpret
+    mode: y, o and the boundaries."""
+    x = make_inputs(50 + L, L=L)
+    _, y, o, bnd = _jax_fwd_train(x, 16)
+    args, kw = _port_args(_t(x))
+    states = _states(args, kw)
+    assert_close_scaled(states.numpy(), bnd, name="states")
+    got = selective_scan_fwd_train_ref(*args, **kw, boundaries=states)
+    for name, a, b in zip(("y", "o", "boundaries"), got, (y, o, bnd)):
+        assert_close_scaled(a.numpy(), b, name=name)
+
+
+# fp32 tolerance of the chunk-parallel decomposition against the sequential
+# walk: the same products, chained per chunk (measured <= 1.2e-7)
+SEQ_TOL = 1e-5
+FWD_SHAPES = [(8, 5), (16, 32), (32, 64)]  # (N, r)
+
+
+def _fwd_case(L, n, r, optionals):
+    """Inputs at (L, N, r), dim 24, with z / D / bias or without them."""
+    x = make_inputs(40 + L + n + r, L=L, dim=24, n=n, rank=r)
+    args, kw = _port_args(_t(x))
+    if not optionals:
+        kw = dict(delta_softplus=True)
+    return args, kw
+
+
+@pytest.mark.parametrize("n, r", FWD_SHAPES)
+@pytest.mark.parametrize("L", [1, 15, 16, 17, 48, 300])
+def test_states_ref_matches_sequential_states(L, n, r):
+    """The state pass (alpha and beta of every chunk in parallel, then the
+    chain from the left) against the states the sequential walk saves at
+    every chunk start, ragged L included."""
+    args, kw = _fwd_case(L, n, r, True)
+    want = selective_scan_fwd_train_ref(*args, **kw)[2]
+    got = _states(args, kw)
+    assert got.shape == (2, -(-L // 16), n, 24)
+    assert not got[:, 0].any()
+    assert_close_scaled(got.numpy(), want.numpy(), SEQ_TOL, "boundaries")
+
+
+@pytest.mark.parametrize("optionals", [True, False])
+@pytest.mark.parametrize("n, r", FWD_SHAPES)
+@pytest.mark.parametrize("L", [1, 15, 16, 17, 48, 300])
+def test_chunk_seeded_fwd_train_matches_sequential(L, n, r, optionals):
+    """Every chunk run from the state pass's boundaries gives what the
+    sequential walk gives: y, o and the boundaries, with and without z, D
+    and bias."""
+    args, kw = _fwd_case(L, n, r, optionals)
+    want = selective_scan_fwd_train_ref(*args, **kw)
+    states = _states(args, kw)
+    got = selective_scan_fwd_train_ref(*args, **kw, boundaries=states)
+    assert got[2] is not None and torch.equal(got[2], states)
+    for name, a, b in zip(("y", "o", "boundaries"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert_close_scaled(a.numpy(), b.numpy(), SEQ_TOL, name)
 
 
 def test_plain_bwd_matches_pallas_interpret():
