@@ -510,10 +510,12 @@ def phase_kernel_train_ladder(shapes=((16, 256, 1024), (4, 1024, 1024)),
         runs = {"first": first, "route": ladder(3, 4),
                 "main_only": ladder(2, 4), "state_only": ladder(1, 4)}
         if dtype == torch.bfloat16:
-            for v in (1, 3, 4, 11, 15, 17):
+            for v in (1, 3, 4, 18):
                 runs[f"v{v}"] = ladder(3, 4, v)
-                runs[f"v{v}_state"] = ladder(1, 4, v)
+            runs["v4_state"] = ladder(1, 4, 4)
             runs["v4_main"] = ladder(2, 4, 4)
+            runs["v18_main"] = ladder(2, 4, 18)
+            runs["v18_main_g8"] = ladder(2, 8, 18)
         with torch.no_grad():
             want = ss.selective_scan_fwd_train_cuda(
                 *ins[:7], z=ins[7], delta_bias=ins[8], delta_softplus=True)
@@ -534,16 +536,18 @@ def phase_kernel_train_ladder(shapes=((16, 256, 1024), (4, 1024, 1024)),
                 read = lib.dimsum_selective_scan_fwd_train_clocks
                 read.argtypes, read.restype = [P], I
                 buf = (ctypes.c_ulonglong * 8)()
-                for v in (13, 16):
+                for v in (13, 19, 20):
                     read(ctypes.addressof(buf))
-                    ladder(1, 4, v)()
+                    ladder(1 if v == 13 else 2, 4, v)()
                     torch.cuda.synchronize()
                     read(ctypes.addressof(buf))
                     vals = list(buf)
-                    clocks[f"v{v}"] = {
-                        k: vals[i] / max(vals[6], 1) for i, k in enumerate(
-                            ("barrier_top", "copies", "phase_A", "walk",
-                             "barrier_chain", "chain"))}
+                    names = (("barrier_top", "copies", "phase_A", "walk",
+                              "barrier_chain", "chain") if v == 13 else
+                             ("gather", "phase_A", "phase_B",
+                              "barrier_C", "phase_C"))
+                    clocks[f"v{v}"] = {k: vals[i] / max(vals[6], 1)
+                                       for i, k in enumerate(names)}
                     clocks[f"v{v}"]["warp_iters"] = vals[6]
         rec = {"phase": "kernel-train-ladder", "dtype": dtype_name,
                "state_clocks": clocks,

@@ -633,7 +633,8 @@ struct MainPlan {
 
 // grid (ceil(dim / 32), ceil(n_chunks / group), batch); 6 blocks of 128
 // threads an SM
-template <typename T, int NMAX, int RMAX, int MINB = 6, bool DT_IN = false>
+template <typename T, int NMAX, int RMAX, int MINB = 6, bool DT_IN = false,
+          bool PF = false, bool CLKM = false>
 __global__ void __launch_bounds__(kThreads, MINB)
 scan_fwd_train_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
                       const T* __restrict__ dt_w, const float* __restrict__ A,
@@ -729,9 +730,19 @@ scan_fwd_train_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
     }
   };
 
+  unsigned long long clk[5] = {0, 0, 0, 0, 0}, tc = 0;
+  auto tick = [&](int i) {
+    if constexpr (CLKM) {
+      const unsigned long long now = clock64();
+      clk[i] += now - tc;
+      tc = now;
+    }
+  };
+  if constexpr (CLKM) tc = clock64();
+  if constexpr (PF) load_chunk(c_begin * kChunk);
   for (int t0 = c_begin * kChunk; t0 < c_end * kChunk; t0 += kChunk) {
     const int nt = min(kChunk, L - t0);
-    load_chunk(t0);
+    if constexpr (!PF) load_chunk(t0);
     __syncthreads();  // the previous chunk's readers are done
     // the chunk's shared rows in fp32 (bf16: the mma operand as it is)
 #pragma unroll
@@ -748,19 +759,24 @@ scan_fwd_train_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
       s_B[tid + j * kThreads] = to_f32(r_b[j]);
       s_C[tid + j * kThreads] = to_f32(r_c[j]);
     }
-    float uv[kSteps], zv[kSteps];
+    float uv[kSteps], zv[kSteps], dv[kSteps];
 #pragma unroll
     for (int i = 0; i < kSteps; ++i) {
       uv[i] = to_f32(r_u[i]);
       zv[i] = to_f32(r_z[i]);
+      dv[i] = r_dv[i];
+    }
+    if constexpr (PF) {
+      if (t0 + kChunk < c_end * kChunk) load_chunk(t0 + kChunk);
     }
     __syncthreads();
+    tick(0);
 
     // phase A: dt_low . dt_w for the thread's kSteps timesteps of channel ca
     float acc[kSteps];
     if constexpr (DT_IN) {
 #pragma unroll
-      for (int i = 0; i < kSteps; ++i) acc[i] = r_dv[i];
+      for (int i = 0; i < kSteps; ++i) acc[i] = dv[i];
     } else if constexpr (kMma) {
       // warp tg: its 4 timesteps as rows 0-3 of a 16-row tile (the other
       // rows zero) against the block's 32 channels; the accumulators pass
@@ -833,6 +849,7 @@ scan_fwd_train_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
     }
     __syncthreads();
 
+    tick(1);
     // phase B, the recurrence: only h = a h + du B depends on the previous
     // step; the unrolled chunk lets later steps' exp2 run ahead
 #pragma unroll
@@ -849,7 +866,9 @@ scan_fwd_train_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
       }
       s_y[tt * kThreads + tid] = y;  // = [tt][cb][kb]
     }
+    tick(2);
     __syncthreads();
+    tick(3);
 
     // phase C: o = the 4 partials + skip, y = o * gate, stored along d
 #pragma unroll
@@ -863,6 +882,13 @@ scan_fwd_train_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
         o[idx] = s;
         out[idx] = from_f32<T>(s * gate[i]);
       }
+    }
+    tick(4);
+  }
+  if constexpr (CLKM) {
+    if ((tid & 31) == 0) {
+      for (int i = 0; i < 5; ++i) atomicAdd(&g_clk[i], clk[i]);
+      atomicAdd(&g_clk[6], (unsigned long long)(c_end - c_begin));
     }
   }
 }
@@ -881,7 +907,8 @@ cudaError_t allow_smem(K kernel, int bytes, bool& done) {
 // the main pass; `group` chunks a main-pass block
 template <typename T, int NMAX, int RMAX, int SW = 4, int SMINB = 1,
           int CPW = 1, int MMINB = 6, bool DTO = false, int STAGES = 2,
-          bool CLK = false, bool CHAINV = false>
+          bool CLK = false, bool CHAINV = false, bool PF = false,
+          bool CLKM = false>
 int launch(const void* const* p, int batch, int L, int dim, int N, int R,
            int use_softplus, cudaStream_t stream, int passes, int group) {
   constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
@@ -919,8 +946,8 @@ int launch(const void* const* p, int batch, int L, int dim, int N, int R,
   if (passes & 2) {
     dim3 grid((dim + kChannels - 1) / kChannels, (nc + group - 1) / group,
               batch);
-    scan_fwd_train_kernel<T, NMAX, RMAX, MMINB, DTO><<<grid, kThreads,
-                                                       MP::kBytes, stream>>>(
+    scan_fwd_train_kernel<T, NMAX, RMAX, MMINB, DTO, PF, CLKM><<<
+        grid, kThreads, MP::kBytes, stream>>>(
         u, dt_low, dt_w, A, Bm, static_cast<const T*>(p[5]),
         static_cast<const float*>(p[6]), static_cast<const T*>(p[7]), bias,
         static_cast<T*>(const_cast<void*>(p[9])),
@@ -990,7 +1017,8 @@ extern "C" int dimsum_selective_scan_fwd_train(
 // main) with `group` chunks a main-pass block; `variant` > 0 takes bf16,
 // N 16, r 32 only, (state warps, state blocks an SM at least, chunks a
 // state warp, main blocks an SM at least, dt through o, stages, clocks,
-// the chain's states written as 16-byte runs after the next barrier):
+// the chain's states written as 16-byte runs after the next barrier, the
+// main pass's next chunk loaded before this one's phases, its clocks):
 extern "C" int dimsum_selective_scan_fwd_train_ladder(
     int variant, int passes, int group, const void* u, const void* dt_low,
     const void* dt_w, const void* A, const void* B, const void* C,
@@ -1019,6 +1047,9 @@ extern "C" int dimsum_selective_scan_fwd_train_ladder(
   LADDER_RUNG(15, 4, 6, 1, 6, true, 2, false, true)
   LADDER_RUNG(16, 4, 6, 1, 6, true, 2, true, true)
   LADDER_RUNG(17, 4, 8, 1, 6, true, 2, false, true)
+  LADDER_RUNG(18, 4, 6, 1, 6, true, 2, false, false, true)
+  LADDER_RUNG(19, 4, 6, 1, 6, true, 2, false, false, false, true)
+  LADDER_RUNG(20, 4, 6, 1, 6, true, 2, false, false, true, true)
 #undef LADDER_RUNG
   return cudaErrorInvalidValue;
 }
