@@ -26,12 +26,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
               counts are set to 0 just before and read just after; the
               samples must be finite.
   6. kernel-train  the training pair, kernels 2 (forward with saved
-              states) and 3 (backward: its carry pass and main pass),
-              against their plain versions at the training mixer shape
-              (batch 16, L 256, dim 1024, N 16, r 32) in bf16 and fp32,
-              forward and reversed, plus a ragged dim, and at the 512-px
-              one (batch 4, L 1024) in bf16 and fp32: max error against
-              the stated tolerance, kernel and plain times, and the bound.
+              states: its state pass and main pass) and 3 (backward: its
+              carry pass and main pass), against their plain versions at
+              the training mixer shape (batch 16, L 256, dim 1024, N 16, r
+              32) in bf16 and fp32, forward and reversed, plus a ragged
+              dim, at the 512-px one (batch 4, L 1024) in bf16 and fp32,
+              and at a ragged L (4 x 1000, bf16): max error against the
+              stated tolerance, kernel and plain times, and the bound.
   7. train-grad  full-width DiM-L/2 in fp32 with TF32 off at batch 2, one
               training loss (label dropout 0.1, stochastic depth 0.1, the
               same seeded draws) through the kernels and through the plain
@@ -43,7 +44,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
               read just after: 32 launches per step of kernels 2 and 3, none
               of kernel 1; finite losses and grad norms; the parameters and
               their EMA move.
-  9. kernel-attn  the full-block attention kernels against their plain
+  9. train-512  the 512-px training path: `train_bench.run` at 512 px
+              (DiM-L/2, batch 4, bf16), 3 timed steps after 1 of warm-up;
+              counts set to 0 just before and read just after: 32 launches
+              per step of kernels 2 and 3, none of kernel 1; finite losses
+              and grad norms.
+ 10. kernel-attn  the full-block attention kernels against their plain
               PyTorch version at the 512-px shapes, DiT (24, 1024, 16, 64)
               and cross (24, 1024, 8, 64): bf16 through the sm90 kernel
               (TMA + wgmma, csrc/full_attention_sm90.cu), fp32 through the
@@ -54,12 +60,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
               also the first kernel, held to the same tolerance and timed
               on the same inputs.  Plus the autograd Function's gradient
               against the plain version's at a small shape.
- 10. model-512  full-width DiM-L/2 at 512 px (latent 64, L 1024) in fp32
+ 11. model-512  full-width DiM-L/2 at 512 px (latent 64, L 1024) in fp32
               with TF32 off, one CFG forward of 2 images (4 rows) through
               both kernels (scan and attention) and through both plain
               routes: they must agree, with 36 attention (all through the
               first kernel) and 32 scan launches per forward.
- 11. model-512-bf16  the same forward in bf16 at three seeds of inputs,
+ 12. model-512-bf16  the same forward in bf16 at three seeds of inputs,
               its q and k projections scaled by 4 so that attention is
               peaked, through the sm90 attention kernel and through the
               plain attention (the scan kernel on both sides): they must
@@ -68,40 +74,40 @@ Phases, each printing one JSON line; any failure exits non-zero:
               the kernel tolerance of the plain version.  Two faulty
               attentions (no online rescale; the last key tile dropped)
               must miss both limits.
- 12. sample-512  the 512-px sampling path: `dimsum_torch.bench.run`
+ 13. sample-512  the 512-px sampling path: `dimsum_torch.bench.run`
               with image_size 512 (batch 12, CFG 1.4, GVP velocity, 250
               Euler grid points, bf16).  Counts set to 0 just before and
               read just after: 32 scan and 36 attention launches per
               forward, all 36 through the sm90 kernel; the samples must be
               finite.
- 13. kernel-norm  the add + norm and norm + modulate kernels against their
+ 14. kernel-norm  the add + norm and norm + modulate kernels against their
               plain PyTorch versions at the 256-px rows (24 x 256 x 1024):
               the add + norm site and every norm + modulate call site
               (norm_2, the DiT block's two LayerNorms, the FinalLayer's,
               the deferred top of the pending tail), bf16 and fp32: max
               error against the stated tolerance, kernel and plain times,
               and the bound.
- 14. kernel-convx  the conv + x_proj kernel against its plain version at the
+ 15. kernel-convx  the conv + x_proj kernel against its plain version at the
               mixer shape (24, 256, 1024, W 4, R 64, x a strided slice of
               in_proj's output), forward and reversed, bf16 and fp32, plus
               L 1024, DiM-XL/2's R 68, ragged L (65, 127 reversed) and the
               gate's widest R (512): the same fields.
- 15. model-fused  full-width DiM-L/2 at 256 px in fp32 with TF32 off, one
+ 16. model-fused  full-width DiM-L/2 at 256 px in fp32 with TF32 off, one
               CFG forward with the fused-kernel switches on (pallas_norm,
               fused_norm, conv_xproj) through the kernels and through their
               plain versions, and with the switches off: all must agree, at
               pending_tail 0 (15 add + norm, 25 norm + modulate, 32 conv +
               x_proj launches per forward) and 2 (3, 37, 32).
- 16. train-grad-fused  phase 7's training gradient with the three switches
+ 17. train-grad-fused  phase 7's training gradient with the three switches
               on, through the kernels and through their plain versions:
               the loss and every gradient must agree; one forward's
               launches, none from the backward.
- 17. sample-fused  phase 5's sampling run with the three switches on.
+ 18. sample-fused  phase 5's sampling run with the three switches on.
               Counts set to 0 just before and read just after: 15, 25 and
               32 launches per forward; the samples must be finite.
- 18. sample-fused-512  phase 17's run at 512 px: 15, 25 and 32 fused
+ 19. sample-fused-512  phase 18's run at 512 px: 15, 25 and 32 fused
               and 36 sm90 attention launches per forward; finite samples.
- 19. kernels  one {"kernels": [...]} line (all eight kernels; the scan,
+ 20. kernels  one {"kernels": [...]} line (all eight kernels; the scan,
               both training kernels and conv + x_proj with their L 1024
               times and bound beside the mixer-shape ones,
               the two attention kernels with their cross-shape times beside
@@ -131,6 +137,8 @@ SFU_EXP_PER_S = 16 * 132 * 1.98e9
 STEPS = 250  # Euler grid points of the bench protocol
 # timed and untimed steps of the train phase, as train_bench's defaults
 TRAIN_STEPS, TRAIN_WARMUP = 10, 3
+# timed steps of the 512-px train phase (after one of warm-up)
+TRAIN_512_STEPS = 3
 
 
 def emit(obj):
@@ -349,8 +357,10 @@ def train_bounds(x, chunk):
     expansion, softplus, sigmoid, 5 per state; reverse step: 15 per state)
     and N + 3 transcendentals: an exp2 per state, exp and log in softplus,
     and the sigmoid's reciprocal (its exp is softplus's exp(-|x|)).  That
-    the kernel computes each state's exp2 again in the reverse step, and
-    the sigmoid's exp anew, is its own choice and not counted."""
+    kernel 3 computes each state's exp2 again in the reverse step, and the
+    sigmoid's exp anew, and that kernel 2's state and main passes each
+    compute every state's exp2 and hand dt over through o, are the
+    kernels' own choices and not counted."""
     batch, L, dim = x["u"].shape
     r, n = x["dt_w"].shape[0], x["A"].shape[1]
     esize = x["u"].element_size()
@@ -394,6 +404,8 @@ def phase_kernel_train():
         # the 512-px training mixer: the same tokens in 4 rows of L 1024
         ("L1024-bf16", 4, 1024, 1024, torch.bfloat16, False),
         ("L1024-fp32", 4, 1024, 1024, torch.float32, False),
+        # a ragged last chunk and a ragged last group of chunks
+        ("ragged-L-bf16", 4, 1000, 1024, torch.bfloat16, False),
     ]
     results = {}
     for i, (name, batch, L, dim, dtype, reverse) in enumerate(cases):
@@ -457,13 +469,12 @@ def phase_kernel_train():
     return results
 
 
-def phase_kernel_train_ladder(shapes=((16, 256, 1024), (4, 1024, 1024)),
-                              dtype_name="bf16"):
+def phase_kernel_train_ladder(shapes=((16, 256, 1024), (4, 1024, 1024))):
     """LADDER (timing only, removed with the ladder): the training
-    forward's designs through their C entry points with pre-allocated
-    outputs, N 16, r 32: the first design (csrc/selective_scan_fwd_train_
-    first.cu), the route, its passes alone and main-pass groups of 2-16
-    chunks.  Three timed runs of 20 launches in turns, median ms."""
+    forward's route against its first design (csrc/selective_scan_fwd_train_
+    first.cu) through their C entry points with pre-allocated outputs, N 16,
+    r 32, bf16 and fp32: three timed runs of 20 launches in turns, median
+    ms."""
     import ctypes
     import statistics
 
@@ -473,90 +484,46 @@ def phase_kernel_train_ladder(shapes=((16, 256, 1024), (4, 1024, 1024)),
     from dimsum_torch.ops import selective_scan as ss
 
     P, I = ctypes.c_void_p, ctypes.c_int
-    dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype_name]
-    code = 1 if dtype == torch.bfloat16 else 0
     dev = torch.device("cuda")
     results = {}
-    for batch, L, dim in shapes:
-        x = scan_inputs(batch, L, dim, 16, 32, dtype, seed=300)
-        ins = [x[k] for k in ("u", "dt_low", "dt_w", "A", "B", "C", "D",
-                              "z", "delta_bias")]
-        nc = -(-L // 16)
-        y = torch.empty_like(x["u"])
-        o = torch.empty(batch, L, dim, device=dev)
-        bnd = torch.empty(batch, nc, 16, dim, device=dev)
-        ints = (batch, L, dim, 16, 32, code, 1)
+    for dtype in (torch.bfloat16, torch.float32):
+        for batch, L, dim in shapes:
+            x = scan_inputs(batch, L, dim, 16, 32, dtype, seed=300)
+            ins = [x[k] for k in ("u", "dt_low", "dt_w", "A", "B", "C", "D",
+                                  "z", "delta_bias")]
+            y = torch.empty_like(x["u"])
+            o = torch.empty(batch, L, dim, device=dev)
+            bnd = torch.empty(batch, -(-L // 16), 16, dim, device=dev)
+            ints = (batch, L, dim, 16, 32, int(dtype == torch.bfloat16), 1)
 
-        def first():
-            cuda_build.launch("selective_scan_fwd_train_first",
-                              [P] * 12 + [I] * 7, dev, *ins, y, o, bnd, *ints)
+            def entry(name):
+                return lambda: cuda_build.launch(
+                    name, [P] * 12 + [I] * 7, dev, *ins, y, o, bnd, *ints)
 
-        # cuda_build.launch names the entry dimsum_<name>: bind the ladder
-        # entry under the route's library
-        lib = cuda_build.load("selective_scan_fwd_train")
-        fn = lib.dimsum_selective_scan_fwd_train_ladder
-        fn.argtypes = [I, I, I] + [P] * 12 + [I] * 7 + [P]
-        fn.restype = I
-
-        def ladder(passes, group, v=0):
-            def run():
-                rc = fn(v, passes, group, *[t.data_ptr() for t in ins],
-                        y.data_ptr(), o.data_ptr(), bnd.data_ptr(), *ints,
-                        torch.cuda.current_stream().cuda_stream)
-                if rc:
-                    raise RuntimeError(f"ladder launch failed: {rc}")
-            return run
-
-        runs = {"first": first, "route": ladder(3, 4),
-                "main_only": ladder(2, 4), "state_only": ladder(1, 4)}
-        if dtype == torch.bfloat16:
-            for v in (1, 3, 4, 18):
-                runs[f"v{v}"] = ladder(3, 4, v)
-            runs["v4_state"] = ladder(1, 4, 4)
-            runs["v4_main"] = ladder(2, 4, 4)
-            runs["v18_main"] = ladder(2, 4, 18)
-            runs["v18_main_g8"] = ladder(2, 8, 18)
-        with torch.no_grad():
-            want = ss.selective_scan_fwd_train_cuda(
-                *ins[:7], z=ins[7], delta_bias=ins[8], delta_softplus=True)
-            diffs = {}
-            for k in runs:
-                if "_" in k:
-                    continue
-                runs[k]()
-                torch.cuda.synchronize()
-                diffs[k] = [_scaled_err(a, b) for a, b in
-                            zip((y, o, bnd), want)]
-            times = {k: [] for k in runs}
-            for _ in range(3):
+            runs = {"first": entry("selective_scan_fwd_train_first"),
+                    "route": entry("selective_scan_fwd_train")}
+            with torch.no_grad():
+                want = ss.selective_scan_fwd_train_ref(
+                    *ins[:7], z=ins[7], delta_bias=ins[8],
+                    delta_softplus=True)
+                diffs = {}
                 for k, f in runs.items():
-                    times[k].append(cuda_ms(f, iters=20))
-            clocks = {}
-            if dtype == torch.bfloat16:
-                read = lib.dimsum_selective_scan_fwd_train_clocks
-                read.argtypes, read.restype = [P], I
-                buf = (ctypes.c_ulonglong * 8)()
-                for v in (13, 19, 20):
-                    read(ctypes.addressof(buf))
-                    ladder(1 if v == 13 else 2, 4, v)()
+                    f()
                     torch.cuda.synchronize()
-                    read(ctypes.addressof(buf))
-                    vals = list(buf)
-                    names = (("barrier_top", "copies", "phase_A", "walk",
-                              "barrier_chain", "chain") if v == 13 else
-                             ("gather", "phase_A", "phase_B",
-                              "barrier_C", "phase_C"))
-                    clocks[f"v{v}"] = {k: vals[i] / max(vals[6], 1)
-                                       for i, k in enumerate(names)}
-                    clocks[f"v{v}"]["warp_iters"] = vals[6]
-        rec = {"phase": "kernel-train-ladder", "dtype": dtype_name,
-               "state_clocks": clocks,
-               "shape": [batch, L, dim, 16, 32],
-               "scaled_err_vs_route": diffs,
-               "ms": {k: statistics.median(v) for k, v in times.items()},
-               "runs": times}
-        emit(rec)
-        results[(batch, L, dim)] = rec
+                    diffs[k] = [_scaled_err(a, b) for a, b in
+                                zip((y, o, bnd), want)]
+                times = {k: [] for k in runs}
+                for _ in range(3):
+                    for k, f in runs.items():
+                        times[k].append(cuda_ms(f, iters=20))
+            name = str(dtype).split(".")[-1]
+            rec = {"phase": "kernel-train-ladder", "dtype": name,
+                   "shape": [batch, L, dim, 16, 32],
+                   "scaled_err_vs_plain": diffs,
+                   "ms": {k: statistics.median(v) for k, v in times.items()},
+                   "runs": times}
+            emit(rec)
+            results[(name, L)] = rec
     return results
 
 
@@ -678,6 +645,41 @@ def phase_train():
     torch.cuda.empty_cache()
     return {k: launches[k] for k in ("selective_scan_fwd_train",
                                      "selective_scan_bwd")}
+
+
+def phase_train_512():
+    """The 512-px training path: `train_bench.run` at image_size 512 (L
+    1024, batch 4, bf16 over fp32 weights), TRAIN_512_STEPS timed steps
+    after one of warm-up.  Counts set to 0 just before and read just after:
+    32 launches per step of kernels 2 and 3, none of kernel 1; finite
+    losses and grad norms."""
+    import torch
+
+    from dimsum_torch import train_bench
+    from dimsum_torch.ops import selective_scan as ss
+
+    counts = {"selective_scan_fwd": ss.selective_scan_cuda,
+              "selective_scan_fwd_train": ss.selective_scan_fwd_train_cuda,
+              "selective_scan_bwd": ss.selective_scan_bwd_core_cuda}
+    for c in counts.values():
+        c.launches = 0
+    record, state = train_bench.run(batch=4, bf16=True,
+                                    steps=TRAIN_512_STEPS, warmup=1,
+                                    device="cuda", seed=0, image_size=512)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counts.items()}
+    n_steps = TRAIN_512_STEPS + 1
+    finite = bool(all(math.isfinite(v) for v in
+                      record["loss"] + record["grad_norm"]))
+    rec = {"phase": "train-512", **record, "launches": launches,
+           "finite": finite}
+    emit(rec)
+    if (not finite or launches["selective_scan_fwd"] != 0
+            or launches["selective_scan_fwd_train"] != 32 * n_steps
+            or launches["selective_scan_bwd"] != 32 * n_steps):
+        raise AssertionError(f"train-512 phase failed: {rec}")
+    del state
+    torch.cuda.empty_cache()
 
 
 def attn_bound(B, L, H, Dh, dtype):
@@ -1524,6 +1526,7 @@ def main() -> int:
     train_scans = phase_kernel_train()
     phase_train_grad()
     launches.update(phase_train())
+    phase_train_512()
     attn = phase_kernel_attn()
     first_attn_launches = phase_model_512()
     phase_model_512_bf16()

@@ -36,28 +36,37 @@
 //     and 4 chunks at once (8 at N 32), a warp a chunk, from the first:
 //     the warp expands dt for its 16 x 8 (t, d) (one m16n8k16 mma.sync per
 //     16 of r for bf16, FMAs for fp32), walks its chunk with each
-//     channel's states over 4 lanes and leaves (alpha, beta); the block
-//     chains bnd_{c+1} = alpha_c bnd_c + beta_c from the left and writes
-//     bnd.  The next chunks' rows come in by cp.async while these are
-//     walked.
-//   Main pass.  Kernel 1's design (selective_scan_fwd.cu), seeded from bnd:
-//     a block takes 32 channels of one batch row and a group of chunks,
-//     starting from the state bnd holds at the group's first chunk; each
-//     chunk runs three phases between barriers.
-//      A  Parallel over (t, d): dt (bf16: mma.sync m16n8k16, products
-//         exact in fp32; fp32: FMAs), + bias, softplus; (dt, dt u) into
-//         shared memory; the skip D u and the gate silu(z) kept for C.
+//     channel's states over 4 lanes, B read as it was copied, and leaves
+//     (alpha, beta); the block chains bnd_{c+1} = alpha_c bnd_c + beta_c
+//     from the left and writes bnd.  The next chunks' rows come in by
+//     cp.async while these are walked.  It also leaves dt in o, which the
+//     main pass reads and then overwrites.
+//   Main pass.  Kernel 1's design (selective_scan_fwd.cu) without its dt
+//     expansion: a block takes 32 channels of one batch row and a group of
+//     4 chunks, starting from the state bnd holds at the group's first
+//     chunk; each chunk runs three phases between barriers.
+//      A  Parallel over (t, d): dt from o, dt u into shared memory; the
+//         skip D u and the gate silu(z) kept for C.
 //      B  The recurrence, each channel's N states over 4 lanes; each lane
 //         writes its partial sum of C h for every step.
 //      C  Parallel over (t, d): the 4 partials + skip is o, times the gate
 //         y, both stored along d.
-//   Each state's exp2 is computed in both passes: the design's own floor is
-//   about twice the function's bound.
+//   Each state's exp2 is computed in both passes, so the design's own floor
+//   is about twice the function's bound; dt's round trip through o adds
+//   33.6 MB of traffic (~10 us) and takes the expansion and softplus out
+//   of the main pass.
 // softplus and the gate run on the SFU (ex2 / lg2 / rcp.approx, ftz):
 // log1p(e) is lg2(1 + e) ln 2 for e >= 2^-6 and its series below, so there
 // is no threshold and the error is ~1e-6 relative.  A ragged last chunk
 // runs all 16 steps with dt = 0 past the end (the state stays); a ragged
 // dim masks its channels.  No atomics: the outputs repeat bit for bit.
+//
+// Measured (PERF.md §6, H100 80GB HBM3, 700 W): 0.087 ms at 16 x 256 and
+// 0.090 ms at 4 x 1024 through the entry point, against 0.27 and 1.02 ms
+// for the first design in the same call; the state pass ~0.047 / 0.052,
+// the main pass ~0.040.  clock64 counters put half of a main-pass chunk in
+// gathering its rows (load latency and barriers); the state pass spreads
+// over its copies, dt phase, walk and chain.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -316,15 +325,12 @@ __device__ __forceinline__ void stage(bool vec, int tid, Src src_of,
 }
 
 // Shared memory of a state-pass block, in floats: dt_w rows (fp32 only),
-// then per warp two stages of its CPW chunks (dt_low rows as the mma reads
-// them, B rows and u 16 x 8 in T), and per chunk (dt, dt u) per (t, c) and
-// (alpha, beta) per (c, n).  kWarps x CPW chunks at once, at least 8 N
-// threads for the chain.
-template <int NMAX, int RMAX, bool kMma, int WARPS = 4, int CPW = 1,
-          int STAGES = 2>
+// then per warp two stages of its chunk (dt_low rows as the mma reads them,
+// B rows and u 16 x 8 in T), (dt, dt u) per (t, c) and (alpha, beta) per
+// (c, n).  kWarps chunks at once, at least 8 N threads for the chain.
+template <int NMAX, int RMAX, bool kMma>
 struct StatePlan {
-  static constexpr int kWarps = NMAX / 4 > WARPS ? NMAX / 4 : WARPS;
-  static constexpr int kChunks = kWarps * CPW;  // chunks an iteration
+  static constexpr int kWarps = NMAX / 4 > 4 ? NMAX / 4 : 4;
   static constexpr int kWSize = kMma ? 0 : kWarpCh * (RMAX + 4);
   static constexpr int kDtlW = kMma ? kChunk * (RMAX + 8) / 2
                                     : kChunk * (RMAX + 4);
@@ -335,23 +341,20 @@ struct StatePlan {
   static constexpr int kAbW = kWarpCh * NMAX * 2;
   static constexpr int kW = 0;
   static constexpr int kStage = kW + kWSize;
-  static constexpr int kSt = kStage + kChunks * STAGES * kStageW;
-  static constexpr int kAb = kSt + kChunks * kStW;
-  static constexpr int kHs = kAb + kChunks * kAbW;  // [chunk][n][8]
-  static constexpr int kBytes = (kHs + kChunks * NMAX * kWarpCh) * 4;
+  static constexpr int kSt = kStage + kWarps * 2 * kStageW;
+  static constexpr int kAb = kSt + kWarps * kStW;
+  static constexpr int kBytes = (kAb + kWarps * kAbW) * 4;
 };
 
-// grid (ceil(dim / 8), batch), StatePlan::kWarps warps: the chunks from the
-// first, kWarps x CPW at once, a warp CPW consecutive ones walked side by
-// side; the next ones' rows are copied in while these are walked.
-// LADDER: clock64 phase counters, lane 0 of every warp
-__device__ unsigned long long g_clk[8];
-
-template <typename T, int NMAX, int RMAX, int WARPS = 4, int MINB = 1,
-          int CPW = 1, bool DT_OUT = false, int STAGES = 2, bool CLK = false,
-          bool CHAINV = false>
+// grid (ceil(dim / 8), batch), StatePlan::kWarps warps and 24 warps an SM
+// (80 registers a thread; without the bound the compiler takes ~150 and
+// the pass runs ~20% slower): the chunks from the first, kWarps at once, a
+// warp a chunk; the next kWarps chunks' rows are copied in while these are
+// walked.
+template <typename T, int NMAX, int RMAX>
 __global__ void __launch_bounds__(
-    StatePlan<NMAX, RMAX, true, WARPS, CPW>::kWarps * 32, MINB)
+    StatePlan<NMAX, RMAX, true>::kWarps * 32,
+    24 / StatePlan<NMAX, RMAX, true>::kWarps)
 scan_fwd_train_states_kernel(const T* __restrict__ u,
                              const T* __restrict__ dt_low,
                              const T* __restrict__ dt_w,
@@ -362,9 +365,9 @@ scan_fwd_train_states_kernel(const T* __restrict__ u,
                              float* __restrict__ dt_out, int L, int dim,
                              int N, int R, int use_softplus, int vec) {
   constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
-  using P = StatePlan<NMAX, RMAX, kMma, WARPS, CPW, STAGES>;
+  using P = StatePlan<NMAX, RMAX, kMma>;
   constexpr int NPL = NMAX / kLanes;
-  constexpr int nw = P::kWarps, kNT = nw * 32, kIt = P::kChunks;
+  constexpr int nw = P::kWarps, kNT = nw * 32;
   constexpr int LDF = RMAX + 4, LDB = RMAX + 8, kPitch = kMma ? LDB : LDF;
   static_assert(RMAX % 16 == 0 && NPL >= 2, "plan");
   extern __shared__ __align__(16) float smem[];
@@ -374,15 +377,12 @@ scan_fwd_train_states_kernel(const T* __restrict__ u,
   const int nc = (L + kChunk - 1) / kChunk;
   const size_t row0 = (size_t)b * L;
   float* s_w = smem + P::kW;
-  // the warp's chunk k of stage s at stage0 + (s * CPW + k) * kStageW
-  float* stage0 = smem + P::kStage + warp * STAGES * CPW * P::kStageW;
-  float2* s_st = reinterpret_cast<float2*>(smem + P::kSt) +
-                 warp * CPW * (P::kStW / 2);
+  float* stage0 = smem + P::kStage + warp * 2 * P::kStageW;
+  float2* s_st = reinterpret_cast<float2*>(smem + P::kSt + warp * P::kStW);
   const float2* s_ab_all = reinterpret_cast<const float2*>(smem + P::kAb);
-  float2* s_ab = reinterpret_cast<float2*>(smem + P::kAb) +
-                 warp * CPW * (P::kAbW / 2);
+  float2* s_ab = reinterpret_cast<float2*>(smem + P::kAb + warp * P::kAbW);
 
-  // chunk c's dt_low, B and u into a stage buffer
+  // chunk c's dt_low, B and u into the warp's stage buffer
   auto stage_chunk = [&](int c, float* buf) {
     const int t0 = c * kChunk, nt = min(kChunk, L - t0);
     T* dtl = reinterpret_cast<T*>(buf);
@@ -437,178 +437,87 @@ scan_fwd_train_states_kernel(const T* __restrict__ u,
   }
 
   float H = 0.f;  // the chain's state, for thread (n, c) = (tid / 8, tid % 8)
-  unsigned long long clk[7] = {0, 0, 0, 0, 0, 0, 0}, tc = 0;
-  auto tick = [&](int i) {
-    if constexpr (CLK) {
-      const unsigned long long now = clock64();
-      clk[i] += now - tc;
-      tc = now;
-    }
-  };
   if (vec) {
-#pragma unroll
-    for (int s0 = 0; s0 < STAGES - 1; ++s0) {
-#pragma unroll
-      for (int k = 0; k < CPW; ++k)
-        if (s0 * kIt + warp * CPW + k < nc)
-          stage_chunk(s0 * kIt + warp * CPW + k,
-                      stage0 + (s0 * CPW + k) * P::kStageW);
-      cp_async_commit();
-    }
+    if (warp < nc) stage_chunk(warp, stage0);
+    cp_async_commit();
   }
-  // CHAINV: the chain leaves the states of chunks lo .. hi in s_hs, written
-  // to bnd after the next barrier as 16-byte runs of 4 channels
-  float* s_hs = smem + P::kHs;
-  auto store_states = [&](int lo, int hi) {
-    for (int i = tid; i < (hi - lo) * N * 2; i += kNT) {
-      const int ci = i / (2 * N), n = (i / 2) % N, half = i % 2;
-      const int d = d0 + 4 * half;
-      const float* src = s_hs + (ci * NMAX + n) * kWarpCh + 4 * half;
-      float* dst = bnd + (((size_t)b * nc + lo + ci) * N + n) * dim + d;
-      if (vec && d + 4 <= dim) {  // dim % 4 == 0: 16-byte aligned
-        *reinterpret_cast<float4*>(dst) =
-            *reinterpret_cast<const float4*>(src);
-      } else {
-        for (int j = 0; j < 4; ++j)
-          if (d + j < dim) dst[j] = src[j];
-      }
-    }
-  };
   int it = 0;
-  for (int lo = 0; lo < nc; lo += kIt, ++it) {
-    const int hi = min(nc, lo + kIt);
-    const int c0 = lo + warp * CPW;  // the warp's first chunk
-    float* buf = stage0 + (it % STAGES) * CPW * P::kStageW;
-    if constexpr (CLK) tc = clock64();
+  for (int lo = 0; lo < nc; lo += nw, ++it) {
+    const int hi = min(nc, lo + nw);
+    const int c = lo + warp;
+    float* buf = stage0 + (it & 1) * P::kStageW;
     __syncthreads();  // the previous chain's reads are done; s_w is ready
-    if constexpr (CHAINV) {
-      if (lo > 0) store_states(lo - kIt, lo);
-    }
-    tick(0);
     if (vec) {
-      const int ahead = lo + (STAGES - 1) * kIt + warp * CPW;
-#pragma unroll
-      for (int k = 0; k < CPW; ++k)
-        if (ahead + k < nc)
-          stage_chunk(ahead + k,
-                      stage0 + (((it + STAGES - 1) % STAGES) * CPW + k) *
-                                   P::kStageW);
+      if (hi + warp < nc)
+        stage_chunk(hi + warp, stage0 + ((it + 1) & 1) * P::kStageW);
       cp_async_commit();
-      cp_async_wait<STAGES - 1>();
-    } else {
-#pragma unroll
-      for (int k = 0; k < CPW; ++k)
-        if (c0 + k < hi) stage_chunk(c0 + k, buf + k * P::kStageW);
+      cp_async_wait<1>();
+    } else if (c < hi) {
+      stage_chunk(c, buf);
     }
     __syncwarp();
-    tick(1);
-    if (c0 < hi) {
-      // dt and dt u of each chunk's 16 x 8 (t, d)
+    if (c < hi) {
+      const int t0 = c * kChunk, nt = min(kChunk, L - t0);
+      const T* braw = reinterpret_cast<const T*>(buf + P::kDtlW);
+      const T* uraw = reinterpret_cast<const T*>(buf + P::kDtlW + P::kBRawW);
+      float raw[4], dts[4];
+      expand_dt<kMma, RMAX>(buf, s_w + 2 * q * LDF, bfr, g, q, raw);
 #pragma unroll
-      for (int k = 0; k < CPW; ++k) {
-        const float* kb = buf + k * P::kStageW;
-        const T* uraw = reinterpret_cast<const T*>(kb + P::kDtlW + P::kBRawW);
-        const int t0 = (c0 + k) * kChunk, nt = min(kChunk, L - t0);
-        float raw[4];
-        expand_dt<kMma, RMAX>(kb, s_w + 2 * q * LDF, bfr, g, q, raw);
-        float dts[4];
+      for (int e = 0; e < 4; ++e) {
+        const int tt = g + 8 * (e >> 1), cc = 2 * q + (e & 1);
+        float dt = raw[e] + bias2[e & 1];
+        if (use_softplus) dt = softplus(dt);
+        if (tt >= nt || d0 + cc >= dim) dt = 0.f;  // the state stays
+        dts[e] = dt;
+        s_st[tt * kWarpCh + cc] =
+            make_float2(dt, dt * to_f32(uraw[tt * kWarpCh + cc]));
+      }
+      // dt for the main pass, in o's place (channel pairs 2q, 2q + 1)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int tt = g + 8 * (e >> 1), cc = 2 * q + (e & 1);
-          float dt = raw[e] + bias2[e & 1];
-          if (use_softplus) dt = softplus(dt);
-          if (tt >= nt || d0 + cc >= dim) dt = 0.f;  // the state stays
-          dts[e] = dt;
-          s_st[k * (P::kStW / 2) + tt * kWarpCh + cc] =
-              make_float2(dt, dt * to_f32(uraw[tt * kWarpCh + cc]));
-        }
-        if constexpr (DT_OUT) {  // the main pass reads dt from here
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const int tt = g + 8 * i, d = d0 + 2 * q;
-            float* dst = dt_out + (row0 + t0 + tt) * dim + d;
-            if (tt >= nt || d >= dim) continue;
-            if (vec) {  // dim even: the pair is 8-byte aligned
-              *reinterpret_cast<float2*>(dst) =
-                  make_float2(dts[2 * i], dts[2 * i + 1]);
-            } else {
-              dst[0] = dts[2 * i];
-              if (d + 1 < dim) dst[1] = dts[2 * i + 1];
-            }
-          }
+      for (int i = 0; i < 2; ++i) {
+        const int tt = g + 8 * i, d = d0 + 2 * q;
+        if (tt >= nt || d >= dim) continue;
+        float* dst = dt_out + (row0 + t0 + tt) * dim + d;
+        if (vec) {  // dim even: the pair is 8-byte aligned
+          *reinterpret_cast<float2*>(dst) =
+              make_float2(dts[2 * i], dts[2 * i + 1]);
+        } else {
+          dst[0] = dts[2 * i];
+          if (d + 1 < dim) dst[1] = dts[2 * i + 1];
         }
       }
       __syncwarp();
-      tick(2);
-      // the chunks' walks from a zero state, side by side (channel g,
-      // states q * NPL ..): beta = the end state, alpha = exp2(A log2e
-      // sum dt)
-      float h[CPW][NPL], dsum[CPW];
+      // the chunk's walk from a zero state (channel g, states q * NPL ..):
+      // beta = its end state, alpha = exp2(A log2e sum dt)
+      float h[NPL], dsum = 0.f;
 #pragma unroll
-      for (int k = 0; k < CPW; ++k) {
-        dsum[k] = 0.f;
-#pragma unroll
-        for (int j = 0; j < NPL; ++j) h[k][j] = 0.f;
-      }
+      for (int j = 0; j < NPL; ++j) h[j] = 0.f;
 #pragma unroll
       for (int tt = 0; tt < kChunk; ++tt) {
-#pragma unroll
-        for (int k = 0; k < CPW; ++k) {
-          const float2 p = s_st[k * (P::kStW / 2) + tt * kWarpCh + g];
-          const T* braw =
-              reinterpret_cast<const T*>(buf + k * P::kStageW + P::kDtlW);
-          float bv[NPL];
-          lds_t<NPL>(braw + tt * NMAX + q * NPL, bv);
-          dsum[k] += p.x;
-#pragma unroll
-          for (int j = 0; j < NPL; ++j)
-            h[k][j] = fmaf(ex2(p.x * a2[j]), h[k][j], p.y * bv[j]);
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < CPW; ++k)
+        const float2 p = s_st[tt * kWarpCh + g];
+        float bv[NPL];
+        lds_t<NPL>(braw + tt * NMAX + q * NPL, bv);
+        dsum += p.x;
 #pragma unroll
         for (int j = 0; j < NPL; ++j)
-          s_ab[k * (P::kAbW / 2) + g * NMAX + q * NPL + j] =
-              make_float2(ex2(a2[j] * dsum[k]), h[k][j]);
-      tick(3);
+          h[j] = fmaf(ex2(p.x * a2[j]), h[j], p.y * bv[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < NPL; ++j)
+        s_ab[g * NMAX + q * NPL + j] = make_float2(ex2(a2[j] * dsum), h[j]);
     }
     __syncthreads();
-    tick(4);
     // the chain from the left: bnd_c, then bnd_{c+1} = alpha_c bnd_c +
     // beta_c; a chunk's 8 channels of one state are one 32-byte run
     if (tid < kWarpCh * N) {
       const int n = tid / kWarpCh, cc = tid % kWarpCh, d = d0 + cc;
-      if constexpr (CHAINV) {
-        float2 ab[kIt];
-#pragma unroll
-        for (int ci = 0; ci < kIt; ++ci)
-          ab[ci] = s_ab_all[ci * (P::kAbW / 2) + cc * NMAX + n];
-#pragma unroll
-        for (int ci = 0; ci < kIt; ++ci) {
-          s_hs[(ci * NMAX + n) * kWarpCh + cc] = H;
-          if (lo + ci < hi) H = fmaf(ab[ci].x, H, ab[ci].y);
-        }
-      } else {
-        float* dst = bnd + ((size_t)b * nc * N + n) * dim + d;
-        for (int cw = lo; cw < hi; ++cw) {
-          if (d < dim) dst[(size_t)cw * N * dim] = H;
-          const float2 ab =
-              s_ab_all[(cw - lo) * (P::kAbW / 2) + cc * NMAX + n];
-          H = fmaf(ab.x, H, ab.y);
-        }
+      float* dst = bnd + ((size_t)b * nc * N + n) * dim + d;
+      for (int cw = lo; cw < hi; ++cw) {
+        if (d < dim) dst[(size_t)cw * N * dim] = H;
+        const float2 ab = s_ab_all[(cw - lo) * (P::kAbW / 2) + cc * NMAX + n];
+        H = fmaf(ab.x, H, ab.y);
       }
     }
-    tick(5);
-    clk[6] += 1;
-  }
-  if constexpr (CHAINV) {
-    __syncthreads();
-    store_states(((nc - 1) / kIt) * kIt, nc);
-  }
-  if constexpr (CLK) {
-    if (lane == 0)
-      for (int i = 0; i < 7; ++i) atomicAdd(&g_clk[i], clk[i]);
   }
 }
 
@@ -617,53 +526,39 @@ scan_fwd_train_states_kernel(const T* __restrict__ u,
 // ---------------------------------------------------------------------------
 
 // Shared memory of a main-pass block, in floats, each array 16-byte
-// aligned.  bf16 inputs keep dt_w (transposed) and dt_low as bf16 mma
-// operands, with rows of RMAX + 8 (conflict-free fragments), inside the
-// fp32 arrays' room.
-template <int NMAX, int RMAX>
+// aligned: B and C rows, (dt, dt u) per (t, c), the lanes' partial sums
+template <int NMAX>
 struct MainPlan {
-  static constexpr int kW = 0;                            // [RMAX][32]
-  static constexpr int kDtl = kW + RMAX * kChannels;      // [16][RMAX]
-  static constexpr int kB = kDtl + kChunk * RMAX;         // [16][NMAX]
+  static constexpr int kB = 0;                            // [16][NMAX]
   static constexpr int kC = kB + kChunk * NMAX;           // [16][NMAX]
   static constexpr int kDd = kC + kChunk * NMAX;          // [16][32] float2
   static constexpr int kY = kDd + 2 * kChunk * kChannels; // [16][128]
-  static constexpr int kBytes = (kY + kChunk * kThreads) * 4;  // <= 28 KB
+  static constexpr int kBytes = (kY + kChunk * kThreads) * 4;  // <= 16 KB
 };
 
-// grid (ceil(dim / 32), ceil(n_chunks / group), batch); 6 blocks of 128
-// threads an SM
-template <typename T, int NMAX, int RMAX, int MINB = 6, bool DT_IN = false,
-          bool PF = false, bool CLKM = false>
-__global__ void __launch_bounds__(kThreads, MINB)
-scan_fwd_train_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
-                      const T* __restrict__ dt_w, const float* __restrict__ A,
+// grid (ceil(dim / 32), ceil(n_chunks / kGroup), batch); 6 blocks of 128
+// threads an SM at least (the kernel takes 64 registers: 8 fit)
+template <typename T, int NMAX>
+__global__ void __launch_bounds__(kThreads, 6)
+scan_fwd_train_kernel(const T* __restrict__ u, const float* __restrict__ A,
                       const T* __restrict__ Bm, const T* __restrict__ Cm,
                       const float* __restrict__ Dv, const T* __restrict__ z,
-                      const float* __restrict__ bias, T* __restrict__ out,
-                      float* __restrict__ o, const float* __restrict__ bnd,
-                      int L, int dim, int N, int R, int use_softplus,
-                      int group) {
-  using P = MainPlan<NMAX, RMAX>;
-  constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
+                      T* __restrict__ out, float* __restrict__ o,
+                      const float* __restrict__ bnd, int L, int dim, int N) {
+  using P = MainPlan<NMAX>;
   constexpr int NPL = NMAX / kLanes;  // states a lane
-  constexpr int LDB = RMAX + 8;       // bf16 operand rows
-  static_assert(RMAX % 16 == 0 && NPL >= 2, "plan");
+  static_assert(NPL >= 2, "plan");
   extern __shared__ __align__(16) float smem[];
-  float* s_w = smem + P::kW;
-  float* s_dtl = smem + P::kDtl;
   float* s_B = smem + P::kB;
   float* s_C = smem + P::kC;
   float2* s_dd = reinterpret_cast<float2*>(smem + P::kDd);
   float* s_y = smem + P::kY;
-  __nv_bfloat16* w_bf = reinterpret_cast<__nv_bfloat16*>(s_w);
-  __nv_bfloat16* dtl_bf = reinterpret_cast<__nv_bfloat16*>(s_dtl);
 
   const int tid = threadIdx.x;
   const int d0 = blockIdx.x * kChannels, b = blockIdx.z;
   const int nc = (L + kChunk - 1) / kChunk;
-  const int c_begin = blockIdx.y * group;
-  const int c_end = min(nc, c_begin + group);
+  const int c_begin = blockIdx.y * kGroup;
+  const int c_end = min(nc, c_begin + kGroup);
   // phases A and C: channel ca, timesteps tg * kSteps .. + kSteps
   const int ca = tid % kChannels, tg = tid / kChannels;
   const int da = d0 + ca;
@@ -672,16 +567,6 @@ scan_fwd_train_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
   const int cb = tid / kLanes, kb = tid % kLanes;
   const int db = d0 + cb;
 
-  for (int i = tid; i < (DT_IN ? 0 : RMAX * kChannels); i += kThreads) {
-    const int k = i / kChannels, c = i % kChannels;
-    const bool ok = k < R && d0 + c < dim;
-    if constexpr (kMma) {
-      w_bf[c * LDB + k] = ok ? dt_w[(size_t)k * dim + d0 + c]
-                             : __float2bfloat16(0.f);
-    } else {
-      s_w[i] = ok ? dt_w[(size_t)k * dim + d0 + c] : 0.f;
-    }
-  }
   // the state entering the group's first chunk, from the state pass
   float a2[NPL], h[NPL];
 #pragma unroll
@@ -692,24 +577,16 @@ scan_fwd_train_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
     h[j] = ok ? bnd[(((size_t)b * nc + c_begin) * N + n) * dim + db] : 0.f;
   }
   const float skip_w = (Dv != nullptr && active) ? Dv[da] : 0.f;
-  const float dbias = (bias != nullptr && active) ? bias[da] : 0.f;
   const size_t row0 = (size_t)b * L;
 
   // every global load of the chunk at c0 into registers, all issued before
   // the first is stored (one memory latency a chunk)
-  constexpr int NDT = kChunk * RMAX / kThreads;
   constexpr int NBC = kChunk * NMAX / kThreads;
-  T r_dt[NDT], r_b[NBC], r_c[NBC], r_u[kSteps], r_z[kSteps];
-  float r_dv[kSteps];
+  T r_b[NBC], r_c[NBC], r_u[kSteps], r_z[kSteps];
+  float r_dt[kSteps];
   const T zero = from_f32<T>(0.f);
   auto load_chunk = [&](int c0) {
     const int n_t = min(kChunk, L - c0);
-    const T* pd = dt_low + (row0 + c0) * R;
-#pragma unroll
-    for (int j = 0; j < (DT_IN ? 0 : NDT); ++j) {
-      const int i = tid + j * kThreads, tt = i / RMAX, k = i % RMAX;
-      r_dt[j] = (tt < n_t && k < R) ? pd[tt * R + k] : zero;
-    }
     const T* pb = Bm + (row0 + c0) * N;
     const T* pc = Cm + (row0 + c0) * N;
 #pragma unroll
@@ -726,130 +603,32 @@ scan_fwd_train_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
       const bool ok = active && tt < n_t;
       r_u[i] = ok ? u[base + tt * dim] : zero;
       r_z[i] = (ok && z != nullptr) ? z[base + tt * dim] : zero;
-      if constexpr (DT_IN) r_dv[i] = ok ? o[base + tt * dim] : 0.f;
+      r_dt[i] = ok ? o[base + tt * dim] : 0.f;  // dt, from the state pass
     }
   };
 
-  unsigned long long clk[5] = {0, 0, 0, 0, 0}, tc = 0;
-  auto tick = [&](int i) {
-    if constexpr (CLKM) {
-      const unsigned long long now = clock64();
-      clk[i] += now - tc;
-      tc = now;
-    }
-  };
-  if constexpr (CLKM) tc = clock64();
-  if constexpr (PF) load_chunk(c_begin * kChunk);
   for (int t0 = c_begin * kChunk; t0 < c_end * kChunk; t0 += kChunk) {
     const int nt = min(kChunk, L - t0);
-    if constexpr (!PF) load_chunk(t0);
+    load_chunk(t0);
     __syncthreads();  // the previous chunk's readers are done
-    // the chunk's shared rows in fp32 (bf16: the mma operand as it is)
-#pragma unroll
-    for (int j = 0; j < (DT_IN ? 0 : NDT); ++j) {
-      const int i = tid + j * kThreads, tt = i / RMAX, k = i % RMAX;
-      if constexpr (kMma) {
-        dtl_bf[tt * LDB + k] = r_dt[j];
-      } else {
-        s_dtl[i] = r_dt[j];
-      }
-    }
 #pragma unroll
     for (int j = 0; j < NBC; ++j) {
       s_B[tid + j * kThreads] = to_f32(r_b[j]);
       s_C[tid + j * kThreads] = to_f32(r_c[j]);
     }
-    float uv[kSteps], zv[kSteps], dv[kSteps];
-#pragma unroll
-    for (int i = 0; i < kSteps; ++i) {
-      uv[i] = to_f32(r_u[i]);
-      zv[i] = to_f32(r_z[i]);
-      dv[i] = r_dv[i];
-    }
-    if constexpr (PF) {
-      if (t0 + kChunk < c_end * kChunk) load_chunk(t0 + kChunk);
-    }
-    __syncthreads();
-    tick(0);
-
-    // phase A: dt_low . dt_w for the thread's kSteps timesteps of channel ca
-    float acc[kSteps];
-    if constexpr (DT_IN) {
-#pragma unroll
-      for (int i = 0; i < kSteps; ++i) acc[i] = dv[i];
-    } else if constexpr (kMma) {
-      // warp tg: its 4 timesteps as rows 0-3 of a 16-row tile (the other
-      // rows zero) against the block's 32 channels; the accumulators pass
-      // through s_y (free until phase B) to the (t, ca) layout
-      const int lane = tid & 31, g = lane >> 2, q = lane & 3;
-      const bool own = g < kSteps;
-      const int row = tg * kSteps + (own ? g : 0);
-      float c4[kChannels / 8][4];
-#pragma unroll
-      for (int j = 0; j < kChannels / 8; ++j)
-        c4[j][0] = c4[j][1] = c4[j][2] = c4[j][3] = 0.f;
-#pragma unroll
-      for (int k0 = 0; k0 < RMAX; k0 += 16) {
-        const __nv_bfloat16* ap = &dtl_bf[row * LDB + k0 + 2 * q];
-        const uint32_t a[4] = {
-            own ? *reinterpret_cast<const uint32_t*>(ap) : 0u, 0u,
-            own ? *reinterpret_cast<const uint32_t*>(ap + 8) : 0u, 0u};
-#pragma unroll
-        for (int j = 0; j < kChannels / 8; ++j) {
-          const __nv_bfloat16* wp = &w_bf[(j * 8 + g) * LDB + k0 + 2 * q];
-          mma_bf16(c4[j], a, *reinterpret_cast<const uint32_t*>(wp),
-                   *reinterpret_cast<const uint32_t*>(wp + 8));
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kChannels / 8; ++j) {
-        if (own) {
-          s_y[row * kChannels + j * 8 + 2 * q] = c4[j][0];
-          s_y[row * kChannels + j * 8 + 2 * q + 1] = c4[j][1];
-        }
-      }
-      __syncwarp();
-#pragma unroll
-      for (int i = 0; i < kSteps; ++i)
-        acc[i] = s_y[(tg * kSteps + i) * kChannels + ca];
-    } else {
-#pragma unroll
-      for (int i = 0; i < kSteps; ++i) acc[i] = 0.f;
-#pragma unroll
-      for (int k = 0; k < RMAX; k += 4) {
-        const float w0 = s_w[k * kChannels + ca];
-        const float w1 = s_w[(k + 1) * kChannels + ca];
-        const float w2 = s_w[(k + 2) * kChannels + ca];
-        const float w3 = s_w[(k + 3) * kChannels + ca];
-#pragma unroll
-        for (int i = 0; i < kSteps; ++i) {
-          const float4 v = *reinterpret_cast<const float4*>(
-              &s_dtl[(tg * kSteps + i) * RMAX + k]);
-          acc[i] = fmaf(v.x, w0, acc[i]);
-          acc[i] = fmaf(v.y, w1, acc[i]);
-          acc[i] = fmaf(v.z, w2, acc[i]);
-          acc[i] = fmaf(v.w, w3, acc[i]);
-        }
-      }
-    }
-    // + bias, softplus, du; the skip and the gate for phase C
+    // phase A: dt u into shared memory; the skip and the gate for phase C
     float skip[kSteps], gate[kSteps];
 #pragma unroll
     for (int i = 0; i < kSteps; ++i) {
       const int tt = tg * kSteps + i;
-      float dt = acc[i];
-      if constexpr (!DT_IN) {
-        dt += dbias;
-        if (use_softplus) dt = softplus(dt);
-      }
-      if (tt >= nt) dt = 0.f;  // past the end: the state stays as it is
-      s_dd[tt * kChannels + ca] = make_float2(dt, dt * uv[i]);
-      skip[i] = uv[i] * skip_w;
-      gate[i] = z != nullptr ? silu(zv[i]) : 1.f;
+      const float uv = to_f32(r_u[i]);
+      const float dt = tt < nt ? r_dt[i] : 0.f;  // past the end: it stays
+      s_dd[tt * kChannels + ca] = make_float2(dt, dt * uv);
+      skip[i] = uv * skip_w;
+      gate[i] = z != nullptr ? silu(to_f32(r_z[i])) : 1.f;
     }
     __syncthreads();
 
-    tick(1);
     // phase B, the recurrence: only h = a h + du B depends on the previous
     // step; the unrolled chunk lets later steps' exp2 run ahead
 #pragma unroll
@@ -866,9 +645,7 @@ scan_fwd_train_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
       }
       s_y[tt * kThreads + tid] = y;  // = [tt][cb][kb]
     }
-    tick(2);
     __syncthreads();
-    tick(3);
 
     // phase C: o = the 4 partials + skip, y = o * gate, stored along d
 #pragma unroll
@@ -883,13 +660,6 @@ scan_fwd_train_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
         out[idx] = from_f32<T>(s * gate[i]);
       }
     }
-    tick(4);
-  }
-  if constexpr (CLKM) {
-    if ((tid & 31) == 0) {
-      for (int i = 0; i < 5; ++i) atomicAdd(&g_clk[i], clk[i]);
-      atomicAdd(&g_clk[6], (unsigned long long)(c_end - c_begin));
-    }
   }
 }
 
@@ -903,161 +673,82 @@ cudaError_t allow_smem(K kernel, int bytes, bool& done) {
   return err;
 }
 
-// LADDER (timing only): bit 0 of `passes` launches the state pass, bit 1
-// the main pass; `group` chunks a main-pass block
-template <typename T, int NMAX, int RMAX, int SW = 4, int SMINB = 1,
-          int CPW = 1, int MMINB = 6, bool DTO = false, int STAGES = 2,
-          bool CLK = false, bool CHAINV = false, bool PF = false,
-          bool CLKM = false>
+template <typename T, int NMAX, int RMAX>
 int launch(const void* const* p, int batch, int L, int dim, int N, int R,
-           int use_softplus, cudaStream_t stream, int passes, int group) {
+           int use_softplus, cudaStream_t stream) {
   constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
-  using SP = StatePlan<NMAX, RMAX, kMma, SW, CPW, STAGES>;
-  using MP = MainPlan<NMAX, RMAX>;
-  auto states_kernel =
-      scan_fwd_train_states_kernel<T, NMAX, RMAX, SW, SMINB, CPW, DTO, STAGES,
-                                   CLK, CHAINV>;
+  using SP = StatePlan<NMAX, RMAX, kMma>;
+  auto states_kernel = scan_fwd_train_states_kernel<T, NMAX, RMAX>;
   static bool states_set = false;
   cudaError_t err = allow_smem(states_kernel, SP::kBytes, states_set);
   if (err != cudaSuccess) return err;
   const int nc = (L + kChunk - 1) / kChunk;
   const T* u = static_cast<const T*>(p[0]);
-  const T* dt_low = static_cast<const T*>(p[1]);
-  const T* dt_w = static_cast<const T*>(p[2]);
   const float* A = static_cast<const float*>(p[3]);
   const T* Bm = static_cast<const T*>(p[4]);
-  const float* bias = static_cast<const float*>(p[8]);
+  float* o = static_cast<float*>(const_cast<void*>(p[10]));
   float* bnd = static_cast<float*>(const_cast<void*>(p[11]));
   // rows copied as 16-byte vectors where every row segment is whole ones
   auto a16 = [](const void* v) {
     return reinterpret_cast<uintptr_t>(v) % 16 == 0;
   };
   bool vec = R == RMAX && N == NMAX && dim % (16 / (int)sizeof(T)) == 0;
-  for (int i : {0, 1, 4}) vec = vec && a16(p[i]);
-  if (passes & 1) {
-    dim3 sgrid((dim + kWarpCh - 1) / kWarpCh, batch);
-    states_kernel<<<sgrid, SP::kWarps * 32, SP::kBytes, stream>>>(
-        u, dt_low, dt_w, A, Bm, bias, bnd,
-        static_cast<float*>(const_cast<void*>(p[10])), L, dim, N, R,
-        use_softplus, vec);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  if (passes & 2) {
-    dim3 grid((dim + kChannels - 1) / kChannels, (nc + group - 1) / group,
-              batch);
-    scan_fwd_train_kernel<T, NMAX, RMAX, MMINB, DTO, PF, CLKM><<<
-        grid, kThreads, MP::kBytes, stream>>>(
-        u, dt_low, dt_w, A, Bm, static_cast<const T*>(p[5]),
-        static_cast<const float*>(p[6]), static_cast<const T*>(p[7]), bias,
-        static_cast<T*>(const_cast<void*>(p[9])),
-        static_cast<float*>(const_cast<void*>(p[10])), bnd, L, dim, N, R,
-        use_softplus, group);
-  }
+  for (int i : {0, 1, 4, 10}) vec = vec && a16(p[i]);
+  dim3 sgrid((dim + kWarpCh - 1) / kWarpCh, batch);
+  states_kernel<<<sgrid, SP::kWarps * 32, SP::kBytes, stream>>>(
+      u, static_cast<const T*>(p[1]), static_cast<const T*>(p[2]), A, Bm,
+      static_cast<const float*>(p[8]), bnd, o, L, dim, N, R, use_softplus,
+      vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dim3 grid((dim + kChannels - 1) / kChannels, (nc + kGroup - 1) / kGroup,
+            batch);
+  scan_fwd_train_kernel<T, NMAX><<<grid, kThreads, MainPlan<NMAX>::kBytes,
+                                   stream>>>(
+      u, A, Bm, static_cast<const T*>(p[5]), static_cast<const float*>(p[6]),
+      static_cast<const T*>(p[7]), static_cast<T*>(const_cast<void*>(p[9])),
+      o, bnd, L, dim, N);
   return cudaGetLastError();
 }
 
 template <typename T, int NMAX>
 int dispatch_r(const void* const* p, int batch, int L, int dim, int N, int R,
-               int sp, cudaStream_t s, int passes, int group) {
-  if (R <= 16)
-    return launch<T, NMAX, 16>(p, batch, L, dim, N, R, sp, s, passes, group);
-  if (R <= 32)
-    return launch<T, NMAX, 32>(p, batch, L, dim, N, R, sp, s, passes, group);
-  if (R <= 64)
-    return launch<T, NMAX, 64>(p, batch, L, dim, N, R, sp, s, passes, group);
+               int sp, cudaStream_t s) {
+  if (R <= 16) return launch<T, NMAX, 16>(p, batch, L, dim, N, R, sp, s);
+  if (R <= 32) return launch<T, NMAX, 32>(p, batch, L, dim, N, R, sp, s);
+  if (R <= 64) return launch<T, NMAX, 64>(p, batch, L, dim, N, R, sp, s);
   return cudaErrorInvalidValue;
 }
 
 template <typename T>
 int dispatch(const void* const* p, int batch, int L, int dim, int N, int R,
-             int sp, cudaStream_t s, int passes, int group) {
-  if (N <= 8) return dispatch_r<T, 8>(p, batch, L, dim, N, R, sp, s, passes,
-                                      group);
-  if (N <= 16) return dispatch_r<T, 16>(p, batch, L, dim, N, R, sp, s,
-                                        passes, group);
-  if (N <= 32) return dispatch_r<T, 32>(p, batch, L, dim, N, R, sp, s,
-                                        passes, group);
+             int sp, cudaStream_t s) {
+  if (N <= 8) return dispatch_r<T, 8>(p, batch, L, dim, N, R, sp, s);
+  if (N <= 16) return dispatch_r<T, 16>(p, batch, L, dim, N, R, sp, s);
+  if (N <= 32) return dispatch_r<T, 32>(p, batch, L, dim, N, R, sp, s);
   return cudaErrorInvalidValue;
-}
-
-int entry(const void* const* p, int batch, int L, int dim, int n_state,
-          int dt_rank, int dtype, int use_softplus, void* stream, int passes,
-          int group) {
-  if (batch < 1 || L < 1 || dim < 1 || n_state < 1 || dt_rank < 1 ||
-      group < 1 || (dtype != 0 && dtype != 1))
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? dispatch<float>(p, batch, L, dim, n_state, dt_rank,
-                                      use_softplus, s, passes, group)
-                    : dispatch<__nv_bfloat16>(p, batch, L, dim, n_state,
-                                              dt_rank, use_softplus, s,
-                                              passes, group);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  D, z and bias may be null.  Launches
-// the state pass (which writes bnd), then the main pass (which reads it),
-// on `stream`.  Returns the CUDA error of the launches (0 on success), or
-// cudaErrorInvalidValue for shapes the kernels do not take (1 <= N <= 32,
-// 1 <= r <= 64).
+// the state pass (which writes bnd, and dt into o), then the main pass
+// (which reads them and writes y and o), on `stream`.  Returns the CUDA
+// error of the launches (0 on success), or cudaErrorInvalidValue for
+// shapes the kernels do not take (1 <= N <= 32, 1 <= r <= 64).
 extern "C" int dimsum_selective_scan_fwd_train(
     const void* u, const void* dt_low, const void* dt_w, const void* A,
     const void* B, const void* C, const void* D, const void* z,
     const void* bias, void* out, void* o, void* bnd, int batch, int L,
     int dim, int n_state, int dt_rank, int dtype, int use_softplus,
     void* stream) {
-  const void* p[12] = {u, dt_low, dt_w, A, B, C, D, z, bias, out, o, bnd};
-  return entry(p, batch, L, dim, n_state, dt_rank, dtype, use_softplus,
-               stream, 3, kGroup);
-}
-
-// LADDER (timing only): the passes named by `passes` (bit 0 state, bit 1
-// main) with `group` chunks a main-pass block; `variant` > 0 takes bf16,
-// N 16, r 32 only, (state warps, state blocks an SM at least, chunks a
-// state warp, main blocks an SM at least, dt through o, stages, clocks,
-// the chain's states written as 16-byte runs after the next barrier, the
-// main pass's next chunk loaded before this one's phases, its clocks):
-extern "C" int dimsum_selective_scan_fwd_train_ladder(
-    int variant, int passes, int group, const void* u, const void* dt_low,
-    const void* dt_w, const void* A, const void* B, const void* C,
-    const void* D, const void* z, const void* bias, void* out, void* o,
-    void* bnd, int batch, int L, int dim, int n_state, int dt_rank, int dtype,
-    int use_softplus, void* stream) {
-  const void* p[12] = {u, dt_low, dt_w, A, B, C, D, z, bias, out, o, bnd};
-  if (variant == 0)
-    return entry(p, batch, L, dim, n_state, dt_rank, dtype, use_softplus,
-                 stream, passes, group);
-  if (dtype != 1 || n_state != 16 || dt_rank != 32)
+  if (batch < 1 || L < 1 || dim < 1 || n_state < 1 || dt_rank < 1 ||
+      (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
-  using bf = __nv_bfloat16;
+  const void* p[12] = {u, dt_low, dt_w, A, B, C, D, z, bias, out, o, bnd};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LADDER_RUNG(V, ...)                                                 \
-  if (variant == V)                                                         \
-    return launch<bf, 16, 32, __VA_ARGS__>(p, batch, L, dim, 16, 32,        \
-                                            use_softplus, s, passes, group);
-  LADDER_RUNG(1, 4, 6, 1, 6, false)
-  LADDER_RUNG(3, 4, 8, 1, 6, true)
-  LADDER_RUNG(4, 4, 6, 1, 6, true)
-  LADDER_RUNG(11, 4, 6, 1, 6, true, 3)
-  LADDER_RUNG(12, 4, 8, 1, 6, true, 3)
-  LADDER_RUNG(13, 4, 6, 1, 6, true, 2, true)
-  LADDER_RUNG(14, 4, 6, 1, 6, true, 3, true)
-  LADDER_RUNG(15, 4, 6, 1, 6, true, 2, false, true)
-  LADDER_RUNG(16, 4, 6, 1, 6, true, 2, true, true)
-  LADDER_RUNG(17, 4, 8, 1, 6, true, 2, false, true)
-  LADDER_RUNG(18, 4, 6, 1, 6, true, 2, false, false, true)
-  LADDER_RUNG(19, 4, 6, 1, 6, true, 2, false, false, false, true)
-  LADDER_RUNG(20, 4, 6, 1, 6, true, 2, false, false, true, true)
-#undef LADDER_RUNG
-  return cudaErrorInvalidValue;
-}
-
-// LADDER: the clock64 counters into out[0..7), then zeroed
-extern "C" int dimsum_selective_scan_fwd_train_clocks(void* out) {
-  cudaError_t err = cudaMemcpyFromSymbol(out, g_clk, 7 * sizeof(long long));
-  if (err != cudaSuccess) return err;
-  const unsigned long long zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-  return cudaMemcpyToSymbol(g_clk, zero, sizeof(zero));
+  return dtype == 0 ? dispatch<float>(p, batch, L, dim, n_state, dt_rank,
+                                      use_softplus, s)
+                    : dispatch<__nv_bfloat16>(p, batch, L, dim, n_state,
+                                              dt_rank, use_softplus, s);
 }

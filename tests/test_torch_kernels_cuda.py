@@ -201,7 +201,7 @@ def test_kernel_raises_on_what_it_does_not_take(cuda):
 from dimsum_torch.ops.selective_scan import (  # noqa: E402
     TRAIN_CHUNK, selective_scan_bwd, selective_scan_bwd_core_cuda,
     selective_scan_bwd_ref, selective_scan_fwd_train_cuda,
-    selective_scan_fwd_train_ref)
+    selective_scan_fwd_train_ref, selective_scan_fwd_train_states_ref)
 
 
 def _close(got, want, tol):
@@ -230,19 +230,88 @@ def test_cuda_route_refuses_cpu_tensors_in_training():
         selective_scan_dtlow(*_args(x), impl="cuda")
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dim, n, r, L", [
-    (256, 16, 32, 256), (200, 16, 32, 300), (130, 8, 5, 77),
-    (64, 32, 64, 48), (20, 1, 1, 5)])
-def test_fwd_train_kernel_matches_plain_on_card(cuda, dtype, dim, n, r, L):
-    x = scan_inputs(cuda, dtype, batch=3, L=L, dim=dim, n=n, r=r)
+def _fwd_train_matches_plain(x, dtype, batch, L, n, dim):
+    f0 = selective_scan_fwd_train_cuda.launches
     got = selective_scan_fwd_train_cuda(*_args(x), **_train_kw(x))
+    assert selective_scan_fwd_train_cuda.launches == f0 + 1
     want = selective_scan_fwd_train_ref(*_args(x), **_train_kw(x))
     torch.cuda.synchronize()
-    assert got[2].shape == (3, -(-L // TRAIN_CHUNK), n, dim)
+    assert got[2].shape == (batch, -(-L // TRAIN_CHUNK), n, dim)
     _close(got[0], want[0], 1e-4 if dtype == torch.float32 else 1.6e-2)
     _close(got[1], want[1], 1e-4)
     _close(got[2], want[2], 1e-4)
+
+
+# the main pass takes groups of 4 chunks (64 steps): ragged L on both sides
+# of a chunk and of a group, L < 16, many groups; ragged dims (not a
+# multiple of the state pass's 8 channels or the main pass's 32)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dim, n, r, L", [
+    (256, 16, 32, 256), (200, 16, 32, 300), (130, 8, 5, 77),
+    (64, 32, 64, 48), (20, 1, 1, 5),
+    (256, 16, 32, 63), (256, 16, 32, 64), (256, 16, 32, 65),
+    (96, 16, 32, 129), (100, 8, 16, 1), (37, 16, 32, 15), (1000, 16, 32, 17),
+    (256, 16, 32, 1000), (72, 32, 64, 191)])
+def test_fwd_train_kernel_matches_plain_on_card(cuda, dtype, dim, n, r, L):
+    x = scan_inputs(cuda, dtype, batch=3, L=L, dim=dim, n=n, r=r)
+    _fwd_train_matches_plain(x, dtype, 3, L, n, dim)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [1, 16, 70, 1024])
+def test_fwd_train_kernel_batch_one_on_card(cuda, dtype, L):
+    x = scan_inputs(cuda, dtype, batch=1, L=L, dim=256, n=16, r=32)
+    _fwd_train_matches_plain(x, dtype, 1, L, 16, 256)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dim, n, r, L", [
+    (256, 16, 32, 1024), (200, 8, 5, 300), (64, 32, 64, 17)])
+def test_fwd_train_states_match_plain_state_pass_on_card(cuda, dtype, dim,
+                                                         n, r, L):
+    """The state pass's boundaries against its plain version (alpha and
+    beta of every chunk, chained from the left) on the same inputs."""
+    x = scan_inputs(cuda, dtype, batch=2, L=L, dim=dim, n=n, r=r)
+    _, _, bnd = selective_scan_fwd_train_cuda(*_args(x), **_train_kw(x))
+    want = selective_scan_fwd_train_states_ref(
+        *_args(x)[:5], delta_bias=x["delta_bias"], delta_softplus=True)
+    torch.cuda.synchronize()
+    assert not bnd[:, 0].any()
+    _close(bnd, want, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fwd_train_kernel_repeats_bit_for_bit_on_card(cuda, dtype):
+    """At the 512-px training shape (4 x 1024 tokens, dim 1024, N 16, r
+    32): no float atomics, so two calls give the same bits."""
+    x = scan_inputs(cuda, dtype, batch=4, L=1024, dim=1024, n=16, r=32)
+    first = selective_scan_fwd_train_cuda(*_args(x), **_train_kw(x))
+    second = selective_scan_fwd_train_cuda(*_args(x), **_train_kw(x))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.isfinite(a.float()).all()
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [256, 300])
+def test_bwd_kernel_from_fwd_train_kernel_states_on_card(cuda, dtype, L):
+    """Kernel 3 run on kernel 2's o and states gives the plain backward's
+    gradients from the plain forward's o and states."""
+    x = scan_inputs(cuda, dtype, batch=2, L=L, dim=192, n=16, r=32)
+    _, o, bnd = selective_scan_fwd_train_cuda(*_args(x), **_train_kw(x))
+    _, o_ref, bnd_ref = selective_scan_fwd_train_ref(*_args(x),
+                                                     **_train_kw(x))
+    g = torch.randn(x["u"].shape, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(3)).to(dtype)
+    got = selective_scan_bwd(*_args(x), **_train_kw(x), o=o, boundaries=bnd,
+                             g=g)
+    want = selective_scan_bwd_ref(*_args(x), **_train_kw(x), o=o_ref,
+                                  boundaries=bnd_ref, g=g)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        _close(a, b, 1.6e-2 if a.dtype == torch.bfloat16 else 1e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -3,7 +3,11 @@ against the JAX package: the plain versions of kernels 2 and 3 against the
 Pallas `selective_scan_fwd_train` / `selective_scan_bwd_pallas` run in
 interpret mode at the same chunk, and the autograd Function on its plain
 route against `jax.grad` through `selective_scan_dtlow(impl="xla")`, in both
-directions.  Inputs come from a numpy seed and go to both packages.
+directions.  Inputs come from a numpy seed and go to both packages.  The
+kernels' chunk-parallel decompositions in plain PyTorch (kernel 2: the state
+pass, then every chunk from its state; kernel 3: the carry pass, then every
+chunk from its carry) are held to the sequential walks, ragged L included,
+and to the Pallas kernels.
 
 Tolerances, fp32 throughout, relative to each tensor's largest value: the
 Pallas kernels compute exp as exp2 and scan each chunk in a tree order, the
@@ -330,3 +334,21 @@ def test_function_without_optionals():
     for a, b in zip(torch.autograd.grad(y, leaves, g),
                     torch.autograd.grad(want, leaves, g)):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_profiler_classes_count_both_passes_of_each_training_kernel():
+    """`profile_forward` sums kernel 2's state and main passes into one
+    class, as it does kernel 3's carry and main passes."""
+    from dimsum_torch.profile_forward import kernel_class
+
+    for name, cls in (
+            ("scan_fwd_train_states_kernel<__nv_bfloat16, 16, 32>",
+             "selective_scan_fwd_train"),
+            ("scan_fwd_train_kernel<__nv_bfloat16, 16>",
+             "selective_scan_fwd_train"),
+            ("scan_bwd_carry_kernel<__nv_bfloat16, 16, 32>",
+             "selective_scan_bwd"),
+            ("scan_bwd_kernel<float, 16, 32>", "selective_scan_bwd"),
+            ("scan_fwd_kernel<__nv_bfloat16, 16, 32>", "selective_scan")):
+        assert kernel_class(f"void (anonymous namespace)::{name}(...)") \
+            == cls, name
