@@ -469,64 +469,6 @@ def phase_kernel_train():
     return results
 
 
-def phase_kernel_train_ladder(shapes=((16, 256, 1024), (4, 1024, 1024))):
-    """LADDER (timing only, removed with the ladder): the training
-    forward's route against its first design (csrc/selective_scan_fwd_train_
-    first.cu) through their C entry points with pre-allocated outputs, N 16,
-    r 32, bf16 and fp32: three timed runs of 20 launches in turns, median
-    ms."""
-    import ctypes
-    import statistics
-
-    import torch
-
-    from dimsum_torch.ops import cuda_build
-    from dimsum_torch.ops import selective_scan as ss
-
-    P, I = ctypes.c_void_p, ctypes.c_int
-    dev = torch.device("cuda")
-    results = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        for batch, L, dim in shapes:
-            x = scan_inputs(batch, L, dim, 16, 32, dtype, seed=300)
-            ins = [x[k] for k in ("u", "dt_low", "dt_w", "A", "B", "C", "D",
-                                  "z", "delta_bias")]
-            y = torch.empty_like(x["u"])
-            o = torch.empty(batch, L, dim, device=dev)
-            bnd = torch.empty(batch, -(-L // 16), 16, dim, device=dev)
-            ints = (batch, L, dim, 16, 32, int(dtype == torch.bfloat16), 1)
-
-            def entry(name):
-                return lambda: cuda_build.launch(
-                    name, [P] * 12 + [I] * 7, dev, *ins, y, o, bnd, *ints)
-
-            runs = {"first": entry("selective_scan_fwd_train_first"),
-                    "route": entry("selective_scan_fwd_train")}
-            with torch.no_grad():
-                want = ss.selective_scan_fwd_train_ref(
-                    *ins[:7], z=ins[7], delta_bias=ins[8],
-                    delta_softplus=True)
-                diffs = {}
-                for k, f in runs.items():
-                    f()
-                    torch.cuda.synchronize()
-                    diffs[k] = [_scaled_err(a, b) for a, b in
-                                zip((y, o, bnd), want)]
-                times = {k: [] for k in runs}
-                for _ in range(3):
-                    for k, f in runs.items():
-                        times[k].append(cuda_ms(f, iters=20))
-            name = str(dtype).split(".")[-1]
-            rec = {"phase": "kernel-train-ladder", "dtype": name,
-                   "shape": [batch, L, dim, 16, 32],
-                   "scaled_err_vs_plain": diffs,
-                   "ms": {k: statistics.median(v) for k, v in times.items()},
-                   "runs": times}
-            emit(rec)
-            results[(name, L)] = rec
-    return results
-
-
 def _train_model(dtype, seed=0):
     from dimsum_torch.models.dim import DiM_models, build_dim
 
