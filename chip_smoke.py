@@ -537,10 +537,8 @@ def phase_train_grad():
     torch.cuda.empty_cache()
 
 
-def phase_train():
-    import torch
-
-    from dimsum_torch import train_bench
+def _zeroed_scan_counts():
+    """The three scan wrappers by name, their launch counts set to 0."""
     from dimsum_torch.ops import selective_scan as ss
 
     counts = {"selective_scan_fwd": ss.selective_scan_cuda,
@@ -548,6 +546,15 @@ def phase_train():
               "selective_scan_bwd": ss.selective_scan_bwd_core_cuda}
     for c in counts.values():
         c.launches = 0
+    return counts
+
+
+def phase_train():
+    import torch
+
+    from dimsum_torch import train_bench
+
+    counts = _zeroed_scan_counts()
     record, state = train_bench.run(batch=16, bf16=True, steps=TRAIN_STEPS,
                                     warmup=TRAIN_WARMUP, device="cuda",
                                     seed=0)
@@ -598,13 +605,8 @@ def phase_train_512():
     import torch
 
     from dimsum_torch import train_bench
-    from dimsum_torch.ops import selective_scan as ss
 
-    counts = {"selective_scan_fwd": ss.selective_scan_cuda,
-              "selective_scan_fwd_train": ss.selective_scan_fwd_train_cuda,
-              "selective_scan_bwd": ss.selective_scan_bwd_core_cuda}
-    for c in counts.values():
-        c.launches = 0
+    counts = _zeroed_scan_counts()
     record, state = train_bench.run(batch=4, bf16=True,
                                     steps=TRAIN_512_STEPS, warmup=1,
                                     device="cuda", seed=0, image_size=512)

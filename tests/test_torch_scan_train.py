@@ -25,14 +25,11 @@ from jax.experimental.pallas import tpu as pltpu
 from dimsum_tpu.ops.selective_scan import selective_scan_dtlow as jax_dtlow
 from dimsum_tpu.ops.selective_scan_bwd import (selective_scan_bwd_pallas,
                                                selective_scan_fwd_train)
-from dimsum_torch.ops.selective_scan import (SelectiveScanDtLowFn, _bwd,
-                                             selective_scan_bwd_carry_ref,
-                                             selective_scan_bwd_core_ref,
-                                             selective_scan_bwd_ref,
-                                             selective_scan_dtlow,
-                                             selective_scan_dtlow_train,
-                                             selective_scan_fwd_train_ref,
-                                             selective_scan_fwd_train_states_ref)
+from dimsum_torch.ops.selective_scan import (
+    SelectiveScanDtLowFn, _bwd, selective_scan_bwd_carry_ref,
+    selective_scan_bwd_core_ref, selective_scan_bwd_ref, selective_scan_dtlow,
+    selective_scan_dtlow_train, selective_scan_fwd_train_ref,
+    selective_scan_fwd_train_states_ref)
 from tests.test_torch_convert import torch_one_thread  # noqa: F401
 
 TOL = 1e-4
