@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`dimsum_torch`) on one NVIDIA card:
 its sampling and training paths at full DiM-L/2 width, at 256 px and, for
-sampling, at 512 px.
+sampling, at 512 px, and sampling from a checkpoint by the reference's eval
+protocol through `python -m dimsum_torch.sample`.
 
     python3 chip_smoke.py
 
@@ -107,14 +108,41 @@ Phases, each printing one JSON line; any failure exits non-zero:
               32 launches per forward; the samples must be finite.
  19. sample-fused-512  phase 18's run at 512 px: 15, 25 and 32 fused
               and 36 sm90 attention launches per forward; finite samples.
- 20. kernels  one {"kernels": [...]} line (all eight kernels; the scan,
+ 20. sample-dopri5  the sampling path from a checkpoint: seeded random
+              DiM-L/2 weights written in the reference's .pt layout (a
+              different "ema" and "model") and a full-width SD-VAE (ch 128,
+              ch_mult 1 2 4 4) with seeded random weights written as a
+              diffusers state dict, both into a temporary directory; then
+              `python -m dimsum_torch.sample ODE` (dopri5, --compute-nfe,
+              CFG 1.4, 256 px, bf16, DOPRI5_BATCH images, VAE decode to
+              PNGs).  Counts set to 0 just before and read just after: 32
+              launches of kernel 1 per drift call, NFE + 1 calls; one 256 x
+              256 PNG per image; finite latents.  `--params ema|raw` must
+              take the matching weights, and a checkpoint with one key
+              removed must be refused.  Prints the NFE, the seconds and the
+              decode seconds.
+ 21. sample-sde-512  the checkpoint adapted to 512 px (`adapt_checkpoint`)
+              and sampled by the CLI's SDE mode (Euler-Maruyama over
+              SDE_512_STEPS grid points, CFG 1.4, bf16): 32 scan and 36 sm90
+              attention launches per model call; finite samples.
+ 22. likelihood  the CLI's `--likelihood` at cfg 1.0 (256 px, bf16, 2
+              images, LIKELIHOOD_STEPS grid points): 32 launches of kernels
+              2 and 3 per drift call of the augmented ODE, finite bits/dim;
+              and one augmented drift call of the fp32 model (TF32 off)
+              through the kernels and through the plain scan: they must
+              agree.
+ 23. kernels  one {"kernels": [...]} line (all eight kernels; the scan,
               both training kernels and conv + x_proj with their L 1024
               times and bound beside the mixer-shape ones,
               the two attention kernels with their cross-shape times beside
               the DiT ones; the first attention kernel, on no main path now,
               with 0 launches and its model-512 count as check_launches),
               then the nvidia-smi line, then {"ok": true, "device": {...}}
-              as the last line.
+              as the last line.  Each record's `ms` (CUDA events around
+              back-to-back launches, which below ~0.05 ms can read the
+              host's launch gaps) has `device_ms` beside it: the kernel's
+              mean duration in torch.profiler's CUDA activity over the
+              same launches.
 
 Exits with an error and prints no result when CUDA is not available, or
 when the port's package is not beside this script.
@@ -159,6 +187,33 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, cls: str, iters: int = 20) -> float:
+    """Mean device time per call of `fn` in the kernels of
+    `profile_forward`'s class `cls`, from torch.profiler's CUDA activity
+    over `iters` calls after one untimed: the kernels alone, without the
+    host's launch gaps, which `cuda_ms` reads below ~0.05 ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dimsum_torch.profile_forward import kernel_class
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)
+                and kernel_class(e.key) == cls)
+    if not total > 0:
+        raise AssertionError(f"the profiler saw no {cls} kernel")
+    return total / 1e3 / iters
 
 
 def scan_inputs(batch, L, dim, n, r, dtype, seed):
@@ -256,6 +311,9 @@ def phase_kernel():
             ok = bool(torch.isfinite(got).all()) and bool(
                 (err <= tol + tol * want.abs()).all())
             ms = cuda_ms(lambda: selective_scan_cuda(*args, **kw), iters=20)
+            dev_ms = (device_ms(lambda: selective_scan_cuda(*args, **kw),
+                                "selective_scan")
+                      if name in ("mixer-bf16", "L1024-bf16") else None)
             plain_ms = cuda_ms(lambda: selective_scan_dtlow(
                 *args, impl="ref", **kw), iters=3, warmup=1)
         rec = {"phase": "kernel", "case": name, "shape": [batch, L, dim,
@@ -263,7 +321,7 @@ def phase_kernel():
                "dtype": str(dtype).split(".")[-1], "reverse": reverse,
                "max_abs_err": err.max().item(),
                "max_abs_ref": want.abs().max().item(), "tol": tol,
-               "ok": ok, "ms": ms, "plain_ms": plain_ms,
+               "ok": ok, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
                **_bound_fields(scan_bound(x))}
         emit(rec)
         if not ok:
@@ -450,6 +508,12 @@ def phase_kernel_train():
                              iters=20)
             bwd_plain = cuda_ms(lambda: ss.selective_scan_bwd_core_ref(
                 *core), iters=3, warmup=1)
+            fwd_dev = bwd_dev = None
+            if name in ("train-bf16", "L1024-bf16"):
+                fwd_dev = device_ms(lambda: ss.selective_scan_fwd_train_cuda(
+                    *args, **kw), "selective_scan_fwd_train")
+                bwd_dev = device_ms(lambda: ss.selective_scan_bwd_core_cuda(
+                    *core), "selective_scan_bwd")
         bounds = train_bounds(x, ss.TRAIN_CHUNK)
         rec = {"phase": "kernel-train", "case": name,
                "shape": [batch, L, dim, 16, 32],
@@ -457,10 +521,10 @@ def phase_kernel_train():
                "scaled_err": errs, "tol_fp32": 1e-4, "tol_bf16": 1.6e-2,
                "ok": ok, "low_precision_outputs": low,
                "fwd_train": {"max_abs_err": fwd_err, "ms": fwd_ms,
-                             "plain_ms": fwd_plain,
+                             "device_ms": fwd_dev, "plain_ms": fwd_plain,
                              **_bound_fields(bounds["fwd_train"])},
                "bwd": {"max_abs_err": bwd_err, "ms": bwd_ms,
-                       "plain_ms": bwd_plain,
+                       "device_ms": bwd_dev, "plain_ms": bwd_plain,
                        **_bound_fields(bounds["bwd"])}}
         emit(rec)
         if not ok:
@@ -562,14 +626,15 @@ def phase_train():
     launches = {k: c.launches for k, c in counts.items()}
     init = dict(_train_model(torch.bfloat16, seed=0).named_parameters())
     # a parameter whose last gradient is well above Adam's eps must have
-    # moved (a smaller one may move by less than its rounding); one without
-    # a gradient (CondMamba's cond_proj, out of the graph) must not
+    # moved (a smaller one may move by less than its rounding); one out of
+    # the graph (CondMamba's cond_proj), which the step gives a zero
+    # gradient, must not at weight decay 0
     moved, wrong, no_grad, ema_moved = 0, [], [], 0
     for name, p in state.model.named_parameters():
         changed = not torch.equal(p, init[name])
         moved += changed
         ema_moved += not torch.equal(state.ema_params[name], init[name])
-        if p.grad is None:
+        if not p.grad.any():
             no_grad.append(name)
             if changed:
                 wrong.append(name)
@@ -713,6 +778,9 @@ def phase_kernel_attn():
                   and err <= tol * scale_ref and took_sm90 == sm90)
             ms = cuda_ms(lambda: full_block_attention_cuda(q, k, v, scale),
                          iters=50)
+            dev_ms = device_ms(
+                lambda: full_block_attention_cuda(q, k, v, scale),
+                "full_block_attention")
             plain_ms = cuda_ms(lambda: full_attention_ref(q, k, v, scale),
                                iters=3, warmup=1)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -737,7 +805,7 @@ def phase_kernel_attn():
         rec = {"phase": "kernel-attn", "case": name, "shape": [B, L, H, Dh],
                "dtype": str(dtype).split(".")[-1], "kernel": kernel,
                "max_abs_err": err, "max_abs_ref": scale_ref, "tol_rel": tol,
-               "ok": ok, "ms": ms, "plain_ms": plain_ms,
+               "ok": ok, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "bytes": nbytes, "flop": flops,
                "exp": n_exp, "tflop_per_s": flops / ms / 1e9,
@@ -1130,11 +1198,13 @@ def phase_kernel_norm():
             want = add_norm_ref(*args, dtype)
             torch.cuda.synchronize()
             ms = cuda_ms(lambda: add_norm_cuda(*args), iters=20)
+            dev_ms = device_ms(lambda: add_norm_cuda(*args), "add_norm")
             plain_ms = cuda_ms(lambda: add_norm_ref(*args, dtype), iters=5)
         bound = norm_bound(B * L * D, B, D, esize,
                            dict(res=4, total=4, w=4, rms=True))
         rec = _case_record("add_norm", dtype, [B, L, D], got, want,
                            (low, 1e-5), ms, plain_ms, bound)
+        rec["device_ms"] = dev_ms
         emit({"phase": "kernel-norm", "kernel": "add_norm", **rec})
         if not rec["ok"]:
             raise AssertionError(f"add_norm kernel disagrees: {rec}")
@@ -1156,6 +1226,8 @@ def phase_kernel_norm():
                 torch.cuda.synchronize()
                 ms = cuda_ms(lambda: norm_modulate_cuda(v["x"], **kw),
                              iters=20)
+                dev_ms = device_ms(lambda: norm_modulate_cuda(v["x"], **kw),
+                                   "norm_modulate")
                 plain_ms = cuda_ms(lambda: norm_modulate_ref(v["x"], **kw),
                                    iters=5)
             tot_size = 4 if res else esize
@@ -1166,6 +1238,7 @@ def phase_kernel_norm():
             rec = _case_record(name, dtype, [B, L, D], got, want,
                                (low, 1e-5 if res else low), ms, plain_ms,
                                bound)
+            rec["device_ms"] = dev_ms
             emit({"phase": "kernel-norm", "kernel": "norm_modulate", **rec})
             if not rec["ok"]:
                 raise AssertionError(f"norm_modulate kernel disagrees: {rec}")
@@ -1225,6 +1298,10 @@ def phase_kernel_convx():
             torch.cuda.synchronize()
             ms = cuda_ms(lambda: conv_xproj_cuda(x, cw, cb, w, reverse),
                          iters=20)
+            dev_ms = (device_ms(lambda: conv_xproj_cuda(x, cw, cb, w,
+                                                        reverse),
+                                "conv_xproj")
+                      if name in ("mixer-bf16", "L1024-bf16") else None)
             plain_ms = cuda_ms(lambda: conv_xproj_ref(x, cw, cb, w, reverse),
                                iters=5)
         bf16 = dtype == torch.bfloat16
@@ -1236,7 +1313,7 @@ def phase_kernel_convx():
         rec = _case_record(name, dtype, [B, L, D, 4, R], got, want,
                            (1.6e-2, 1e-2) if bf16 else (1e-5, 1e-5), ms,
                            plain_ms, bound)
-        rec["reverse"] = reverse
+        rec.update(reverse=reverse, device_ms=dev_ms)
         emit({"phase": "kernel-convx", **rec})
         if not rec["ok"]:
             raise AssertionError(f"conv_xproj kernel disagrees on {name}")
@@ -1441,6 +1518,305 @@ def phase_sample_fused_512():
     return launches
 
 
+# the published DiM-L/2 flags of the reference's sampling script, in bf16
+DIM_L2_ARGS = ["--model", "DiM-L/2", "--num-classes", "1001",
+               "--block-type", "combined", "--bimamba-type", "none",
+               "--rms-norm", "--fused-add-norm", "--learnable-pe",
+               "--cond-mamba", "--use-attn-every-k-layers", "4",
+               "--path-type", "GVP", "--bf16"]
+DOPRI5_BATCH = 4      # images of the dopri5 run (8 CFG rows)
+SDE_512_STEPS = 10    # grid points of the 512-px SDE run
+LIKELIHOOD_STEPS = 6  # grid points of the likelihood run
+
+
+def _dim_l2_config(image_size, dtype=None):
+    import torch
+
+    from dimsum_torch.models.dim import DiM_models
+
+    return DiM_models["DiM-L/2"](img_resolution=image_size // 8,
+                                 num_classes=1001, label_dropout=0.1,
+                                 use_attn_every_k_layers=4,
+                                 dtype=dtype or torch.float32)
+
+
+def write_checkpoints(tmp):
+    """Seeded random DiM-L/2 weights (256 px) in the reference's .pt
+    layout, "ema" from `random_init_` seed 0 and "model" from seed 1, and
+    a full-width SD-VAE (ch 128, ch_mult 1 2 4 4) with seeded random
+    weights as a diffusers state dict.  Returns (checkpoint path, its
+    state dicts, VAE path)."""
+    import argparse
+    import os
+
+    import torch
+
+    from dimsum_torch.models.dim import DiM, random_init_
+    from dimsum_torch.models.vae import load_vae
+
+    with torch.device("cuda"):
+        net = DiM(_dim_l2_config(256))
+    sds = {}
+    for key, seed in (("ema", 0), ("model", 1)):
+        random_init_(net, seed)
+        sds[key] = {k: v.detach().to("cpu", copy=True)
+                    for k, v in net.state_dict().items()}
+    path = os.path.join(tmp, "dim-l2-256.pt")
+    torch.save({**sds, "args": argparse.Namespace(model="DiM-L/2")}, path)
+    vae_path = os.path.join(tmp, "sd-vae.pt")
+    torch.save({k: v.cpu() for k, v in
+                load_vae("random:0", "cuda").state_dict().items()}, vae_path)
+    del net
+    torch.cuda.empty_cache()
+    return path, sds, vae_path
+
+
+def _sample_argv(ckpt, out, *extra):
+    return ["ODE", *DIM_L2_ARGS, "--image-size", "256", "--ckpt", ckpt,
+            "--sample-dir", out, *extra]
+
+
+def phase_sample_dopri5(tmp, ckpt, sds, vae_path):
+    """The reference's eval protocol through `python -m
+    dimsum_torch.sample`: ODE dopri5 (atol 1e-6, rtol 1e-3), CFG 1.4, 256
+    px, bf16, DOPRI5_BATCH images from the checkpoint's EMA weights,
+    decoded by the SD-VAE into PNGs.  Counts set to 0 just before and read
+    just after: 32 launches of kernel 1 per drift call, NFE + 1 calls (the
+    NFE and the uncounted initial-step probe), none of kernels 2 and 3;
+    one 256 x 256 PNG per image; finite latents.  Then `--params` picks the
+    checkpoint's "ema" or "model" weights (one Euler step of one image
+    against the same step through a model built from each seed), and a
+    checkpoint with one key removed is refused."""
+    import os
+
+    import torch
+
+    from dimsum_torch import sample
+    from dimsum_torch.models.dim import build_dim, forward_with_cfg
+    from dimsum_torch.transport import Sampler, create_transport
+    from dimsum_torch.utils.png import read_png
+
+    out = os.path.join(tmp, "samples")
+    counts = _zeroed_scan_counts()
+    rec = sample.main(_sample_argv(
+        ckpt, out, "--vae-ckpt", vae_path, "--sampling-method", "dopri5",
+        "--compute-nfe", "--cfg-scale", "1.4", "--global-batch-size",
+        str(DOPRI5_BATCH)))
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counts.items()}
+    pngs = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+    sizes = sorted({read_png(os.path.join(out, f)).shape for f in pngs})
+    finite = bool(torch.isfinite(rec["samples"]).all())
+    nfe = rec["nfe"]
+
+    # --params: one Euler step of one image, through the CLI and through a
+    # model built from each seed
+    picked = {}
+    for params, seed in (("ema", 0), ("raw", 1)):
+        got = sample.main(_sample_argv(
+            ckpt, os.path.join(tmp, "quick"), "--params", params,
+            "--sampling-method", "euler", "--num-sampling-steps", "2",
+            "--cfg-scale", "1.4", "--global-batch-size", "1"))["samples"]
+        net = build_dim(_dim_l2_config(256, torch.bfloat16), "cuda", seed)
+        g = torch.Generator(device="cuda").manual_seed(0)
+        z = torch.randn((1, 4, 32, 32), generator=g, device="cuda")
+        y = torch.randint(0, 1000, (1,), generator=g, device="cuda")
+        with torch.no_grad():
+            want = Sampler(create_transport("GVP", "velocity")).sample_ode(
+                sampling_method="euler", num_steps=2)(
+                torch.cat([z, z]), lambda x, t, y=None: forward_with_cfg(
+                    net, x, t, y, cfg_scale=1.4),
+                y=torch.cat([y, torch.full((1,), 1000, device="cuda")]))[:1]
+        picked[params] = (got, _scaled_err(got, want))
+        del net
+    params_apart = _scaled_err(picked["raw"][0], picked["ema"][0])
+
+    dropped = "blocks.1.freq_mamba.mixer.x_proj.weight"
+    bad = os.path.join(tmp, "missing-key.pt")
+    torch.save({"ema": {k: v for k, v in sds["ema"].items()
+                        if k != dropped}}, bad)
+    try:
+        sample.main(_sample_argv(bad, os.path.join(tmp, "quick"),
+                                 "--sampling-method", "euler",
+                                 "--num-sampling-steps", "2"))
+        refused = False
+    except ValueError as e:
+        refused = dropped in str(e)
+    os.remove(bad)
+
+    rec_out = {"phase": "sample-dopri5", "model": "DiM-L/2",
+               "image_size": 256, "dtype": "bfloat16", "cfg_scale": 1.4,
+               "batch": DOPRI5_BATCH, "nfe": nfe, "seconds": rec["seconds"],
+               "s_per_image": rec["seconds"] / DOPRI5_BATCH,
+               "decode_seconds": rec["decode_seconds"],
+               "launches": launches, "pngs": len(pngs), "png_shapes": sizes,
+               "finite": finite,
+               "latent_std": rec["samples"].float().std().item(),
+               "params_err": {k: v[1] for k, v in picked.items()},
+               "params_apart": params_apart, "missing_key_refused": refused}
+    emit(rec_out)
+    # one CLI call through the card: the same weights, the same ops
+    if (not finite or len(pngs) != DOPRI5_BATCH
+            or sizes != [(256, 256, 3)]
+            or launches["selective_scan_fwd"] != 32 * (nfe + 1)
+            or launches["selective_scan_fwd_train"] != 0
+            or launches["selective_scan_bwd"] != 0
+            or max(v[1] for v in picked.values()) > 1e-3
+            or not params_apart > 0.05 or not refused):
+        raise AssertionError(f"sample-dopri5 phase failed: {rec_out}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_sample_sde_512(tmp, sds):
+    """The 256-px checkpoint adapted to 512 px (`adapt_checkpoint`: the
+    position embedding resized bicubically as the JAX package does), saved,
+    and sampled through `python -m dimsum_torch.sample SDE` at 512 px:
+    Euler-Maruyama over SDE_512_STEPS grid points, diffusion sigma_t, the
+    Mean last step, CFG 1.4, bf16, 2 images.  The velocity model's SDE
+    drift calls the model twice (drift and score): 2 (SDE_512_STEPS - 1)
+    + 2 calls, each with 32 scan launches and 36 attention launches, all
+    through the sm90 kernel.  Counts set to 0 just before and read just
+    after; finite samples."""
+    import os
+
+    import torch
+
+    from dimsum_torch import sample
+    from dimsum_torch.models.dim import DiM
+    from dimsum_torch.ops.full_attention import (full_attention_sm90,
+                                                 full_block_attention_cuda)
+    from dimsum_torch.utils.ckpt import adapt_checkpoint, resize_pos_embed
+
+    with torch.device("meta"):
+        template = DiM(_dim_l2_config(512)).state_dict()
+    adapted = adapt_checkpoint(sds["ema"], template)
+    pos_ok = torch.equal(adapted["pos_embed"],
+                         resize_pos_embed(sds["ema"]["pos_embed"], 1024))
+    path = os.path.join(tmp, "dim-l2-512-adapted.pt")
+    torch.save({"ema": adapted}, path)
+    del adapted
+
+    counts = _zeroed_scan_counts()
+    counts.update(full_attention_sm90=full_attention_sm90,
+                  full_block_attention=full_block_attention_cuda)
+    for c in counts.values():
+        c.launches = 0
+    rec = sample.main(["SDE", *DIM_L2_ARGS, "--image-size", "512", "--ckpt",
+                       path, "--sample-dir", os.path.join(tmp, "sde"),
+                       "--diffusion-form", "sigma", "--last-step", "Mean",
+                       "--num-sampling-steps", str(SDE_512_STEPS),
+                       "--cfg-scale", "1.4", "--global-batch-size", "2"])
+    torch.cuda.synchronize()
+    os.remove(path)
+    launches = {k: c.launches for k, c in counts.items()}
+    calls = 2 * (SDE_512_STEPS - 1) + 2
+    finite = bool(torch.isfinite(rec["samples"]).all())
+    out = {"phase": "sample-sde-512", "model": "DiM-L/2", "image_size": 512,
+           "dtype": "bfloat16", "steps": SDE_512_STEPS, "model_calls": calls,
+           "seconds": rec["seconds"], "launches": launches,
+           "shape": list(rec["samples"].shape), "finite": finite,
+           "pos_embed_resized": pos_ok,
+           "sample_std": rec["samples"].float().std().item()}
+    emit(out)
+    if (not finite or not pos_ok or out["shape"] != [2, 4, 64, 64]
+            or launches["selective_scan_fwd"] != 32 * calls
+            or launches["full_attention_sm90"] != 36 * calls
+            or launches["full_block_attention"] != 36 * calls
+            or launches["selective_scan_fwd_train"] != 0):
+        raise AssertionError(f"sample-sde-512 phase failed: {out}")
+    torch.cuda.empty_cache()
+
+
+def phase_likelihood(tmp, ckpt):
+    """`python -m dimsum_torch.sample ODE --likelihood` at cfg 1.0, 256 px,
+    bf16, 2 images: the samples by Euler over LIKELIHOOD_STEPS grid points
+    (kernel 1), then their bits/dim by the augmented reverse ODE over the
+    same grid, whose vector-Jacobian products take kernels 2 and 3: 32
+    launches of each per drift call.  Counts set to 0 just before and read
+    just after; finite bits/dim.  Then one augmented drift call of the fp32
+    model (TF32 off) through the kernels and through the plain scan: the
+    drift within 1e-3 and the vector-Jacobian product within 2e-3 of their
+    scales (as the model and train-grad phases hold a forward and a
+    gradient), the divergence estimate within 2e-3 of its terms' sum."""
+    import os
+
+    import torch
+
+    from dimsum_torch import sample
+    from dimsum_torch.models.dim import build_dim
+    from dimsum_torch.transport import Sampler, create_transport
+
+    counts = _zeroed_scan_counts()
+    rec = sample.main(_sample_argv(
+        ckpt, os.path.join(tmp, "likelihood"), "--sampling-method", "euler",
+        "--num-sampling-steps", str(LIKELIHOOD_STEPS), "--likelihood",
+        "--cfg-scale", "1.0", "--global-batch-size", "2"))
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counts.items()}
+    bpd = rec["bpd"]
+    calls = LIKELIHOOD_STEPS - 1
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    net = build_dim(_dim_l2_config(256), "cuda", seed=0)
+    net.requires_grad_(False)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn((2, 4, 32, 32), generator=g, device="cuda")
+    y = torch.randint(0, 1000, (2,), generator=g, device="cuda")
+    t = torch.full((2,), 0.3, device="cuda")
+    eps = torch.randint(0, 2, x.shape, generator=g, device="cuda").float()         * 2 - 1
+    sampler = Sampler(create_transport("GVP", "velocity"))
+    aug_counts = _zeroed_scan_counts()
+    dx, vjp = sampler.augmented_drift(x, t, net, eps, y=y)
+    aug_launches = {k: c.launches for k, c in aug_counts.items()}
+    for m in _mixers(net):
+        m.scan_impl = "ref"
+    dx_ref, vjp_ref = sampler.augmented_drift(x, t, net, eps, y=y)
+    torch.cuda.synchronize()
+    div, div_ref = (vjp * eps).sum((1, 2, 3)), (vjp_ref * eps).sum((1, 2, 3))
+    div_err = ((div - div_ref).abs()
+               / (vjp_ref * eps).abs().sum((1, 2, 3))).max().item()
+    errs = {"drift": _scaled_err(dx, dx_ref), "vjp": _scaled_err(vjp, vjp_ref),
+            "divergence": div_err}
+    out = {"phase": "likelihood", "model": "DiM-L/2", "image_size": 256,
+           "dtype": "bfloat16", "steps": LIKELIHOOD_STEPS,
+           "seconds": rec["seconds"], "launches": launches,
+           "bits_per_dim": bpd.tolist(),
+           "finite": bool(torch.isfinite(bpd).all()),
+           "fp32_check": {"errs": errs, "tol": {"drift": 1e-3, "vjp": 2e-3,
+                                                "divergence": 2e-3},
+                          "launches": aug_launches,
+                          "divergence": div_ref.tolist()}}
+    emit(out)
+    if (not out["finite"]
+            or launches["selective_scan_fwd"] != 32 * calls
+            or launches["selective_scan_fwd_train"] != 32 * calls
+            or launches["selective_scan_bwd"] != 32 * calls
+            or aug_launches != {"selective_scan_fwd": 0,
+                                "selective_scan_fwd_train": 32,
+                                "selective_scan_bwd": 32}
+            or not errs["drift"] <= 1e-3 or not errs["vjp"] <= 2e-3
+            or not div_err <= 2e-3):
+        raise AssertionError(f"likelihood phase failed: {out}")
+    del net
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_sampling_path():
+    """The sampling path from a checkpoint (sample-dopri5, sample-sde-512,
+    likelihood) on files written into a temporary directory, removed
+    after."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, sds, vae_path = write_checkpoints(tmp)
+        phase_sample_dopri5(tmp, ckpt, sds, vae_path)
+        phase_sample_sde_512(tmp, sds)
+        return phase_likelihood(tmp, ckpt)
+
+
 def main() -> int:
     import torch
 
@@ -1482,6 +1858,7 @@ def main() -> int:
     phase_train_grad_fused()
     launches.update(phase_sample_fused())
     phase_sample_fused_512()
+    phase_sampling_path()
 
     # the scan at the 256-px mixer shape, with the 512-px one (L 1024)
     # beside it
@@ -1494,11 +1871,13 @@ def main() -> int:
         "launches": launches["selective_scan_fwd"],
         "max_abs_err": max(r["max_abs_err"] for r in scans.values()),
         "ms": main_case["ms"],
+        "device_ms": main_case["device_ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
         "library_ms": None,
         "L1024_ms": long_case["ms"],
+        "L1024_device_ms": long_case["device_ms"],
         "L1024_plain_ms": long_case["plain_ms"],
         "L1024_bound_ms": long_case["bound_ms"],
     }]
@@ -1517,11 +1896,13 @@ def main() -> int:
             "max_abs_err": max(r[key]["max_abs_err"]
                                for r in train_scans.values()),
             "ms": train_case[key]["ms"],
+            "device_ms": train_case[key]["device_ms"],
             "plain_ms": train_case[key]["plain_ms"],
             "bound_ms": train_case[key]["bound_ms"],
             "bound_by": train_case[key]["bound_by"],
             "library_ms": None,
             "L1024_ms": train_long[key]["ms"],
+            "L1024_device_ms": train_long[key]["device_ms"],
             "L1024_plain_ms": train_long[key]["plain_ms"],
             "L1024_bound_ms": train_long[key]["bound_ms"]})
     # the attention: bf16 at Dh 64 (the sampling paths) through the sm90
@@ -1542,9 +1923,11 @@ def main() -> int:
             "replaces": "dimsum_tpu/ops/full_attention.py:82",
             "launches": n,
             "max_abs_err": max(dit["max_abs_err"], cross["max_abs_err"]),
-            "ms": dit["ms"], "plain_ms": dit["plain_ms"],
+            "ms": dit["ms"], "device_ms": dit["device_ms"],
+            "plain_ms": dit["plain_ms"],
             "bound_ms": dit["bound_ms"], "bound_by": dit["bound_by"],
             "library_ms": dit["library_ms"], "cross_ms": cross["ms"],
+            "cross_device_ms": cross["device_ms"],
             "cross_plain_ms": cross["plain_ms"],
             "cross_bound_ms": cross["bound_ms"],
             "cross_library_ms": cross["library_ms"], **extra})
@@ -1563,12 +1946,14 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in cases.values()),
-            "ms": case["ms"], "plain_ms": case["plain_ms"],
+            "ms": case["ms"], "device_ms": case["device_ms"],
+            "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
             "library_ms": None})
     # conv_xproj decides the fused 512-px sampling time at L 1024
     long_case = convx["L1024-bf16"]
     kernels[-1].update({"L1024_ms": long_case["ms"],
+                        "L1024_device_ms": long_case["device_ms"],
                         "L1024_plain_ms": long_case["plain_ms"],
                         "L1024_bound_ms": long_case["bound_ms"]})
     emit({"kernels": kernels})

@@ -8,7 +8,9 @@ dwt_tokens + local_scan route): hidden 1024, depth 16, CondMamba, RMSNorm
 with an fp32 residual, learnable sin-cos APE, a shared 16-head DiTBlock
 after every 4th block, seeded random weights (no checkpoint ships with the
 repo), CFG 1.4 on a doubled batch, GVP velocity transport, Euler over 250
-grid points.  One untimed warm-up drift call precedes the timed run.
+grid points, or with `--solver dopri5` the reference's adaptive solver
+(atol 1e-6, rtol 1e-3), whose NFE the record reports.  One untimed warm-up
+drift call precedes the timed run.
 
 The JAX package's fused-kernel configuration runs with its four switches as
 flags: `--pallas-norm` (the add + norm kernel), `--fused-norm` (the norm +
@@ -17,7 +19,7 @@ modulate kernel), `--conv-xproj` (the conv + SiLU + x_proj kernel) and
 block's top norm).
 
     python -m dimsum_torch.bench --batch 12 --steps 250 --dtype bf16 \
-        --cfg 1.4 --device cuda [--image-size 512] \
+        --cfg 1.4 --device cuda [--image-size 512] [--solver dopri5] \
         [--pallas-norm --fused-norm --conv-xproj --pending-tail 2]
 
 Prints one JSON line: images per second on this card, with the card's name
@@ -38,6 +40,7 @@ from dimsum_torch.utils.device import card_name_and_power_limit, resolve_device
 
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 IMAGE_SIZES = (256, 512)  # pixels; the latent is a size / 8 square
+SOLVERS = ("euler", "dopri5")
 # the DiMConfig fields of the fused-kernel configuration, all off by default
 FUSED_DEFAULTS = dict(pallas_norm=False, fused_norm=False, conv_xproj=False,
                       pending_tail=0)
@@ -76,15 +79,19 @@ def _sync(dev):
 
 def run(batch: int = 12, steps: int = 250, dtype: str = "bf16",
         cfg_scale: float = 1.4, device="cuda", seed: int = 0,
-        model: str = "DiM-L/2", image_size: int = 256, **fused):
+        model: str = "DiM-L/2", image_size: int = 256,
+        solver: str = "euler", **fused):
     """Build the model (`model` names a zoo entry: DiM-L/2, or a narrower
     one for a rehearsal on the CPU) at `image_size` pixels, with the
     fused-kernel switches `fused` (pallas_norm, fused_norm, conv_xproj,
     pending_tail; off by default), sample once untimed for one drift call,
-    then time one full sample.  Returns (record, samples of the conditional
-    half)."""
+    then time one full sample by `solver` (Euler over `steps` grid points,
+    or dopri5, whose NFE goes into the record).  Returns (record, samples
+    of the conditional half)."""
     if image_size not in IMAGE_SIZES:
         raise ValueError(f"image_size must be one of {IMAGE_SIZES}")
+    if solver not in SOLVERS:
+        raise ValueError(f"solver must be one of {SOLVERS}")
     dev = resolve_device(device)
     latent = image_size // 8
     fused = fused_config(**fused)
@@ -111,18 +118,25 @@ def run(batch: int = 12, steps: int = 250, dtype: str = "bf16",
             z, model_fn, y=y)
         _sync(dev)
         t0 = time.perf_counter()
-        out = sampler.sample_ode(sampling_method="euler", num_steps=steps)(
+        out = sampler.sample_ode(sampling_method=solver, num_steps=steps,
+                                 return_nfe=solver == "dopri5")(
             z, model_fn, y=y)
         _sync(dev)
         seconds = time.perf_counter() - t0
+    nfe = None
+    if solver == "dopri5":
+        out, nfe = out
     record = {
-        "metric": f"imagenet{image_size}_sampling_throughput_{steps}"
-                  "step_cfg",
+        "metric": f"imagenet{image_size}_sampling_throughput_"
+                  + (f"{steps}step" if solver == "euler" else "dopri5")
+                  + "_cfg",
         "value": batch / seconds,
         "unit": "img/s",
         "seconds": seconds,
         "batch": batch,
-        "steps": steps,
+        "steps": steps if solver == "euler" else None,
+        "solver": solver,
+        "nfe": nfe,
         "model": model,
         "image_size": image_size,
         "dtype": dtype,
@@ -148,11 +162,15 @@ def main(argv=None):
     ap.add_argument("--image-size", type=int, default=256,
                     choices=IMAGE_SIZES,
                     help="pixels; 512 -> latent 64, L = 1024 tokens")
+    ap.add_argument("--solver", default="euler", choices=SOLVERS,
+                    help="euler: a fixed grid of --steps points; dopri5: "
+                         "the reference's adaptive solver, NFE reported")
     add_fused_flags(ap)
     args = ap.parse_args(argv)
     record, _ = run(batch=args.batch, steps=args.steps, dtype=args.dtype,
                     cfg_scale=args.cfg, device=args.device, seed=args.seed,
-                    image_size=args.image_size, **fused_settings(args))
+                    image_size=args.image_size, solver=args.solver,
+                    **fused_settings(args))
     print(json.dumps(record))
 
 

@@ -140,6 +140,22 @@ def forward_with_cfg(model, x, t, y, cfg_scale: float = 1.0,
     return torch.cat([torch.cat([half_eps, half_eps], dim=0), rest], dim=1)
 
 
+def forward_with_adacfg(model, x, t, y, cfg_scale: float = 3.8,
+                        scale_pow: float = 4.0, in_channels: int = 4):
+    """Classifier-free guidance with the power-cos scale on t: the guidance
+    of each conditional row is 1 + (cfg_scale - 1)(1 - cos(pi (1 - t)^p))
+    / 2, from that row's t (the JAX `forward_with_adacfg`)."""
+    n = x.shape[0] // 2
+    half = x[:n]
+    out = model(torch.cat([half, half], dim=0), t, y)
+    eps, rest = out[:, :in_channels], out[:, in_channels:]
+    cond_eps, uncond_eps = eps.chunk(2, dim=0)
+    scale_step = (1 - torch.cos(((1 - t) ** scale_pow) * math.pi)) * 0.5
+    real_scale = ((cfg_scale - 1) * scale_step + 1)[:n].reshape(-1, 1, 1, 1)
+    half_eps = uncond_eps + real_scale * (cond_eps - uncond_eps)
+    return torch.cat([torch.cat([half_eps, half_eps], dim=0), rest], dim=1)
+
+
 def _zoo_cfg(depth, hidden, patch, **kw) -> DiMConfig:
     return DiMConfig(depth=depth, hidden_size=hidden, patch_size=patch, **kw)
 

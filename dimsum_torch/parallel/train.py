@@ -10,9 +10,10 @@ The model holds the fp32 master parameters (`build_dim(..., train=True)`);
 the optimizer holds the AdamW moments; `TrainState.ema_params` the EMA
 copy.  Parameters are updated in place, which the JAX step gets by donating
 its state.  A parameter that takes no gradient in a step (CondMamba's
-`cond_proj`, which stays out of the graph) keeps `grad = None` and comes out
-unchanged, as it does under optax with a zero gradient and weight decay 0.
-DDP, remat and checkpointing are not ported yet.
+`cond_proj`, which stays out of the graph) gets a zero gradient before the
+update, so that AdamW steps it as optax steps every parameter: its moments
+decay, and weight decay shrinks it.  DDP and remat are not ported yet;
+checkpoints are `dimsum_torch.utils.ckpt`.
 """
 
 from __future__ import annotations
@@ -36,8 +37,9 @@ def create_optimizer(model: nn.Module, lr: float = 1e-4,
                      weight_decay: float = 0.0,
                      betas=(0.9, 0.999)) -> torch.optim.AdamW:
     """AdamW as the JAX `create_optimizer` sets it (optax.adamw: eps 1e-8,
-    constant lr, wd 0 by default).  With wd 0 the two updates are the same:
-    m/(1 - b1^k) / (sqrt(v/(1 - b2^k)) + eps)."""
+    constant lr, wd 0 by default): lr (m/(1 - b1^k) / (sqrt(v/(1 - b2^k))
+    + eps) + wd p), with every parameter stepped (`make_train_step` gives
+    a parameter that took no gradient a zero one)."""
     return torch.optim.AdamW(model.parameters(), lr=lr, betas=tuple(betas),
                              eps=1e-8, weight_decay=weight_decay)
 
@@ -119,6 +121,9 @@ def make_train_step(model: nn.Module, transport, optimizer:
             loss = micro_loss(x, y, generator)
             loss.backward()
             loss = loss.detach()
+        for p in params:
+            if p.grad is None:  # as optax, which steps every parameter
+                p.grad = torch.zeros_like(p)
         grad_norm = clip_by_global_norm(params, max_grad_norm)
         optimizer.step()
         ema_update(state.ema_params, model, ema_decay)

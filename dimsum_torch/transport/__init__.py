@@ -3,7 +3,8 @@
 
 from __future__ import annotations
 
-from dimsum_torch.transport.path import GVPCPlan, ICPlan  # noqa: F401
+from dimsum_torch.transport.path import (GVPCPlan, ICPlan,  # noqa: F401
+                                         VPCPlan, expand_t_like_x)
 from dimsum_torch.transport.transport import (  # noqa: F401
     ModelType,
     PathType,
@@ -19,23 +20,27 @@ def create_transport(path_type: str = "Linear", prediction: str = "velocity",
                      path_args=None, t_sample_mode: str = "uniform"
                      ) -> Transport:
     """As the JAX `create_transport`, with the reference's eps defaults:
-    1e-3 for noise or score prediction, 0 for velocity.  The "VP" path is
-    not ported yet."""
+    on the VP path 1e-5 (train) and 1e-3 (sample); on the Linear and GVP
+    paths 1e-3 for noise or score prediction and 0 for velocity.
+    `path_args` go to the plan (the VP plan's sigma_min, sigma_max)."""
     path_args = path_args or {}
     model_type = {"noise": ModelType.NOISE, "score": ModelType.SCORE}.get(
         prediction, ModelType.VELOCITY)
     loss_type = {"velocity": WeightType.VELOCITY,
                  "likelihood": WeightType.LIKELIHOOD}.get(
         loss_weight, WeightType.NONE)
-    plans = {"Linear": (PathType.LINEAR, ICPlan),
-             "GVP": (PathType.GVP, GVPCPlan)}
-    if path_type not in plans:
-        raise NotImplementedError(f"path_type {path_type!r} is not ported")
-    ptype, plan_cls = plans[path_type]
+    ptype, plan_cls = {"Linear": (PathType.LINEAR, ICPlan),
+                       "GVP": (PathType.GVP, GVPCPlan),
+                       "VP": (PathType.VP, VPCPlan)}[path_type]
 
-    eps = 1e-3 if model_type != ModelType.VELOCITY else 0.0
-    train_eps = eps if train_eps is None else train_eps
-    sample_eps = eps if sample_eps is None else sample_eps
+    if ptype == PathType.VP:
+        eps_train, eps_sample = 1e-5, 1e-3
+    elif model_type != ModelType.VELOCITY:
+        eps_train = eps_sample = 1e-3
+    else:
+        eps_train = eps_sample = 0.0
+    train_eps = eps_train if train_eps is None else train_eps
+    sample_eps = eps_sample if sample_eps is None else sample_eps
     return Transport(model_type=model_type, path_type=ptype,
                      loss_type=loss_type, train_eps=train_eps,
                      sample_eps=sample_eps, path_sampler=plan_cls(**path_args),

@@ -1,8 +1,9 @@
 """Coupling plans (interpolants), port of `dimsum_tpu/transport/path.py`:
 alpha_t multiplies the data, sigma_t the noise, and time runs noise (t=0)
--> data (t=1).  Sampling a velocity model needs only the plan's type (for
-the time interval); training takes x_t and its velocity from `plan`.  The
-VP plan and the DCT-blurred interpolant are not ported yet.
+-> data (t=1).  The Linear (IC), VP and GVP plans, with the SDE pieces
+(drift, diffusion) and the conversions between the velocity, score and
+noise parametrizations.  The DCT-blurred interpolant (`use_blurring`) waits
+for the port of `ops/dct.py` (ROADMAP Queue 1 item 7) and raises.
 """
 
 from __future__ import annotations
@@ -13,25 +14,138 @@ import math
 import torch
 
 
+def expand_t_like_x(t, x):
+    """(B,) -> (B, 1, 1, ...) matching x's rank."""
+    return t.reshape(t.shape[0], *([1] * (x.ndim - 1)))
+
+
 @dataclasses.dataclass(frozen=True)
 class ICPlan:
-    """Linear coupling: alpha_t = t, sigma_t = 1 - t.  Each method returns
-    (value, d/dt value)."""
+    """Linear coupling: alpha_t = t, sigma_t = 1 - t.  Each compute_*_t
+    returns (value, d/dt value)."""
 
+    sigma: float = 0.0
+    use_blurring: bool = False
+    blur_sigma_max: float = 3.0
+    blur_upscale: int = 4
+
+    def __post_init__(self):
+        if self.use_blurring:
+            raise NotImplementedError(
+                "use_blurring (the DCT-blurred interpolant) needs "
+                "ops/dct.py, not ported yet (ROADMAP Queue 1 item 7)")
+
+    # -- schedule ----------------------------------------------------------
     def compute_alpha_t(self, t):
         return t, torch.ones_like(t)
 
     def compute_sigma_t(self, t):
         return 1 - t, -torch.ones_like(t)
 
+    def compute_d_alpha_alpha_ratio_t(self, t):
+        return 1 / t
+
+    # -- SDE pieces ---------------------------------------------------------
+    def compute_drift(self, x, t):
+        """(-drift_mean, diffusion_var) in the score parametrization."""
+        t = expand_t_like_x(t, x)
+        alpha_ratio = self.compute_d_alpha_alpha_ratio_t(t)
+        sigma_t, d_sigma_t = self.compute_sigma_t(t)
+        drift = alpha_ratio * x
+        diffusion = alpha_ratio * (sigma_t ** 2) - sigma_t * d_sigma_t
+        return -drift, diffusion
+
+    def compute_diffusion(self, x, t, form: str = "constant",
+                          norm: float = 1.0):
+        """The SDE's diffusion coefficient g(t), (B, 1, ...), by form."""
+        t = expand_t_like_x(t, x)
+        choices = {
+            "none": lambda: torch.zeros_like(t),
+            "constant": lambda: torch.full_like(t, norm),
+            "SBDM": lambda: norm * 2.0 * self._diffusion_sbdm(x, t),
+            "sigma": lambda: norm * self.compute_sigma_t(t)[0],
+            "linear": lambda: norm * (1 - t),
+            "decreasing":
+                lambda: 0.25 * (norm * torch.cos(math.pi * t) + 1) ** 2,
+            "increasing-decreasing":
+                lambda: norm * torch.sin(math.pi * t) ** 2,
+            "log": lambda: norm * torch.log(t - t ** 2 + 1),
+        }
+        if form not in choices:
+            raise NotImplementedError(f"Diffusion form {form}")
+        return choices[form]()
+
+    def _diffusion_sbdm(self, x, t_expanded):
+        alpha_ratio = self.compute_d_alpha_alpha_ratio_t(t_expanded)
+        sigma_t, d_sigma_t = self.compute_sigma_t(t_expanded)
+        return alpha_ratio * (sigma_t ** 2) - sigma_t * d_sigma_t
+
+    # -- parametrization conversions ----------------------------------------
+    def get_score_from_velocity(self, velocity, x, t):
+        t = expand_t_like_x(t, x)
+        alpha_t, d_alpha_t = self.compute_alpha_t(t)
+        sigma_t, d_sigma_t = self.compute_sigma_t(t)
+        reverse_alpha_ratio = alpha_t / d_alpha_t
+        var = sigma_t ** 2 - reverse_alpha_ratio * d_sigma_t * sigma_t
+        return (reverse_alpha_ratio * velocity - x) / var
+
+    def get_noise_from_velocity(self, velocity, x, t):
+        t = expand_t_like_x(t, x)
+        alpha_t, d_alpha_t = self.compute_alpha_t(t)
+        sigma_t, d_sigma_t = self.compute_sigma_t(t)
+        reverse_alpha_ratio = alpha_t / d_alpha_t
+        var = reverse_alpha_ratio * d_sigma_t - sigma_t
+        return (reverse_alpha_ratio * velocity - x) / var
+
+    def get_velocity_from_score(self, score, x, t):
+        drift, var = self.compute_drift(x, t)
+        return var * score - drift
+
+    # -- interpolant ---------------------------------------------------------
     def plan(self, t, x0, x1):
         """(t, x_t, u_t): x_t = alpha_t x1 + sigma_t x0 and its velocity
         u_t = alpha'_t x1 + sigma'_t x0, t (N,) broadcast over x's other
-        axes (the JAX `plan`, path.py:110-132, without blurring)."""
-        te = t.reshape(t.shape[0], *([1] * (x1.ndim - 1)))
+        axes (the JAX `plan`, path.py:110-132)."""
+        te = expand_t_like_x(t, x1)
         alpha_t, d_alpha_t = self.compute_alpha_t(te)
         sigma_t, d_sigma_t = self.compute_sigma_t(te)
         return t, alpha_t * x1 + sigma_t * x0, d_alpha_t * x1 + d_sigma_t * x0
+
+
+@dataclasses.dataclass(frozen=True)
+class VPCPlan(ICPlan):
+    """VP path: log alpha_t = -(1 - t)^2 (s_max - s_min) / 4
+    - (1 - t) s_min / 2, sigma_t = sqrt(1 - alpha_t^2)."""
+
+    sigma_min: float = 0.1
+    sigma_max: float = 20.0
+
+    def _log_mean_coeff(self, t):
+        return (-0.25 * ((1 - t) ** 2) * (self.sigma_max - self.sigma_min)
+                - 0.5 * (1 - t) * self.sigma_min)
+
+    def _d_log_mean_coeff(self, t):
+        return (0.5 * (1 - t) * (self.sigma_max - self.sigma_min)
+                + 0.5 * self.sigma_min)
+
+    def compute_alpha_t(self, t):
+        alpha_t = torch.exp(self._log_mean_coeff(t))
+        return alpha_t, alpha_t * self._d_log_mean_coeff(t)
+
+    def compute_sigma_t(self, t):
+        p = 2 * self._log_mean_coeff(t)
+        sigma_t = torch.sqrt(1 - torch.exp(p))
+        d_sigma_t = torch.exp(p) * (2 * self._d_log_mean_coeff(t)) / (
+            -2 * sigma_t)
+        return sigma_t, d_sigma_t
+
+    def compute_d_alpha_alpha_ratio_t(self, t):
+        return self._d_log_mean_coeff(t)
+
+    def compute_drift(self, x, t):
+        t = expand_t_like_x(t, x)
+        beta_t = self.sigma_min + (1 - t) * (self.sigma_max - self.sigma_min)
+        return -0.5 * beta_t * x, beta_t / 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,3 +160,6 @@ class GVPCPlan(ICPlan):
     def compute_sigma_t(self, t):
         return (torch.cos(t * math.pi / 2),
                 -math.pi / 2 * torch.sin(t * math.pi / 2))
+
+    def compute_d_alpha_alpha_ratio_t(self, t):
+        return math.pi / (2 * torch.tan(t * math.pi / 2))

@@ -493,3 +493,84 @@ def test_train_bench_runs_on_cpu():
     assert p.dtype == torch.float32
     assert not torch.equal(state.ema_params["x_embedder.proj.weight"],
                            p.detach())
+
+
+class _ForcedDrops:
+    """A JAX model whose `apply` always takes the fixed label-drop ids, so
+    the JAX `make_train_step` (which passes only y) drops the same rows."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def apply(self, variables, xt, t, **kw):
+        return self.model.apply(variables, xt, t,
+                                force_drop_ids=DROP_IDS, **kw)
+
+
+def test_train_step_with_weight_decay_matches_jax(monkeypatch,
+                                                  jax_reference):
+    """One step at lr 1e-2 and weight decay 0.1 through the port's
+    `make_train_step` against the JAX `make_train_step` (optax AdamW, which
+    steps every parameter): the parameters that take no gradient
+    (CondMamba's cond_proj, the unused label rows) decay by lr * wd in
+    both, to two fp32 rounding steps.  Every other entry whose gradient is
+    above 1e-3 of its tensor's scale, where Adam's first step g / (|g| +
+    eps) does not hang on the last digits of g, agrees to 1e-4 of lr plus
+    two rounding steps; the rest (Adam normalizes a near-zero gradient to
+    anything up to +-lr) within 2 lr.  The EMA (decay 0.5) likewise."""
+    from dimsum_tpu.parallel.train import create_train_state as jax_state
+    from dimsum_tpu.parallel.train import make_train_step as jax_make_step
+
+    lr, wd = 1e-2, 0.1
+    ref = jax_reference
+    x1, x0, t, y = ref["draws"]
+    jparams = ref["params"]["params"]
+    jmodel = JaxDiM(JaxDiMConfig(**TINY, **PUBLISHED, drop_path=0.2))
+    with pytest.MonkeyPatch.context() as mp:
+        _patch_jax_sample(mp, t, x0)
+        _patch_drop_path(mp, jax_blocks, MASKS, jnp.asarray)
+        jstep = jax_make_step(_ForcedDrops(jmodel),
+                              jax_transport("GVP", "velocity"),
+                              jax_optimizer(lr, weight_decay=wd),
+                              max_grad_norm=0.5, ema_decay=0.5)
+        jstate, jm = jstep(jax_state(jparams, jax_optimizer(
+            lr, weight_decay=wd)), x1, y, jax.random.PRNGKey(0))
+    want_p = state_dict_from_jax_params(jstate.params)
+    want_e = state_dict_from_jax_params(jstate.ema_params)
+    jgrads = state_dict_from_jax_params(ref["grads"])
+
+    port, tr, _ = _port_with_draws(monkeypatch, ref)
+    before = {n: p.detach().clone() for n, p in port.named_parameters()}
+    opt = create_optimizer(port, lr=lr, weight_decay=wd)
+    state = create_train_state(port, opt)
+    step = make_train_step(port, tr, opt, max_grad_norm=0.5, ema_decay=0.5)
+    m = step(state, torch.from_numpy(x1), torch.from_numpy(y).long(),
+             torch.Generator().manual_seed(0))
+
+    np.testing.assert_allclose(m["loss"].item(), float(jm["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(m["grad_norm"].item(),
+                               float(jm["grad_norm"]), rtol=1e-4)
+    cp = "blocks.1.freq_mamba.mixer.cond_proj.weight"
+    decayed = 0
+    for name, p in port.named_parameters():
+        b = before[name].numpy()
+        g = jgrads[name].numpy()
+        rounding = 2 * np.spacing(np.abs(b))
+        tight = np.abs(g) > 1e-3 * max(np.abs(g).max(), 1e-30)
+        tol = np.where(tight, 1e-4 * lr, 2 * lr) + rounding
+        for got, want in ((p.detach().numpy(), want_p[name].numpy()),
+                          (state.ema_params[name].numpy(),
+                           want_e[name].numpy())):
+            diff = np.abs(got - want)
+            assert (diff <= tol).all(), name
+        # no gradient in either package: the decay alone
+        still = (g == 0) & (p.grad.numpy() == 0)
+        np.testing.assert_allclose(
+            p.detach().numpy()[still], (b * (1 - lr * wd))[still],
+            rtol=0, atol=0 if not still.any() else
+            2 * np.spacing(np.abs(b[still])).max(), err_msg=name)
+        decayed += int(still.sum())
+    assert not torch.equal(dict(port.named_parameters())[cp], before[cp])
+    assert decayed >= port.blocks[0].spatial_mamba.mixer.cond_proj.weight \
+        .numel()
