@@ -189,11 +189,15 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, cls: str, iters: int = 20) -> float:
+def device_ms(fn, cls: str, iters: int = 20, tries: int = 3) -> float:
     """Mean device time per call of `fn` in the kernels of
     `profile_forward`'s class `cls`, from torch.profiler's CUDA activity
     over `iters` calls after one untimed: the kernels alone, without the
-    host's launch gaps, which `cuda_ms` reads below ~0.05 ms."""
+    host's launch gaps, which `cuda_ms` reads below ~0.05 ms.  Each kernel
+    of the class (one launch a call each) counts with its mean over the
+    launches the profiler recorded: in a process that has run many
+    profiler sessions, some sessions record only part of the window's
+    launches (or none; then the window is profiled again)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -202,18 +206,21 @@ def device_ms(fn, cls: str, iters: int = 20) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False)
-                and kernel_class(e.key) == cls)
-    if not total > 0:
-        raise AssertionError(f"the profiler saw no {cls} kernel")
-    return total / 1e3 / iters
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        means = [e.self_device_time_total / e.count
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and e.count
+                 and not getattr(e, "is_user_annotation", False)
+                 and kernel_class(e.key) == cls]
+        if means:
+            return sum(means) / 1e3
+    raise AssertionError(f"the profiler saw no {cls} kernel in {tries} "
+                         "windows")
 
 
 def scan_inputs(batch, L, dim, n, r, dtype, seed):
