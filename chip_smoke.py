@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`dimsum_torch`) on one NVIDIA card:
 its sampling and training paths at full DiM-L/2 width, at 256 px and, for
-sampling, at 512 px, and sampling from a checkpoint by the reference's eval
-protocol through `python -m dimsum_torch.sample`.
+sampling, at 512 px (also sequence-parallel over 4 ranks on the card), and
+sampling from a checkpoint by the reference's eval protocol through
+`python -m dimsum_torch.sample`.
 
     python3 chip_smoke.py
 
@@ -81,34 +82,55 @@ Phases, each printing one JSON line; any failure exits non-zero:
               read just after: 32 scan and 36 attention launches per
               forward, all 36 through the sm90 kernel; the samples must be
               finite.
- 14. kernel-norm  the add + norm and norm + modulate kernels against their
+ 14. kernel-state  the scan's state entry (csrc/selective_scan_fwd.cu's
+              second entry: a full delta, h0, the last state) against its
+              plain version at the sample-sp-512 shape (8, 256, 1024, N 16,
+              delta = dt_low @ dt_w with r 32 in the compute dtype) in bf16
+              and fp32, and at a ragged L and dim (8, 250, 1000): both SP
+              passes (zero state in and the last state out; seeded from an
+              h0), max error against the stated tolerance, kernel, device
+              and plain times, and the bound.
+ 15. sample-sp-512  DiM-L/2 at 512 px sequence-parallel: SP_RANKS = 4
+              processes on the one card (gloo, tcp://localhost), 256 of the
+              1024 tokens a rank in every mixer (halo conv, two-pass scan
+              through the state entry), the seeded weights of sample-512:
+              one fp32 CFG drift call of 8 rows (TF32 off) against the
+              unsharded forward (scaled error <= SP_512_FP32_TOL), then
+              SP_STEPS Euler grid points with CFG 1.4 in bf16 against the
+              unsharded run (<= SP_512_BF16_TOL).  Counts set to 0 just
+              before and read just after on every rank: 2 x 32 state-entry
+              and 36 sm90 attention launches a drift call, none of kernel
+              1.  Records the wall time a drift call, the unsharded one's,
+              and the all_gathers' share of a call (timed between
+              synchronizations in one more call).
+ 16. kernel-norm  the add + norm and norm + modulate kernels against their
               plain PyTorch versions at the 256-px rows (24 x 256 x 1024):
               the add + norm site and every norm + modulate call site
               (norm_2, the DiT block's two LayerNorms, the FinalLayer's,
               the deferred top of the pending tail), bf16 and fp32: max
               error against the stated tolerance, kernel and plain times,
               and the bound.
- 15. kernel-convx  the conv + x_proj kernel against its plain version at the
+ 17. kernel-convx  the conv + x_proj kernel against its plain version at the
               mixer shape (24, 256, 1024, W 4, R 64, x a strided slice of
               in_proj's output), forward and reversed, bf16 and fp32, plus
               L 1024, DiM-XL/2's R 68, ragged L (65, 127 reversed) and the
               gate's widest R (512): the same fields.
- 16. model-fused  full-width DiM-L/2 at 256 px in fp32 with TF32 off, one
+ 18. model-fused  full-width DiM-L/2 at 256 px in fp32 with TF32 off, one
               CFG forward with the fused-kernel switches on (pallas_norm,
               fused_norm, conv_xproj) through the kernels and through their
               plain versions, and with the switches off: all must agree, at
               pending_tail 0 (15 add + norm, 25 norm + modulate, 32 conv +
               x_proj launches per forward) and 2 (3, 37, 32).
- 17. train-grad-fused  phase 7's training gradient with the three switches
+ 19. train-grad-fused  phase 7's training gradient with the three switches
               on, through the kernels and through their plain versions:
               the loss and every gradient must agree; one forward's
               launches, none from the backward.
- 18. sample-fused  phase 5's sampling run with the three switches on.
+ 20. sample-fused  phase 5's sampling run with the three switches on.
               Counts set to 0 just before and read just after: 15, 25 and
               32 launches per forward; the samples must be finite.
- 19. sample-fused-512  phase 18's run at 512 px: 15, 25 and 32 fused
+ 21. sample-fused-512  phase 20's run at 512 px: 15, 25 and 32 fused
               and 36 sm90 attention launches per forward; finite samples.
- 20. sample-dopri5  the sampling path from a checkpoint: seeded random
+ 22. sample-dopri5  the sampling path from a checkpoint: seeded random
               DiM-L/2 weights written in the reference's .pt layout (a
               different "ema" and "model") and a full-width SD-VAE (ch 128,
               ch_mult 1 2 4 4) with seeded random weights written as a
@@ -121,28 +143,29 @@ Phases, each printing one JSON line; any failure exits non-zero:
               take the matching weights, and a checkpoint with one key
               removed must be refused.  Prints the NFE, the seconds and the
               decode seconds.
- 21. sample-sde-512  the checkpoint adapted to 512 px (`adapt_checkpoint`)
+ 23. sample-sde-512  the checkpoint adapted to 512 px (`adapt_checkpoint`)
               and sampled by the CLI's SDE mode (Euler-Maruyama over
               SDE_512_STEPS grid points, CFG 1.4, bf16): 32 scan and 36 sm90
               attention launches per model call; finite samples.
- 22. likelihood  the CLI's `--likelihood` at cfg 1.0 (256 px, bf16, 2
+ 24. likelihood  the CLI's `--likelihood` at cfg 1.0 (256 px, bf16, 2
               images, LIKELIHOOD_STEPS grid points): 32 launches of kernels
               2 and 3 per drift call of the augmented ODE, finite bits/dim;
               and one augmented drift call of the fp32 model (TF32 off)
               through the kernels and through the plain scan: they must
               agree.
- 23. kernels  one {"kernels": [...]} line (all eight kernels; the scan,
+ 25. kernels  one {"kernels": [...]} line (all nine kernels; the scan,
               both training kernels and conv + x_proj with their L 1024
-              times and bound beside the mixer-shape ones,
+              times and bound beside the mixer-shape ones, the scan's
+              state entry with its second SP pass's (h0) beside its first's,
               the two attention kernels with their cross-shape times beside
               the DiT ones; the first attention kernel, on no main path now,
               with 0 launches and its model-512 count as check_launches),
               then the nvidia-smi line, then {"ok": true, "device": {...}}
               as the last line.  Each record's `ms` (CUDA events around
               back-to-back launches, which below ~0.05 ms can read the
-              host's launch gaps) has `device_ms` beside it: the kernel's
-              mean duration in torch.profiler's CUDA activity over the
-              same launches.
+              host's launch gaps) has `device_ms` beside it: the median
+              duration of the kernel's launches in torch.profiler's CUDA
+              activity over the same launches.
 
 Exits with an error and prints no result when CUDA is not available, or
 when the port's package is not beside this script.
@@ -190,14 +213,18 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 def device_ms(fn, cls: str, iters: int = 20, tries: int = 3) -> float:
-    """Mean device time per call of `fn` in the kernels of
-    `profile_forward`'s class `cls`, from torch.profiler's CUDA activity
-    over `iters` calls after one untimed: the kernels alone, without the
-    host's launch gaps, which `cuda_ms` reads below ~0.05 ms.  Each kernel
-    of the class (one launch a call each) counts with its mean over the
-    launches the profiler recorded: in a process that has run many
-    profiler sessions, some sessions record only part of the window's
-    launches (or none; then the window is profiled again)."""
+    """Device time per call of `fn` in the kernels of `profile_forward`'s
+    class `cls`, from torch.profiler's CUDA activity over `iters` calls
+    after one untimed: the kernels alone, without the host's launch gaps,
+    which `cuda_ms` reads below ~0.05 ms.  Each kernel of the class (one
+    launch a call each) counts with the median of its launches' durations,
+    those of zero length left out: in a process that has run many profiler
+    sessions, some sessions record only part of the window's launches (or
+    none; then the window is profiled again), and some add records of no
+    duration, which halved a mean (the state entry's second pass read
+    0.0140 ms in one smoke, 0.0292 in every fresh window)."""
+    import statistics
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -212,13 +239,15 @@ def device_ms(fn, cls: str, iters: int = 20, tries: int = 3) -> float:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        means = [e.self_device_time_total / e.count
-                 for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA and e.count
-                 and not getattr(e, "is_user_annotation", False)
-                 and kernel_class(e.key) == cls]
-        if means:
-            return sum(means) / 1e3
+        durations = {}
+        for e in prof.events():
+            us = e.time_range.elapsed_us()
+            if (e.device_type == DeviceType.CUDA and us > 0
+                    and not getattr(e, "is_user_annotation", False)
+                    and kernel_class(e.name) == cls):
+                durations.setdefault(e.name, []).append(us)
+        if durations:
+            return sum(statistics.median(v) for v in durations.values()) / 1e3
     raise AssertionError(f"the profiler saw no {cls} kernel in {tries} "
                          "windows")
 
@@ -1116,6 +1145,350 @@ def phase_sample_512():
     return launches
 
 
+def state_bound(x, h0: bool, last: bool):
+    """Least time for one call of the state entry: as `scan_bound`, with
+    the full delta read in place of dt_low and dt_w (no 2r expansion
+    flops), and h0 read and the last state written, fp32 (batch, dim, N),
+    where the call takes them."""
+    batch, L, dim = x["u"].shape
+    n = x["A"].shape[1]
+    nbytes = sum(v.numel() * v.element_size() for v in x.values())
+    nbytes += x["u"].numel() * x["u"].element_size()  # the output
+    nbytes += (int(h0) + int(last)) * batch * dim * n * 4
+    flops = batch * L * dim * (7 * n + 12)
+    n_sfu = batch * L * dim * (n + 3)
+    return (*_bound(nbytes, flops, n_sfu), nbytes, flops, n_sfu)
+
+
+def state_inputs(batch, L, dim, n, dtype, seed):
+    """`scan_inputs` with the full delta = dt_low @ dt_w in `dtype`, as
+    the sequence-parallel mixer makes it, and an fp32 h0 (batch, dim, n)."""
+    import torch
+
+    x = scan_inputs(batch, L, dim, n, 32, dtype, seed)
+    x["delta"] = (x.pop("dt_low") @ x.pop("dt_w")).contiguous()
+    h0 = torch.randn((batch, dim, n), device="cuda", generator=torch
+                     .Generator(device="cuda").manual_seed(seed + 1))
+    return x, h0
+
+
+def phase_kernel_state():
+    import torch
+
+    from dimsum_torch.ops.selective_scan import (selective_scan_state,
+                                                 selective_scan_state_cuda)
+
+    cases = [
+        ("sp-bf16", 8, 256, 1024, torch.bfloat16),
+        ("sp-fp32", 8, 256, 1024, torch.float32),
+        ("ragged-bf16", 8, 250, 1000, torch.bfloat16),
+    ]
+    results = {}
+    for i, (name, batch, L, dim, dtype) in enumerate(cases):
+        x, h0 = state_inputs(batch, L, dim, 16, dtype, seed=700 + 2 * i)
+        args = [x[k] for k in ("u", "delta", "A", "B", "C", "D")]
+        kw = dict(z=x["z"], delta_bias=x["delta_bias"], delta_softplus=True)
+        # the first SP pass (the port of _scan_kernel_with_state): zero
+        # state in, the last state out; the second: seeded from h0
+        first = dict(kw, return_last_state=True)
+        second = dict(kw, h0=h0)
+        with torch.inference_mode():
+            y1, last = selective_scan_state_cuda(*args, **first)
+            y2 = selective_scan_state_cuda(*args, **second)
+            w1, w_last = selective_scan_state(*args, impl="ref", **first)
+            w2 = selective_scan_state(*args, impl="ref", **second)
+            torch.cuda.synchronize()
+            # the outputs as phase kernel's; the fp32 last state, never
+            # rounded to bf16, to 1e-4 of its scale in both dtypes
+            tol = 1e-4 if dtype == torch.float32 else 1.6e-2
+            errs = [(a.float() - b.float()).abs() for a, b in
+                    ((y1, w1), (y2, w2))]
+            ok = all(bool(torch.isfinite(a).all()) and bool(
+                (e <= tol + tol * b.float().abs()).all())
+                for a, b, e in ((y1, w1, errs[0]), (y2, w2, errs[1])))
+            state_err = _scaled_err(last, w_last)
+            ok = ok and state_err <= 1e-4
+            main = name != "ragged-bf16"
+            ms = cuda_ms(lambda: selective_scan_state_cuda(*args, **first),
+                         iters=50)
+            h0_ms = cuda_ms(lambda: selective_scan_state_cuda(
+                *args, **second), iters=50)
+            dev_ms = (device_ms(lambda: selective_scan_state_cuda(
+                *args, **first), "selective_scan") if main else None)
+            h0_dev_ms = (device_ms(lambda: selective_scan_state_cuda(
+                *args, **second), "selective_scan") if main else None)
+            plain_ms = cuda_ms(lambda: selective_scan_state(
+                *args, impl="ref", **first), iters=3, warmup=1)
+        bound = state_bound(x, h0=False, last=True)
+        rec = {"phase": "kernel-state", "case": name,
+               "shape": [batch, L, dim, 16], "dtype": str(dtype).split(".")[-1],
+               "max_abs_err": max(e.max().item() for e in errs),
+               "max_abs_ref": max(w1.abs().max().item(),
+                                  w2.abs().max().item()),
+               "tol": tol, "last_state_scaled_err": state_err,
+               "last_state_tol": 1e-4, "ok": ok, "ms": ms,
+               "device_ms": dev_ms, "plain_ms": plain_ms,
+               **_bound_fields(bound), "h0_ms": h0_ms,
+               "h0_device_ms": h0_dev_ms,
+               "h0_bound_ms": state_bound(x, h0=True, last=False)[0]}
+        emit(rec)
+        if not ok:
+            raise AssertionError(f"state kernel disagrees with plain on "
+                                 f"{name}: {rec}")
+        results[name] = rec
+    return results
+
+
+# sample-sp-512: ranks on the one card (gloo: NCCL refuses two ranks on
+# one device), images (CFG rows 2x), Euler grid points, seconds for the
+# process group's collectives and for the whole group of ranks
+SP_RANKS, SP_BATCH, SP_STEPS = 4, 4, 4
+SP_TIMEOUT, SP_DEADLINE = 300, 480
+# scaled errors against the unsharded model on the card.  fp32: only the
+# order of the scan's fp32 sums differs (the two-level fold across shards;
+# phase model's 16 random blocks amplify ~1e-6 to not past 1e-3, and here
+# the fold alone moves ~1e-7).  bf16 (a few Euler steps): the SP mixer
+# materializes dt = dt_low @ dt_w in bf16, as the JAX package does
+# (mamba.py:252), where the unsharded kernel expands it in fp32; on the
+# small DiM that rounding moves the forward 1.5e-2 of scale against a 5e-2
+# limit (tests/test_torch_dim.py::test_bf16_dim_forward_tracks_jax).
+SP_512_FP32_TOL, SP_512_BF16_TOL = 1e-4, 5e-2
+
+
+def _sp_counts(zero: bool = False):
+    from dimsum_torch.ops.full_attention import (full_attention_sm90,
+                                                 full_block_attention_cuda)
+    from dimsum_torch.ops.selective_scan import (selective_scan_cuda,
+                                                 selective_scan_state_cuda)
+
+    fns = {"selective_scan_fwd_state": selective_scan_state_cuda,
+           "selective_scan_fwd": selective_scan_cuda,
+           "full_block_attention": full_block_attention_cuda,
+           "full_attention_sm90": full_attention_sm90}
+    if zero:
+        for fn in fns.values():
+            fn.launches = 0
+    return {k: fn.launches for k, fn in fns.items()}
+
+
+def _sp_rank(rank, k, port, out_dir):
+    """One rank of sample-sp-512 (a process of its own on the one card);
+    writes its record to out_dir/rank<rank>.json."""
+    import datetime
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}", world_size=k,
+        rank=rank, timeout=datetime.timedelta(seconds=SP_TIMEOUT))
+    try:
+        rec = _sp_rank_run(rank, k)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _sp_rank_run(rank, k):
+    import torch
+    import torch.distributed as dist
+
+    from dimsum_torch.models.dim import DiM_models, build_dim, forward_with_cfg
+    from dimsum_torch.models.mamba import Mamba
+    from dimsum_torch.parallel import make_seq_group
+    from dimsum_torch.transport import Sampler, create_transport
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    group = make_seq_group(1, k).seq
+
+    # every all_gather of this rank counted; with `timed` set, timed from
+    # a synchronized device to the gathered result on it
+    gathers = {"calls": 0, "timed": False, "seconds": 0.0}
+    real = dist.all_gather
+
+    def counted(parts, x, group=None):
+        gathers["calls"] += 1
+        if not gathers["timed"]:
+            return real(parts, x, group=group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(parts, x, group=group)
+        torch.cuda.synchronize()
+        gathers["seconds"] += time.perf_counter() - t0
+        return out
+
+    dist.all_gather = counted
+
+    def model_for(dtype):
+        # the seeded weights of sample-512 (bench.run at image_size 512)
+        cfg = DiM_models["DiM-L/2"](img_resolution=64, num_classes=1000,
+                                    use_attn_every_k_layers=4, dtype=dtype,
+                                    seq_group=group)
+        return build_dim(cfg, "cuda", seed=0)
+
+    def sharded(model, on):
+        for m in model.modules():
+            if isinstance(m, Mamba):
+                m.seq_group = group if on else None
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    half = torch.randn((SP_BATCH, 4, 64, 64), generator=g, device="cuda")
+    z = torch.cat([half, half])
+    y = torch.cat([
+        torch.randint(0, 1000, (SP_BATCH,), generator=g, device="cuda"),
+        torch.full((SP_BATCH,), 1000, device="cuda")])
+    t = torch.rand(SP_BATCH, generator=g, device="cuda").repeat(2)
+    rec = {"rank": rank}
+
+    # (i) one fp32 CFG drift call, TF32 off, against the unsharded forward
+    model = model_for(torch.float32)
+    with torch.inference_mode():
+        _sp_counts(zero=True)
+        got = forward_with_cfg(model, z, t, y, cfg_scale=1.4)
+        torch.cuda.synchronize()
+        rec["fp32_launches"] = _sp_counts()
+        rec["fp32_finite"] = bool(torch.isfinite(got).all())
+        if rank == 0:
+            sharded(model, False)
+            want = forward_with_cfg(model, z, t, y, cfg_scale=1.4)
+            rec["fp32_scaled_err"] = _scaled_err(got, want)
+            rec["fp32_max_abs_ref"] = want.abs().max().item()
+    del model, got
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    # (ii) a few bf16 Euler steps with CFG 1.4 against the unsharded run
+    model = model_for(torch.bfloat16)
+    sampler = Sampler(create_transport("GVP", "velocity"))
+
+    def model_fn(x, t, y=None):
+        return forward_with_cfg(model, x, t, y, cfg_scale=1.4)
+
+    def sample(steps):
+        return sampler.sample_ode(sampling_method="euler",
+                                  num_steps=steps)(z, model_fn, y=y)
+
+    with torch.inference_mode():
+        sample(2)  # one untimed drift call
+        torch.cuda.synchronize()
+        dist.barrier()
+        _sp_counts(zero=True)
+        t0 = time.perf_counter()
+        out = sample(SP_STEPS)
+        torch.cuda.synchronize()
+        rec["seconds"] = time.perf_counter() - t0
+        rec["launches"] = _sp_counts()
+        rec["finite"] = bool(torch.isfinite(out).all())
+        rec["shape"] = list(out[:SP_BATCH].shape)
+        # one more drift call with every all_gather timed between
+        # synchronizations: the collectives' share of a call
+        calls0 = gathers["calls"]
+        gathers["timed"] = True
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model_fn(z, t, y)
+        torch.cuda.synchronize()
+        rec["timed_call_seconds"] = time.perf_counter() - t0
+        rec["gather_seconds"] = gathers["seconds"]
+        rec["gathers_per_call"] = gathers["calls"] - calls0
+        gathers["timed"] = False
+        dist.barrier()
+        if rank == 0:
+            # the unsharded run, alone on the card (the other ranks wait)
+            sharded(model, False)
+            sample(2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = sample(SP_STEPS)
+            torch.cuda.synchronize()
+            rec["unsharded_seconds"] = time.perf_counter() - t0
+            rec["bf16_scaled_err"] = _scaled_err(out, want)
+            rec["bf16_max_abs_ref"] = want.float().abs().max().item()
+    dist.barrier()
+    return rec
+
+
+def phase_sample_sp_512():
+    """sample-sp-512: DiM-L/2 at 512 px sequence-parallel over SP_RANKS
+    ranks, processes on the one card joined by gloo, every mixer's conv
+    and scan split along L (256 of the 1024 tokens a rank)."""
+    import os
+    import socket
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from dimsum_torch.ops import cuda_build
+
+    cuda_build.build()  # here, not in each rank
+    torch.cuda.empty_cache()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_sp_rank, args=(SP_RANKS, port, tmp),
+                                 nprocs=SP_RANKS, join=False,
+                                 start_method="spawn")
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > SP_DEADLINE:
+                    raise TimeoutError(f"sample-sp-512: ranks still running "
+                                       f"after {SP_DEADLINE} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                    p.join(10)
+        group_seconds = time.perf_counter() - t0
+        recs = []
+        for r in range(SP_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                recs.append(json.load(f))
+    calls = SP_STEPS - 1
+    want = {"selective_scan_fwd_state": 2 * 32 * calls,
+            "selective_scan_fwd": 0,
+            "full_block_attention": 36 * calls,
+            "full_attention_sm90": 36 * calls}
+    want_fp32 = {"selective_scan_fwd_state": 2 * 32, "selective_scan_fwd": 0,
+                 "full_block_attention": 36, "full_attention_sm90": 0}
+    r0 = recs[0]
+    seconds = max(r["seconds"] for r in recs)
+    share = max(r["gather_seconds"] / r["timed_call_seconds"] for r in recs)
+    rec = {"phase": "sample-sp-512", "model": "DiM-L/2", "image_size": 512,
+           "ranks": SP_RANKS, "backend": "gloo", "batch": SP_BATCH,
+           "rows": 2 * SP_BATCH, "steps": SP_STEPS, "cfg_scale": 1.4,
+           "fp32_scaled_err": r0["fp32_scaled_err"],
+           "fp32_tol": SP_512_FP32_TOL,
+           "bf16_scaled_err": r0["bf16_scaled_err"],
+           "bf16_tol": SP_512_BF16_TOL,
+           "launches": [r["launches"] for r in recs],
+           "fp32_launches": [r["fp32_launches"] for r in recs],
+           "seconds": seconds, "seconds_per_call": seconds / calls,
+           "unsharded_seconds_per_call": r0["unsharded_seconds"] / calls,
+           "gathers_per_call": r0["gathers_per_call"],
+           "timed_call_seconds": [r["timed_call_seconds"] for r in recs],
+           "gather_share": share,
+           "group_seconds": group_seconds,
+           "finite": all(r["finite"] and r["fp32_finite"] for r in recs),
+           "shape": r0["shape"]}
+    emit(rec)
+    if (not rec["finite"] or rec["shape"] != [SP_BATCH, 4, 64, 64]
+            or not rec["fp32_scaled_err"] <= SP_512_FP32_TOL
+            or not rec["bf16_scaled_err"] <= SP_512_BF16_TOL
+            or any(r["launches"] != want for r in recs)
+            or any(r["fp32_launches"] != want_fp32 for r in recs)
+            or rec["gathers_per_call"] != 3 * 32):
+        raise AssertionError(f"sample-sp-512 phase failed: {rec}")
+    return r0["launches"]
+
+
 def norm_bound(numel, rows, d, esize, flags):
     """Least time for one add + norm or norm + modulate call: each input
     read once and each output written once over HBM bandwidth, against the
@@ -1859,6 +2232,9 @@ def main() -> int:
     phase_model_512_bf16()
     launches["full_attention_sm90"] = \
         phase_sample_512()["full_attention_sm90"]
+    states = phase_kernel_state()
+    launches["selective_scan_fwd_state"] = \
+        phase_sample_sp_512()["selective_scan_fwd_state"]
     norms = phase_kernel_norm()
     convx = phase_kernel_convx()
     phase_model_fused()
@@ -1888,6 +2264,27 @@ def main() -> int:
         "L1024_plain_ms": long_case["plain_ms"],
         "L1024_bound_ms": long_case["bound_ms"],
     }]
+    # the state entry at the sample-sp-512 shape: `ms` the first SP pass
+    # (zero state in, the last state out), `h0_ms` the second (seeded)
+    sp_case = states["sp-bf16"]
+    kernels.append({
+        "name": "selective_scan_fwd_state",
+        "route": "cuda",
+        "source": "dimsum_torch/csrc/selective_scan_fwd.cu",
+        "replaces": "dimsum_tpu/ops/selective_scan.py:724",
+        "replaces_also": "dimsum_tpu/ops/selective_scan.py:738 (has_h0)",
+        "launches": launches["selective_scan_fwd_state"],
+        "max_abs_err": max(r["max_abs_err"] for r in states.values()),
+        "ms": sp_case["ms"],
+        "device_ms": sp_case["device_ms"],
+        "plain_ms": sp_case["plain_ms"],
+        "bound_ms": sp_case["bound_ms"],
+        "bound_by": sp_case["bound_by"],
+        "library_ms": None,
+        "h0_ms": sp_case["h0_ms"],
+        "h0_device_ms": sp_case["h0_device_ms"],
+        "h0_bound_ms": sp_case["h0_bound_ms"],
+    })
     train_case, train_long = train_scans["train-bf16"], \
         train_scans["L1024-bf16"]
     for name, key, source, replaces in (

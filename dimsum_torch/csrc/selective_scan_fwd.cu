@@ -4,7 +4,12 @@
 // (launched from _selective_scan_pallas_fwd_impl) on its inference route:
 // dt_rank > 0 (dt = dt_low . dt_w expanded in the kernel), delta bias,
 // softplus, D skip, silu(z) gate, one B/C per timestep (no groups), forward
-// time, zero initial state.  Per batch b, channel d and state n:
+// time, zero initial state (entry dimsum_selective_scan_fwd).  The second
+// entry, dimsum_selective_scan_fwd_state, replaces _scan_kernel_with_state
+// (the same file) and _scan_body's has_h0 case, the two local passes of the
+// sequence-parallel scan (selective_scan_sp.py): a full delta in place of
+// dt_low . dt_w, the state seeded from h0, and the last state stored.  Per
+// batch b, channel d and state n:
 //
 //   dt_t  = softplus(<dt_low_t, dt_w[:, d]> + bias_d)
 //   h_t   = exp(dt_t * A_dn) * h_{t-1} + dt_t * u_t * B_tn
@@ -13,7 +18,8 @@
 // u, z, out: (batch, L, dim); dt_low: (batch, L, r); B, C: (batch, L, N);
 // dt_w: (r, dim), all in one type T (float or bf16).  A: (dim, N), D and
 // bias: (dim,), fp32.  All math, the dt expansion and the state are fp32;
-// out is T.
+// out is T.  The second entry reads a full delta (batch, L, dim) in T for
+// dt_low . dt_w, and h0 and the last state (batch, dim, N) in fp32.
 //
 // What bounds it on an H100 (PERF.md §6).  At the DiM-L/2 mixer shape
 // (batch 24, L 256, dim 1024, N 16, r 32, bf16) the N + 3 = 19
@@ -54,8 +60,18 @@
 // overlap it (the blocks of an SM run in lock step, and the kernel is
 // bound by instruction issue).  Next: chunk i + 1's loads and phase A
 // inside chunk i's recurrence (double buffers), or producer warps; and the
-// variants the route refuses (h0 / last state, native reverse, grouped
-// B/C, N > 32).
+// variants the route refuses (native reverse, grouped B/C, N > 32).
+//
+// The state entry is the same kernel with three compile-time switches, so
+// the first entry's instantiations compile as before.  kDelta: phase A
+// loads the chunk's delta rows along d (as u) and skips the dt_w staging
+// and the mma.sync expansion; the bias and softplus stay in fp32.  kH0:
+// each lane seeds its NPL states of its channel from h0 in place of 0.
+// kLast: after the chunk walk each lane stores its NPL states (padded
+// states, n >= N, are not stored).  A ragged last chunk runs with dt = 0
+// past L, so the state stored is the state at step L - 1.  Its bound is
+// the first entry's (N + 3 transcendentals a (b, t, d), the SFU) with the
+// delta, h0 and last state added to the bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -169,14 +185,19 @@ struct Plan {
 
 // 6 blocks of 128 threads an SM (80 registers a thread): the 768 blocks of
 // the DiM-L/2 mixer (24 x 1024 / 32) in one wave on 132 SMs
-template <typename T, int NMAX, int RMAX>
+// kDelta: dt_low is the full delta (batch, L, dim) and dt_w is unused;
+// kH0: h0 (batch, dim, N) seeds the state; kLast: last (batch, dim, N)
+// takes the state after step L - 1.  h0 and last are unused without them.
+template <typename T, int NMAX, int RMAX, bool kDelta = false,
+          bool kH0 = false, bool kLast = false>
 __global__ void __launch_bounds__(kThreads, 6)
 scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
                 const T* __restrict__ dt_w, const float* __restrict__ A,
                 const T* __restrict__ Bm, const T* __restrict__ Cm,
                 const float* __restrict__ Dv, const T* __restrict__ z,
                 const float* __restrict__ bias, T* __restrict__ out, int L,
-                int dim, int N, int R, int use_softplus) {
+                int dim, int N, int R, int use_softplus,
+                const float* __restrict__ h0, float* __restrict__ last) {
   using P = Plan<NMAX, RMAX>;
   constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
   constexpr int NPL = NMAX / kLanes;  // states a lane
@@ -203,22 +224,31 @@ scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
   const int cb = tid / kLanes, kb = tid % kLanes;
   const int db = d0 + cb;
 
-  for (int i = tid; i < RMAX * kChannels; i += kThreads) {
-    const int k = i / kChannels, c = i % kChannels;
-    const bool ok = k < R && d0 + c < dim;
-    if constexpr (kMma) {
-      w_bf[c * LDB + k] = ok ? dt_w[(size_t)k * dim + d0 + c]
-                             : __float2bfloat16(0.f);
-    } else {
-      s_w[i] = ok ? dt_w[(size_t)k * dim + d0 + c] : 0.f;
+  if constexpr (!kDelta) {
+    for (int i = tid; i < RMAX * kChannels; i += kThreads) {
+      const int k = i / kChannels, c = i % kChannels;
+      const bool ok = k < R && d0 + c < dim;
+      if constexpr (kMma) {
+        w_bf[c * LDB + k] = ok ? dt_w[(size_t)k * dim + d0 + c]
+                               : __float2bfloat16(0.f);
+      } else {
+        s_w[i] = ok ? dt_w[(size_t)k * dim + d0 + c] : 0.f;
+      }
     }
   }
+  // this lane's states of channel db in h0 and last
+  const size_t state0 = ((size_t)b * dim + db) * N + kb * NPL;
   float a2[NPL], h[NPL];
 #pragma unroll
   for (int j = 0; j < NPL; ++j) {
     const int n = kb * NPL + j;
-    a2[j] = (db < dim && n < N) ? A[(size_t)db * N + n] * kLog2e : 0.f;
-    h[j] = 0.f;
+    const bool real = db < dim && n < N;
+    a2[j] = real ? A[(size_t)db * N + n] * kLog2e : 0.f;
+    if constexpr (kH0) {
+      h[j] = real ? h0[state0 + j] : 0.f;
+    } else {
+      h[j] = 0.f;
+    }
   }
   const float skip_w = (Dv != nullptr && active) ? Dv[da] : 0.f;
   const float dbias = (bias != nullptr && active) ? bias[da] : 0.f;
@@ -229,14 +259,17 @@ scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
   constexpr int NDT = kChunk * RMAX / kThreads;
   constexpr int NBC = kChunk * NMAX / kThreads;
   T r_dt[NDT], r_b[NBC], r_c[NBC], r_u[kSteps], r_z[kSteps];
+  T r_d[kSteps];  // kDelta: the delta rows of channel da
   const T zero = from_f32<T>(0.f);
   auto load_chunk = [&](int c0) {
     const int n_t = min(kChunk, L - c0);
-    const T* pd = dt_low + (row0 + c0) * R;
+    if constexpr (!kDelta) {
+      const T* pd = dt_low + (row0 + c0) * R;
 #pragma unroll
-    for (int j = 0; j < NDT; ++j) {
-      const int i = tid + j * kThreads, tt = i / RMAX, k = i % RMAX;
-      r_dt[j] = (tt < n_t && k < R) ? pd[tt * R + k] : zero;
+      for (int j = 0; j < NDT; ++j) {
+        const int i = tid + j * kThreads, tt = i / RMAX, k = i % RMAX;
+        r_dt[j] = (tt < n_t && k < R) ? pd[tt * R + k] : zero;
+      }
     }
     const T* pb = Bm + (row0 + c0) * N;
     const T* pc = Cm + (row0 + c0) * N;
@@ -254,6 +287,7 @@ scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
       const bool ok = active && tt < n_t;
       r_u[i] = ok ? u[base + tt * dim] : zero;
       r_z[i] = (ok && z != nullptr) ? z[base + tt * dim] : zero;
+      if constexpr (kDelta) r_d[i] = ok ? dt_low[base + tt * dim] : zero;
     }
   };
 
@@ -261,13 +295,15 @@ scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
     const int nt = min(kChunk, L - t0);
     load_chunk(t0);
     // the chunk's shared rows in fp32 (bf16: the mma operand as it is)
+    if constexpr (!kDelta) {
 #pragma unroll
-    for (int j = 0; j < NDT; ++j) {
-      const int i = tid + j * kThreads, tt = i / RMAX, k = i % RMAX;
-      if constexpr (kMma) {
-        dtl_bf[tt * LDB + k] = r_dt[j];
-      } else {
-        s_dtl[i] = r_dt[j];
+      for (int j = 0; j < NDT; ++j) {
+        const int i = tid + j * kThreads, tt = i / RMAX, k = i % RMAX;
+        if constexpr (kMma) {
+          dtl_bf[tt * LDB + k] = r_dt[j];
+        } else {
+          s_dtl[i] = r_dt[j];
+        }
       }
     }
 #pragma unroll
@@ -283,9 +319,13 @@ scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
     }
     __syncthreads();
 
-    // phase A: dt_low . dt_w for the thread's kSteps timesteps of channel ca
+    // phase A: dt_low . dt_w (or the delta as loaded) for the thread's
+    // kSteps timesteps of channel ca
     float acc[kSteps];
-    if constexpr (kMma) {
+    if constexpr (kDelta) {
+#pragma unroll
+      for (int i = 0; i < kSteps; ++i) acc[i] = to_f32(r_d[i]);
+    } else if constexpr (kMma) {
       // warp tg: its 4 timesteps as rows 0-3 of a 16-row tile (the other
       // rows zero) against the block's 32 channels; the accumulators pass
       // through s_y (free until phase B) to the (t, ca) layout
@@ -384,23 +424,32 @@ scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
             from_f32<T>((s + skip[i]) * gate[i]);
     }
   }
+  if constexpr (kLast) {
+#pragma unroll
+    for (int j = 0; j < NPL; ++j)
+      if (db < dim && kb * NPL + j < N) last[state0 + j] = h[j];
+  }
 }
 
-template <typename T, int NMAX, int RMAX>
+template <typename T, int NMAX, int RMAX, bool kDelta = false,
+          bool kH0 = false, bool kLast = false>
 cudaError_t launch(const void* u, const void* dt_low, const void* dt_w,
                    const void* A, const void* B, const void* C, const void* D,
                    const void* z, const void* bias, void* out, int batch,
                    int L, int dim, int N, int R, int use_softplus,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, const void* h0 = nullptr,
+                   void* last = nullptr) {
   constexpr int kBytes = Plan<NMAX, RMAX>::kBytes;
   dim3 grid(batch, (dim + kChannels - 1) / kChannels);
-  scan_fwd_kernel<T, NMAX, RMAX><<<grid, kThreads, kBytes, stream>>>(
-      static_cast<const T*>(u), static_cast<const T*>(dt_low),
-      static_cast<const T*>(dt_w), static_cast<const float*>(A),
-      static_cast<const T*>(B), static_cast<const T*>(C),
-      static_cast<const float*>(D), static_cast<const T*>(z),
-      static_cast<const float*>(bias), static_cast<T*>(out), L, dim, N, R,
-      use_softplus);
+  scan_fwd_kernel<T, NMAX, RMAX, kDelta, kH0, kLast>
+      <<<grid, kThreads, kBytes, stream>>>(
+          static_cast<const T*>(u), static_cast<const T*>(dt_low),
+          static_cast<const T*>(dt_w), static_cast<const float*>(A),
+          static_cast<const T*>(B), static_cast<const T*>(C),
+          static_cast<const float*>(D), static_cast<const T*>(z),
+          static_cast<const float*>(bias), static_cast<T*>(out), L, dim, N,
+          R, use_softplus, static_cast<const float*>(h0),
+          static_cast<float*>(last));
   return cudaGetLastError();
 }
 
@@ -427,6 +476,36 @@ cudaError_t dispatch(SCAN_PARAMS) {
   return cudaErrorInvalidValue;
 }
 
+// the state entry: a full delta in dt_low's place, RMAX at its least (the
+// dt_w and dt_low rows of shared memory go unused)
+#define STATE_ARGS u, delta, nullptr, A, B, C, D, z, bias, out, batch, L, \
+                   dim, N, 0, use_softplus, s, h0, last
+#define STATE_PARAMS const void *u, const void *delta, const void *A,     \
+    const void *B, const void *C, const void *D, const void *z,             \
+    const void *bias, const void *h0, void *out, void *last, int batch,     \
+    int L, int dim, int N, int use_softplus, cudaStream_t s
+
+template <typename T, int NMAX>
+cudaError_t dispatch_state_n(STATE_PARAMS) {
+  if (h0 != nullptr && last != nullptr)
+    return launch<T, NMAX, 16, true, true, true>(STATE_ARGS);
+  if (h0 != nullptr) return launch<T, NMAX, 16, true, true, false>(STATE_ARGS);
+  if (last != nullptr)
+    return launch<T, NMAX, 16, true, false, true>(STATE_ARGS);
+  return launch<T, NMAX, 16, true, false, false>(STATE_ARGS);
+}
+
+#define STATE_FWD u, delta, A, B, C, D, z, bias, h0, out, last, batch, L, \
+                  dim, N, use_softplus, s
+
+template <typename T>
+cudaError_t dispatch_state(STATE_PARAMS) {
+  if (N <= 8) return dispatch_state_n<T, 8>(STATE_FWD);
+  if (N <= 16) return dispatch_state_n<T, 16>(STATE_FWD);
+  if (N <= 32) return dispatch_state_n<T, 32>(STATE_FWD);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  D, z and bias may be null.
@@ -444,4 +523,24 @@ extern "C" int dimsum_selective_scan_fwd(
   const int N = n_state, R = dt_rank;
   return dtype == 0 ? dispatch<float>(SCAN_ARGS)
                     : dispatch<__nv_bfloat16>(SCAN_ARGS);
+}
+
+// The state entry: as dimsum_selective_scan_fwd, with delta (batch, L, dim)
+// in the dtype of u in place of dt_low and dt_w; h0 (batch, dim, N) fp32
+// seeds the state (null: zero) and last (batch, dim, N) fp32 takes the
+// state after step L - 1 (null: not stored).  D, z and bias may be null.
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// shapes the kernel does not take (1 <= N <= 32).
+extern "C" int dimsum_selective_scan_fwd_state(
+    const void* u, const void* delta, const void* A, const void* B,
+    const void* C, const void* D, const void* z, const void* bias,
+    const void* h0, void* out, void* last, int batch, int L, int dim,
+    int n_state, int dtype, int use_softplus, void* stream) {
+  if (batch < 1 || L < 1 || dim < 1 || n_state < 1 ||
+      (dtype != 0 && dtype != 1))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int N = n_state;
+  return dtype == 0 ? dispatch_state<float>(STATE_FWD)
+                    : dispatch_state<__nv_bfloat16>(STATE_FWD);
 }

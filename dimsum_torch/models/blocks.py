@@ -18,6 +18,9 @@ mixer) and `pending_tail` (`DIMSUM_PENDING_TAIL`: 1 defers each combined
 block's tail FFN add into the next block's top norm, 2 also takes the norm +
 modulate kernel there).  A `norm_impl` attribute of "ref" on a Norm,
 DiTBlock or FinalLayer selects the kernels' plain versions on any device.
+`seq_group` (the model's `DiMConfig.seq_group`) runs every mixer's conv and
+scan sequence-parallel in island mode (`models/mamba.py`); the blocks'
+token reorderings and flips stay outside the islands.
 """
 
 from __future__ import annotations
@@ -107,11 +110,13 @@ class _InnerMixerBlock(nn.Module):
     give the token order."""
 
     def __init__(self, dim: int, c_dim: int, reverse: bool, d_cond: int | None,
-                 dtype: torch.dtype, conv_xproj: bool = False):
+                 dtype: torch.dtype, conv_xproj: bool = False,
+                 seq_group=None):
         super().__init__()
         self.reverse = reverse
         self.mixer = Mamba(dim, d_cond=d_cond, dtype=dtype,
-                           conv_xproj=conv_xproj)
+                           conv_xproj=conv_xproj, seq_group=seq_group,
+                           seq_island=seq_group is not None)
         self.adaLN_modulation = AdaLN(c_dim, dim, 3, dtype)
 
     def forward(self, hidden_states, c):
@@ -133,8 +138,10 @@ class MixerBlockCore(_InnerMixerBlock):
 
     def __init__(self, dim: int, c_dim: int, reverse: bool = False,
                  transpose: bool = False, d_cond: int | None = None,
-                 dtype: torch.dtype = torch.float32, conv_xproj: bool = False):
-        super().__init__(dim, c_dim, reverse, d_cond, dtype, conv_xproj)
+                 dtype: torch.dtype = torch.float32, conv_xproj: bool = False,
+                 seq_group=None):
+        super().__init__(dim, c_dim, reverse, d_cond, dtype, conv_xproj,
+                         seq_group)
         self.transpose = transpose
 
     def _order(self, x, side):
@@ -154,8 +161,10 @@ class WaveDiMBlock(_InnerMixerBlock):
 
     def __init__(self, dim: int, c_dim: int, reverse: bool = False,
                  transpose: bool = False, d_cond: int | None = None,
-                 dtype: torch.dtype = torch.float32, conv_xproj: bool = False):
-        super().__init__(dim, c_dim, reverse, d_cond, dtype, conv_xproj)
+                 dtype: torch.dtype = torch.float32, conv_xproj: bool = False,
+                 seq_group=None):
+        super().__init__(dim, c_dim, reverse, d_cond, dtype, conv_xproj,
+                         seq_group)
         self.column_first = bool(transpose)
 
     def _window(self, side):
@@ -223,7 +232,7 @@ class DiMBlockCombined(nn.Module):
                  drop_path_rate: float = 0.0,
                  dtype: torch.dtype = torch.float32, pallas_norm: bool = False,
                  fused_norm: bool = False, conv_xproj: bool = False,
-                 pending_tail: int = 0):
+                 pending_tail: int = 0, seq_group=None):
         super().__init__()
         self.drop_path_rate = drop_path_rate
         self.pending_tail = pending_tail
@@ -231,10 +240,10 @@ class DiMBlockCombined(nn.Module):
         self.norm = Norm(dim, pallas_norm=pallas_norm, fused_norm=fused_norm)
         self.spatial_mamba = MixerBlockCore(
             half, dim, reverse=reverse, transpose=transpose, d_cond=d_cond,
-            dtype=dtype, conv_xproj=conv_xproj)
+            dtype=dtype, conv_xproj=conv_xproj, seq_group=seq_group)
         self.freq_mamba = WaveDiMBlock(
             half, dim, reverse=False, transpose=reverse, d_cond=d_cond,
-            dtype=dtype, conv_xproj=conv_xproj)
+            dtype=dtype, conv_xproj=conv_xproj, seq_group=seq_group)
         self.proj = CrossAttentionFusion(dim, num_heads=8, qkv_bias=True,
                                          dtype=dtype)
         self.adaLN_modulation = AdaLN(dim, dim, 3, dtype)

@@ -17,12 +17,22 @@ after its switches, all off by default: `pallas_norm` (DIMSUM_PALLAS_NORM),
 `fused_norm` (DIMSUM_FUSED_NORM), `conv_xproj` (DIMSUM_CONV_XPROJ) and
 `pending_tail` (DIMSUM_PENDING_TAIL, 0, 1 or 2; the deferred tail is
 materialized before each DiT block and at the end, dim.py:340-396).
+
+`seq_group`, a `torch.distributed` process group (the JAX `seq_axis` with
+its `seq_mesh`, dim.py:98-99, :189-191; `dimsum_torch.parallel.
+make_seq_group` builds it), runs every mixer's conv and scan
+sequence-parallel over its ranks, each in its own island (the mixer's
+L-slice on each rank, the output gathered along L), while the rest of the
+model runs whole on every rank: each rank passes the same inputs and gets
+the same output.  It adds no parameters, so weights load as without it.
+Forward only.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any
 
 import numpy as np
 import torch
@@ -54,6 +64,7 @@ class DiMConfig:
     fused_norm: bool = False   # norm + modulate kernel at the other norms
     conv_xproj: bool = False   # conv + SiLU + x_proj kernel in every mixer
     pending_tail: int = 0      # 1, 2: defer each block's tail FFN add
+    seq_group: Any = None      # sequence parallelism over a process group
 
     @property
     def grid_size(self) -> int:
@@ -85,7 +96,8 @@ class DiM(nn.Module):
                              pallas_norm=cfg.pallas_norm,
                              fused_norm=cfg.fused_norm,
                              conv_xproj=cfg.conv_xproj,
-                             pending_tail=cfg.pending_tail)
+                             pending_tail=cfg.pending_tail,
+                             seq_group=cfg.seq_group)
             for i in range(cfg.depth)])
         if cfg.use_attn_every_k_layers > 0:
             self.attn_block = DiTBlock(D, 16, dtype=dt,

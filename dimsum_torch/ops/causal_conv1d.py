@@ -1,12 +1,17 @@
 """Depthwise causal 1-D convolution with optional fused SiLU, PyTorch port of
-`dimsum_tpu/ops/causal_conv1d.py`.  Layout (batch, L, dim)."""
+`dimsum_tpu/ops/causal_conv1d.py`.  Layout (batch, L, dim).
+
+`causal_conv1d_halo` is the sequence-sharded conv of sequence parallelism:
+each rank of a process group holds one L-shard, in rank order."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["causal_conv1d"]
+from dimsum_torch.parallel.mesh import all_gather
+
+__all__ = ["causal_conv1d", "causal_conv1d_halo"]
 
 
 def causal_conv1d(x, weight, bias=None, activation: str | None = "silu",
@@ -35,3 +40,29 @@ def causal_conv1d(x, weight, bias=None, activation: str | None = "silu",
     if activation in ("silu", "swish"):
         y = y * torch.sigmoid(y)
     return y.to(x.dtype)
+
+
+def causal_conv1d_halo(x, weight, bias=None, activation: str | None = "silu",
+                       group=None):
+    """The conv of an L-shard x (B, L_shard, D) of a sequence split over
+    the ranks of `group` in rank order: each rank takes the previous
+    rank's last W-1 tokens as a left halo, rank 0 zeros (the unsharded
+    zero padding), so the shards' results are the unsharded
+    `causal_conv1d`'s (the JAX `causal_conv1d_halo`, causal_conv1d.py:60).
+    The halos travel as one all_gather of (B, W-1, D) from every rank (a
+    ring of sends would need send/recv, which not every backend takes for
+    CUDA tensors).  Raises when the shard is shorter than W-1."""
+    W = weight.shape[1]
+    if x.shape[1] < W - 1:
+        raise ValueError(
+            f"causal_conv1d_halo: per-shard seqlen {x.shape[1]} is shorter "
+            f"than the conv halo width {W - 1}; a one-hop halo exchange "
+            f"would diverge from the unsharded conv -- use fewer sequence "
+            f"shards")
+    if W == 1:
+        return causal_conv1d(x, weight, bias, activation)
+    halos = all_gather(x[:, x.shape[1] - (W - 1):], group)
+    my = torch.distributed.get_rank(group)
+    prev = halos[my - 1] if my > 0 else torch.zeros_like(halos[0])
+    xp = torch.cat([prev, x], dim=1)
+    return causal_conv1d(xp, weight, bias, activation)[:, W - 1:].contiguous()

@@ -2,9 +2,10 @@
 their entry points.
 
 Each `dimsum_torch/csrc/<name>.cu` has a plain C interface, an entry point
-`dimsum_<name>` that takes the stream last and returns a cudaError_t, and
-becomes `build/dimsum_torch/<name>-<hash>.so` at the root of the checkout,
-built at first use for sm_90a.  The hash covers the source, so an edited
+`dimsum_<name>` (a source may add others, `dimsum_<name>_<entry>`) that
+takes the stream last and returns a cudaError_t, and becomes
+`build/dimsum_torch/<name>-<hash>.so` at the root of the checkout, built at
+first use for sm_90a.  The hash covers the source, so an edited
 source is rebuilt and a stale library is never loaded.
 """
 
@@ -92,24 +93,27 @@ def load(name: str) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(name: str, argtypes: tuple):
-    fn = getattr(load(name), f"dimsum_{name}")
+def _entry(name: str, argtypes: tuple, symbol: str):
+    fn = getattr(load(name), symbol)
     fn.argtypes = [*argtypes, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def launch(name: str, argtypes: Sequence, device, *args) -> None:
-    """Call `dimsum_<name>` (built first if needed) with `args`, whose
-    ctypes are `argtypes` (a tensor, or None, goes as its pointer), on
-    `device`'s current stream; raise if it returns a CUDA error."""
-    fn = _entry(name, tuple(argtypes))
+def launch(name: str, argtypes: Sequence, device, *args,
+           entry: str | None = None) -> None:
+    """Call `dimsum_<name>` of source `name` (built first if needed), or
+    its entry `dimsum_<name>_<entry>`, with `args`, whose ctypes are
+    `argtypes` (a tensor, or None, goes as its pointer), on `device`'s
+    current stream; raise if it returns a CUDA error."""
+    symbol = f"dimsum_{name}" + (f"_{entry}" if entry else "")
+    fn = _entry(name, tuple(argtypes), symbol)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
                   for a in args], stream)
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{symbol} launch failed: CUDA error {rc}")
 
 
 def needs_grad(*tensors) -> bool:

@@ -16,6 +16,15 @@ Layout as in the JAX package: u, delta, z (batch, L, dim); B, C
                              (`csrc/selective_scan_fwd.cu`), the port of the
                              Pallas `_scan_body`, with delta = dt_low @ dt_w
                              expanded in the kernel.
+  * `selective_scan_state` : a full delta, the state seeded from h0 and the
+                             last state returned (the JAX
+                             `_selective_scan_pallas_fwd_impl` with dt_w
+                             None, h0 and want_last_state), the local passes
+                             of the sequence-parallel scan.  CUDA tensors
+                             take `selective_scan_state_cuda` (the same
+                             source's second entry, the port of
+                             `_scan_kernel_with_state`), CPU tensors the
+                             plain version.
   * `selective_scan_fwd_train` / `selective_scan_bwd` : the training pair,
                              ports of the Pallas `_fwd_train_kernel` and
                              `_bwd_kernel` (`csrc/selective_scan_fwd_train.cu`,
@@ -40,6 +49,7 @@ from dimsum_torch.ops import cuda_build
 from dimsum_torch.ops.cuda_build import DTYPE_CODE, check_tensor, needs_grad
 
 __all__ = ["selective_scan_ref", "selective_scan_cuda", "selective_scan_dtlow",
+           "selective_scan_state", "selective_scan_state_cuda",
            "selective_scan_fwd_train", "selective_scan_fwd_train_ref",
            "selective_scan_fwd_train_states_ref",
            "selective_scan_fwd_train_cuda", "selective_scan_bwd",
@@ -74,9 +84,12 @@ def _expand_groups(B, dim: int):
 
 
 def selective_scan_ref(u, delta, A, B, C, D=None, z=None, delta_bias=None,
-                       delta_softplus=False, return_last_state=False):
+                       delta_softplus=False, return_last_state=False,
+                       h0=None):
     """Sequential fp32 recurrence (mirrors the JAX `selective_scan_ref`).
-    The output is in u's dtype; the last state is (batch, dim, N) fp32."""
+    The output is in u's dtype; the last state is (batch, dim, N) fp32.
+    `h0` (batch, dim, N) seeds the state (zero without it), as in the JAX
+    `selective_scan_xla`."""
     dtype_in = u.dtype
     batch, L, dim = u.shape
     uf = u.float()
@@ -90,8 +103,8 @@ def selective_scan_ref(u, delta, A, B, C, D=None, z=None, delta_bias=None,
     Bf = _expand_groups(B, dim).float()
     Cf = _expand_groups(C, dim).float()
     du = dt * uf
-    h = torch.zeros(batch, dim, A.shape[1], dtype=torch.float32,
-                    device=u.device)
+    h = (torch.zeros(batch, dim, A.shape[1], dtype=torch.float32,
+                     device=u.device) if h0 is None else h0.float())
     ys = []
     for t in range(L):
         a_t = torch.exp(dt[:, t, :, None] * Af)
@@ -116,37 +129,36 @@ def selective_scan_ref(u, delta, A, B, C, D=None, z=None, delta_bias=None,
 _MAX_STATE, _MAX_RANK = 32, 64
 
 
-def _launch(name: str, dev, tensors, ints):
-    """`dimsum_<name>` with the tensors' pointers (None for an absent one),
-    then the int arguments."""
+def _launch(name: str, dev, tensors, ints, entry: Optional[str] = None):
+    """`dimsum_<name>` (or its `entry`) with the tensors' pointers (None
+    for an absent one), then the int arguments."""
     cuda_build.launch(name, [ctypes.c_void_p] * len(tensors)
-                      + [ctypes.c_int] * len(ints), dev, *tensors, *ints)
+                      + [ctypes.c_int] * len(ints), dev, *tensors, *ints,
+                      entry=entry)
 
 
-def _check_kernel_args(u, dt_low, dt_w, A, B, C, D, z, delta_bias):
-    """The layout, types and sizes every selective-scan kernel takes:
-    u, z (batch, L, dim); dt_low (batch, L, r); dt_w (r, dim); B, C
-    (batch, L, N), all in u's dtype (float32 or bfloat16); A (dim, N),
-    D and delta_bias (dim,) in float32; contiguous, on u's CUDA device."""
+def _check_common_args(u, A, B, C, D, z, delta_bias):
+    """What every selective-scan kernel takes besides dt: u, z
+    (batch, L, dim); B, C (batch, L, N), all in u's dtype (float32 or
+    bfloat16); A (dim, N), D and delta_bias (dim,) in float32; contiguous,
+    on u's CUDA device; 1 <= N <= 32."""
     if not u.is_cuda:
         raise ValueError("the CUDA selective scan takes CUDA tensors only")
     if B.ndim != 3 or C.ndim != 3:
         raise NotImplementedError(
             "grouped B/C is not implemented in the CUDA selective scan")
-    if u.ndim != 3 or dt_low.ndim != 3 or dt_w.ndim != 2 or A.ndim != 2:
-        raise ValueError("u, dt_low: (batch, L, ·); dt_w, A: 2-D")
+    if u.ndim != 3 or A.ndim != 2:
+        raise ValueError("u: (batch, L, dim); A: (dim, N)")
     batch, L, dim = u.shape
-    rank, n_state = dt_w.shape[0], A.shape[1]
+    n_state = A.shape[1]
     if u.dtype not in DTYPE_CODE:
         raise TypeError(f"unsupported dtype {u.dtype}: float32 or bfloat16")
-    if not (1 <= n_state <= _MAX_STATE and 1 <= rank <= _MAX_RANK):
+    if not 1 <= n_state <= _MAX_STATE:
         raise NotImplementedError(
-            f"CUDA selective scan takes 1 <= N <= {_MAX_STATE} and "
-            f"1 <= dt_rank <= {_MAX_RANK}; got N={n_state}, r={rank}")
+            f"CUDA selective scan takes 1 <= N <= {_MAX_STATE}; "
+            f"got N={n_state}")
     dev, dt = u.device, u.dtype
     check_tensor("u", u, dev, dt, (batch, L, dim))
-    check_tensor("dt_low", dt_low, dev, dt, (batch, L, rank))
-    check_tensor("dt_w", dt_w, dev, dt, (rank, dim))
     check_tensor("A", A, dev, torch.float32, (dim, n_state))
     check_tensor("B", B, dev, dt, (batch, L, n_state))
     check_tensor("C", C, dev, dt, (batch, L, n_state))
@@ -156,6 +168,35 @@ def _check_kernel_args(u, dt_low, dt_w, A, B, C, D, z, delta_bias):
         check_tensor("z", z, dev, dt, (batch, L, dim))
     if delta_bias is not None:
         check_tensor("delta_bias", delta_bias, dev, torch.float32, (dim,))
+
+
+def _check_kernel_args(u, dt_low, dt_w, A, B, C, D, z, delta_bias):
+    """The layout, types and sizes the dt_low route's kernels take: those
+    of `_check_common_args`, and dt_low (batch, L, r), dt_w (r, dim) in
+    u's dtype, 1 <= r <= 64."""
+    _check_common_args(u, A, B, C, D, z, delta_bias)
+    if dt_low.ndim != 3 or dt_w.ndim != 2:
+        raise ValueError("dt_low: (batch, L, r); dt_w: (r, dim)")
+    batch, L, dim = u.shape
+    rank = dt_w.shape[0]
+    if not 1 <= rank <= _MAX_RANK:
+        raise NotImplementedError(
+            f"CUDA selective scan takes 1 <= dt_rank <= {_MAX_RANK}; "
+            f"got r={rank}")
+    check_tensor("dt_low", dt_low, u.device, u.dtype, (batch, L, rank))
+    check_tensor("dt_w", dt_w, u.device, u.dtype, (rank, dim))
+
+
+def _check_state_args(u, delta, A, B, C, D, z, delta_bias, h0):
+    """The layout, types and sizes the state entry takes: those of
+    `_check_common_args`, a full delta (batch, L, dim) in u's dtype and,
+    where given, h0 (batch, dim, N) in float32."""
+    _check_common_args(u, A, B, C, D, z, delta_bias)
+    batch, L, dim = u.shape
+    check_tensor("delta", delta, u.device, u.dtype, (batch, L, dim))
+    if h0 is not None:
+        check_tensor("h0", h0, u.device, torch.float32,
+                     (batch, dim, A.shape[1]))
 
 
 def selective_scan_cuda(u, dt_low, dt_w, A, B, C, D=None, z=None,
@@ -191,6 +232,63 @@ def selective_scan_cuda(u, dt_low, dt_w, A, B, C, D=None, z=None,
 
 
 selective_scan_cuda.launches = 0
+
+
+def selective_scan_state_cuda(u, delta, A, B, C, D=None, z=None,
+                              delta_bias=None, delta_softplus=False, h0=None,
+                              return_last_state=False):
+    """Launch the state entry of `csrc/selective_scan_fwd.cu`:
+    selective_scan(u, delta, ...) with a full delta (batch, L, dim) in u's
+    dtype (the bias and softplus in fp32 inside the kernel), the state
+    seeded from `h0` (batch, dim, N) fp32 (zero without it), and with
+    `return_last_state` also the state after the last step, (batch, dim, N)
+    fp32.  The other arguments as `selective_scan_cuda`.  Raises on
+    anything else, and under grad mode with an input that requires grad
+    (it has no backward)."""
+    if needs_grad(u, delta, A, B, C, D, z, delta_bias, h0):
+        raise RuntimeError(
+            "selective_scan_state_cuda is an inference kernel and has no "
+            "backward; run it under torch.no_grad()")
+    _check_state_args(u, delta, A, B, C, D, z, delta_bias, h0)
+    batch, L, dim = u.shape
+    n_state = A.shape[1]
+    out = torch.empty_like(u)
+    last = (torch.empty(batch, dim, n_state, device=u.device)
+            if return_last_state else None)
+    _launch("selective_scan_fwd", u.device,
+            (u, delta, A, B, C, D, z, delta_bias, h0, out, last),
+            (batch, L, dim, n_state, DTYPE_CODE[u.dtype],
+             int(bool(delta_softplus))), entry="state")
+    selective_scan_state_cuda.launches += 1
+    return (out, last) if return_last_state else out
+
+
+selective_scan_state_cuda.launches = 0
+
+
+def selective_scan_state(u, delta, A, B, C, D=None, z=None, delta_bias=None,
+                         delta_softplus=False, h0=None,
+                         return_last_state=False, impl: Optional[str] = None):
+    """selective_scan(u, delta, ...) with a full delta, seeded from `h0`
+    and with `return_last_state` also returning the last state: the JAX
+    `_selective_scan_pallas_fwd_impl(..., h0=h0,
+    want_last_state=return_last_state)` with dt_w None.
+
+    `impl`: None takes `selective_scan_state_cuda` for CUDA tensors and
+    `selective_scan_ref` for CPU tensors; "ref" the plain version on any
+    device; "cuda" the kernel, which raises for CPU tensors."""
+    if impl is None:
+        impl = "cuda" if u.is_cuda else "ref"
+    if impl == "cuda":
+        if not u.is_cuda:
+            raise ValueError("impl='cuda' takes CUDA tensors only")
+        fn = selective_scan_state_cuda
+    elif impl == "ref":
+        fn = selective_scan_ref
+    else:
+        raise ValueError(f"unknown selective scan impl {impl!r}")
+    return fn(u, delta, A, B, C, D, z, delta_bias, delta_softplus, h0=h0,
+              return_last_state=return_last_state)
 
 
 def _flip(v):

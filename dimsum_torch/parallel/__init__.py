@@ -1,5 +1,11 @@
-"""Training on one device (port of `dimsum_tpu/parallel`)."""
+"""Training on one device and the process groups of sequence parallelism
+(port of `dimsum_tpu/parallel`)."""
 
+from dimsum_torch.parallel.mesh import (  # noqa: F401
+    SeqGroups,
+    all_gather,
+    make_seq_group,
+)
 from dimsum_torch.parallel.train import (  # noqa: F401
     TrainState,
     clip_by_global_norm,

@@ -191,6 +191,147 @@ def test_kernel_raises_on_what_it_does_not_take(cuda):
 
 
 # ---------------------------------------------------------------------------
+# The state entry of the same source (the sequence-parallel scan's local
+# passes): a full delta, h0 and the last state.  Tolerances as above for
+# the output; the last state is fp32 in both dtypes and is never rounded to
+# bf16, so both hold it to 1e-4 of its scale.
+# ---------------------------------------------------------------------------
+
+from dimsum_torch.ops.selective_scan import (  # noqa: E402
+    selective_scan_state, selective_scan_state_cuda)
+
+
+def state_inputs(device, dtype, batch=2, L=64, dim=16, n=16, seed=0):
+    """scan_inputs with the full delta = dt_low @ dt_w in `dtype` (as the
+    SP mixer makes it) and an fp32 h0 (batch, dim, n)."""
+    x = scan_inputs(device, dtype, batch=batch, L=L, dim=dim, n=n, r=8,
+                    seed=seed)
+    x["delta"] = (x.pop("dt_low") @ x.pop("dt_w")).contiguous()
+    g = torch.Generator().manual_seed(seed + 1)
+    x["h0"] = torch.randn(batch, dim, n, generator=g).to(device)
+    return x
+
+
+def _state_args(x):
+    return [x[k] for k in ("u", "delta", "A", "B", "C", "D")]
+
+
+def test_state_route_refuses_cpu_tensors():
+    x = state_inputs("cpu", torch.float32)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        selective_scan_state_cuda(*_state_args(x))
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        selective_scan_state(*_state_args(x), impl="cuda")
+
+
+def test_state_cpu_tensors_take_the_plain_version():
+    x = state_inputs("cpu", torch.float32)
+    kw = dict(z=x["z"], delta_bias=x["delta_bias"], delta_softplus=True,
+              h0=x["h0"], return_last_state=True)
+    got = selective_scan_state(*_state_args(x), **kw)
+    want = selective_scan_state(*_state_args(x), impl="ref", **kw)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("with_last", [False, True])
+@pytest.mark.parametrize("L, dim, n", [(256, 256, 16), (300, 200, 16),
+                                       (77, 64, 8), (33, 40, 32)])
+def test_state_kernel_matches_plain_on_card(cuda, dtype, with_h0, with_last,
+                                            L, dim, n):
+    """With and without h0 and the last state, N 8 / 16 / 32, L a
+    multiple of the 16-step chunk and ragged (the last state then is the
+    state at step L - 1: the kernel runs the ragged chunk with dt = 0 past
+    the end), a ragged last block of channels."""
+    x = state_inputs(cuda, dtype, batch=3, L=L, dim=dim, n=n)
+    kw = dict(z=x["z"], delta_bias=x["delta_bias"], delta_softplus=True,
+              h0=x["h0"] if with_h0 else None, return_last_state=with_last)
+    got = selective_scan_state(*_state_args(x), impl="cuda", **kw)
+    want = selective_scan_state(*_state_args(x), impl="ref", **kw)
+    if not with_last:
+        got, want = (got, None), (want, None)
+    tol = 1e-4 if dtype == torch.float32 else 1.6e-2
+    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=tol,
+                               atol=tol)
+    if with_last:
+        assert got[1].dtype == torch.float32
+        assert got[1].shape == (3, dim, n)
+        _close(got[1], want[1], 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("split", [16, 100])
+def test_state_kernel_continues_a_scan_on_card(cuda, dtype, split):
+    """Two launches, the second seeded with the first's last state, give
+    the one-launch scan (L 300, split on and off the chunk grid)."""
+    x = state_inputs(cuda, dtype, batch=2, L=300, dim=96)
+    kw = dict(D=x["D"], delta_bias=x["delta_bias"], delta_softplus=True)
+
+    def part(sl, **extra):
+        return selective_scan_state_cuda(
+            x["u"][:, sl].contiguous(), x["delta"][:, sl].contiguous(),
+            x["A"], x["B"][:, sl].contiguous(), x["C"][:, sl].contiguous(),
+            z=x["z"][:, sl].contiguous(), **kw, **extra)
+
+    whole, last = part(slice(None), return_last_state=True)
+    first, mid = part(slice(0, split), return_last_state=True)
+    second, end = part(slice(split, None), h0=mid, return_last_state=True)
+    tol = 1e-4 if dtype == torch.float32 else 1.6e-2
+    _close(torch.cat([first, second], 1), whole, tol)
+    _close(end, last, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_state_kernel_without_optionals_on_card(cuda, dtype):
+    """No bias, no softplus, no D, no gate, delta kept positive."""
+    x = state_inputs(cuda, dtype, dim=160)
+    x["delta"] = (0.05 * x["delta"].abs()).contiguous()
+    got = selective_scan_state(*_state_args(x)[:5], impl="cuda",
+                               return_last_state=True)
+    want = selective_scan_state(*_state_args(x)[:5], impl="ref",
+                                return_last_state=True)
+    _close(got[0], want[0], 1e-4 if dtype == torch.float32 else 1.6e-2)
+    _close(got[1], want[1], 1e-4)
+
+
+def test_state_kernel_repeats_and_counts_its_launches(cuda):
+    x = state_inputs(cuda, torch.bfloat16, batch=3, L=300, dim=200)
+    kw = dict(z=x["z"], delta_bias=x["delta_bias"], delta_softplus=True,
+              h0=x["h0"], return_last_state=True)
+    before = selective_scan_state_cuda.launches
+    row1 = selective_scan_cuda.launches
+    first = selective_scan_state(*_state_args(x), **kw)
+    again = selective_scan_state(*_state_args(x), **kw)
+    assert selective_scan_state_cuda.launches == before + 2
+    assert selective_scan_cuda.launches == row1
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_state_kernel_raises_on_what_it_does_not_take(cuda):
+    x = state_inputs(cuda, torch.float32)
+    args = dict(u=x["u"], delta=x["delta"], A=x["A"], B=x["B"], C=x["C"])
+    with pytest.raises(NotImplementedError, match="grouped"):
+        selective_scan_state_cuda(**{**args, "B": x["B"][:, :, None].expand(
+            -1, -1, 2, -1)})
+    with pytest.raises(TypeError, match="delta"):
+        selective_scan_state_cuda(**{**args, "delta": x["delta"].bfloat16()})
+    with pytest.raises(TypeError, match="h0"):
+        selective_scan_state_cuda(**args, h0=x["h0"].bfloat16())
+    with pytest.raises(ValueError, match="h0"):
+        selective_scan_state_cuda(**args, h0=x["h0"][:, :, :-1].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        selective_scan_state_cuda(**{**args, "delta": x["delta"].transpose(
+            0, 1).contiguous().transpose(0, 1)})
+    with pytest.raises(RuntimeError, match="no backward"):
+        selective_scan_state_cuda(**{**args, "u": x["u"].requires_grad_()})
+    big = state_inputs(cuda, torch.float32, n=64)
+    with pytest.raises(NotImplementedError, match="N <="):
+        selective_scan_state_cuda(*_state_args(big)[:5])
+
+
+# ---------------------------------------------------------------------------
 # The training pair: kernel 2 (forward with saved states) and kernel 3
 # (backward).  Tolerances relative to each tensor's scale: fp32 1e-4 (exp2
 # against exp, other summation orders: the warp sums of dB/dC, the fp32
