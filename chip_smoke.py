@@ -101,8 +101,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
               before and read just after on every rank: 2 x 32 state-entry
               and 36 sm90 attention launches a drift call, none of kernel
               1.  Records the wall time a drift call, the unsharded one's,
-              and the all_gathers' share of a call (timed between
-              synchronizations in one more call).
+              and the all_gathers' share of a call, in all and by kind
+              (halos, summaries, outputs; timed between synchronizations
+              in one more call).
  16. kernel-norm  the add + norm and norm + modulate kernels against their
               plain PyTorch versions at the 256-px rows (24 x 256 x 1024):
               the add + norm site and every norm + modulate call site
@@ -1306,11 +1307,16 @@ def _sp_rank_run(rank, k):
     group = make_seq_group(1, k).seq
 
     # every all_gather of this rank counted; with `timed` set, timed from
-    # a synchronized device to the gathered result on it
-    gathers = {"calls": 0, "timed": False, "seconds": 0.0}
+    # a synchronized device to the gathered result on it, by kind: a mixer
+    # gathers the conv's halos, the scan's summaries and its output, in
+    # that order
+    kinds = ("halos", "summaries", "outputs")
+    gathers = {"calls": 0, "timed": False,
+               "seconds": dict.fromkeys(kinds, 0.0)}
     real = dist.all_gather
 
     def counted(parts, x, group=None):
+        kind = kinds[gathers["calls"] % 3]
         gathers["calls"] += 1
         if not gathers["timed"]:
             return real(parts, x, group=group)
@@ -1318,7 +1324,7 @@ def _sp_rank_run(rank, k):
         t0 = time.perf_counter()
         out = real(parts, x, group=group)
         torch.cuda.synchronize()
-        gathers["seconds"] += time.perf_counter() - t0
+        gathers["seconds"][kind] += time.perf_counter() - t0
         return out
 
     dist.all_gather = counted
@@ -1460,7 +1466,8 @@ def phase_sample_sp_512():
                  "full_block_attention": 36, "full_attention_sm90": 0}
     r0 = recs[0]
     seconds = max(r["seconds"] for r in recs)
-    share = max(r["gather_seconds"] / r["timed_call_seconds"] for r in recs)
+    share = {kind: max(r["gather_seconds"][kind] / r["timed_call_seconds"]
+                       for r in recs) for kind in recs[0]["gather_seconds"]}
     rec = {"phase": "sample-sp-512", "model": "DiM-L/2", "image_size": 512,
            "ranks": SP_RANKS, "backend": "gloo", "batch": SP_BATCH,
            "rows": 2 * SP_BATCH, "steps": SP_STEPS, "cfg_scale": 1.4,
@@ -1474,7 +1481,9 @@ def phase_sample_sp_512():
            "unsharded_seconds_per_call": r0["unsharded_seconds"] / calls,
            "gathers_per_call": r0["gathers_per_call"],
            "timed_call_seconds": [r["timed_call_seconds"] for r in recs],
-           "gather_share": share,
+           "gather_share": max(sum(r["gather_seconds"].values())
+                               / r["timed_call_seconds"] for r in recs),
+           "gather_share_by_kind": share,
            "group_seconds": group_seconds,
            "finite": all(r["finite"] and r["fp32_finite"] for r in recs),
            "shape": r0["shape"]}
