@@ -55,18 +55,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
               PyTorch version at the 512-px shapes, DiT (24, 1024, 16, 64)
               and cross (24, 1024, 8, 64): bf16 through the sm90 kernel
               (TMA + wgmma, csrc/full_attention_sm90.cu), fp32 through the
-              first one (csrc/full_attention.cu); each record names the
-              kernel that ran.  Max error against the stated tolerance,
+              fp32 kernel (csrc/full_attention_f32.cu: S on the FP32 pipe,
+              P V as three TF32 tensor-core products); each record names
+              the kernel that ran.  Max error against the stated tolerance,
               kernel, plain and SDPA times (SDPA is a yardstick only: the
-              port never calls it at these shapes), and the bound; for bf16
-              also the first kernel, held to the same tolerance and timed
-              on the same inputs.  Plus the autograd Function's gradient
-              against the plain version's at a small shape.
+              port never calls it at these shapes; its device time too),
+              and the bound; also the first kernel (csrc/full_attention.cu)
+              in the same dtype, held to the same tolerance and timed on the
+              same inputs.  Plus the autograd Function's gradient against
+              the plain version's at a small shape.
  11. model-512  full-width DiM-L/2 at 512 px (latent 64, L 1024) in fp32
               with TF32 off, one CFG forward of 2 images (4 rows) through
               both kernels (scan and attention) and through both plain
               routes: they must agree, with 36 attention (all through the
-              first kernel) and 32 scan launches per forward.
+              fp32 kernel) and 32 scan launches per forward.
  12. model-512-bf16  the same forward in bf16 at three seeds of inputs,
               its q and k projections scaled by 4 so that attention is
               peaked, through the sm90 attention kernel and through the
@@ -99,8 +101,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
               SP_STEPS Euler grid points with CFG 1.4 in bf16 against the
               unsharded run (<= SP_512_BF16_TOL).  Counts set to 0 just
               before and read just after on every rank: 2 x 32 state-entry
-              and 36 sm90 attention launches a drift call, none of kernel
-              1.  Records the wall time a drift call, the unsharded one's,
+              and 36 attention launches a drift call (the fp32 call's
+              through the fp32 kernel, the bf16 calls' through sm90), none
+              of kernel 1.  Records the wall time a drift call, the unsharded one's,
               and the all_gathers' share of a call, in all and by kind
               (halos, summaries, outputs; timed between synchronizations
               in one more call).
@@ -148,19 +151,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
               and sampled by the CLI's SDE mode (Euler-Maruyama over
               SDE_512_STEPS grid points, CFG 1.4, bf16): 32 scan and 36 sm90
               attention launches per model call; finite samples.
- 24. likelihood  the CLI's `--likelihood` at cfg 1.0 (256 px, bf16, 2
+ 24. sample-512-fp32  the adapted checkpoint sampled by the CLI's ODE
+              mode in its default dtype, fp32 (TF32 off; Euler over
+              FP32_512_STEPS grid points, CFG 1.4, 2 images): 32 scan and
+              36 attention launches per drift call, all through the fp32
+              kernel; finite samples.
+ 25. likelihood  the CLI's `--likelihood` at cfg 1.0 (256 px, bf16, 2
               images, LIKELIHOOD_STEPS grid points): 32 launches of kernels
               2 and 3 per drift call of the augmented ODE, finite bits/dim;
               and one augmented drift call of the fp32 model (TF32 off)
               through the kernels and through the plain scan: they must
               agree.
- 25. kernels  one {"kernels": [...]} line (all nine kernels; the scan,
+ 26. kernels  one {"kernels": [...]} line (all ten kernels; the scan,
               both training kernels and conv + x_proj with their L 1024
               times and bound beside the mixer-shape ones, the scan's
               state entry with its second SP pass's (h0) beside its first's,
-              the two attention kernels with their cross-shape times beside
-              the DiT ones; the first attention kernel, on no main path now,
-              with 0 launches and its model-512 count as check_launches),
+              the three attention kernels with their cross-shape times
+              beside the DiT ones; the first attention kernel, on no main
+              path now, with 0 launches, its times from the fp32 cases),
               then the nvidia-smi line, then {"ok": true, "device": {...}}
               as the last line.  Each record's `ms` (CUDA events around
               back-to-back launches, which below ~0.05 ms can read the
@@ -183,6 +191,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_TC_FLOP_PER_S = 989e12
+TF32_TC_FLOP_PER_S = 495e12
 # exp on the special-function units: 16 per SM per clock (CUDA programming
 # guide, sm_90), 132 SMs at the 1.98 GHz boost clock
 SFU_EXP_PER_S = 16 * 132 * 1.98e9
@@ -213,9 +222,9 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, cls: str, iters: int = 20, tries: int = 3) -> float:
+def device_ms(fn, cls, iters: int = 20, tries: int = 3) -> float:
     """Device time per call of `fn` in the kernels of `profile_forward`'s
-    class `cls`, from torch.profiler's CUDA activity over `iters` calls
+    class `cls` (None: every kernel), from torch.profiler's CUDA activity over `iters` calls
     after one untimed: the kernels alone, without the host's launch gaps,
     which `cuda_ms` reads below ~0.05 ms.  Each kernel of the class (one
     launch a call each) counts with the median of its launches' durations,
@@ -245,7 +254,7 @@ def device_ms(fn, cls: str, iters: int = 20, tries: int = 3) -> float:
             us = e.time_range.elapsed_us()
             if (e.device_type == DeviceType.CUDA and us > 0
                     and not getattr(e, "is_user_annotation", False)
-                    and kernel_class(e.name) == cls):
+                    and cls in (None, kernel_class(e.name))):
                 durations.setdefault(e.name, []).append(us)
         if durations:
             return sum(statistics.median(v) for v in durations.values()) / 1e3
@@ -731,50 +740,51 @@ def phase_train_512():
 def attn_bound(B, L, H, Dh, dtype):
     """Least time for one full-block attention call: q, k, v read once and
     o written once over HBM bandwidth; 4 L^2 Dh flop per (batch, head) (the
-    two products) over the tensor-core bf16 peak, or the fp32 peak for
-    fp32, which the kernel computes on the CUDA cores; and the L^2 exp per
-    (batch, head) over the special-function units.  The largest bounds."""
+    two products) over the tensor-core bf16 peak, or for fp32 the lesser
+    of the fp32 peak and three TF32 tensor-core products (~fp32 accuracy)
+    over the TF32 peak, so that the bound reads the same work whichever
+    design runs it; and the L^2 exp per (batch, head) over the
+    special-function units.  The largest bounds."""
     import torch
 
     esize = torch.tensor([], dtype=dtype).element_size()
     nbytes = 4 * B * L * H * Dh * esize
     flops = 4 * B * H * L * L * Dh
     n_exp = B * H * L * L
-    peak = BF16_TC_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    if dtype == torch.bfloat16:
+        t_flops = flops / BF16_TC_FLOP_PER_S
+    else:
+        t_flops = min(flops / FP32_FLOP_PER_S, 3 * flops / TF32_TC_FLOP_PER_S)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(flops / peak, n_exp / SFU_EXP_PER_S) * 1e3
+    t_ops = max(t_flops, n_exp / SFU_EXP_PER_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations"), nbytes, flops, n_exp
 
 
-def attn_inputs(B, L, H, Dh, dtype, seed):
+def attn_inputs(B, L, H, Dh, dtype, seed, logit_scale=1.0):
     """q, k, v (B, L, H, Dh) as channel slices of one (B, L, 3 H Dh)
-    N(0, 1) projection, the layout the modules give the kernel."""
+    N(0, 1) projection, the layout the modules give the kernel; q and k
+    scaled by `logit_scale`."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    qkv = torch.randn((B, L, 3 * H * Dh), generator=g, device="cuda").to(
-        dtype)
+    qkv = torch.randn((B, L, 3 * H * Dh), generator=g, device="cuda")
+    qkv[..., :2 * H * Dh] *= logit_scale
+    qkv = qkv.to(dtype)
     return [qkv[..., i * H * Dh:(i + 1) * H * Dh].reshape(B, L, H, Dh)
             for i in range(3)]
 
 
 def _first_attention_kernel(q, k, v, scale):
-    """csrc/full_attention.cu on bf16 Dh-64 inputs, which the route sends
-    to the sm90 kernel: its bf16 body checked, and its time for comparison
-    in the same run.  Uncounted."""
+    """csrc/full_attention.cu on Dh-64 inputs, which the route sends to the
+    sm90 or the fp32 kernel: its body checked, and its time for comparison
+    in the same run."""
     import torch
 
-    from dimsum_torch.ops import cuda_build
-    from dimsum_torch.ops.cuda_build import DTYPE_CODE
-    from dimsum_torch.ops.full_attention import _ARGTYPES
+    from dimsum_torch.ops.full_attention import full_attention_first
 
-    B, L, H, Dh = q.shape
-    out = torch.empty(B, L, H, Dh, device=q.device, dtype=q.dtype)
-    cuda_build.launch("full_attention", _ARGTYPES, q.device, q, k, v, out,
-                      q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-                      v.stride(0), v.stride(1), B, L, H, Dh,
-                      DTYPE_CODE[q.dtype], scale)
+    out = torch.empty(q.shape, device=q.device, dtype=q.dtype)
+    full_attention_first(q, k, v, out, scale)
     return out
 
 
@@ -782,9 +792,10 @@ def phase_kernel_attn():
     import torch
     import torch.nn.functional as F
 
+    from dimsum_torch.ops import full_attention as attention_ops
     from dimsum_torch.ops.full_attention import (
-        full_attention_ref, full_attention_sm90, full_block_attention,
-        full_block_attention_cuda, takes_sm90_kernel)
+        attention_kernel, full_attention_ref, full_block_attention,
+        full_block_attention_cuda)
 
     cases = [
         ("dit-bf16", 24, 1024, 16, 64, torch.bfloat16),
@@ -796,23 +807,23 @@ def phase_kernel_attn():
     for i, (name, B, L, H, Dh, dtype) in enumerate(cases):
         q, k, v = attn_inputs(B, L, H, Dh, dtype, seed=300 + i)
         scale = Dh ** -0.5
-        sm90 = takes_sm90_kernel(dtype, Dh)
-        kernel = "full_attention_sm90" if sm90 else "full_attention"
+        kernel = attention_kernel(dtype, Dh)
+        counter = getattr(attention_ops, kernel)
         # relative to the output's largest value: fp32 2e-5 (the same fp32
         # products summed in other orders, exp2 against exp); bf16 1.6e-2
         # (P rounded to bf16 against the running row max in the kernel, the
         # final one in the plain version; bf16 output)
         tol = 2e-5 if dtype == torch.float32 else 1.6e-2
         with torch.inference_mode():
-            before = full_attention_sm90.launches
+            before = counter.launches
             got = full_block_attention_cuda(q, k, v, scale).float()
-            took_sm90 = full_attention_sm90.launches - before == 1
+            took_route = counter.launches - before == 1
             want = full_attention_ref(q, k, v, scale).float()
             torch.cuda.synchronize()
             scale_ref = want.abs().max().item()
             err = (got - want).abs().max().item()
             ok = (bool(torch.isfinite(got).all())
-                  and err <= tol * scale_ref and took_sm90 == sm90)
+                  and err <= tol * scale_ref and took_route)
             ms = cuda_ms(lambda: full_block_attention_cuda(q, k, v, scale),
                          iters=50)
             dev_ms = device_ms(
@@ -824,26 +835,30 @@ def phase_kernel_attn():
             library_ms = cuda_ms(
                 lambda: F.scaled_dot_product_attention(qt, kt, vt),
                 iters=50)
-            first = {}
-            if sm90:
-                # the first kernel (csrc/full_attention.cu), which bf16 at
-                # Dh 72-128 still takes, held to the same tolerance and
-                # timed on the same inputs
-                s = torch.tensor(scale, dtype=dtype).item()
-                got_first = _first_attention_kernel(q, k, v, s).float()
-                torch.cuda.synchronize()
-                first_err = (got_first - want).abs().max().item()
-                ok = ok and first_err <= tol * scale_ref
-                first = {"max_abs_err": first_err, "ms": cuda_ms(
-                    lambda: _first_attention_kernel(q, k, v, s), iters=50)}
-                del got_first
+            library_dev_ms = device_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt), None)
+            # the first kernel (csrc/full_attention.cu), which Dh 72-128
+            # still takes, held to the same tolerance and timed on the
+            # same inputs
+            s = torch.tensor(scale, dtype=dtype).item()
+            got_first = _first_attention_kernel(q, k, v, s).float()
+            torch.cuda.synchronize()
+            first_err = (got_first - want).abs().max().item()
+            ok = ok and first_err <= tol * scale_ref
+            first = {"max_abs_err": first_err, "ms": cuda_ms(
+                lambda: _first_attention_kernel(q, k, v, s), iters=10),
+                "device_ms": device_ms(
+                    lambda: _first_attention_kernel(q, k, v, s),
+                    "full_block_attention", iters=5)}
+            del got_first
         bound_ms, bound_by, nbytes, flops, n_exp = attn_bound(B, L, H, Dh,
                                                               dtype)
         rec = {"phase": "kernel-attn", "case": name, "shape": [B, L, H, Dh],
                "dtype": str(dtype).split(".")[-1], "kernel": kernel,
                "max_abs_err": err, "max_abs_ref": scale_ref, "tol_rel": tol,
                "ok": ok, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-               "library_ms": library_ms, "bound_ms": bound_ms,
+               "library_ms": library_ms, "library_device_ms": library_dev_ms,
+               "bound_ms": bound_ms,
                "bound_by": bound_by, "bytes": nbytes, "flop": flops,
                "exp": n_exp, "tflop_per_s": flops / ms / 1e9,
                "first_kernel": first}
@@ -851,6 +866,28 @@ def phase_kernel_attn():
         if not ok:
             raise AssertionError(f"attention kernel disagrees on {name}")
         results[name] = rec
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+
+    # logits of order 1e3 (q and k 40x N(0, 1)) at the DiT shape: the
+    # softmax near one-hot, where a row's two largest logits may nearly tie
+    for i, dtype in enumerate((torch.float32, torch.bfloat16)):
+        q, k, v = attn_inputs(24, 1024, 16, 64, dtype, seed=320 + i,
+                              logit_scale=40.0)
+        tol = 2e-5 if dtype == torch.float32 else 1.6e-2
+        with torch.inference_mode():
+            got = full_block_attention_cuda(q, k, v, 0.125).float()
+            want = full_attention_ref(q, k, v, 0.125).float()
+            torch.cuda.synchronize()
+        scale_ref = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        rec = {"phase": "kernel-attn", "case": f"dit-{dtype}-logits40"
+               .replace("torch.", ""), "shape": [24, 1024, 16, 64],
+               "kernel": attention_kernel(dtype, 64), "max_abs_err": err,
+               "max_abs_ref": scale_ref, "tol_rel": tol}
+        emit(rec)
+        if not (bool(torch.isfinite(got).all()) and err <= tol * scale_ref):
+            raise AssertionError(f"attention kernel disagrees: {rec}")
         del q, k, v, got, want
         torch.cuda.empty_cache()
 
@@ -887,13 +924,37 @@ def _attention_modules(model):
             if isinstance(m, (Attention, CrossAttentionFusion))]
 
 
+ATTENTION_KERNELS = ("full_attention_sm90", "full_attention_f32",
+                     "full_attention_first")
+
+
+def _zeroed_attention_counts():
+    """The scan kernel's, the attention route's and each attention
+    kernel's launch counters, set to 0."""
+    from dimsum_torch.ops import full_attention as attention_ops
+    from dimsum_torch.ops.selective_scan import selective_scan_cuda
+
+    counts = {"selective_scan_fwd": selective_scan_cuda,
+              "full_block_attention": attention_ops.full_block_attention_cuda,
+              **{n: getattr(attention_ops, n) for n in ATTENTION_KERNELS}}
+    for c in counts.values():
+        c.launches = 0
+    return counts
+
+
+def _attention_launches(calls, kernel, scan=32):
+    """What `_zeroed_attention_counts` reads after `calls` drift calls of
+    the 512-px model: `scan` scan and 36 attention launches each, all
+    through the attention kernel `kernel`."""
+    return {"selective_scan_fwd": scan * calls,
+            "full_block_attention": 36 * calls,
+            **{n: 36 * calls * (n == kernel) for n in ATTENTION_KERNELS}}
+
+
 def phase_model_512():
     import torch
 
     from dimsum_torch.models.dim import DiM_models, build_dim, forward_with_cfg
-    from dimsum_torch.ops.full_attention import (full_attention_sm90,
-                                                 full_block_attention_cuda)
-    from dimsum_torch.ops.selective_scan import selective_scan_cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -908,16 +969,11 @@ def phase_model_512():
     y = torch.cat([torch.randint(0, 1000, (2,), generator=g, device="cuda"),
                    torch.full((2,), 1000, device="cuda")])
     with torch.inference_mode():
-        selective_scan_cuda.launches = 0
-        full_block_attention_cuda.launches = 0
-        full_attention_sm90.launches = 0
+        counts = _zeroed_attention_counts()
         got = forward_with_cfg(model, x, t, y, cfg_scale=1.4)
         torch.cuda.synchronize()
-        # fp32: every call through the first kernel, none through sm90
-        launches = {"selective_scan_fwd": selective_scan_cuda.launches,
-                    "full_block_attention":
-                        full_block_attention_cuda.launches,
-                    "full_attention_sm90": full_attention_sm90.launches}
+        # fp32: every call through the fp32 kernel
+        launches = {k: c.launches for k, c in counts.items()}
         for m in _mixers(model):
             m.scan_impl = "ref"
         for m in _attention_modules(model):
@@ -937,14 +993,12 @@ def phase_model_512():
            "finite": bool(torch.isfinite(got).all()),
            "shape": list(got.shape)}
     emit(rec)
-    if (launches != {"selective_scan_fwd": 32, "full_block_attention": 36,
-                     "full_attention_sm90": 0}
+    if (launches != _attention_launches(1, "full_attention_f32")
             or not rec["finite"] or not err <= tol
             or rec["shape"] != [4, 4, 64, 64]):
         raise AssertionError(f"model-512 phase failed: {rec}")
     del model
     torch.cuda.empty_cache()
-    return launches["full_block_attention"]
 
 
 def _attention_without_rescale(q, k, v, sm_scale):
@@ -1014,9 +1068,7 @@ def phase_model_512_bf16(qk_gain=MODEL_512_BF16_QK_GAIN):
 
     from dimsum_torch.models import attention
     from dimsum_torch.models.dim import DiM_models, build_dim, forward_with_cfg
-    from dimsum_torch.ops.full_attention import (full_attention_ref,
-                                                 full_attention_sm90,
-                                                 full_block_attention_cuda)
+    from dimsum_torch.ops.full_attention import full_attention_ref
 
     cfg = DiM_models["DiM-L/2"](img_resolution=64, num_classes=1000,
                                 use_attn_every_k_layers=4,
@@ -1060,13 +1112,10 @@ def phase_model_512_bf16(qk_gain=MODEL_512_BF16_QK_GAIN):
                 torch.randint(0, 1000, (2,), generator=g, device="cuda"),
                 torch.full((2,), 1000, device="cuda")])
             calls.clear()
-            full_attention_sm90.launches = 0
-            full_block_attention_cuda.launches = 0
+            counters = _zeroed_attention_counts()
             got = forward_through(checked_attention, x, t, y)
             torch.cuda.synchronize()
-            counts = {"full_attention_sm90": full_attention_sm90.launches,
-                      "full_block_attention":
-                          full_block_attention_cuda.launches}
+            counts = {k: c.launches for k, c in counters.items()}
             # over the calls: (kernel, faulty..., logit spread) columns
             call_max = torch.stack(calls).amax(0).tolist()
             call_min = torch.stack(calls).amin(0).tolist()
@@ -1101,8 +1150,7 @@ def phase_model_512_bf16(qk_gain=MODEL_512_BF16_QK_GAIN):
            "call_tol_rel": MODEL_512_BF16_CALL_TOL, "finite": finite,
            "shape": shape}
     emit(rec)
-    if (any(r["launches"] != {"full_attention_sm90": 36,
-                              "full_block_attention": 36}
+    if (any(r["launches"] != _attention_launches(1, "full_attention_sm90")
             or r["calls"] != 36 for r in readings)
             or not finite or not worst <= MODEL_512_BF16_TOL
             or not control > MODEL_512_BF16_TOL
@@ -1118,20 +1166,13 @@ def phase_sample_512():
     import torch
 
     from dimsum_torch import bench
-    from dimsum_torch.ops.full_attention import (full_attention_sm90,
-                                                 full_block_attention_cuda)
-    from dimsum_torch.ops.selective_scan import selective_scan_cuda
 
-    selective_scan_cuda.launches = 0
-    full_block_attention_cuda.launches = 0
-    full_attention_sm90.launches = 0
+    counts = _zeroed_attention_counts()
     record, samples = bench.run(batch=12, steps=STEPS, dtype="bf16",
                                 cfg_scale=1.4, device="cuda", seed=0,
                                 image_size=512)
     torch.cuda.synchronize()
-    launches = {"selective_scan_fwd": selective_scan_cuda.launches,
-                "full_block_attention": full_block_attention_cuda.launches,
-                "full_attention_sm90": full_attention_sm90.launches}
+    launches = {k: c.launches for k, c in counts.items()}
     finite = bool(torch.isfinite(samples).all())
     rec = {"phase": "sample-512", **record, "launches": launches,
            "shape": list(samples.shape), "finite": finite,
@@ -1139,9 +1180,7 @@ def phase_sample_512():
     emit(rec)
     # one warm-up drift call plus STEPS - 1 Euler steps
     if (not finite or list(samples.shape) != [12, 4, 64, 64]
-            or launches["selective_scan_fwd"] != 32 * STEPS
-            or launches["full_block_attention"] != 36 * STEPS
-            or launches["full_attention_sm90"] != 36 * STEPS):
+            or launches != _attention_launches(STEPS, "full_attention_sm90")):
         raise AssertionError(f"sample-512 phase failed: {rec}")
     return launches
 
@@ -1257,15 +1296,14 @@ SP_512_FP32_TOL, SP_512_BF16_TOL = 1e-4, 5e-2
 
 
 def _sp_counts(zero: bool = False):
-    from dimsum_torch.ops.full_attention import (full_attention_sm90,
-                                                 full_block_attention_cuda)
+    from dimsum_torch.ops import full_attention as attention_ops
     from dimsum_torch.ops.selective_scan import (selective_scan_cuda,
                                                  selective_scan_state_cuda)
 
     fns = {"selective_scan_fwd_state": selective_scan_state_cuda,
            "selective_scan_fwd": selective_scan_cuda,
-           "full_block_attention": full_block_attention_cuda,
-           "full_attention_sm90": full_attention_sm90}
+           "full_block_attention": attention_ops.full_block_attention_cuda,
+           **{n: getattr(attention_ops, n) for n in ATTENTION_KERNELS}}
     if zero:
         for fn in fns.values():
             fn.launches = 0
@@ -1458,12 +1496,12 @@ def phase_sample_sp_512():
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
                 recs.append(json.load(f))
     calls = SP_STEPS - 1
+    # the bf16 steps through the sm90 kernel, the fp32 call through the
+    # fp32 kernel; every scan through the state entry
     want = {"selective_scan_fwd_state": 2 * 32 * calls,
-            "selective_scan_fwd": 0,
-            "full_block_attention": 36 * calls,
-            "full_attention_sm90": 36 * calls}
-    want_fp32 = {"selective_scan_fwd_state": 2 * 32, "selective_scan_fwd": 0,
-                 "full_block_attention": 36, "full_attention_sm90": 0}
+            **_attention_launches(calls, "full_attention_sm90", scan=0)}
+    want_fp32 = {"selective_scan_fwd_state": 2 * 32,
+                 **_attention_launches(1, "full_attention_f32", scan=0)}
     r0 = recs[0]
     seconds = max(r["seconds"] for r in recs)
     share = {kind: max(r["gather_seconds"][kind] / r["timed_call_seconds"]
@@ -1883,9 +1921,8 @@ def phase_sample_fused_512():
     import torch
 
     from dimsum_torch import bench
-    from dimsum_torch.ops.full_attention import full_attention_sm90
 
-    counts = {**_fused_counts(), "full_attention_sm90": full_attention_sm90}
+    counts = {**_fused_counts(), **_zeroed_attention_counts()}
     for c in counts.values():
         c.launches = 0
     record, samples = bench.run(batch=12, steps=STEPS, dtype="bf16",
@@ -1900,7 +1937,7 @@ def phase_sample_fused_512():
     emit(rec)
     # one warm-up drift call plus STEPS - 1 Euler steps
     want = {k: n * STEPS for k, n in FUSED_LAUNCHES[0].items()}
-    want["full_attention_sm90"] = 36 * STEPS
+    want.update(_attention_launches(STEPS, "full_attention_sm90"))
     if not finite or list(samples.shape) != [12, 4, 64, 64] \
             or launches != want:
         raise AssertionError(f"sample-fused-512 phase failed: {rec}")
@@ -1915,6 +1952,7 @@ DIM_L2_ARGS = ["--model", "DiM-L/2", "--num-classes", "1001",
                "--path-type", "GVP", "--bf16"]
 DOPRI5_BATCH = 4      # images of the dopri5 run (8 CFG rows)
 SDE_512_STEPS = 10    # grid points of the 512-px SDE run
+FP32_512_STEPS = 10   # grid points of the fp32 512-px ODE run
 LIKELIHOOD_STEPS = 6  # grid points of the likelihood run
 
 
@@ -2073,8 +2111,6 @@ def phase_sample_sde_512(tmp, sds):
 
     from dimsum_torch import sample
     from dimsum_torch.models.dim import DiM
-    from dimsum_torch.ops.full_attention import (full_attention_sm90,
-                                                 full_block_attention_cuda)
     from dimsum_torch.utils.ckpt import adapt_checkpoint, resize_pos_embed
 
     with torch.device("meta"):
@@ -2086,18 +2122,13 @@ def phase_sample_sde_512(tmp, sds):
     torch.save({"ema": adapted}, path)
     del adapted
 
-    counts = _zeroed_scan_counts()
-    counts.update(full_attention_sm90=full_attention_sm90,
-                  full_block_attention=full_block_attention_cuda)
-    for c in counts.values():
-        c.launches = 0
+    counts = {**_zeroed_scan_counts(), **_zeroed_attention_counts()}
     rec = sample.main(["SDE", *DIM_L2_ARGS, "--image-size", "512", "--ckpt",
                        path, "--sample-dir", os.path.join(tmp, "sde"),
                        "--diffusion-form", "sigma", "--last-step", "Mean",
                        "--num-sampling-steps", str(SDE_512_STEPS),
                        "--cfg-scale", "1.4", "--global-batch-size", "2"])
     torch.cuda.synchronize()
-    os.remove(path)
     launches = {k: c.launches for k, c in counts.items()}
     calls = 2 * (SDE_512_STEPS - 1) + 2
     finite = bool(torch.isfinite(rec["samples"]).all())
@@ -2109,12 +2140,54 @@ def phase_sample_sde_512(tmp, sds):
            "sample_std": rec["samples"].float().std().item()}
     emit(out)
     if (not finite or not pos_ok or out["shape"] != [2, 4, 64, 64]
-            or launches["selective_scan_fwd"] != 32 * calls
-            or launches["full_attention_sm90"] != 36 * calls
-            or launches["full_block_attention"] != 36 * calls
-            or launches["selective_scan_fwd_train"] != 0):
+            or launches != {"selective_scan_fwd_train": 0,
+                            "selective_scan_bwd": 0,
+                            **_attention_launches(calls,
+                                                  "full_attention_sm90")}):
         raise AssertionError(f"sample-sde-512 phase failed: {out}")
     torch.cuda.empty_cache()
+    return path
+
+
+def phase_sample_512_fp32(tmp, path):
+    """The default fp32 512-px sampling path: the adapted checkpoint at
+    `path` sampled through `python -m dimsum_torch.sample ODE` in its
+    default dtype, fp32 (TF32 off, the CLI's default), Euler over
+    FP32_512_STEPS grid points, CFG 1.4, 2 images: FP32_512_STEPS - 1 drift
+    calls, each with 32 scan launches and 36 attention launches, all
+    through the fp32 attention kernel.  Counts set to 0 just before and
+    read just after; finite samples.  Returns the launches."""
+    import os
+
+    import torch
+
+    from dimsum_torch import sample
+
+    counts = _zeroed_attention_counts()
+    rec = sample.main(["ODE", *[a for a in DIM_L2_ARGS if a != "--bf16"],
+                       "--image-size", "512", "--ckpt", path,
+                       "--sample-dir", os.path.join(tmp, "ode-fp32"),
+                       "--sampling-method", "euler",
+                       "--num-sampling-steps", str(FP32_512_STEPS),
+                       "--cfg-scale", "1.4", "--global-batch-size", "2"])
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counts.items()}
+    calls = FP32_512_STEPS - 1
+    finite = bool(torch.isfinite(rec["samples"]).all())
+    out = {"phase": "sample-512-fp32", "model": "DiM-L/2", "image_size": 512,
+           "dtype": str(rec["samples"].dtype).split(".")[-1],
+           "steps": FP32_512_STEPS, "model_calls": calls,
+           "seconds": rec["seconds"],
+           "seconds_per_call": rec["seconds"] / calls, "launches": launches,
+           "shape": list(rec["samples"].shape), "finite": finite,
+           "sample_std": rec["samples"].float().std().item()}
+    emit(out)
+    if (not finite or out["shape"] != [2, 4, 64, 64]
+            or out["dtype"] != "float32"
+            or launches != _attention_launches(calls, "full_attention_f32")):
+        raise AssertionError(f"sample-512-fp32 phase failed: {out}")
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_likelihood(tmp, ckpt):
@@ -2195,15 +2268,16 @@ def phase_likelihood(tmp, ckpt):
 
 def phase_sampling_path():
     """The sampling path from a checkpoint (sample-dopri5, sample-sde-512,
-    likelihood) on files written into a temporary directory, removed
-    after."""
+    sample-512-fp32, likelihood) on files written into a temporary
+    directory, removed after.  Returns sample-512-fp32's launches."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
         ckpt, sds, vae_path = write_checkpoints(tmp)
         phase_sample_dopri5(tmp, ckpt, sds, vae_path)
-        phase_sample_sde_512(tmp, sds)
-        return phase_likelihood(tmp, ckpt)
+        launches = phase_sample_512_fp32(tmp, phase_sample_sde_512(tmp, sds))
+        phase_likelihood(tmp, ckpt)
+        return launches
 
 
 def main() -> int:
@@ -2237,7 +2311,7 @@ def main() -> int:
     launches.update(phase_train())
     phase_train_512()
     attn = phase_kernel_attn()
-    first_attn_launches = phase_model_512()
+    phase_model_512()
     phase_model_512_bf16()
     launches["full_attention_sm90"] = \
         phase_sample_512()["full_attention_sm90"]
@@ -2250,7 +2324,9 @@ def main() -> int:
     phase_train_grad_fused()
     launches.update(phase_sample_fused())
     phase_sample_fused_512()
-    phase_sampling_path()
+    fp32_launches = phase_sampling_path()
+    for name in ("full_attention_f32", "full_attention_first"):
+        launches[name] = fp32_launches[name]
 
     # the scan at the 256-px mixer shape, with the 512-px one (L 1024)
     # beside it
@@ -2318,32 +2394,39 @@ def main() -> int:
             "L1024_device_ms": train_long[key]["device_ms"],
             "L1024_plain_ms": train_long[key]["plain_ms"],
             "L1024_bound_ms": train_long[key]["bound_ms"]})
-    # the attention: bf16 at Dh 64 (the sampling paths) through the sm90
-    # kernel, with its cross-shape numbers beside the DiT ones.  The first
-    # kernel now serves fp32 and bf16 at Dh 72-128, which no DiM-L/2 main
-    # path runs: 0 launches there; `check_launches` counts its calls in
-    # model-512's fp32 forward (zeroed just before it, read just after)
-    for name, source, cases, n, extra in (
-            ("full_attention_sm90", "dimsum_torch/csrc/full_attention_sm90.cu",
-             ("dit-bf16", "cross-bf16"), launches["full_attention_sm90"], {}),
-            ("full_block_attention", "dimsum_torch/csrc/full_attention.cu",
-             ("dit-fp32", "cross-fp32"), 0,
-             {"check_launches": first_attn_launches,
-              "check_path": "model-512: fp32 512-px CFG forward"})):
-        dit, cross = attn[cases[0]], attn[cases[1]]
-        kernels.append({
+    # the attention: bf16 at Dh 64 (the bf16 sampling paths) through the
+    # sm90 kernel, fp32 at Dh 64 (the default fp32 sampling path,
+    # sample-512-fp32) through the fp32 kernel, each with its cross-shape
+    # numbers beside the DiT ones.  The first kernel serves Dh 72-128, which
+    # no DiM-L/2 path runs: its launches are sample-512-fp32's (0), its
+    # times the fp32 cases', on the fp32 kernel's inputs
+    def attention_record(name, source, dit, cross, timed):
+        return {
             "name": name, "route": "cuda", "source": source,
             "replaces": "dimsum_tpu/ops/full_attention.py:82",
-            "launches": n,
-            "max_abs_err": max(dit["max_abs_err"], cross["max_abs_err"]),
-            "ms": dit["ms"], "device_ms": dit["device_ms"],
+            "launches": launches[name],
+            "max_abs_err": max(timed(dit)["max_abs_err"],
+                               timed(cross)["max_abs_err"]),
+            "ms": timed(dit)["ms"], "device_ms": timed(dit)["device_ms"],
             "plain_ms": dit["plain_ms"],
             "bound_ms": dit["bound_ms"], "bound_by": dit["bound_by"],
-            "library_ms": dit["library_ms"], "cross_ms": cross["ms"],
-            "cross_device_ms": cross["device_ms"],
+            "library_ms": dit["library_ms"],
+            "library_device_ms": dit["library_device_ms"],
+            "cross_ms": timed(cross)["ms"],
+            "cross_device_ms": timed(cross)["device_ms"],
             "cross_plain_ms": cross["plain_ms"],
             "cross_bound_ms": cross["bound_ms"],
-            "cross_library_ms": cross["library_ms"], **extra})
+            "cross_library_ms": cross["library_ms"],
+            "cross_library_device_ms": cross["library_device_ms"]}
+
+    for name, case in (("full_attention_sm90", "bf16"),
+                       ("full_attention_f32", "fp32")):
+        kernels.append(attention_record(
+            name, f"dimsum_torch/csrc/{name}.cu", attn[f"dit-{case}"],
+            attn[f"cross-{case}"], lambda r: r))
+    kernels.append(attention_record(
+        "full_attention_first", "dimsum_torch/csrc/full_attention.cu",
+        attn["dit-fp32"], attn["cross-fp32"], lambda r: r["first_kernel"]))
     # the main-path cases: bf16, the add + norm site and norm_2 (no single
     # PyTorch call computes any of the three functions: library_ms null)
     for name, source, replaces, cases, main_case in (

@@ -28,8 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("selective_scan_fwd", "selective_scan_fwd_train",
            "selective_scan_bwd", "full_attention", "full_attention_sm90",
-           "add_norm",
-           "norm_modulate", "conv_xproj")
+           "full_attention_f32", "add_norm", "norm_modulate", "conv_xproj")
 # the entry points' dtype argument
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 

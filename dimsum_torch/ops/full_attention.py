@@ -6,12 +6,16 @@ layout.
   * `full_block_supported(L, Dh)`: the JAX package's gate.
   * `full_attention_ref`   : the plain version, what the Pallas
                              `_attn_kernel` computes.
-  * `full_block_attention_cuda` : the hand-written CUDA kernels, launch-
-                             counted: bf16 at Dh 64 (DiM-L/2's heads) goes to
-                             `csrc/full_attention_sm90.cu` (TMA + wgmma,
-                             `full_attention_sm90`), everything else (fp32;
-                             bf16 at Dh 72-128) to `csrc/full_attention.cu`;
-                             `takes_sm90_kernel` is that route.
+  * `full_block_attention_cuda` : the hand-written CUDA kernels, each
+                             launch-counted, the route fixed by dtype and
+                             head size (`attention_kernel`): bf16 at Dh 64
+                             (DiM-L/2's heads) to `csrc/full_attention_sm90.cu`
+                             (TMA + wgmma, `full_attention_sm90`), fp32 at Dh
+                             64 to `csrc/full_attention_f32.cu` (S on the FP32
+                             pipe, P V as three TF32 tensor-core products,
+                             `full_attention_f32`), the rest (bf16 and fp32 at
+                             Dh 72-128) to `csrc/full_attention.cu`
+                             (`full_attention_first`).
   * `full_block_attention` : the autograd Function the modules call: the
                              kernel for CUDA tensors, the plain version for
                              CPU tensors; its backward recomputes through the
@@ -29,21 +33,23 @@ import torch
 from dimsum_torch.ops import cuda_build
 from dimsum_torch.ops.cuda_build import DTYPE_CODE, needs_grad
 
-__all__ = ["full_block_supported", "full_attention_ref", "takes_sm90_kernel",
-           "full_attention_sm90", "full_block_attention_cuda",
-           "full_block_attention", "FullBlockAttentionFn"]
+__all__ = ["full_block_supported", "full_attention_ref", "attention_kernel",
+           "full_attention_sm90", "full_attention_f32", "full_attention_first",
+           "full_block_attention_cuda", "full_block_attention",
+           "FullBlockAttentionFn"]
 
 # the JAX gate: S, exp(S) and P of one head fit the TPU's VMEM up to L 1024
 _MAX_FULL_BLOCK_L = 1024
-# the head sizes the kernel is compiled for (csrc/full_attention.cu)
+# the head sizes the kernels take (csrc/full_attention.cu is compiled for
+# each; the other two take 64)
 _KERNEL_HEAD_DIMS = tuple(range(64, 129, 8))
-# q, k, v, out; the batch and row strides of q, k, v; B, L, H, Dh, dtype;
-# the scale
+# csrc/full_attention.cu: q, k, v, out; the batch and row strides of q, k,
+# v; B, L, H, Dh, dtype; the scale
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 6
              + [ctypes.c_int] * 5 + [ctypes.c_float])
-# csrc/full_attention_sm90.cu: q, k, v, out; the strides; B, L, H; the
-# scale
-_SM90_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 6
+# csrc/full_attention_sm90.cu and csrc/full_attention_f32.cu: q, k, v, out;
+# the strides; B, L, H; the scale
+_DH64_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 6
                   + [ctypes.c_int] * 3 + [ctypes.c_float])
 
 
@@ -53,12 +59,19 @@ def full_block_supported(L: int, Dh: int) -> bool:
     return L % 128 == 0 and L <= _MAX_FULL_BLOCK_L and Dh % 8 == 0
 
 
-def takes_sm90_kernel(dtype: torch.dtype, Dh: int) -> bool:
+def attention_kernel(dtype: torch.dtype, Dh: int) -> str:
     """The route inside `full_block_attention_cuda`, fixed by dtype and head
-    size before any launch: bf16 at Dh 64 to the TMA + wgmma kernel
-    (`csrc/full_attention_sm90.cu`), all else to `csrc/full_attention.cu`.
-    Not a fallback: each kernel raises on failure."""
-    return dtype == torch.bfloat16 and Dh == 64
+    size before any launch: the name of the kernel (its source under
+    `csrc/` and its launch-counted wrapper here) that takes the call.  bf16
+    at Dh 64 to the TMA + wgmma kernel (`full_attention_sm90`), fp32 at Dh
+    64 to `full_attention_f32`, all else to the first design
+    (`full_attention_first`).  Not a fallback: each kernel raises on
+    failure."""
+    if Dh == 64 and dtype == torch.bfloat16:
+        return "full_attention_sm90"
+    if Dh == 64 and dtype == torch.float32:
+        return "full_attention_f32"
+    return "full_attention_first"
 
 
 def full_attention_ref(q, k, v, sm_scale: float):
@@ -93,20 +106,50 @@ def _check(name, t, device, dtype, shape):
                          "of 8 elements on a 16-byte aligned pointer")
 
 
+def _dh64_launch(name, q, k, v, out, scale) -> None:
+    B, L, H, _ = q.shape
+    cuda_build.check_tensor("out", out, q.device, q.dtype, q.shape)
+    cuda_build.launch(name, _DH64_ARGTYPES, q.device, q, k, v, out,
+                      q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+                      v.stride(0), v.stride(1), B, L, H, scale)
+
+
 def full_attention_sm90(q, k, v, out, scale: float) -> None:
     """Launch `csrc/full_attention_sm90.cu` on bf16 Dh-64 tensors that
     `full_block_attention_cuda` has checked (q, k, v strided), writing
     `out` (contiguous), `scale` already rounded to bf16.  Counts its
     launches in `full_attention_sm90.launches`."""
-    B, L, H, _ = q.shape
-    cuda_build.check_tensor("out", out, q.device, q.dtype, q.shape)
-    cuda_build.launch("full_attention_sm90", _SM90_ARGTYPES, q.device, q, k,
-                      v, out, q.stride(0), q.stride(1), k.stride(0),
-                      k.stride(1), v.stride(0), v.stride(1), B, L, H, scale)
+    _dh64_launch("full_attention_sm90", q, k, v, out, scale)
     full_attention_sm90.launches += 1
 
 
+def full_attention_f32(q, k, v, out, scale: float) -> None:
+    """Launch `csrc/full_attention_f32.cu` on fp32 Dh-64 tensors that
+    `full_block_attention_cuda` has checked, as `full_attention_sm90`
+    does.  Counts its launches in `full_attention_f32.launches`."""
+    _dh64_launch("full_attention_f32", q, k, v, out, scale)
+    full_attention_f32.launches += 1
+
+
+def full_attention_first(q, k, v, out, scale: float) -> None:
+    """Launch `csrc/full_attention.cu` (the first design: any Dh in 64,
+    72, ..., 128, fp32 or bf16) on tensors that `full_block_attention_cuda`
+    has checked, as `full_attention_sm90` does.  Counts its launches in
+    `full_attention_first.launches`."""
+    B, L, H, Dh = q.shape
+    cuda_build.check_tensor("out", out, q.device, q.dtype, q.shape)
+    cuda_build.launch("full_attention", _ARGTYPES, q.device, q, k, v, out,
+                      q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+                      v.stride(0), v.stride(1), B, L, H, Dh,
+                      DTYPE_CODE[q.dtype], scale)
+    full_attention_first.launches += 1
+
+
 full_attention_sm90.launches = 0
+full_attention_f32.launches = 0
+full_attention_first.launches = 0
+_KERNELS = {fn.__name__: fn for fn in (full_attention_sm90, full_attention_f32,
+                                       full_attention_first)}
 
 
 def full_block_attention_cuda(q, k, v, sm_scale: float):
@@ -114,8 +157,7 @@ def full_block_attention_cuda(q, k, v, sm_scale: float):
     dtype (float32 or bfloat16), each (H, Dh) row contiguous (the batch and
     row strides are free, so slices of one qkv projection go in without a
     copy), with `full_block_supported(L, Dh)` and Dh in 64, 72, ..., 128:
-    bf16 at Dh 64 to the TMA + wgmma kernel, all else to
-    `csrc/full_attention.cu` (`takes_sm90_kernel`).  Returns a new
+    the kernel `attention_kernel(dtype, Dh)` names.  Returns a new
     contiguous (B, L, H, Dh) tensor.  Raises on anything else.  It has no
     backward: under grad mode with an input that requires grad it raises
     (the training route is `full_block_attention`)."""
@@ -140,13 +182,7 @@ def full_block_attention_cuda(q, k, v, sm_scale: float):
     out = torch.empty(B, L, H, Dh, device=q.device, dtype=q.dtype)
     # the scale rounded to q's dtype, as the plain version multiplies by it
     scale = torch.tensor(sm_scale, dtype=q.dtype).item()
-    if takes_sm90_kernel(q.dtype, Dh):
-        full_attention_sm90(q, k, v, out, scale)
-    else:
-        cuda_build.launch("full_attention", _ARGTYPES, q.device, q, k, v,
-                          out, q.stride(0), q.stride(1), k.stride(0),
-                          k.stride(1), v.stride(0), v.stride(1), B, L, H, Dh,
-                          DTYPE_CODE[q.dtype], scale)
+    _KERNELS[attention_kernel(q.dtype, Dh)](q, k, v, out, scale)
     full_block_attention_cuda.launches += 1
     return out
 

@@ -42,8 +42,8 @@ CLASSES = (
     ("selective_scan_fwd_train", ("scan_fwd_train_kernel",
                                   "scan_fwd_train_states_kernel")),
     ("selective_scan_bwd", ("scan_bwd_kernel", "scan_bwd_carry_kernel")),
-    ("full_block_attention", ("attn_sm90_kernel", "attn_bf16_kernel",
-                              "attn_f32_kernel")),
+    ("full_block_attention", ("attn_sm90_kernel", "attn_fp32_sm90_kernel",
+                              "attn_bf16_kernel", "attn_f32_kernel")),
     # before the library classes: these names hold none of their keys
     ("add_norm", ("add_norm_kernel",)),
     ("norm_modulate", ("norm_mod_kernel",)),

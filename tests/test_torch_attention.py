@@ -36,10 +36,10 @@ from dimsum_tpu.ops.full_attention import \
 from dimsum_torch.models import attention as port_attention
 from dimsum_torch.models.attention import (Attention, CrossAttentionFusion,
                                            takes_full_block)
-from dimsum_torch.ops.full_attention import (full_attention_ref,
+from dimsum_torch.ops.full_attention import (attention_kernel,
+                                             full_attention_ref,
                                              full_block_attention,
-                                             full_block_supported,
-                                             takes_sm90_kernel)
+                                             full_block_supported)
 from dimsum_torch.utils.convert import state_dict_from_jax_params
 from tests.test_torch_convert import randomize, torch_one_thread  # noqa: F401
 
@@ -178,16 +178,21 @@ def test_routing(monkeypatch, L, Dh, full):
         port_attention._sdpa(q, q, q, "cuda")
 
 
-@pytest.mark.parametrize("dtype, Dh, sm90", [
-    (torch.bfloat16, 64, True),     # DiM-L/2 at 512 px: DiT and cross
-    (torch.bfloat16, 72, False),    # DiM-XL/2's heads
-    (torch.bfloat16, 128, False),
-    (torch.float32, 64, False),     # the fp32 checks
-    (torch.float32, 72, False),
-    (torch.float16, 64, False),     # refused later, by the dtype check
+@pytest.mark.parametrize("dtype, Dh, kernel", [
+    (torch.bfloat16, 64, "full_attention_sm90"),  # DiM-L/2 at 512 px
+    (torch.float32, 64, "full_attention_f32"),    # the default fp32 sampling
+    (torch.bfloat16, 72, "full_attention_first"),  # DiM-XL/2's heads
+    (torch.bfloat16, 128, "full_attention_first"),
+    (torch.float32, 72, "full_attention_first"),
+    (torch.float32, 128, "full_attention_first"),
+    (torch.float16, 64, "full_attention_first"),  # refused later, by dtype
 ])
-def test_kernel_route_by_dtype_and_head_size(dtype, Dh, sm90):
+def test_kernel_route_by_dtype_and_head_size(dtype, Dh, kernel):
     """Inside the CUDA wrapper: bf16 at Dh 64 goes to the TMA + wgmma
-    kernel, everything else to `csrc/full_attention.cu`; a plain function
-    of dtype and Dh, fixed before any launch."""
-    assert takes_sm90_kernel(dtype, Dh) is sm90
+    kernel, fp32 at Dh 64 to `csrc/full_attention_f32.cu`, everything else
+    to `csrc/full_attention.cu`; a plain function of dtype and Dh, fixed
+    before any launch, that names a launch-counted wrapper."""
+    from dimsum_torch.ops import full_attention
+
+    assert attention_kernel(dtype, Dh) == kernel
+    assert getattr(full_attention, kernel).launches >= 0

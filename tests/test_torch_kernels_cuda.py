@@ -527,18 +527,36 @@ def test_train_route_grads_match_plain_autograd_on_card(cuda, reverse):
 
 # ---------------------------------------------------------------------------
 # Full-block attention against its plain version: bf16 at Dh 64 through
-# `csrc/full_attention_sm90.cu` (TMA + wgmma), everything else through
-# `csrc/full_attention.cu`.  q, k and v are slices of one qkv tensor, as the
-# modules give them.
+# `csrc/full_attention_sm90.cu` (TMA + wgmma), fp32 at Dh 64 through
+# `csrc/full_attention_f32.cu` (S on the FP32 pipe, P V as three TF32
+# products), everything else through `csrc/full_attention.cu`
+# (`attention_kernel` names the kernel).  q, k and v are slices of one qkv
+# tensor, as the modules give them.
 # Tolerances, relative to the output's largest value: fp32 2e-5 (the same
 # fp32 products summed in other orders, exp2 against exp); bf16 1.6e-2 (the
 # kernel rounds P to bf16 against the running row max, the plain version
 # against the final one, and the output rounds to bf16: a few 2^-8 steps).
 # ---------------------------------------------------------------------------
 
+from dimsum_torch.ops import full_attention as attention_ops  # noqa: E402
 from dimsum_torch.ops.full_attention import (  # noqa: E402
-    full_attention_ref, full_attention_sm90,
-    full_block_attention, full_block_attention_cuda, takes_sm90_kernel)
+    attention_kernel, full_attention_ref, full_block_attention,
+    full_block_attention_cuda)
+
+ATTENTION_KERNELS = ("full_attention_sm90", "full_attention_f32",
+                     "full_attention_first")
+
+
+def attn_counts():
+    return {n: getattr(attention_ops, n).launches for n in ATTENTION_KERNELS}
+
+
+def assert_one_launch_of(name, before):
+    """Exactly one launch since `before` (an `attn_counts()`), through the
+    kernel `name` and no other."""
+    after = attn_counts()
+    assert {n: after[n] - before[n] for n in ATTENTION_KERNELS} == {
+        n: int(n == name) for n in ATTENTION_KERNELS}
 
 
 def attn_inputs(device, dtype, B, L, H, Dh, seed=0, logit_scale=1.0):
@@ -553,10 +571,90 @@ def attn_inputs(device, dtype, B, L, H, Dh, seed=0, logit_scale=1.0):
 
 
 def test_attention_cpu_tensors_take_the_plain_version():
+    """Bit for bit, both sides under one pinned thread count: with
+    PyTorch's default (a thread a core), the CPU matmul summed the same
+    products in other orders from one call to the next."""
     q, k, v = attn_inputs("cpu", torch.float32, 2, 128, 2, 64)
-    torch.testing.assert_close(full_block_attention(q, k, v, 0.125),
-                               full_attention_ref(q, k, v, 0.125),
-                               rtol=0, atol=0)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        torch.testing.assert_close(full_block_attention(q, k, v, 0.125),
+                                   full_attention_ref(q, k, v, 0.125),
+                                   rtol=0, atol=0)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _tf32(x, nearest=True):
+    """fp32 cut to TF32 (10 mantissa bits) by bit masking: to nearest, ties
+    away from zero, as the kernel rounds the big part; or truncated, as the
+    tensor cores read the small part."""
+    bits = x.view(torch.int32)
+    return ((bits + 0x1000 if nearest else bits) & -0x2000).view(torch.float32)
+
+
+def _three_tf32(a, b):
+    """a @ b as three TF32 products, small terms first, fp32 sums."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    a_small = _tf32(a - a_big, nearest=False)
+    b_small = _tf32(b - b_big, nearest=False)
+    return (a_small @ b_big + a_big @ b_small) + a_big @ b_big
+
+
+def f32_kernel_emulated(q, k, v, sm_scale, split_s=False):
+    """The arithmetic of `csrc/full_attention_f32.cu` in plain PyTorch:
+    q * scale rounded to fp32; per 64-key tile S = q k^T in fp32 (the plain
+    version's product), the running row max, P = exp2((S - max) log2 e),
+    the rescale, and O += P V as three TF32 products; O / the row sum.
+    `split_s` takes S as three TF32 products too, the design the kernel
+    does not use."""
+    log2e = 1.4426950408889634
+    qs = q * torch.tensor(sm_scale, dtype=q.dtype)
+    qt, kt, vt = (t.transpose(1, 2) for t in (qs, k, v))
+    m = torch.full(qt.shape[:-1] + (1,), -math.inf)
+    l = torch.zeros_like(m)
+    o = torch.zeros_like(qt)
+    for j0 in range(0, qt.shape[2], 64):
+        kj, vj = kt[:, :, j0:j0 + 64].transpose(-1, -2), vt[:, :, j0:j0 + 64]
+        s = _three_tf32(qt, kj) if split_s else qt @ kj
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2((m - m_new) * log2e)
+        p = torch.exp2((s - m_new) * log2e)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + _three_tf32(p, vj)
+        m = m_new
+    return (o / l).transpose(1, 2)
+
+
+# (B, L, H, seed, logit scale, softmax scale): the card tests' unit-logit
+# and 40x-logit inputs
+F32_EMULATION_CASES = [(1, 128, 2, 2, 40.0, 0.125), (2, 1024, 2, 3, 40.0, 0.125),
+                       (2, 256, 3, 259, 1.0, 0.1), (2, 1024, 1, 1025, 1.0, 0.125)]
+
+
+@pytest.mark.parametrize("B, L, H, seed, logit_scale, scale",
+                         F32_EMULATION_CASES)
+def test_f32_kernel_arithmetic_holds_the_tolerance(B, L, H, seed,
+                                                    logit_scale, scale):
+    """The fp32 kernel's arithmetic, emulated on the CPU, against the plain
+    version at the card tests' fp32 tolerance, 2e-5 of the output's
+    largest value, large logits included."""
+    q, k, v = attn_inputs("cpu", torch.float32, B, L, H, 64, seed=seed,
+                          logit_scale=logit_scale)
+    _close(f32_kernel_emulated(q, k, v, scale),
+           full_attention_ref(q, k, v, scale), 2e-5)
+
+
+def test_f32_kernel_keeps_s_off_the_tensor_cores():
+    """Why S is summed in fp32: as three TF32 products (~7e-7 of each term
+    against fp32's ~6e-8), the logits of 40x inputs (~1e3) move by ~1e-3,
+    and where two keys of a row nearly tie the output misses the fp32
+    tolerance by far."""
+    q, k, v = attn_inputs("cpu", torch.float32, 2, 1024, 2, 64, seed=3,
+                          logit_scale=40.0)
+    want = full_attention_ref(q, k, v, 0.125)
+    err = (f32_kernel_emulated(q, k, v, 0.125, split_s=True) - want).abs()
+    assert err.max() > 5 * 2e-5 * want.abs().max()
 
 
 def test_attention_kernel_refuses_cpu_tensors():
@@ -574,13 +672,12 @@ def test_attention_kernel_refuses_cpu_tensors():
     (3, 256, 3, 64), (2, 128, 2, 128), (1, 384, 1, 80)])
 def test_attention_kernel_matches_plain_on_card(cuda, dtype, B, L, H, Dh):
     q, k, v = attn_inputs(cuda, dtype, B, L, H, Dh, seed=L + Dh)
-    before = full_attention_sm90.launches
+    before = attn_counts()
     with torch.no_grad():
         got = full_block_attention(q, k, v, Dh ** -0.5)
         want = full_attention_ref(q, k, v, Dh ** -0.5)
     torch.cuda.synchronize()
-    assert full_attention_sm90.launches - before == int(
-        takes_sm90_kernel(dtype, Dh))
+    assert_one_launch_of(attention_kernel(dtype, Dh), before)
     assert got.dtype == dtype and got.shape == (B, L, H, Dh)
     assert torch.isfinite(got).all()
     _close(got, want, 2e-5 if dtype == torch.float32 else 1.6e-2)
@@ -593,66 +690,78 @@ def test_attention_kernel_large_logits_on_card(cuda, dtype):
     version's as closely as at unit logits."""
     q, k, v = attn_inputs(cuda, dtype, 1, 128, 2, 64, seed=2,
                           logit_scale=40.0)
+    before = attn_counts()
     with torch.no_grad():
         got = full_block_attention(q, k, v, 0.125)
         want = full_attention_ref(q, k, v, 0.125)
     torch.cuda.synchronize()
+    assert_one_launch_of(attention_kernel(dtype, 64), before)
     assert torch.isfinite(got).all()
     _close(got, want, 2e-5 if dtype == torch.float32 else 1.6e-2)
 
 
+def _tol(dtype):
+    return 2e-5 if dtype == torch.float32 else 1.6e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("H", [1, 3])
 @pytest.mark.parametrize("L", [128, 256, 384, 1024])
 @pytest.mark.parametrize("scale", [0.125, 0.1])
-def test_sm90_attention_matches_plain_on_card(cuda, L, scale):
-    """bf16 at Dh 64 through the TMA + wgmma kernel, at every L the K/V ring
-    wraps differently (2, 4, 6 and 16 tiles of 64 keys); a power-of-two
-    scale folded into the exponent, any other applied to q first."""
-    q, k, v = attn_inputs(cuda, torch.bfloat16, 2, L, 3, 64, seed=L)
-    before = full_attention_sm90.launches
+def test_sm90_attention_matches_plain_on_card(cuda, dtype, H, L, scale):
+    """Dh 64 through its own kernel (bf16: TMA + wgmma, whose K/V ring
+    wraps differently at 2, 4, 6 and 16 tiles of 64 keys; fp32: one K and
+    one V buffer, 2 to 16 tiles); a power-of-two scale (folded into the
+    exponent in bf16) and another (applied to q first)."""
+    q, k, v = attn_inputs(cuda, dtype, 2, L, H, 64, seed=L + H)
+    before = attn_counts()
     with torch.no_grad():
         got = full_block_attention(q, k, v, scale)
-    assert full_attention_sm90.launches == before + 1
+    assert_one_launch_of(attention_kernel(dtype, 64), before)
     want = full_attention_ref(q, k, v, scale)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
-    _close(got, want, 1.6e-2)
+    _close(got, want, _tol(dtype))
 
 
-def test_sm90_attention_large_logits_at_L1024_on_card(cuda):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_sm90_attention_large_logits_at_L1024_on_card(cuda, dtype):
     """Logits of order 1e3 over 16 key tiles: the running max grows from
     tile to tile and the output is rescaled each time."""
-    q, k, v = attn_inputs(cuda, torch.bfloat16, 2, 1024, 2, 64, seed=3,
+    q, k, v = attn_inputs(cuda, dtype, 2, 1024, 2, 64, seed=3,
                           logit_scale=40.0)
     with torch.no_grad():
         got = full_block_attention(q, k, v, 0.125)
     want = full_attention_ref(q, k, v, 0.125)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
-    _close(got, want, 1.6e-2)
+    _close(got, want, _tol(dtype))
 
 
-def test_sm90_attention_reads_cross_fusion_slices_on_card(cuda):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_sm90_attention_reads_cross_fusion_slices_on_card(cuda, dtype):
     """q from one projection and k, v from another, as the cross fusion
     pairs q1 with k2 and v2: other base pointers and other row strides
     (3 H Dh and, here, 5 H Dh)."""
     B, L, H = 3, 1024, 8
-    q1 = attn_inputs(cuda, torch.bfloat16, B, L, H, 64, seed=11)[0]
+    q1 = attn_inputs(cuda, dtype, B, L, H, 64, seed=11)[0]
     g = torch.Generator().manual_seed(12)
-    wide = torch.randn(B, L, 5 * H * 64, generator=g).to(cuda, torch.bfloat16)
+    wide = torch.randn(B, L, 5 * H * 64, generator=g).to(cuda, dtype)
     k2 = wide[..., 2 * H * 64:3 * H * 64].reshape(B, L, H, 64)
     v2 = wide[..., 4 * H * 64:].reshape(B, L, H, 64)
     assert q1.stride(1) != k2.stride(1)
-    before = full_attention_sm90.launches
+    before = attn_counts()
     with torch.no_grad():
         got = full_block_attention(q1, k2, v2, 0.125)
-    assert full_attention_sm90.launches == before + 1
+    assert_one_launch_of(attention_kernel(dtype, 64), before)
     want = full_attention_ref(q1, k2, v2, 0.125)
     torch.cuda.synchronize()
-    _close(got, want, 1.6e-2)
+    _close(got, want, _tol(dtype))
 
 
-def test_sm90_attention_repeats_bit_for_bit_on_card(cuda):
-    q, k, v = attn_inputs(cuda, torch.bfloat16, 4, 1024, 4, 64, seed=13)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_sm90_attention_repeats_bit_for_bit_on_card(cuda, dtype):
+    q, k, v = attn_inputs(cuda, dtype, 4, 1024, 4, 64, seed=13)
     with torch.no_grad():
         a = full_block_attention(q, k, v, 0.125)
         b = full_block_attention(q, k, v, 0.125)
@@ -661,16 +770,15 @@ def test_sm90_attention_repeats_bit_for_bit_on_card(cuda):
 
 
 @pytest.mark.parametrize("dtype, Dh", [(torch.bfloat16, 72),
-                                       (torch.float32, 64)])
+                                       (torch.float32, 72)])
 def test_attention_other_cases_keep_the_first_kernel_on_card(cuda, dtype,
                                                              Dh):
-    """bf16 at Dh 72 (DiM-XL/2) and fp32 go to `csrc/full_attention.cu`."""
+    """bf16 and fp32 at Dh 72 (DiM-XL/2) go to `csrc/full_attention.cu`."""
     q, k, v = attn_inputs(cuda, dtype, 2, 1024, 2, Dh, seed=Dh)
-    sm90, every = full_attention_sm90.launches, \
-        full_block_attention_cuda.launches
+    before, every = attn_counts(), full_block_attention_cuda.launches
     with torch.no_grad():
         got = full_block_attention(q, k, v, Dh ** -0.5)
-    assert full_attention_sm90.launches == sm90
+    assert_one_launch_of("full_attention_first", before)
     assert full_block_attention_cuda.launches == every + 1
     want = full_attention_ref(q, k, v, Dh ** -0.5)
     torch.cuda.synchronize()
