@@ -64,15 +64,16 @@
 //    products are summed apart, from zero, and added to O with the rescale
 //    in one fp32 FMA: a chain of 24 tensor-core sums instead of 384.
 //
-// Measured on the card (PERF.md): the S phase alone ~1.7 ms and the P V
-// phase alone ~1.3 ms (mma.sync TF32 runs near 134 TFLOP/s there), and
-// they add.  Three other schedules computed the same bits and ran slower:
-// P V on wgmma with V transposed and split into a swizzled V^T tile (2.56
-// ms), the same with the P V of tile t in flight during the S of tile t + 1
-// (two warpgroups a block, one block an SM: 3.2 ms), and a producer
-// warpgroup for S beside a consumer warpgroup for P V (2.73 ms): the S
-// phase, not the tensor cores, holds the kernel, and it runs faster with
-// more of its warps on each SM.
+// Measured on an H100 (PERF.md): 2.45 ms at the DiT shape, against SDPA's
+// 3.02 ms; alone, the S phase takes ~1.7 ms and the P V phase ~1.3 ms
+// (155 GFLOP of mma.sync TF32, ~120 TFLOP/s), and they add.  Schedules
+// that computed the same bits ran slower: P V on wgmma (V split and
+// transposed into a swizzled V^T tile) in flight during the next tile's S,
+// two warpgroups a block, one block an SM (3.2 ms); a producer warpgroup
+// for S beside a consumer warpgroup for P V (2.7 ms); an 8 x 8 S tile over
+// 128-row blocks (fewer loads an FMA, but spills at 255 registers).  The
+// S phase holds the kernel: on half the warps (the producer) it ran slower
+// than the overlap with P V could win back.
 //
 // L a multiple of 64 and batch * heads at most 65535; anything else returns
 // cudaErrorInvalidValue.
