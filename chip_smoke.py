@@ -62,8 +62,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
               port never calls it at these shapes; its device time too),
               and the bound; also the first kernel (csrc/full_attention.cu)
               in the same dtype, held to the same tolerance and timed on the
-              same inputs.  Plus the autograd Function's gradient against
-              the plain version's at a small shape.
+              same inputs.  Then q and k 40x at the DiT shape (logits
+              ~1e3) in both dtypes, at the same tolerances.  Plus the
+              autograd Function's gradient against the plain version's at
+              a small shape.
  11. model-512  full-width DiM-L/2 at 512 px (latent 64, L 1024) in fp32
               with TF32 off, one CFG forward of 2 images (4 rows) through
               both kernels (scan and attention) and through both plain
