@@ -115,7 +115,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
               (norm_2, the DiT block's two LayerNorms, the FinalLayer's,
               the deferred top of the pending tail), bf16 and fp32: max
               error against the stated tolerance, kernel and plain times,
-              and the bound.
+              and the bound; bf16 norm_2 also with a cold L2 (128 MB
+              written before each launch), and norm_2 and the DiT block's
+              second LayerNorm at the 512-px rows (24 x 1024 x 1024).
+              Alone: python3 -c "import chip_smoke as s;
+              s.phase_kernel_norm()".
  17. kernel-convx  the conv + x_proj kernel against its plain version at the
               mixer shape (24, 256, 1024, W 4, R 64, x a strided slice of
               in_proj's output), forward and reversed, bf16 and fp32, plus
@@ -165,8 +169,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
               through the kernels and through the plain scan: they must
               agree.
  26. kernels  one {"kernels": [...]} line (all ten kernels; the scan,
-              both training kernels and conv + x_proj with their L 1024
-              times and bound beside the mixer-shape ones, the scan's
+              both training kernels, conv + x_proj and norm + modulate
+              (norm_2) with their L 1024 times and bound beside the
+              256-px ones (norm + modulate also with its L2-cold device
+              time, `cold_device_ms`), the scan's
               state entry with its second SP pass's (h0) beside its first's,
               the three attention kernels with their cross-shape times
               beside the DiT ones; the first attention kernel, on no main
@@ -1605,14 +1611,69 @@ def _case_record(name, dtype, shape, got, want, tols, ms, plain_ms, bound):
             "bound_by": bound[1], "bytes": bound[2], "flop": bound[3]}
 
 
+# the 512-px cases (L 1024) of the two sites with gate, shift and scale
+NORM_SITES_L1024 = ("norm_2", "dit-h2")
+# bytes written between launches for the L2-cold reading (the L2 is 50 MB)
+L2_FLUSH_BYTES = 128 * 2**20
+
+
+def _norm_site_record(site, v, dtype, low, flush=None):
+    """One norm + modulate site on the inputs `v`: the kernel against its
+    plain version, `cuda_ms`, `device_ms`, the plain time and the bound; with
+    `flush` (a tensor), also `cold_device_ms`: the kernel's device time when
+    `flush` is written before each launch, so that its inputs and outputs
+    come from device memory and not from the L2."""
+    import torch
+
+    from dimsum_torch.ops.norms import norm_modulate_cuda, norm_modulate_ref
+
+    name, br, gt, res, mod, rms, w = site
+    B, L, D = v["x"].shape
+    esize = v["x"].element_size()
+    kw = dict(weight=v["weight"] if w else None,
+              bias=v["bias"] if w and not rms else None,
+              branch=v["branch"] if br else None,
+              gate=v["gate"] if gt else None,
+              residual=v["residual"] if res else None,
+              shift=v["shift"] if mod else None,
+              scale=v["scale"] if mod else None,
+              eps=1e-5 if rms else 1e-6, is_rms=rms,
+              total_dtype=torch.float32 if res else None)
+    with torch.inference_mode():
+        got = norm_modulate_cuda(v["x"], **kw)
+        want = norm_modulate_ref(v["x"], **kw)
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: norm_modulate_cuda(v["x"], **kw), iters=20)
+        dev_ms = device_ms(lambda: norm_modulate_cuda(v["x"], **kw),
+                           "norm_modulate")
+        cold_ms = None if flush is None else device_ms(
+            lambda: (flush.add_(1), norm_modulate_cuda(v["x"], **kw)),
+            "norm_modulate")
+        plain_ms = cuda_ms(lambda: norm_modulate_ref(v["x"], **kw), iters=5)
+    tot_size = 4 if res else esize
+    bound = norm_bound(B * L * D, B, D, esize, dict(
+        branch=esize * br, gate=esize * gt, res=4 * res,
+        shift=esize * mod, scale=esize * mod, w=4 * w,
+        b=4 * (w and not rms), total=tot_size, rms=rms))
+    rec = _case_record(name, dtype, [B, L, D], got, want,
+                       (low, 1e-5 if res else low), ms, plain_ms, bound)
+    rec["device_ms"] = dev_ms
+    if flush is not None:
+        rec["cold_device_ms"] = cold_ms
+    emit({"phase": "kernel-norm", "kernel": "norm_modulate", **rec})
+    if not rec["ok"]:
+        raise AssertionError(f"norm_modulate kernel disagrees: {rec}")
+    return rec
+
+
 def phase_kernel_norm():
     import torch
 
-    from dimsum_torch.ops.norms import (add_norm_cuda, add_norm_ref,
-                                        norm_modulate_cuda, norm_modulate_ref)
+    from dimsum_torch.ops.norms import add_norm_cuda, add_norm_ref
 
     B, L, D = 24, 256, 1024
     results = {"add_norm": {}, "norm_modulate": {}}
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, device="cuda")
     for i, dtype in enumerate((torch.bfloat16, torch.float32)):
         esize = torch.tensor([], dtype=dtype).element_size()
         # relative to each output's largest value: fp32 1e-5 (rsqrt and
@@ -1639,41 +1700,21 @@ def phase_kernel_norm():
             raise AssertionError(f"add_norm kernel disagrees: {rec}")
         results["add_norm"][rec["dtype"]] = rec
 
-        for name, br, gt, res, mod, rms, w in NORM_SITES:
-            kw = dict(weight=v["weight"] if w else None,
-                      bias=v["bias"] if w and not rms else None,
-                      branch=v["branch"] if br else None,
-                      gate=v["gate"] if gt else None,
-                      residual=v["residual"] if res else None,
-                      shift=v["shift"] if mod else None,
-                      scale=v["scale"] if mod else None,
-                      eps=1e-5 if rms else 1e-6, is_rms=rms,
-                      total_dtype=torch.float32 if res else None)
-            with torch.inference_mode():
-                got = norm_modulate_cuda(v["x"], **kw)
-                want = norm_modulate_ref(v["x"], **kw)
-                torch.cuda.synchronize()
-                ms = cuda_ms(lambda: norm_modulate_cuda(v["x"], **kw),
-                             iters=20)
-                dev_ms = device_ms(lambda: norm_modulate_cuda(v["x"], **kw),
-                                   "norm_modulate")
-                plain_ms = cuda_ms(lambda: norm_modulate_ref(v["x"], **kw),
-                                   iters=5)
-            tot_size = 4 if res else esize
-            bound = norm_bound(B * L * D, B, D, esize, dict(
-                branch=esize * br, gate=esize * gt, res=4 * res,
-                shift=esize * mod, scale=esize * mod, w=4 * w,
-                b=4 * (w and not rms), total=tot_size, rms=rms))
-            rec = _case_record(name, dtype, [B, L, D], got, want,
-                               (low, 1e-5 if res else low), ms, plain_ms,
-                               bound)
-            rec["device_ms"] = dev_ms
-            emit({"phase": "kernel-norm", "kernel": "norm_modulate", **rec})
-            if not rec["ok"]:
-                raise AssertionError(f"norm_modulate kernel disagrees: {rec}")
-            results["norm_modulate"][f"{name}-{rec['dtype']}"] = rec
+        for site in NORM_SITES:
+            # the main case (norm_2, bf16) also read with a cold L2
+            cold = flush if site[0] == "norm_2" and i == 0 else None
+            rec = _norm_site_record(site, v, dtype, low, cold)
+            results["norm_modulate"][f"{site[0]}-{rec['dtype']}"] = rec
         del v, x2, r2
         torch.cuda.empty_cache()
+    # the 512-px shape, bf16: the inputs (100 MB at norm_2) exceed the L2
+    v = norm_case_inputs(B, 4 * L, D, torch.bfloat16, seed=402)
+    for site in NORM_SITES:
+        if site[0] in NORM_SITES_L1024:
+            rec = _norm_site_record(site, v, torch.bfloat16, 1.6e-2)
+            results["norm_modulate"][f"{site[0]}-L1024-bfloat16"] = rec
+    del v, flush
+    torch.cuda.empty_cache()
     return results
 
 
@@ -2448,12 +2489,17 @@ def main() -> int:
             "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
             "library_ms": None})
-    # conv_xproj decides the fused 512-px sampling time at L 1024
-    long_case = convx["L1024-bf16"]
-    kernels[-1].update({"L1024_ms": long_case["ms"],
-                        "L1024_device_ms": long_case["device_ms"],
-                        "L1024_plain_ms": long_case["plain_ms"],
-                        "L1024_bound_ms": long_case["bound_ms"]})
+    # norm_2 and conv_xproj at the fused 512-px sampling shape (L 1024);
+    # norm_2 at 256 px also with a cold L2
+    for rec, long_case in ((kernels[-2],
+                            norms["norm_modulate"]["norm_2-L1024-bfloat16"]),
+                           (kernels[-1], convx["L1024-bf16"])):
+        rec.update({"L1024_ms": long_case["ms"],
+                    "L1024_device_ms": long_case["device_ms"],
+                    "L1024_plain_ms": long_case["plain_ms"],
+                    "L1024_bound_ms": long_case["bound_ms"]})
+    kernels[-2]["cold_device_ms"] = \
+        norms["norm_modulate"]["norm_2-bfloat16"]["cold_device_ms"]
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

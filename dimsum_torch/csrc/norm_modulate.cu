@@ -22,56 +22,166 @@
 //
 // What bounds it on an H100: device memory.  At DiM-L/2's 256-px rows
 // (24 x 256 x 1024, bf16) the norm_2 site moves base, branch, out and total
-// (50.3 MB, 15.0 us at 3.35 TB/s) and does ~10 flop a value; the FinalLayer
-// site moves 37.7 MB (11.3 us).  So the design reads every value once and
-// writes every output once: one warp per row, each lane holding its
-// D / 32 values in registers (8- or 16-byte vector loads of 4 values), the
-// moments reduced with shuffles.  LayerNorm's two passes (the mean, then the
-// centred variance, as the TPU kernel takes them) run over the registers,
-// not over device memory.  The products and sums that PyTorch evaluates as
-// separate ops use __fmul_rn / __fadd_rn, so nvcc does not contract them
-// into FMAs and the fp32 total is the plain version's bit for bit.
+// (50.3 MB, 15.0 us at 3.35 TB/s) and does ~10 flop a value.  The design:
 //
-// D is a multiple of 128 up to 4096; anything else returns
-// cudaErrorInvalidValue.
+// - A grid of one run of rows a block, as many blocks as the card holds at
+//   once.  Each batch's L rows are cut into k runs that differ by at most
+//   one row, k = (resident blocks) / B, so no run crosses a batch and
+//   every block does about the same work in one wave.
+// - The run's per-batch vectors (gate, shift and the rounded 1 + scale,
+//   which is the value the modulation reads on every element) and the
+//   per-channel w and b are staged once into shared memory as fp32, laid
+//   out so that a lane reads its columns of a vector with conflict-free
+//   16-byte loads.  The rows then read no vector from L1 or L2.
+// - Each warp walks the run's rows (warp w takes rows w, w + nw, ...)
+//   through its own ring of stages: one lane asks for the next rows of
+//   base, branch and res with 1-D TMA bulk copies (cp.async.bulk, an
+//   mbarrier a stage), so those loads are in flight while the warp reduces
+//   and stores the current row.  The stage is refilled as soon as the warp
+//   has read it, before the row's stores.
+// - Every global load is a bulk copy and every store a 16-byte vector (8
+//   bf16 or 4 fp32 a lane).  Lane l holds columns 32 v c + v l .. + v - 1
+//   (v values a 16-byte vector) for each chunk c; where D % (32 v) != 0
+//   (bf16 at D 128, 1152) the last chunk spans half the lanes.
+// - Both moments are reduced with warp shuffles over registers.  LayerNorm
+//   keeps its two passes (the mean, then the centred variance, as the TPU
+//   kernel takes them) over the registers, not over device memory.
+//
+// The products and sums that PyTorch evaluates as separate ops use
+// __fmul_rn / __fadd_rn, so nvcc does not contract them into FMAs and the
+// fp32 total is the plain version's bit for bit.
+//
+// D is a multiple of 128 up to 4096 and base, branch, res, out and total
+// are 16-byte aligned; anything else returns cudaErrorInvalidValue.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
-constexpr int kWarps = 4;  // rows per block
+constexpr int kMaxWarps = 8;      // rows in flight a block, one a warp
+constexpr int kStages = 2;        // ring stages a warp
+constexpr int kSmemMax = 232448;  // what a block may ask for
 
-__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  v[0] = x.x;
-  v[1] = x.y;
-  v[2] = x.z;
-  v[3] = x.w;
+struct Params {
+  const void* base;
+  const void* branch;
+  const void* gate;
+  const float* res;
+  const float* w;
+  const float* b;
+  const void* shift;
+  const void* scale;
+  void* out;
+  void* total;
+  long long gate_sb, shift_sb, scale_sb;
+  int L, D, k;  // k runs a batch
+  int nw, stages;
+  int total_f32, is_rms;
+  float eps;
+  // shared memory: the staged vectors (dp floats each, at these float
+  // offsets; -1 when absent), then each warp's ring, then its mbarriers
+  int dp, off_w, off_b, off_g, off_sh, off_a;
+  int ring_off, row_bytes, off_branch, off_res, bars_off;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  v[0] = lo.x;
-  v[1] = lo.y;
-  v[2] = hi.x;
-  v[3] = hi.y;
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
 }
 
-__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
-  uint2 raw;
-  *reinterpret_cast<__nv_bfloat162*>(&raw.x) = __floats2bfloat162_rn(v[0], v[1]);
-  *reinterpret_cast<__nv_bfloat162*>(&raw.y) = __floats2bfloat162_rn(v[2], v[3]);
-  *reinterpret_cast<uint2*>(p) = raw;
+// Wait until the barrier's phase with this parity has completed: the n-th
+// use of a ring stage (n = 0, 1, ...) waits with parity n & 1.  A wait that
+// outlasts 2^30 polls (seconds) traps, so that a lost copy fails the launch
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done, polls = 0;
+  do {
+    if (++polls == (1u << 30)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// bytes (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, completing on bar
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// 16 bytes as fp32 values
+__device__ __forceinline__ void unpack(const uint4& raw, float (&v)[4]) {
+  v[0] = __uint_as_float(raw.x);
+  v[1] = __uint_as_float(raw.y);
+  v[2] = __uint_as_float(raw.z);
+  v[3] = __uint_as_float(raw.w);
+}
+
+__device__ __forceinline__ void unpack(const uint4& raw, float (&v)[8]) {
+  const uint32_t u[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // bf16 -> fp32 is exact: the high half
+    v[2 * i] = __uint_as_float(u[i] << 16);
+    v[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ uint4 pack(const float (&v)[4], const float*) {
+  return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                    __float_as_uint(v[2]), __float_as_uint(v[3]));
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ uint4 pack(const float (&v)[8],
+                                      const __nv_bfloat16*) {
+  return make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]), pack2(v[4], v[5]),
+                    pack2(v[6], v[7]));
+}
+
+// 4 values from a 4-value aligned address (8 bytes of bf16, 16 of fp32)
+__device__ __forceinline__ void load4(const float* q, float (&v)[4]) {
+  unpack(*reinterpret_cast<const uint4*>(q), v);
+}
+
+__device__ __forceinline__ void load4(const __nv_bfloat16* q, float (&v)[4]) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(q);
+  v[0] = __uint_as_float(raw.x << 16);
+  v[1] = __uint_as_float(raw.x & 0xffff0000u);
+  v[2] = __uint_as_float(raw.y << 16);
+  v[3] = __uint_as_float(raw.y & 0xffff0000u);
+}
+
+__device__ __forceinline__ void store4(float* q, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(q) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
 // x rounded to T and back to fp32
@@ -86,146 +196,360 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Lane l holds columns 128 c + 4 l .. + 3 of the row for c < D / 128.
-template <typename T, int MAXC>
-__global__ void __launch_bounds__(kWarps * 32)
-    norm_mod_kernel(const T* __restrict__ base, const T* __restrict__ branch,
-                    const T* __restrict__ gate, const float* __restrict__ res,
-                    const float* __restrict__ w, const float* __restrict__ b,
-                    const T* __restrict__ shift, const T* __restrict__ scale,
-                    T* __restrict__ out, void* __restrict__ total,
-                    long long gate_sb, long long shift_sb, long long scale_sb,
-                    int rows, int L, int D, int total_f32, int is_rms,
-                    float eps) {
-  const int lane = threadIdx.x % 32;
-  const long long row =
-      static_cast<long long>(blockIdx.x) * kWarps + threadIdx.x / 32;
-  if (row >= rows) return;
-  const int nc = D / 128;
-  const long long off = row * D;
-  const long long batch = row / L;  // the per-batch vectors' row
-  const T* tag = nullptr;                 // selects round_to's type
+// Where column col of a staged vector lies: lane l's V values of chunk c
+// are V / 4 float4s, each at a 512-byte row of the chunk's V / 4 rows, so
+// that 32 lanes read 512 contiguous bytes a load.  (V 4, fp32: col itself.)
+template <int V>
+__device__ __forceinline__ int staged_pos(int col) {
+  const int c = col / (32 * V), l = (col / V) % 32, e = col % V;
+  return ((c * (V / 4) + e / 4) * 32 + l) * 4 + e % 4;
+}
 
-  float v[MAXC][4];
-  float sum = 0.f;
+template <int V>
+__device__ __forceinline__ void load_staged(const float* vec, int c, int lane,
+                                            float (&v)[V]) {
 #pragma unroll
-  for (int c = 0; c < MAXC; ++c) {
-    if (c >= nc) break;
-    const int col = c * 128 + lane * 4;
-    load4(base + off + col, v[c]);
-    if (branch != nullptr) {
-      float br[4];
-      load4(branch + off + col, br);
-      if (gate != nullptr) {
-        float g[4];
-        load4(gate + batch * gate_sb + col, g);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) br[e] = __fmul_rn(g[e], br[e]);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) v[c][e] = __fadd_rn(v[c][e], br[e]);
-    }
-    if (res != nullptr) {
-      float r[4];
-      load4(res + off + col, r);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) v[c][e] = __fadd_rn(v[c][e], r[e]);
-    }
-    if (total_f32) {
-      store4(static_cast<float*>(total) + off + col, v[c]);
-    } else {
-      store4(static_cast<T*>(total) + off + col, v[c]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) v[c][e] = round_to(v[c][e], tag);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) sum += is_rms ? v[c][e] * v[c][e] : v[c][e];
-  }
-
-  const float inv_d = 1.f / static_cast<float>(D);
-  float mean = 0.f, rstd;
-  if (is_rms) {
-    rstd = rsqrtf(warp_sum(sum) * inv_d + eps);
-  } else {
-    mean = warp_sum(sum) * inv_d;
-    float sq = 0.f;
-#pragma unroll
-    for (int c = 0; c < MAXC; ++c) {
-      if (c >= nc) break;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float d = v[c][e] - mean;
-        sq += d * d;
-      }
-    }
-    rstd = rsqrtf(warp_sum(sq) * inv_d + eps);
-  }
-
-#pragma unroll
-  for (int c = 0; c < MAXC; ++c) {
-    if (c >= nc) break;
-    const int col = c * 128 + lane * 4;
-    float o[4], wv[4] = {1.f, 1.f, 1.f, 1.f}, bv[4] = {0.f, 0.f, 0.f, 0.f};
-    if (w != nullptr) load4(w + col, wv);
-    if (b != nullptr) load4(b + col, bv);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float n = __fmul_rn(v[c][e] - mean, rstd);
-      if (w != nullptr) n = __fmul_rn(n, wv[e]);
-      if (b != nullptr) n = __fadd_rn(n, bv[e]);
-      o[e] = round_to(n, tag);
-    }
-    if (shift != nullptr) {
-      float sh[4], sc[4];
-      load4(shift + batch * shift_sb + col, sh);
-      load4(scale + batch * scale_sb + col, sc);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float a = round_to(__fadd_rn(1.f, sc[e]), tag);
-        const float m = round_to(__fmul_rn(o[e], a), tag);
-        o[e] = round_to(__fadd_rn(m, sh[e]), tag);
-      }
-    }
-    store4(out + off + col, o);
+  for (int h = 0; h < V / 4; ++h) {
+    const float4 x = reinterpret_cast<const float4*>(vec)[(c * (V / 4) + h) *
+                                                          32 + lane];
+    v[4 * h] = x.x;
+    v[4 * h + 1] = x.y;
+    v[4 * h + 2] = x.z;
+    v[4 * h + 3] = x.w;
   }
 }
 
-template <typename T, int MAXC>
-cudaError_t launch(const void* base, const void* branch, const void* gate,
-                   const void* res, const void* w, const void* b,
-                   const void* shift, const void* scale, void* out,
-                   void* total, const long long (&sb)[3], int rows, int L,
-                   int D, int total_f32, int is_rms, float eps,
+// NCH: the most chunks of 32 16-byte vectors a row spans (lane values
+// NCH * V).
+template <typename T, int NCH>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+    norm_mod_kernel(const Params p) {
+  constexpr int V = 16 / sizeof(T);
+  const T* tag = nullptr;  // selects round_to's type
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int D = p.D, nw = p.nw, stages = p.stages;
+
+  // this block's run: rows [start, start + len) of batch `batch`
+  const int batch = blockIdx.x / p.k, part = blockIdx.x % p.k;
+  const int q = p.L / p.k, rem = p.L % p.k;
+  const long long start = static_cast<long long>(batch) * p.L +
+                          static_cast<long long>(part) * q + min(part, rem);
+  const int len = q + (part < rem ? 1 : 0);
+  const int nrows = len > warp ? (len - warp + nw - 1) / nw : 0;
+
+  float* vecs = reinterpret_cast<float*>(smem);
+  unsigned char* ring = smem + p.ring_off + warp * stages * p.row_bytes;
+  const uint32_t bars = smem_addr(smem + p.bars_off) + 8 * warp * stages;
+  const T* base = static_cast<const T*>(p.base);
+  const T* branch = static_cast<const T*>(p.branch);
+  const uint32_t row_in = static_cast<uint32_t>(D) * sizeof(T);
+
+  // lane 0: this warp's row j into stage s
+  auto issue = [&](int j, int s) {
+    const long long off = (start + warp + static_cast<long long>(j) * nw) * D;
+    const uint32_t bar = bars + 8 * s;
+    const uint32_t dst = smem_addr(ring + s * p.row_bytes);
+    mbar_expect_tx(bar, p.row_bytes);
+    bulk_load(dst, base + off, row_in, bar);
+    if (branch != nullptr) {
+      bulk_load(dst + p.off_branch, branch + off, row_in, bar);
+    }
+    if (p.res != nullptr) bulk_load(dst + p.off_res, p.res + off, 4 * D, bar);
+  };
+  if (lane == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(bars + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int s = 0; s < stages && s < nrows; ++s) issue(s, s);
+  }
+
+  // the run's vectors, while the first rows are in flight: 4 columns a
+  // thread and pass, all of a pass's loads issued before its stores (one
+  // round trip a pass: one at D <= 128 nw)
+  for (int c4 = 4 * tid; c4 < D; c4 += 128 * nw) {
+    float wv[4], bv[4], g[4], sh[4], sc[4];
+    if (p.off_w >= 0) load4(p.w + c4, wv);
+    if (p.off_b >= 0) load4(p.b + c4, bv);
+    if (p.off_g >= 0) {
+      load4(static_cast<const T*>(p.gate) + batch * p.gate_sb + c4, g);
+    }
+    if (p.off_sh >= 0) {
+      load4(static_cast<const T*>(p.shift) + batch * p.shift_sb + c4, sh);
+      load4(static_cast<const T*>(p.scale) + batch * p.scale_sb + c4, sc);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[e] = round_to(__fadd_rn(1.f, sc[e]), tag);
+    }
+    const int at = staged_pos<V>(c4);  // 4 columns, 4 adjacent floats
+    if (p.off_w >= 0) store4(vecs + p.off_w + at, wv);
+    if (p.off_b >= 0) store4(vecs + p.off_b + at, bv);
+    if (p.off_g >= 0) store4(vecs + p.off_g + at, g);
+    if (p.off_sh >= 0) {
+      store4(vecs + p.off_sh + at, sh);
+      store4(vecs + p.off_a + at, sc);
+    }
+  }
+  __syncthreads();
+
+  const int nc = (D + 32 * V - 1) / (32 * V);
+  const float inv_d = 1.f / static_cast<float>(D);
+  for (int j = 0; j < nrows; ++j) {
+    const int s = j % stages;
+    mbar_wait(bars + 8 * s, (j / stages) & 1);
+    const unsigned char* st = ring + s * p.row_bytes;
+    const long long off = (start + warp + static_cast<long long>(j) * nw) * D;
+
+    // the total, from the stage
+    float v[NCH][V];
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      const int col = (c * 32 + lane) * V;
+      if (c >= nc || col >= D) break;
+      unpack(*reinterpret_cast<const uint4*>(st + col * sizeof(T)), v[c]);
+      if (branch != nullptr) {
+        float br[V];
+        unpack(*reinterpret_cast<const uint4*>(st + p.off_branch +
+                                               col * sizeof(T)),
+               br);
+        if (p.off_g >= 0) {
+          float g[V];
+          load_staged<V>(vecs + p.off_g, c, lane, g);
+#pragma unroll
+          for (int e = 0; e < V; ++e) br[e] = __fmul_rn(g[e], br[e]);
+        }
+#pragma unroll
+        for (int e = 0; e < V; ++e) v[c][e] = __fadd_rn(v[c][e], br[e]);
+      }
+      if (p.res != nullptr) {
+#pragma unroll
+        for (int h = 0; h < V / 4; ++h) {
+          float r[4];
+          unpack(*reinterpret_cast<const uint4*>(st + p.off_res +
+                                                 4 * (col + 4 * h)),
+                 r);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            v[c][4 * h + e] = __fadd_rn(v[c][4 * h + e], r[e]);
+        }
+      }
+    }
+    // every lane has read the stage (its values are in registers): refill
+    // it with row j + stages
+    __syncwarp();
+    if (lane == 0 && j + stages < nrows) issue(j + stages, s);
+
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      const int col = (c * 32 + lane) * V;
+      if (c >= nc || col >= D) break;
+      if (p.total_f32) {
+        float* t = static_cast<float*>(p.total) + off + col;
+#pragma unroll
+        for (int h = 0; h < V / 4; ++h) {
+          const float q4[4] = {v[c][4 * h], v[c][4 * h + 1],
+                               v[c][4 * h + 2], v[c][4 * h + 3]};
+          *reinterpret_cast<uint4*>(t + 4 * h) = pack(q4, t);
+        }
+      } else {
+        *reinterpret_cast<uint4*>(static_cast<T*>(p.total) + off + col) =
+            pack(v[c], tag);
+#pragma unroll
+        for (int e = 0; e < V; ++e) v[c][e] = round_to(v[c][e], tag);
+      }
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        sum += p.is_rms ? v[c][e] * v[c][e] : v[c][e];
+      }
+    }
+
+    float mean = 0.f, rstd;
+    if (p.is_rms) {
+      rstd = rsqrtf(warp_sum(sum) * inv_d + p.eps);
+    } else {
+      mean = warp_sum(sum) * inv_d;
+      float sq = 0.f;
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) {
+        if (c >= nc || (c * 32 + lane) * V >= D) break;
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          const float d = v[c][e] - mean;
+          sq += d * d;
+        }
+      }
+      rstd = rsqrtf(warp_sum(sq) * inv_d + p.eps);
+    }
+
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      const int col = (c * 32 + lane) * V;
+      if (c >= nc || col >= D) break;
+      float o[V], wv[V], bv[V];
+      if (p.off_w >= 0) load_staged<V>(vecs + p.off_w, c, lane, wv);
+      if (p.off_b >= 0) load_staged<V>(vecs + p.off_b, c, lane, bv);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        float n = __fmul_rn(v[c][e] - mean, rstd);
+        if (p.off_w >= 0) n = __fmul_rn(n, wv[e]);
+        if (p.off_b >= 0) n = __fadd_rn(n, bv[e]);
+        o[e] = round_to(n, tag);
+      }
+      if (p.off_sh >= 0) {
+        float sh[V], a[V];
+        load_staged<V>(vecs + p.off_sh, c, lane, sh);
+        load_staged<V>(vecs + p.off_a, c, lane, a);
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          const float m = round_to(__fmul_rn(o[e], a[e]), tag);
+          o[e] = round_to(__fadd_rn(m, sh[e]), tag);
+        }
+      }
+      *reinterpret_cast<uint4*>(static_cast<T*>(p.out) + off + col) =
+          pack(o, tag);
+    }
+  }
+}
+
+// The current device's SM count; on a device's first call, also lets the
+// kernel ask for kSmemMax bytes of shared memory.  Once a device and
+// instantiation, so that a launch adds no queries.
+template <typename T, int NCH>
+cudaError_t prepare_device(int* sms) {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<int> known[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int n = known[dev].load(std::memory_order_relaxed);
+  if (n == 0) {
+    err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(norm_mod_kernel<T, NCH>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kSmemMax);
+    }
+    if (err != cudaSuccess) return err;
+    known[dev].store(n, std::memory_order_relaxed);
+  }
+  *sms = n;
+  return cudaSuccess;
+}
+
+// Lay out shared memory for nw warps of `stages` stages; the bytes, or -1
+// when they exceed kSmemMax.
+template <typename T>
+long long layout(Params& p, int nw, int stages) {
+  constexpr int V = 16 / sizeof(T);
+  const int D = p.D;
+  p.dp = (D + 32 * V - 1) / (32 * V) * 32 * V;
+  int n = 0;
+  auto place = [&](bool present) { return present ? p.dp * n++ : -1; };
+  p.off_w = place(p.w != nullptr);
+  p.off_b = place(p.b != nullptr);
+  p.off_g = place(p.gate != nullptr);
+  p.off_sh = place(p.shift != nullptr);
+  p.off_a = place(p.shift != nullptr);
+  p.ring_off = 4 * p.dp * n;
+  p.off_branch = D * static_cast<int>(sizeof(T));
+  p.off_res = p.off_branch * (p.branch != nullptr ? 2 : 1);
+  p.row_bytes = p.off_res + (p.res != nullptr ? 4 * D : 0);
+  p.nw = nw;
+  p.stages = stages;
+  p.bars_off = p.ring_off + nw * stages * p.row_bytes;
+  const long long bytes = p.bars_off + 8LL * nw * stages;
+  return bytes <= kSmemMax ? bytes : -1;
+}
+
+// Launch with nw warps a block (0: the most of 8, 4, 2, 1 that fit) and
+// `stages` ring stages, at most per_sm blocks an SM (0: as many as fit).
+template <typename T, int NCH>
+cudaError_t launch(Params p, int B, int nw, int stages, int per_sm,
                    cudaStream_t stream) {
-  const int grid = (rows + kWarps - 1) / kWarps;
-  norm_mod_kernel<T, MAXC><<<grid, kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(base), static_cast<const T*>(branch),
-      static_cast<const T*>(gate), static_cast<const float*>(res),
-      static_cast<const float*>(w), static_cast<const float*>(b),
-      static_cast<const T*>(shift), static_cast<const T*>(scale),
-      static_cast<T*>(out), total, sb[0], sb[1], sb[2], rows, L, D, total_f32,
-      is_rms, eps);
+  long long smem = -1;
+  if (nw > 0) {
+    smem = layout<T>(p, nw, stages);
+  } else {
+    for (nw = kMaxWarps; nw >= 1 && smem < 0; nw /= 2) {
+      smem = layout<T>(p, nw, stages);
+    }
+  }
+  if (smem < 0) return cudaErrorInvalidValue;
+  int sms = 0, fit = 0;
+  cudaError_t err = prepare_device<T, NCH>(&sms);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &fit, norm_mod_kernel<T, NCH>, p.nw * 32, static_cast<size_t>(smem));
+  if (err != cudaSuccess) return err;
+  if (fit < 1) return cudaErrorInvalidConfiguration;
+  if (per_sm > 0 && per_sm < fit) fit = per_sm;
+  // k runs a batch: one wave of blocks, each run at least one row
+  const long long resident = static_cast<long long>(sms) * fit;
+  long long k = resident / B;
+  k = k < 1 ? 1 : (k > p.L ? p.L : k);
+  p.k = static_cast<int>(k);
+  const long long grid = B * k;
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  norm_mod_kernel<T, NCH><<<static_cast<unsigned>(grid), p.nw * 32,
+                            static_cast<size_t>(smem), stream>>>(p);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(const void* base, const void* branch, const void* gate,
-                     const void* res, const void* w, const void* b,
-                     const void* shift, const void* scale, void* out,
-                     void* total, const long long (&sb)[3], int rows, int L,
-                     int D, int total_f32, int is_rms, float eps,
+cudaError_t dispatch(const Params& p, int B, int nw, int stages, int per_sm,
                      cudaStream_t stream) {
-  const int nc = D / 128;
-  if (nc <= 8)
-    return launch<T, 8>(base, branch, gate, res, w, b, shift, scale, out,
-                        total, sb, rows, L, D, total_f32, is_rms, eps,
-                        stream);
-  if (nc <= 16)
-    return launch<T, 16>(base, branch, gate, res, w, b, shift, scale, out,
-                         total, sb, rows, L, D, total_f32, is_rms, eps,
-                         stream);
-  return launch<T, 32>(base, branch, gate, res, w, b, shift, scale, out,
-                       total, sb, rows, L, D, total_f32, is_rms, eps, stream);
+  constexpr int V = 16 / sizeof(T);
+  const int nc = (p.D + 32 * V - 1) / (32 * V);  // chunks a lane
+  if (nc * V <= 32) {
+    return launch<T, 32 / V>(p, B, nw, stages, per_sm, stream);
+  }
+  if (nc * V <= 64) {
+    return launch<T, 64 / V>(p, B, nw, stages, per_sm, stream);
+  }
+  return launch<T, 128 / V>(p, B, nw, stages, per_sm, stream);
+}
+
+int run(const void* base, const void* branch, const void* gate,
+        const void* res, const void* w, const void* b, const void* shift,
+        const void* scale, void* out, void* total, long long gate_sb,
+        long long shift_sb, long long scale_sb, int rows, int L, int D,
+        int dtype, int total_f32, int is_rms, float eps, int nw, int stages,
+        int per_sm, void* stream) {
+  auto misaligned = [](const void* q) {
+    return reinterpret_cast<uintptr_t>(q) % 16 != 0;
+  };
+  if (rows <= 0 || L <= 0 || rows % L != 0 || D <= 0 || D % 128 != 0 ||
+      D > 4096 || (shift == nullptr) != (scale == nullptr) ||
+      (gate != nullptr && branch == nullptr) || (dtype != 0 && dtype != 1) ||
+      misaligned(base) || misaligned(branch) || misaligned(res) ||
+      misaligned(out) || misaligned(total) || stages < 1 || stages > 4) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Params p;
+  p.base = base;
+  p.branch = branch;
+  p.gate = gate;
+  p.res = static_cast<const float*>(res);
+  p.w = static_cast<const float*>(w);
+  p.b = static_cast<const float*>(b);
+  p.shift = shift;
+  p.scale = scale;
+  p.out = out;
+  p.total = total;
+  p.gate_sb = gate_sb;
+  p.shift_sb = shift_sb;
+  p.scale_sb = scale_sb;
+  p.L = L;
+  p.D = D;
+  p.k = 1;
+  p.total_f32 = dtype == 0 ? 1 : total_f32;
+  p.is_rms = is_rms;
+  p.eps = eps;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int B = rows / L;
+  return static_cast<int>(
+      dtype == 0 ? dispatch<float>(p, B, nw, stages, per_sm, s)
+                 : dispatch<__nv_bfloat16>(p, B, nw, stages, per_sm, s));
 }
 
 }  // namespace
@@ -245,19 +569,24 @@ extern "C" int dimsum_norm_modulate(const void* base, const void* branch,
                                     int rows, int L, int D, int dtype,
                                     int total_f32, int is_rms, float eps,
                                     void* stream) {
-  if (rows <= 0 || L <= 0 || rows % L != 0 || D <= 0 || D % 128 != 0 ||
-      D > 4096 || (shift == nullptr) != (scale == nullptr) ||
-      (gate != nullptr && branch == nullptr) || (dtype != 0 && dtype != 1)) {
+  return run(base, branch, gate, res, w, b, shift, scale, out, total,
+             gate_sb, shift_sb, scale_sb, rows, L, D, dtype, total_f32,
+             is_rms, eps, 0, kStages, 0, stream);
+}
+
+// Design comparison (temporary): the same kernel with nw warps a block (0:
+// the route's choice), `stages` ring stages (1-4) and at most per_sm blocks
+// an SM (0: as many as fit).
+extern "C" int dimsum_norm_modulate_config(
+    const void* base, const void* branch, const void* gate, const void* res,
+    const void* w, const void* b, const void* shift, const void* scale,
+    void* out, void* total, long long gate_sb, long long shift_sb,
+    long long scale_sb, int rows, int L, int D, int dtype, int total_f32,
+    int is_rms, float eps, int nw, int stages, int per_sm, void* stream) {
+  if (nw < 0 || nw > kMaxWarps || (nw & (nw - 1)) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long sb[3] = {gate_sb, shift_sb, scale_sb};
-  if (dtype == 0) {
-    return static_cast<int>(dispatch<float>(base, branch, gate, res, w, b,
-                                            shift, scale, out, total, sb,
-                                            rows, L, D, 1, is_rms, eps, s));
-  }
-  return static_cast<int>(dispatch<__nv_bfloat16>(
-      base, branch, gate, res, w, b, shift, scale, out, total, sb, rows, L,
-      D, total_f32, is_rms, eps, s));
+  return run(base, branch, gate, res, w, b, shift, scale, out, total,
+             gate_sb, shift_sb, scale_sb, rows, L, D, dtype, total_f32,
+             is_rms, eps, nw, stages, per_sm, stream);
 }

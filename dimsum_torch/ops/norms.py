@@ -327,8 +327,8 @@ def norm_modulate_cuda(x, weight=None, bias=None, branch=None, gate=None,
     (float32 or bfloat16); residual (B, L, D), weight and bias (D,) in
     float32; any of them but x may be None (shift and scale together);
     `total_dtype` float32 or x's dtype; all contiguous, except that the rows
-    of gate, shift and scale may lie apart (adaLN chunks); D % 128 == 0 and
-    D <= 4096.  Returns new (out, total).  Raises on anything else, and
+    of gate, shift and scale may lie apart (adaLN chunks); x, branch and
+    residual 16-byte aligned; D % 128 == 0 and D <= 4096.  Returns new (out, total).  Raises on anything else, and
     under grad mode with an input that requires grad (the training route is
     `NormModulateFn`)."""
     tensors = (x, branch, gate, residual, weight, bias, shift, scale)
@@ -361,6 +361,9 @@ def norm_modulate_cuda(x, weight=None, bias=None, branch=None, gate=None,
     for name, t in (("gate", gate), ("shift", shift), ("scale", scale)):
         if t is not None:
             _check(name, t, dev, dt, (B, D), strided_rows=True)
+    for name, t in (("x", x), ("branch", branch), ("residual", residual)):
+        if t is not None and t.data_ptr() % 16:  # the kernel's bulk copies
+            raise ValueError(f"{name} must be aligned to 16 bytes")
     out = torch.empty_like(x)
     total = torch.empty((B, L, D), device=dev, dtype=total_dtype)
     strides = [0 if t is None else t.stride(0) for t in (gate, shift, scale)]

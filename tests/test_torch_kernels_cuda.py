@@ -917,9 +917,15 @@ def test_fused_kernels_refuse_cpu_tensors():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", NORM_CASES)
-@pytest.mark.parametrize("D", [128, 1152, 4096])
-def test_norm_modulate_kernel_matches_plain_on_card(cuda, dtype, case, D):
-    v = norm_inputs(cuda, dtype, D=D, seed=D)
+@pytest.mark.parametrize("B, L, D", [
+    (3, 40, 128), (3, 40, 1152), (3, 40, 4096),
+    # the row runs: fewer rows than blocks; runs that differ by one row
+    # (bf16 at D 1152: the last 16-byte chunk on half the lanes); more
+    # batches than the card holds blocks; the 512-px shape
+    (1, 8, 1024), (2, 1000, 1152), (300, 8, 256), (24, 1024, 1024)])
+def test_norm_modulate_kernel_matches_plain_on_card(cuda, dtype, case, B, L,
+                                                    D):
+    v = norm_inputs(cuda, dtype, B=B, L=L, D=D, seed=D)
     kw = norm_kwargs(v, case)
     before = norm_modulate_cuda.launches
     out, tot = norm_modulate_cuda(v["x"], **kw)
@@ -929,6 +935,33 @@ def test_norm_modulate_kernel_matches_plain_on_card(cuda, dtype, case, D):
     assert out.dtype == want_out.dtype and tot.dtype == want_tot.dtype
     _close(out, want_out, _low(out))
     _close(tot, want_tot, _low(tot))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [c for c in NORM_CASES if c[2]])
+@pytest.mark.parametrize("B, L, D", [(3, 40, 1152), (24, 256, 1024)])
+def test_norm_modulate_kernel_fp32_total_bit_for_bit_on_card(cuda, dtype,
+                                                             case, B, L, D):
+    """With a residual the total is fp32, each product and sum rounded
+    once in the plain version's order: the same bits."""
+    v = norm_inputs(cuda, dtype, B=B, L=L, D=D, seed=L)
+    kw = norm_kwargs(v, case)
+    _, tot = norm_modulate_cuda(v["x"], **kw)
+    _, want = norm_modulate_ref(v["x"], **kw)
+    torch.cuda.synchronize()
+    assert tot.dtype == want.dtype == torch.float32
+    torch.testing.assert_close(tot, want, rtol=0, atol=0)
+
+
+def test_norm_modulate_kernel_refuses_rows_off_16_bytes(cuda):
+    """The kernel copies rows in 16-byte units: a bf16 x that lies 8 bytes
+    off is refused (it passes the 4-value alignment of every operand)."""
+    v = norm_inputs(cuda, torch.bfloat16, B=2, L=8, D=128)
+    flat = torch.zeros(2 * 8 * 128 + 4, device=cuda, dtype=torch.bfloat16)
+    x = flat[4:].view(2, 8, 128)
+    x.copy_(v["x"])
+    with torch.no_grad(), pytest.raises(ValueError, match="16 bytes"):
+        norm_modulate_cuda(x, v["weight"], branch=v["branch"])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
