@@ -22,30 +22,57 @@
 //
 // What bounds it on an H100: device memory.  At DiM-L/2's 256-px rows
 // (24 x 256 x 1024, bf16) the norm_2 site moves base, branch, out and total
-// (50.3 MB, 15.0 us at 3.35 TB/s) and does ~10 flop a value.  The design:
+// (50.3 MB, 15.0 us at 3.35 TB/s) and does ~10 flop a value; at 512 px
+// (24 x 1024 x 1024) 201 MB, 60.1 us.  The first design (one warp a row,
+// one row a warp, 4 warps a block) ran at 48% of that bound; this one
+// answers its four faults:
 //
-// - A grid of one run of rows a block, as many blocks as the card holds at
-//   once.  Each batch's L rows are cut into k runs that differ by at most
-//   one row, k = (resident blocks) / B, so no run crosses a batch and
-//   every block does about the same work in one wave.
-// - The run's per-batch vectors (gate, shift and the rounded 1 + scale,
-//   which is the value the modulation reads on every element) and the
-//   per-channel w and b are staged once into shared memory as fp32, laid
-//   out so that a lane reads its columns of a vector with conflict-free
-//   16-byte loads.  The rows then read no vector from L1 or L2.
-// - Each warp walks the run's rows (warp w takes rows w, w + nw, ...)
-//   through its own ring of stages: one lane asks for the next rows of
-//   base, branch and res with 1-D TMA bulk copies (cp.async.bulk, an
-//   mbarrier a stage), so those loads are in flight while the warp reduces
-//   and stores the current row.  The stage is refilled as soon as the warp
-//   has read it, before the row's stores.
-// - Every global load is a bulk copy and every store a 16-byte vector (8
-//   bf16 or 4 fp32 a lane).  Lane l holds columns 32 v c + v l .. + v - 1
-//   (v values a 16-byte vector) for each chunk c; where D % (32 v) != 0
-//   (bf16 at D 128, 1152) the last chunk spans half the lanes.
-// - Both moments are reduced with warp shuffles over registers.  LayerNorm
-//   keeps its two passes (the mean, then the centred variance, as the TPU
-//   kernel takes them) over the registers, not over device memory.
+// - Per-batch vectors reloaded on every row, after the reduction.  The
+//   run's per-batch vectors (gate, shift and the rounded 1 + scale, the
+//   value the modulation reads on every element) and the per-channel w
+//   and b are staged once a block into shared memory as fp32, laid out so
+//   that a lane reads its columns of a vector with conflict-free 16-byte
+//   loads; all of a thread's staging loads are issued before its stores,
+//   one round trip at D <= 1024.
+// - One row a warp, then exit: no overlap of the next row's loads with
+//   this row's reduction and stores.  Each block takes one run of rows
+//   inside a batch: each batch's L rows are cut into k runs that differ by
+//   at most one row, k = (blocks the card holds at once) / B, so the grid
+//   is one wave and no run crosses a batch.  Warp w walks the run's rows
+//   w, w + nw, ...: one lane asks for its next row of base, branch and res
+//   by 1-D TMA bulk copies (cp.async.bulk, completing on the warp's
+//   mbarrier) as soon as the warp has read the current row out of its
+//   stage, so the next row is in flight while this one is reduced and
+//   stored.
+// - 8-byte bf16 accesses.  Every global load of a row is a bulk copy and
+//   every store a 16-byte vector (8 bf16 or 4 fp32 a lane).  Lane l holds
+//   columns 32 v c + v l .. + v - 1 (v values a 16-byte vector) of each
+//   chunk c; where D % (32 v) != 0 (bf16 at D 128, 1152) the last chunk
+//   spans half the lanes.
+// - A warm L2 in back-to-back timing.  Measured both ways: 256-px norm_2
+//   with 128 MB written between launches, and the 512-px rows, whose
+//   inputs exceed the L2.
+//
+// Both moments are reduced with warp shuffles over registers; LayerNorm
+// keeps its two passes (the mean, then the centred variance, as the TPU
+// kernel takes them) over the registers, not over device memory.  A block
+// has 8 warps where their stages and the vectors fit in 227 KB of shared
+// memory (fewer at D 4096 with every operand).
+//
+// Device time (torch.profiler, `chip_smoke.py` kernel-norm, H100 80GB HBM3
+// at 700.00 W): norm_2 0.0196 ms at 256 px (77% of the bound), 0.0221 with
+// a cold L2 (68%), 0.0806 at 512 px (75%); the first design, timed beside
+// the others below, 0.0318 / 0.0976; DiT h2 0.0198 / 0.0810 (76% / 74%);
+// h1 / Final 0.0139 (81%), the deferred top 0.0324 (81%); fp32 80-83%.
+// Designs timed against each other in turns (norm_mod_designs.py, in the
+// commit that brought this design): a ring of 2 stages a warp, 0.0212 ms
+// at 256-px norm_2; 3 stages 0.0234; 2 stages at one block an SM 0.0238;
+// 4 warps a block 0.0215 (one stage) and 0.0222 (two), against 0.0198 for
+// this design (8 warps, one stage); at 512 px all within 3%.  A deeper
+// ring asks for more rows at once, and in a one-wave kernel that
+// saturates device memory every warp's first row then lands later.
+// PyTorch's add (two reads, one write) reaches 3.02 TB/s at the 512-px
+// size (90%); this kernel 2.5 TB/s.
 //
 // The products and sums that PyTorch evaluates as separate ops use
 // __fmul_rn / __fadd_rn, so nvcc does not contract them into FMAs and the
@@ -63,7 +90,6 @@
 namespace {
 
 constexpr int kMaxWarps = 8;      // rows in flight a block, one a warp
-constexpr int kStages = 2;        // ring stages a warp
 constexpr int kSmemMax = 232448;  // what a block may ask for
 
 struct Params {
@@ -79,13 +105,14 @@ struct Params {
   void* total;
   long long gate_sb, shift_sb, scale_sb;
   int L, D, k;  // k runs a batch
-  int nw, stages;
+  int nw;
   int total_f32, is_rms;
   float eps;
   // shared memory: the staged vectors (dp floats each, at these float
-  // offsets; -1 when absent), then each warp's ring, then its mbarriers
+  // offsets; -1 when absent), then each warp's row stage (base, branch,
+  // res at byte offsets 0, off_branch, off_res), then its mbarrier
   int dp, off_w, off_b, off_g, off_sh, off_a;
-  int ring_off, row_bytes, off_branch, off_res, bars_off;
+  int stage_off, row_bytes, off_branch, off_res, bars_off;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -106,7 +133,7 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
 }
 
 // Wait until the barrier's phase with this parity has completed: the n-th
-// use of a ring stage (n = 0, 1, ...) waits with parity n & 1.  A wait that
+// use of a stage (n = 0, 1, ...) waits with parity n & 1.  A wait that
 // outlasts 2^30 polls (seconds) traps, so that a lost copy fails the launch
 // instead of hanging the card.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
@@ -228,7 +255,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   const T* tag = nullptr;  // selects round_to's type
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int D = p.D, nw = p.nw, stages = p.stages;
+  const int D = p.D, nw = p.nw;
 
   // this block's run: rows [start, start + len) of batch `batch`
   const int batch = blockIdx.x / p.k, part = blockIdx.x % p.k;
@@ -239,17 +266,16 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   const int nrows = len > warp ? (len - warp + nw - 1) / nw : 0;
 
   float* vecs = reinterpret_cast<float*>(smem);
-  unsigned char* ring = smem + p.ring_off + warp * stages * p.row_bytes;
-  const uint32_t bars = smem_addr(smem + p.bars_off) + 8 * warp * stages;
+  unsigned char* stage = smem + p.stage_off + warp * p.row_bytes;
+  const uint32_t bar = smem_addr(smem + p.bars_off) + 8 * warp;
   const T* base = static_cast<const T*>(p.base);
   const T* branch = static_cast<const T*>(p.branch);
   const uint32_t row_in = static_cast<uint32_t>(D) * sizeof(T);
 
-  // lane 0: this warp's row j into stage s
-  auto issue = [&](int j, int s) {
+  // lane 0: this warp's row j into its stage
+  auto issue = [&](int j) {
     const long long off = (start + warp + static_cast<long long>(j) * nw) * D;
-    const uint32_t bar = bars + 8 * s;
-    const uint32_t dst = smem_addr(ring + s * p.row_bytes);
+    const uint32_t dst = smem_addr(stage);
     mbar_expect_tx(bar, p.row_bytes);
     bulk_load(dst, base + off, row_in, bar);
     if (branch != nullptr) {
@@ -258,9 +284,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     if (p.res != nullptr) bulk_load(dst + p.off_res, p.res + off, 4 * D, bar);
   };
   if (lane == 0) {
-    for (int s = 0; s < stages; ++s) mbar_init(bars + 8 * s, 1);
+    mbar_init(bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (int s = 0; s < stages && s < nrows; ++s) issue(s, s);
+    if (nrows > 0) issue(0);
   }
 
   // the run's vectors, while the first rows are in flight: 4 columns a
@@ -293,9 +319,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   const int nc = (D + 32 * V - 1) / (32 * V);
   const float inv_d = 1.f / static_cast<float>(D);
   for (int j = 0; j < nrows; ++j) {
-    const int s = j % stages;
-    mbar_wait(bars + 8 * s, (j / stages) & 1);
-    const unsigned char* st = ring + s * p.row_bytes;
+    mbar_wait(bar, j & 1);
     const long long off = (start + warp + static_cast<long long>(j) * nw) * D;
 
     // the total, from the stage
@@ -304,10 +328,10 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     for (int c = 0; c < NCH; ++c) {
       const int col = (c * 32 + lane) * V;
       if (c >= nc || col >= D) break;
-      unpack(*reinterpret_cast<const uint4*>(st + col * sizeof(T)), v[c]);
+      unpack(*reinterpret_cast<const uint4*>(stage + col * sizeof(T)), v[c]);
       if (branch != nullptr) {
         float br[V];
-        unpack(*reinterpret_cast<const uint4*>(st + p.off_branch +
+        unpack(*reinterpret_cast<const uint4*>(stage + p.off_branch +
                                                col * sizeof(T)),
                br);
         if (p.off_g >= 0) {
@@ -323,7 +347,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 #pragma unroll
         for (int h = 0; h < V / 4; ++h) {
           float r[4];
-          unpack(*reinterpret_cast<const uint4*>(st + p.off_res +
+          unpack(*reinterpret_cast<const uint4*>(stage + p.off_res +
                                                  4 * (col + 4 * h)),
                  r);
 #pragma unroll
@@ -333,9 +357,10 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
       }
     }
     // every lane has read the stage (its values are in registers): refill
-    // it with row j + stages
+    // it with the next row, which is in flight while this one is reduced
+    // and stored
     __syncwarp();
-    if (lane == 0 && j + stages < nrows) issue(j + stages, s);
+    if (lane == 0 && j + 1 < nrows) issue(j + 1);
 
     float sum = 0.f;
 #pragma unroll
@@ -436,10 +461,10 @@ cudaError_t prepare_device(int* sms) {
   return cudaSuccess;
 }
 
-// Lay out shared memory for nw warps of `stages` stages; the bytes, or -1
-// when they exceed kSmemMax.
+// Lay out shared memory for nw warps; the bytes, or -1 when they exceed
+// kSmemMax.
 template <typename T>
-long long layout(Params& p, int nw, int stages) {
+long long layout(Params& p, int nw) {
   constexpr int V = 16 / sizeof(T);
   const int D = p.D;
   p.dp = (D + 32 * V - 1) / (32 * V) * 32 * V;
@@ -450,29 +475,24 @@ long long layout(Params& p, int nw, int stages) {
   p.off_g = place(p.gate != nullptr);
   p.off_sh = place(p.shift != nullptr);
   p.off_a = place(p.shift != nullptr);
-  p.ring_off = 4 * p.dp * n;
+  p.stage_off = 4 * p.dp * n;
   p.off_branch = D * static_cast<int>(sizeof(T));
   p.off_res = p.off_branch * (p.branch != nullptr ? 2 : 1);
   p.row_bytes = p.off_res + (p.res != nullptr ? 4 * D : 0);
   p.nw = nw;
-  p.stages = stages;
-  p.bars_off = p.ring_off + nw * stages * p.row_bytes;
-  const long long bytes = p.bars_off + 8LL * nw * stages;
+  p.bars_off = p.stage_off + nw * p.row_bytes;
+  const long long bytes = p.bars_off + 8LL * nw;
   return bytes <= kSmemMax ? bytes : -1;
 }
 
-// Launch with nw warps a block (0: the most of 8, 4, 2, 1 that fit) and
-// `stages` ring stages, at most per_sm blocks an SM (0: as many as fit).
+// Launch with the most warps a block of 8, 4, 2, 1 whose shared memory
+// fits, and k runs a batch: as many blocks as the card holds at once (at
+// least one a batch, at most one a row).
 template <typename T, int NCH>
-cudaError_t launch(Params p, int B, int nw, int stages, int per_sm,
-                   cudaStream_t stream) {
+cudaError_t launch(Params p, int B, cudaStream_t stream) {
   long long smem = -1;
-  if (nw > 0) {
-    smem = layout<T>(p, nw, stages);
-  } else {
-    for (nw = kMaxWarps; nw >= 1 && smem < 0; nw /= 2) {
-      smem = layout<T>(p, nw, stages);
-    }
+  for (int nw = kMaxWarps; nw >= 1 && smem < 0; nw /= 2) {
+    smem = layout<T>(p, nw);
   }
   if (smem < 0) return cudaErrorInvalidValue;
   int sms = 0, fit = 0;
@@ -482,10 +502,7 @@ cudaError_t launch(Params p, int B, int nw, int stages, int per_sm,
       &fit, norm_mod_kernel<T, NCH>, p.nw * 32, static_cast<size_t>(smem));
   if (err != cudaSuccess) return err;
   if (fit < 1) return cudaErrorInvalidConfiguration;
-  if (per_sm > 0 && per_sm < fit) fit = per_sm;
-  // k runs a batch: one wave of blocks, each run at least one row
-  const long long resident = static_cast<long long>(sms) * fit;
-  long long k = resident / B;
+  long long k = static_cast<long long>(sms) * fit / B;
   k = k < 1 ? 1 : (k > p.L ? p.L : k);
   p.k = static_cast<int>(k);
   const long long grid = B * k;
@@ -496,25 +513,31 @@ cudaError_t launch(Params p, int B, int nw, int stages, int per_sm,
 }
 
 template <typename T>
-cudaError_t dispatch(const Params& p, int B, int nw, int stages, int per_sm,
-                     cudaStream_t stream) {
+cudaError_t dispatch(const Params& p, int B, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   const int nc = (p.D + 32 * V - 1) / (32 * V);  // chunks a lane
-  if (nc * V <= 32) {
-    return launch<T, 32 / V>(p, B, nw, stages, per_sm, stream);
-  }
-  if (nc * V <= 64) {
-    return launch<T, 64 / V>(p, B, nw, stages, per_sm, stream);
-  }
-  return launch<T, 128 / V>(p, B, nw, stages, per_sm, stream);
+  if (nc * V <= 32) return launch<T, 32 / V>(p, B, stream);
+  if (nc * V <= 64) return launch<T, 64 / V>(p, B, stream);
+  return launch<T, 128 / V>(p, B, stream);
 }
 
-int run(const void* base, const void* branch, const void* gate,
-        const void* res, const void* w, const void* b, const void* shift,
-        const void* scale, void* out, void* total, long long gate_sb,
-        long long shift_sb, long long scale_sb, int rows, int L, int D,
-        int dtype, int total_f32, int is_rms, float eps, int nw, int stages,
-        int per_sm, void* stream) {
+}  // namespace
+
+// base, branch, out: (rows, D); gate, shift, scale: (rows / L, D) with row
+// strides gate_sb, shift_sb, scale_sb (elements); all of type dtype
+// (0 float32, 1 bfloat16).  res: (rows, D) float32; w, b: (D,) float32;
+// total: (rows, D), float32 when total_f32 else of type dtype.  A null
+// branch, gate, res, w, b or shift/scale pair leaves that operand out.
+// Returns a cudaError_t (0 on success).
+extern "C" int dimsum_norm_modulate(const void* base, const void* branch,
+                                    const void* gate, const void* res,
+                                    const void* w, const void* b,
+                                    const void* shift, const void* scale,
+                                    void* out, void* total, long long gate_sb,
+                                    long long shift_sb, long long scale_sb,
+                                    int rows, int L, int D, int dtype,
+                                    int total_f32, int is_rms, float eps,
+                                    void* stream) {
   auto misaligned = [](const void* q) {
     return reinterpret_cast<uintptr_t>(q) % 16 != 0;
   };
@@ -522,7 +545,7 @@ int run(const void* base, const void* branch, const void* gate,
       D > 4096 || (shift == nullptr) != (scale == nullptr) ||
       (gate != nullptr && branch == nullptr) || (dtype != 0 && dtype != 1) ||
       misaligned(base) || misaligned(branch) || misaligned(res) ||
-      misaligned(out) || misaligned(total) || stages < 1 || stages > 4) {
+      misaligned(out) || misaligned(total)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
@@ -547,46 +570,6 @@ int run(const void* base, const void* branch, const void* gate,
   p.eps = eps;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int B = rows / L;
-  return static_cast<int>(
-      dtype == 0 ? dispatch<float>(p, B, nw, stages, per_sm, s)
-                 : dispatch<__nv_bfloat16>(p, B, nw, stages, per_sm, s));
-}
-
-}  // namespace
-
-// base, branch, out: (rows, D); gate, shift, scale: (rows / L, D) with row
-// strides gate_sb, shift_sb, scale_sb (elements); all of type dtype
-// (0 float32, 1 bfloat16).  res: (rows, D) float32; w, b: (D,) float32;
-// total: (rows, D), float32 when total_f32 else of type dtype.  A null
-// branch, gate, res, w, b or shift/scale pair leaves that operand out.
-// Returns a cudaError_t (0 on success).
-extern "C" int dimsum_norm_modulate(const void* base, const void* branch,
-                                    const void* gate, const void* res,
-                                    const void* w, const void* b,
-                                    const void* shift, const void* scale,
-                                    void* out, void* total, long long gate_sb,
-                                    long long shift_sb, long long scale_sb,
-                                    int rows, int L, int D, int dtype,
-                                    int total_f32, int is_rms, float eps,
-                                    void* stream) {
-  return run(base, branch, gate, res, w, b, shift, scale, out, total,
-             gate_sb, shift_sb, scale_sb, rows, L, D, dtype, total_f32,
-             is_rms, eps, 0, kStages, 0, stream);
-}
-
-// Design comparison (temporary): the same kernel with nw warps a block (0:
-// the route's choice), `stages` ring stages (1-4) and at most per_sm blocks
-// an SM (0: as many as fit).
-extern "C" int dimsum_norm_modulate_config(
-    const void* base, const void* branch, const void* gate, const void* res,
-    const void* w, const void* b, const void* shift, const void* scale,
-    void* out, void* total, long long gate_sb, long long shift_sb,
-    long long scale_sb, int rows, int L, int D, int dtype, int total_f32,
-    int is_rms, float eps, int nw, int stages, int per_sm, void* stream) {
-  if (nw < 0 || nw > kMaxWarps || (nw & (nw - 1)) != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return run(base, branch, gate, res, w, b, shift, scale, out, total,
-             gate_sb, shift_sb, scale_sb, rows, L, D, dtype, total_f32,
-             is_rms, eps, nw, stages, per_sm, stream);
+  return static_cast<int>(dtype == 0 ? dispatch<float>(p, B, s)
+                                     : dispatch<__nv_bfloat16>(p, B, s));
 }

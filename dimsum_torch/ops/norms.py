@@ -328,9 +328,9 @@ def norm_modulate_cuda(x, weight=None, bias=None, branch=None, gate=None,
     float32; any of them but x may be None (shift and scale together);
     `total_dtype` float32 or x's dtype; all contiguous, except that the rows
     of gate, shift and scale may lie apart (adaLN chunks); x, branch and
-    residual 16-byte aligned; D % 128 == 0 and D <= 4096.  Returns new (out, total).  Raises on anything else, and
-    under grad mode with an input that requires grad (the training route is
-    `NormModulateFn`)."""
+    residual 16-byte aligned; D % 128 == 0 and D <= 4096.  Returns new
+    (out, total).  Raises on anything else, and under grad mode with an
+    input that requires grad (the training route is `NormModulateFn`)."""
     tensors = (x, branch, gate, residual, weight, bias, shift, scale)
     if needs_grad(*tensors):
         raise RuntimeError("norm_modulate_cuda has no backward; take "

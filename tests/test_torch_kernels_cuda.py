@@ -922,7 +922,7 @@ def test_fused_kernels_refuse_cpu_tensors():
     # the row runs: fewer rows than blocks; runs that differ by one row
     # (bf16 at D 1152: the last 16-byte chunk on half the lanes); more
     # batches than the card holds blocks; the 512-px shape
-    (1, 8, 1024), (2, 1000, 1152), (300, 8, 256), (24, 1024, 1024)])
+    (1, 8, 1024), (2, 1000, 1152), (600, 8, 256), (24, 1024, 1024)])
 def test_norm_modulate_kernel_matches_plain_on_card(cuda, dtype, case, B, L,
                                                     D):
     v = norm_inputs(cuda, dtype, B=B, L=L, D=D, seed=D)
