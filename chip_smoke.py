@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`dimsum_torch`) on one NVIDIA card:
 its sampling and training paths at full DiM-L/2 width, at 256 px and, for
-sampling, at 512 px (also sequence-parallel over 4 ranks on the card), and
+sampling, at 512 px (also sequence-parallel over 4 ranks on the card),
 sampling from a checkpoint by the reference's eval protocol through
-`python -m dimsum_torch.sample`.
+`python -m dimsum_torch.sample`, and training for real through
+`python -m dimsum_torch.train` (with remat and data parallelism).
 
     python3 chip_smoke.py
 
@@ -168,7 +169,46 @@ Phases, each printing one JSON line; any failure exits non-zero:
               and one augmented drift call of the fp32 model (TF32 off)
               through the kernels and through the plain scan: they must
               agree.
- 26. kernels  one {"kernels": [...]} line (all ten kernels; the scan,
+ 26. train-cli  `python -m dimsum_torch.train` on full-width DiM-L/2 at
+              256 px with the published ImageNet flags (bf16 over fp32
+              weights, global batch 16) from a seeded latent memmap of 128
+              samples (latents.dat fp32 (N, 4, 32, 32), labels.dat int64,
+              2 MB) in a temporary directory: epochs 0-1 as a process of
+              its own (the content checkpoint each epoch, a sample grid at
+              epoch 0 through `--vae-ckpt random`), then `--resume` in this
+              process for epoch 2 (`train.Trainer`, what the module's main
+              runs).  It must start at step 16, epoch 2, with its weights,
+              EMA and AdamW state equal to the saved file bit for bit; the
+              native gather runs; counts set to 0 just before and read just
+              after its epoch: 32 launches of kernels 2 and 3 a step, none
+              of kernel 1; finite losses; the content checkpoints rotated
+              to 2.  Records s/step (the last log window of the CLI's own
+              process), the resumed run's, device ms a step
+              (torch.profiler over 4 steps of the CLI's loop), the idle
+              share, peak memory, and 4-step windows of the loop and of the
+              step on one batch already on the card, in turns (the
+              process's old objects frozen out of the garbage collector),
+              beside train's s/step and peak memory.  Alone: python3 -c
+              "import chip_smoke as s; s.phase_train_cli()".
+ 27. train-remat  one fp32 step of full-width DiM-L/2 at batch 2 (TF32
+              off, cuDNN deterministic, the math SDPA; drop path and label
+              dropout 0.1 from one generator seed) twice without remat and
+              with --grad-checkpoint under None and "scan": the loss, every
+              gradient and the generator's state after the step equal those
+              without remat, to 4 times the spread of the two runs without
+              (0 when they agree); 64/32 and 32/32 launches of kernels 2/3.
+              Then train_bench's bf16 protocol at batch 16 without remat,
+              under None and under "scan" (3 timed steps after 1 each):
+              s/step, peak memory (remat's must be lower), launches a
+              step.
+ 28. train-ddp  2 gloo processes on the one card (NCCL takes one rank a
+              device), DiM-L/2 at full width and depth 4, fp32: 2
+              data-parallel steps of 2 samples a rank, each rank's
+              generator, against rank 0 replaying both ranks' micro-batches
+              in turn: loss, weights and EMA (tolerances in
+              `phase_train_ddp`), the replicas equal, 16 launches of
+              kernels 2 and 3 a rank.
+ 29. kernels  one {"kernels": [...]} line (all ten kernels; the scan,
               both training kernels, conv + x_proj and norm + modulate
               (norm_2) with their L 1024 times and bound beside the
               256-px ones (norm + modulate also with its L2-cold device
@@ -176,7 +216,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
               state entry with its second SP pass's (h0) beside its first's,
               the three attention kernels with their cross-shape times
               beside the DiT ones; the first attention kernel, on no main
-              path now, with 0 launches, its times from the fp32 cases),
+              path now, with 0 launches, its times from the fp32 cases;
+              kernels 2 and 3 also with train-cli's launches),
               then the nvidia-smi line, then {"ok": true, "device": {...}}
               as the last line.  Each record's `ms` (CUDA events around
               back-to-back launches, which below ~0.05 ms can read the
@@ -190,6 +231,7 @@ when the port's package is not beside this script.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import sys
@@ -733,6 +775,7 @@ def phase_train():
            "n_param_tensors": len(init), "without_grad": len(no_grad),
            "wrong": wrong, "finite": finite}
     emit(rec)
+    RESULTS["train"] = record
     if (not finite or launches["selective_scan_fwd"] != 0
             or launches["selective_scan_fwd_train"] != 32 * n_steps
             or launches["selective_scan_bwd"] != 32 * n_steps
@@ -2354,6 +2397,593 @@ def phase_sampling_path():
         return launches
 
 
+# ---------------------------------------------------------------------------
+# training for real: the CLI, remat, data parallelism
+# ---------------------------------------------------------------------------
+
+# results a later phase reads (train-cli reads train's record)
+RESULTS = {}
+# train-cli: a seeded latent memmap of TRAIN_CLI_SAMPLES rows, global batch
+# 16: 8 steps an epoch; epochs 0-1, then resumed for epoch 2.  The loss is
+# logged every half epoch: the last window's s/step is the steady one
+TRAIN_CLI_SAMPLES, TRAIN_CLI_STEPS = 128, 8
+# steps of the CLI's loop profiled for its device time a step, and of each
+# window of the loop-against-fixed-batch comparison (L F F L)
+TRAIN_CLI_PROFILED = TRAIN_CLI_WINDOW = 4
+# the published ImageNet recipe (scripts/train.sh), bf16 over fp32 weights,
+# at global batch 16 (one card); the content checkpoint every epoch, no
+# numbered snapshot (7.4 GB each), the sample grid at epoch 0 only
+TRAIN_CLI_ARGS = [
+    "--dataset", "latent_memmap", "--model", "DiM-L/2", "--image-size",
+    "256", "--num-classes", "1000", "--global-batch-size", "16",
+    "--path-type", "GVP", "--diffusion-form", "none", "--lr", "1e-4",
+    "--block-type", "combined", "--bimamba-type", "none", "--cond-mamba",
+    "--rms-norm", "--fused-add-norm", "--drop-path", "0.1",
+    "--label-dropout", "0.15", "--learnable-pe",
+    "--use-attn-every-k-layers", "4", "--max-grad-norm", "1", "--bf16",
+    "--save-content-every", "1", "--ckpt-every", "1000", "--plot-every",
+    "1000", "--log-every", str(TRAIN_CLI_STEPS // 2), "--vae-ckpt",
+    "random"]
+
+
+def _write_latent_memmap(path, n, seed=0):
+    """latents.dat (n, 4, 32, 32) fp32 and labels.dat (n,) int64, the
+    layout `preprocess.py` writes, from a seed."""
+    import os
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rng.standard_normal((n, 4, 32, 32)).astype(np.float32).tofile(
+        os.path.join(path, "latents.dat"))
+    rng.integers(0, 1000, n).astype(np.int64).tofile(
+        os.path.join(path, "labels.dat"))
+
+
+def _same_train_state(saved, state) -> dict:
+    """Which parts of a live `TrainState` equal a `save_train_state` file's
+    contents bit for bit."""
+    import torch
+
+    def same(a, b):
+        return set(a) == set(b) and all(
+            torch.equal(a[k].cpu(), b[k].cpu()) for k in a)
+
+    opt_saved = saved["opt"]["state"]
+    opt_live = state.optimizer.state_dict()["state"]
+    return {"step": saved["step"] == state.step,
+            "model": same(saved["model"], state.model.state_dict()),
+            "ema": same(saved["ema"], state.ema_params),
+            "adamw": set(opt_saved) == set(opt_live) and all(
+                same(opt_saved[i], opt_live[i]) for i in opt_saved)}
+
+
+def _device_ms_per_step(run_steps) -> float:
+    """Device time a step (every CUDA kernel's self time, as
+    `profile_forward` sums it) over the steps `run_steps()` runs (it
+    returns their number), from torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        n = run_steps()
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False))
+    return busy_us / 1e3 / n
+
+
+def phase_train_cli():
+    """train-cli: `python -m dimsum_torch.train` on full-width DiM-L/2 at
+    256 px with the published flags (TRAIN_CLI_ARGS) from a seeded latent
+    memmap, epochs 0-1 in a process of its own; then resumed in this
+    process for epoch 2 (`train.Trainer`, what `main` runs).  Alone:
+    python3 -c "import chip_smoke as s; s.phase_train_cli()"."""
+    import os
+    import re
+    import subprocess
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dimsum_torch import train as train_cli
+    from dimsum_torch.data import device_batches
+    from dimsum_torch.utils.ckpt import checkpoint_steps
+    from dimsum_torch.utils.png import read_png
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    bench = RESULTS.get("train")
+    with tempfile.TemporaryDirectory() as tmp:
+        _write_latent_memmap(tmp, TRAIN_CLI_SAMPLES)
+        argv = ["--exp", "cli", "--datadir", tmp, "--results-dir",
+                os.path.join(tmp, "results"), *TRAIN_CLI_ARGS]
+        exp = os.path.join(tmp, "results", "cli")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "dimsum_torch.train", *argv, "--epochs",
+             "1"], cwd=root, capture_output=True, text=True, timeout=600)
+        first_seconds = time.perf_counter() - t0
+        log = proc.stderr
+        first_losses = [float(v) for v in re.findall(r"loss=(\S+)", log)]
+        first_rates = [float(v) for v in
+                       re.findall(r"steps/sec=(\S+)", log)]
+        content_after_first = checkpoint_steps(os.path.join(exp, "content"))
+        grid_path = os.path.join(exp, "samples_epoch00000.png")
+        grid = read_png(grid_path) if os.path.exists(grid_path) else None
+        if proc.returncode != 0:
+            print(log[-4000:], file=sys.stderr)
+            raise AssertionError(f"train-cli: the first run exited "
+                                 f"{proc.returncode}")
+
+        # the objects this long process has made are frozen out of the
+        # garbage collector's passes for the steps timed here: late in the
+        # smoke, unfrozen, a step read 0.43-0.49 s on cards where a fresh
+        # process took 0.32-0.35
+        gc.collect()
+        gc.freeze()
+        trainer = train_cli.Trainer(train_cli.parse_args(
+            [*argv, "--epochs", "2", "--resume"]))
+        try:
+            resumed_at = [trainer.train_steps, trainer.init_epoch]
+            saved = torch.load(os.path.join(
+                exp, "content", f"{resumed_at[0]:07d}.pt"),
+                map_location="cpu", weights_only=False)
+            same = _same_train_state(saved, trainer.state)
+            del saved
+            counts = _zeroed_scan_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            trainer.fit()
+            torch.cuda.synchronize()
+            second_seconds = time.perf_counter() - t0
+            launches = {k: c.launches for k, c in counts.items()}
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            window = trainer.history[-1]
+            resumed_s_per_step = window["seconds"] / window["steps"]
+
+            def cli_loop():  # the CLI's loop: loader, copy, step
+                trainer.loader.set_epoch(3)
+                n = 0
+                for x, y in device_batches(trainer.loader, trainer.device):
+                    trainer.train_step(trainer.state, x, y,
+                                       trainer.generator)
+                    n += 1
+                    if n == TRAIN_CLI_PROFILED:
+                        return n
+
+            device_ms = _device_ms_per_step(cli_loop)
+
+            # the loader's and the copy's share: windows of the CLI's loop
+            # and of the step on one batch already on the card (the
+            # train_bench protocol), in turns, in this process
+            def window(batches):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _, (x, y) in zip(range(TRAIN_CLI_WINDOW), batches):
+                    trainer.train_step(trainer.state, x, y,
+                                       trainer.generator)
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) / TRAIN_CLI_WINDOW
+
+            def loop_batches(epoch):
+                trainer.loader.set_epoch(epoch)
+                return device_batches(trainer.loader, trainer.device)
+
+            fixed = next(loop_batches(4))
+            turns = [("loop", loop_batches(5)), ("fixed", iter([fixed] * 4)),
+                     ("fixed", iter([fixed] * 4)), ("loop", loop_batches(6))]
+            alternated = [(kind, window(b)) for kind, b in turns]
+            native = trainer.dataset.is_native
+            losses = [h["loss"] for h in trainer.history]
+        finally:
+            trainer.close()
+            gc.unfreeze()
+        content = checkpoint_steps(os.path.join(exp, "content"))
+        snapshots = checkpoint_steps(os.path.join(exp, "checkpoints"))
+    del trainer
+    torch.cuda.empty_cache()
+    steps = TRAIN_CLI_STEPS
+    # the CLI's s/step: the last log window of its own process (steps
+    # 13-16), as a user's run reads it
+    s_per_step = 1 / first_rates[-1] if first_rates else math.inf
+    rec = {"phase": "train-cli", "model": "DiM-L/2", "image_size": 256,
+           "batch": 16, "dtype": "bf16 over fp32 weights",
+           "samples": TRAIN_CLI_SAMPLES, "steps_per_epoch": steps,
+           "first_run": {"epochs": [0, 1], "rc": proc.returncode,
+                         "seconds": first_seconds, "losses": first_losses,
+                         "steps_per_sec": first_rates,
+                         "content_steps": content_after_first,
+                         "grid_shape": None if grid is None
+                         else list(grid.shape)},
+           "resumed_at_step_epoch": resumed_at,
+           "resumed_state_equals_file": same,
+           "second_run_seconds": second_seconds, "losses": losses,
+           "launches": launches, "native_gather": native,
+           "content_steps": content, "snapshot_steps": snapshots,
+           "s_per_step": s_per_step,
+           "resumed_s_per_step": resumed_s_per_step,
+           "device_ms_per_step": device_ms,
+           "s_per_step_loop_fixed_fixed_loop": alternated,
+           "device_idle_share": max(0.0, 1 - device_ms / 1e3 / s_per_step),
+           "max_memory_allocated_GB": peak_gb,
+           "train_bench": None if bench is None else {
+               "s_per_step": bench["s_per_step"],
+               "max_memory_allocated_GB": bench["max_memory_allocated_GB"],
+               # the same step on the same shapes: the CLI's device time
+               "device_idle_share": max(
+                   0.0, 1 - device_ms / 1e3 / bench["s_per_step"])}}
+    emit(rec)
+    finite = bool(losses and first_losses
+                  and all(math.isfinite(v) for v in losses + first_losses))
+    if (not finite or resumed_at != [2 * steps, 2] or not all(same.values())
+            or launches["selective_scan_fwd"] != 0
+            or launches["selective_scan_fwd_train"] != 32 * steps
+            or launches["selective_scan_bwd"] != 32 * steps
+            or not native or content_after_first != [steps, 2 * steps]
+            or content != [2 * steps, 3 * steps]
+            or snapshots != [] or grid is None
+            or grid.shape != (1024, 1024, 3) or grid.std() == 0):
+        raise AssertionError(f"train-cli phase failed: {rec}")
+    return {"selective_scan_fwd_train": launches["selective_scan_fwd_train"],
+            "selective_scan_bwd": launches["selective_scan_bwd"]}
+
+
+REMAT_BENCH_STEPS, REMAT_BENCH_WARMUP = 3, 1
+
+
+def _deterministic():
+    """TF32 off, cuDNN's deterministic algorithms and the plain (math)
+    SDPA, whose backward sums in a fixed order (the memory-efficient one
+    adds with atomics): a context in which two runs of one step give the
+    same bits."""
+    import contextlib
+
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    stack = contextlib.ExitStack()
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic)
+
+    def restore():
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    stack.callback(restore)
+    stack.enter_context(sdpa_kernel(SDPBackend.MATH))
+    return stack
+
+
+def phase_train_remat():
+    """train-remat: one fp32 training step of full-width DiM-L/2 at batch
+    2 (label dropout and drop path 0.1, the same generator seed) without
+    remat, twice, and with --grad-checkpoint under the policies None and
+    "scan"; then train_bench's bf16 protocol at batch 16 with and without
+    remat: s/step and peak memory.  Alone: python3 -c "import chip_smoke
+    as s; s.phase_train_remat()"."""
+    import torch
+
+    from dimsum_torch import train_bench
+    from dimsum_torch.transport import create_transport
+    from dimsum_torch.utils import remat
+
+    gc.collect()
+    gc.freeze()  # see phase_train_cli
+    with _deterministic():
+        model = _train_model(torch.float32)
+        transport = create_transport("GVP", "velocity")
+        g = torch.Generator(device="cuda").manual_seed(3)
+        x = torch.randn((2, 4, 32, 32), generator=g, device="cuda")
+        y = torch.randint(0, 1000, (2,), generator=g, device="cuda")
+
+        def step(policy):
+            model.remat_keep = None if policy == "off" else \
+                remat.parse_policy(policy)
+            gen = torch.Generator(device="cuda").manual_seed(4)
+            model.zero_grad(set_to_none=True)
+            counts = _zeroed_scan_counts()
+            loss = transport.training_losses(
+                lambda xt, t, **kw: model(xt, t, train=True, generator=gen,
+                                          **kw), x, gen,
+                {"y": y})["loss"].mean()
+            loss.backward()
+            torch.cuda.synchronize()
+            return (loss.item(), {n: p.grad.clone() for n, p in
+                                  model.named_parameters()
+                                  if p.grad is not None},
+                    {k: c.launches for k, c in counts.items()},
+                    gen.get_state())
+
+        base = step("off")
+        runs = {"off (again)": step("off"), "None": step(None),
+                "scan": step("scan")}
+        model.remat_keep = None
+
+    def errs(run):
+        return max(_scaled_err(run[1][n], base[1][n]) for n in base[1])
+
+    spread = errs(runs["off (again)"])
+    # two runs without remat set the tolerance: 0 where they agree
+    tol = 4 * spread
+    fp32 = {name: {"loss": r[0], "loss_equal": r[0] == base[0],
+                   "worst_grad_scaled_err": errs(r),
+                   "same_grad_set": set(r[1]) == set(base[1]),
+                   "generator_state_equal": torch.equal(r[3], base[3]),
+                   "launches": r[2]} for name, r in runs.items()}
+    want = {"off (again)": [0, 32, 32], "None": [0, 64, 32],
+            "scan": [0, 32, 32]}
+    del model, base, runs
+    torch.cuda.empty_cache()
+
+    bf16 = {}
+    for name, kw in (("off", {}), ("None", dict(grad_checkpoint=True)),
+                     ("scan", dict(grad_checkpoint=True,
+                                   remat_policy="scan"))):
+        counts = _zeroed_scan_counts()
+        record, state = train_bench.run(batch=16, bf16=True,
+                                        steps=REMAT_BENCH_STEPS,
+                                        warmup=REMAT_BENCH_WARMUP,
+                                        device="cuda", seed=0, **kw)
+        torch.cuda.synchronize()
+        n = REMAT_BENCH_STEPS + REMAT_BENCH_WARMUP
+        bf16[name] = {"s_per_step": record["s_per_step"],
+                      "max_memory_allocated_GB":
+                          record["max_memory_allocated_GB"],
+                      "launches_per_step": {
+                          k: c.launches / n for k, c in counts.items()},
+                      "finite": all(map(math.isfinite, record["loss"]))}
+        del state
+        torch.cuda.empty_cache()
+    gc.unfreeze()
+    rec = {"phase": "train-remat", "model": "DiM-L/2", "fp32_batch": 2,
+           "tf32": False, "sdpa": "math", "tol": tol, "spread": spread,
+           "fp32": fp32, "bf16_batch": 16, "bf16": bf16}
+    emit(rec)
+    bad = [name for name, r in fp32.items()
+           if not r["worst_grad_scaled_err"] <= tol or not r["same_grad_set"]
+           or not r["generator_state_equal"]
+           or (tol == 0 and not r["loss_equal"])
+           or [r["launches"][k] for k in ("selective_scan_fwd",
+                                          "selective_scan_fwd_train",
+                                          "selective_scan_bwd")]
+           != want[name]]
+    per_step = {"off": 32, "None": 64, "scan": 32}
+    bad += [name for name, r in bf16.items()
+            if not r["finite"] or r["launches_per_step"] != {
+                "selective_scan_fwd": 0,
+                "selective_scan_fwd_train": per_step[name],
+                "selective_scan_bwd": 32}]
+    if (bad or not bf16["None"]["max_memory_allocated_GB"]
+            < bf16["off"]["max_memory_allocated_GB"]
+            or not bf16["scan"]["max_memory_allocated_GB"]
+            < bf16["off"]["max_memory_allocated_GB"]):
+        raise AssertionError(f"train-remat phase failed ({bad}): {rec}")
+
+
+# train-ddp: 2 ranks on the one card, DiM-L/2 at full width and depth 4
+DDP_RANKS, DDP_DEPTH, DDP_STEPS, DDP_BATCH, DDP_SEED = 2, 4, 2, 2, 11
+DDP_LR, DDP_EMA = 1e-3, 0.9
+DDP_TIMEOUT, DDP_DEADLINE = 300, 420
+
+
+def _ddp_state():
+    import dataclasses
+
+    import torch
+
+    from dimsum_torch.models.dim import DiM_models, build_dim
+    from dimsum_torch.parallel import create_optimizer, create_train_state
+
+    cfg = dataclasses.replace(
+        DiM_models["DiM-L/2"](img_resolution=32, num_classes=1000,
+                              use_attn_every_k_layers=4, label_dropout=0.1,
+                              drop_path=0.1, dtype=torch.float32),
+        depth=DDP_DEPTH)
+    model = build_dim(cfg, "cuda", seed=0, train=True)
+    return create_train_state(model, create_optimizer(model, lr=DDP_LR))
+
+
+def _ddp_data():
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    shape = (DDP_STEPS, DDP_RANKS * DDP_BATCH)
+    return (torch.randn((*shape, 4, 32, 32), generator=g, device="cuda"),
+            torch.randint(0, 1000, shape, generator=g, device="cuda"))
+
+
+def _flat_state(state):
+    import torch
+
+    return torch.cat([p.detach().reshape(-1)
+                      for p in state.model.parameters()]
+                     + [e.reshape(-1) for e in state.ema_params.values()])
+
+
+def _ddp_rank(rank, k, port, out_dir):
+    """One rank of train-ddp, a process of its own on the one card:
+    `init_distributed` with gloo, DDP_STEPS data-parallel steps on its
+    slice of each batch with its own generator; rank 0 then replays both
+    ranks' micro-batches in one model and writes the record."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from dimsum_torch.parallel import init_distributed, make_train_step
+    from dimsum_torch.transport import create_transport
+
+    torch.cuda.set_device(0)
+    init_distributed(f"localhost:{port}", k, rank, "cuda", backend="gloo",
+                     timeout_s=DDP_TIMEOUT)
+    try:
+        with _deterministic():
+            x, y = _ddp_data()
+            state = _ddp_state()
+            step = make_train_step(
+                state.model, create_transport("GVP", "velocity"),
+                state.optimizer, max_grad_norm=1.0, ema_decay=DDP_EMA,
+                group=dist.group.WORLD)
+            gen = torch.Generator(device="cuda").manual_seed(
+                DDP_SEED * k + rank)
+            counts = _zeroed_scan_counts()
+            sl = slice(rank * DDP_BATCH, (rank + 1) * DDP_BATCH)
+            t0 = time.perf_counter()
+            losses = [step(state, x[s, sl], y[s, sl], gen)["loss"].item()
+                      for s in range(DDP_STEPS)]
+            seconds = time.perf_counter() - t0
+            launches = {n: c.launches for n, c in counts.items()}
+            flat = _flat_state(state)
+            ref = flat.clone()
+            dist.broadcast(ref, src=0)
+            flags = [None] * k
+            dist.all_gather_object(flags, (torch.equal(ref, flat), launches))
+            if rank == 0:
+                rec = _ddp_replay(state, losses, x, y)
+                rec.update(replicas_equal=[f[0] for f in flags],
+                           launches=[f[1] for f in flags],
+                           dp_seconds=seconds)
+                with open(os.path.join(out_dir, "rank0.json"), "w") as f:
+                    json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _ddp_replay(dp_state, dp_losses, x, y):
+    """One process: each step, rank 0's micro-batch then rank 1's, each
+    with its rank's generator, the gradients summed and halved, then the
+    same clip, AdamW and EMA; compared with the data-parallel state."""
+    import torch
+
+    from dimsum_torch.parallel import clip_by_global_norm, ema_update
+    from dimsum_torch.transport import create_transport
+
+    state = _ddp_state()
+    model, params = state.model, list(state.model.parameters())
+    transport = create_transport("GVP", "velocity")
+    gens = [torch.Generator(device="cuda").manual_seed(DDP_SEED * DDP_RANKS
+                                                        + r)
+            for r in range(DDP_RANKS)]
+    noise = {n: torch.zeros_like(p, dtype=torch.bool)
+             for n, p in model.named_parameters()}
+    losses = []
+    for s in range(DDP_STEPS):
+        model.zero_grad(set_to_none=True)
+        total = 0.0
+        for r in range(DDP_RANKS):
+            sl = slice(r * DDP_BATCH, (r + 1) * DDP_BATCH)
+            loss = transport.training_losses(
+                lambda xt, t, **kw: model(xt, t, train=True,
+                                          generator=gens[r], **kw),
+                x[s, sl], gens[r], {"y": y[s, sl]})["loss"].mean()
+            loss.backward()
+            total = total + loss.detach()
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                p.grad.div_(DDP_RANKS)
+                g = p.grad.abs()
+                noise[n] |= g <= 1e-3 * g.max().clamp_min(1e-30)
+        losses.append((total / DDP_RANKS).item())
+        clip_by_global_norm(params, 1.0)
+        state.optimizer.step()
+        ema_update(state.ema_params, model, DDP_EMA)
+    torch.cuda.synchronize()
+    worst = {"weights": 0.0, "ema": 0.0, "noise_weights": 0.0,
+             "noise_ema": 0.0}
+    exact = True
+    dp_params = dict(dp_state.model.named_parameters())
+    for n, p in model.named_parameters():
+        for key, got, want in (("weights", dp_params[n].detach(), p.detach()),
+                               ("ema", dp_state.ema_params[n],
+                                state.ema_params[n])):
+            d = (got - want).abs()
+            exact &= bool(torch.equal(got, want))
+            # beyond the tolerance, in units of it: atol 2e-6 + rtol 1e-5
+            # (the CPU test's), or for noise entries 2 lr a step
+            rel = d / (2e-6 + 1e-5 * want.abs())
+            if (~noise[n]).any():
+                worst[key] = max(worst[key], rel[~noise[n]].max().item())
+            if noise[n].any():
+                worst["noise_" + key] = max(
+                    worst["noise_" + key],
+                    (d[noise[n]] / (2 * DDP_LR * DDP_STEPS)).max().item())
+    return {"losses": dp_losses, "replay_losses": losses,
+            "loss_rel_err": max(abs(a - b) / abs(b)
+                                for a, b in zip(dp_losses, losses)),
+            "worst_in_tolerances": worst, "bit_for_bit": exact}
+
+
+def phase_train_ddp():
+    """train-ddp: data-parallel training on DDP_RANKS processes on the one
+    card, joined by gloo through `init_distributed` (NCCL cannot put two
+    ranks on one GPU), DiM-L/2 at full width and depth DDP_DEPTH (cut from
+    16), fp32 with TF32 off: DDP_STEPS steps of DDP_BATCH a rank with each
+    rank's generator (seed DDP_SEED * ranks + rank), against one process
+    replaying both ranks' micro-batches in turn.  The loss to rtol 1e-6,
+    the weights and the EMA to atol 2e-6 + rtol 1e-5, entries whose
+    gradient is rounding noise to 2 lr a step (as the CPU test,
+    tests/test_torch_ddp.py).  Alone: python3 -c "import chip_smoke as s;
+    s.phase_train_ddp()"."""
+    import os
+    import socket
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from dimsum_torch.ops import cuda_build
+
+    cuda_build.build()  # here, not in each rank
+    torch.cuda.empty_cache()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_ddp_rank, args=(DDP_RANKS, port, tmp),
+                                 nprocs=DDP_RANKS, join=False,
+                                 start_method="spawn")
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > DDP_DEADLINE:
+                    raise TimeoutError(f"train-ddp: ranks still running "
+                                       f"after {DDP_DEADLINE} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                    p.join(10)
+        with open(os.path.join(tmp, "rank0.json")) as f:
+            r0 = json.load(f)
+    per_rank = 2 * DDP_DEPTH * DDP_STEPS
+    rec = {"phase": "train-ddp", "model": f"DiM-L/2 at depth {DDP_DEPTH}",
+           "ranks": DDP_RANKS, "backend": "gloo", "batch_per_rank":
+           DDP_BATCH, "steps": DDP_STEPS, "dtype": "float32", "tf32": False,
+           "lr": DDP_LR, "group_seconds": time.perf_counter() - t0, **r0}
+    emit(rec)
+    worst = r0["worst_in_tolerances"]
+    if (not all(r0["replicas_equal"]) or not r0["loss_rel_err"] <= 1e-6
+            or not all(math.isfinite(v) for v in r0["losses"])
+            or max(worst.values()) > 1
+            or any(n != {"selective_scan_fwd": 0,
+                         "selective_scan_fwd_train": per_rank,
+                         "selective_scan_bwd": per_rank}
+                   for n in r0["launches"])):
+        raise AssertionError(f"train-ddp phase failed: {rec}")
+
+
 def main() -> int:
     import torch
 
@@ -2401,6 +3031,9 @@ def main() -> int:
     fp32_launches = phase_sampling_path()
     for name in ("full_attention_f32", "full_attention_first"):
         launches[name] = fp32_launches[name]
+    cli_launches = phase_train_cli()
+    phase_train_remat()
+    phase_train_ddp()
 
     # the scan at the 256-px mixer shape, with the 512-px one (L 1024)
     # beside it
@@ -2467,7 +3100,8 @@ def main() -> int:
             "L1024_ms": train_long[key]["ms"],
             "L1024_device_ms": train_long[key]["device_ms"],
             "L1024_plain_ms": train_long[key]["plain_ms"],
-            "L1024_bound_ms": train_long[key]["bound_ms"]})
+            "L1024_bound_ms": train_long[key]["bound_ms"],
+            "train_cli_launches": cli_launches[name]})
     # the attention: bf16 at Dh 64 (the bf16 sampling paths) through the
     # sm90 kernel, fp32 at Dh 64 (the default fp32 sampling path,
     # sample-512-fp32) through the fp32 kernel, each with its cross-shape

@@ -172,9 +172,6 @@ def model_config(args):
     _require(args.scan_impl in (None, "ref"),
              f"--scan-impl {args.scan_impl}", "the port's scans are its "
              "CUDA kernels (None) and the plain PyTorch scan (ref)")
-    _require(not (args.grad_checkpoint or args.remat_policy),
-             "--grad-checkpoint / --remat-policy",
-             "ROADMAP.md Queue 1 item 5 (remat)")
     return DiM_models[args.model](
         img_resolution=args.image_size // 8,
         in_channels=args.num_in_channels,
@@ -182,4 +179,6 @@ def model_config(args):
         num_classes=args.num_classes,
         use_attn_every_k_layers=args.use_attn_every_k_layers,
         drop_path=args.drop_path,
-        dtype=torch.bfloat16 if args.bf16 else torch.float32)
+        dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        grad_checkpoint=args.grad_checkpoint,
+        remat_policy=args.remat_policy)

@@ -1,0 +1,57 @@
+"""Input pipelines of the port, from `dimsum_tpu/data`: the latent
+datasets, the threaded loader and the copy to the card.
+
+`get_dataset` dispatches on `--dataset` as the JAX one does (the
+reference's datasets_prep/__init__.py:10-135); the latent routes are
+ported, the pixel ones wait for the VAE encode.
+"""
+
+from __future__ import annotations
+
+import os
+
+from dimsum_torch.data.datasets import (  # noqa: F401
+    Dataset,
+    LatentFolderDataset,
+    LatentMemmapDataset,
+)
+from dimsum_torch.data.loader import Loader, device_batches  # noqa: F401
+from dimsum_torch.data.native import NativeLatentStore  # noqa: F401
+
+PIXEL = "ROADMAP.md Queue 1 item 6 (pixel datasets and the VAE encode)"
+PIXEL_DATASETS = ("celeba_256", "celeba_512", "lsun_church", "imagenet",
+                  "ffhq", "image_folder", "cifar10")
+
+
+def get_dataset(args):
+    """The dataset `args.dataset` names, from `args.datadir`:
+
+      * latent_memmap, latent_memmap_imagenet: `latents.dat` (fp32, rows
+        of (num_in_channels, image_size / 8, image_size / 8)) and
+        `labels.dat` (int64) if present, the layout `preprocess.py`
+        writes;
+      * latent_<anything else>: `features/` and, if present, `labels/`,
+        one `.npy` a sample.
+
+    The pixel datasets raise `NotImplementedError`; an unknown name raises
+    `ValueError`."""
+    name = args.dataset
+    datadir = args.datadir
+    if name in ("latent_memmap_imagenet", "latent_memmap"):
+        labels = os.path.join(datadir, "labels.dat")
+        latent = getattr(args, "image_size", 256) // 8
+        return LatentMemmapDataset(
+            os.path.join(datadir, "latents.dat"),
+            labels if os.path.exists(labels) else None,
+            latent_shape=(getattr(args, "num_in_channels", 4), latent,
+                          latent))
+    if name.startswith("latent_"):
+        labels_dir = os.path.join(datadir, "labels")
+        return LatentFolderDataset(
+            os.path.join(datadir, "features"),
+            labels_dir if os.path.isdir(labels_dir) else None)
+    if name in PIXEL_DATASETS:
+        raise NotImplementedError(
+            f"--dataset {name}: not ported to dimsum_torch yet ({PIXEL}); "
+            "train from latents (latent_memmap)")
+    raise ValueError(f"unknown dataset {name}")

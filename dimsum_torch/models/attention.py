@@ -23,6 +23,7 @@ from dimsum_torch.models.linear import Linear
 from dimsum_torch.ops.full_attention import (full_attention_ref,
                                              full_block_attention,
                                              full_block_supported)
+from dimsum_torch.utils import remat
 
 
 def takes_full_block(L: int, Dh: int) -> bool:
@@ -40,10 +41,13 @@ def _sdpa(q, k, v, impl: Optional[str] = None):
         raise ValueError(f"unknown attention impl {impl!r}")
     L, Dh = q.shape[1], q.shape[3]
     if takes_full_block(L, Dh):
-        fn = full_attention_ref if impl == "ref" else full_block_attention
-        return fn(q, k, v, Dh ** -0.5)
-    out = F.scaled_dot_product_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        if impl != "ref":
+            return full_block_attention(q, k, v, Dh ** -0.5)
+        with remat.tag("attn_out"):  # a remat site, as the kernel's Function
+            return full_attention_ref(q, k, v, Dh ** -0.5)
+    q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    with remat.tag("attn_out"):
+        out = F.scaled_dot_product_attention(q, k, v)
     return out.transpose(1, 2)
 
 

@@ -26,13 +26,22 @@ L-slice on each rank, the output gathered along L), while the rest of the
 model runs whole on every rank: each rank passes the same inputs and gets
 the same output.  It adds no parameters, so weights load as without it.
 Forward only.
+
+`grad_checkpoint` recomputes each combined block in the backward
+(`torch.utils.checkpoint`, non-reentrant; the JAX `nn.remat`, dim.py:344-
+353), keeping what `remat_policy` names: None (nothing), "dots", "scan",
+"dots_scan" or "save:" over dots, scan_out, attn_out and conv_out (JAX
+dim.py:91-97, :134-169).  The shared DiT block is not checkpointed, and the
+pending tail is off under remat, as in JAX (dim.py:344).  How the kept
+outputs of the port's kernels, the blocks' stochastic-depth draws and the
+launch counts of each policy come out is in `dimsum_torch/utils/remat.py`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -45,6 +54,8 @@ from dimsum_torch.models.embedders import (FinalLayer, LabelEmbedder,
                                            get_2d_sincos_pos_embed,
                                            unpatchify)
 from dimsum_torch.models.linear import cast_weights_
+from dimsum_torch.models.mamba import Mamba
+from dimsum_torch.utils import remat
 from dimsum_torch.utils.device import resolve_device
 
 
@@ -65,6 +76,8 @@ class DiMConfig:
     conv_xproj: bool = False   # conv + SiLU + x_proj kernel in every mixer
     pending_tail: int = 0      # 1, 2: defer each block's tail FFN add
     seq_group: Any = None      # sequence parallelism over a process group
+    grad_checkpoint: bool = False  # remat each combined block
+    remat_policy: Optional[str] = None  # what remat keeps (utils/remat.py)
 
     @property
     def grid_size(self) -> int:
@@ -90,13 +103,17 @@ class DiM(nn.Module):
         if cfg.pending_tail not in (0, 1, 2):
             raise ValueError(f"pending_tail must be 0, 1 or 2, got "
                              f"{cfg.pending_tail}")
+        self.remat_keep = (remat.parse_policy(cfg.remat_policy)
+                           if cfg.grad_checkpoint else None)
+        # the pending tuple would cross the checkpoint boundary
+        self.pending_tail = 0 if cfg.grad_checkpoint else cfg.pending_tail
         self.blocks = nn.ModuleList([
             DiMBlockCombined(D, reverse=i % 2 > 0, transpose=i % 4 >= 2,
                              d_cond=D, drop_path_rate=inter_dpr[i], dtype=dt,
                              pallas_norm=cfg.pallas_norm,
                              fused_norm=cfg.fused_norm,
                              conv_xproj=cfg.conv_xproj,
-                             pending_tail=cfg.pending_tail,
+                             pending_tail=self.pending_tail,
                              seq_group=cfg.seq_group)
             for i in range(cfg.depth)])
         if cfg.use_attn_every_k_layers > 0:
@@ -104,6 +121,7 @@ class DiM(nn.Module):
                                        fused_norm=cfg.fused_norm)
         self.final_layer = FinalLayer(D, cfg.patch_size, cfg.in_channels, dt,
                                       fused_norm=cfg.fused_norm)
+        self._mixers = [m for m in self.modules() if isinstance(m, Mamba)]
 
     def forward(self, x, t, y=None, train: bool = False,
                 generator: torch.Generator | None = None,
@@ -123,8 +141,21 @@ class DiM(nn.Module):
         x = self.x_embedder(x.to(cfg.dtype)) + self.pos_embed.to(cfg.dtype)
         residual = pending = None
         k = cfg.use_attn_every_k_layers
+        checkpointed = (self.remat_keep is not None
+                        and torch.is_grad_enabled())
+        if checkpointed:
+            # on the kernel route the scan is a kernel site: a policy that
+            # keeps only scan_out needs no selective contexts
+            kernel_scan = x.is_cuda and all(m.scan_impl is None
+                                            for m in self._mixers)
+            selective = bool(self.remat_keep - ({"scan_out"} if kernel_scan
+                                                else set()))
         for i, block in enumerate(self.blocks):
-            if cfg.pending_tail > 0:
+            if checkpointed:
+                x, residual = remat.checkpoint(
+                    block, self.remat_keep, x, residual, c, train=train,
+                    generator=generator, selective=selective)
+            elif self.pending_tail > 0:
                 x, residual, pending = block(x, residual, c, train=train,
                                              generator=generator,
                                              pending=pending)

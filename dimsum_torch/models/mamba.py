@@ -44,6 +44,7 @@ from dimsum_torch.ops.conv_xproj import conv_xproj, conv_xproj_supported
 from dimsum_torch.ops.selective_scan import selective_scan_dtlow
 from dimsum_torch.ops.selective_scan_sp import selective_scan_seq_parallel
 from dimsum_torch.parallel.mesh import all_gather
+from dimsum_torch.utils import remat
 
 
 class Mamba(nn.Module):
@@ -101,8 +102,9 @@ class Mamba(nn.Module):
                                        impl=self.conv_impl)
             x_dbl = x_dbl.to(self.x_proj.compute_dtype)
         else:
-            x_conv = causal_conv1d(x_in, conv_w, self.conv1d.bias,
-                                   activation="silu")
+            with remat.tag("conv_out"):  # a remat site, as ConvXProjFn
+                x_conv = causal_conv1d(x_in, conv_w, self.conv1d.bias,
+                                       activation="silu")
             x_dbl = self.x_proj(x_conv)
         dt_low, Bm, Cm = x_dbl.split([r, n, n], dim=-1)
         dt_w = self.dt_proj.weight.t().to(dt_low.dtype).contiguous()

@@ -31,6 +31,7 @@ import torch
 from dimsum_torch.ops import cuda_build
 from dimsum_torch.ops.causal_conv1d import causal_conv1d
 from dimsum_torch.ops.cuda_build import DTYPE_CODE, check_tensor, needs_grad
+from dimsum_torch.utils import remat
 
 __all__ = ["conv_xproj_supported", "conv_xproj_ref", "conv_xproj_cuda",
            "ConvXProjFn", "conv_xproj"]
@@ -128,7 +129,9 @@ class ConvXProjFn(torch.autograd.Function):
         ctx.reverse = reverse
         ctx.save_for_backward(x, conv_w, conv_b, w_xp)
         fn = conv_xproj_cuda if x.is_cuda else conv_xproj_ref
-        return fn(x, conv_w, conv_b, w_xp, reverse)
+        # a remat site (conv_out), as the scan's Function is (scan_out)
+        return remat.kernel_outputs(
+            "conv_out", lambda: fn(x, conv_w, conv_b, w_xp, reverse))
 
     @staticmethod
     def backward(ctx, g_conv, g_dbl):
@@ -147,7 +150,8 @@ def conv_xproj(x, conv_w, conv_b, w_xp, reverse: bool = False,
     None takes the kernel for CUDA tensors (or raises) and the plain
     version for CPU tensors; "ref" the plain version on any device."""
     if impl == "ref":
-        return conv_xproj_ref(x, conv_w, conv_b, w_xp, reverse)
+        with remat.tag("conv_out"):
+            return conv_xproj_ref(x, conv_w, conv_b, w_xp, reverse)
     if impl is not None:
         raise ValueError(f"unknown conv_xproj impl {impl!r}")
     return ConvXProjFn.apply(x, conv_w, conv_b, w_xp, reverse)

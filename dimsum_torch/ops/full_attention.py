@@ -32,6 +32,7 @@ import torch
 
 from dimsum_torch.ops import cuda_build
 from dimsum_torch.ops.cuda_build import DTYPE_CODE, needs_grad
+from dimsum_torch.utils import remat
 
 __all__ = ["full_block_supported", "full_attention_ref", "attention_kernel",
            "full_attention_sm90", "full_attention_f32", "full_attention_first",
@@ -200,9 +201,10 @@ class FullBlockAttentionFn(torch.autograd.Function):
     def forward(ctx, q, k, v, sm_scale):
         ctx.sm_scale = sm_scale
         ctx.save_for_backward(q, k, v)
-        if q.is_cuda:
-            return full_block_attention_cuda(q, k, v, sm_scale)
-        return full_attention_ref(q, k, v, sm_scale)
+        fn = full_block_attention_cuda if q.is_cuda else full_attention_ref
+        # a remat site (attn_out), as the scan's Function is (scan_out)
+        return remat.kernel_outputs("attn_out",
+                                    lambda: fn(q, k, v, sm_scale))
 
     @staticmethod
     def backward(ctx, g):

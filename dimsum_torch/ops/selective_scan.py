@@ -47,6 +47,7 @@ import torch
 
 from dimsum_torch.ops import cuda_build
 from dimsum_torch.ops.cuda_build import DTYPE_CODE, check_tensor, needs_grad
+from dimsum_torch.utils import remat
 
 __all__ = ["selective_scan_ref", "selective_scan_cuda", "selective_scan_dtlow",
            "selective_scan_state", "selective_scan_state_cuda",
@@ -602,8 +603,11 @@ class SelectiveScanDtLowFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, u, dt_low, dt_w, A, B, C, D, z, delta_bias,
                 delta_softplus):
-        y, o, bnd = selective_scan_fwd_train(
-            u, dt_low, dt_w, A, B, C, D, z, delta_bias, delta_softplus)
+        # a remat site: a replay under a policy that keeps scan_out gets
+        # the first forward's outputs back instead of a launch
+        y, o, bnd = remat.kernel_outputs("scan_out", lambda: (
+            selective_scan_fwd_train(u, dt_low, dt_w, A, B, C, D, z,
+                                     delta_bias, delta_softplus)))
         ctx.delta_softplus = delta_softplus
         ctx.save_for_backward(u, dt_low, dt_w, A, B, C, D, z, delta_bias,
                               o, bnd)
@@ -672,8 +676,10 @@ def selective_scan_dtlow(u, dt_low, dt_w, A, B, C, D=None, z=None,
                                 delta_bias=delta_bias,
                                 delta_softplus=delta_softplus)
     else:
-        delta = torch.einsum("blr,rd->bld", dt_low.float(), dt_w.float())
-        y = selective_scan_ref(u, delta, A, B, C, D=D, z=z,
-                               delta_bias=delta_bias,
-                               delta_softplus=delta_softplus)
+        with remat.tag("scan_out"):
+            delta = torch.einsum("blr,rd->bld", dt_low.float(),
+                                 dt_w.float())
+            y = selective_scan_ref(u, delta, A, B, C, D=D, z=z,
+                                   delta_bias=delta_bias,
+                                   delta_softplus=delta_softplus)
     return _flip(y) if reverse else y

@@ -1,6 +1,7 @@
-"""Flow-matching train step on one device, port of
-`dimsum_tpu/parallel/train.py` (:23-181) without the mesh: AdamW, global-
-norm clipping, EMA and gradient accumulation.
+"""Flow-matching train step, port of `dimsum_tpu/parallel/train.py`
+(:23-181): AdamW, global-norm clipping, EMA, gradient accumulation, data
+parallelism over a `torch.distributed` process group, and the optional
+warmup + cosine learning-rate schedule.
 
     state = create_train_state(model, create_optimizer(model))
     step = make_train_step(model, transport, state.optimizer)
@@ -12,16 +13,28 @@ copy.  Parameters are updated in place, which the JAX step gets by donating
 its state.  A parameter that takes no gradient in a step (CondMamba's
 `cond_proj`, which stays out of the graph) gets a zero gradient before the
 update, so that AdamW steps it as optax steps every parameter: its moments
-decay, and weight decay shrinks it.  DDP and remat are not ported yet;
-checkpoints are `dimsum_torch.utils.ckpt`.
+decay, and weight decay shrinks it.  Checkpoints are
+`dimsum_torch.utils.ckpt`; remat is a `DiMConfig` switch.
+
+Data parallelism (`make_train_step(..., group=g)`) is the reference's DDP
+(train.py:145-180) and the JAX step's `lax.pmean` (:164-166): every rank
+holds the same parameters, steps its own slice of the global batch, and
+the step averages the gradients and the loss over the group in one
+flattened all-reduce before the clip, AdamW and EMA, which then run the
+same on every rank.  Each rank draws from its own generator, seeded
+`global_seed * world_size + rank`, as the reference seeds its ranks
+(train.py:155); the caller creates it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict, Iterable, Optional
 
+import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 
@@ -42,6 +55,40 @@ def create_optimizer(model: nn.Module, lr: float = 1e-4,
     a parameter that took no gradient a zero one)."""
     return torch.optim.AdamW(model.parameters(), lr=lr, betas=tuple(betas),
                              eps=1e-8, weight_decay=weight_decay)
+
+
+def warmup_cosine_schedule(optimizer: torch.optim.Optimizer, lr: float,
+                           min_lr: float, warmup_epochs: int,
+                           total_epochs: int, steps_per_epoch: int
+                           ) -> torch.optim.lr_scheduler.LambdaLR:
+    """Linear warmup from 0 to `lr`, then a half cosine down to `min_lr`
+    (the reference's adjust_learning_rate, train.py:117-130), with the
+    values of the JAX `warmup_cosine_schedule` (optax's linear, cosine-decay
+    and joined schedules, :42-52) at every step.  Sets the optimizer's lr to
+    `lr` and returns a `LambdaLR` over it: call its `step()` after each
+    train step, so that update k takes the schedule's value at k, as optax
+    evaluates it at the update count.  The CLIs leave it off: the reference
+    trains at a constant lr (its call is commented out, train.py:303)."""
+    warmup = max(warmup_epochs * steps_per_epoch, 1)
+    decay = max((total_epochs - warmup_epochs) * steps_per_epoch, 1)
+    alpha = min_lr / max(lr, 1e-12)
+    f32 = np.float32  # optax computes its schedules in fp32
+
+    def value(step: int) -> float:
+        if step < warmup:  # optax.linear_schedule(0, lr, warmup)
+            frac = f32(1) - f32(step) / f32(warmup)
+            return float(f32(-lr) * frac + f32(lr))
+        k = f32(min(step - warmup, decay))  # optax.cosine_decay_schedule
+        # cos correctly rounded to fp32, as XLA's is
+        cos = f32(math.cos(f32(math.pi) * k / f32(decay)))
+        cosine = f32(0.5) * (f32(1) + cos)
+        return float(f32(lr) * (f32(1 - alpha) * cosine + f32(alpha)))
+
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+        group.pop("initial_lr", None)
+    return torch.optim.lr_scheduler.LambdaLR(
+        optimizer, lambda step: value(step) / lr if lr else 0.0)
 
 
 def create_train_state(model: nn.Module,
@@ -75,10 +122,27 @@ def clip_by_global_norm(params: Iterable[nn.Parameter],
     return norm
 
 
+@torch.no_grad()
+def all_reduce_mean(params, loss, group) -> torch.Tensor:
+    """Average every parameter's gradient and the loss over `group` in one
+    flattened all-reduce (the JAX `lax.pmean` of both); returns the mean
+    loss.  Every parameter must have a gradient."""
+    grads = [p.grad for p in params]
+    flat = torch.cat([g.reshape(-1).float() for g in grads]
+                     + [loss.reshape(1).float()])
+    dist.all_reduce(flat, group=group)
+    flat.div_(dist.get_world_size(group))
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+    return flat[offset]
+
+
 def make_train_step(model: nn.Module, transport, optimizer:
                     torch.optim.Optimizer, max_grad_norm: float = 1.0,
                     ema_decay: float = 0.9999, use_labels: bool = True,
-                    grad_accum: int = 1) -> Callable:
+                    grad_accum: int = 1, group=None) -> Callable:
     """Returns train_step(state, x, y, generator) -> {"loss", "grad_norm"}
     (device scalars; reading them waits for the step).
 
@@ -87,7 +151,15 @@ def make_train_step(model: nn.Module, transport, optimizer:
     from `generator` on x's device.  grad_accum > 1 splits the batch into
     that many equal micro-batches, in order, and feeds the mean of their
     gradients (and losses) to one update, as the JAX step does
-    (:126-167); peak activation memory is then one micro-batch's."""
+    (:126-167); peak activation memory is then one micro-batch's.
+
+    `group` (a `torch.distributed` process group) makes it the
+    data-parallel step: x and y are this rank's slice of the global batch,
+    `generator` this rank's, and the gradients (accumulated over the
+    micro-batches first) and the loss are averaged over the group before
+    the update (`all_reduce_mean`).  The step then equals one process
+    stepping every rank's micro-batches in turn with the same draws, up to
+    the order of the sums."""
     params = list(model.parameters())
 
     def micro_loss(x, y, generator):
@@ -124,6 +196,8 @@ def make_train_step(model: nn.Module, transport, optimizer:
         for p in params:
             if p.grad is None:  # as optax, which steps every parameter
                 p.grad = torch.zeros_like(p)
+        if group is not None:
+            loss = all_reduce_mean(params, loss, group)
         grad_norm = clip_by_global_norm(params, max_grad_norm)
         optimizer.step()
         ema_update(state.ema_params, model, ema_decay)

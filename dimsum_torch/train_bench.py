@@ -17,9 +17,11 @@ CUDA events.
     python -m dimsum_torch.train_bench --image-size 512 --batch 4
     python -m dimsum_torch.train_bench --pallas-norm --fused-norm \
         --conv-xproj [--pending-tail 2]
+    python -m dimsum_torch.train_bench --grad-checkpoint [--remat-policy scan]
 
-The last runs the JAX package's fused-kernel configuration (the flags of
-`dimsum_torch.bench`).
+The third runs the JAX package's fused-kernel configuration (the flags of
+`dimsum_torch.bench`), the last remat (`DiMConfig.grad_checkpoint` and
+`remat_policy`), which trades step time for peak memory.
 
 Prints one JSON line: s/step and img/s on this card, with the card's name
 and power limit, the loss and grad norm of every step, and the peak device
@@ -45,12 +47,14 @@ from dimsum_torch.utils.device import card_name_and_power_limit, resolve_device
 
 def setup(model: str = "DiM-L/2", batch: int = 16, bf16: bool = True,
           grad_accum: int = 1, device="cuda", seed: int = 0,
-          image_size: int = 256, **fused):
+          image_size: int = 256, grad_checkpoint: bool = False,
+          remat_policy=None, **fused):
     """The model, its train state and one batch of seeded random latents and
     labels at `image_size` pixels; `fused` sets the DiMConfig switches of
-    the fused-kernel configuration (`bench.fused_config`).  Returns (state,
-    one_step), where one_step() runs one train step on that batch and
-    returns its {"loss", "grad_norm"}."""
+    the fused-kernel configuration (`bench.fused_config`), `grad_checkpoint`
+    and `remat_policy` remat.  Returns (state, one_step), where one_step()
+    runs one train step on that batch and returns its {"loss",
+    "grad_norm"}."""
     if image_size not in IMAGE_SIZES:
         raise ValueError(f"image_size must be one of {IMAGE_SIZES}")
     dev = resolve_device(device)
@@ -59,6 +63,7 @@ def setup(model: str = "DiM-L/2", batch: int = 16, bf16: bool = True,
         img_resolution=latent, num_classes=1000, use_attn_every_k_layers=4,
         label_dropout=0.1, drop_path=0.1,
         dtype=torch.bfloat16 if bf16 else torch.float32,
+        grad_checkpoint=grad_checkpoint, remat_policy=remat_policy,
         **fused_config(**fused))
     net = build_dim(cfg, dev, seed, train=True)
     transport = create_transport("GVP", "velocity")
@@ -77,14 +82,16 @@ def setup(model: str = "DiM-L/2", batch: int = 16, bf16: bool = True,
 
 def run(model: str = "DiM-L/2", batch: int = 16, bf16: bool = True,
         steps: int = 10, warmup: int = 3, grad_accum: int = 1,
-        device="cuda", seed: int = 0, image_size: int = 256, **fused):
+        device="cuda", seed: int = 0, image_size: int = 256,
+        grad_checkpoint: bool = False, remat_policy=None, **fused):
     """Build the model and its train state, run `warmup` steps, then time
     `steps` steps.  `model` names a zoo entry (DiM-L/2, or a narrower one
-    for a rehearsal on the CPU); `fused` as in `setup`.  Returns (record,
-    state)."""
+    for a rehearsal on the CPU); `fused`, `grad_checkpoint` and
+    `remat_policy` as in `setup`.  Returns (record, state)."""
     dev = resolve_device(device)
     state, one_step = setup(model, batch, bf16, grad_accum, dev, seed,
-                            image_size, **fused)
+                            image_size, grad_checkpoint, remat_policy,
+                            **fused)
     metrics = [one_step() for _ in range(warmup)]
     cuda = dev.type == "cuda"
     if cuda:
@@ -111,6 +118,7 @@ def run(model: str = "DiM-L/2", batch: int = 16, bf16: bool = True,
         "grad_accum": grad_accum, "model": model, "image_size": image_size,
         "dtype": "bf16" if bf16 else "fp32", "params_M": n_params / 1e6,
         "fused": fused_config(**fused),
+        "grad_checkpoint": grad_checkpoint, "remat_policy": remat_policy,
         "loss": [m["loss"].item() for m in metrics],
         "grad_norm": [m["grad_norm"].item() for m in metrics],
         "max_memory_allocated_GB": (torch.cuda.max_memory_allocated(dev)
@@ -136,12 +144,18 @@ def main(argv=None):
                     choices=IMAGE_SIZES,
                     help="pixels; 512 -> latent 64, L = 1024 tokens")
     add_fused_flags(ap)
+    ap.add_argument("--grad-checkpoint", action="store_true",
+                    help="recompute each block in the backward (remat)")
+    ap.add_argument("--remat-policy", default=None,
+                    help="what remat keeps: none, dots, scan, dots_scan or "
+                         "save:A+B over dots, scan_out, attn_out, conv_out")
     args = ap.parse_args(argv)
     record, _ = run(model=args.model, batch=args.batch, bf16=not args.fp32,
                     steps=args.steps, warmup=args.warmup,
                     grad_accum=args.grad_accum, device=args.device,
                     seed=args.seed, image_size=args.image_size,
-                    **fused_settings(args))
+                    grad_checkpoint=args.grad_checkpoint,
+                    remat_policy=args.remat_policy, **fused_settings(args))
     print(json.dumps(record))
 
 

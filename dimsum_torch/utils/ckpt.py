@@ -11,6 +11,11 @@
     `.pt` in the reference's layout ("model", "ema", "opt", and the step).
     The JAX package saves orbax directories instead; those are its own
     format, and the port does not read them.
+  * `save_checkpoint` / `restore_checkpoint`: numbered snapshots of a
+    `TrainState` in a directory (`<step:07d>.pt`, the reference's names),
+    rotated to the newest `keep`, and the latest restored (the JAX
+    functions of the same names, :226-252, over orbax).  Rank 0 writes;
+    every rank reads.
 
 Checkpoints are read from a local path only.
 """
@@ -18,9 +23,11 @@ Checkpoints are read from a local path only.
 from __future__ import annotations
 
 import os
-from typing import Dict, Mapping
+import re
+from typing import Dict, List, Mapping, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 # frozen buffers of the reference's torch modules (wavelet and DCT filters,
@@ -213,3 +220,54 @@ def load_train_state(path: str, state):
     state.optimizer.load_state_dict(ckpt["opt"])
     state.step = int(ckpt["step"])
     return state
+
+
+# ---------------------------------------------------------------------------
+# numbered snapshots in a directory
+# ---------------------------------------------------------------------------
+
+_SNAPSHOT = re.compile(r"^(\d+)\.pt$")
+
+
+def checkpoint_steps(ckpt_dir: str) -> List[int]:
+    """The steps of the snapshots in `ckpt_dir`, oldest first."""
+    if not os.path.isdir(ckpt_dir):
+        return []
+    return sorted(int(m.group(1)) for m in map(_SNAPSHOT.match,
+                                               os.listdir(ckpt_dir)) if m)
+
+
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def save_checkpoint(ckpt_dir: str, state, step: int, keep: int = 5,
+                    args=None) -> None:
+    """Write `state` as `<ckpt_dir>/<step:07d>.pt` (`save_train_state`'s
+    layout; written to a temporary name and renamed, so a snapshot is
+    whole or absent), then delete all but the `keep` newest snapshots.  In
+    a multi-process run only rank 0 writes (the state is the same on every
+    rank), and every rank returns after the write."""
+    if _rank() == 0:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        path = os.path.join(ckpt_dir, f"{step:07d}.pt")
+        tmp = f"{path}.tmp"
+        save_train_state(tmp, state, args)
+        os.replace(tmp, path)
+        for old in checkpoint_steps(ckpt_dir)[:-keep]:
+            os.remove(os.path.join(ckpt_dir, f"{old:07d}.pt"))
+    if dist.is_initialized():
+        dist.barrier()
+
+
+def restore_checkpoint(ckpt_dir: str, state, step: Optional[int] = None):
+    """Resume `state` in place from the snapshot at `step` in `ckpt_dir`
+    (None: the latest).  Returns (state, step), or (None, None) when the
+    directory holds no snapshot."""
+    steps = checkpoint_steps(ckpt_dir)
+    if step is None:
+        if not steps:
+            return None, None
+        step = steps[-1]
+    load_train_state(os.path.join(ckpt_dir, f"{step:07d}.pt"), state)
+    return state, step

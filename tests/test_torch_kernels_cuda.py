@@ -1207,3 +1207,113 @@ def test_fused_functions_grads_match_plain_autograd_on_card(cuda, dtype):
                                [xc, cw, cb, wx])
     for a, b in zip(got, want):
         _close(a, b, max(tol, 1e-4))
+
+
+# --------------------------------------------------------------------------
+# training for real: remat through the kernels, the loader's copy
+# --------------------------------------------------------------------------
+
+def _remat_step(model, policy, x, t, y):
+    """One sum(out ** 2) backward of `model` with remat under `policy`
+    ("off": none), the same generator seed each time; returns the loss,
+    the gradients and the kernels' launches."""
+    from dimsum_torch.ops import conv_xproj as convx_ops
+    from dimsum_torch.ops import selective_scan as scan_ops
+    from dimsum_torch.utils import remat
+
+    model.remat_keep = None if policy == "off" else \
+        remat.parse_policy(policy)
+    model.zero_grad(set_to_none=True)
+    fns = (scan_ops.selective_scan_cuda,
+           scan_ops.selective_scan_fwd_train_cuda,
+           scan_ops.selective_scan_bwd_core_cuda, convx_ops.conv_xproj_cuda)
+    for fn in fns:
+        fn.launches = 0
+    gen = torch.Generator(device=x.device).manual_seed(4)
+    loss = (model(x, t, y, train=True, generator=gen) ** 2).sum()
+    loss.backward()
+    torch.cuda.synchronize()
+    return (loss.detach(), {n: p.grad.clone() for n, p in
+                            model.named_parameters() if p.grad is not None},
+            [fn.launches for fn in fns])
+
+
+@pytest.mark.parametrize("policy, launches", [
+    (None, [0, 8, 4, 8]), ("scan", [0, 4, 4, 8]),
+    ("save:conv_out", [0, 8, 4, 4]), ("dots_scan", [0, 4, 4, 8])])
+def test_remat_launches_and_grads_through_kernels(cuda, policy, launches):
+    """A small DiM (hidden 128, depth 2: 4 mixers; conv + x_proj on, drop
+    path 0.3) in fp32 with deterministic settings (TF32 off, cuDNN's
+    deterministic algorithms, the math SDPA): per step the scan's training
+    forward (kernel 2) and the conv + x_proj kernel launch twice a mixer
+    unless the policy keeps their outputs, kernel 3 once, kernel 1 never;
+    loss and gradients as without remat, to 4 times the spread of two runs
+    without (0 where they agree)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from dimsum_torch.models.dim import DiM, DiMConfig, random_init_
+
+    cfg = DiMConfig(img_resolution=16, hidden_size=128, depth=2,
+                    num_classes=10, use_attn_every_k_layers=2,
+                    drop_path=0.3, conv_xproj=True, grad_checkpoint=True)
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        with torch.device(cuda):
+            model = random_init_(DiM(cfg), 0).train()
+        g = torch.Generator(device=cuda).manual_seed(1)
+        x = torch.randn((3, 4, 16, 16), generator=g, device=cuda)
+        t = torch.rand(3, generator=g, device=cuda)
+        y = torch.randint(0, 10, (3,), generator=g, device=cuda)
+        with sdpa_kernel(SDPBackend.MATH):
+            base = _remat_step(model, "off", x, t, y)
+            again = _remat_step(model, "off", x, t, y)
+            got = _remat_step(model, policy, x, t, y)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+
+    def err(run):
+        return max((run[1][n] - g).abs().max().item()
+                   / g.abs().max().clamp_min(1e-30).item()
+                   for n, g in base[1].items())
+
+    assert base[2] == [0, 4, 4, 4] and got[2] == launches
+    assert set(got[1]) == set(base[1])
+    assert err(got) <= 4 * err(again)
+    if err(again) == 0:
+        assert torch.equal(got[0], base[0])
+
+
+def test_loader_batches_reach_the_card_intact(cuda, tmp_path):
+    """`device_batches` copies each `Loader` batch from pinned memory on a
+    side stream, one batch ahead: every batch read on the card (by a
+    kernel on the current stream) equals the host batch."""
+    import numpy as np
+
+    from dimsum_torch.data import LatentMemmapDataset, Loader, device_batches
+    from dimsum_torch.data.loader import _to_device
+
+    rng = np.random.default_rng(0)
+    xs = rng.standard_normal((50, 4, 32, 32)).astype(np.float32)
+    xs.tofile(tmp_path / "latents.dat")
+    np.arange(50, dtype=np.int64).tofile(tmp_path / "labels.dat")
+    ds = LatentMemmapDataset(str(tmp_path / "latents.dat"),
+                             str(tmp_path / "labels.dat"))
+    assert ds.is_native
+    loader = Loader(ds, batch_size=16, seed=2, drop_last=False)
+    host = list(loader)
+    got = [(x * 2).cpu() for x, _ in device_batches(loader, cuda)]
+    assert len(got) == len(host) == 4
+    for (hx, _), gx in zip(host, got):
+        assert torch.equal(gx, torch.from_numpy(hx * 2))
+    labels = torch.cat([y.cpu() for _, y in device_batches(loader, cuda)])
+    assert sorted(labels.tolist()) == list(range(50))
+    stream = torch.cuda.Stream(cuda)
+    x, y, copied = _to_device(host[0], cuda, stream)
+    assert x.is_cuda and y.dtype == torch.int64 and copied is not None
