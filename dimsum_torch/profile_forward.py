@@ -18,6 +18,10 @@ modulate, conv + x_proj) are classes of their own.
     python -m dimsum_torch.profile_forward --train --batch 16
     python -m dimsum_torch.profile_forward --pallas-norm --fused-norm \
         --conv-xproj [--pending-tail 2]
+    python -m dimsum_torch.profile_forward --train --grad-checkpoint \
+        [--remat-policy scan]
+
+The last profiles train steps under remat (`train_bench`'s flags).
 """
 
 from __future__ import annotations
@@ -73,6 +77,10 @@ def main(argv=None):
                     choices=IMAGE_SIZES,
                     help="pixels; 512 -> latent 64, L = 1024 tokens")
     add_fused_flags(ap)
+    ap.add_argument("--grad-checkpoint", action="store_true",
+                    help="with --train: remat each block")
+    ap.add_argument("--remat-policy", default=None,
+                    help="with --grad-checkpoint: what remat keeps")
     args = ap.parse_args(argv)
     fused = fused_settings(args)
     latent = args.image_size // 8
@@ -81,7 +89,9 @@ def main(argv=None):
     if args.train:
         _, step = train_bench.setup(batch=args.batch,
                                     bf16=args.dtype == "bf16", device=dev,
-                                    image_size=args.image_size, **fused)
+                                    image_size=args.image_size,
+                                    grad_checkpoint=args.grad_checkpoint,
+                                    remat_policy=args.remat_policy, **fused)
         rows, grad_mode = args.batch, torch.enable_grad()
     else:
         cfg = DiM_models["DiM-L/2"](img_resolution=latent, num_classes=1000,
@@ -134,7 +144,8 @@ def main(argv=None):
         "card": card_name_and_power_limit(dev.index or 0),
         "step": "train" if args.train else "cfg_forward",
         "image_size": args.image_size, "rows": rows, "dtype": args.dtype,
-        "fused": fused,
+        "fused": fused, "grad_checkpoint": args.grad_checkpoint,
+        "remat_policy": args.remat_policy,
         "wall_ms_per_step": wall_ms, "device_ms_per_step": busy_ms,
         "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
         "kernel_launches_per_step": launches / ITERS,
