@@ -2520,9 +2520,8 @@ def phase_train_cli():
                                  f"{proc.returncode}")
 
         # the objects this long process has made are frozen out of the
-        # garbage collector's passes for the steps timed here: late in the
-        # smoke, unfrozen, a step read 0.43-0.49 s on cards where a fresh
-        # process took 0.32-0.35
+        # garbage collector's passes while steps are timed here, so that
+        # the smoke's earlier phases do not add collections to them
         gc.collect()
         gc.freeze()
         trainer = train_cli.Trainer(train_cli.parse_args(

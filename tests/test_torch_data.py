@@ -10,8 +10,9 @@ latents with label files.
     source into build/dimsum_torch/) equals the numpy route and the memmap
     itself; the default route is the native one; a build that fails raises
     instead of falling back; an index outside the file raises;
-  * a worker's exception reaches the consumer; `device_batches` hands the
-    batches over as tensors unchanged;
+  * a worker's exception reaches the consumer; 32 workers under a 10-us
+    switch interval deliver every batch once, in order; `device_batches`
+    hands the batches over as tensors unchanged;
   * `get_dataset` takes the latent routes, and a pixel dataset raises
     naming ROADMAP.md Queue 1 item 6.
 """
@@ -190,3 +191,46 @@ def test_get_dataset_routes(files):
             get_dataset(args(name))
     with pytest.raises(ValueError, match="unknown dataset"):
         get_dataset(args("mnist"))
+
+
+class _Items:
+    """A dataset read item by item, its sample the index itself."""
+
+    def __len__(self):
+        return 200
+
+    def __getitem__(self, i):
+        return np.full(2, i, np.float32), i
+
+
+def test_loader_under_thread_stress():
+    """32 worker threads (more than the cores) with a 10-us switch interval,
+    prefetch 1, over three epochs: every batch arrives once and in order,
+    the labels those of the epoch's shuffled stripe; the run is bounded by
+    a 60-s timeout (a lost slot or a lost result would hang or drop a
+    batch)."""
+    import sys
+    import threading
+
+    loader = Loader(_Items(), batch_size=3, seed=5, drop_last=False,
+                    num_workers=32, prefetch=1)
+    got, want = [], []
+
+    def consume():
+        for epoch in range(3):
+            loader.set_epoch(epoch)
+            want.append(loader._epoch_indices())
+            got.append(np.concatenate([y for _, y in loader]))
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        t = threading.Thread(target=consume, daemon=True)
+        t.start()
+        t.join(timeout=60)
+        assert not t.is_alive(), "the loader hung"
+    finally:
+        sys.setswitchinterval(old)
+    assert len(got) == 3
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
