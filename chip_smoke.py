@@ -2792,11 +2792,11 @@ def _ddp_state():
     return create_train_state(model, create_optimizer(model, lr=DDP_LR))
 
 
-def _ddp_data():
+def _ddp_data(k):
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(5)
-    shape = (DDP_STEPS, DDP_RANKS * DDP_BATCH)
+    shape = (DDP_STEPS, k * DDP_BATCH)
     return (torch.randn((*shape, 4, 32, 32), generator=g, device="cuda"),
             torch.randint(0, 1000, shape, generator=g, device="cuda"))
 
@@ -2809,11 +2809,12 @@ def _flat_state(state):
                      + [e.reshape(-1) for e in state.ema_params.values()])
 
 
-def _ddp_rank(rank, k, port, out_dir):
-    """One rank of train-ddp, a process of its own on the one card:
-    `init_distributed` with gloo, DDP_STEPS data-parallel steps on its
-    slice of each batch with its own generator; rank 0 then replays both
-    ranks' micro-batches in one model and writes the record."""
+def _ddp_rank(rank, k, port, out_dir, backend):
+    """One rank of train-ddp, a process of its own on the one card (gloo)
+    or on card `rank` (NCCL): `init_distributed`, DDP_STEPS data-parallel
+    steps on its slice of each batch with its own generator; rank 0 then
+    replays every rank's micro-batches in one model and writes the
+    record."""
     import os
 
     import torch
@@ -2822,12 +2823,12 @@ def _ddp_rank(rank, k, port, out_dir):
     from dimsum_torch.parallel import init_distributed, make_train_step
     from dimsum_torch.transport import create_transport
 
-    torch.cuda.set_device(0)
-    init_distributed(f"localhost:{port}", k, rank, "cuda", backend="gloo",
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    init_distributed(f"localhost:{port}", k, rank, "cuda", backend=backend,
                      timeout_s=DDP_TIMEOUT)
     try:
         with _deterministic():
-            x, y = _ddp_data()
+            x, y = _ddp_data(k)
             state = _ddp_state()
             step = make_train_step(
                 state.model, create_transport("GVP", "velocity"),
@@ -2848,7 +2849,7 @@ def _ddp_rank(rank, k, port, out_dir):
             flags = [None] * k
             dist.all_gather_object(flags, (torch.equal(ref, flat), launches))
             if rank == 0:
-                rec = _ddp_replay(state, losses, x, y)
+                rec = _ddp_replay(state, losses, x, y, k)
                 rec.update(replicas_equal=[f[0] for f in flags],
                            launches=[f[1] for f in flags],
                            dp_seconds=seconds)
@@ -2858,10 +2859,11 @@ def _ddp_rank(rank, k, port, out_dir):
         dist.destroy_process_group()
 
 
-def _ddp_replay(dp_state, dp_losses, x, y):
-    """One process: each step, rank 0's micro-batch then rank 1's, each
-    with its rank's generator, the gradients summed and halved, then the
-    same clip, AdamW and EMA; compared with the data-parallel state."""
+def _ddp_replay(dp_state, dp_losses, x, y, k):
+    """One process: each step, rank 0's micro-batch, then rank 1's, ...,
+    each with its rank's generator, the gradients summed and divided by
+    k, then the same clip, AdamW and EMA; compared with the data-parallel
+    state."""
     import torch
 
     from dimsum_torch.parallel import clip_by_global_norm, ema_update
@@ -2870,16 +2872,15 @@ def _ddp_replay(dp_state, dp_losses, x, y):
     state = _ddp_state()
     model, params = state.model, list(state.model.parameters())
     transport = create_transport("GVP", "velocity")
-    gens = [torch.Generator(device="cuda").manual_seed(DDP_SEED * DDP_RANKS
-                                                        + r)
-            for r in range(DDP_RANKS)]
+    gens = [torch.Generator(device="cuda").manual_seed(DDP_SEED * k + r)
+            for r in range(k)]
     noise = {n: torch.zeros_like(p, dtype=torch.bool)
              for n, p in model.named_parameters()}
     losses = []
     for s in range(DDP_STEPS):
         model.zero_grad(set_to_none=True)
         total = 0.0
-        for r in range(DDP_RANKS):
+        for r in range(k):
             sl = slice(r * DDP_BATCH, (r + 1) * DDP_BATCH)
             loss = transport.training_losses(
                 lambda xt, t, **kw: model(xt, t, train=True,
@@ -2891,10 +2892,10 @@ def _ddp_replay(dp_state, dp_losses, x, y):
             for n, p in model.named_parameters():
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-                p.grad.div_(DDP_RANKS)
+                p.grad.div_(k)
                 g = p.grad.abs()
                 noise[n] |= g <= 1e-3 * g.max().clamp_min(1e-30)
-        losses.append((total / DDP_RANKS).item())
+        losses.append((total / k).item())
         clip_by_global_norm(params, 1.0)
         state.optimizer.step()
         ema_update(state.ema_params, model, DDP_EMA)
@@ -2924,17 +2925,18 @@ def _ddp_replay(dp_state, dp_losses, x, y):
             "worst_in_tolerances": worst, "bit_for_bit": exact}
 
 
-def phase_train_ddp():
-    """train-ddp: data-parallel training on DDP_RANKS processes on the one
-    card, joined by gloo through `init_distributed` (NCCL cannot put two
-    ranks on one GPU), DiM-L/2 at full width and depth DDP_DEPTH (cut from
-    16), fp32 with TF32 off: DDP_STEPS steps of DDP_BATCH a rank with each
-    rank's generator (seed DDP_SEED * ranks + rank), against one process
-    replaying both ranks' micro-batches in turn.  The loss to rtol 1e-6,
-    the weights and the EMA to atol 2e-6 + rtol 1e-5, entries whose
-    gradient is rounding noise to 2 lr a step (as the CPU test,
+def phase_train_ddp(ranks: int = DDP_RANKS, backend: str = "gloo"):
+    """train-ddp: data-parallel training on `ranks` processes joined
+    through `init_distributed`: by gloo on the one card (the default; NCCL
+    cannot put two ranks on one GPU), or by NCCL one rank a card on a
+    machine with `ranks` cards.  DiM-L/2 at full width and depth DDP_DEPTH
+    (cut from 16), fp32 with TF32 off: DDP_STEPS steps of DDP_BATCH a rank
+    with each rank's generator (seed DDP_SEED * ranks + rank), against one
+    process replaying every rank's micro-batches in turn.  The loss to
+    rtol 1e-6, the weights and the EMA to atol 2e-6 + rtol 1e-5, entries
+    whose gradient is rounding noise to 2 lr a step (as the CPU test,
     tests/test_torch_ddp.py).  Alone: python3 -c "import chip_smoke as s;
-    s.phase_train_ddp()"."""
+    s.phase_train_ddp()"; on 4 cards s.phase_train_ddp(4, "nccl")."""
     import os
     import socket
     import tempfile
@@ -2951,8 +2953,9 @@ def phase_train_ddp():
         port = s.getsockname()[1]
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        ctx = mp.start_processes(_ddp_rank, args=(DDP_RANKS, port, tmp),
-                                 nprocs=DDP_RANKS, join=False,
+        ctx = mp.start_processes(_ddp_rank,
+                                 args=(ranks, port, tmp, backend),
+                                 nprocs=ranks, join=False,
                                  start_method="spawn")
         try:
             while not ctx.join(timeout=5):
@@ -2968,7 +2971,7 @@ def phase_train_ddp():
             r0 = json.load(f)
     per_rank = 2 * DDP_DEPTH * DDP_STEPS
     rec = {"phase": "train-ddp", "model": f"DiM-L/2 at depth {DDP_DEPTH}",
-           "ranks": DDP_RANKS, "backend": "gloo", "batch_per_rank":
+           "ranks": ranks, "backend": backend, "batch_per_rank":
            DDP_BATCH, "steps": DDP_STEPS, "dtype": "float32", "tf32": False,
            "lr": DDP_LR, "group_seconds": time.perf_counter() - t0, **r0}
     emit(rec)

@@ -2,7 +2,8 @@
 in 2 gloo processes on the CPU against one process that replays both
 ranks' micro-batches in turn with the same per-rank draws, as the JAX
 package holds its DP step (tests/test_parallel.py:115-145, :208-247): the
-loss, the weights and the EMA after 2 steps, with grad_accum 1 and 2.  Also
+loss, the weights and the EMA after 2 steps, with grad_accum 1 and 2, and
+with 4 ranks.  Also
 the training CLI as 2 ranks (the Trainer's stripes, seeds and group) and
 `init_distributed`'s arguments.
 
@@ -16,8 +17,8 @@ generator (seeded global_seed * 2 + rank) matters.
 Tolerances (those of the JAX test): the loss rtol 1e-6, the weights and
 the EMA atol 2e-6 and rtol 1e-5.  The replay sums the same gradients in
 another order (all micro-batches into one sum, then / 4, where a rank sums
-its 2 and the all-reduce the ranks'); with grad_accum 1 the two orders
-coincide and the results are equal bit for bit (measured).  With
+its 2 and the all-reduce the ranks'); with 2 ranks and grad_accum 1 the
+two orders coincide and the results are equal bit for bit (measured).  With
 grad_accum 2 the entries whose gradient is rounding noise in a step (below
 1e-3 of its tensor's largest, such as the attention key biases, whose true
 gradient is 0) take AdamW steps of lr * noise / eps that hang on the order
@@ -121,22 +122,22 @@ def _dp_rank(r, k, path, accum):
     np.savez(f"{path}/rank{r}.npz", **_snapshot(state, losses))
 
 
-def _replay(accum):
-    """One process: each step, rank 0's micro-batches then rank 1's, each
-    with its rank's generator, the gradients summed and divided by their
-    count, then the same clip, AdamW and EMA."""
+def _replay(accum, k=K):
+    """One process: each step, rank 0's micro-batches, then rank 1's, ...,
+    each with its rank's generator, the gradients summed and divided by
+    their count, then the same clip, AdamW and EMA."""
     x, y = _data()
     state = _state()
     model, params = state.model, list(state.model.parameters())
     transport = create_transport("GVP", "velocity")
-    gens = [torch.Generator().manual_seed(SEED * K + r) for r in range(K)]
-    per, losses = BATCH // K, []
+    gens = [torch.Generator().manual_seed(SEED * k + r) for r in range(k)]
+    per, losses = BATCH // k, []
     noise = {n: np.zeros(p.shape, bool) for n, p in model.named_parameters()}
     for s in range(STEPS):
         for p in params:
             p.grad = None
         step_losses = []
-        for r in range(K):
+        for r in range(k):
             xr = torch.from_numpy(x[s, r * per:(r + 1) * per])
             yr = torch.from_numpy(y[s, r * per:(r + 1) * per])
             for xi, yi in zip(xr.chunk(accum), yr.chunk(accum)):
@@ -150,25 +151,26 @@ def _replay(accum):
             for p in params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-                p.grad.div_(K * accum)
+                p.grad.div_(k * accum)
         for n, p in model.named_parameters():
             g = p.grad.abs().numpy()
             noise[n] |= g <= 1e-3 * max(g.max(), 1e-30)
-        losses.append((sum(step_losses) / (K * accum)).item())
+        losses.append((sum(step_losses) / (k * accum)).item())
         clip_by_global_norm(params, 1.0)
         state.optimizer.step()
         ema_update(state.ema_params, model, EMA)
     return _snapshot(state, losses), noise
 
 
-@pytest.mark.parametrize("accum", [1, 2])
-def test_dp_step_equals_sequential_replay(accum, tmp_path):
-    _spawn(_dp_rank, tmp_path, str(tmp_path), accum)
-    ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(K)]
-    want, noise = _replay(accum)
-    for key in want:  # the ranks hold one replica
-        np.testing.assert_array_equal(ranks[1][key], ranks[0][key],
-                                      err_msg=key)
+@pytest.mark.parametrize("k, accum", [(2, 1), (2, 2), (4, 1)])
+def test_dp_step_equals_sequential_replay(k, accum, tmp_path):
+    _spawn(_dp_rank, tmp_path, str(tmp_path), accum, k=k)
+    ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(k)]
+    want, noise = _replay(accum, k)
+    for r in range(1, k):  # the ranks hold one replica
+        for key in want:
+            np.testing.assert_array_equal(ranks[r][key], ranks[0][key],
+                                          err_msg=key)
     got = ranks[0]
     np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-6)
     assert got["losses"][0] != got["losses"][1]
@@ -177,8 +179,8 @@ def test_dp_step_equals_sequential_replay(accum, tmp_path):
             tol = np.where(noise[key[2:]], 2 * LR * STEPS,
                            2e-6 + 1e-5 * np.abs(want[key]))
             assert (np.abs(got[key] - want[key]) <= tol).all(), key
-    if accum == 1:  # the sums' orders coincide
-        assert all(np.array_equal(got[k], want[k]) for k in want)
+    if (k, accum) == (2, 1):  # the sums' orders coincide
+        assert all(np.array_equal(got[key], want[key]) for key in want)
 
 
 # --------------------------------------------------------------------------
