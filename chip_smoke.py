@@ -175,21 +175,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
               samples (latents.dat fp32 (N, 4, 32, 32), labels.dat int64,
               2 MB) in a temporary directory: epochs 0-1 as a process of
               its own (the content checkpoint each epoch, a sample grid at
-              epoch 0 through `--vae-ckpt random`), then `--resume` in this
-              process for epoch 2 (`train.Trainer`, what the module's main
-              runs).  It must start at step 16, epoch 2, with its weights,
-              EMA and AdamW state equal to the saved file bit for bit; the
-              native gather runs; counts set to 0 just before and read just
-              after its epoch: 32 launches of kernels 2 and 3 a step, none
-              of kernel 1; finite losses; the content checkpoints rotated
-              to 2.  Records s/step (the last log window of the CLI's own
-              process), the resumed run's, device ms a step
-              (torch.profiler over 4 steps of the CLI's loop), the idle
-              share, peak memory, and 4-step windows of the loop and of the
-              step on one batch already on the card, in turns (the
-              process's old objects frozen out of the garbage collector),
-              beside train's s/step and peak memory.  Alone: python3 -c
-              "import chip_smoke as s; s.phase_train_cli()".
+              epoch 0 through `--vae-ckpt random`), then `--resume` in a
+              process of its own for epoch 2 (`train.Trainer`, what the
+              module's main runs).  It must start at step 16, epoch 2, with
+              its weights, EMA and AdamW state equal to the saved file bit
+              for bit; the native gather runs; counts set to 0 just before
+              and read just after its epoch (in its process): 32 launches
+              of kernels 2 and 3 a step, none of kernel 1; finite losses;
+              the content checkpoints rotated to 2 (three 7.4-GB saves, the
+              fewest that show it).
+              Records s/step (the last log window of the CLI's own
+              process); for the resumed run, itself a process of its own,
+              the s/step, kernels' device ms a step and idle share of its
+              last log window, recorded by torch.profiler (CUDA activity
+              only) over that window's steps; peak memory, beside train's
+              s/step and peak memory; the phase's seconds.  Alone:
+              python3 -c "import chip_smoke as s; s.phase_train_cli()".
  27. train-remat  one fp32 step of full-width DiM-L/2 at batch 2 (TF32
               off, cuDNN deterministic, the math SDPA; drop path and label
               dropout 0.1 from one generator seed) twice without remat and
@@ -1552,6 +1553,7 @@ def phase_sample_sp_512():
 
     from dimsum_torch.ops import cuda_build
 
+    phase_t0 = time.perf_counter()
     cuda_build.build()  # here, not in each rank
     torch.cuda.empty_cache()
     with socket.socket() as s:
@@ -2407,9 +2409,6 @@ RESULTS = {}
 # 16: 8 steps an epoch; epochs 0-1, then resumed for epoch 2.  The loss is
 # logged every half epoch: the last window's s/step is the steady one
 TRAIN_CLI_SAMPLES, TRAIN_CLI_STEPS = 128, 8
-# steps of the CLI's loop profiled for its device time a step, and of each
-# window of the loop-against-fixed-batch comparison (L F F L)
-TRAIN_CLI_PROFILED = TRAIN_CLI_WINDOW = 4
 # the published ImageNet recipe (scripts/train.sh), bf16 over fp32 weights,
 # at global batch 16 (one card); the content checkpoint every epoch, no
 # numbered snapshot (7.4 GB each), the sample grid at epoch 0 only
@@ -2458,172 +2457,179 @@ def _same_train_state(saved, state) -> dict:
                 same(opt_saved[i], opt_live[i]) for i in opt_saved)}
 
 
-def _device_ms_per_step(run_steps) -> float:
-    """Device time a step (every CUDA kernel's self time, as
-    `profile_forward` sums it) over the steps `run_steps()` runs (it
-    returns their number), from torch.profiler."""
-    import torch
+def _kernel_ms(prof):
+    """Device time of the CUDA kernels a torch.profiler session recorded
+    (memcpy and memset left out), or None if it recorded none."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        n = run_steps()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith(("Memcpy", "Memset"))]
+    if not kernels:
+        return None
+    return sum(e.self_device_time_total for e in kernels) / 1e3
+
+
+def _train_cli_resumed(spec: str):
+    """The resumed run of train-cli, in a process of its own as a user's
+    would be: `train.Trainer` (what the CLI's main runs) with --resume,
+    its state held to the saved file, the launch counts set to 0 just
+    before its epoch and read just after, and torch.profiler (CUDA
+    activity only) recording the steps of its last log window, so that
+    their kernel time and the window's wall time are of one run (the
+    profiler starts a step earlier, in the window before).  `spec` is a
+    JSON [argv, output path]; the record goes to the output path."""
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from dimsum_torch import train as train_cli
+
+    argv, out = json.loads(spec)
+    trainer = train_cli.Trainer(train_cli.parse_args(argv))
+    try:
+        resumed_at = [trainer.train_steps, trainer.init_epoch]
+        saved = torch.load(os.path.join(
+            trainer.content_dir, f"{resumed_at[0]:07d}.pt"),
+            map_location="cpu", weights_only=False, mmap=True)
+        same = _same_train_state(saved, trainer.state)
+        del saved
+        counts = _zeroed_scan_counts()
         torch.cuda.synchronize()
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False))
-    return busy_us / 1e3 / n
+        torch.cuda.reset_peak_memory_stats()
+        # train step k runs in the profiler's step k: the last window's
+        # steps are recorded, the one before them warms the profiler up
+        window = trainer.args.log_every
+        step = trainer.train_step
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=TRAIN_CLI_STEPS - window,
+                                       warmup=1, active=window)) as prof:
+            def profiled_step(*args, **kwargs):
+                prof.step()
+                return step(*args, **kwargs)
+
+            trainer.train_step = profiled_step
+            trainer.fit()
+            torch.cuda.synchronize()
+        rec = {"resumed_at_step_epoch": resumed_at,
+               "resumed_state_equals_file": same,
+               "launches": {k: c.launches for k, c in counts.items()},
+               "max_memory_allocated_GB":
+                   torch.cuda.max_memory_allocated() / 1e9,
+               "windows": [{"steps": h["steps"], "seconds": h["seconds"]}
+                           for h in trainer.history],
+               "losses": [h["loss"] for h in trainer.history],
+               "last_window_kernel_ms": _kernel_ms(prof),
+               "native_gather": trainer.dataset.is_native}
+    finally:
+        trainer.close()
+    with open(out, "w") as f:
+        json.dump(rec, f)
 
 
 def phase_train_cli():
     """train-cli: `python -m dimsum_torch.train` on full-width DiM-L/2 at
     256 px with the published flags (TRAIN_CLI_ARGS) from a seeded latent
-    memmap, epochs 0-1 in a process of its own; then resumed in this
-    process for epoch 2 (`train.Trainer`, what `main` runs).  Alone:
-    python3 -c "import chip_smoke as s; s.phase_train_cli()"."""
+    memmap, epochs 0-1 in a process of its own; then resumed for epoch 2
+    in another (`_train_cli_resumed`), whose last log window gives the
+    device idle share: its kernels' time against its wall time, with the
+    profiler's own host cost in it.  Three content checkpoints of 7.4 GB
+    are written (keep 2: the third shows the rotation).  Alone: python3
+    -c "import chip_smoke as s; s.phase_train_cli()"."""
     import os
     import re
     import subprocess
     import tempfile
 
-    import numpy as np
-    import torch
-
-    from dimsum_torch import train as train_cli
-    from dimsum_torch.data import device_batches
     from dimsum_torch.utils.ckpt import checkpoint_steps
     from dimsum_torch.utils.png import read_png
 
+    phase_t0 = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
     bench = RESULTS.get("train")
+
+    def run(cmd, what):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *cmd], cwd=root,
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            raise AssertionError(f"train-cli: the {what} exited "
+                                 f"{proc.returncode}")
+        return proc.stderr, time.perf_counter() - t0
+
     with tempfile.TemporaryDirectory() as tmp:
         _write_latent_memmap(tmp, TRAIN_CLI_SAMPLES)
         argv = ["--exp", "cli", "--datadir", tmp, "--results-dir",
                 os.path.join(tmp, "results"), *TRAIN_CLI_ARGS]
         exp = os.path.join(tmp, "results", "cli")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "dimsum_torch.train", *argv, "--epochs",
-             "1"], cwd=root, capture_output=True, text=True, timeout=600)
-        first_seconds = time.perf_counter() - t0
-        log = proc.stderr
+        log, first_seconds = run(
+            ["-m", "dimsum_torch.train", *argv, "--epochs", "1"],
+            "first run")
         first_losses = [float(v) for v in re.findall(r"loss=(\S+)", log)]
         first_rates = [float(v) for v in
                        re.findall(r"steps/sec=(\S+)", log)]
         content_after_first = checkpoint_steps(os.path.join(exp, "content"))
         grid_path = os.path.join(exp, "samples_epoch00000.png")
         grid = read_png(grid_path) if os.path.exists(grid_path) else None
-        if proc.returncode != 0:
-            print(log[-4000:], file=sys.stderr)
-            raise AssertionError(f"train-cli: the first run exited "
-                                 f"{proc.returncode}")
 
-        # the objects this long process has made are frozen out of the
-        # garbage collector's passes while steps are timed here, so that
-        # the smoke's earlier phases do not add collections to them
-        gc.collect()
-        gc.freeze()
-        trainer = train_cli.Trainer(train_cli.parse_args(
-            [*argv, "--epochs", "2", "--resume"]))
-        try:
-            resumed_at = [trainer.train_steps, trainer.init_epoch]
-            saved = torch.load(os.path.join(
-                exp, "content", f"{resumed_at[0]:07d}.pt"),
-                map_location="cpu", weights_only=False)
-            same = _same_train_state(saved, trainer.state)
-            del saved
-            counts = _zeroed_scan_counts()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            trainer.fit()
-            torch.cuda.synchronize()
-            second_seconds = time.perf_counter() - t0
-            launches = {k: c.launches for k, c in counts.items()}
-            peak_gb = torch.cuda.max_memory_allocated() / 1e9
-            window = trainer.history[-1]
-            resumed_s_per_step = window["seconds"] / window["steps"]
-
-            def cli_loop():  # the CLI's loop: loader, copy, step
-                trainer.loader.set_epoch(3)
-                n = 0
-                for x, y in device_batches(trainer.loader, trainer.device):
-                    trainer.train_step(trainer.state, x, y,
-                                       trainer.generator)
-                    n += 1
-                    if n == TRAIN_CLI_PROFILED:
-                        return n
-
-            device_ms = _device_ms_per_step(cli_loop)
-
-            # the loader's and the copy's share: windows of the CLI's loop
-            # and of the step on one batch already on the card (the
-            # train_bench protocol), in turns, in this process
-            def window(batches):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _, (x, y) in zip(range(TRAIN_CLI_WINDOW), batches):
-                    trainer.train_step(trainer.state, x, y,
-                                       trainer.generator)
-                torch.cuda.synchronize()
-                return (time.perf_counter() - t0) / TRAIN_CLI_WINDOW
-
-            def loop_batches(epoch):
-                trainer.loader.set_epoch(epoch)
-                return device_batches(trainer.loader, trainer.device)
-
-            fixed = next(loop_batches(4))
-            turns = [("loop", loop_batches(5)), ("fixed", iter([fixed] * 4)),
-                     ("fixed", iter([fixed] * 4)), ("loop", loop_batches(6))]
-            alternated = [(kind, window(b)) for kind, b in turns]
-            native = trainer.dataset.is_native
-            losses = [h["loss"] for h in trainer.history]
-        finally:
-            trainer.close()
-            gc.unfreeze()
+        out = os.path.join(tmp, "resumed.json")
+        spec = json.dumps([[*argv, "--epochs", "2", "--resume"], out])
+        _, second_seconds = run(
+            ["-c", "import sys, chip_smoke as s; "
+                   "s._train_cli_resumed(sys.argv[1])", spec],
+            "resumed run")
+        with open(out) as f:
+            resumed = json.load(f)
         content = checkpoint_steps(os.path.join(exp, "content"))
         snapshots = checkpoint_steps(os.path.join(exp, "checkpoints"))
-    del trainer
-    torch.cuda.empty_cache()
     steps = TRAIN_CLI_STEPS
     # the CLI's s/step: the last log window of its own process (steps
     # 13-16), as a user's run reads it
     s_per_step = 1 / first_rates[-1] if first_rates else math.inf
+    launches, losses = resumed["launches"], resumed["losses"]
+    last = resumed["windows"][-1] if resumed["windows"] else None
+    kernel_ms = resumed["last_window_kernel_ms"]
+    measured = last is not None and kernel_ms is not None
     rec = {"phase": "train-cli", "model": "DiM-L/2", "image_size": 256,
            "batch": 16, "dtype": "bf16 over fp32 weights",
            "samples": TRAIN_CLI_SAMPLES, "steps_per_epoch": steps,
-           "first_run": {"epochs": [0, 1], "rc": proc.returncode,
-                         "seconds": first_seconds, "losses": first_losses,
+           "first_run": {"epochs": [0, 1], "seconds": first_seconds,
+                         "losses": first_losses,
                          "steps_per_sec": first_rates,
                          "content_steps": content_after_first,
                          "grid_shape": None if grid is None
                          else list(grid.shape)},
-           "resumed_at_step_epoch": resumed_at,
-           "resumed_state_equals_file": same,
-           "second_run_seconds": second_seconds, "losses": losses,
-           "launches": launches, "native_gather": native,
+           "second_run_seconds": second_seconds, **resumed,
            "content_steps": content, "snapshot_steps": snapshots,
            "s_per_step": s_per_step,
-           "resumed_s_per_step": resumed_s_per_step,
-           "device_ms_per_step": device_ms,
-           "s_per_step_loop_fixed_fixed_loop": alternated,
-           "device_idle_share": max(0.0, 1 - device_ms / 1e3 / s_per_step),
-           "max_memory_allocated_GB": peak_gb,
+           # the resumed run's last window (under the profiler)
+           "resumed_s_per_step": None if last is None
+           else last["seconds"] / last["steps"],
+           # None: the profiler recorded no kernel (not measured)
+           "resumed_device_ms_per_step": kernel_ms / last["steps"]
+           if measured else None,
+           "resumed_device_idle_share": max(
+               0.0, 1 - kernel_ms / 1e3 / last["seconds"])
+           if measured else None,
            "train_bench": None if bench is None else {
                "s_per_step": bench["s_per_step"],
-               "max_memory_allocated_GB": bench["max_memory_allocated_GB"],
-               # the same step on the same shapes: the CLI's device time
-               "device_idle_share": max(
-                   0.0, 1 - device_ms / 1e3 / bench["s_per_step"])}}
+               "max_memory_allocated_GB": bench["max_memory_allocated_GB"]},
+           "seconds": time.perf_counter() - phase_t0}
     emit(rec)
     finite = bool(losses and first_losses
                   and all(math.isfinite(v) for v in losses + first_losses))
-    if (not finite or resumed_at != [2 * steps, 2] or not all(same.values())
+    if (not finite or resumed["resumed_at_step_epoch"] != [2 * steps, 2]
+            or not all(resumed["resumed_state_equals_file"].values())
             or launches["selective_scan_fwd"] != 0
             or launches["selective_scan_fwd_train"] != 32 * steps
             or launches["selective_scan_bwd"] != 32 * steps
-            or not native or content_after_first != [steps, 2 * steps]
+            or not resumed["native_gather"]
+            or [w["steps"] for w in resumed["windows"]]
+            != [steps // 2, steps // 2]
+            or content_after_first != [steps, 2 * steps]
             or content != [2 * steps, 3 * steps]
             or snapshots != [] or grid is None
             or grid.shape != (1024, 1024, 3) or grid.std() == 0):
@@ -2676,6 +2682,7 @@ def phase_train_remat():
     from dimsum_torch.transport import create_transport
     from dimsum_torch.utils import remat
 
+    phase_t0 = time.perf_counter()
     gc.collect()
     gc.freeze()  # see phase_train_cli
     with _deterministic():
@@ -2746,7 +2753,8 @@ def phase_train_remat():
     gc.unfreeze()
     rec = {"phase": "train-remat", "model": "DiM-L/2", "fp32_batch": 2,
            "tf32": False, "sdpa": "math", "tol": tol, "spread": spread,
-           "fp32": fp32, "bf16_batch": 16, "bf16": bf16}
+           "fp32": fp32, "bf16_batch": 16, "bf16": bf16,
+           "seconds": time.perf_counter() - phase_t0}
     emit(rec)
     bad = [name for name, r in fp32.items()
            if not r["worst_grad_scaled_err"] <= tol or not r["same_grad_set"]
@@ -2946,6 +2954,7 @@ def phase_train_ddp(ranks: int = DDP_RANKS, backend: str = "gloo"):
 
     from dimsum_torch.ops import cuda_build
 
+    phase_t0 = time.perf_counter()
     cuda_build.build()  # here, not in each rank
     torch.cuda.empty_cache()
     with socket.socket() as s:
@@ -2973,7 +2982,8 @@ def phase_train_ddp(ranks: int = DDP_RANKS, backend: str = "gloo"):
     rec = {"phase": "train-ddp", "model": f"DiM-L/2 at depth {DDP_DEPTH}",
            "ranks": ranks, "backend": backend, "batch_per_rank":
            DDP_BATCH, "steps": DDP_STEPS, "dtype": "float32", "tf32": False,
-           "lr": DDP_LR, "group_seconds": time.perf_counter() - t0, **r0}
+           "lr": DDP_LR, "group_seconds": time.perf_counter() - t0, **r0,
+           "seconds": time.perf_counter() - phase_t0}
     emit(rec)
     worst = r0["worst_in_tolerances"]
     if (not all(r0["replicas_equal"]) or not r0["loss_rel_err"] <= 1e-6

@@ -54,7 +54,6 @@ from dimsum_torch.models.embedders import (FinalLayer, LabelEmbedder,
                                            get_2d_sincos_pos_embed,
                                            unpatchify)
 from dimsum_torch.models.linear import cast_weights_
-from dimsum_torch.models.mamba import Mamba
 from dimsum_torch.utils import remat
 from dimsum_torch.utils.device import resolve_device
 
@@ -121,7 +120,6 @@ class DiM(nn.Module):
                                        fused_norm=cfg.fused_norm)
         self.final_layer = FinalLayer(D, cfg.patch_size, cfg.in_channels, dt,
                                       fused_norm=cfg.fused_norm)
-        self._mixers = [m for m in self.modules() if isinstance(m, Mamba)]
 
     def forward(self, x, t, y=None, train: bool = False,
                 generator: torch.Generator | None = None,
@@ -143,18 +141,11 @@ class DiM(nn.Module):
         k = cfg.use_attn_every_k_layers
         checkpointed = (self.remat_keep is not None
                         and torch.is_grad_enabled())
-        if checkpointed:
-            # on the kernel route the scan is a kernel site: a policy that
-            # keeps only scan_out needs no selective contexts
-            kernel_scan = x.is_cuda and all(m.scan_impl is None
-                                            for m in self._mixers)
-            selective = bool(self.remat_keep - ({"scan_out"} if kernel_scan
-                                                else set()))
         for i, block in enumerate(self.blocks):
             if checkpointed:
                 x, residual = remat.checkpoint(
                     block, self.remat_keep, x, residual, c, train=train,
-                    generator=generator, selective=selective)
+                    generator=generator)
             elif self.pending_tail > 0:
                 x, residual, pending = block(x, residual, c, train=train,
                                              generator=generator,

@@ -29,7 +29,7 @@ process a rank with --num-processes, --process-id and --coordinator
 global-batch / num-processes samples with its own generator (seeded
 global_seed * num_processes + rank), and the gradients and the loss are
 averaged over the ranks before the update.  The backend is NCCL on the
-card (--dist-backend gloo runs several ranks on one card).
+card and gloo on the CPU.
 
 On the CPU: --device cpu.  The kernels are built (nvcc, in parallel)
 before the first step.  Not ported yet, and refused: --tp (ROADMAP.md
@@ -98,9 +98,6 @@ def parse_args(argv=None):
                    help="this process's rank in [0, --num-processes)")
     p.add_argument("--coordinator", type=str, default="localhost:29512",
                    help="host:port of rank 0's rendezvous")
-    p.add_argument("--dist-backend", type=str, default=None,
-                   choices=[None, "nccl", "gloo"],
-                   help="default: nccl on the card, gloo on the CPU")
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel ways (not ported: ROADMAP.md "
                         "Queue 1 item 8)")
@@ -153,8 +150,7 @@ class Trainer:
                  "ROADMAP.md Queue 1 item 6")
         self.args = args
         self.rank = init_distributed(args.coordinator, args.num_processes,
-                                     args.process_id, args.device,
-                                     args.dist_backend)
+                                     args.process_id, args.device)
         self.world = max(args.num_processes, 1)
         self.device = dev = rank_device(args.device, self.rank)
         if dev.type == "cuda":

@@ -16,7 +16,12 @@ What is kept is kept by one of two mechanisms, because
     "dots", and every op inside a `tag(name)` region whose name is kept
     (the plain scan, the conv, SDPA and the plain full-block attention),
     are saved by `create_selective_checkpoint_contexts` and handed back on
-    replay;
+    replay.  Under "dots" one pair of contexts covers the whole block;
+    otherwise each kept region enters a pair of its own, so that the ops
+    outside it pass through no Python dispatch mode (which, over a whole
+    block, slowed a host-bound DiM-L/2 step 1.7x).  Which sites are tag
+    regions on a given device is the ops layer's business alone: a policy
+    that keeps only kernel sites puts no op through a mode;
   * the port's kernels, ctypes calls inside `autograd.Function`s that the
     dispatcher never sees: their Function's forward runs the launch through
     `kernel_outputs(name, launch)`, which under a kept name stores the
@@ -90,14 +95,28 @@ def parse_policy(name: Optional[str]) -> FrozenSet[str]:
 
 class _Region:
     """One checkpointed call: what it keeps, the kernel outputs kept from
-    its first forward, and whether it is replaying."""
+    its first forward, the selective contexts of its kept tag regions, and
+    whether it is replaying."""
 
     def __init__(self, keep: FrozenSet[str]):
         self.keep = keep
+        self.whole_block = "dots" in keep  # one pair of contexts for all
         self.outputs = []
+        self.tag_contexts = []
         self.calls = 0
         self.replay = False
-        self.pos = 0
+        self.pos = self.tag_pos = 0
+
+    def tag_context(self):
+        """The selective context of the block's next kept tag region: the
+        saving one of a new pair in the first forward, the serving one of
+        that region's pair on replay."""
+        if not self.replay:
+            pair = create_selective_checkpoint_contexts(_keep_all)
+            self.tag_contexts.append(pair)
+            return pair[0]
+        self.tag_pos += 1
+        return self.tag_contexts[self.tag_pos - 1][1]
 
 
 def _region() -> Optional[_Region]:
@@ -114,11 +133,18 @@ def _set(name: str, value):
         setattr(_local, name, prev)
 
 
+@contextlib.contextmanager
 def tag(name: str):
     """A region of dispatcher ops named `name` (one of `TAGS`): inside a
     checkpointed block whose policy keeps `name`, its ops' outputs are
     saved in the first forward and handed back on replay."""
-    return _set("tag", name)
+    region = _region()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(_set("tag", name))
+        if (region is not None and name in region.keep
+                and not region.whole_block):
+            stack.enter_context(region.tag_context())
+        yield
 
 
 def kernel_outputs(name: str, launch: Callable):
@@ -140,7 +166,16 @@ def kernel_outputs(name: str, launch: Callable):
     return out
 
 
+def _keep_all(ctx, op, *args, **kwargs):
+    """The policy of a kept tag region's own contexts."""
+    if getattr(_local, "in_kernel", False):
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    return CheckpointPolicy.MUST_SAVE
+
+
 def _policy(ctx, op, *args, **kwargs):
+    """The policy of a "dots" block's contexts: matmuls and the kept tag
+    regions' ops."""
     region = _region()
     if region is None or getattr(_local, "in_kernel", False):
         return CheckpointPolicy.PREFER_RECOMPUTE
@@ -166,22 +201,19 @@ def replay_rng(generator: Optional[torch.Generator], state):
 
 
 def checkpoint(fn: Callable, keep: FrozenSet[str], *args,
-               generator: Optional[torch.Generator] = None,
-               selective: bool = True, **kwargs):
+               generator: Optional[torch.Generator] = None, **kwargs):
     """fn(*args, generator=generator, **kwargs) under non-reentrant
     `torch.utils.checkpoint`: its activations are dropped after the
     forward and recomputed in the backward, except what `keep` (from
     `parse_policy`) names.  `generator` is the explicit generator `fn`
     draws from; its draws are replayed as they were (see the module
-    docstring).  `selective=False` leaves out the selective contexts, for
-    a caller that knows every kept name is a kernel site in this call:
-    they put each op of the block through a Python dispatch mode, which
-    slowed a host-bound DiM-L/2 step 1.7x."""
+    docstring)."""
     region = _Region(keep)
     state = generator.get_state() if generator is not None else None
 
     def run(*a, **kw):
-        region.replay, region.pos = region.calls > 0, 0
+        region.replay = region.calls > 0
+        region.pos = region.tag_pos = 0
         region.calls += 1
         with contextlib.ExitStack() as stack:
             if region.replay:
@@ -191,7 +223,6 @@ def checkpoint(fn: Callable, keep: FrozenSet[str], *args,
 
     context_fn = (functools.partial(create_selective_checkpoint_contexts,
                                     _policy)
-                  if keep and selective
-                  else torch.utils.checkpoint.noop_context_fn)
+                  if region.whole_block else torch.utils.checkpoint.noop_context_fn)
     return torch.utils.checkpoint.checkpoint(
         run, *args, use_reentrant=False, context_fn=context_fn, **kwargs)

@@ -204,7 +204,7 @@ def _cli_rank(r, k, store, port, root):
             "1", "--log-every", "2", "--save-content-every", "1",
             "--ckpt-every", "1", "--num-workers", "1", "--device", "cpu",
             "--num-processes", str(k), "--process-id", str(r),
-            "--coordinator", f"localhost:{port}", "--dist-backend", "gloo"]
+            "--coordinator", f"localhost:{port}"]
     trainer = Trainer(parse_args(argv))
     try:
         trainer.fit()

@@ -1240,7 +1240,8 @@ def _remat_step(model, policy, x, t, y):
 
 @pytest.mark.parametrize("policy, launches", [
     (None, [0, 8, 4, 8]), ("scan", [0, 4, 4, 8]),
-    ("save:conv_out", [0, 8, 4, 4]), ("dots_scan", [0, 4, 4, 8])])
+    ("save:conv_out", [0, 8, 4, 4]), ("dots_scan", [0, 4, 4, 8]),
+    ("save:attn_out", [0, 8, 4, 8])])
 def test_remat_launches_and_grads_through_kernels(cuda, policy, launches):
     """A small DiM (hidden 128, depth 2: 4 mixers; conv + x_proj on, drop
     path 0.3) in fp32 with deterministic settings (TF32 off, cuDNN's

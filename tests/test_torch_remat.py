@@ -25,6 +25,8 @@ weights carried across, over that test's grid of policies.
     CPU through its plain version) and the scan's training Function run
     their forward once a call under a policy that keeps them and twice
     under full remat, with equal gradients;
+  * what each policy keeps on the dispatcher's side is held in
+    tests/test_torch_remat_ops.py;
   * unknown policies and tags raise as the JAX ones do.
 """
 
