@@ -3,8 +3,11 @@
 its sampling and training paths at full DiM-L/2 width, at 256 px and, for
 sampling, at 512 px (also sequence-parallel over 4 ranks on the card),
 sampling from a checkpoint by the reference's eval protocol through
-`python -m dimsum_torch.sample`, and training for real through
-`python -m dimsum_torch.train` (with remat and data parallelism).
+`python -m dimsum_torch.sample`, scoring samples (FID, KID,
+precision/recall with InceptionV3 on the card) through `python -m
+dimsum_torch.sample_ddp` and `calc_metrics`, and training for real
+through `python -m dimsum_torch.train` (with remat and data
+parallelism).
 
     python3 chip_smoke.py
 
@@ -169,7 +172,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
               and one augmented drift call of the fp32 model (TF32 off)
               through the kernels and through the plain scan: they must
               agree.
- 26. train-cli  `python -m dimsum_torch.train` on full-width DiM-L/2 at
+ 26. eval     the evaluation path from the same checkpoint and SD-VAE
+              (`phase_eval`): EVAL_REAL real PNGs (the VAE decode of
+              seeded latents); `python -m dimsum_torch.sample_ddp ODE` in a
+              process of its own (EVAL_SAMPLES samples in batches of
+              EVAL_BATCH, Euler over EVAL_STEPS grid points, CFG 1.4, bf16,
+              the VAE decode, the port's InceptionV3 on the card with
+              seeded weights, fid50k_full, kid50k_full, pr50k3_full,
+              --eval-streaming --save-images): 32 launches of kernel 1 a
+              drift call, finite metrics; rerun with its feature chunks on
+              disk: no launch, the same metrics; `python -m
+              dimsum_torch.calc_metrics` over the two folders: FID within
+              1e-3; InceptionV3 on the card within 1e-4 of its fp64 CPU
+              run, PR on the card equal to numpy's, KID within 1e-6 of
+              its terms' scale of its fp64 value; generation,
+              decode and InceptionV3 images/s and the metric seconds.
+              Alone: python3 -c "import chip_smoke as s; s.phase_eval()".
+ 27. train-cli  `python -m dimsum_torch.train` on full-width DiM-L/2 at
               256 px with the published ImageNet flags (bf16 over fp32
               weights, global batch 16) from a seeded latent memmap of 128
               samples (latents.dat fp32 (N, 4, 32, 32), labels.dat int64,
@@ -191,7 +210,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
               only) over that window's steps; peak memory, beside train's
               s/step and peak memory; the phase's seconds.  Alone:
               python3 -c "import chip_smoke as s; s.phase_train_cli()".
- 27. train-remat  one fp32 step of full-width DiM-L/2 at batch 2 (TF32
+ 28. train-remat  one fp32 step of full-width DiM-L/2 at batch 2 (TF32
               off, cuDNN deterministic, the math SDPA; drop path and label
               dropout 0.1 from one generator seed) twice without remat and
               with --grad-checkpoint under None and "scan": the loss, every
@@ -202,14 +221,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
               under None and under "scan" (3 timed steps after 1 each):
               s/step, peak memory (remat's must be lower), launches a
               step.
- 28. train-ddp  2 gloo processes on the one card (NCCL takes one rank a
+ 29. train-ddp  2 gloo processes on the one card (NCCL takes one rank a
               device), DiM-L/2 at full width and depth 4, fp32: 2
               data-parallel steps of 2 samples a rank, each rank's
               generator, against rank 0 replaying both ranks' micro-batches
               in turn: loss, weights and EMA (tolerances in
               `phase_train_ddp`), the replicas equal, 16 launches of
               kernels 2 and 3 a rank.
- 29. kernels  one {"kernels": [...]} line (all ten kernels; the scan,
+ 30. kernels  one {"kernels": [...]} line (all ten kernels; the scan,
               both training kernels, conv + x_proj and norm + modulate
               (norm_2) with their L 1024 times and bound beside the
               256-px ones (norm + modulate also with its L2-cold device
@@ -2385,10 +2404,261 @@ def phase_likelihood(tmp, ckpt):
     return launches
 
 
+# eval: EVAL_REAL real PNGs; EVAL_SAMPLES samples in batches of EVAL_BATCH
+# over EVAL_STEPS Euler grid points (CFG 1.4, bf16), scored by the port's
+# InceptionV3 with seeded weights
+EVAL_REAL, EVAL_SAMPLES, EVAL_BATCH, EVAL_STEPS = 64, 64, 32, 10
+EVAL_METRICS = "fid50k_full,kid50k_full,pr50k3_full"
+EVAL_DETECTOR = "jax-random"  # the JAX CLIs' spec: the port's InceptionV3
+
+
+def _eval_run(spec):
+    """`python -m dimsum_torch.sample_ddp` in a process of its own (its
+    `main`, what the module runs), the scan launch counts set to 0 just
+    before and read just after in this process.  `spec` is a JSON [argv,
+    output path]; the CLI's record and the launches go to the output
+    path."""
+    import torch
+
+    from dimsum_torch import sample_ddp
+
+    argv, out = json.loads(spec)
+    counts = _zeroed_scan_counts()
+    rec = sample_ddp.main(argv)
+    torch.cuda.synchronize()
+    rec["launches"] = {k: c.launches for k, c in counts.items()}
+    with open(out, "w") as f:
+        json.dump(rec, f)
+
+
+def _metric_values(run_dir):
+    """{name: value} of the metric-*.jsonl files in `run_dir` (the last
+    line of each)."""
+    import os
+
+    out = {}
+    for name in sorted(os.listdir(run_dir)):
+        if name.startswith("metric-") and name.endswith(".jsonl"):
+            with open(os.path.join(run_dir, name)) as f:
+                out.update(json.loads(f.read().splitlines()[-1])["results"])
+    return out
+
+
+def phase_eval(tmp=None, ckpt=None, vae_path=None):
+    """eval: the evaluation path on full-width DiM-L/2 at 256 px, from the
+    checkpoint and SD-VAE that `write_checkpoints` wrote into `tmp` (made
+    here when the phase runs alone: python3 -c "import chip_smoke as s;
+    s.phase_eval()").
+
+      1. real side: EVAL_REAL PNGs, the VAE decode of seeded latents
+         (another seed than the samples'), written by `write_png`;
+      2. streaming: `python -m dimsum_torch.sample_ddp ODE` in a process of
+         its own: EVAL_SAMPLES samples in batches of EVAL_BATCH, Euler over
+         EVAL_STEPS grid points, CFG 1.4, bf16, the SD-VAE decode, the
+         port's InceptionV3 (`--eval-detector jax-random`) on the card,
+         fid50k_full, kid50k_full and pr50k3_full, --eval-streaming
+         --save-images.  32 launches of kernel 1 a drift call, counted in
+         its process; EVAL_SAMPLES PNGs; finite metrics;
+      3. resume: the same command with its feature chunks on disk: no
+         launch of kernel 1, no batch generated, the same metrics (1e-9
+         relative: the real side now comes from the stats cache);
+      4. disk route: `python -m dimsum_torch.calc_metrics` over the two
+         folders with the same detector: FID within 1e-3 relative of
+         step 2's (the features of the same uint8 images);
+      5. the network against its plain run: the card's InceptionV3 (fp32,
+         TF32 off) on 4 of the real images within 1e-4 of scale of the
+         same network in fp64 on the CPU; precision/recall by
+         impl="torch" on the card equal to impl="numpy" on step 2's
+         features, and KID by both routes against its fp64 value: the
+         torch route within 1e-6 of the kernel terms' scale (KID near 0
+         cancels terms of that size; the numpy route's fp32 sums are
+         recorded beside it);
+      6. timings (nvidia-smi's card beside them in the device phase):
+         generation, VAE decode and InceptionV3 (batch 64) images/s, the
+         metric seconds and the phase's seconds."""
+    import os
+    import subprocess
+    import tempfile
+
+    if tmp is None:
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt, _, vae_path = write_checkpoints(tmp)
+            return phase_eval(tmp, ckpt, vae_path)
+
+    import copy
+
+    import numpy as np
+    import torch
+
+    from dimsum_torch.eval.features import latents_to_uint8
+    from dimsum_torch.eval.fid import compute_kid, compute_precision_recall
+    from dimsum_torch.eval.inception import (InceptionDetector,
+                                             preprocess_uint8)
+    from dimsum_torch.models.vae import load_vae
+    from dimsum_torch.utils.png import read_png, write_png
+
+    phase_t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    real_dir = os.path.join(tmp, "eval-real")
+    sample_dir = os.path.join(tmp, "eval", "samples")
+    os.makedirs(real_dir)
+
+    # 1. the real side
+    vae = load_vae(vae_path, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    z = torch.randn((EVAL_REAL, 4, 32, 32), generator=g, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        real = torch.cat([latents_to_uint8(vae.decode(z[i:i + 16]))
+                          for i in range(0, EVAL_REAL, 16)])
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    for i, im in enumerate(real.permute(0, 2, 3, 1).cpu().numpy()):
+        write_png(os.path.join(real_dir, f"{i:06d}.png"), im)
+    del vae
+    torch.cuda.empty_cache()
+
+    def run(cmd, what):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *cmd], cwd=root,
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            raise AssertionError(f"eval: the {what} exited "
+                                 f"{proc.returncode}")
+        return time.perf_counter() - t0
+
+    argv = ["ODE", *DIM_L2_ARGS, "--image-size", "256", "--ckpt", ckpt,
+            "--vae-ckpt", vae_path, "--sampling-method", "euler",
+            "--num-sampling-steps", str(EVAL_STEPS), "--cfg-scale", "1.4",
+            "--num-fid-samples", str(EVAL_SAMPLES), "--per-proc-batch-size",
+            str(EVAL_BATCH), "--eval-refdir", real_dir, "--eval-metric",
+            EVAL_METRICS, "--eval-detector", EVAL_DETECTOR,
+            "--eval-streaming", "--save-images", "--sample-dir", sample_dir]
+    recs, walls = [], []
+    for i in range(2):  # 2. streaming, 3. resumed
+        out = os.path.join(tmp, f"eval-run{i}.json")
+        walls.append(run(["-c", "import sys, chip_smoke as s; "
+                          "s._eval_run(sys.argv[1])",
+                          json.dumps([argv, out])],
+                         ["streaming run", "resumed run"][i]))
+        with open(out) as f:
+            recs.append(json.load(f))
+    streamed = {k: v for r in recs[0]["results"]
+                for k, v in r["results"].items()}
+    resumed = {k: v for r in recs[1]["results"]
+               for k, v in r["results"].items()}
+    pngs = sorted(f for f in os.listdir(sample_dir) if f.endswith(".png"))
+
+    # 4. the disk route over the two folders
+    disk_dir = os.path.join(tmp, "eval", "disk")
+    disk_wall = run(["-m", "dimsum_torch.calc_metrics", "--metrics",
+                     EVAL_METRICS, "--real-dir", real_dir, "--gen-dir",
+                     sample_dir, "--image-size", "256", "--detector",
+                     EVAL_DETECTOR, "--batch-size", str(EVAL_BATCH),
+                     "--cache-dir", os.path.join(tmp, "eval", "cache"),
+                     "--run-dir", disk_dir], "calc_metrics run")
+    disk = _metric_values(disk_dir)
+
+    # 5. the network against its fp64 run; KID and PR against numpy
+    det = InceptionDetector.random(0, "cuda")
+    x = np.stack([read_png(os.path.join(real_dir, f"{i:06d}.png"))
+                  .transpose(2, 0, 1) for i in range(4)])
+    got = det(x)
+    plain = copy.deepcopy(det.model).to("cpu", torch.float64)
+    with torch.no_grad():
+        want = plain(preprocess_uint8(torch.from_numpy(x)).double()).numpy()
+    net_err = float(np.abs(got - want).max() / np.abs(want).max())
+    del plain
+    chunks = os.path.join(sample_dir, "feat-chunks-rank0")
+    gen_feats = np.concatenate([np.load(os.path.join(chunks, f))
+                                for f in sorted(os.listdir(chunks))])
+    real_feats = det(real)
+    pr = {impl: compute_precision_recall(real_feats, gen_feats, impl=impl,
+                                         device="cuda")
+          for impl in ("torch", "numpy")}
+    kid = {impl: compute_kid(real_feats, gen_feats, impl=impl,
+                             device="cuda") for impl in ("torch", "numpy")}
+    # KID is a difference of kernel sums whose terms are ~kid_scale each:
+    # near 0 it cancels them, and the numpy route's fp32 sums carry ~1e-7
+    # of them, so both routes are held to the fp64 value on that scale
+    kid["fp64"] = compute_kid(real_feats.astype(np.float64),
+                              gen_feats.astype(np.float64), impl="numpy")
+    n_feat = real_feats.shape[1]
+    kid_scale = float(((gen_feats.astype(np.float64)
+                        @ real_feats.astype(np.float64).T / n_feat + 1)
+                       ** 3).mean())
+    kid_rel = {impl: abs(kid[impl] - kid["fp64"]) / kid_scale
+               for impl in ("torch", "numpy")}
+
+    # 6. InceptionV3 at batch 64 on the card, from uint8 images there
+    real_dev = real.cuda()
+    inception_ms = cuda_ms(lambda: det.features(real_dev), iters=5)
+    first = recs[0]
+    sec = first["seconds"]
+    calls = (EVAL_SAMPLES // EVAL_BATCH) * (EVAL_STEPS - 1)
+    rec = {"phase": "eval", "model": "DiM-L/2", "image_size": 256,
+           "dtype": "bfloat16", "cfg_scale": 1.4, "steps": EVAL_STEPS,
+           "samples": EVAL_SAMPLES, "batch": EVAL_BATCH, "real": EVAL_REAL,
+           "detector": EVAL_DETECTOR,
+           "detector_device": first.get("detector_device"),
+           "drift_calls": calls,
+           "launches": first["launches"],
+           "resumed_launches": recs[1]["launches"],
+           "resumed_generated_batches": recs[1]["generated_batches"],
+           "pngs": len(pngs), "streamed": streamed, "resumed": resumed,
+           "resumed_rel": max((abs(resumed.get(k, math.nan) - v)
+                               / max(abs(v), 1e-30)
+                               for k, v in streamed.items()),
+                              default=math.nan),
+           "disk": disk,
+           "disk_fid_rel": abs(disk.get("fid50k_full", math.nan)
+                               - streamed["fid50k_full"])
+           / abs(streamed["fid50k_full"]),
+           "inception_fp64_err": net_err,
+           "pr": pr, "kid": kid, "kid_scale": kid_scale,
+           "kid_err_of_scale": kid_rel,
+           "generation_images_per_s": EVAL_SAMPLES / sec["generate"],
+           "decode_images_per_s": EVAL_SAMPLES / sec["decode"],
+           "real_decode_images_per_s": EVAL_REAL / decode_s,
+           "inception_images_per_s": real_dev.shape[0] / inception_ms * 1e3,
+           "inception_batch": real_dev.shape[0],
+           "features_s": sec["features"], "write_s": sec["write"],
+           "metrics_s": sec["metrics"],
+           "metric_math_s": sum(r["total_time"]
+                                for r in first["results"]),
+           "cli_seconds": {"streaming": walls[0], "resumed": walls[1],
+                           "calc_metrics": disk_wall},
+           "seconds": time.perf_counter() - phase_t0}
+    emit(rec)
+    values = list(streamed.values()) + list(disk.values())
+    if (rec["launches"] != {"selective_scan_fwd": 32 * calls,
+                            "selective_scan_fwd_train": 0,
+                            "selective_scan_bwd": 0}
+            or any(recs[1]["launches"].values())
+            or recs[1]["generated_batches"] != 0
+            or len(pngs) != EVAL_SAMPLES
+            or sorted(streamed) != ["fid50k_full", "kid50k_full",
+                                    "pr50k3_full_precision",
+                                    "pr50k3_full_recall"]
+            or not all(math.isfinite(v) for v in values)
+            or not rec["resumed_rel"] <= 1e-9
+            or rec["detector_device"] != "cuda:0"
+            or not rec["disk_fid_rel"] <= 1e-3
+            or not net_err <= 1e-4
+            or pr["torch"] != pr["numpy"]
+            or not kid_rel["torch"] <= 1e-6):
+        raise AssertionError(f"eval phase failed: {rec}")
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_sampling_path():
     """The sampling path from a checkpoint (sample-dopri5, sample-sde-512,
-    sample-512-fp32, likelihood) on files written into a temporary
-    directory, removed after.  Returns sample-512-fp32's launches."""
+    sample-512-fp32, likelihood) and its evaluation (eval) on files
+    written into a temporary directory, removed after.  Returns
+    sample-512-fp32's launches."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2396,6 +2666,7 @@ def phase_sampling_path():
         phase_sample_dopri5(tmp, ckpt, sds, vae_path)
         launches = phase_sample_512_fp32(tmp, phase_sample_sde_512(tmp, sds))
         phase_likelihood(tmp, ckpt)
+        phase_eval(tmp, ckpt, vae_path)
         return launches
 
 

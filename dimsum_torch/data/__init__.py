@@ -1,9 +1,8 @@
-"""Input pipelines of the port, from `dimsum_tpu/data`: the latent
-datasets, the threaded loader and the copy to the card.
+"""Input pipelines of the port, from `dimsum_tpu/data`: the latent and
+pixel datasets, the threaded loader and the copy to the card.
 
 `get_dataset` dispatches on `--dataset` as the JAX one does (the
-reference's datasets_prep/__init__.py:10-135); the latent routes are
-ported, the pixel ones wait for the VAE encode.
+reference's datasets_prep/__init__.py:10-135).
 """
 
 from __future__ import annotations
@@ -12,15 +11,17 @@ import os
 
 from dimsum_torch.data.datasets import (  # noqa: F401
     Dataset,
+    ImageFolderDataset,
+    LMDBDataset,
     LatentFolderDataset,
     LatentMemmapDataset,
+    center_crop_arr,
 )
 from dimsum_torch.data.loader import Loader, device_batches  # noqa: F401
 from dimsum_torch.data.native import NativeLatentStore  # noqa: F401
 
-PIXEL = "ROADMAP.md Queue 1 item 6 (pixel datasets and the VAE encode)"
-PIXEL_DATASETS = ("celeba_256", "celeba_512", "lsun_church", "imagenet",
-                  "ffhq", "image_folder", "cifar10")
+LMDB_DATASETS = ("celeba_256", "celeba_512", "lsun_church")
+FOLDER_DATASETS = ("imagenet", "ffhq", "image_folder", "cifar10")
 
 
 def get_dataset(args):
@@ -31,10 +32,13 @@ def get_dataset(args):
         `labels.dat` (int64) if present, the layout `preprocess.py`
         writes;
       * latent_<anything else>: `features/` and, if present, `labels/`,
-        one `.npy` a sample.
+        one `.npy` a sample;
+      * celeba_256, celeba_512, lsun_church: an LMDB of images;
+      * imagenet (labels from the class folders), ffhq, image_folder,
+        cifar10: a folder or `.zip` of images.
 
-    The pixel datasets raise `NotImplementedError`; an unknown name raises
-    `ValueError`."""
+    The pixel datasets give images in [-1, 1] at image_size; an unknown
+    name raises `ValueError`."""
     name = args.dataset
     datadir = args.datadir
     if name in ("latent_memmap_imagenet", "latent_memmap"):
@@ -50,8 +54,10 @@ def get_dataset(args):
         return LatentFolderDataset(
             os.path.join(datadir, "features"),
             labels_dir if os.path.isdir(labels_dir) else None)
-    if name in PIXEL_DATASETS:
-        raise NotImplementedError(
-            f"--dataset {name}: not ported to dimsum_torch yet ({PIXEL}); "
-            "train from latents (latent_memmap)")
+    image_size = getattr(args, "image_size", 256)
+    if name in LMDB_DATASETS:
+        return LMDBDataset(datadir, name, image_size=image_size)
+    if name in FOLDER_DATASETS:
+        return ImageFolderDataset(datadir, image_size=image_size,
+                                  use_labels=(name == "imagenet"))
     raise ValueError(f"unknown dataset {name}")

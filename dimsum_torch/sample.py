@@ -16,10 +16,15 @@ without it the model takes seeded random weights.  CFG (`--cfg-scale`,
 `--ada-cfg`), `--compute-nfe`, `--likelihood` (bits/dim of the samples,
 with `--cfg-scale 1.0`) and `--measure-time` as in the JAX CLI.  With
 `--vae-ckpt` the latents are decoded by the SD-VAE and written as PNGs,
-else saved to `latents.npz`.  Runs on the card unless `--device cpu`.
+else saved to `latents.npz`.  ODE mode's `--compute-ppl <metric>` (ppl2_zend,
+ppl_zend, ppl_zfull) measures the perceptual path length of the sampler
+through `--ppl-detector` (a local vgg16.pt, or `random-lpips[:seed]`) over
+`--ppl-samples` pairs (default the metric's 50k) and appends it to
+`metric-<metric>.jsonl` in `--sample-dir`.  Runs on the card unless
+`--device cpu`.
 
-Not ported yet, and refused: `--pp` (ROADMAP.md Queue 1 item 8) and
-`--compute-ppl` (item 6); the model flags `dimsum_torch.cli` refuses.
+Not ported yet, and refused: `--pp` (ROADMAP.md Queue 1 item 8); the model
+flags `dimsum_torch.cli` refuses.
 """
 
 from __future__ import annotations
@@ -80,9 +85,11 @@ def parse_args(argv=None):
     p.add_argument("--measure-time", action="store_true")
     p.add_argument("--compute-nfe", action="store_true")
     p.add_argument("--compute-ppl", type=str, default=None,
-                   help="perceptual path length (not ported: ROADMAP.md "
-                        "Queue 1 item 6)")
-    p.add_argument("--ppl-detector", type=str, default=None)
+                   help="a perceptual path length metric (ODE mode): "
+                        "ppl2_zend, ppl_zend or ppl_zfull")
+    p.add_argument("--ppl-detector", type=str, default=None,
+                   help="LPIPS detector: a local vgg16.pt or "
+                        "random-lpips[:seed]")
     p.add_argument("--ppl-samples", type=int, default=None)
     p.add_argument("--device", type=str, default="cuda",
                    help="the card unless 'cpu' is asked for")
@@ -93,7 +100,8 @@ def parse_args(argv=None):
 
 def load_model(args, cfg, dev) -> DiM:
     """The DiM on `dev` in eval mode with frozen weights (stored in the
-    compute dtype): the checkpoint's, or seeded random ones."""
+    compute dtype): the checkpoint's, or seeded random ones; with
+    `--scan-impl ref` every mixer takes the plain scan."""
     with torch.device(dev):
         net = DiM(cfg)
     if args.ckpt is None:
@@ -103,7 +111,33 @@ def load_model(args, cfg, dev) -> DiM:
         load_torch_checkpoint(args.ckpt, net,
                               key="ema" if args.params == "ema" else "model")
         print(f"loaded {args.ckpt} ({args.params} params)", file=sys.stderr)
+    if args.scan_impl == "ref":
+        for m in net.modules():
+            if hasattr(m, "scan_impl"):
+                m.scan_impl = "ref"
     return cast_weights_(net).eval().requires_grad_(False)
+
+
+def model_fn_for(args, net, cfg):
+    """The sampler's model: with CFG (--cfg-scale > 1 and classes) the
+    guided forward (sample's --ada-cfg: the adaptive one) of a doubled
+    batch [x; x] with labels [y; null], else the net."""
+    if not (args.cfg_scale > 1.0 and args.num_classes > 1):
+        return lambda x, t, y=None: net(x, t, y)
+    ada = getattr(args, "ada_cfg", False)  # sample's flag, not sample_ddp's
+    guide = forward_with_adacfg if ada else forward_with_cfg
+
+    def model_fn(x, t, y=None):
+        return guide(net, x, t, y, cfg_scale=args.cfg_scale,
+                     in_channels=cfg.in_channels)
+
+    return model_fn
+
+
+def with_null_class(z, y, num_real: int):
+    """The CFG-doubled batch: [z; z] and [y; null class]."""
+    return (torch.cat([z, z], 0),
+            torch.cat([y, torch.full_like(y, num_real)]))
 
 
 def _sync(dev):
@@ -124,19 +158,63 @@ def decode_to_png(vae, samples, sample_dir: str):
     return paths
 
 
+def compute_ppl(args, cfg, model_fn, dev) -> dict:
+    """`--compute-ppl`: the metric over the ODE sampler (the run's method
+    and steps, its CFG on a doubled batch) decoded by the VAE, with the
+    noise pairs, labels and path positions drawn by eval/ppl.py's numpy
+    RNG from --seed; the result is printed and appended to
+    `metric-<name>.jsonl` in --sample-dir."""
+    from dimsum_torch.eval import calc_metric, report_metric
+    from dimsum_torch.eval.features import make_lpips
+
+    vae = load_vae(args.vae_ckpt, dev)
+    ode = Sampler(build_transport(args)).sample_ode(
+        sampling_method=args.sampling_method,
+        num_steps=args.num_sampling_steps, atol=args.atol, rtol=args.rtol,
+        reverse=args.reverse)
+    num_real = args.num_classes - (1 if args.num_classes > 1 else 0)
+    use_cfg = args.cfg_scale > 1.0 and args.num_classes > 1
+
+    @torch.no_grad()
+    def sampler_fn(z, y):
+        z = torch.as_tensor(z, device=dev)
+        y = (torch.zeros(z.shape[0], dtype=torch.long, device=dev)
+             if y is None else torch.as_tensor(y, device=dev))
+        if use_cfg:
+            z, y = with_null_class(z, y, num_real)
+        lat = ode(z, model_fn, y=y)
+        lat = lat[: lat.shape[0] // 2] if use_cfg else lat
+        return vae.decode(lat).float().cpu().numpy()
+
+    opts = dict(sampler_fn=sampler_fn,
+                lpips_fn=make_lpips(args.ppl_detector, dev),
+                z_shape=(cfg.in_channels, cfg.img_resolution,
+                         cfg.img_resolution),
+                num_classes=num_real if args.num_classes > 1 else 0,
+                batch_size=max(args.global_batch_size // 2, 1),
+                seed=args.seed)
+    if args.ppl_samples:
+        opts["num_samples"] = args.ppl_samples
+    result = calc_metric(args.compute_ppl, **opts)
+    report_metric(result, run_dir=args.sample_dir)
+    return result
+
+
 def main(argv=None) -> dict:
     """Run the CLI; returns a record of the run: the samples (latents of
     the conditional half), labels, NFE, sampling and decode seconds,
-    log-likelihood and the files written."""
+    log-likelihood, the PPL result and the files written."""
     args = parse_args(argv)
     if args.pp > 1:
         raise NotImplementedError(
             "--pp (pipeline-parallel sampling): not ported to dimsum_torch "
             "yet (ROADMAP.md Queue 1 item 8)")
-    if args.compute_ppl:
-        raise NotImplementedError(
-            "--compute-ppl: not ported to dimsum_torch yet (ROADMAP.md "
-            "Queue 1 item 6, eval/)")
+    ppl = args.mode == "ODE" and args.compute_ppl
+    if ppl and not args.ppl_detector:
+        raise SystemExit("--compute-ppl needs --ppl-detector (vgg16.pt or "
+                         "'random-lpips[:seed]')")
+    if ppl and not args.vae_ckpt:
+        raise SystemExit("--compute-ppl needs --vae-ckpt to decode")
     if args.label_dropout < 0:
         args.label_dropout = 0.1 if args.num_classes > 1 else 0.0
     use_cfg = args.cfg_scale > 1.0 and args.num_classes > 1
@@ -149,10 +227,6 @@ def main(argv=None) -> dict:
     transport = build_transport(args)
     dev = resolve_device(args.device)
     net = load_model(args, cfg, dev)
-    if args.scan_impl == "ref":
-        for m in net.modules():
-            if hasattr(m, "scan_impl"):
-                m.scan_impl = "ref"
     sampler = Sampler(transport)
 
     n = args.global_batch_size
@@ -163,16 +237,8 @@ def main(argv=None) -> dict:
     num_real = args.num_classes - (1 if args.num_classes > 1 else 0)
     y = torch.randint(0, max(num_real, 1), (n,), generator=g, device=dev)
     if use_cfg:
-        z = torch.cat([z, z], 0)
-        y = torch.cat([y, torch.full((n,), num_real, device=dev)])
-        guide = forward_with_adacfg if args.ada_cfg else forward_with_cfg
-
-        def model_fn(x, t, y=None):
-            return guide(net, x, t, y, cfg_scale=args.cfg_scale,
-                         in_channels=cfg.in_channels)
-    else:
-        def model_fn(x, t, y=None):
-            return net(x, t, y)
+        z, y = with_null_class(z, y, num_real)
+    model_fn = model_fn_for(args, net, cfg)
 
     if args.mode == "ODE":
         ode = sampler.sample_ode(
@@ -220,6 +286,9 @@ def main(argv=None) -> dict:
         record.update(logp=logp, bpd=bpd)
         print(f"log-likelihood: mean logp={logp.mean().item():.2f} "
               f"({bpd.mean().item():.4f} bits/dim)")
+
+    if ppl:
+        record["ppl"] = compute_ppl(args, cfg, model_fn, dev)
 
     if args.measure_time:
         reps = 5

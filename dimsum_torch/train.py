@@ -31,10 +31,19 @@ global_seed * num_processes + rank), and the gradients and the loss are
 averaged over the ranks before the update.  The backend is NCCL on the
 card and gloo on the CPU.
 
+A pixel dataset (an image folder, an LMDB) needs --vae-ckpt: each batch
+is encoded on the card (a draw from the posterior, from the process's
+generator) before its step.  With --eval-refdir (a folder of real
+images) and --vae-ckpt, every --eval-every epochs rank 0 scores
+`fid2k_full` on --eval-nsamples images (batches of --eval-bs) generated
+from the EMA weights (50 Euler steps) and decoded, through the detector
+of --eval-detector, made once for the run; the result goes to
+`metric-fid2k_full.jsonl` and the real side's stats to `stats-cache/` in
+the run's directory.
+
 On the CPU: --device cpu.  The kernels are built (nvcc, in parallel)
 before the first step.  Not ported yet, and refused: --tp (ROADMAP.md
-Queue 1 item 8), --eval-refdir (in-training FID) and the pixel datasets
-with the VAE encode (item 6).  --no-lr-decay, --min-lr and --warmup-epochs
+Queue 1 item 8).  --no-lr-decay, --min-lr and --warmup-epochs
 are the reference's dead flags, as in the JAX CLI: the lr is constant
 (`parallel.warmup_cosine_schedule` exists, off).  A resumed run starts its
 generators from their seeds again, as the reference's and the JAX CLI's
@@ -65,7 +74,7 @@ from dimsum_torch.parallel import (create_optimizer, create_train_state,
 from dimsum_torch.transport import Sampler
 from dimsum_torch.utils.ckpt import (load_torch_checkpoint,
                                      restore_checkpoint, save_checkpoint)
-from dimsum_torch.utils.device import resolve_device
+from dimsum_torch.utils.device import rank_device
 from dimsum_torch.utils.png import write_png
 
 PLOT_STEPS = 50  # Euler steps of the sample grids (the JAX `_eval_gen_fn`)
@@ -116,8 +125,8 @@ def parse_args(argv=None):
                    help="(the reference's no-op, see --no-lr-decay)")
     p.add_argument("--eval-every", type=int, default=100)
     p.add_argument("--eval-refdir", type=str, default=None,
-                   help="in-training FID (not ported: ROADMAP.md Queue 1 "
-                        "item 6)")
+                   help="folder of real images: in-training fid2k_full "
+                        "every --eval-every epochs (needs --vae-ckpt)")
     p.add_argument("--eval-nsamples", type=int, default=1000)
     p.add_argument("--eval-bs", type=int, default=4)
     p.add_argument("--eval-cfg-scale", type=float, default=1.0)
@@ -125,15 +134,6 @@ def parse_args(argv=None):
     p.add_argument("--device", type=str, default="cuda",
                    help="the card unless 'cpu' is asked for")
     return p.parse_args(argv)
-
-
-def rank_device(device, rank: int) -> torch.device:
-    """`device`, with a CUDA device without an index taken as rank's card
-    (rank modulo the cards present)."""
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", rank % torch.cuda.device_count())
-    return dev
 
 
 class Trainer:
@@ -146,8 +146,6 @@ class Trainer:
     def __init__(self, args):
         _require(args.tp == 1, f"--tp {args.tp}",
                  "ROADMAP.md Queue 1 item 8 (tensor parallelism)")
-        _require(not args.eval_refdir, "--eval-refdir (in-training FID)",
-                 "ROADMAP.md Queue 1 item 6")
         self.args = args
         self.rank = init_distributed(args.coordinator, args.num_processes,
                                      args.process_id, args.device)
@@ -164,6 +162,15 @@ class Trainer:
         if args.label_dropout < 0:
             args.label_dropout = 0.1 if args.num_classes > 1 else 0.0
         self.use_labels = args.num_classes > 1
+        self.pixels = "latent" not in args.dataset
+        if self.pixels and not args.vae_ckpt:
+            raise SystemExit(
+                f"--dataset {args.dataset} is in pixels and needs --vae-ckpt "
+                "(local diffusers VAE weights); or encode it first with "
+                "python -m dimsum_torch.preprocess")
+        if args.eval_refdir and not args.vae_ckpt:
+            raise SystemExit("--eval-refdir needs --vae-ckpt to decode the "
+                             "samples")
         self.dataset = get_dataset(args)
         if args.global_batch_size % self.world:
             raise ValueError(f"--global-batch-size {args.global_batch_size}"
@@ -216,6 +223,7 @@ class Trainer:
         self.generator = torch.Generator(dev).manual_seed(
             args.global_seed * self.world + self.rank)
         self.history = []
+        self.detector = None  # in-training FID's, made at its first use
 
     def _make_logger(self) -> logging.Logger:
         """Rank 0 logs to stderr and `log.txt` in the run's directory; the
@@ -241,6 +249,9 @@ class Trainer:
             self.loader.set_epoch(epoch)
             self.log(f"beginning epoch {epoch}")
             for x, y in device_batches(self.loader, self.device):
+                if self.pixels:
+                    with torch.no_grad():
+                        x = self.vae.encode(x, self.generator)
                 metrics = self.train_step(state, x, y, self.generator)
                 window.append(metrics["loss"])  # on the device: no sync
                 self.train_steps += 1
@@ -273,6 +284,9 @@ class Trainer:
             if (epoch % args.plot_every == 0 and self.vae is not None
                     and self.rank == 0):
                 self.plot_samples(epoch)
+            if (args.eval_refdir and self.rank == 0
+                    and epoch % args.eval_every == 0 and epoch > 0):
+                self.evaluate()
             # the steps/sec of a window leave out the saves and the plots
             start += time.perf_counter() - paused
         self.log("done")
@@ -288,21 +302,8 @@ class Trainer:
         chunk = max(1, n // max(1, (args.image_size // 256) ** 2))
         n = (n // chunk) * chunk
         g = torch.Generator(dev).manual_seed(epoch)
-        z = torch.randn((n, cfg.in_channels, cfg.img_resolution,
-                         cfg.img_resolution), generator=g, device=dev)
-        y = torch.randint(0, max(args.num_classes, 1), (n,), generator=g,
-                          device=dev)
-        sample = Sampler(self.transport).sample_ode(
-            sampling_method="euler", num_steps=PLOT_STEPS)
-        model, ema = self.state.model, self.state.ema_params
-
-        def model_fn(x, t, **kw):
-            return functional_call(model, ema, (x, t), kw)
-
-        imgs = torch.cat([
-            self.vae.decode(sample(z[i:i + chunk], model_fn,
-                                   y=y[i:i + chunk])).float()
-            for i in range(0, n, chunk)])
+        imgs = torch.cat([self.ema_images(chunk, g)
+                          for _ in range(0, n, chunk)])
         imgs = ((imgs + 1) / 2 * 255).clamp(0, 255).to(torch.uint8).cpu()
         side = int(np.ceil(np.sqrt(n)))
         H, W = imgs.shape[2], imgs.shape[3]
@@ -314,6 +315,58 @@ class Trainer:
         write_png(path, grid)
         self.log(f"wrote {path}")
         return path
+
+    @torch.no_grad()
+    def ema_images(self, n: int, generator) -> torch.Tensor:
+        """n images in [-1, 1] (float, NCHW) from the EMA weights: noise
+        and labels drawn from `generator`, 50 Euler steps of the sampler
+        (the JAX `_eval_gen_fn`), the VAE decode."""
+        cfg, dev = self.cfg, self.device
+        z = torch.randn((n, cfg.in_channels, cfg.img_resolution,
+                         cfg.img_resolution), generator=generator,
+                        device=dev)
+        y = torch.randint(0, max(self.args.num_classes, 1), (n,),
+                          generator=generator, device=dev)
+        sample = Sampler(self.transport).sample_ode(
+            sampling_method="euler", num_steps=PLOT_STEPS)
+        model, ema = self.state.model, self.state.ema_params
+
+        def model_fn(x, t, **kw):
+            return functional_call(model, ema, (x, t), kw)
+
+        return self.vae.decode(sample(z, model_fn, y=y)).float()
+
+    def evaluate(self) -> dict:
+        """In-training FID (the JAX `_in_training_fid`, the reference's
+        train.py:393-482): `fid2k_full` of --eval-nsamples EMA images (in
+        batches of --eval-bs, from generator seed 0) against --eval-refdir,
+        through the run's detector; reported to `metric-fid2k_full.jsonl`
+        in the run's directory, the real side's stats cached under it."""
+        from dimsum_torch.data import ImageFolderDataset
+        from dimsum_torch.eval import (calc_metric, detector_id,
+                                       latents_to_uint8, make_detector,
+                                       report_metric)
+
+        args, dev = self.args, self.device
+        if self.detector is None:
+            self.detector = make_detector(args.eval_detector, dev)
+        g = torch.Generator(dev).manual_seed(0)
+
+        def gen_batches():
+            for _ in range(0, args.eval_nsamples, args.eval_bs):
+                yield latents_to_uint8(self.ema_images(args.eval_bs, g))
+
+        real = ImageFolderDataset(args.eval_refdir, args.image_size,
+                                  raw_uint8=True)
+        result = calc_metric(
+            "fid2k_full", real_dataset=real, gen_batches=gen_batches,
+            detector=self.detector,
+            cache_dir=os.path.join(self.exp_dir, "stats-cache"),
+            dataset_id=args.eval_refdir,
+            detector_id=detector_id(args.eval_detector), device=dev)
+        report_metric(result, run_dir=self.exp_dir)
+        self.log(f"in-training eval: {result['results']}")
+        return result
 
     def close(self):
         for h in list(self.logger.handlers):

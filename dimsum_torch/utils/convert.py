@@ -1,4 +1,6 @@
-"""JAX params tree -> the port's torch state dict.
+"""JAX params trees -> the port's torch state dicts: the DiM
+(`state_dict_from_jax_params`) and the FID InceptionV3
+(`inception_state_dict_from_flax`).
 
 The inverse of `dimsum_tpu/utils/ckpt.py` (`_flax_path_for` and
 `convert_torch_state_dict`, ckpt.py:32-153).  Layout maps undone here:
@@ -83,5 +85,33 @@ def state_dict_from_jax_params(params: Dict, in_channels: int = 4
         name, value = _torch_entry(path, arr, in_channels)
         if name in out:
             raise ValueError(f"two flax leaves map to {name!r}")
+        out[name] = torch.from_numpy(np.ascontiguousarray(value).copy())
+    return out
+
+
+_BN_LEAVES = {"bn_weight": "bn.weight", "bn_bias": "bn.bias",
+              "bn_mean": "bn.running_mean", "bn_var": "bn.running_var"}
+
+
+def inception_state_dict_from_flax(params: Dict) -> Dict[str, torch.Tensor]:
+    """A flax InceptionV3 params tree (`dimsum_tpu/eval/inception.py`,
+    numpy leaves) -> the port's `InceptionV3Features` state dict under
+    torchvision's names, the inverse of the JAX
+    `convert_inception_state_dict` (:224-251): conv kernel (kh, kw, I, O)
+    -> weight (O, I, kh, kw); bn_{weight,bias,mean,var} ->
+    bn.{weight,bias,running_mean,running_var}; num_batches_tracked 0."""
+    if set(params.keys()) == {"params"}:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for path, arr in _leaves(params):
+        *stem, last = path
+        if last == "kernel" and stem[-1] == "conv":
+            name, value = ".".join(stem) + ".weight", arr.transpose(3, 2, 0, 1)
+        elif last in _BN_LEAVES:
+            name, value = ".".join(stem + [_BN_LEAVES[last]]), arr
+            out[".".join(stem + ["bn.num_batches_tracked"])] = torch.tensor(
+                0, dtype=torch.long)
+        else:
+            raise ValueError(f"unexpected InceptionV3 leaf {'/'.join(path)}")
         out[name] = torch.from_numpy(np.ascontiguousarray(value).copy())
     return out

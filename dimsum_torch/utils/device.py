@@ -29,3 +29,13 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             f"device {device!r} requested but CUDA is not available; "
             "pass device='cpu' explicitly to run on the CPU")
     return dev
+
+
+def rank_device(device, rank: int) -> torch.device:
+    """`device` for a process of a multi-process run: a CUDA device
+    without an index is taken as the rank's card (rank modulo the cards
+    present)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+    return dev

@@ -13,8 +13,8 @@ latents with label files.
   * a worker's exception reaches the consumer; 32 workers under a 10-us
     switch interval deliver every batch once, in order; `device_batches`
     hands the batches over as tensors unchanged;
-  * `get_dataset` takes the latent routes, and a pixel dataset raises
-    naming ROADMAP.md Queue 1 item 6.
+  * `get_dataset` takes the latent routes; its pixel routes look for
+    images (or the lmdb package) where they are asked to.
 """
 
 import argparse
@@ -186,8 +186,13 @@ def test_get_dataset_routes(files):
     np.testing.assert_array_equal(ds[5][0], x[5])
     ds = get_dataset(args("latent_imagenet"))
     assert isinstance(ds, LatentFolderDataset) and len(ds) == N
-    for name in ("imagenet", "cifar10", "celeba_256", "lsun_church"):
-        with pytest.raises(NotImplementedError, match="item 6"):
+    # the pixel routes (tests/test_torch_eval_data.py): an image folder
+    # finds no image among the latents, an LMDB needs the lmdb package
+    for name in ("imagenet", "cifar10"):
+        with pytest.raises(FileNotFoundError, match="no images"):
+            get_dataset(args(name))
+    for name in ("celeba_256", "lsun_church"):
+        with pytest.raises(ImportError, match="lmdb"):
             get_dataset(args(name))
     with pytest.raises(ValueError, match="unknown dataset"):
         get_dataset(args("mnist"))

@@ -1318,3 +1318,50 @@ def test_loader_batches_reach_the_card_intact(cuda, tmp_path):
     stream = torch.cuda.Stream(cuda)
     x, y, copied = _to_device(host[0], cuda, stream)
     assert x.is_cuda and y.dtype == torch.int64 and copied is not None
+
+
+def test_inception_on_card_matches_fp64_cpu(cuda):
+    """The FID InceptionV3 on the card (fp32, TF32 off inside the
+    detector) against the same network in fp64 on the CPU: 1e-4 of the
+    features' scale.  The TF32 flags are restored after the call."""
+    import copy
+
+    import numpy as np
+
+    from dimsum_torch.eval.inception import (InceptionDetector,
+                                             preprocess_uint8)
+
+    det = InceptionDetector.random(0, cuda)
+    x = np.random.default_rng(0).integers(0, 256, (4, 3, 256, 256),
+                                          dtype=np.uint8)
+    before = torch.backends.cudnn.allow_tf32
+    got = det(torch.from_numpy(x).to(cuda))
+    assert torch.backends.cudnn.allow_tf32 == before
+    plain = copy.deepcopy(det.model).to("cpu", torch.float64)
+    with torch.no_grad():
+        want = plain(preprocess_uint8(torch.from_numpy(x)).double()).numpy()
+    assert got.shape == (4, 2048)
+    assert np.abs(got - want).max() / np.abs(want).max() < 1e-4
+
+
+def test_kid_and_pr_torch_on_card_match_numpy(cuda):
+    """KID and precision/recall by impl="torch" on the card against the
+    numpy route (the shapes of tests/test_pr_jax.py): PR exactly, KID to
+    1e-6 relative."""
+    import numpy as np
+
+    from dimsum_torch.eval.fid import compute_kid, compute_precision_recall
+
+    rng = np.random.default_rng(0)
+    real = rng.standard_normal((1203, 48)).astype(np.float32)
+    gen = (0.8 * rng.standard_normal((911, 48)) + 0.7).astype(np.float32)
+    assert (compute_precision_recall(real, gen, impl="torch", device=cuda,
+                                     row_batch=256)
+            == compute_precision_recall(real, gen, impl="numpy"))
+    rng = np.random.default_rng(3)
+    real = rng.standard_normal((700, 64)).astype(np.float32)
+    gen = (rng.standard_normal((650, 64)) * 1.1 + 0.2).astype(np.float32)
+    kw = dict(num_subsets=20, max_subset_size=300)
+    k_np = compute_kid(real, gen, impl="numpy", **kw)
+    k_t = compute_kid(real, gen, device=cuda, **kw)  # auto: torch on CUDA
+    assert abs(k_t - k_np) <= 1e-6 * abs(k_np), (k_t, k_np)

@@ -9,8 +9,10 @@ layout:
   * `--params raw` samples with the checkpoint's "model" weights;
   * SDE mode runs and saves the latents; `--likelihood` gives finite
     bits/dim at cfg 1.0 and is refused with guidance;
-  * `--pp`, `--compute-ppl` and the model flags the port lacks raise, and
-    without `--device cpu` the CLI asks for the card."""
+  * `--pp` and the model flags the port lacks raise, `--compute-ppl`
+    without `--ppl-detector` exits asking for it (the metric itself:
+    tests/test_torch_eval_ppl.py), and without `--device cpu` the CLI asks
+    for the card."""
 
 import argparse
 
@@ -133,7 +135,7 @@ def test_sde_mode_and_likelihood(files, tmp_path, capsys):
 
 @pytest.mark.parametrize("extra, error, match", [
     (["--pp", "2"], NotImplementedError, "Queue 1 item 8"),
-    (["--compute-ppl", "ppl2_zend"], NotImplementedError, "Queue 1 item 6"),
+    (["--compute-ppl", "ppl2_zend"], SystemExit, "ppl-detector"),
     (["--block-type", "linear"], NotImplementedError, "Queue 1 item 7"),
     (["--bimamba-type", "v2"], NotImplementedError, "Queue 1 item 7"),
     (["--pe-type", "rope"], NotImplementedError, "Queue 1 item 7"),

@@ -12,8 +12,9 @@ with a tiny zoo entry (hidden 32, depth 4, a DiT block after every 2nd):
     before its first step;
   * --model-ckpt warm-starts the weights and the EMA; --grad-checkpoint
     runs; --vae-ckpt writes a sample grid (a small VAE file);
-  * --tp, --eval-refdir and a pixel dataset raise naming their ROADMAP.md
-    items;
+  * --tp raises naming its ROADMAP.md item; --eval-refdir and a pixel
+    dataset without --vae-ckpt exit asking for it (both with it:
+    tests/test_torch_eval_cli.py);
   * `warmup_cosine_schedule` gives optax's value at every step of a short
     schedule, to 1e-7 relative; `save_checkpoint` keeps the newest `keep`.
 """
@@ -203,11 +204,12 @@ def test_warm_start_and_sample_grid(datadir):
     assert grid.shape == (2 * 16, 2 * 16, 3)  # 4 samples of 16 x 16 px
 
 
-@pytest.mark.parametrize("flags,item", [
-    (("--tp", "2"), "item 8"), (("--eval-refdir", "ref"), "item 6"),
-    (("--dataset", "imagenet"), "item 6")])
-def test_unported_flags_raise(datadir, flags, item):
-    with pytest.raises(NotImplementedError, match=item):
+@pytest.mark.parametrize("flags,error,match", [
+    (("--tp", "2"), NotImplementedError, "item 8"),
+    (("--eval-refdir", "ref"), SystemExit, "needs --vae-ckpt"),
+    (("--dataset", "imagenet"), SystemExit, "in pixels")])
+def test_unported_flags_raise(datadir, flags, error, match):
+    with pytest.raises(error, match=match):
         train_cli.Trainer(train_cli.parse_args(argv(datadir, *flags)))
 
 
