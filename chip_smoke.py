@@ -18,8 +18,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
               source, all started together) into build/dimsum_torch/.
   3. kernel   the selective-scan kernel against its plain PyTorch version
               at the DiM-L/2 mixer shape (batch 24, L 256, dim 1024, N 16,
-              r 32) in bf16 and fp32, forward and reversed, plus a ragged
-              dim and L 1024 (the 512-px mixer): max error against the
+              r 32) in bf16 and fp32, forward and reversed (the reverse
+              entry: the recurrence from the last step to the first), plus
+              a ragged dim, a ragged L reversed, L 1024 (the 512-px
+              mixer) both ways, and the mixer of linear + v2 (dim 2048,
+              r 64) both ways in bf16 and reversed in fp32: max error
+              against the
               stated tolerance, kernel and plain times (CUDA events), and
               the bound (bytes, fp32 operations and the transcendentals on
               the special-function units, the largest).
@@ -144,7 +148,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
               32 launches per forward; the samples must be finite.
  21. sample-fused-512  phase 20's run at 512 px: 15, 25 and 32 fused
               and 36 sm90 attention launches per forward; finite samples.
- 22. sample-dopri5  the sampling path from a checkpoint: seeded random
+ 22. variants  full-width DiM-L/2 at 256 px in four other configurations,
+              built from their JAX CLI flags: (a) linear + Mamba v2 with
+              the CLI's other defaults, (b) combined_fourier, (c)
+              combined_einfft, (d) the published one with the fused
+              switches.  Each: one fp32 CFG forward of 24 rows through
+              the kernels and the plain versions (1e-3 of scale), and its
+              launches of the scan's forward and reverse entries (16/16,
+              24/8, 8/8, 24/8; (d) also 32 conv + x_proj, 8
+              anticausal).  (a) and (b) sampled in bf16 (Euler,
+              VARIANT_STEPS grid points, CFG 1.4: s, img/s), (a) also
+              through `python -m dimsum_torch.sample ODE` in a process of
+              its own from a reference-layout checkpoint.  Then the
+              reversed blocks' two routes (`phase_reverse_route`): the
+              published configuration's bf16 CFG forward with the reverse
+              inside the mixers (the route without a gradient) and with
+              the block's flips, alternated, at 256 and 512 px and fused
+              at 512 px: wall and device ms and launches a forward, and
+              the two routes' outputs compared.  Alone: python3 -c
+              "import chip_smoke as s; s.phase_variants()"
+              (`s.phase_reverse_route()` for the routes alone).
+ 23. sample-dopri5  the sampling path from a checkpoint: seeded random
               DiM-L/2 weights written in the reference's .pt layout (a
               different "ema" and "model") and a full-width SD-VAE (ch 128,
               ch_mult 1 2 4 4) with seeded random weights written as a
@@ -157,22 +181,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
               take the matching weights, and a checkpoint with one key
               removed must be refused.  Prints the NFE, the seconds and the
               decode seconds.
- 23. sample-sde-512  the checkpoint adapted to 512 px (`adapt_checkpoint`)
+ 24. sample-sde-512  the checkpoint adapted to 512 px (`adapt_checkpoint`)
               and sampled by the CLI's SDE mode (Euler-Maruyama over
               SDE_512_STEPS grid points, CFG 1.4, bf16): 32 scan and 36 sm90
               attention launches per model call; finite samples.
- 24. sample-512-fp32  the adapted checkpoint sampled by the CLI's ODE
+ 25. sample-512-fp32  the adapted checkpoint sampled by the CLI's ODE
               mode in its default dtype, fp32 (TF32 off; Euler over
               FP32_512_STEPS grid points, CFG 1.4, 2 images): 32 scan and
               36 attention launches per drift call, all through the fp32
               kernel; finite samples.
- 25. likelihood  the CLI's `--likelihood` at cfg 1.0 (256 px, bf16, 2
+ 26. likelihood  the CLI's `--likelihood` at cfg 1.0 (256 px, bf16, 2
               images, LIKELIHOOD_STEPS grid points): 32 launches of kernels
               2 and 3 per drift call of the augmented ODE, finite bits/dim;
               and one augmented drift call of the fp32 model (TF32 off)
               through the kernels and through the plain scan: they must
               agree.
- 26. eval     the evaluation path from the same checkpoint and SD-VAE
+ 27. eval     the evaluation path from the same checkpoint and SD-VAE
               (`phase_eval`): EVAL_REAL real PNGs (the VAE decode of
               seeded latents); `python -m dimsum_torch.sample_ddp ODE` in a
               process of its own (EVAL_SAMPLES samples in batches of
@@ -188,7 +212,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
               its terms' scale of its fp64 value; generation,
               decode and InceptionV3 images/s and the metric seconds.
               Alone: python3 -c "import chip_smoke as s; s.phase_eval()".
- 27. train-cli  `python -m dimsum_torch.train` on full-width DiM-L/2 at
+ 28. train-cli  `python -m dimsum_torch.train` on full-width DiM-L/2 at
               256 px with the published ImageNet flags (bf16 over fp32
               weights, global batch 16) from a seeded latent memmap of 128
               samples (latents.dat fp32 (N, 4, 32, 32), labels.dat int64,
@@ -210,7 +234,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
               only) over that window's steps; peak memory, beside train's
               s/step and peak memory; the phase's seconds.  Alone:
               python3 -c "import chip_smoke as s; s.phase_train_cli()".
- 28. train-remat  one fp32 step of full-width DiM-L/2 at batch 2 (TF32
+ 29. train-remat  one fp32 step of full-width DiM-L/2 at batch 2 (TF32
               off, cuDNN deterministic, the math SDPA; drop path and label
               dropout 0.1 from one generator seed) twice without remat and
               with --grad-checkpoint under None and "scan": the loss, every
@@ -221,14 +245,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
               under None and under "scan" (3 timed steps after 1 each):
               s/step, peak memory (remat's must be lower), launches a
               step.
- 29. train-ddp  2 gloo processes on the one card (NCCL takes one rank a
+ 30. train-ddp  2 gloo processes on the one card (NCCL takes one rank a
               device), DiM-L/2 at full width and depth 4, fp32: 2
               data-parallel steps of 2 samples a rank, each rank's
               generator, against rank 0 replaying both ranks' micro-batches
               in turn: loss, weights and EMA (tolerances in
               `phase_train_ddp`), the replicas equal, 16 launches of
               kernels 2 and 3 a rank.
- 30. kernels  one {"kernels": [...]} line (all ten kernels; the scan,
+ 31. kernels  the smoke's seconds (and the variants phase's), then one
+              {"kernels": [...]} line (all ten kernels; the scan
+              with its reverse entry's times, bound, plain time and error
+              at the combined block's mixer shape and at linear + v2's,
+              whose sampling run in the variants phase makes the reverse
+              launches, beside its own,
               both training kernels, conv + x_proj and norm + modulate
               (norm_2) with their L 1024 times and bound beside the
               256-px ones (norm + modulate also with its L2-cold device
@@ -432,17 +461,29 @@ def phase_kernel():
     from dimsum_torch.ops.selective_scan import (selective_scan_cuda,
                                                  selective_scan_dtlow)
 
+    # the reverse cases take the reverse entry (the recurrence from the
+    # last step to the first, no flips); ragged-L-reverse's ragged chunk is
+    # the first it walks; the v2 cases are the mixers of linear + v2
+    # (d_inner 2048, dt_rank 64: the r <= 64 instantiation), whose reverse
+    # branch makes the reverse entry's launches in the variants phase
     cases = [
-        ("mixer-bf16", 24, 256, 1024, torch.bfloat16, False),
-        ("mixer-bf16-reverse", 24, 256, 1024, torch.bfloat16, True),
-        ("mixer-fp32", 24, 256, 1024, torch.float32, False),
-        ("mixer-fp32-reverse", 24, 256, 1024, torch.float32, True),
-        ("ragged-dim-bf16", 24, 256, 1000, torch.bfloat16, False),
-        ("L1024-bf16", 24, 1024, 1024, torch.bfloat16, False),
+        ("mixer-bf16", 24, 256, 1024, 32, torch.bfloat16, False),
+        ("mixer-bf16-reverse", 24, 256, 1024, 32, torch.bfloat16, True),
+        ("mixer-fp32", 24, 256, 1024, 32, torch.float32, False),
+        ("mixer-fp32-reverse", 24, 256, 1024, 32, torch.float32, True),
+        ("ragged-dim-bf16", 24, 256, 1000, 32, torch.bfloat16, False),
+        ("ragged-L-bf16-reverse", 24, 250, 1024, 32, torch.bfloat16, True),
+        ("L1024-bf16", 24, 1024, 1024, 32, torch.bfloat16, False),
+        ("L1024-bf16-reverse", 24, 1024, 1024, 32, torch.bfloat16, True),
+        ("v2-bf16", 24, 256, 2048, 64, torch.bfloat16, False),
+        ("v2-bf16-reverse", 24, 256, 2048, 64, torch.bfloat16, True),
+        ("v2-fp32-reverse", 24, 256, 2048, 64, torch.float32, True),
     ]
+    timed = ("mixer-bf16", "L1024-bf16", "mixer-bf16-reverse",
+             "L1024-bf16-reverse", "v2-bf16", "v2-bf16-reverse")
     results = {}
-    for i, (name, batch, L, dim, dtype, reverse) in enumerate(cases):
-        x = scan_inputs(batch, L, dim, 16, 32, dtype, seed=100 + i)
+    for i, (name, batch, L, dim, r, dtype, reverse) in enumerate(cases):
+        x = scan_inputs(batch, L, dim, 16, r, dtype, seed=100 + i)
         args = [x[k] for k in ("u", "dt_low", "dt_w", "A", "B", "C", "D")]
         kw = dict(z=x["z"], delta_bias=x["delta_bias"], delta_softplus=True)
         with torch.inference_mode():
@@ -457,14 +498,16 @@ def phase_kernel():
             err = (got - want).abs()
             ok = bool(torch.isfinite(got).all()) and bool(
                 (err <= tol + tol * want.abs()).all())
-            ms = cuda_ms(lambda: selective_scan_cuda(*args, **kw), iters=20)
-            dev_ms = (device_ms(lambda: selective_scan_cuda(*args, **kw),
-                                "selective_scan")
-                      if name in ("mixer-bf16", "L1024-bf16") else None)
+            ms = cuda_ms(lambda: selective_scan_cuda(
+                *args, reverse=reverse, **kw), iters=20)
+            dev_ms = (device_ms(lambda: selective_scan_cuda(
+                *args, reverse=reverse, **kw), "selective_scan")
+                if name in timed else None)
             plain_ms = cuda_ms(lambda: selective_scan_dtlow(
-                *args, impl="ref", **kw), iters=3, warmup=1)
+                *args, impl="ref", reverse=reverse, **kw), iters=3,
+                warmup=1)
         rec = {"phase": "kernel", "case": name, "shape": [batch, L, dim,
-                                                          16, 32],
+                                                          16, r],
                "dtype": str(dtype).split(".")[-1], "reverse": reverse,
                "max_abs_err": err.max().item(),
                "max_abs_ref": want.abs().max().item(), "tol": tol,
@@ -757,6 +800,7 @@ def _zeroed_scan_counts():
               "selective_scan_bwd": ss.selective_scan_bwd_core_cuda}
     for c in counts.values():
         c.launches = 0
+    ss.selective_scan_cuda.reverse_launches = 0
     return counts
 
 
@@ -3267,7 +3311,437 @@ def phase_train_ddp(ranks: int = DDP_RANKS, backend: str = "gloo"):
         raise AssertionError(f"train-ddp phase failed: {rec}")
 
 
+# ---------------------------------------------------------------------------
+# variants: the DiM zoo's other configurations at full DiM-L/2 width
+# ---------------------------------------------------------------------------
+
+# the JAX CLI flags of each configuration beside --model DiM-L/2
+# --image-size 256: (a) the CLI's own defaults for the rest (LayerNorm,
+# plain Mamba, a fixed APE, no DiT block, the gated MLP); (b), (c) and (d)
+# the published flags, (d) also with the fused-kernel switches (DiMConfig
+# fields, VARIANT_SWITCHES)
+_PUBLISHED_FLAGS = ["--rms-norm", "--cond-mamba", "--learnable-pe",
+                    "--use-attn-every-k-layers", "4"]
+VARIANT_FLAGS = {
+    "linear-v2": ["--block-type", "linear", "--bimamba-type", "v2"],
+    "combined_fourier": ["--block-type", "combined_fourier",
+                         "--bimamba-type", "none", *_PUBLISHED_FLAGS],
+    "combined_einfft": ["--block-type", "combined_einfft",
+                        "--bimamba-type", "none", *_PUBLISHED_FLAGS],
+    "published-fused": ["--block-type", "combined", "--bimamba-type",
+                        "none", *_PUBLISHED_FLAGS],
+}
+VARIANT_SWITCHES = {"published-fused": FUSED_ON}
+# launches a forward of the scan's forward and reverse entries, and of
+# the conv + x_proj kernel (all, anticausal) where it is on: (a) 16 v2
+# mixers, each a forward and a reverse branch; (b) 16 spatial and 16 DCT
+# mixers; (c) 16 spatial mixers (EinFFT has none); (d) 32 mixers.  In
+# (b), (c) and (d) the spatial mixers of the 8 reversed blocks run in
+# reverse time (the reverse inside the mixer, as every reversed block
+# runs it without a gradient; the DCT mixers' zigzag keeps the flips)
+VARIANT_LAUNCHES = {
+    "linear-v2": dict(scan_fwd=16, scan_reverse=16),
+    "combined_fourier": dict(scan_fwd=24, scan_reverse=8),
+    "combined_einfft": dict(scan_fwd=8, scan_reverse=8),
+    "published-fused": dict(scan_fwd=24, scan_reverse=8, conv_xproj=32,
+                            conv_xproj_reverse=8),
+}
+VARIANT_STEPS = 10     # Euler grid points of the variants' sampling run
+VARIANT_CLI_STEPS = 4  # grid points of the variants' CLI run
+
+
+def _variant_config(name, dtype):
+    """DiM-L/2 at 256 px (1000 classes, label dropout 0.1) built from the
+    configuration's CLI flags by `cli.model_config`, with its switches."""
+    import argparse
+    import dataclasses
+
+    import torch
+
+    from dimsum_torch import cli
+
+    p = argparse.ArgumentParser()
+    cli.add_model_args(p)
+    cli.add_moe_args(p)
+    args = p.parse_args(["--model", "DiM-L/2", "--image-size", "256",
+                         "--num-classes", "1000", "--label-dropout", "0.1",
+                         *VARIANT_FLAGS[name],
+                         *(["--bf16"] if dtype == torch.bfloat16 else [])])
+    return dataclasses.replace(cli.model_config(args),
+                               **VARIANT_SWITCHES.get(name, {}))
+
+
+def _variant_counts(zero: bool = False):
+    """The launch counts the variants phase reads (set to 0 first with
+    `zero`)."""
+    from dimsum_torch.ops.conv_xproj import conv_xproj_cuda
+    from dimsum_torch.ops.norms import add_norm_cuda, norm_modulate_cuda
+    from dimsum_torch.ops.selective_scan import selective_scan_cuda
+
+    fields = {"scan": (selective_scan_cuda, "launches"),
+              "scan_reverse": (selective_scan_cuda, "reverse_launches"),
+              "conv_xproj": (conv_xproj_cuda, "launches"),
+              "conv_xproj_reverse": (conv_xproj_cuda, "reverse_launches"),
+              "add_norm": (add_norm_cuda, "launches"),
+              "norm_modulate": (norm_modulate_cuda, "launches")}
+    if zero:
+        for fn, attr in fields.values():
+            setattr(fn, attr, 0)
+    got = {k: getattr(fn, attr) for k, (fn, attr) in fields.items()}
+    got["scan_fwd"] = got.pop("scan") - got["scan_reverse"]
+    return got
+
+
+def _variant_launches_ok(name, launches, calls=1):
+    return all(launches[k] == v * calls
+               for k, v in VARIANT_LAUNCHES[name].items())
+
+
+def _sample_run(spec):
+    """`python -m dimsum_torch.sample` in a process of its own (its
+    `main`), the launch counts of `_variant_counts` set to 0 just before
+    and read just after in this process.  `spec` is a JSON [argv, output
+    path]; the record's numbers and the launches go to the output path."""
+    import torch
+
+    from dimsum_torch import sample
+
+    argv, out = json.loads(spec)
+    _variant_counts(zero=True)
+    rec = sample.main(argv)
+    torch.cuda.synchronize()
+    samples = rec["samples"].float()
+    with open(out, "w") as f:
+        json.dump({"launches": _variant_counts(), "seconds": rec["seconds"],
+                   "shape": list(samples.shape),
+                   "finite": bool(torch.isfinite(samples).all()),
+                   "std": samples.std().item()}, f)
+
+
+def _variant_sample(name, g, y):
+    """The configuration `name` in bf16 at 256 px sampled once (12 images,
+    CFG 1.4, GVP velocity, Euler over VARIANT_STEPS grid points) after
+    one untimed 2-point run, the noise drawn from `g`: s, img/s, the
+    launches of its drift calls, finite."""
+    import torch
+
+    from dimsum_torch.models.dim import build_dim, forward_with_cfg
+    from dimsum_torch.transport import Sampler, create_transport
+
+    cfg = _variant_config(name, torch.bfloat16)
+    net = build_dim(cfg, "cuda", seed=0)
+    z = torch.randn((12, 4, 32, 32), generator=g, device="cuda")
+    z = torch.cat([z, z])
+    sampler = Sampler(create_transport("GVP", "velocity"))
+
+    def model_fn(x_, t_, y=None):
+        return forward_with_cfg(net, x_, t_, y, cfg_scale=1.4)
+
+    with torch.inference_mode():
+        sampler.sample_ode(sampling_method="euler", num_steps=2)(
+            z, model_fn, y=y)
+        torch.cuda.synchronize()
+        _variant_counts(zero=True)
+        t0 = time.perf_counter()
+        samples = sampler.sample_ode(sampling_method="euler",
+                                     num_steps=VARIANT_STEPS)(
+            z, model_fn, y=y)[:12]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = _variant_counts()
+    del net
+    torch.cuda.empty_cache()
+    rec = {"phase": "variants-sample", "case": name, "dtype": "bfloat16",
+           "cfg_scale": 1.4, "images": 12, "steps": VARIANT_STEPS,
+           "model_calls": VARIANT_STEPS - 1, "seconds": seconds,
+           "img_per_s": 12 / seconds, "launches": launches,
+           "finite": bool(torch.isfinite(samples).all()),
+           "sample_std": samples.float().std().item()}
+    emit(rec)
+    if (not rec["finite"]
+            or not _variant_launches_ok(name, launches, VARIANT_STEPS - 1)):
+        raise AssertionError(f"variants-sample failed: {rec}")
+    return rec
+
+
+def phase_variants():
+    """variants: full-width DiM-L/2 at 256 px (hidden 1024, depth 16, L
+    256, seeded weights) in four configurations: (a) linear + v2 with the
+    CLI's other defaults, (b) combined_fourier and (c) combined_einfft with
+    the published flags, (d) the published configuration with
+    native_reverse and the fused switches.  For each, one fp32 CFG forward
+    of 24 rows (TF32 off) through the kernels and through the plain
+    versions (scan, and in (d) the fused sites): 1e-3 of scale, as the
+    model phase; the launches of the forward (VARIANT_LAUNCHES).  Then
+    (a) and (b) each sampled in bf16 (CFG 1.4, Euler over VARIANT_STEPS
+    grid points, 12 images): s and img/s, the launches of its drift
+    calls, finite; and
+    `python -m dimsum_torch.sample ODE` on (a) in a process of its own
+    from a seeded checkpoint under the reference's key names, writing
+    latents: finite, VARIANT_CLI_STEPS - 1 drift calls' launches.  Alone:
+    python3 -c "import chip_smoke as s; s.phase_variants()"."""
+    import os
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from dimsum_torch.models.dim import build_dim, forward_with_cfg
+
+    phase_t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(7)
+    half = torch.randn((12, 4, 32, 32), generator=g, device="cuda")
+    x = torch.cat([half, half])
+    t = torch.rand(12, generator=g, device="cuda").repeat(2)
+    y = torch.cat([torch.randint(0, 1000, (12,), generator=g, device="cuda"),
+                   torch.full((12,), 1000, device="cuda")])
+    records = {}
+    for name in VARIANT_FLAGS:
+        cfg = _variant_config(name, torch.float32)
+        model = build_dim(cfg, "cuda", seed=0)
+        with torch.inference_mode():
+            _variant_counts(zero=True)
+            got = forward_with_cfg(model, x, t, y, cfg_scale=1.4)
+            torch.cuda.synchronize()
+            launches = _variant_counts()
+            for m in _mixers(model):
+                m.scan_impl = "ref"
+            _plain_fused(model)
+            want = forward_with_cfg(model, x, t, y, cfg_scale=1.4)
+            torch.cuda.synchronize()
+        del model
+        torch.cuda.empty_cache()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        tol = 1e-3 * max(1.0, scale)
+        rec = {"phase": "variants", "case": name, "model": "DiM-L/2",
+               "flags": VARIANT_FLAGS[name],
+               "switches": VARIANT_SWITCHES.get(name, {}),
+               "block_type": cfg.block_type, "scan_type": cfg.scan_type,
+               "rows": x.shape[0], "dtype": "float32", "tf32": False,
+               "launches_per_forward": launches, "max_abs_err": err,
+               "max_abs_ref": scale, "tol": tol,
+               "finite": bool(torch.isfinite(got).all())}
+        emit(rec)
+        records[name] = rec
+        if (not _variant_launches_ok(name, launches) or not rec["finite"]
+                or not err <= tol):
+            raise AssertionError(f"variants phase failed: {rec}")
+
+    # (a) and (b) sampled in bf16, the bench protocol cut to VARIANT_STEPS
+    # points
+    sample_rec = _variant_sample("linear-v2", g, y)
+    fourier_rec = _variant_sample("combined_fourier", g, y)
+    name = "linear-v2"
+
+    # (a) through the sampling CLI from a reference-layout checkpoint
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt_cfg = _variant_config(name, torch.float32)
+        net = build_dim(ckpt_cfg, "cuda", seed=3, train=True)
+        path = os.path.join(tmp, "dim-l2-linear-v2.pt")
+        torch.save({"ema": {k: v.detach().cpu()
+                            for k, v in net.state_dict().items()}}, path)
+        n_keys = len(net.state_dict())
+        del net
+        torch.cuda.empty_cache()
+        out = os.path.join(tmp, "cli.json")
+        argv = ["ODE", "--model", "DiM-L/2", "--image-size", "256",
+                "--num-classes", "1000", "--label-dropout", "0.1",
+                *VARIANT_FLAGS[name], "--path-type", "GVP", "--bf16",
+                "--ckpt", path, "--sample-dir", os.path.join(tmp, "out"),
+                "--sampling-method", "euler", "--num-sampling-steps",
+                str(VARIANT_CLI_STEPS), "--cfg-scale", "1.4",
+                "--global-batch-size", "4"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke as s; "
+             "s._sample_run(sys.argv[1])", json.dumps([argv, out])],
+            cwd=root, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            raise AssertionError(f"variants: the sampling CLI exited "
+                                 f"{proc.returncode}")
+        with open(out) as f:
+            cli_rec = json.load(f)
+        latents = sorted(os.listdir(os.path.join(tmp, "out")))
+    cli_out = {"phase": "variants-cli", "case": name, "argv": argv,
+               "checkpoint_keys": n_keys, "process_seconds": wall,
+               "files": latents, **cli_rec}
+    emit(cli_out)
+    if (not cli_rec["finite"] or cli_rec["shape"] != [4, 4, 32, 32]
+            or not latents
+            or not _variant_launches_ok(name, cli_rec["launches"],
+                                        VARIANT_CLI_STEPS - 1)):
+        raise AssertionError(f"variants-cli failed: {cli_out}")
+    routes = phase_reverse_route()
+    seconds = time.perf_counter() - phase_t0
+    emit({"phase": "variants-seconds", "seconds": seconds})
+    return {"forward": records, "sample": sample_rec,
+            "sample_fourier": fourier_rec, "cli": cli_out,
+            "routes": routes, "seconds": seconds}
+
+
+# the reversed blocks' routes: (image size, fused switches) of the published
+# configuration, the alternation of the routes' windows (True: the reverse
+# inside the mixers, False: the block's flips; timed windows, then as many
+# profiled ones), forwards a window
+REVERSE_ROUTE_CELLS = ((256, {}), (512, {}), (512, FUSED_ON))
+REVERSE_ROUTE_ORDER = (True, False, False, True, True, False, False, True)
+REVERSE_ROUTE_PROFILED = (True, False, False, True)
+REVERSE_ROUTE_ITERS = 5
+
+
+def _reverse_route_cell(spec):
+    """One cell of `phase_reverse_route` in this process (torch.profiler
+    sessions slow a process's later host work, so each cell has its own):
+    `spec` is a JSON [image size, switches, output path]; the record goes
+    to the output path."""
+    import dataclasses
+    import statistics
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dimsum_torch.models.dim import build_dim, forward_with_cfg
+    from dimsum_torch.ops.selective_scan import selective_scan_cuda
+
+    t0 = time.perf_counter()
+    image_size, switches, out = json.loads(spec)
+    latent = image_size // 8
+    cfg = dataclasses.replace(
+        _variant_config("published-fused", torch.bfloat16),
+        img_resolution=latent,
+        **{**{k: False for k in FUSED_ON}, **switches})
+    net = build_dim(cfg, "cuda", seed=0)
+    reversed_blocks = [m for m in net.modules()
+                       if getattr(m, "native", False)]
+    g = torch.Generator(device="cuda").manual_seed(11)
+    half = torch.randn((12, 4, latent, latent), generator=g, device="cuda")
+    x = torch.cat([half, half])
+    t = torch.rand(12, generator=g, device="cuda").repeat(2)
+    y = torch.cat([torch.randint(0, 1000, (12,), generator=g, device="cuda"),
+                   torch.full((12,), 1000, device="cuda")])
+
+    def forward(native):
+        for m in reversed_blocks:
+            m.native = native
+        return forward_with_cfg(net, x, t, y, cfg_scale=1.4)
+
+    walls, device, kernels = ({True: [], False: []} for _ in range(3))
+    outs, rev = {}, {}
+    with torch.inference_mode():
+        for native in (True, False):
+            forward(native)
+            selective_scan_cuda.reverse_launches = 0
+            outs[native] = forward(native).float()
+            torch.cuda.synchronize()
+            rev[native] = selective_scan_cuda.reverse_launches
+        for native in REVERSE_ROUTE_ORDER:
+            walls[native].append(cuda_ms(lambda: forward(native),
+                                         iters=REVERSE_ROUTE_ITERS,
+                                         warmup=1))
+        for native in REVERSE_ROUTE_PROFILED:
+            forward(native)
+            torch.cuda.synchronize()
+            # CUDA activity only: the host's op events would make each
+            # session's summary take seconds
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(REVERSE_ROUTE_ITERS):
+                    forward(native)
+                torch.cuda.synchronize()
+            found = [e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False)
+                     and not e.key.startswith(("Memcpy", "Memset"))]
+            if found:
+                device[native].append(sum(
+                    e.self_device_time_total for e in found) / 1e3
+                    / REVERSE_ROUTE_ITERS)
+                kernels[native].append(
+                    sum(e.count for e in found) / REVERSE_ROUTE_ITERS)
+    err = (outs[True] - outs[False]).abs().max().item()
+    scale = outs[False].abs().max().item()
+    rec = {"phase": "reverse-route", "image_size": image_size,
+           "switches": switches, "dtype": "bfloat16", "rows": 24,
+           "reversed_blocks": len(reversed_blocks),
+           "order": ["native" if n else "flips"
+                     for n in REVERSE_ROUTE_ORDER],
+           "profiled_order": ["native" if n else "flips"
+                              for n in REVERSE_ROUTE_PROFILED],
+           "iters": REVERSE_ROUTE_ITERS}
+    for native, route in ((True, "native"), (False, "flips")):
+        rec[route] = {
+            "wall_ms": statistics.median(walls[native]),
+            "wall_ms_windows": walls[native],
+            "device_ms": (statistics.median(device[native])
+                          if device[native] else None),
+            "device_ms_windows": device[native],
+            "kernels_per_forward": kernels[native],
+            "reverse_launches": rev[native]}
+    rec.update(max_abs_diff=err, max_abs_ref=scale,
+               bit_for_bit=bool(torch.equal(outs[True], outs[False])),
+               tol=1e-2 * max(1.0, scale),
+               finite=bool(torch.isfinite(outs[True]).all()),
+               seconds=time.perf_counter() - t0)
+    with open(out, "w") as f:
+        json.dump(rec, f)
+
+
+def phase_reverse_route():
+    """The published DiM-L/2 (bf16, seeded weights) for each of
+    REVERSE_ROUTE_CELLS, in a process of its own: one CFG forward of 24
+    rows with its 8 reversed blocks' reverse inside their mixers
+    (`native`, what every forward without a gradient takes) and with the
+    block's two flips around the mixer (`flips`, forced by setting the
+    blocks' `native` to False; what a forward under a gradient takes).
+    Windows of REVERSE_ROUTE_ITERS forwards timed by CUDA events in the
+    order REVERSE_ROUTE_ORDER, then profiled ones (torch.profiler's CUDA
+    activity: the kernels, memcpy and memset left out) in the order
+    REVERSE_ROUTE_PROFILED.  For each route: the median wall ms and
+    device ms a forward over its windows, each profiled window's kernel
+    launches a forward (the profiler's count; some sessions record
+    fewer), the scan's reverse launches by its counter; the two routes'
+    outputs compared (the same function: within 1e-2 of scale in bf16,
+    and whether bit for bit).  Alone: python3 -c "import chip_smoke as
+    s; s.phase_reverse_route()"."""
+    import os
+    import subprocess
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    records = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (image_size, switches) in enumerate(REVERSE_ROUTE_CELLS):
+            out = os.path.join(tmp, f"cell{i}.json")
+            proc = subprocess.run(
+                [sys.executable, "-c", "import sys, chip_smoke as s; "
+                 "s._reverse_route_cell(sys.argv[1])",
+                 json.dumps([image_size, switches, out])],
+                cwd=root, capture_output=True, text=True, timeout=300)
+            if proc.returncode != 0:
+                print(proc.stderr[-4000:], file=sys.stderr)
+                raise AssertionError(f"reverse-route: the {image_size}-px "
+                                     f"cell exited {proc.returncode}")
+            with open(out) as f:
+                rec = json.load(f)
+            emit(rec)
+            records.append(rec)
+            if (not rec["finite"] or not rec["max_abs_diff"] <= rec["tol"]
+                    or rec["native"]["reverse_launches"] != 8
+                    or rec["flips"]["reverse_launches"] != 0
+                    or not rec["native"]["device_ms"]
+                    or not rec["flips"]["device_ms"]):
+                raise AssertionError(f"reverse-route failed: {rec}")
+    return records
+
+
 def main() -> int:
+    smoke_t0 = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -3311,6 +3785,7 @@ def main() -> int:
     phase_train_grad_fused()
     launches.update(phase_sample_fused())
     phase_sample_fused_512()
+    variants = phase_variants()
     fp32_launches = phase_sampling_path()
     for name in ("full_attention_f32", "full_attention_first"):
         launches[name] = fp32_launches[name]
@@ -3318,9 +3793,14 @@ def main() -> int:
     phase_train_remat()
     phase_train_ddp()
 
-    # the scan at the 256-px mixer shape, with the 512-px one (L 1024)
-    # beside it
+    # the scan at the 256-px mixer shape, with the 512-px one (L 1024) and
+    # linear + v2's (dim 2048, r 64) beside it; its reverse entry at the
+    # same shapes, with its launches in the variants phase's sampling run
+    # of linear + v2, whose reverse branches run at the v2 shape
     main_case, long_case = scans["mixer-bf16"], scans["L1024-bf16"]
+    rev_case, rev_long = (scans["mixer-bf16-reverse"],
+                          scans["L1024-bf16-reverse"])
+    v2_case, rev_v2 = scans["v2-bf16"], scans["v2-bf16-reverse"]
     kernels = [{
         "name": "selective_scan_fwd",
         "route": "cuda",
@@ -3338,6 +3818,30 @@ def main() -> int:
         "L1024_device_ms": long_case["device_ms"],
         "L1024_plain_ms": long_case["plain_ms"],
         "L1024_bound_ms": long_case["bound_ms"],
+        "reverse_ms": rev_case["ms"],
+        "reverse_device_ms": rev_case["device_ms"],
+        "reverse_bound_ms": rev_case["bound_ms"],
+        "reverse_plain_ms": rev_case["plain_ms"],
+        "reverse_launches": variants["sample"]["launches"]["scan_reverse"],
+        "reverse_launches_shape": rev_v2["shape"],
+        "reverse_max_abs_err": max(r["max_abs_err"] for r in scans.values()
+                                   if r["reverse"]),
+        "reverse_L1024_ms": rev_long["ms"],
+        "reverse_L1024_device_ms": rev_long["device_ms"],
+        "reverse_L1024_plain_ms": rev_long["plain_ms"],
+        "reverse_L1024_bound_ms": rev_long["bound_ms"],
+        "v2_shape": v2_case["shape"],
+        "v2_ms": v2_case["ms"],
+        "v2_device_ms": v2_case["device_ms"],
+        "v2_plain_ms": v2_case["plain_ms"],
+        "v2_bound_ms": v2_case["bound_ms"],
+        "reverse_v2_ms": rev_v2["ms"],
+        "reverse_v2_device_ms": rev_v2["device_ms"],
+        "reverse_v2_plain_ms": rev_v2["plain_ms"],
+        "reverse_v2_bound_ms": rev_v2["bound_ms"],
+        "reverse_v2_max_abs_err": max(
+            r["max_abs_err"] for r in scans.values()
+            if r["reverse"] and r["shape"][2:] == rev_v2["shape"][2:]),
     }]
     # the state entry at the sample-sp-512 shape: `ms` the first SP pass
     # (zero state in, the last state out), `h0_ms` the second (seeded)
@@ -3449,6 +3953,8 @@ def main() -> int:
                               "L1024_bound_ms": long_case["bound_ms"]})
     by_name["norm_modulate"]["cold_device_ms"] = \
         mods["norm_2-bfloat16"]["cold_device_ms"]
+    emit({"phase": "smoke-seconds", "seconds": time.perf_counter() - smoke_t0,
+          "variants_seconds": variants["seconds"]})
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -2,11 +2,14 @@
 `dimsum_tpu/cli.py` flag for flag, so the reference's shell scripts
 translate as they are.
 
-The port builds the published DiM configuration only (block type
-"combined", scan type "none", CondMamba, RMSNorm, a learnable sin-cos APE,
-the gated MLP).  A flag that asks for something the port lacks raises
-`NotImplementedError` naming its item in ROADMAP.md's Queue 1; none is
-ignored.
+The port builds every DiM block type and scan type of the JAX package
+(`--block-type`, `--bimamba-type`), with `--rms-norm` or LayerNorm,
+`--cond-mamba` or plain Mamba, `--learn-sigma`, `--learnable-pe` or a fixed
+sin-cos APE, `--use-final-norm`, `--not-use-gated-mlp`,
+`--scanning-continuity` and `--enable-fourier-layers`.  A flag that asks
+for something the port lacks (`--pe-type` rope or cpe, `--cond-init`, MoE,
+DiT models) raises `NotImplementedError` naming its item in ROADMAP.md's
+Queue 1; none is ignored.
 """
 
 from __future__ import annotations
@@ -151,24 +154,11 @@ def model_config(args):
     _require("DiM" in args.model and args.model in DiM_models,
              f"--model {args.model}", "ROADMAP.md Queue 1 item 7: "
              "DiT and models/factory.py")
-    _require(args.block_type == "combined",
-             f"--block-type {args.block_type}")
-    _require(args.bimamba_type == "none",
-             f"--bimamba-type {args.bimamba_type} (Mamba v2 and the zigzag "
-             "scans)")
-    _require(args.rms_norm, "LayerNorm (no --rms-norm)")
-    _require(args.cond_mamba, "plain Mamba (no --cond-mamba)")
-    _require(args.learnable_pe, "a fixed position embedding (no "
-             "--learnable-pe)")
-    _require(args.pe_type == "ape", f"--pe-type {args.pe_type}")
-    _require(not args.learn_sigma, "--learn-sigma")
-    _require(not args.use_final_norm, "--use-final-norm")
-    _require(not args.not_use_gated_mlp, "--not-use-gated-mlp")
-    _require(not args.cond_init, "--cond-init")
-    _require(not args.scanning_continuity, "--scanning-continuity")
-    _require(not args.enable_fourier_layers, "--enable-fourier-layers")
+    _require(args.pe_type == "ape", f"--pe-type {args.pe_type} "
+             "(pe_extras.py, AdaInPosCNN)")
+    _require(not args.cond_init, "--cond-init (the h0-seeded scan)")
     _require(not (args.is_moe or args.mamba_moe_layers), "MoE (--is-moe, "
-             "--mamba-moe-layers)")
+             "--mamba-moe-layers; MoEBlock, SwitchMLP)")
     _require(args.scan_impl in (None, "ref"),
              f"--scan-impl {args.scan_impl}", "the port's scans are its "
              "CUDA kernels (None) and the plain PyTorch scan (ref)")
@@ -179,6 +169,16 @@ def model_config(args):
         num_classes=args.num_classes,
         use_attn_every_k_layers=args.use_attn_every_k_layers,
         drop_path=args.drop_path,
+        block_type=args.block_type,
+        scan_type=args.bimamba_type,
+        rms_norm=args.rms_norm,
+        cond_mamba=args.cond_mamba,
+        learn_sigma=args.learn_sigma,
+        learnable_pe=args.learnable_pe,
+        use_final_norm=args.use_final_norm,
+        use_gated_mlp=not args.not_use_gated_mlp,
+        scanning_continuity=args.scanning_continuity,
+        enable_fourier_layers=args.enable_fourier_layers,
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
         grad_checkpoint=args.grad_checkpoint,
         remat_policy=args.remat_policy)

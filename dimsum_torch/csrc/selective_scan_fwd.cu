@@ -60,7 +60,22 @@
 // overlap it (the blocks of an SM run in lock step, and the kernel is
 // bound by instruction issue).  Next: chunk i + 1's loads and phase A
 // inside chunk i's recurrence (double buffers), or producer warps; and the
-// variants the route refuses (native reverse, grouped B/C, N > 32).
+// variants the route refuses (grouped B/C, N > 32).
+//
+// The reverse entry, dimsum_selective_scan_fwd_reverse, is _scan_body's
+// reverse=True case (selective_scan.py:447, :499-503; the grid's L-chunks
+// visited last to first): h_t = exp(dt_t A) h_{t+1} + dt_t u_t B_t, the
+// state zero past L - 1, which is flip_L(scan(flip_L(u, dt_low, B, C, z)))
+// with no flip made.  It is the first entry's kernel with a fourth
+// compile-time switch, kRev: the block walks the same 16-step chunks from
+// the last to the first, and phase B steps each chunk from t = 15 down to
+// 0.  Phases A and C do the same per-(t, d) work at the same addresses.  A
+// ragged L makes the last chunk ragged, and it is the first one walked: its
+// steps past L run first, with dt = 0, so the state stays 0 until the step
+// at L - 1.  Each step's arithmetic and each output's sum of the 4 lanes'
+// partials are those of the first entry on the flipped inputs.  Its bound
+// and bytes are the first entry's.  As in JAX (selective_scan.py:592-593),
+// reverse takes no h0 and gives no last state.
 //
 // The state entry is the same kernel with three compile-time switches, so
 // the first entry's instantiations compile as before.  kDelta: phase A
@@ -188,8 +203,10 @@ struct Plan {
 // kDelta: dt_low is the full delta (batch, L, dim) and dt_w is unused;
 // kH0: h0 (batch, dim, N) seeds the state; kLast: last (batch, dim, N)
 // takes the state after step L - 1.  h0 and last are unused without them.
+// kRev: reverse time (chunks and steps last to first; the first entry's
+// arguments only).
 template <typename T, int NMAX, int RMAX, bool kDelta = false,
-          bool kH0 = false, bool kLast = false>
+          bool kH0 = false, bool kLast = false, bool kRev = false>
 __global__ void __launch_bounds__(kThreads, 6)
 scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
                 const T* __restrict__ dt_w, const float* __restrict__ A,
@@ -203,6 +220,7 @@ scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
   constexpr int NPL = NMAX / kLanes;  // states a lane
   constexpr int LDB = RMAX + 8;       // bf16 operand rows
   static_assert(RMAX % 16 == 0 && NPL >= 2, "plan");
+  static_assert(!(kRev && (kDelta || kH0 || kLast)), "reverse: first entry");
   extern __shared__ __align__(16) float smem[];
   float* s_w = smem + P::kW;
   float* s_dtl = smem + P::kDtl;
@@ -291,7 +309,10 @@ scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
     }
   };
 
-  for (int t0 = 0; t0 < L; t0 += kChunk) {
+  // forward: chunks first to last; kRev: last to first
+  const int t_last = (L - 1) / kChunk * kChunk;
+  for (int t0 = kRev ? t_last : 0; kRev ? t0 >= 0 : t0 < L;
+       t0 += kRev ? -kChunk : kChunk) {
     const int nt = min(kChunk, L - t0);
     load_chunk(t0);
     // the chunk's shared rows in fp32 (bf16: the mma operand as it is)
@@ -395,9 +416,11 @@ scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
     __syncthreads();
 
     // phase B, the recurrence: only h = a h + du B depends on the previous
-    // step; the unrolled chunk lets later steps' exp2 run ahead
+    // step; the unrolled chunk lets later steps' exp2 run ahead.  kRev
+    // steps from t = 15 down to 0 (past L first, with dt = 0)
 #pragma unroll
-    for (int tt = 0; tt < kChunk; ++tt) {
+    for (int i = 0; i < kChunk; ++i) {
+      const int tt = kRev ? kChunk - 1 - i : i;
       const float2 dd = s_dd[tt * kChannels + cb];
       float bv[NPL], cv[NPL];
       lds<NPL>(s_B + tt * NMAX + kb * NPL, bv);
@@ -432,7 +455,7 @@ scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
 }
 
 template <typename T, int NMAX, int RMAX, bool kDelta = false,
-          bool kH0 = false, bool kLast = false>
+          bool kH0 = false, bool kLast = false, bool kRev = false>
 cudaError_t launch(const void* u, const void* dt_low, const void* dt_w,
                    const void* A, const void* B, const void* C, const void* D,
                    const void* z, const void* bias, void* out, int batch,
@@ -441,7 +464,7 @@ cudaError_t launch(const void* u, const void* dt_low, const void* dt_w,
                    void* last = nullptr) {
   constexpr int kBytes = Plan<NMAX, RMAX>::kBytes;
   dim3 grid(batch, (dim + kChannels - 1) / kChannels);
-  scan_fwd_kernel<T, NMAX, RMAX, kDelta, kH0, kLast>
+  scan_fwd_kernel<T, NMAX, RMAX, kDelta, kH0, kLast, kRev>
       <<<grid, kThreads, kBytes, stream>>>(
           static_cast<const T*>(u), static_cast<const T*>(dt_low),
           static_cast<const T*>(dt_w), static_cast<const float*>(A),
@@ -460,19 +483,20 @@ cudaError_t launch(const void* u, const void* dt_low, const void* dt_w,
     const void *z, const void *bias, void *out, int batch, int L, int dim,  \
     int N, int R, int use_softplus, cudaStream_t s
 
-template <typename T, int NMAX>
+template <typename T, int NMAX, bool kRev>
 cudaError_t dispatch_r(SCAN_PARAMS) {
-  if (R <= 16) return launch<T, NMAX, 16>(SCAN_ARGS);
-  if (R <= 32) return launch<T, NMAX, 32>(SCAN_ARGS);
-  if (R <= 64) return launch<T, NMAX, 64>(SCAN_ARGS);
+  constexpr bool f = false;
+  if (R <= 16) return launch<T, NMAX, 16, f, f, f, kRev>(SCAN_ARGS);
+  if (R <= 32) return launch<T, NMAX, 32, f, f, f, kRev>(SCAN_ARGS);
+  if (R <= 64) return launch<T, NMAX, 64, f, f, f, kRev>(SCAN_ARGS);
   return cudaErrorInvalidValue;
 }
 
-template <typename T>
+template <typename T, bool kRev = false>
 cudaError_t dispatch(SCAN_PARAMS) {
-  if (N <= 8) return dispatch_r<T, 8>(SCAN_ARGS);
-  if (N <= 16) return dispatch_r<T, 16>(SCAN_ARGS);
-  if (N <= 32) return dispatch_r<T, 32>(SCAN_ARGS);
+  if (N <= 8) return dispatch_r<T, 8, kRev>(SCAN_ARGS);
+  if (N <= 16) return dispatch_r<T, 16, kRev>(SCAN_ARGS);
+  if (N <= 32) return dispatch_r<T, 32, kRev>(SCAN_ARGS);
   return cudaErrorInvalidValue;
 }
 
@@ -523,6 +547,23 @@ extern "C" int dimsum_selective_scan_fwd(
   const int N = n_state, R = dt_rank;
   return dtype == 0 ? dispatch<float>(SCAN_ARGS)
                     : dispatch<__nv_bfloat16>(SCAN_ARGS);
+}
+
+// The reverse entry: dimsum_selective_scan_fwd's arguments and result, the
+// recurrence run from t = L - 1 down to 0 (flip_L of the first entry on
+// inputs flipped along L).
+extern "C" int dimsum_selective_scan_fwd_reverse(
+    const void* u, const void* dt_low, const void* dt_w, const void* A,
+    const void* B, const void* C, const void* D, const void* z,
+    const void* bias, void* out, int batch, int L, int dim, int n_state,
+    int dt_rank, int dtype, int use_softplus, void* stream) {
+  if (batch < 1 || L < 1 || dim < 1 || n_state < 1 || dt_rank < 1 ||
+      (dtype != 0 && dtype != 1))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int N = n_state, R = dt_rank;
+  return dtype == 0 ? dispatch<float, true>(SCAN_ARGS)
+                    : dispatch<__nv_bfloat16, true>(SCAN_ARGS);
 }
 
 // The state entry: as dimsum_selective_scan_fwd, with delta (batch, L, dim)

@@ -1,22 +1,36 @@
-"""DiM backbone, port of `dimsum_tpu/models/dim.py` for the published
-configuration (block_type "combined", CondMamba, RMSNorm with an fp32
-residual, sin-cos APE): PatchEmbed -> APE -> N combined blocks with a shared
-16-head DiTBlock after every k-th block -> FinalLayer -> unpatchify.  Also
-the CFG wrapper, the model zoo and a seeded random init.
+"""DiM backbone, port of `dimsum_tpu/models/dim.py`: PatchEmbed -> APE
+-> N blocks (with a DiTBlock after every k-th, shared or independent, and
+optional auxiliary wavelet blocks) -> optional norm_f -> FinalLayer ->
+unpatchify.  Also the CFG wrappers, the model zoo and a seeded random
+init.
 
-Block i runs reverse = (i % 2 > 0) and transpose = (i % 4 >= 2), the
-scan_type "none" schedule of the JAX `make_dim_block`, and stochastic depth
-at inter_dpr[i], inter_dpr = [0] + linspace(0, drop_path, depth) (the JAX
-`_drop_path_rates`, dim.py:270-277).  The JAX model's other drop-path site,
-the final norm_f merge, exists only with `use_final_norm`, which the
-published configuration leaves off, so the port has no norm_f.  The other block
-types, scan types, position encodings and learn_sigma are not ported yet.
+`DiMConfig` carries the JAX config's structural fields (dim.py:54-103):
+`block_type` ("linear", "raw" (depth tripled), "wave", "window",
+"combined", "combined_fourier", "combined_einfft"), `scan_type` ("none",
+"v2", or a zigzag "<zoo>_<n>" with the layers' paths from
+`ops/scan_orders.py`), `rms_norm` (else LayerNorm), `cond_mamba` (else
+plain Mamba), `learn_sigma` (out_channels twice in_channels),
+`learnable_pe` (else the sin-cos table takes no gradient),
+`use_final_norm`, `use_independent_attn`, `use_gated_mlp`,
+`scanning_continuity` and `enable_fourier_layers`.  The port's defaults
+are the published configuration (combined, CondMamba, RMSNorm, a
+learnable APE, a DiT block after every 4th block); the CLIs
+(`cli.model_config`) set every field from the JAX flags.  `make_dim_block`
+is the JAX block dispatch (dim.py:208-263): with scan_type "none" block i
+runs reverse = (i % 2 > 0) and transpose = (i % 4 >= 2) (the window
+block: transpose = reverse); other scan types neither.  Stochastic depth
+runs at inter_dpr[i], inter_dpr = [0] + linspace(0, drop_path, eff_depth),
+the auxiliary blocks at dpr[i], and the norm_f merge at the full rate
+(the JAX `_drop_path_rates`, dim.py:270-277, and :398-407).
 
 The JAX package's fused-kernel configuration is four `DiMConfig` fields named
 after its switches, all off by default: `pallas_norm` (DIMSUM_PALLAS_NORM),
 `fused_norm` (DIMSUM_FUSED_NORM), `conv_xproj` (DIMSUM_CONV_XPROJ) and
-`pending_tail` (DIMSUM_PENDING_TAIL, 0, 1 or 2; the deferred tail is
-materialized before each DiT block and at the end, dim.py:340-396).
+`pending_tail` (DIMSUM_PENDING_TAIL, 0, 1 or 2; combined blocks only, the
+deferred tail materialized before every other block, each auxiliary
+block, each DiT block and at the end, dim.py:340-396).  The JAX
+`DIMSUM_NATIVE_REVERSE` has no field: a reversed block runs its reverse
+inside its mixer whenever nothing needs a gradient (`models/blocks.py`).
 
 `seq_group`, a `torch.distributed` process group (the JAX `seq_axis` with
 its `seq_mesh`, dim.py:98-99, :189-191; `dimsum_torch.parallel.
@@ -27,14 +41,15 @@ model runs whole on every rank: each rank passes the same inputs and gets
 the same output.  It adds no parameters, so weights load as without it.
 Forward only.
 
-`grad_checkpoint` recomputes each combined block in the backward
+`grad_checkpoint` recomputes each main block in the backward
 (`torch.utils.checkpoint`, non-reentrant; the JAX `nn.remat`, dim.py:344-
 353), keeping what `remat_policy` names: None (nothing), "dots", "scan",
 "dots_scan" or "save:" over dots, scan_out, attn_out and conv_out (JAX
-dim.py:91-97, :134-169).  The shared DiT block is not checkpointed, and the
-pending tail is off under remat, as in JAX (dim.py:344).  How the kept
-outputs of the port's kernels, the blocks' stochastic-depth draws and the
-launch counts of each policy come out is in `dimsum_torch/utils/remat.py`.
+dim.py:91-97, :134-169).  The DiT and auxiliary blocks are not
+checkpointed, and the pending tail is off under remat, as in JAX
+(dim.py:344).  How the kept outputs of the port's kernels, the blocks'
+stochastic-depth draws and the launch counts of each policy come out is in
+`dimsum_torch/utils/remat.py`.
 """
 
 from __future__ import annotations
@@ -47,15 +62,22 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from dimsum_torch.models.blocks import (DiMBlockCombined, DiTBlock, Norm,
+from dimsum_torch.models.blocks import (DiMBlockCombined, DiMBlockWindow,
+                                       DiTBlock, MixerBlockCore, Norm,
+                                       WaveDiMBlock, drop_path_fn,
                                        materialize_pending)
 from dimsum_torch.models.embedders import (FinalLayer, LabelEmbedder,
                                            PatchEmbed, TimestepEmbedder,
                                            get_2d_sincos_pos_embed,
                                            unpatchify)
 from dimsum_torch.models.linear import cast_weights_
+from dimsum_torch.models.mamba import is_zigzag
+from dimsum_torch.ops.scan_orders import build_layer_paths
 from dimsum_torch.utils import remat
 from dimsum_torch.utils.device import resolve_device
+
+BLOCK_TYPES = ("linear", "raw", "wave", "window", "combined",
+               "combined_fourier", "combined_einfft")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,12 +92,23 @@ class DiMConfig:
     use_attn_every_k_layers: int = 4
     drop_path: float = 0.0  # stochastic depth (scripts/train.sh: 0.1)
     dtype: torch.dtype = torch.float32
+    block_type: str = "combined"  # one of BLOCK_TYPES
+    scan_type: str = "none"       # "none" | "v2" | "<zoo>_<n>"
+    rms_norm: bool = True         # False: LayerNorm (weight and bias)
+    cond_mamba: bool = True       # False: plain Mamba (no cond_proj)
+    learn_sigma: bool = False
+    learnable_pe: bool = True     # False: the sin-cos APE takes no gradient
+    use_final_norm: bool = False
+    use_independent_attn: bool = False
+    use_gated_mlp: bool = True
+    scanning_continuity: bool = False
+    enable_fourier_layers: bool = False
     pallas_norm: bool = False  # add + norm kernel at the blocks' top norm
     fused_norm: bool = False   # norm + modulate kernel at the other norms
     conv_xproj: bool = False   # conv + SiLU + x_proj kernel in every mixer
     pending_tail: int = 0      # 1, 2: defer each block's tail FFN add
     seq_group: Any = None      # sequence parallelism over a process group
-    grad_checkpoint: bool = False  # remat each combined block
+    grad_checkpoint: bool = False  # remat each main block
     remat_policy: Optional[str] = None  # what remat keeps (utils/remat.py)
 
     @property
@@ -86,40 +119,151 @@ class DiMConfig:
     def num_patches(self) -> int:
         return self.grid_size ** 2
 
+    @property
+    def out_channels(self) -> int:
+        return self.in_channels * 2 if self.learn_sigma else self.in_channels
+
+    @property
+    def eff_depth(self) -> int:
+        """Main blocks: depth (tripled for "raw"), less one for each DiT
+        block with `use_independent_attn` (the JAX `eff_depth`)."""
+        d = self.depth * 3 if self.block_type == "raw" else self.depth
+        if self.use_independent_attn and self.use_attn_every_k_layers > 0:
+            d = d - d // self.use_attn_every_k_layers
+        return d
+
+    @property
+    def num_attn_blocks(self) -> int:
+        """DiT blocks: one shared, or (depth // k) - 1 independent ones."""
+        if self.use_attn_every_k_layers <= 0:
+            return 0
+        base = self.depth * 3 if self.block_type == "raw" else self.depth
+        if self.use_independent_attn:
+            return base // self.use_attn_every_k_layers - 1
+        return 1
+
+
+def _gen_paths(cfg: DiMConfig, scan_type: str):
+    """The layers' (paths, inverse paths) of a zigzag scan type (the JAX
+    `_gen_paths`, dim.py:172-180)."""
+    return build_layer_paths(cfg.grid_size, scan_type, cfg.eff_depth)
+
+
+def _mixer_kwargs_for(i: int, cfg: DiMConfig, paths, paths2):
+    """Block i's mixer arguments, and those of the combined_fourier DCT
+    half's mixer (jpeg_2, always conditioned), the JAX `_mixer_kwargs_for`
+    (dim.py:183-205)."""
+    mk = dict(layer_idx=i, scan_type=cfg.scan_type, conv_xproj=cfg.conv_xproj,
+              seq_group=cfg.seq_group, seq_island=cfg.seq_group is not None,
+              d_cond=cfg.hidden_size if cfg.cond_mamba else None)
+    if is_zigzag(cfg.scan_type):
+        mk.update(zigzag_paths=paths[0], zigzag_paths_reverse=paths[1])
+    mk2 = None
+    if cfg.block_type == "combined_fourier":
+        mk2 = dict(layer_idx=i, scan_type="jpeg_2", conv_xproj=cfg.conv_xproj,
+                   d_cond=cfg.hidden_size, zigzag_paths=paths2[0],
+                   zigzag_paths_reverse=paths2[1])
+    return mk, mk2
+
+
+def make_dim_block(i: int, cfg: DiMConfig, paths=None, paths2=None,
+                   drop_path_rate: float = 0.0, pending_tail: int = 0):
+    """Block i of `cfg`, the JAX `make_dim_block` (dim.py:208-263)."""
+    mk, mk2 = _mixer_kwargs_for(i, cfg, paths, paths2)
+    alternate = cfg.scan_type == "none"
+    reverse = alternate and i % 2 > 0
+    transpose = alternate and i % 4 >= 2
+    D = cfg.hidden_size
+    common = dict(rms_norm=cfg.rms_norm, pallas_norm=cfg.pallas_norm,
+                  fused_norm=cfg.fused_norm, dtype=cfg.dtype,
+                  drop_path_rate=drop_path_rate)
+    bt = cfg.block_type
+    if bt in ("raw", "linear"):
+        return MixerBlockCore(
+            D, D, mk, reverse=reverse, transpose=transpose,
+            identity_norm=False, no_ffn=bt == "raw",
+            scanning_continuity=cfg.scanning_continuity,
+            use_gated_mlp=cfg.use_gated_mlp, **common)
+    if bt == "wave":  # JAX gives it the gated MLP whatever the flag says
+        return WaveDiMBlock(
+            D, D, mk, reverse=reverse, transpose=transpose, window_scan=False,
+            identity_norm=False, no_ffn=False,
+            scanning_continuity=cfg.scanning_continuity, **common)
+    if bt == "window":
+        return DiMBlockWindow(D, D, mk, transpose=reverse,
+                              use_gated_mlp=cfg.use_gated_mlp, **common)
+    if bt in ("combined", "combined_fourier", "combined_einfft"):
+        variant = {"combined": "wave", "combined_fourier": "dct",
+                   "combined_einfft": "einfft"}[bt]
+        return DiMBlockCombined(
+            D, reverse=reverse, transpose=transpose,
+            scanning_continuity=cfg.scanning_continuity,
+            use_gated_mlp=cfg.use_gated_mlp, freq_variant=variant,
+            mixer_kwargs=mk, mixer_kwargs_2=mk2, pending_tail=pending_tail,
+            **common)
+    raise ValueError(f"unknown block_type {bt!r}: one of {BLOCK_TYPES}")
+
 
 class DiM(nn.Module):
     def __init__(self, cfg: DiMConfig):
         super().__init__()
         self.cfg = cfg
         D, dt = cfg.hidden_size, cfg.dtype
+        if cfg.block_type not in BLOCK_TYPES:
+            raise ValueError(f"unknown block_type {cfg.block_type!r}: one "
+                             f"of {BLOCK_TYPES}")
         self.x_embedder = PatchEmbed(cfg.patch_size, cfg.in_channels, D, dt)
         self.t_embedder = TimestepEmbedder(D, dtype=dt)
         self.y_embedder = LabelEmbedder(cfg.num_classes, D, cfg.label_dropout)
         self.pos_embed = nn.Parameter(
             torch.tensor(get_2d_sincos_pos_embed(D, cfg.grid_size))[None])
-        inter_dpr = [0.0] + np.linspace(0.0, cfg.drop_path,
-                                        cfg.depth).tolist()
+        n = cfg.eff_depth
+        dpr = np.linspace(0.0, cfg.drop_path, n).tolist()
+        inter_dpr = [0.0] + dpr
         if cfg.pending_tail not in (0, 1, 2):
             raise ValueError(f"pending_tail must be 0, 1 or 2, got "
                              f"{cfg.pending_tail}")
         self.remat_keep = (remat.parse_policy(cfg.remat_policy)
                            if cfg.grad_checkpoint else None)
-        # the pending tuple would cross the checkpoint boundary
-        self.pending_tail = 0 if cfg.grad_checkpoint else cfg.pending_tail
+        # the pending tuple would cross the checkpoint boundary; only the
+        # combined blocks defer their tail
+        self.pending_tail = (cfg.pending_tail if not cfg.grad_checkpoint
+                             and cfg.block_type.startswith("combined")
+                             else 0)
+        paths = (_gen_paths(cfg, cfg.scan_type)
+                 if is_zigzag(cfg.scan_type) else None)
+        paths2 = (_gen_paths(cfg, "jpeg_2")
+                  if cfg.block_type == "combined_fourier" else None)
         self.blocks = nn.ModuleList([
-            DiMBlockCombined(D, reverse=i % 2 > 0, transpose=i % 4 >= 2,
-                             d_cond=D, drop_path_rate=inter_dpr[i], dtype=dt,
-                             pallas_norm=cfg.pallas_norm,
-                             fused_norm=cfg.fused_norm,
-                             conv_xproj=cfg.conv_xproj,
-                             pending_tail=self.pending_tail,
-                             seq_group=cfg.seq_group)
-            for i in range(cfg.depth)])
+            make_dim_block(i, cfg, paths, paths2, inter_dpr[i],
+                           self.pending_tail) for i in range(n)])
+        if cfg.enable_fourier_layers:
+            # auxiliary wavelet blocks after each main block (the JAX
+            # working realization of the reference's intent, dim.py:364-383)
+            self.fourier_blocks = nn.ModuleList([
+                WaveDiMBlock(
+                    D, D, dict(layer_idx=i, d_cond=D,
+                               conv_xproj=cfg.conv_xproj),
+                    reverse=i % 2 > 0, window_scan=False,
+                    identity_norm=False, no_ffn=False,
+                    rms_norm=cfg.rms_norm, pallas_norm=cfg.pallas_norm,
+                    fused_norm=cfg.fused_norm,
+                    scanning_continuity=cfg.scanning_continuity,
+                    drop_path_rate=dpr[i], dtype=dt) for i in range(n)])
+        attn = dict(dtype=dt, fused_norm=cfg.fused_norm,
+                    use_gated_mlp=cfg.use_gated_mlp)
         if cfg.use_attn_every_k_layers > 0:
-            self.attn_block = DiTBlock(D, 16, dtype=dt,
-                                       fused_norm=cfg.fused_norm)
-        self.final_layer = FinalLayer(D, cfg.patch_size, cfg.in_channels, dt,
-                                      fused_norm=cfg.fused_norm)
+            if cfg.use_independent_attn:
+                self.attn_block = nn.ModuleList([
+                    DiTBlock(D, 16, **attn)
+                    for _ in range(cfg.num_attn_blocks)])
+            else:
+                self.attn_block = DiTBlock(D, 16, **attn)
+        if cfg.use_final_norm:
+            self.norm_f = Norm(D, pallas_norm=cfg.pallas_norm,
+                               fused_norm=cfg.fused_norm, rms=cfg.rms_norm)
+        self.final_layer = FinalLayer(D, cfg.patch_size, cfg.out_channels,
+                                      dt, fused_norm=cfg.fused_norm)
 
     def forward(self, x, t, y=None, train: bool = False,
                 generator: torch.Generator | None = None,
@@ -127,7 +271,8 @@ class DiM(nn.Module):
         """x: (N, C, H, W) latents; t: (N,) times in [0, 1]; y: (N,) labels
         (None: the null class).  `train` turns on label dropout and
         stochastic depth, drawn from `generator` (on x's device);
-        `force_drop_ids` (N,), 1 = drop, replaces the label draw."""
+        `force_drop_ids` (N,), 1 = drop, replaces the label draw.  Returns
+        (N, out_channels, H, W)."""
         cfg = self.cfg
         if y is None:
             y = torch.full((x.shape[0],),
@@ -136,11 +281,14 @@ class DiM(nn.Module):
         y_emb = self.y_embedder(y, train=train, force_drop_ids=force_drop_ids,
                                 generator=generator)
         c = (self.t_embedder(t) + y_emb).to(cfg.dtype)
-        x = self.x_embedder(x.to(cfg.dtype)) + self.pos_embed.to(cfg.dtype)
-        residual = pending = None
+        pos_embed = self.pos_embed if cfg.learnable_pe else \
+            self.pos_embed.detach()
+        x = self.x_embedder(x.to(cfg.dtype)) + pos_embed.to(cfg.dtype)
+        residual = pending = freq_residual = None
         k = cfg.use_attn_every_k_layers
         checkpointed = (self.remat_keep is not None
                         and torch.is_grad_enabled())
+        attn_idx = 0
         for i, block in enumerate(self.blocks):
             if checkpointed:
                 x, residual = remat.checkpoint(
@@ -151,14 +299,31 @@ class DiM(nn.Module):
                                              generator=generator,
                                              pending=pending)
             else:
+                x = materialize_pending(x, pending)
+                pending = None
                 x, residual = block(x, residual, c, train=train,
                                     generator=generator)
+            if cfg.enable_fourier_layers:
+                x = materialize_pending(x, pending)
+                pending = None
+                x, freq_residual = self.fourier_blocks[i](
+                    x, freq_residual, c, train=train, generator=generator)
             if k > 0 and (i + 1) % k == 0:
                 x = materialize_pending(x, pending)
                 pending = None
-                x = self.attn_block(x, c)
-        x = self.final_layer(materialize_pending(x, pending), c)
-        return unpatchify(x.float(), cfg.patch_size, cfg.in_channels)
+                if not cfg.use_independent_attn:
+                    x = self.attn_block(x, c)
+                elif attn_idx < cfg.num_attn_blocks:
+                    x = self.attn_block[attn_idx](x, c)
+                    attn_idx += 1
+        x = materialize_pending(x, pending)
+        if cfg.use_final_norm:
+            # model-level stochastic depth at the final merge, full rate
+            if train and cfg.drop_path > 0.0 and residual is not None:
+                x = drop_path_fn(x, cfg.drop_path, generator)
+            x = self.norm_f(x, residual, prenorm=False)
+        x = self.final_layer(x, c)
+        return unpatchify(x.float(), cfg.patch_size, cfg.out_channels)
 
 
 def forward_with_cfg(model, x, t, y, cfg_scale: float = 1.0,
@@ -211,9 +376,11 @@ def random_init_(model: DiM, seed: int) -> DiM:
     """Seeded random weights for runs without a checkpoint.  Every Linear
     and conv draws U(+-1/sqrt(fan_in)) (including the adaLN and final
     layers the JAX init zeroes, so every branch contributes), biases 0,
-    the label table N(0, 0.02); the Mamba A_log, D and dt_proj.bias keep
-    the Mamba init (dt log-uniform in [1e-3, 0.1] through the inverse
-    softplus); norm weights 1; pos_embed the sin-cos table."""
+    the label table N(0, 0.02), EinFFT's complex weights and biases
+    N(0, 0.02) (their JAX init); the Mamba A_log, D and dt_proj.bias (and
+    v2's A_b_log, D_b, dt_proj_b.bias) keep the Mamba init (dt log-uniform
+    in [1e-3, 0.1] through the inverse softplus); norm weights 1, norm
+    biases 0; pos_embed the sin-cos table."""
     dev = next(model.parameters()).device
     g = torch.Generator(device=dev).manual_seed(seed)
     keep = {id(p) for m in model.modules() if isinstance(m, Norm)
@@ -222,13 +389,15 @@ def random_init_(model: DiM, seed: int) -> DiM:
         leaf = name.rsplit(".", 1)[-1]
         if id(p) in keep:
             continue  # the constructor's ones / zeros / sin-cos table
-        if leaf == "A_log":
+        if leaf in ("A_log", "A_b_log"):
             n = p.shape[1]
             p.copy_(torch.log(torch.arange(1, n + 1, device=dev,
                                            dtype=p.dtype)).expand_as(p))
-        elif leaf == "D":
+        elif leaf in ("D", "D_b"):
             p.fill_(1.0)
-        elif name.endswith("dt_proj.bias"):
+        elif leaf.startswith("complex_"):  # EinFFT: the JAX N(0, 0.02^2)
+            p.normal_(0.0, 0.02, generator=g)
+        elif name.endswith(("dt_proj.bias", "dt_proj_b.bias")):
             u = torch.rand(p.shape, generator=g, device=dev)
             dt = torch.exp(u * (math.log(0.1) - math.log(1e-3))
                            + math.log(1e-3)).clamp_min(1e-4)

@@ -1,5 +1,5 @@
 """Mamba / CondMamba selective-SSM mixer, port of
-`dimsum_tpu/models/mamba.py` for scan_type "none":
+`dimsum_tpu/models/mamba.py`:
 
   in_proj -> [x | z] -> depthwise causal conv + SiLU -> x_proj ->
   (dt_low, B, C) -> selective scan with dt = dt_low @ dt_proj.weight^T
@@ -7,8 +7,25 @@
   -> out_proj
 
 CondMamba's `cond_proj` is created for checkpoint parity and stays out of
-the graph, as in the reference's fast path.  Reversed token order is done
-by the caller's flips (the blocks), so the mixer only runs forward in time.
+the graph, as in the reference's fast path; without `d_cond` the mixer is
+plain Mamba (no `cond_proj`).
+
+Scan types (the JAX `scan_type`, mamba.py:282-333):
+
+  * "none": one branch, forward in time.
+  * "v2": a second parameter set (`A_b_log`, `conv1d_b`, `x_proj_b`,
+    `dt_proj_b`, `D_b`, the reference's names) runs the same branch in
+    reversed time (an anticausal conv and the reverse-time scan), and the
+    two outputs are summed before out_proj.
+  * zigzag ("zigma_<n>", "sweep_<n>", "jpeg_<n>"): in_proj's output is
+    gathered by the layer's permutation (row `layer_idx` of
+    `zigzag_paths`) before the conv, and out_proj's output by its inverse.
+
+`forward(..., reverse_tokens=True)` runs the mixer in reversed token
+order, flip_L(mixer(flip_L(x))), with no flip: the conv runs anticausal
+and the scan in reversed time (on the card, the scan kernel's reverse
+entry; with v2 the two branches swap directions).  Zigzag with
+`reverse_tokens` raises, as in JAX (mamba.py:286-290).
 
 With `seq_group` (a `torch.distributed` process group; the JAX `seq_axis`)
 the conv and the scan run sequence-parallel over its ranks, in the JAX
@@ -24,9 +41,11 @@ package's two modes (mamba.py:166-181, :256-268):
 Either way: the halo conv (`causal_conv1d_halo`), x_proj, dt = dt_low @
 dt_proj.weight^T materialized in the compute dtype (mamba.py:252, not the
 fp32 expansion inside the scan kernel of the single-rank route), then the
-two-pass scan (`selective_scan_seq_parallel`).  As in the JAX `elif`
-chain, the halo branch comes before the fused `conv_xproj`.  Forward only:
-with a parameter that needs a gradient it raises.
+two-pass scan (`selective_scan_seq_parallel`); `reverse_tokens` there is
+flips around it, as JAX falls back to (mamba.py:143-147).  As in the JAX
+`elif` chain, the halo branch comes before the fused `conv_xproj`.  Forward
+only: with a parameter that needs a gradient it raises.  v2 and zigzag
+with `seq_group` raise, as in JAX (mamba.py:291-295).
 """
 
 from __future__ import annotations
@@ -47,12 +66,18 @@ from dimsum_torch.parallel.mesh import all_gather
 from dimsum_torch.utils import remat
 
 
+def is_zigzag(scan_type: str) -> bool:
+    """True for the zigzag scan types, "<zoo>_<n>" of the path zoo."""
+    return (scan_type or "none").split("_")[0] in ("zigma", "sweep", "jpeg")
+
+
 class Mamba(nn.Module):
     """Set `d_cond` for the CondMamba variant (adds `cond_proj`).
 
     `conv_xproj` (the JAX `DIMSUM_CONV_XPROJ`) computes the conv, SiLU and
     x_proj in one fused op (`ops/conv_xproj.py`) where the JAX gate's shape
-    test holds (mamba.py:187-192); the parameters keep their names.
+    test holds (mamba.py:187-192), in either direction; the parameters keep
+    their names.
 
     `scan_impl` and `conv_impl` (attributes) pick the selective scan and
     the fused conv: None, the kernel for CUDA tensors and the plain version
@@ -64,57 +89,110 @@ class Mamba(nn.Module):
                  d_cond: Optional[int] = None,
                  dtype: torch.dtype = torch.float32,
                  conv_xproj: bool = False, seq_group=None,
-                 seq_island: bool = False):
+                 seq_island: bool = False, scan_type: str = "none",
+                 layer_idx: int = 0, zigzag_paths=None,
+                 zigzag_paths_reverse=None):
         super().__init__()
         self.d_inner = d_inner = expand * d_model
         self.d_state = d_state
         self.dt_rank = math.ceil(d_model / 16) if dt_rank is None else dt_rank
         self.conv_xproj = conv_xproj
         self.seq_group, self.seq_island = seq_group, seq_island
+        self.scan_type = scan_type
         self.scan_impl: Optional[str] = None
         self.conv_impl: Optional[str] = None
+        zig = is_zigzag(scan_type)
+        if seq_group is not None and (zig or scan_type == "v2"):
+            raise NotImplementedError(
+                "seq_group supports scan_type 'none' only: zigzag gathers "
+                "and the v2 flip are global token permutations, which a "
+                "sequence-sharded mixer cannot apply locally")
         self.in_proj = Linear(d_model, 2 * d_inner, bias=False, dtype=dtype)
-        self.conv1d = nn.Conv1d(d_inner, d_inner, d_conv, groups=d_inner,
-                                padding=d_conv - 1)
-        self.x_proj = Linear(d_inner, self.dt_rank + 2 * d_state,
-                             bias=False, dtype=dtype)
-        # used through its weight and bias only: the scan expands dt itself
-        self.dt_proj = nn.Linear(self.dt_rank, d_inner)
-        self.A_log = nn.Parameter(torch.log(torch.arange(
-            1, d_state + 1, dtype=torch.float32).repeat(d_inner, 1)))
-        self.D = nn.Parameter(torch.ones(d_inner))
+        for suffix in ("", "_b") if scan_type == "v2" else ("",):
+            self._add_branch(suffix, d_conv, dtype)
         self.out_proj = Linear(d_inner, d_model, bias=False, dtype=dtype)
         if d_cond is not None:
             self.cond_proj = Linear(d_cond, d_inner, dtype=dtype)
+        if zig:
+            # the layer's permutation and its inverse (not in the state
+            # dict: the reference's frozen zigzag buffers are regenerated)
+            for name, paths in (("perm", zigzag_paths),
+                                ("perm_rev", zigzag_paths_reverse)):
+                self.register_buffer(name, torch.as_tensor(
+                    paths[layer_idx], dtype=torch.long), persistent=False)
 
-    def forward(self, x, cond_emb=None):
+    def _add_branch(self, suffix: str, d_conv: int, dtype):
+        """One direction's parameters under the reference's names: conv1d,
+        x_proj, dt_proj, A_log, D (with `suffix` "_b": conv1d_b, ...,
+        A_b_log, D_b)."""
+        d_inner, n = self.d_inner, self.d_state
+        setattr(self, f"conv1d{suffix}", nn.Conv1d(
+            d_inner, d_inner, d_conv, groups=d_inner, padding=d_conv - 1))
+        setattr(self, f"x_proj{suffix}", Linear(
+            d_inner, self.dt_rank + 2 * n, bias=False, dtype=dtype))
+        # used through its weight and bias only: the scan expands dt itself
+        setattr(self, f"dt_proj{suffix}", nn.Linear(self.dt_rank, d_inner))
+        setattr(self, f"A{suffix}_log", nn.Parameter(torch.log(torch.arange(
+            1, n + 1, dtype=torch.float32).repeat(d_inner, 1))))
+        setattr(self, f"D{suffix}", nn.Parameter(torch.ones(d_inner)))
+
+    def forward(self, x, cond_emb=None, reverse_tokens: bool = False):
         """x: (B, L, d_model).  cond_emb is accepted and unused (see the
-        module docstring)."""
-        x_in, z = self.in_proj(x).chunk(2, dim=-1)
+        module docstring); `reverse_tokens` runs the mixer in reversed
+        token order."""
+        zig = is_zigzag(self.scan_type)
+        if reverse_tokens and zig:
+            raise NotImplementedError(
+                "reverse_tokens composes with zigzag gathers only through "
+                "explicit flips; apply the flip at the block level instead")
+        xz = self.in_proj(x)
+        if zig:
+            xz = xz.index_select(1, self.perm)
+        x_in, z = xz.chunk(2, dim=-1)
         if self.seq_group is not None:
-            return self.out_proj(self._seq_parallel(x_in, z))
+            if reverse_tokens:
+                y = self._seq_parallel(x_in.flip(1), z.flip(1)).flip(1)
+            else:
+                y = self._seq_parallel(x_in, z)
+            return self.out_proj(y)
+        y = self._branch(x_in, z, "", reverse_tokens)
+        if self.scan_type == "v2":
+            # with reverse_tokens the roles swap: "" runs reversed, "_b"
+            # forward (the reference's flip(mixer_v2(flip(x))))
+            y = y + self._branch(x_in, z, "_b", not reverse_tokens)
+        out = self.out_proj(y)
+        if zig:
+            out = out.index_select(1, self.perm_rev)
+        return out
+
+    def _branch(self, x_in, z, suffix: str, reverse: bool):
+        """conv -> x_proj -> selective scan of one direction: with
+        `reverse`, flip_L(branch(flip_L(x))) from an anticausal conv and
+        the reverse-time scan."""
+        conv1d = getattr(self, f"conv1d{suffix}")
+        x_proj = getattr(self, f"x_proj{suffix}")
+        dt_proj = getattr(self, f"dt_proj{suffix}")
         r, n = self.dt_rank, self.d_state
-        conv_w = self.conv1d.weight[:, 0, :]
+        conv_w = conv1d.weight[:, 0, :]
         if self.conv_xproj and conv_xproj_supported(x_in, r + 2 * n):
             # the JAX `_XProj`: x_dbl in fp32, cast to the compute dtype
-            x_conv, x_dbl = conv_xproj(x_in, conv_w, self.conv1d.bias,
-                                       self.x_proj.weight,
+            x_conv, x_dbl = conv_xproj(x_in, conv_w, conv1d.bias,
+                                       x_proj.weight, reverse=reverse,
                                        impl=self.conv_impl)
-            x_dbl = x_dbl.to(self.x_proj.compute_dtype)
+            x_dbl = x_dbl.to(x_proj.compute_dtype)
         else:
             with remat.tag("conv_out"):  # a remat site, as ConvXProjFn
-                x_conv = causal_conv1d(x_in, conv_w, self.conv1d.bias,
-                                       activation="silu")
-            x_dbl = self.x_proj(x_conv)
+                x_conv = causal_conv1d(x_in, conv_w, conv1d.bias,
+                                       activation="silu", reverse=reverse)
+            x_dbl = x_proj(x_conv)
         dt_low, Bm, Cm = x_dbl.split([r, n, n], dim=-1)
-        dt_w = self.dt_proj.weight.t().to(dt_low.dtype).contiguous()
-        A = -torch.exp(self.A_log.float())
-        y = selective_scan_dtlow(
+        dt_w = dt_proj.weight.t().to(dt_low.dtype).contiguous()
+        A = -torch.exp(getattr(self, f"A{suffix}_log").float())
+        return selective_scan_dtlow(
             x_conv, dt_low.contiguous(), dt_w, A, Bm.contiguous(),
-            Cm.contiguous(), self.D, z=z.contiguous(),
-            delta_bias=self.dt_proj.bias, delta_softplus=True,
+            Cm.contiguous(), getattr(self, f"D{suffix}"), z=z.contiguous(),
+            delta_bias=dt_proj.bias, delta_softplus=True, reverse=reverse,
             impl=self.scan_impl)
-        return self.out_proj(y)
 
     def _seq_parallel(self, x_in, z):
         """halo conv -> x_proj -> dt in the compute dtype -> two-pass scan

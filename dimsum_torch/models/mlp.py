@@ -1,4 +1,5 @@
-"""Gated feed-forward (GLU), port of `dimsum_tpu/models/mlp.py::GatedMLP`."""
+"""Feed-forwards, port of `dimsum_tpu/models/mlp.py`: the gated `GatedMLP`
+(GLU) and the plain two-layer `Mlp` (`use_gated_mlp=False`)."""
 
 from __future__ import annotations
 
@@ -29,3 +30,19 @@ class GatedMLP(nn.Module):
     def forward(self, x):
         x1, x2 = self.w12(x).chunk(2, dim=-1)
         return self.w3(gelu_tanh(x1) * x2)
+
+
+class Mlp(nn.Module):
+    """fc2(gelu_tanh(fc1(x))), timm's two-layer MLP (the JAX `Mlp`,
+    mlp.py:39-56)."""
+
+    def __init__(self, in_features: int, hidden_features: int,
+                 out_features: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.fc1 = Linear(in_features, hidden_features, dtype=dtype)
+        self.fc2 = Linear(hidden_features, out_features or in_features,
+                          dtype=dtype)
+
+    def forward(self, x):
+        return self.fc2(gelu_tanh(self.fc1(x)))

@@ -82,7 +82,8 @@ def conv_xproj_cuda(x, conv_w, conv_b, w_xp, reverse: bool = False):
     contiguous (conv_b may be None); w_xp (R, D), cast to x's dtype here.
     D % 64 == 0 and W <= 8.  Returns new contiguous (x_conv, x_dbl).
     Raises on anything else, and under grad mode with an input that
-    requires grad (the training route is `ConvXProjFn`)."""
+    requires grad (the training route is `ConvXProjFn`).  `launches`
+    counts every launch, `reverse_launches` the anticausal ones."""
     if needs_grad(x, conv_w, conv_b, w_xp):
         raise RuntimeError("conv_xproj_cuda has no backward; take "
                            "ConvXProjFn or run under torch.no_grad()")
@@ -113,10 +114,12 @@ def conv_xproj_cuda(x, conv_w, conv_b, w_xp, reverse: bool = False):
                       x_conv, x_dbl, x.stride(0), x.stride(1), B, L, D, W, R,
                       DTYPE_CODE[x.dtype], int(bool(reverse)))
     conv_xproj_cuda.launches += 1
+    conv_xproj_cuda.reverse_launches += bool(reverse)
     return x_conv, x_dbl
 
 
 conv_xproj_cuda.launches = 0
+conv_xproj_cuda.reverse_launches = 0
 
 
 class ConvXProjFn(torch.autograd.Function):

@@ -15,7 +15,9 @@ Layout as in the JAX package: u, delta, z (batch, L, dim); B, C
   * `selective_scan_cuda`  : the hand-written CUDA kernel
                              (`csrc/selective_scan_fwd.cu`), the port of the
                              Pallas `_scan_body`, with delta = dt_low @ dt_w
-                             expanded in the kernel.
+                             expanded in the kernel; `reverse=True` takes
+                             the source's reverse entry (`_scan_body`'s
+                             reverse-time case), with no flip.
   * `selective_scan_state` : a full delta, the state seeded from h0 and the
                              last state returned (the JAX
                              `_selective_scan_pallas_fwd_impl` with dt_w
@@ -33,8 +35,10 @@ Layout as in the JAX package: u, delta, z (batch, L, dim); B, C
   * `SelectiveScanDtLowFn` : the autograd Function over that pair.
   * `selective_scan_dtlow` : the front end the mixer calls.  CPU tensors take
                              the plain version with ordinary autograd; CUDA
-                             tensors take kernel 1 when no gradient is
-                             needed and the Function when one is.
+                             tensors take kernel 1 (its reverse entry for
+                             `reverse=True`) when no gradient is needed and
+                             the Function, between flips for `reverse`, when
+                             one is.
 """
 
 from __future__ import annotations
@@ -201,9 +205,14 @@ def _check_state_args(u, delta, A, B, C, D, z, delta_bias, h0):
 
 
 def selective_scan_cuda(u, dt_low, dt_w, A, B, C, D=None, z=None,
-                        delta_bias=None, delta_softplus=False):
+                        delta_bias=None, delta_softplus=False,
+                        reverse: bool = False):
     """Launch the CUDA kernel: selective_scan(u, dt_low @ dt_w, ...) with
-    the dt expansion, bias and softplus in fp32 inside the kernel.
+    the dt expansion, bias and softplus in fp32 inside the kernel.  With
+    `reverse` the reverse entry runs the recurrence from the last step to
+    the first: flip_L(selective_scan(flip_L(u, dt_low, B, C, z))), with no
+    flip made.  `launches` counts every launch, `reverse_launches` those of
+    the reverse entry.
 
     u, z: (batch, L, dim); dt_low: (batch, L, r); dt_w: (r, dim); B, C:
     (batch, L, N) -- all contiguous, on one CUDA device, in one dtype
@@ -227,12 +236,15 @@ def selective_scan_cuda(u, dt_low, dt_w, A, B, C, D=None, z=None,
     _launch("selective_scan_fwd", dev,
             (u, dt_low, dt_w, A, B, C, D, z, delta_bias, out),
             (batch, L, dim, n_state, rank, DTYPE_CODE[dt],
-             int(bool(delta_softplus))))
+             int(bool(delta_softplus))),
+            entry="reverse" if reverse else None)
     selective_scan_cuda.launches += 1
+    selective_scan_cuda.reverse_launches += bool(reverse)
     return out
 
 
 selective_scan_cuda.launches = 0
+selective_scan_cuda.reverse_launches = 0
 
 
 def selective_scan_state_cuda(u, delta, A, B, C, D=None, z=None,
@@ -652,11 +664,14 @@ def selective_scan_dtlow(u, dt_low, dt_w, A, B, C, D=None, z=None,
 
     `impl`: None takes the CUDA kernels for CUDA tensors and the plain
     version for CPU tensors; "ref" takes the plain version on any device,
-    differentiated by autograd; "cuda" takes the kernels and raises for CPU
-    tensors.  On the kernel route, kernel 1 runs when no input needs a
-    gradient (no_grad, inference_mode, or frozen inputs) and
-    `selective_scan_dtlow_train` (kernels 2 and 3) when one does.  There is
-    no fallback: a shape or dtype the kernels do not take raises."""
+    differentiated by autograd, `reverse` as flips around it (the JAX XLA
+    route); "cuda" takes the kernels and raises for CPU tensors.  On the
+    kernel route, kernel 1 runs when no input needs a gradient (no_grad,
+    inference_mode, or frozen inputs), `reverse` on its reverse entry with
+    no flip (the JAX Pallas inference route), and
+    `selective_scan_dtlow_train` (kernels 2 and 3, between flips for
+    `reverse`, as `_dtlow_fwd`/`_dtlow_bwd`) when one does.  There is no
+    fallback: a shape or dtype the kernels do not take raises."""
     if impl is None:
         impl = "cuda" if u.is_cuda else "ref"
     if impl == "cuda":
@@ -666,20 +681,18 @@ def selective_scan_dtlow(u, dt_low, dt_w, A, B, C, D=None, z=None,
             return selective_scan_dtlow_train(
                 u, dt_low, dt_w, A, B, C, D=D, z=z, delta_bias=delta_bias,
                 delta_softplus=delta_softplus, reverse=reverse)
-    elif impl != "ref":
+        return selective_scan_cuda(u, dt_low, dt_w, A, B, C, D=D, z=z,
+                                   delta_bias=delta_bias,
+                                   delta_softplus=delta_softplus,
+                                   reverse=reverse)
+    if impl != "ref":
         raise ValueError(f"unknown selective scan impl {impl!r}")
     if reverse:
         u, dt_low, B, C, z = (_flip(u), _flip(dt_low), _flip(B), _flip(C),
                               _flip(z))
-    if impl == "cuda":
-        y = selective_scan_cuda(u, dt_low, dt_w, A, B, C, D=D, z=z,
-                                delta_bias=delta_bias,
-                                delta_softplus=delta_softplus)
-    else:
-        with remat.tag("scan_out"):
-            delta = torch.einsum("blr,rd->bld", dt_low.float(),
-                                 dt_w.float())
-            y = selective_scan_ref(u, delta, A, B, C, D=D, z=z,
-                                   delta_bias=delta_bias,
-                                   delta_softplus=delta_softplus)
+    with remat.tag("scan_out"):
+        delta = torch.einsum("blr,rd->bld", dt_low.float(), dt_w.float())
+        y = selective_scan_ref(u, delta, A, B, C, D=D, z=z,
+                               delta_bias=delta_bias,
+                               delta_softplus=delta_softplus)
     return _flip(y) if reverse else y

@@ -2,8 +2,9 @@
 alpha_t multiplies the data, sigma_t the noise, and time runs noise (t=0)
 -> data (t=1).  The Linear (IC), VP and GVP plans, with the SDE pieces
 (drift, diffusion) and the conversions between the velocity, score and
-noise parametrizations.  The DCT-blurred interpolant (`use_blurring`) waits
-for the port of `ops/dct.py` (ROADMAP Queue 1 item 7) and raises.
+noise parametrizations.  With `use_blurring` the data side of the
+interpolant is blurred in the DCT domain first (`dct_blur`, the JAX
+path.py:23-33, :114-117).
 """
 
 from __future__ import annotations
@@ -13,10 +14,28 @@ import math
 
 import torch
 
+from dimsum_torch.ops.dct import dct_2d, idct_2d
+
 
 def expand_t_like_x(t, x):
     """(B,) -> (B, 1, 1, ...) matching x's rank."""
     return t.reshape(t.shape[0], *([1] * (x.ndim - 1)))
+
+
+def dct_blur(x, patch_size: int, blur_sigmas, min_scale: float = 1e-3):
+    """Frequency-domain blur of x (B, C, H, W): patchwise orthonormal DCT,
+    each frequency (u, v) of a patch scaled by exp(-(pi^2 (u^2 + v^2) /
+    p^2) sigma^2 / 2) (1 - min_scale) + min_scale, inverse DCT.
+    `blur_sigmas` broadcasts against the patches' coefficients."""
+    freqs = math.pi * torch.linspace(0, patch_size - 1, patch_size,
+                                     device=x.device) / patch_size
+    freq_sq = freqs[:, None] ** 2 + freqs[None, :] ** 2
+    t_blur = torch.as_tensor(blur_sigmas, device=x.device) ** 2 / 2.0
+    coefs = dct_2d(x, patch_size, norm="ortho")
+    scale = x.shape[-1] // patch_size
+    mask = freq_sq.tile(scale, scale)
+    attenuation = torch.exp(-mask * t_blur) * (1 - min_scale) + min_scale
+    return idct_2d(coefs * attenuation, patch_size, norm="ortho")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,12 +47,6 @@ class ICPlan:
     use_blurring: bool = False
     blur_sigma_max: float = 3.0
     blur_upscale: int = 4
-
-    def __post_init__(self):
-        if self.use_blurring:
-            raise NotImplementedError(
-                "use_blurring (the DCT-blurred interpolant) needs "
-                "ops/dct.py, not ported yet (ROADMAP Queue 1 item 7)")
 
     # -- schedule ----------------------------------------------------------
     def compute_alpha_t(self, t):
@@ -102,14 +115,31 @@ class ICPlan:
         return var * score - drift
 
     # -- interpolant ---------------------------------------------------------
+    def compute_xt(self, t, x0, x1):
+        """x_t = alpha_t x1 + sigma_t x0, x1 first blurred by `dct_blur`
+        at sigma = blur_sigma_max sin(sigma_t pi / 2)^2 with
+        `use_blurring` (the JAX `compute_mu_t`)."""
+        t = expand_t_like_x(t, x1)
+        alpha_t, _ = self.compute_alpha_t(t)
+        sigma_t, _ = self.compute_sigma_t(t)
+        if self.use_blurring:
+            blur_sigmas = self.blur_sigma_max * torch.sin(
+                sigma_t * math.pi / 2) ** 2
+            x1 = dct_blur(x1, self.blur_upscale, blur_sigmas)
+        return alpha_t * x1 + sigma_t * x0
+
+    def compute_ut(self, t, x0, x1, xt):
+        """u_t = alpha'_t x1 + sigma'_t x0 (the unblurred x1, as JAX)."""
+        t = expand_t_like_x(t, x1)
+        _, d_alpha_t = self.compute_alpha_t(t)
+        _, d_sigma_t = self.compute_sigma_t(t)
+        return d_alpha_t * x1 + d_sigma_t * x0
+
     def plan(self, t, x0, x1):
-        """(t, x_t, u_t): x_t = alpha_t x1 + sigma_t x0 and its velocity
-        u_t = alpha'_t x1 + sigma'_t x0, t (N,) broadcast over x's other
-        axes (the JAX `plan`, path.py:110-132)."""
-        te = expand_t_like_x(t, x1)
-        alpha_t, d_alpha_t = self.compute_alpha_t(te)
-        sigma_t, d_sigma_t = self.compute_sigma_t(te)
-        return t, alpha_t * x1 + sigma_t * x0, d_alpha_t * x1 + d_sigma_t * x0
+        """(t, x_t, u_t), t (N,) broadcast over x's other axes (the JAX
+        `plan`, path.py:110-132)."""
+        xt = self.compute_xt(t, x0, x1)
+        return t, xt, self.compute_ut(t, x0, x1, xt)
 
 
 @dataclasses.dataclass(frozen=True)

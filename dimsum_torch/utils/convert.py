@@ -13,6 +13,12 @@ The inverse of `dimsum_tpu/utils/ckpt.py` (`_flax_path_for` and
   * final_layer adaLN_modulation_fc    -> final_layer.adaLN_modulation.1
   * t_embedder mlp_0 / mlp_2           -> t_embedder.mlp.0 / .2
   * mixer *_kernel / *_bias            -> dt_proj / conv1d .weight / .bias
+                                          (v2's dt_proj_b / conv1d_b too)
+  * blocks_i, attn_block_i, fourier_blocks_i -> blocks.i, attn_block.i, ...
+
+Every other leaf keeps its name and layout: v2's A_b_log and D_b, EinFFT's
+complex_weight_* / complex_bias_*, the LayerNorm biases, norm_f, and the
+plain MLP's fc1 / fc2 (Dense kernels, transposed as any other).
 """
 
 from __future__ import annotations

@@ -44,11 +44,17 @@ def randomize(tree, seed):
     """A copy of a flax params tree with seeded random leaves, so that no
     branch is silenced by the adaLN-Zero init: kernels N(0, 1/fan_in),
     biases N(0, 0.1^2), norm weights and D around 1, A_log = log(1..N)
-    plus noise, dt_proj bias the inverse softplus of dt in [1e-3, 0.1]."""
+    plus noise, dt_proj bias the inverse softplus of dt in [1e-3, 0.1]
+    (Mamba v2's A_b_log, D_b, dt_proj_b and conv1d_b as their first
+    direction's)."""
     rng = np.random.default_rng(seed)
 
     def fill(path, leaf):
         name = str(getattr(path[-1], "key", path[-1]))
+        # Mamba v2's second direction fills as the first
+        name = {"A_b_log": "A_log", "D_b": "D", "dt_proj_b_bias":
+                "dt_proj_bias", "dt_proj_b_kernel": "dt_proj_kernel",
+                "conv1d_b_kernel": "conv1d_kernel"}.get(name, name)
         shape = np.shape(leaf)
         r = rng.standard_normal(shape)
         if name == "A_log":

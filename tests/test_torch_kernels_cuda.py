@@ -191,6 +191,133 @@ def test_kernel_raises_on_what_it_does_not_take(cuda):
 
 
 # ---------------------------------------------------------------------------
+# The reverse entry of the same source (`_scan_body`'s reverse-time case):
+# the recurrence from the last step to the first, held to the flip
+# composition of the plain scan at the tolerances above.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [256, 1024, 200, 1000])
+@pytest.mark.parametrize("n", [16, 8])
+@pytest.mark.parametrize("dim, r", [(1024, 32), (2048, 64)])
+def test_reverse_entry_matches_plain_on_card(cuda, dtype, L, n, dim, r):
+    """L 256 and 1024 (the mixers at 256 and 512 px) and ragged L (the
+    ragged chunk is the first the kernel walks), N 16 and 8, at the width
+    and rank of the combined block's mixers (1024, r 32) and of linear +
+    v2's (2048, r 64: the r <= 64 instantiation)."""
+    x = scan_inputs(cuda, dtype, batch=2, L=L, dim=dim, n=n, r=r,
+                    seed=L + n)
+    kw = dict(z=x["z"], delta_bias=x["delta_bias"], delta_softplus=True)
+    before = (selective_scan_cuda.launches,
+              selective_scan_cuda.reverse_launches)
+    got = selective_scan_cuda(*_args(x), reverse=True, **kw).float()
+    assert (selective_scan_cuda.launches,
+            selective_scan_cuda.reverse_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    want = selective_scan_dtlow(*_args(x), impl="ref", reverse=True,
+                                **kw).float()
+    tol = 1e-4 if dtype == torch.float32 else 1.6e-2
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [64, 70, 1])
+@pytest.mark.parametrize("r", [8, 64])
+def test_reverse_entry_is_the_forward_entry_flipped_on_card(cuda, dtype, L,
+                                                            r):
+    """Each step's arithmetic and each output's sum are the forward
+    entry's on the flipped inputs: the same bits; and the reverse entry
+    repeats bit for bit."""
+    x = scan_inputs(cuda, dtype, batch=3, L=L, dim=200, n=16, r=r)
+    kw = dict(z=x["z"], delta_bias=x["delta_bias"], delta_softplus=True)
+    got = selective_scan_cuda(*_args(x), reverse=True, **kw)
+    assert torch.equal(got, selective_scan_cuda(*_args(x), reverse=True,
+                                                **kw))
+    flip = {k: (v.flip(1).contiguous() if k in ("u", "dt_low", "B", "C",
+                                                 "z") else v)
+            for k, v in x.items()}
+    want = selective_scan_cuda(*_args(flip), z=flip["z"],
+                               delta_bias=x["delta_bias"],
+                               delta_softplus=True).flip(1)
+    assert torch.equal(got, want)
+
+
+def test_dtlow_reverse_routes_on_card(cuda):
+    """Without a gradient `selective_scan_dtlow(reverse=True)` launches the
+    reverse entry once and flips nothing; with one it takes the training
+    Function between flips and launches no inference kernel."""
+    x = scan_inputs(cuda, torch.float32, dim=128)
+    kw = dict(z=x["z"], delta_bias=x["delta_bias"], delta_softplus=True,
+              reverse=True)
+    fwd, rev = (selective_scan_cuda.launches,
+                selective_scan_cuda.reverse_launches)
+    with torch.no_grad():
+        selective_scan_dtlow(*_args(x), **kw)
+    assert (selective_scan_cuda.launches,
+            selective_scan_cuda.reverse_launches) == (fwd + 1, rev + 1)
+    x["u"].requires_grad_(True)
+    train = selective_scan_fwd_train_cuda.launches
+    selective_scan_dtlow(*_args(x), **kw).sum().backward()
+    assert selective_scan_fwd_train_cuda.launches == train + 1
+    assert selective_scan_cuda.launches == fwd + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_reversed_block_routes_agree_on_card(cuda, dtype):
+    """A reversed combined block (half width 512, L 256) without a
+    gradient runs its spatial mixer's reverse on the reverse entry (one
+    launch, no flips); forced to the block's flips it launches the
+    forward entry only; under a gradient it flips and launches no
+    inference kernel.  The three outputs agree within the tolerances
+    above."""
+    from dimsum_torch.models.blocks import DiMBlockCombined
+
+    torch.manual_seed(0)
+    block = DiMBlockCombined(1024, reverse=True, d_cond=1024, dtype=dtype)
+    for p in block.parameters():
+        p.data.normal_(0.0, 0.05)
+    block = block.to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x, res = (torch.randn(2, 256, 1024, generator=g, device=cuda)
+              for _ in range(2))
+    c = torch.randn(2, 1024, generator=g, device=cuda).to(dtype)
+    x = x.to(dtype)
+    assert block.spatial_mamba.native
+    outs = []
+    for native in (True, False):
+        block.spatial_mamba.native = native
+        rev = selective_scan_cuda.reverse_launches
+        with torch.no_grad():
+            outs.append(block(x, res, c)[0].float())
+        assert selective_scan_cuda.reverse_launches == rev + native
+    block.spatial_mamba.native = True
+    fwd = selective_scan_cuda.launches
+    xg = x.clone().requires_grad_(True)
+    out = block(xg, res, c)[0]
+    out.float().square().sum().backward()
+    assert selective_scan_cuda.launches == fwd
+    tol = 1e-4 if dtype == torch.float32 else 1.6e-2
+    for other in (outs[1], out.detach().float()):
+        torch.testing.assert_close(outs[0], other, rtol=tol, atol=tol)
+
+
+def test_reverse_entry_raises_on_what_it_does_not_take(cuda):
+    """No quiet flip: what the forward entry refuses, the reverse one does
+    too."""
+    x = scan_inputs(cuda, torch.float32)
+    with pytest.raises(NotImplementedError, match="grouped"):
+        selective_scan_cuda(*_args({**x, "B": x["B"][:, :, None].expand(
+            -1, -1, 2, -1)}), reverse=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        selective_scan_cuda(*_args({**x, "u": x["u"].transpose(0, 1)
+                                    .contiguous().transpose(0, 1)}),
+                            reverse=True)
+    big = scan_inputs(cuda, torch.float32, n=64)
+    with pytest.raises(NotImplementedError, match="N <="):
+        selective_scan_dtlow(*_args(big), impl="cuda", reverse=True)
+
+
+# ---------------------------------------------------------------------------
 # The state entry of the same source (the sequence-parallel scan's local
 # passes): a full delta, h0 and the last state.  Tolerances as above for
 # the output; the last state is fp32 in both dtypes and is never rounded to
@@ -951,6 +1078,25 @@ def test_norm_modulate_kernel_fp32_total_bit_for_bit_on_card(cuda, dtype,
     torch.cuda.synchronize()
     assert tot.dtype == want.dtype == torch.float32
     torch.testing.assert_close(tot, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    (True, True, False, True, False, True),   # linear/raw/window norm_2
+    (True, False, False, True, False, True)])  # combined norm_2, LayerNorm
+@pytest.mark.parametrize("B, L", [(24, 256), (3, 40)])
+def test_norm_modulate_kernel_layernorm_sites_on_card(cuda, dtype, case, B,
+                                                      L):
+    """The LayerNorm-with-bias sites of the other block types at DiM-L/2's
+    width: norm_2 after the gated mixer, and the combined block's norm_2."""
+    v = norm_inputs(cuda, dtype, B=B, L=L, D=1024, seed=L)
+    kw = norm_kwargs(v, case)
+    assert kw["bias"] is not None and not kw["is_rms"]
+    out, tot = norm_modulate_cuda(v["x"], **{**kw, "eps": 1e-5})
+    want_out, want_tot = norm_modulate_ref(v["x"], **{**kw, "eps": 1e-5})
+    torch.cuda.synchronize()
+    _close(out, want_out, _low(out))
+    _close(tot, want_tot, _low(tot))
 
 
 def test_norm_modulate_kernel_refuses_rows_off_16_bytes(cuda):

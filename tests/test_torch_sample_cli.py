@@ -9,7 +9,8 @@ layout:
   * `--params raw` samples with the checkpoint's "model" weights;
   * SDE mode runs and saves the latents; `--likelihood` gives finite
     bits/dim at cfg 1.0 and is refused with guidance;
-  * `--pp` and the model flags the port lacks raise, `--compute-ppl`
+  * `--pp` and the model flags the port lacks raise (every DiM variant
+    builds through `cli.model_config`), `--compute-ppl`
     without `--ppl-detector` exits asking for it (the metric itself:
     tests/test_torch_eval_ppl.py), and without `--device cpu` the CLI asks
     for the card."""
@@ -136,11 +137,11 @@ def test_sde_mode_and_likelihood(files, tmp_path, capsys):
 @pytest.mark.parametrize("extra, error, match", [
     (["--pp", "2"], NotImplementedError, "Queue 1 item 8"),
     (["--compute-ppl", "ppl2_zend"], SystemExit, "ppl-detector"),
-    (["--block-type", "linear"], NotImplementedError, "Queue 1 item 7"),
-    (["--bimamba-type", "v2"], NotImplementedError, "Queue 1 item 7"),
+    (["--pe-type", "cpe"], NotImplementedError, "Queue 1 item 7"),
+    (["--cond-init"], NotImplementedError, "Queue 1 item 7"),
     (["--pe-type", "rope"], NotImplementedError, "Queue 1 item 7"),
     (["--is-moe"], NotImplementedError, "MoE"),
-    (["--use-blurring"], NotImplementedError, "Queue 1 item 7"),
+    (["--model", "DiT-XL/2"], NotImplementedError, "Queue 1 item 7"),
     (["--scan-impl", "pallas"], NotImplementedError, "scan-impl"),
 ])
 def test_unported_flags_raise(extra, error, match, tmp_path):

@@ -312,8 +312,15 @@ def test_vp_plan_and_blurring():
     t = np.linspace(0.1, 0.9, 5).astype(np.float32)
     _close(pt.path_sampler.compute_sigma_t(torch.from_numpy(t))[0],
            jt.path_sampler.compute_sigma_t(t)[0])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        create_transport("GVP", "velocity", path_args={"use_blurring": True})
+    # the DCT-blurred interpolant: x_t against the JAX plan's
+    jt, pt = _pair("GVP", "velocity", path_args={"use_blurring": True})
+    rng = np.random.default_rng(6)
+    x0, x1 = (rng.standard_normal((5, 4, 8, 8)).astype(np.float32)
+              for _ in range(2))
+    _close(pt.path_sampler.compute_xt(torch.from_numpy(t),
+                                      torch.from_numpy(x0),
+                                      torch.from_numpy(x1)),
+           jt.path_sampler.compute_xt(t, x0, x1))
 
 
 @pytest.mark.parametrize("path", PATHS)
