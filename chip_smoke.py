@@ -3,7 +3,8 @@
 its sampling and training paths at full DiM-L/2 width, at 256 px and, for
 sampling, at 512 px (also sequence-parallel over 4 ranks on the card),
 sampling from a checkpoint by the reference's eval protocol through
-`python -m dimsum_torch.sample`, scoring samples (FID, KID,
+`python -m dimsum_torch.sample`, the rest of the model zoo (DiT-XL/2 at
+512 px; a MoE, cond_init, cpe DiM-L/2), scoring samples (FID, KID,
 precision/recall with InceptionV3 on the card) through `python -m
 dimsum_torch.sample_ddp` and `calc_metrics`, and training for real
 through `python -m dimsum_torch.train` (with remat and data
@@ -41,8 +42,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
               the training mixer shape (batch 16, L 256, dim 1024, N 16, r
               32) in bf16 and fp32, forward and reversed, plus a ragged
               dim, at the 512-px one (batch 4, L 1024) in bf16 and fp32,
-              and at a ragged L (4 x 1000, bf16): max error against the
-              stated tolerance, kernel and plain times, and the bound.
+              and at a ragged L (4 x 1000, bf16); then their h0 entries
+              (--cond-init training: kernel 2 seeded from h0, kernel 3
+              returning dh0) at the training mixer shape in bf16 and fp32
+              and at the ragged L: max error against the stated
+              tolerance, kernel and plain times, and the bound.
   7. train-grad  full-width DiM-L/2 in fp32 with TF32 off at batch 2, one
               training loss (label dropout 0.1, stochastic depth 0.1, the
               same seeded draws) through the kernels and through the plain
@@ -70,7 +74,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
               port never calls it at these shapes; its device time too),
               and the bound; also the first kernel (csrc/full_attention.cu)
               in the same dtype, held to the same tolerance and timed on the
-              same inputs.  Then q and k 40x at the DiT shape (logits
+              same inputs; and DiT-XL/2's heads at 512 px, (8, 1024, 16,
+              72), which take the first kernel, in bf16 and fp32.  Then q
+              and k 40x at the DiT shape (logits
               ~1e3) in both dtypes, at the same tolerances.  Plus the
               autograd Function's gradient against the plain version's at
               a small shape.
@@ -164,11 +170,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
               published configuration's bf16 CFG forward with the reverse
               inside the mixers (the route without a gradient) and with
               the block's flips, alternated, at 256 and 512 px and fused
-              at 512 px: wall and device ms and launches a forward, and
-              the two routes' outputs compared.  Alone: python3 -c
+              at 512 px (the three cells in one process): wall and device
+              ms and launches a forward, and the two routes' outputs
+              compared.  Alone: python3 -c
               "import chip_smoke as s; s.phase_variants()"
               (`s.phase_reverse_route()` for the routes alone).
- 23. sample-dopri5  the sampling path from a checkpoint: seeded random
+ 23. models-rest  the rest of the zoo from the JAX CLIs' flags
+              (`cli.model_config`), seeded random weights: DiT-XL/2 at 512
+              px (28 blocks, hidden 1152, Dh 72, L 1024), one fp32 CFG
+              forward of 8 rows through the kernels and the plain routes,
+              without and with fused_norm (1e-4 of scale; 28 launches of
+              the first attention kernel, 57 of norm + modulate), then
+              `python -m dimsum_torch.sample ODE --model DiT-XL/2
+              --image-size 512 --bf16` in a process of its own (8 images,
+              REST_STEPS Euler points: 28 first-kernel launches a drift
+              call); DiM-L/2 with the published combined block and
+              --is-moe --cond-mamba --cond-init --pe-type cpe: one fp32
+              CFG forward of 24 rows (1e-3 of scale; 16 state-entry
+              launches with h0, none of kernel 1), a bf16 sample of 12
+              images, REST_TRAIN_STEPS bf16 steps through the training
+              CLI's Trainer (16 launches a step of each h0 training
+              kernel), and one fp32 step at depth 2 whose loss and every
+              gradient match the plain route.  Alone: python3 -c "import
+              chip_smoke as s; s.phase_models_rest()".
+ 24. sample-dopri5  the sampling path from a checkpoint: seeded random
               DiM-L/2 weights written in the reference's .pt layout (a
               different "ema" and "model") and a full-width SD-VAE (ch 128,
               ch_mult 1 2 4 4) with seeded random weights written as a
@@ -181,22 +206,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
               take the matching weights, and a checkpoint with one key
               removed must be refused.  Prints the NFE, the seconds and the
               decode seconds.
- 24. sample-sde-512  the checkpoint adapted to 512 px (`adapt_checkpoint`)
+ 25. sample-sde-512  the checkpoint adapted to 512 px (`adapt_checkpoint`)
               and sampled by the CLI's SDE mode (Euler-Maruyama over
               SDE_512_STEPS grid points, CFG 1.4, bf16): 32 scan and 36 sm90
               attention launches per model call; finite samples.
- 25. sample-512-fp32  the adapted checkpoint sampled by the CLI's ODE
+ 26. sample-512-fp32  the adapted checkpoint sampled by the CLI's ODE
               mode in its default dtype, fp32 (TF32 off; Euler over
               FP32_512_STEPS grid points, CFG 1.4, 2 images): 32 scan and
               36 attention launches per drift call, all through the fp32
               kernel; finite samples.
- 26. likelihood  the CLI's `--likelihood` at cfg 1.0 (256 px, bf16, 2
+ 27. likelihood  the CLI's `--likelihood` at cfg 1.0 (256 px, bf16, 2
               images, LIKELIHOOD_STEPS grid points): 32 launches of kernels
               2 and 3 per drift call of the augmented ODE, finite bits/dim;
               and one augmented drift call of the fp32 model (TF32 off)
               through the kernels and through the plain scan: they must
               agree.
- 27. eval     the evaluation path from the same checkpoint and SD-VAE
+ 28. eval     the evaluation path from the same checkpoint and SD-VAE
               (`phase_eval`): EVAL_REAL real PNGs (the VAE decode of
               seeded latents); `python -m dimsum_torch.sample_ddp ODE` in a
               process of its own (EVAL_SAMPLES samples in batches of
@@ -212,7 +237,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
               its terms' scale of its fp64 value; generation,
               decode and InceptionV3 images/s and the metric seconds.
               Alone: python3 -c "import chip_smoke as s; s.phase_eval()".
- 28. train-cli  `python -m dimsum_torch.train` on full-width DiM-L/2 at
+ 29. train-cli  `python -m dimsum_torch.train` on full-width DiM-L/2 at
               256 px with the published ImageNet flags (bf16 over fp32
               weights, global batch 16) from a seeded latent memmap of 128
               samples (latents.dat fp32 (N, 4, 32, 32), labels.dat int64,
@@ -234,7 +259,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
               only) over that window's steps; peak memory, beside train's
               s/step and peak memory; the phase's seconds.  Alone:
               python3 -c "import chip_smoke as s; s.phase_train_cli()".
- 29. train-remat  one fp32 step of full-width DiM-L/2 at batch 2 (TF32
+ 30. train-remat  one fp32 step of full-width DiM-L/2 at batch 2 (TF32
               off, cuDNN deterministic, the math SDPA; drop path and label
               dropout 0.1 from one generator seed) twice without remat and
               with --grad-checkpoint under None and "scan": the loss, every
@@ -245,14 +270,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
               under None and under "scan" (3 timed steps after 1 each):
               s/step, peak memory (remat's must be lower), launches a
               step.
- 30. train-ddp  2 gloo processes on the one card (NCCL takes one rank a
+ 31. train-ddp  2 gloo processes on the one card (NCCL takes one rank a
               device), DiM-L/2 at full width and depth 4, fp32: 2
               data-parallel steps of 2 samples a rank, each rank's
               generator, against rank 0 replaying both ranks' micro-batches
               in turn: loss, weights and EMA (tolerances in
               `phase_train_ddp`), the replicas equal, 16 launches of
               kernels 2 and 3 a rank.
- 31. kernels  the smoke's seconds (and the variants phase's), then one
+ 32. kernels  the smoke's seconds (and the variants and models-rest
+              phases'), then one
               {"kernels": [...]} line (all ten kernels; the scan
               with its reverse entry's times, bound, plain time and error
               at the combined block's mixer shape and at linear + v2's,
@@ -263,10 +289,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
               256-px ones (norm + modulate also with its L2-cold device
               time, `cold_device_ms`), the scan's
               state entry with its second SP pass's (h0) beside its first's,
-              the three attention kernels with their cross-shape times
-              beside the DiT ones; the first attention kernel, on no main
-              path now, with 0 launches, its times from the fp32 cases;
-              kernels 2 and 3 also with train-cli's launches),
+              the sm90 and fp32 attention kernels with their cross-shape
+              times beside the DiT ones; the first attention kernel with
+              models-rest's DiT-XL/2 sampling launches and its times at
+              DiT-XL/2's heads (bf16; fp32 and its Dh-64 times beside);
+              kernels 2 and 3 also with train-cli's launches and their h0
+              entries' times, error and models-rest launches),
               then the nvidia-smi line, then {"ok": true, "device": {...}}
               as the last line.  Each record's `ms` (CUDA events around
               back-to-back launches, which below ~0.05 ms can read the
@@ -593,7 +621,7 @@ def phase_sample():
     return launches
 
 
-def train_bounds(x, chunk):
+def train_bounds(x, chunk, h0=False):
     """Least time of the two training kernels on x's shapes: each input
     read once and each output written once over HBM bandwidth, the fp32
     operations over the fp32 peak, and the transcendentals over the
@@ -608,7 +636,8 @@ def train_bounds(x, chunk):
     kernel 3 computes each state's exp2 again in the reverse step, and the
     sigmoid's exp anew, and that kernel 2's state and main passes each
     compute every state's exp2 and hand dt over through o, are the
-    kernels' own choices and not counted."""
+    kernels' own choices and not counted.  With `h0` kernel 2 also reads
+    h0 and kernel 3 writes dh0, (batch, dim, N) fp32 each."""
     batch, L, dim = x["u"].shape
     r, n = x["dt_w"].shape[0], x["A"].shape[1]
     esize = x["u"].element_size()
@@ -617,10 +646,11 @@ def train_bounds(x, chunk):
     common = (x["u"].numel() + x["dt_low"].numel() + x["dt_w"].numel()
               + 2 * small) * esize + x["A"].numel() * 4 + dim * 4
     states = batch * n_chunks * n * dim * 4
+    seed = batch * dim * n * 4 if h0 else 0
     fwd_bytes = (common + x["z"].numel() * esize + dim * 4  # z, D
-                 + big * esize + big * 4 + states)          # y, o, states
+                 + big * esize + big * 4 + states + seed)   # y, o, states
     bwd_bytes = (common + big * 4 + states                  # go, states
-                 + 2 * big * 4 + dim * n * 4 + 2 * small * 4)
+                 + 2 * big * 4 + dim * n * 4 + 2 * small * 4 + seed)
     out = {}
     for name, nbytes, flops, n_sfu in (
             ("fwd_train", fwd_bytes, big * (2 * r + 7 * n + 12),
@@ -644,24 +674,33 @@ def phase_kernel_train():
     from dimsum_torch.ops import selective_scan as ss
 
     cases = [
-        ("train-bf16", 16, 256, 1024, torch.bfloat16, False),
-        ("train-bf16-reverse", 16, 256, 1024, torch.bfloat16, True),
-        ("train-fp32", 16, 256, 1024, torch.float32, False),
-        ("train-fp32-reverse", 16, 256, 1024, torch.float32, True),
-        ("train-ragged-dim-bf16", 16, 256, 1000, torch.bfloat16, False),
+        ("train-bf16", 16, 256, 1024, torch.bfloat16, False, False),
+        ("train-bf16-reverse", 16, 256, 1024, torch.bfloat16, True, False),
+        ("train-fp32", 16, 256, 1024, torch.float32, False, False),
+        ("train-fp32-reverse", 16, 256, 1024, torch.float32, True, False),
+        ("train-ragged-dim-bf16", 16, 256, 1000, torch.bfloat16, False,
+         False),
         # the 512-px training mixer: the same tokens in 4 rows of L 1024
-        ("L1024-bf16", 4, 1024, 1024, torch.bfloat16, False),
-        ("L1024-fp32", 4, 1024, 1024, torch.float32, False),
+        ("L1024-bf16", 4, 1024, 1024, torch.bfloat16, False, False),
+        ("L1024-fp32", 4, 1024, 1024, torch.float32, False, False),
         # a ragged last chunk and a ragged last group of chunks
-        ("ragged-L-bf16", 4, 1000, 1024, torch.bfloat16, False),
+        ("ragged-L-bf16", 4, 1000, 1024, torch.bfloat16, False, False),
+        # --cond-init training: the h0 entries (h0 in, dh0 out)
+        ("h0-bf16", 16, 256, 1024, torch.bfloat16, False, True),
+        ("h0-fp32", 16, 256, 1024, torch.float32, False, True),
+        ("h0-ragged-L-bf16", 4, 1000, 1024, torch.bfloat16, False, True),
     ]
     results = {}
-    for i, (name, batch, L, dim, dtype, reverse) in enumerate(cases):
+    for i, (name, batch, L, dim, dtype, reverse, seeded) in enumerate(cases):
         x = scan_inputs(batch, L, dim, 16, 32, dtype, seed=200 + i)
         if reverse:  # the Function flips around the kernels
             x = {k: (v.flip(1) if v.ndim == 3 else v) for k, v in x.items()}
         args = [x[k] for k in ("u", "dt_low", "dt_w", "A", "B", "C", "D")]
         kw = dict(z=x["z"], delta_bias=x["delta_bias"], delta_softplus=True)
+        if seeded:
+            kw["h0"] = torch.randn(
+                (batch, dim, 16), device="cuda", generator=torch.Generator(
+                    device="cuda").manual_seed(100 + i))
         g = torch.randn(x["u"].shape, device="cuda", generator=torch
                         .Generator(device="cuda").manual_seed(i)).to(dtype)
         low = dtype == torch.bfloat16
@@ -678,7 +717,7 @@ def phase_kernel_train():
             errs, ok = {}, True
             for key, a, b in zip(
                     ("y", "o", "boundaries", "du", "ddelta", "dA", "dB",
-                     "dC", "dD", "dz", "dbias"), got_f + got_b,
+                     "dC", "dD", "dz", "dbias", "dh0"), got_f + got_b,
                     want_f + want_b):
                 tol = 1.6e-2 if a.dtype == torch.bfloat16 else 1e-4
                 errs[key] = _scaled_err(a, b)
@@ -690,24 +729,26 @@ def phase_kernel_train():
                           for a, b in zip(got_b, want_b))
             go = torch.randn(x["u"].shape, device="cuda")
             core = (*args[:6], x["delta_bias"], True, go, want_f[2])
+            ckw = dict(return_dh0=True) if seeded else {}
             fwd_ms = cuda_ms(lambda: ss.selective_scan_fwd_train_cuda(
                 *args, **kw), iters=20)
             fwd_plain = cuda_ms(lambda: ss.selective_scan_fwd_train_ref(
                 *args, **kw), iters=3, warmup=1)
-            bwd_ms = cuda_ms(lambda: ss.selective_scan_bwd_core_cuda(*core),
-                             iters=20)
+            bwd_ms = cuda_ms(lambda: ss.selective_scan_bwd_core_cuda(
+                *core, **ckw), iters=20)
             bwd_plain = cuda_ms(lambda: ss.selective_scan_bwd_core_ref(
-                *core), iters=3, warmup=1)
+                *core, **ckw), iters=3, warmup=1)
             fwd_dev = bwd_dev = None
-            if name in ("train-bf16", "L1024-bf16"):
+            if name in ("train-bf16", "L1024-bf16", "h0-bf16"):
                 fwd_dev = device_ms(lambda: ss.selective_scan_fwd_train_cuda(
                     *args, **kw), "selective_scan_fwd_train")
                 bwd_dev = device_ms(lambda: ss.selective_scan_bwd_core_cuda(
-                    *core), "selective_scan_bwd")
-        bounds = train_bounds(x, ss.TRAIN_CHUNK)
+                    *core, **ckw), "selective_scan_bwd")
+        bounds = train_bounds(x, ss.TRAIN_CHUNK, seeded)
         rec = {"phase": "kernel-train", "case": name,
                "shape": [batch, L, dim, 16, 32],
                "dtype": str(dtype).split(".")[-1], "reverse": reverse,
+               "h0": seeded,
                "scaled_err": errs, "tol_fp32": 1e-4, "tol_bf16": 1.6e-2,
                "ok": ok, "low_precision_outputs": low,
                "fwd_train": {"max_abs_err": fwd_err, "ms": fwd_ms,
@@ -948,6 +989,10 @@ def phase_kernel_attn():
         ("cross-bf16", 24, 1024, 8, 64, torch.bfloat16),
         ("dit-fp32", 24, 1024, 16, 64, torch.float32),
         ("cross-fp32", 24, 1024, 8, 64, torch.float32),
+        # DiT-XL/2 at 512 px (hidden 1152, 16 heads): the first kernel's
+        # route, at the models-rest phase's CFG batch of 8 rows
+        ("dh72-bf16", 8, 1024, 16, 72, torch.bfloat16),
+        ("dh72-fp32", 8, 1024, 16, 72, torch.float32),
     ]
     results = {}
     for i, (name, B, L, H, Dh, dtype) in enumerate(cases):
@@ -3375,10 +3420,14 @@ def _variant_counts(zero: bool = False):
     """The launch counts the variants phase reads (set to 0 first with
     `zero`)."""
     from dimsum_torch.ops.conv_xproj import conv_xproj_cuda
+    from dimsum_torch.ops.full_attention import full_attention_first
     from dimsum_torch.ops.norms import add_norm_cuda, norm_modulate_cuda
-    from dimsum_torch.ops.selective_scan import selective_scan_cuda
+    from dimsum_torch.ops.selective_scan import (selective_scan_cuda,
+                                                 selective_scan_state_cuda)
 
     fields = {"scan": (selective_scan_cuda, "launches"),
+              "scan_state": (selective_scan_state_cuda, "launches"),
+              "full_attention_first": (full_attention_first, "launches"),
               "scan_reverse": (selective_scan_cuda, "reverse_launches"),
               "conv_xproj": (conv_xproj_cuda, "launches"),
               "conv_xproj_reverse": (conv_xproj_cuda, "reverse_launches"),
@@ -3595,11 +3644,19 @@ REVERSE_ROUTE_PROFILED = (True, False, False, True)
 REVERSE_ROUTE_ITERS = 5
 
 
-def _reverse_route_cell(spec):
-    """One cell of `phase_reverse_route` in this process (torch.profiler
-    sessions slow a process's later host work, so each cell has its own):
-    `spec` is a JSON [image size, switches, output path]; the record goes
-    to the output path."""
+def _reverse_route_cells(spec):
+    """`phase_reverse_route`'s cells, one after the other in this process:
+    `spec` is a JSON list of [image size, switches, output path]."""
+    import torch
+
+    for cell in json.loads(spec):
+        _reverse_route_cell(*cell)
+        torch.cuda.empty_cache()
+
+
+def _reverse_route_cell(image_size, switches, out):
+    """One cell of `phase_reverse_route`: the record goes to the output
+    path."""
     import dataclasses
     import statistics
 
@@ -3611,7 +3668,6 @@ def _reverse_route_cell(spec):
     from dimsum_torch.ops.selective_scan import selective_scan_cuda
 
     t0 = time.perf_counter()
-    image_size, switches, out = json.loads(spec)
     latent = image_size // 8
     cfg = dataclasses.replace(
         _variant_config("published-fused", torch.bfloat16),
@@ -3694,7 +3750,9 @@ def _reverse_route_cell(spec):
 
 def phase_reverse_route():
     """The published DiM-L/2 (bf16, seeded weights) for each of
-    REVERSE_ROUTE_CELLS, in a process of its own: one CFG forward of 24
+    REVERSE_ROUTE_CELLS, all in one process of their own (the cells took a
+    process each until the smoke had to fit a new phase; their profiler
+    sessions may slow the later cells' host work): one CFG forward of 24
     rows with its 8 reversed blocks' reverse inside their mixers
     (`native`, what every forward without a gradient takes) and with the
     block's two flips around the mixer (`flips`, forced by setting the
@@ -3716,17 +3774,18 @@ def phase_reverse_route():
     root = os.path.dirname(os.path.abspath(__file__))
     records = []
     with tempfile.TemporaryDirectory() as tmp:
-        for i, (image_size, switches) in enumerate(REVERSE_ROUTE_CELLS):
-            out = os.path.join(tmp, f"cell{i}.json")
-            proc = subprocess.run(
-                [sys.executable, "-c", "import sys, chip_smoke as s; "
-                 "s._reverse_route_cell(sys.argv[1])",
-                 json.dumps([image_size, switches, out])],
-                cwd=root, capture_output=True, text=True, timeout=300)
-            if proc.returncode != 0:
-                print(proc.stderr[-4000:], file=sys.stderr)
-                raise AssertionError(f"reverse-route: the {image_size}-px "
-                                     f"cell exited {proc.returncode}")
+        cells = [[image_size, switches, os.path.join(tmp, f"cell{i}.json")]
+                 for i, (image_size, switches)
+                 in enumerate(REVERSE_ROUTE_CELLS)]
+        proc = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke as s; "
+             "s._reverse_route_cells(sys.argv[1])", json.dumps(cells)],
+            cwd=root, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            raise AssertionError(f"reverse-route: the cells' process "
+                                 f"exited {proc.returncode}")
+        for image_size, _, out in cells:
             with open(out) as f:
                 rec = json.load(f)
             emit(rec)
@@ -3738,6 +3797,349 @@ def phase_reverse_route():
                     or not rec["flips"]["device_ms"]):
                 raise AssertionError(f"reverse-route failed: {rec}")
     return records
+
+
+# the models-rest phase: (a) DiT-XL/2 at 512 px; (b) DiM-L/2 at 256 px,
+# the published combined block with MoE, cond_init and cpe, from the JAX
+# CLIs' flags; Euler grid points of their bf16 samples; training steps of
+# (b) through the training CLI's Trainer
+DIT_XL_ARGS = ["--model", "DiT-XL/2", "--image-size", "512",
+               "--num-classes", "1001", "--label-dropout", "0.1"]
+DIM_REST_ARGS = ["--model", "DiM-L/2", "--image-size", "256",
+                 "--num-classes", "1001", "--label-dropout", "0.1",
+                 "--block-type", "combined", "--bimamba-type", "none",
+                 *_PUBLISHED_FLAGS, "--is-moe", "--cond-init", "--pe-type",
+                 "cpe"]
+REST_STEPS = 10
+REST_TRAIN_STEPS = 3
+# a forward's launches: (a) 28 DiT blocks' attention through the first
+# kernel (Dh 72), with fused_norm two norm + modulate calls a block and the
+# FinalLayer's; (b) 8 combined blocks of two CondMamba mixers each (the 8
+# odd blocks are MoE), every scan seeded from h0 through the state entry
+DIT_XL_ATTENTION, DIT_XL_NORMS = 28, 57
+DIM_REST_SCANS = 16
+
+
+def _rest_config(argv, dtype):
+    """The model config `cli.model_config` builds from `argv`."""
+    import argparse
+
+    import torch
+
+    from dimsum_torch import cli
+
+    p = argparse.ArgumentParser()
+    cli.add_model_args(p)
+    cli.add_moe_args(p)
+    return cli.model_config(p.parse_args(
+        [*argv, *(["--bf16"] if dtype == torch.bfloat16 else [])]))
+
+
+def _rest_forward(name, cfg, x, t, y, seed=0):
+    """One fp32 CFG forward of `cfg`'s model through the kernels and
+    through the plain routes (attention, norms, scans), the launches of
+    the kernel forward: the record."""
+    import torch
+
+    from dimsum_torch.models.dim import forward_with_cfg
+    from dimsum_torch.models.factory import build_model
+
+    net = build_model(cfg, "cuda", seed=seed)
+    with torch.inference_mode():
+        _variant_counts(zero=True)
+        got = forward_with_cfg(net, x, t, y, cfg_scale=1.4)
+        torch.cuda.synchronize()
+        launches = _variant_counts()
+        for m in net.modules():
+            for attr in ("attn_impl", "norm_impl", "scan_impl"):
+                if hasattr(m, attr):
+                    setattr(m, attr, "ref")
+        want = forward_with_cfg(net, x, t, y, cfg_scale=1.4)
+        torch.cuda.synchronize()
+    del net
+    torch.cuda.empty_cache()
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    return {"phase": "models-rest", "case": name, "rows": x.shape[0],
+            "dtype": "float32", "tf32": False, "launches": launches,
+            "max_abs_err": err, "max_abs_ref": scale,
+            "finite": bool(torch.isfinite(got).all())}
+
+
+def _rest_train(spec):
+    """REST_TRAIN_STEPS bf16 steps of (b) through the training CLI's
+    `Trainer` (what `python -m dimsum_torch.train` runs: its argument
+    parsing, model, AdamW and EMA state, latent loader and step), in a
+    process of its own, stopped before the epoch's end: the content
+    checkpoint an epoch writes would be the 18 GB of this model's state.
+    The launch counts set to 0 just before the steps and read just after.
+    `spec` is a JSON [argv, output path]."""
+    import torch
+
+    from dimsum_torch import train as train_cli
+    from dimsum_torch.data import device_batches
+    from dimsum_torch.ops import selective_scan as ss
+
+    argv, out = json.loads(spec)
+    trainer = train_cli.Trainer(train_cli.parse_args(argv))
+    try:
+        counts = _zeroed_scan_counts()
+        for c in (ss.selective_scan_fwd_train_cuda,
+                  ss.selective_scan_bwd_core_cuda):
+            c.h0_launches = 0
+        ss.selective_scan_state_cuda.launches = 0
+        losses, seconds = [], []
+        trainer.loader.set_epoch(0)
+        for x, y in device_batches(trainer.loader, trainer.device):
+            if len(losses) == REST_TRAIN_STEPS:
+                break
+            t0 = time.perf_counter()
+            metrics = trainer.train_step(trainer.state, x, y,
+                                         trainer.generator)
+            losses.append(metrics["loss"].item())
+            seconds.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        rec = {"launches": {k: c.launches for k, c in counts.items()},
+               "h0_launches": {
+                   "selective_scan_fwd_train":
+                       ss.selective_scan_fwd_train_cuda.h0_launches,
+                   "selective_scan_bwd":
+                       ss.selective_scan_bwd_core_cuda.h0_launches},
+               "state_launches": ss.selective_scan_state_cuda.launches,
+               "losses": losses, "step_seconds": seconds,
+               "params": sum(p.numel() for p in
+                             trainer.state.model.parameters()),
+               "max_memory_allocated_GB":
+                   torch.cuda.max_memory_allocated() / 1e9}
+    finally:
+        trainer.close()
+    with open(out, "w") as f:
+        json.dump(rec, f)
+
+
+def phase_models_rest():
+    """models-rest: the rest of the model zoo on the card, built from the
+    JAX CLIs' flags by `cli.model_config` with seeded random weights.
+    (a) DiT-XL/2 at 512 px (28 blocks, hidden 1152, 16 heads of Dh 72, L
+    1024): one fp32 CFG forward of 8 rows (TF32 off) through the kernels
+    and through the plain routes, without and with `fused_norm` (28
+    launches of the first attention kernel, and 57 of norm + modulate);
+    then `python -m dimsum_torch.sample ODE --model DiT-XL/2 --image-size
+    512 --bf16` in a process of its own (8 images, Euler over REST_STEPS
+    grid points, CFG 1.4).  (b) DiM-L/2 at 256 px, the published combined
+    block with --is-moe --cond-init --pe-type cpe: one fp32 CFG forward of
+    24 rows against the plain routes (16 launches of the scan's state
+    entry with h0, none of kernel 1); a bf16 sample of 12 images (Euler
+    over REST_STEPS points); REST_TRAIN_STEPS bf16 steps through the
+    training CLI's Trainer (16 launches a step of each h0 training
+    kernel); and one fp32 training step of the same model at depth 2
+    through the kernels and the plain routes: the loss and every
+    gradient, cond_proj's (dh0's path) among them.  Alone: python3 -c
+    "import chip_smoke as s; s.phase_models_rest()"."""
+    import dataclasses
+    import os
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from dimsum_torch.models.dim import build_dim, forward_with_cfg
+    from dimsum_torch.ops import selective_scan as ss
+    from dimsum_torch.transport import Sampler, create_transport
+
+    phase_t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+
+    def check(ok, rec):
+        emit(rec)
+        if not ok:
+            raise AssertionError(f"models-rest failed: {rec}")
+        return rec
+
+    def cfg_batch(n, latent, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        half = torch.randn((n, 4, latent, latent), generator=g,
+                           device="cuda")
+        t = torch.rand(n, generator=g, device="cuda").repeat(2)
+        y = torch.cat([torch.randint(0, 1000, (n,), generator=g,
+                                     device="cuda"),
+                       torch.full((n,), 1000, device="cuda")])
+        return torch.cat([half, half]), t, y, g
+
+    def run(cmd, what, timeout=600):
+        proc = subprocess.run([sys.executable, *cmd], cwd=root,
+                              capture_output=True, text=True,
+                              timeout=timeout)
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            raise AssertionError(f"models-rest: the {what} exited "
+                                 f"{proc.returncode}")
+
+    # (a) DiT-XL/2 at 512 px, fp32, plain and fused; 1e-4 of the output's
+    # scale
+    dit = _rest_config(DIT_XL_ARGS, torch.float32)
+    x, t, y, _ = cfg_batch(4, 64, 13)
+    for fused in (False, True):
+        rec = _rest_forward("DiT-XL/2-512" + ("-fused" if fused else ""),
+                            dataclasses.replace(dit, fused_norm=fused),
+                            x, t, y)
+        rec["tol"] = 1e-4 * max(1.0, rec["max_abs_ref"])
+        launches = rec["launches"]
+        out[rec["case"]] = check(
+            rec["finite"] and rec["max_abs_err"] <= rec["tol"]
+            and launches["full_attention_first"] == DIT_XL_ATTENTION
+            and launches["norm_modulate"] == (DIT_XL_NORMS if fused else 0),
+            rec)
+    with tempfile.TemporaryDirectory() as tmp:
+        res = os.path.join(tmp, "dit.json")
+        argv = ["ODE", *DIT_XL_ARGS, "--path-type", "GVP", "--bf16",
+                "--sample-dir",
+                os.path.join(tmp, "dit"), "--sampling-method", "euler",
+                "--num-sampling-steps", str(REST_STEPS), "--cfg-scale",
+                "1.4", "--global-batch-size", "8"]
+        t0 = time.perf_counter()
+        run(["-c", "import sys, chip_smoke as s; s._sample_run(sys.argv[1])",
+             json.dumps([argv, res])], "DiT-XL/2 sampling CLI")
+        wall = time.perf_counter() - t0
+        with open(res) as f:
+            cli_rec = json.load(f)
+    calls = REST_STEPS - 1
+    rec = {"phase": "models-rest", "case": "DiT-XL/2-512-sample-cli",
+           "argv": argv, "process_seconds": wall, "model_calls": calls,
+           "img_per_s": 8 / cli_rec["seconds"], **cli_rec}
+    out[rec["case"]] = check(
+        cli_rec["finite"] and cli_rec["shape"] == [8, 4, 64, 64]
+        and cli_rec["launches"]["full_attention_first"]
+        == DIT_XL_ATTENTION * calls, rec)
+
+    # (b) the MoE / cond_init / cpe DiM-L/2: fp32 forward, 1e-3 of scale
+    # as the model phase (16 blocks of random weights)
+    dim = _rest_config(DIM_REST_ARGS, torch.float32)
+    x, t, y, g = cfg_batch(12, 32, 17)
+    rec = _rest_forward("DiM-L/2-moe-cond_init-cpe", dim, x, t, y)
+    rec["tol"] = 1e-3 * max(1.0, rec["max_abs_ref"])
+    launches = rec["launches"]
+    out[rec["case"]] = check(
+        rec["finite"] and rec["max_abs_err"] <= rec["tol"]
+        and launches["scan_state"] == DIM_REST_SCANS
+        and launches["scan_fwd"] == launches["scan_reverse"] == 0, rec)
+
+    net = build_dim(_rest_config(DIM_REST_ARGS, torch.bfloat16), "cuda",
+                    seed=0)
+    z = torch.randn((12, 4, 32, 32), generator=g, device="cuda")
+    z = torch.cat([z, z])
+    sampler = Sampler(create_transport("GVP", "velocity"))
+
+    def model_fn(x_, t_, y=None):
+        return forward_with_cfg(net, x_, t_, y, cfg_scale=1.4)
+
+    with torch.inference_mode():
+        sampler.sample_ode(sampling_method="euler", num_steps=2)(
+            z, model_fn, y=y)
+        torch.cuda.synchronize()
+        _variant_counts(zero=True)
+        t0 = time.perf_counter()
+        samples = sampler.sample_ode(sampling_method="euler",
+                                     num_steps=REST_STEPS)(
+            z, model_fn, y=y)[:12]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = _variant_counts()
+    del net
+    torch.cuda.empty_cache()
+    rec = {"phase": "models-rest", "case": "DiM-L/2-moe-sample",
+           "dtype": "bfloat16", "images": 12, "steps": REST_STEPS,
+           "model_calls": calls, "seconds": seconds,
+           "img_per_s": 12 / seconds, "launches": launches,
+           "finite": bool(torch.isfinite(samples).all()),
+           "sample_std": samples.float().std().item()}
+    out[rec["case"]] = check(
+        rec["finite"] and launches["scan_state"] == DIM_REST_SCANS * calls
+        and launches["scan_fwd"] == 0, rec)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _write_latent_memmap(tmp, 16 * REST_TRAIN_STEPS)
+        res = os.path.join(tmp, "train.json")
+        argv = ["--exp", "rest", "--datadir", tmp, "--results-dir",
+                os.path.join(tmp, "results"), "--dataset", "latent_memmap",
+                *DIM_REST_ARGS, "--path-type", "GVP", "--bf16",
+                "--global-batch-size", "16",
+                "--lr", "1e-4", "--drop-path", "0.1", "--max-grad-norm",
+                "1", "--epochs", "0"]
+        t0 = time.perf_counter()
+        run(["-c", "import sys, chip_smoke as s; s._rest_train(sys.argv[1])",
+             json.dumps([argv, res])], "training CLI's Trainer")
+        wall = time.perf_counter() - t0
+        with open(res) as f:
+            train_rec = json.load(f)
+    n = REST_TRAIN_STEPS
+    rec = {"phase": "models-rest", "case": "DiM-L/2-moe-train",
+           "argv": argv, "process_seconds": wall, "steps": n,
+           "batch": 16, **train_rec}
+    out[rec["case"]] = check(
+        len(train_rec["losses"]) == n
+        and all(math.isfinite(v) for v in train_rec["losses"])
+        and train_rec["h0_launches"]["selective_scan_fwd_train"]
+        == DIM_REST_SCANS * n
+        and train_rec["h0_launches"]["selective_scan_bwd"]
+        == DIM_REST_SCANS * n
+        and train_rec["launches"]["selective_scan_fwd"] == 0
+        and train_rec["state_launches"] == 0, rec)
+
+    # one fp32 step at depth 2 (block 0 combined: 2 seeded mixers; block 1
+    # MoE) through the kernels and the plain routes; tolerances as
+    # train-grad
+    model = build_dim(dataclasses.replace(dim, depth=2), "cuda", seed=0,
+                      train=True)
+    transport = create_transport("GVP", "velocity")
+    g = torch.Generator(device="cuda").manual_seed(19)
+    xs = torch.randn((2, 4, 32, 32), generator=g, device="cuda")
+    ys = torch.randint(0, 1000, (2,), generator=g, device="cuda")
+
+    def loss_and_grads():
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        model.zero_grad(set_to_none=True)
+        loss = transport.training_losses(
+            lambda xt, t_, **kw: model(xt, t_, train=True, generator=gen,
+                                       **kw), xs, gen, {"y": ys}
+        )["loss"].mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), {n: p.grad.clone() for n, p in
+                             model.named_parameters() if p.grad is not None}
+
+    for c in (ss.selective_scan_fwd_train_cuda,
+              ss.selective_scan_bwd_core_cuda):
+        c.h0_launches = 0
+    loss, grads = loss_and_grads()
+    h0_launches = [ss.selective_scan_fwd_train_cuda.h0_launches,
+                   ss.selective_scan_bwd_core_cuda.h0_launches]
+    for m in _mixers(model):
+        m.scan_impl = "ref"
+    want_loss, want = loss_and_grads()
+    del model
+    torch.cuda.empty_cache()
+    errs = {k: _scaled_err(grads[k], want[k]) for k in want}
+    worst = max(errs, key=errs.get)
+    cond = [k for k in want if k.endswith("cond_proj.weight")]
+    rec = {"phase": "models-rest", "case": "DiM-moe-depth2-train-grad",
+           "dtype": "float32", "batch": 2, "loss": loss,
+           "loss_plain": want_loss,
+           "loss_rel_err": abs(loss - want_loss) / abs(want_loss),
+           "n_grads": len(want), "same_grad_set": set(grads) == set(want),
+           "worst_grad": worst, "worst_grad_scaled_err": errs[worst],
+           "cond_proj_scaled_err": {k: errs[k] for k in cond},
+           "tol": 2e-3, "h0_launches": h0_launches}
+    out[rec["case"]] = check(
+        h0_launches == [2, 2] and rec["same_grad_set"] and len(cond) == 2
+        and all(want[k].abs().max() > 0 for k in cond)
+        and rec["loss_rel_err"] <= 1e-4 and errs[worst] <= 2e-3, rec)
+    out["seconds"] = time.perf_counter() - phase_t0
+    emit({"phase": "models-rest-seconds", "seconds": out["seconds"]})
+    return out
 
 
 def main() -> int:
@@ -3786,6 +4188,7 @@ def main() -> int:
     launches.update(phase_sample_fused())
     phase_sample_fused_512()
     variants = phase_variants()
+    rest = phase_models_rest()
     fp32_launches = phase_sampling_path()
     for name in ("full_attention_f32", "full_attention_first"):
         launches[name] = fp32_launches[name]
@@ -3863,9 +4266,14 @@ def main() -> int:
         "h0_ms": sp_case["h0_ms"],
         "h0_device_ms": sp_case["h0_device_ms"],
         "h0_bound_ms": sp_case["h0_bound_ms"],
+        # --cond-init sampling (models-rest): h0 in, no last state
+        "cond_init_launches":
+            rest["DiM-L/2-moe-sample"]["launches"]["scan_state"],
     })
     train_case, train_long = train_scans["train-bf16"], \
         train_scans["L1024-bf16"]
+    h0_case = train_scans["h0-bf16"]
+    rest_train = rest["DiM-L/2-moe-train"]["h0_launches"]
     for name, key, source, replaces in (
             ("selective_scan_fwd_train", "fwd_train",
              "dimsum_torch/csrc/selective_scan_fwd_train.cu",
@@ -3888,13 +4296,23 @@ def main() -> int:
             "L1024_device_ms": train_long[key]["device_ms"],
             "L1024_plain_ms": train_long[key]["plain_ms"],
             "L1024_bound_ms": train_long[key]["bound_ms"],
-            "train_cli_launches": cli_launches[name]})
+            "train_cli_launches": cli_launches[name],
+            # the h0 entry (--cond-init training) at the training mixer
+            # shape; its launches in models-rest's training steps
+            "h0_ms": h0_case[key]["ms"],
+            "h0_device_ms": h0_case[key]["device_ms"],
+            "h0_plain_ms": h0_case[key]["plain_ms"],
+            "h0_bound_ms": h0_case[key]["bound_ms"],
+            "h0_max_abs_err": max(r[key]["max_abs_err"]
+                                  for r in train_scans.values() if r["h0"]),
+            "h0_launches": rest_train[name]})
     # the attention: bf16 at Dh 64 (the bf16 sampling paths) through the
     # sm90 kernel, fp32 at Dh 64 (the default fp32 sampling path,
     # sample-512-fp32) through the fp32 kernel, each with its cross-shape
-    # numbers beside the DiT ones.  The first kernel serves Dh 72-128, which
-    # no DiM-L/2 path runs: its launches are sample-512-fp32's (0), its
-    # times the fp32 cases', on the fp32 kernel's inputs
+    # numbers beside the DiT ones.  The first kernel serves Dh 72-128:
+    # DiT-XL/2 at 512 px (models-rest), whose bf16 sampling CLI run gives
+    # its launches; its times at that shape (8 rows) in bf16, in fp32
+    # beside them, and on the fp32 kernel's Dh-64 inputs
     def attention_record(name, source, dit, cross, timed):
         return {
             "name": name, "route": "cuda", "source": source,
@@ -3919,9 +4337,26 @@ def main() -> int:
         kernels.append(attention_record(
             name, f"dimsum_torch/csrc/{name}.cu", attn[f"dit-{case}"],
             attn[f"cross-{case}"], lambda r: r))
-    kernels.append(attention_record(
+    dh72, dh72_fp32 = attn["dh72-bf16"], attn["dh72-fp32"]
+    first = attention_record(
         "full_attention_first", "dimsum_torch/csrc/full_attention.cu",
-        attn["dit-fp32"], attn["cross-fp32"], lambda r: r["first_kernel"]))
+        dh72, dh72, lambda r: r)
+    first = {k: v for k, v in first.items() if not k.startswith("cross_")}
+    first.update(
+        launches=rest["DiT-XL/2-512-sample-cli"]["launches"][
+            "full_attention_first"],
+        max_abs_err=max(dh72["max_abs_err"], dh72_fp32["max_abs_err"]),
+        shape=dh72["shape"],
+        fp32_ms=dh72_fp32["ms"], fp32_device_ms=dh72_fp32["device_ms"],
+        fp32_plain_ms=dh72_fp32["plain_ms"],
+        fp32_bound_ms=dh72_fp32["bound_ms"],
+        fp32_library_ms=dh72_fp32["library_ms"],
+        fp32_library_device_ms=dh72_fp32["library_device_ms"],
+        dh64_fp32_ms=attn["dit-fp32"]["first_kernel"]["ms"],
+        dh64_fp32_device_ms=attn["dit-fp32"]["first_kernel"]["device_ms"],
+        dh64_cross_fp32_device_ms=attn["cross-fp32"]["first_kernel"][
+            "device_ms"])
+    kernels.append(first)
     # the main-path cases: bf16, the add + norm site and norm_2 (no single
     # PyTorch call computes any of the three functions: library_ms null)
     for name, source, replaces, cases, main_case in (
@@ -3954,7 +4389,8 @@ def main() -> int:
     by_name["norm_modulate"]["cold_device_ms"] = \
         mods["norm_2-bfloat16"]["cold_device_ms"]
     emit({"phase": "smoke-seconds", "seconds": time.perf_counter() - smoke_t0,
-          "variants_seconds": variants["seconds"]})
+          "variants_seconds": variants["seconds"],
+          "models_rest_seconds": rest["seconds"]})
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

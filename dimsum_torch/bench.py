@@ -12,6 +12,11 @@ grid points, or with `--solver dopri5` the reference's adaptive solver
 (atol 1e-6, rtol 1e-3), whose NFE the record reports.  One untimed warm-up
 drift call precedes the timed run.
 
+`--model` takes another entry of the DiM zoo or of the DiT zoo (`DiT-XL/2`
+at 512 px: Dh 72, the full-block attention's first kernel); a DiT takes
+only `--fused-norm` of the switches below.  The JAX bench's
+`--bf16-residual` probe is refused (ROADMAP.md Queue 1 item 7).
+
 The JAX package's fused-kernel configuration runs with its four switches as
 flags: `--pallas-norm` (the add + norm kernel), `--fused-norm` (the norm +
 modulate kernel), `--conv-xproj` (the conv + SiLU + x_proj kernel) and
@@ -34,7 +39,9 @@ import time
 
 import torch
 
-from dimsum_torch.models.dim import DiM_models, build_dim, forward_with_cfg
+from dimsum_torch.models.dim import DiM_models, forward_with_cfg
+from dimsum_torch.models.dit import DiT_models
+from dimsum_torch.models.factory import build_model
 from dimsum_torch.transport import Sampler, create_transport
 from dimsum_torch.utils.device import card_name_and_power_limit, resolve_device
 
@@ -82,7 +89,7 @@ def run(batch: int = 12, steps: int = 250, dtype: str = "bf16",
         model: str = "DiM-L/2", image_size: int = 256,
         solver: str = "euler", **fused):
     """Build the model (`model` names a zoo entry: DiM-L/2, or a narrower
-    one for a rehearsal on the CPU) at `image_size` pixels, with the
+    one for a rehearsal on the CPU, or a DiT) at `image_size` pixels, with the
     fused-kernel switches `fused` (pallas_norm, fused_norm, conv_xproj,
     pending_tail; off by default), sample once untimed for one drift call,
     then time one full sample by `solver` (Euler over `steps` grid points,
@@ -95,10 +102,17 @@ def run(batch: int = 12, steps: int = 250, dtype: str = "bf16",
     dev = resolve_device(device)
     latent = image_size // 8
     fused = fused_config(**fused)
-    cfg = DiM_models[model](img_resolution=latent, num_classes=1000,
-                            use_attn_every_k_layers=4, dtype=DTYPES[dtype],
-                            **fused)
-    net = build_dim(cfg, dev, seed)
+    if model in DiT_models:
+        if any(v for k, v in fused.items() if k != "fused_norm"):
+            raise ValueError("a DiT takes only the fused_norm switch")
+        cfg = DiT_models[model](img_resolution=latent, num_classes=1000,
+                                dtype=DTYPES[dtype],
+                                fused_norm=fused["fused_norm"])
+    else:
+        cfg = DiM_models[model](img_resolution=latent, num_classes=1000,
+                                use_attn_every_k_layers=4,
+                                dtype=DTYPES[dtype], **fused)
+    net = build_model(cfg, dev, seed)
     g = torch.Generator(device=dev).manual_seed(seed)
     z = torch.randn((batch, cfg.in_channels, latent, latent), generator=g,
                     device=dev)
@@ -165,12 +179,21 @@ def main(argv=None):
     ap.add_argument("--solver", default="euler", choices=SOLVERS,
                     help="euler: a fixed grid of --steps points; dopri5: "
                          "the reference's adaptive solver, NFE reported")
+    ap.add_argument("--model", default="DiM-L/2",
+                    choices=sorted(DiM_models) + sorted(DiT_models))
+    ap.add_argument("--bf16-residual", action="store_true",
+                    help="the JAX bench's probe of a bf16 residual stream: "
+                         "not ported")
     add_fused_flags(ap)
     args = ap.parse_args(argv)
+    if args.bf16_residual:
+        raise NotImplementedError(
+            "--bf16-residual (residual_in_fp32=False): not ported to "
+            "dimsum_torch yet (ROADMAP.md Queue 1 item 7)")
     record, _ = run(batch=args.batch, steps=args.steps, dtype=args.dtype,
                     cfg_scale=args.cfg, device=args.device, seed=args.seed,
-                    image_size=args.image_size, solver=args.solver,
-                    **fused_settings(args))
+                    model=args.model, image_size=args.image_size,
+                    solver=args.solver, **fused_settings(args))
     print(json.dumps(record))
 
 

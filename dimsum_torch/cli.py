@@ -2,28 +2,27 @@
 `dimsum_tpu/cli.py` flag for flag, so the reference's shell scripts
 translate as they are.
 
-The port builds every DiM block type and scan type of the JAX package
-(`--block-type`, `--bimamba-type`), with `--rms-norm` or LayerNorm,
-`--cond-mamba` or plain Mamba, `--learn-sigma`, `--learnable-pe` or a fixed
-sin-cos APE, `--use-final-norm`, `--not-use-gated-mlp`,
-`--scanning-continuity` and `--enable-fourier-layers`.  A flag that asks
-for something the port lacks (`--pe-type` rope or cpe, `--cond-init`, MoE,
-DiT models) raises `NotImplementedError` naming its item in ROADMAP.md's
-Queue 1; none is ignored.
+`dimsum_torch/models/factory.py::model_config` maps a namespace of these
+flags to a model config as the JAX `create_model` does: every DiM and DiT
+of the JAX zoos, every block and scan type, MoE (`--is-moe` and its
+group), `--pe-type`, `--cond-init`.  What the port lacks raises
+`NotImplementedError` naming its item in ROADMAP.md's Queue 1 (the
+factory's, and the CLIs' multi-device flags); `--mamba-moe-layers` builds
+nothing, as in JAX.
 """
 
 from __future__ import annotations
 
 import argparse
 
-import torch
+# the JAX `create_model`, under the name the CLIs have imported it by
+from dimsum_torch.models.factory import (create_model,  # noqa: F401
+                                         model_config)
 
 BIMAMBA_CHOICES = ["v2", "none", "zigma_8", "sweep_8", "jpeg_8", "sweep_4",
                    "jpeg_2"]
 BLOCK_CHOICES = ["linear", "raw", "wave", "combined", "window",
                  "combined_fourier", "combined_einfft"]
-
-VARIANTS = "ROADMAP.md Queue 1 item 7 (model variants)"
 
 
 def none_or_str(value):
@@ -42,7 +41,8 @@ def add_model_args(p: argparse.ArgumentParser):
     p.add_argument("--bimamba-type", type=str, default="v2",
                    choices=BIMAMBA_CHOICES)
     p.add_argument("--cond-mamba", action="store_true")
-    p.add_argument("--cond-init", action="store_true")
+    p.add_argument("--cond-init", action="store_true",
+                   help="seed the scan state with cond_proj(c)")
     p.add_argument("--scanning-continuity", action="store_true")
     p.add_argument("--enable-fourier-layers", action="store_true")
     p.add_argument("--rms-norm", action="store_true")
@@ -71,7 +71,9 @@ def add_moe_args(p: argparse.ArgumentParser):
     g = p.add_argument_group("MoE arguments")
     g.add_argument("--num-moe-experts", type=int, default=8)
     g.add_argument("--mamba-moe-layers", type=none_or_str, nargs="*",
-                   default=None)
+                   default=None,
+                   help="accepted as the JAX CLIs accept it; no model reads "
+                        "it, so it builds nothing")
     g.add_argument("--is-moe", action="store_true")
     g.add_argument("--routing-mode", type=str, default="top1",
                    choices=["sinkhorn", "top1", "top2", "sinkhorn_top2"])
@@ -139,46 +141,9 @@ def build_transport(args):
         t_sample_mode=getattr(args, "t_sample_mode", "uniform"))
 
 
-def _require(ok: bool, flag: str, item: str = VARIANTS):
+def _require(ok: bool, flag: str, item: str):
+    """Raise `NotImplementedError` for a flag the port does not take yet,
+    naming its ROADMAP item."""
     if not ok:
         raise NotImplementedError(
             f"{flag}: not ported to dimsum_torch yet ({item})")
-
-
-def model_config(args):
-    """The port's `DiMConfig` for a CLI namespace (the JAX
-    `models/factory.py::create_model`); raises `NotImplementedError` for
-    what the port does not build."""
-    from dimsum_torch.models.dim import DiM_models
-
-    _require("DiM" in args.model and args.model in DiM_models,
-             f"--model {args.model}", "ROADMAP.md Queue 1 item 7: "
-             "DiT and models/factory.py")
-    _require(args.pe_type == "ape", f"--pe-type {args.pe_type} "
-             "(pe_extras.py, AdaInPosCNN)")
-    _require(not args.cond_init, "--cond-init (the h0-seeded scan)")
-    _require(not (args.is_moe or args.mamba_moe_layers), "MoE (--is-moe, "
-             "--mamba-moe-layers; MoEBlock, SwitchMLP)")
-    _require(args.scan_impl in (None, "ref"),
-             f"--scan-impl {args.scan_impl}", "the port's scans are its "
-             "CUDA kernels (None) and the plain PyTorch scan (ref)")
-    return DiM_models[args.model](
-        img_resolution=args.image_size // 8,
-        in_channels=args.num_in_channels,
-        label_dropout=args.label_dropout,
-        num_classes=args.num_classes,
-        use_attn_every_k_layers=args.use_attn_every_k_layers,
-        drop_path=args.drop_path,
-        block_type=args.block_type,
-        scan_type=args.bimamba_type,
-        rms_norm=args.rms_norm,
-        cond_mamba=args.cond_mamba,
-        learn_sigma=args.learn_sigma,
-        learnable_pe=args.learnable_pe,
-        use_final_norm=args.use_final_norm,
-        use_gated_mlp=not args.not_use_gated_mlp,
-        scanning_continuity=args.scanning_continuity,
-        enable_fourier_layers=args.enable_fourier_layers,
-        dtype=torch.bfloat16 if args.bf16 else torch.float32,
-        grad_checkpoint=args.grad_checkpoint,
-        remat_policy=args.remat_policy)

@@ -19,7 +19,13 @@
 // tile of kBlockCh = 64 channels, (ceil(dim / 64), batch, L, N); dA as one
 // partial per batch row and group of kGroup = 4 chunks, (batch,
 // ceil(ceil(L / 16) / 4), dim, N).  The wrapper sums the partials (no float
-// atomics: the gradients repeat bit for bit).  Inputs: u, dt_low (batch, L,
+// atomics: the gradients repeat bit for bit).  The h0 entry
+// (dimsum_selective_scan_bwd_h0) also returns dh0 (batch, dim, N) fp32,
+// the gradient of a state seeded before step 0 (the training forward's h0
+// entry): dh0 = a_0 e_0, the carry out of the first step, which is the
+// carry pass's chain taken one chunk further (w_{-1} = alpha_0 w_0 +
+// beta_0).  It is a compile-time switch (kH0) of the carry pass, so the
+// h0-free instantiations compile as before.  Inputs: u, dt_low (batch, L,
 // r), dt_w (r, dim), B, C (batch, L, N) in T (float or bf16); A (dim, N),
 // bias (dim,), go (batch, L, dim), bnd (batch, ceil(L / 16), N, dim) in
 // fp32.  Workspace: w, the carry pass's output, batch x ceil(L / 16) x
@@ -362,7 +368,7 @@ struct CarryPlan {
 // grid (ceil(dim / 8), batch), CarryPlan::kWarps warps: the chunks from the
 // last, kWarps at once, a warp a chunk; the next kWarps chunks' rows are
 // copied in while these are walked.
-template <typename T, int NMAX, int RMAX>
+template <typename T, int NMAX, int RMAX, bool kH0>
 __global__ void __launch_bounds__(CarryPlan<NMAX, RMAX, true>::kWarps * 32)
 scan_bwd_carry_kernel(const T* __restrict__ dt_low,
                       const T* __restrict__ dt_w, const float* __restrict__ A,
@@ -370,7 +376,7 @@ scan_bwd_carry_kernel(const T* __restrict__ dt_low,
                       const float* __restrict__ bias,
                       const float* __restrict__ go, float* __restrict__ wcar,
                       int L, int dim, int N, int R, int use_softplus,
-                      int vec) {
+                      int vec, float* __restrict__ dh0) {
   constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
   using P = CarryPlan<NMAX, RMAX, kMma>;
   constexpr int NPL = NMAX / kLanes;
@@ -512,6 +518,11 @@ scan_bwd_carry_kernel(const T* __restrict__ dt_low,
         W = fmaf(ab.x, W, ab.y);
       }
     }
+  }
+  // past the first chunk the chain holds a_0 e_0, the gradient of h0
+  if constexpr (kH0) {
+    const int n = tid / kWarpCh, d = d0 + tid % kWarpCh;
+    if (tid < kWarpCh * N && d < dim) dh0[((size_t)b * dim + d) * N + n] = W;
   }
 }
 
@@ -808,13 +819,13 @@ cudaError_t allow_smem(K kernel, int bytes, bool& done) {
   return err;
 }
 
-template <typename T, int NMAX, int RMAX>
+template <typename T, int NMAX, int RMAX, bool kH0>
 int launch(const void* const* p, int batch, int L, int dim, int N, int R,
            int use_softplus, cudaStream_t stream) {
   constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
   using CP = CarryPlan<NMAX, RMAX, kMma>;
   using MP = MainPlan<NMAX, RMAX, kMma>;
-  auto carry_kernel = scan_bwd_carry_kernel<T, NMAX, RMAX>;
+  auto carry_kernel = scan_bwd_carry_kernel<T, NMAX, RMAX, kH0>;
   auto main_kernel = scan_bwd_kernel<T, NMAX, RMAX>;
   static bool carry_set = false, main_set = false;
   cudaError_t err = allow_smem(carry_kernel, CP::kBytes, carry_set);
@@ -836,7 +847,8 @@ int launch(const void* const* p, int batch, int L, int dim, int N, int R,
   for (int i : {0, 1, 4, 5, 7, 8, 9}) vec = vec && a16(p[i]);
   dim3 cgrid((dim + kWarpCh - 1) / kWarpCh, batch);
   carry_kernel<<<cgrid, CP::kWarps * 32, CP::kBytes, stream>>>(
-      dt_low, dt_w, A, Cm, bias, go, wcar, L, dim, N, R, use_softplus, vec);
+      dt_low, dt_w, A, Cm, bias, go, wcar, L, dim, N, R, use_softplus, vec,
+      static_cast<float*>(const_cast<void*>(p[15])));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dim3 grid((dim + kBlockCh - 1) / kBlockCh, (nc + kGroup - 1) / kGroup,
@@ -854,22 +866,35 @@ int launch(const void* const* p, int batch, int L, int dim, int N, int R,
   return cudaGetLastError();
 }
 
-template <typename T, int NMAX>
+template <typename T, int NMAX, bool kH0>
 int dispatch_r(const void* const* p, int batch, int L, int dim, int N, int R,
                int sp, cudaStream_t s) {
-  if (R <= 16) return launch<T, NMAX, 16>(p, batch, L, dim, N, R, sp, s);
-  if (R <= 32) return launch<T, NMAX, 32>(p, batch, L, dim, N, R, sp, s);
-  if (R <= 64) return launch<T, NMAX, 64>(p, batch, L, dim, N, R, sp, s);
+  if (R <= 16) return launch<T, NMAX, 16, kH0>(p, batch, L, dim, N, R, sp, s);
+  if (R <= 32) return launch<T, NMAX, 32, kH0>(p, batch, L, dim, N, R, sp, s);
+  if (R <= 64) return launch<T, NMAX, 64, kH0>(p, batch, L, dim, N, R, sp, s);
   return cudaErrorInvalidValue;
 }
 
-template <typename T>
+template <typename T, bool kH0>
 int dispatch(const void* const* p, int batch, int L, int dim, int N, int R,
              int sp, cudaStream_t s) {
-  if (N <= 8) return dispatch_r<T, 8>(p, batch, L, dim, N, R, sp, s);
-  if (N <= 16) return dispatch_r<T, 16>(p, batch, L, dim, N, R, sp, s);
-  if (N <= 32) return dispatch_r<T, 32>(p, batch, L, dim, N, R, sp, s);
+  if (N <= 8) return dispatch_r<T, 8, kH0>(p, batch, L, dim, N, R, sp, s);
+  if (N <= 16) return dispatch_r<T, 16, kH0>(p, batch, L, dim, N, R, sp, s);
+  if (N <= 32) return dispatch_r<T, 32, kH0>(p, batch, L, dim, N, R, sp, s);
   return cudaErrorInvalidValue;
+}
+
+template <bool kH0>
+int run(const void* const* p, int batch, int L, int dim, int n_state,
+        int dt_rank, int dtype, int use_softplus, void* stream) {
+  if (batch < 1 || L < 1 || dim < 1 || n_state < 1 || dt_rank < 1 ||
+      (dtype != 0 && dtype != 1))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? dispatch<float, kH0>(p, batch, L, dim, n_state,
+                                           dt_rank, use_softplus, s)
+                    : dispatch<__nv_bfloat16, kH0>(p, batch, L, dim, n_state,
+                                                   dt_rank, use_softplus, s);
 }
 
 }  // namespace
@@ -886,14 +911,24 @@ extern "C" int dimsum_selective_scan_bwd(
     const void* bnd, void* w, void* du, void* ddt, void* dB_part,
     void* dC_part, void* dA_part, int batch, int L, int dim, int n_state,
     int dt_rank, int dtype, int use_softplus, void* stream) {
-  if (batch < 1 || L < 1 || dim < 1 || n_state < 1 || dt_rank < 1 ||
-      (dtype != 0 && dtype != 1))
-    return cudaErrorInvalidValue;
-  const void* p[15] = {u,  dt_low, dt_w, A,   B,       C,       bias,   go,
-                       bnd, w,     du,   ddt, dB_part, dC_part, dA_part};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? dispatch<float>(p, batch, L, dim, n_state, dt_rank,
-                                      use_softplus, s)
-                    : dispatch<__nv_bfloat16>(p, batch, L, dim, n_state,
-                                              dt_rank, use_softplus, s);
+  const void* p[16] = {u,   dt_low, dt_w, A,   B,       C,       bias,    go,
+                       bnd, w,      du,   ddt, dB_part, dC_part, dA_part,
+                       nullptr};
+  return run<false>(p, batch, L, dim, n_state, dt_rank, dtype, use_softplus,
+                    stream);
+}
+
+// The h0 entry: dimsum_selective_scan_bwd's arguments and results, and
+// dh0 (batch, dim, N) fp32, the gradient of the training forward's h0.
+extern "C" int dimsum_selective_scan_bwd_h0(
+    const void* u, const void* dt_low, const void* dt_w, const void* A,
+    const void* B, const void* C, const void* bias, const void* go,
+    const void* bnd, void* w, void* du, void* ddt, void* dB_part,
+    void* dC_part, void* dA_part, void* dh0, int batch, int L, int dim,
+    int n_state, int dt_rank, int dtype, int use_softplus, void* stream) {
+  const void* p[16] = {u,   dt_low, dt_w, A,   B,       C,       bias,    go,
+                       bnd, w,      du,   ddt, dB_part, dC_part, dA_part,
+                       dh0};
+  return run<true>(p, batch, L, dim, n_state, dt_rank, dtype, use_softplus,
+                   stream);
 }

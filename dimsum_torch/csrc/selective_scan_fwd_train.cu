@@ -11,11 +11,20 @@
 //   o_t   = sum_n C_tn h_tn + D_d u_t                   fp32 pre-gate output
 //   y_t   = o_t silu(z_t)                               in u's type
 //   bnd_c = h at the start of step 16 c                 fp32, the first zero
+//                                                       (or h0: see below)
 //
 // Layouts: u, z, y (batch, L, dim) in T; o (batch, L, dim) fp32; bnd
 // (batch, ceil(L / 16), N, dim) fp32; dt_low (batch, L, r), B, C (batch,
 // L, N), dt_w (r, dim) in T; A (dim, N), D and bias (dim,) fp32.  T is
 // float or bf16.
+//
+// The h0 entry (dimsum_selective_scan_fwd_train_h0) seeds the state before
+// step 0 with h0 (batch, dim, N) fp32, as the JAX selective_scan_xla(...,
+// h0=h0) does on the XLA route that the Pallas kernel has no case for: the
+// state pass chains the chunk-start states from h0 instead of zero, so
+// bnd_0 = h0, and the main pass, which starts every group from bnd, needs
+// nothing else.  It is a compile-time switch (kH0), so the h0-free
+// instantiations compile as before.
 //
 // What bounds it on an H100 at the DiM-L/2 training mixer shapes (16 x 256
 // or 4 x 1024 tokens, dim 1024, N 16, r 32, bf16): inputs read once 17.4
@@ -351,7 +360,7 @@ struct StatePlan {
 // the pass runs ~20% slower): the chunks from the first, kWarps at once, a
 // warp a chunk; the next kWarps chunks' rows are copied in while these are
 // walked.
-template <typename T, int NMAX, int RMAX>
+template <typename T, int NMAX, int RMAX, bool kH0>
 __global__ void __launch_bounds__(
     StatePlan<NMAX, RMAX, true>::kWarps * 32,
     24 / StatePlan<NMAX, RMAX, true>::kWarps)
@@ -363,7 +372,8 @@ scan_fwd_train_states_kernel(const T* __restrict__ u,
                              const float* __restrict__ bias,
                              float* __restrict__ bnd,
                              float* __restrict__ dt_out, int L, int dim,
-                             int N, int R, int use_softplus, int vec) {
+                             int N, int R, int use_softplus, int vec,
+                             const float* __restrict__ h0) {
   constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
   using P = StatePlan<NMAX, RMAX, kMma>;
   constexpr int NPL = NMAX / kLanes;
@@ -436,7 +446,13 @@ scan_fwd_train_states_kernel(const T* __restrict__ u,
                                     : 0.f;
   }
 
-  float H = 0.f;  // the chain's state, for thread (n, c) = (tid / 8, tid % 8)
+  // the chain's state, for thread (n, c) = (tid / 8, tid % 8): zero, or
+  // with kH0 the seed h0[b, d, n]
+  float H = 0.f;
+  if constexpr (kH0) {
+    const int n = tid / kWarpCh, d = d0 + tid % kWarpCh;
+    if (tid < kWarpCh * N && d < dim) H = h0[((size_t)b * dim + d) * N + n];
+  }
   if (vec) {
     if (warp < nc) stage_chunk(warp, stage0);
     cp_async_commit();
@@ -673,12 +689,12 @@ cudaError_t allow_smem(K kernel, int bytes, bool& done) {
   return err;
 }
 
-template <typename T, int NMAX, int RMAX>
+template <typename T, int NMAX, int RMAX, bool kH0>
 int launch(const void* const* p, int batch, int L, int dim, int N, int R,
            int use_softplus, cudaStream_t stream) {
   constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
   using SP = StatePlan<NMAX, RMAX, kMma>;
-  auto states_kernel = scan_fwd_train_states_kernel<T, NMAX, RMAX>;
+  auto states_kernel = scan_fwd_train_states_kernel<T, NMAX, RMAX, kH0>;
   static bool states_set = false;
   cudaError_t err = allow_smem(states_kernel, SP::kBytes, states_set);
   if (err != cudaSuccess) return err;
@@ -698,7 +714,7 @@ int launch(const void* const* p, int batch, int L, int dim, int N, int R,
   states_kernel<<<sgrid, SP::kWarps * 32, SP::kBytes, stream>>>(
       u, static_cast<const T*>(p[1]), static_cast<const T*>(p[2]), A, Bm,
       static_cast<const float*>(p[8]), bnd, o, L, dim, N, R, use_softplus,
-      vec);
+      vec, static_cast<const float*>(p[12]));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dim3 grid((dim + kChannels - 1) / kChannels, (nc + kGroup - 1) / kGroup,
@@ -711,22 +727,35 @@ int launch(const void* const* p, int batch, int L, int dim, int N, int R,
   return cudaGetLastError();
 }
 
-template <typename T, int NMAX>
+template <typename T, int NMAX, bool kH0>
 int dispatch_r(const void* const* p, int batch, int L, int dim, int N, int R,
                int sp, cudaStream_t s) {
-  if (R <= 16) return launch<T, NMAX, 16>(p, batch, L, dim, N, R, sp, s);
-  if (R <= 32) return launch<T, NMAX, 32>(p, batch, L, dim, N, R, sp, s);
-  if (R <= 64) return launch<T, NMAX, 64>(p, batch, L, dim, N, R, sp, s);
+  if (R <= 16) return launch<T, NMAX, 16, kH0>(p, batch, L, dim, N, R, sp, s);
+  if (R <= 32) return launch<T, NMAX, 32, kH0>(p, batch, L, dim, N, R, sp, s);
+  if (R <= 64) return launch<T, NMAX, 64, kH0>(p, batch, L, dim, N, R, sp, s);
   return cudaErrorInvalidValue;
 }
 
-template <typename T>
+template <typename T, bool kH0>
 int dispatch(const void* const* p, int batch, int L, int dim, int N, int R,
              int sp, cudaStream_t s) {
-  if (N <= 8) return dispatch_r<T, 8>(p, batch, L, dim, N, R, sp, s);
-  if (N <= 16) return dispatch_r<T, 16>(p, batch, L, dim, N, R, sp, s);
-  if (N <= 32) return dispatch_r<T, 32>(p, batch, L, dim, N, R, sp, s);
+  if (N <= 8) return dispatch_r<T, 8, kH0>(p, batch, L, dim, N, R, sp, s);
+  if (N <= 16) return dispatch_r<T, 16, kH0>(p, batch, L, dim, N, R, sp, s);
+  if (N <= 32) return dispatch_r<T, 32, kH0>(p, batch, L, dim, N, R, sp, s);
   return cudaErrorInvalidValue;
+}
+
+template <bool kH0>
+int run(const void* const* p, int batch, int L, int dim, int n_state,
+        int dt_rank, int dtype, int use_softplus, void* stream) {
+  if (batch < 1 || L < 1 || dim < 1 || n_state < 1 || dt_rank < 1 ||
+      (dtype != 0 && dtype != 1))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? dispatch<float, kH0>(p, batch, L, dim, n_state,
+                                           dt_rank, use_softplus, s)
+                    : dispatch<__nv_bfloat16, kH0>(p, batch, L, dim, n_state,
+                                                   dt_rank, use_softplus, s);
 }
 
 }  // namespace
@@ -742,13 +771,22 @@ extern "C" int dimsum_selective_scan_fwd_train(
     const void* bias, void* out, void* o, void* bnd, int batch, int L,
     int dim, int n_state, int dt_rank, int dtype, int use_softplus,
     void* stream) {
-  if (batch < 1 || L < 1 || dim < 1 || n_state < 1 || dt_rank < 1 ||
-      (dtype != 0 && dtype != 1))
-    return cudaErrorInvalidValue;
-  const void* p[12] = {u, dt_low, dt_w, A, B, C, D, z, bias, out, o, bnd};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? dispatch<float>(p, batch, L, dim, n_state, dt_rank,
-                                      use_softplus, s)
-                    : dispatch<__nv_bfloat16>(p, batch, L, dim, n_state,
-                                              dt_rank, use_softplus, s);
+  const void* p[13] = {u,    dt_low, dt_w, A, B,   C,      D,
+                       z,    bias,   out,  o, bnd, nullptr};
+  return run<false>(p, batch, L, dim, n_state, dt_rank, dtype, use_softplus,
+                    stream);
+}
+
+// The h0 entry: dimsum_selective_scan_fwd_train's arguments and results,
+// the state before step 0 seeded from h0 (batch, dim, N) fp32, which bnd's
+// first chunk then holds.
+extern "C" int dimsum_selective_scan_fwd_train_h0(
+    const void* u, const void* dt_low, const void* dt_w, const void* A,
+    const void* B, const void* C, const void* D, const void* z,
+    const void* bias, void* out, void* o, void* bnd, const void* h0,
+    int batch, int L, int dim, int n_state, int dt_rank, int dtype,
+    int use_softplus, void* stream) {
+  const void* p[13] = {u, dt_low, dt_w, A, B, C, D, z, bias, out, o, bnd, h0};
+  return run<true>(p, batch, L, dim, n_state, dt_rank, dtype, use_softplus,
+                   stream);
 }

@@ -1,6 +1,7 @@
 """DiM blocks, port of `dimsum_tpu/models/blocks.py`: Norm, AdaLN, the
 mixer blocks (MixerBlockCore for "linear" and "raw", DiMBlockWindow,
-WaveDiMBlock, DCTBlock), EinFFT, DiTBlock and DiMBlockCombined.
+WaveDiMBlock, DCTBlock), EinFFT, the MoE blocks (SwitchMLP, MoEBlock),
+DiTBlock and DiMBlockCombined.
 
 Every block follows the reference's prenorm structure: the residual add
 comes first (fused add + norm), the summed residual is threaded beside the
@@ -52,7 +53,7 @@ from einops import rearrange
 from dimsum_torch.models.attention import Attention, CrossAttentionFusion
 from dimsum_torch.models.linear import Linear
 from dimsum_torch.models.mamba import Mamba, is_zigzag
-from dimsum_torch.models.mlp import GatedMLP, Mlp
+from dimsum_torch.models.mlp import ExpertMLP, GatedMLP, Mlp
 from dimsum_torch.ops.cuda_build import needs_grad
 from dimsum_torch.ops.dct import dct_patch, idct_patch
 from dimsum_torch.ops.norms import fused_add_norm, modulate, norm_modulate
@@ -384,6 +385,65 @@ class EinFFT(nn.Module):
         out = torch.fft.ifft2(torch.complex(softshrink(r2), softshrink(i2)),
                               dim=(1, 2), norm="ortho")
         return out.real.to(x.dtype).reshape(B, N, C), residual
+
+
+class SwitchMLP(nn.Module):
+    """Top-1 routed MoE FFN on one device, the JAX `SwitchMLP`'s dense
+    dispatch (blocks.py:624-690): an fp32 router `Dense(E)` (flax promotes
+    the input to its fp32 weights), routing probabilities by softmax
+    ("top1") or, for "sinkhorn", a sigmoid with no Sinkhorn iterations (what
+    JAX computes, whatever the name says); every expert runs on every token
+    and the argmax expert's output, picked by a one-hot in x's dtype, is
+    scaled by its probability.  The output is fp32, as JAX promotes it.
+    The other modes of the CLI ("top2", "sinkhorn_top2") take the top1
+    path, as in JAX.  Expert parallelism (the JAX `ep_axis`) is not here:
+    the CLIs refuse it (ROADMAP Queue 1 item 8)."""
+
+    def __init__(self, dim: int, num_moe_experts: int = 8,
+                 add_bias_linear: bool = False,
+                 gated_linear_unit: bool = True, routing_mode: str = "top1",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_moe_experts = num_moe_experts
+        self.routing_mode = routing_mode
+        self.router = Linear(dim, num_moe_experts, dtype=torch.float32)
+        self.local_experts = nn.ModuleList([
+            ExpertMLP(dim, add_bias_linear, gated_linear_unit, dtype=dtype)
+            for _ in range(num_moe_experts)])
+
+    def forward(self, x, c=None):
+        logits = self.router(x)
+        route = (torch.sigmoid(logits) if self.routing_mode == "sinkhorn"
+                 else torch.softmax(logits, dim=-1))
+        max_prob, max_ind = route.max(dim=-1, keepdim=True)
+        onehot = F.one_hot(max_ind[..., 0], self.num_moe_experts).to(x.dtype)
+        out = torch.zeros_like(x)
+        for e, expert in enumerate(self.local_experts):
+            out = out + onehot[..., e:e + 1] * expert(x)
+        return out * max_prob
+
+
+class MoEBlock(nn.Module):
+    """Add + norm, then `SwitchMLP` (the JAX `MoEBlock`, blocks.py:693-724);
+    it takes no stochastic depth (the reference gives it none), and
+    `train` and `generator` are accepted for a uniform call."""
+
+    def __init__(self, dim: int, rms_norm: bool = True,
+                 num_moe_experts: int = 8, add_bias_linear: bool = False,
+                 gated_linear_unit: bool = True, routing_mode: str = "top1",
+                 pallas_norm: bool = False, fused_norm: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.norm = Norm(dim, pallas_norm=pallas_norm, fused_norm=fused_norm,
+                         rms=rms_norm)
+        self.mixer = SwitchMLP(dim, num_moe_experts, add_bias_linear,
+                               gated_linear_unit, routing_mode, dtype=dtype)
+
+    def forward(self, hidden_states, residual=None, c=None,
+                train: bool = False,
+                generator: torch.Generator | None = None):
+        hidden_states, residual = self.norm(hidden_states, residual)
+        return self.mixer(hidden_states), residual
 
 
 class DiTBlock(nn.Module):

@@ -12,13 +12,23 @@ init.
 plain Mamba), `learn_sigma` (out_channels twice in_channels),
 `learnable_pe` (else the sin-cos table takes no gradient),
 `use_final_norm`, `use_independent_attn`, `use_gated_mlp`,
-`scanning_continuity` and `enable_fourier_layers`.  The port's defaults
-are the published configuration (combined, CondMamba, RMSNorm, a
-learnable APE, a DiT block after every 4th block); the CLIs
-(`cli.model_config`) set every field from the JAX flags.  `make_dim_block`
-is the JAX block dispatch (dim.py:208-263): with scan_type "none" block i
-runs reverse = (i % 2 > 0) and transpose = (i % 4 >= 2) (the window
-block: transpose = reverse); other scan types neither.  Stochastic depth
+`scanning_continuity` and `enable_fourier_layers`; `pe_type` ("ape", the
+sin-cos table; "rope", the 2-D rotary tables applied once after the patch
+embedding; "cpe", `AdaInPosCNN`, dim.py:304-321; only "ape" has a
+`pos_embed`), `use_cond_init` (every main block's CondMamba seeds its scans
+from cond_proj(c), `models/mamba.py`) and the MoE group: `is_moe` makes
+every odd block a `MoEBlock` (add + norm, then the routed `SwitchMLP`
+with `num_moe_experts`, `routing_mode`, `gated_linear_unit`,
+`add_bias_linear`; `moe_capacity_factor` is the JAX expert-parallel
+dispatch's, which the port does not have: ROADMAP Queue 1 item 8).  The
+port's defaults are the published configuration (combined, CondMamba,
+RMSNorm, a learnable APE, a DiT block after every 4th block); the CLIs
+(`models/factory.py::model_config`) set every field from the JAX flags.
+`make_dim_block` is the JAX block dispatch (dim.py:208-263): with
+`is_moe` every odd block is a MoEBlock (the block indices, and so the DiT
+blocks' places, stay JAX's); with scan_type "none" block i runs reverse
+= (i % 2 > 0) and transpose = (i % 4 >= 2) (the window block: transpose
+= reverse); other scan types neither.  Stochastic depth
 runs at inter_dpr[i], inter_dpr = [0] + linspace(0, drop_path, eff_depth),
 the auxiliary blocks at dpr[i], and the norm_f merge at the full rate
 (the JAX `_drop_path_rates`, dim.py:270-277, and :398-407).
@@ -63,12 +73,14 @@ import torch
 import torch.nn as nn
 
 from dimsum_torch.models.blocks import (DiMBlockCombined, DiMBlockWindow,
-                                       DiTBlock, MixerBlockCore, Norm,
-                                       WaveDiMBlock, drop_path_fn,
+                                       DiTBlock, MixerBlockCore, MoEBlock,
+                                       Norm, WaveDiMBlock, drop_path_fn,
                                        materialize_pending)
-from dimsum_torch.models.embedders import (FinalLayer, LabelEmbedder,
-                                           PatchEmbed, TimestepEmbedder,
+from dimsum_torch.models.embedders import (AdaInPosCNN, FinalLayer,
+                                           LabelEmbedder, PatchEmbed,
+                                           TimestepEmbedder, apply_rotary,
                                            get_2d_sincos_pos_embed,
+                                           get_2d_sincos_rotary_embed,
                                            unpatchify)
 from dimsum_torch.models.linear import cast_weights_
 from dimsum_torch.models.mamba import is_zigzag
@@ -78,6 +90,7 @@ from dimsum_torch.utils.device import resolve_device
 
 BLOCK_TYPES = ("linear", "raw", "wave", "window", "combined",
                "combined_fourier", "combined_einfft")
+PE_TYPES = ("ape", "rope", "cpe")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,6 +116,14 @@ class DiMConfig:
     use_gated_mlp: bool = True
     scanning_continuity: bool = False
     enable_fourier_layers: bool = False
+    pe_type: str = "ape"          # one of PE_TYPES
+    use_cond_init: bool = False   # seed the scans from cond_proj(c)
+    is_moe: bool = False          # every odd block a MoEBlock
+    num_moe_experts: int = 8
+    routing_mode: str = "top1"    # "top1": softmax; "sinkhorn": sigmoid
+    gated_linear_unit: bool = True
+    add_bias_linear: bool = False
+    moe_capacity_factor: float = 2.0  # the JAX EP dispatch's (not ported)
     pallas_norm: bool = False  # add + norm kernel at the blocks' top norm
     fused_norm: bool = False   # norm + modulate kernel at the other norms
     conv_xproj: bool = False   # conv + SiLU + x_proj kernel in every mixer
@@ -155,7 +176,8 @@ def _mixer_kwargs_for(i: int, cfg: DiMConfig, paths, paths2):
     (dim.py:183-205)."""
     mk = dict(layer_idx=i, scan_type=cfg.scan_type, conv_xproj=cfg.conv_xproj,
               seq_group=cfg.seq_group, seq_island=cfg.seq_group is not None,
-              d_cond=cfg.hidden_size if cfg.cond_mamba else None)
+              d_cond=cfg.hidden_size if cfg.cond_mamba else None,
+              use_cond_init=cfg.cond_mamba and cfg.use_cond_init)
     if is_zigzag(cfg.scan_type):
         mk.update(zigzag_paths=paths[0], zigzag_paths_reverse=paths[1])
     mk2 = None
@@ -169,6 +191,14 @@ def _mixer_kwargs_for(i: int, cfg: DiMConfig, paths, paths2):
 def make_dim_block(i: int, cfg: DiMConfig, paths=None, paths2=None,
                    drop_path_rate: float = 0.0, pending_tail: int = 0):
     """Block i of `cfg`, the JAX `make_dim_block` (dim.py:208-263)."""
+    if cfg.is_moe and i % 2 != 0:  # no stochastic depth (dim.py:212)
+        return MoEBlock(cfg.hidden_size, rms_norm=cfg.rms_norm,
+                        num_moe_experts=cfg.num_moe_experts,
+                        add_bias_linear=cfg.add_bias_linear,
+                        gated_linear_unit=cfg.gated_linear_unit,
+                        routing_mode=cfg.routing_mode,
+                        pallas_norm=cfg.pallas_norm,
+                        fused_norm=cfg.fused_norm, dtype=cfg.dtype)
     mk, mk2 = _mixer_kwargs_for(i, cfg, paths, paths2)
     alternate = cfg.scan_type == "none"
     reverse = alternate and i % 2 > 0
@@ -212,11 +242,25 @@ class DiM(nn.Module):
         if cfg.block_type not in BLOCK_TYPES:
             raise ValueError(f"unknown block_type {cfg.block_type!r}: one "
                              f"of {BLOCK_TYPES}")
+        if cfg.pe_type not in PE_TYPES:
+            raise ValueError(f"unsupported pe_type {cfg.pe_type!r}: one of "
+                             f"{PE_TYPES}")
         self.x_embedder = PatchEmbed(cfg.patch_size, cfg.in_channels, D, dt)
         self.t_embedder = TimestepEmbedder(D, dtype=dt)
         self.y_embedder = LabelEmbedder(cfg.num_classes, D, cfg.label_dropout)
-        self.pos_embed = nn.Parameter(
-            torch.tensor(get_2d_sincos_pos_embed(D, cfg.grid_size))[None])
+        if cfg.pe_type == "ape":
+            self.pos_embed = nn.Parameter(
+                torch.tensor(get_2d_sincos_pos_embed(D, cfg.grid_size))[None])
+        elif cfg.pe_type == "rope":
+            # fp32 tables, not in the state dict (the reference's frozen
+            # emb_sin / emb_cos buffers are skipped on load)
+            for name, table in zip(("emb_sin", "emb_cos"),
+                                   get_2d_sincos_rotary_embed(
+                                       D, cfg.grid_size)):
+                self.register_buffer(name, torch.tensor(table),
+                                     persistent=False)
+        else:
+            self.pos_cnn = AdaInPosCNN(D, dt)
         n = cfg.eff_depth
         dpr = np.linspace(0.0, cfg.drop_path, n).tolist()
         inter_dpr = [0.0] + dpr
@@ -281,9 +325,16 @@ class DiM(nn.Module):
         y_emb = self.y_embedder(y, train=train, force_drop_ids=force_drop_ids,
                                 generator=generator)
         c = (self.t_embedder(t) + y_emb).to(cfg.dtype)
-        pos_embed = self.pos_embed if cfg.learnable_pe else \
-            self.pos_embed.detach()
-        x = self.x_embedder(x.to(cfg.dtype)) + pos_embed.to(cfg.dtype)
+        x = self.x_embedder(x.to(cfg.dtype))
+        if cfg.pe_type == "ape":
+            pos_embed = self.pos_embed if cfg.learnable_pe else \
+                self.pos_embed.detach()
+            x = x + pos_embed.to(cfg.dtype)
+        elif cfg.pe_type == "rope":
+            x = apply_rotary(x, self.emb_sin.to(cfg.dtype),
+                             self.emb_cos.to(cfg.dtype))
+        else:
+            x = self.pos_cnn(x, c, cfg.grid_size, cfg.grid_size)
         residual = pending = freq_residual = None
         k = cfg.use_attn_every_k_layers
         checkpointed = (self.remat_keep is not None
@@ -294,7 +345,8 @@ class DiM(nn.Module):
                 x, residual = remat.checkpoint(
                     block, self.remat_keep, x, residual, c, train=train,
                     generator=generator)
-            elif self.pending_tail > 0:
+            elif self.pending_tail > 0 and isinstance(block,
+                                                      DiMBlockCombined):
                 x, residual, pending = block(x, residual, c, train=train,
                                              generator=generator,
                                              pending=pending)
@@ -372,7 +424,7 @@ DiM_models = {
 
 
 @torch.no_grad()
-def random_init_(model: DiM, seed: int) -> DiM:
+def random_init_(model: nn.Module, seed: int) -> nn.Module:
     """Seeded random weights for runs without a checkpoint.  Every Linear
     and conv draws U(+-1/sqrt(fan_in)) (including the adaLN and final
     layers the JAX init zeroes, so every branch contributes), biases 0,
@@ -380,11 +432,14 @@ def random_init_(model: DiM, seed: int) -> DiM:
     N(0, 0.02) (their JAX init); the Mamba A_log, D and dt_proj.bias (and
     v2's A_b_log, D_b, dt_proj_b.bias) keep the Mamba init (dt log-uniform
     in [1e-3, 0.1] through the inverse softplus); norm weights 1, norm
-    biases 0; pos_embed the sin-cos table."""
+    biases 0; pos_embed, where the model has one, the sin-cos table.  A
+    DiT's weights follow the same rules."""
     dev = next(model.parameters()).device
     g = torch.Generator(device=dev).manual_seed(seed)
-    keep = {id(p) for m in model.modules() if isinstance(m, Norm)
-            for p in m.parameters()} | {id(model.pos_embed)}
+    keep = {id(p) for m in model.modules()
+            if isinstance(m, (Norm, nn.LayerNorm)) for p in m.parameters()}
+    if hasattr(model, "pos_embed"):
+        keep.add(id(model.pos_embed))
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if id(p) in keep:

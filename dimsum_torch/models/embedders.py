@@ -1,5 +1,7 @@
-"""Patch, timestep and label embedders, the sin-cos position table, the final
-layer and unpatchify: port of `dimsum_tpu/models/embedders.py`."""
+"""Patch, timestep and label embedders, the sin-cos position table, the 2-D
+rotary tables (`pe_type` "rope") and the conditional position CNN
+(`AdaInPosCNN`, `pe_type` "cpe"), the final layer and unpatchify: port of
+`dimsum_tpu/models/embedders.py`."""
 
 from __future__ import annotations
 
@@ -10,7 +12,7 @@ import torch
 import torch.nn as nn
 
 from dimsum_torch.models.linear import Linear
-from dimsum_torch.ops.norms import norm_modulate
+from dimsum_torch.ops.norms import layer_norm, modulate, norm_modulate
 
 
 def _1d_sincos(embed_dim: int, pos: np.ndarray):
@@ -29,6 +31,38 @@ def get_2d_sincos_pos_embed(embed_dim: int, grid_size: int) -> np.ndarray:
     emb_h = _1d_sincos(embed_dim // 2, grid[0])
     emb_w = _1d_sincos(embed_dim // 2, grid[1])
     return np.concatenate([emb_h, emb_w], axis=1).astype(np.float32)
+
+
+def get_2d_sincos_rotary_embed(embed_dim: int, grid_size: int):
+    """(emb_sin, emb_cos), each (grid_size**2, embed_dim) float32 (the JAX
+    `get_2d_sincos_rotary_embed`, embedders.py:50-70): half the dims encode
+    each axis, each frequency repeated twice for the interleaved pairs."""
+    grid_h = np.arange(grid_size, dtype=np.float32)
+    grid_w = np.arange(grid_size, dtype=np.float32)
+    grid = np.stack(np.meshgrid(grid_w, grid_h), axis=0).reshape(
+        [2, 1, grid_size, grid_size])
+
+    def one_axis(dim, pos):
+        omega = np.arange(dim // 2, dtype=np.float64) / (dim / 2.0)
+        out = np.einsum("m,d->md", pos.reshape(-1), 1.0 / 10000 ** omega)
+        return np.sin(out), np.cos(out)
+
+    sin_h, cos_h = one_axis(embed_dim // 2, grid[0])
+    sin_w, cos_w = one_axis(embed_dim // 2, grid[1])
+    emb_sin = np.concatenate([sin_h, sin_w], axis=1).repeat(2, axis=1)
+    emb_cos = np.concatenate([cos_h, cos_w], axis=1).repeat(2, axis=1)
+    return emb_sin.astype(np.float32), emb_cos.astype(np.float32)
+
+
+def rotate_half(x):
+    """Interleaved rotate-half: (x0, x1, x2, x3, ...) -> (-x1, x0, -x3,
+    x2, ...)."""
+    pairs = x.unflatten(-1, (-1, 2))
+    return torch.stack([-pairs[..., 1], pairs[..., 0]], dim=-1).flatten(-2)
+
+
+def apply_rotary(x, emb_sin, emb_cos):
+    return x * emb_cos + rotate_half(x) * emb_sin
 
 
 class PatchEmbed(nn.Module):
@@ -134,6 +168,36 @@ class FinalLayer(nn.Module):
                              is_rms=False, fuse=self.fused_norm,
                              impl=self.norm_impl)
         return self.linear(x)
+
+
+class AdaInPosCNN(nn.Module):
+    """Conditional position encoding (the JAX `AdaInPosCNN`,
+    embedders.py:190-208): a depthwise 3 x 3 conv over the token grid plus
+    the tokens, then a LayerNorm (eps 1e-5, fp32 math) modulated by adaLN
+    shift and scale from SiLU(c).  The conv computes in the compute dtype;
+    it is a Sequential so that its weights carry the reference's name
+    (`pos_cnn.proj.0`)."""
+
+    def __init__(self, embed_dim: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.compute_dtype = dtype
+        self.proj = nn.Sequential(nn.Conv2d(embed_dim, embed_dim, 3,
+                                            padding=1, groups=embed_dim))
+        self.adaLN_modulation = nn.Sequential(
+            nn.SiLU(), Linear(embed_dim, 2 * embed_dim, dtype=dtype))
+        self.norm = nn.LayerNorm(embed_dim, eps=1e-5)
+
+    def forward(self, x, c, H: int, W: int):
+        B, N, C = x.shape
+        dt = self.compute_dtype
+        conv = self.proj[0]
+        feat = x.transpose(1, 2).reshape(B, C, H, W)
+        out = nn.functional.conv2d(feat.to(dt), conv.weight.to(dt),
+                                   conv.bias.to(dt), padding=1, groups=C)
+        x = (out + feat).reshape(B, C, N).transpose(1, 2)
+        shift, scale = self.adaLN_modulation(c).chunk(2, dim=-1)
+        return modulate(layer_norm(x, self.norm.weight, self.norm.bias,
+                                   eps=1e-5), shift, scale)
 
 
 def unpatchify(x, patch_size: int, out_channels: int):

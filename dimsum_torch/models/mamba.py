@@ -7,8 +7,13 @@
   -> out_proj
 
 CondMamba's `cond_proj` is created for checkpoint parity and stays out of
-the graph, as in the reference's fast path; without `d_cond` the mixer is
-plain Mamba (no `cond_proj`).
+the graph, as in the reference's fast path, unless `use_cond_init` (the
+JAX option, mamba.py:234-250) seeds every branch's scan state from it:
+h0 = cond_proj(c)[:, :, None] * 1_N in fp32 (the state before step 0);
+a reversed branch then runs between explicit flips of its input and
+output, as in JAX (mamba.py:153-157), and sequence parallelism raises
+(mamba.py:241-245).  Without `d_cond` the mixer is plain Mamba (no
+`cond_proj`).
 
 Scan types (the JAX `scan_type`, mamba.py:282-333):
 
@@ -91,7 +96,7 @@ class Mamba(nn.Module):
                  conv_xproj: bool = False, seq_group=None,
                  seq_island: bool = False, scan_type: str = "none",
                  layer_idx: int = 0, zigzag_paths=None,
-                 zigzag_paths_reverse=None):
+                 zigzag_paths_reverse=None, use_cond_init: bool = False):
         super().__init__()
         self.d_inner = d_inner = expand * d_model
         self.d_state = d_state
@@ -99,6 +104,7 @@ class Mamba(nn.Module):
         self.conv_xproj = conv_xproj
         self.seq_group, self.seq_island = seq_group, seq_island
         self.scan_type = scan_type
+        self.use_cond_init = use_cond_init and d_cond is not None
         self.scan_impl: Optional[str] = None
         self.conv_impl: Optional[str] = None
         zig = is_zigzag(scan_type)
@@ -137,9 +143,9 @@ class Mamba(nn.Module):
         setattr(self, f"D{suffix}", nn.Parameter(torch.ones(d_inner)))
 
     def forward(self, x, cond_emb=None, reverse_tokens: bool = False):
-        """x: (B, L, d_model).  cond_emb is accepted and unused (see the
-        module docstring); `reverse_tokens` runs the mixer in reversed
-        token order."""
+        """x: (B, L, d_model); cond_emb (B, d_cond) seeds the scans with
+        `use_cond_init` and is unused otherwise (see the module docstring);
+        `reverse_tokens` runs the mixer in reversed token order."""
         zig = is_zigzag(self.scan_type)
         if reverse_tokens and zig:
             raise NotImplementedError(
@@ -149,26 +155,42 @@ class Mamba(nn.Module):
         if zig:
             xz = xz.index_select(1, self.perm)
         x_in, z = xz.chunk(2, dim=-1)
+        h0 = None
+        if self.use_cond_init and cond_emb is not None:
+            if self.seq_group is not None:
+                # each shard would seed its own walk with h0: refused, as
+                # in JAX
+                raise NotImplementedError(
+                    "use_cond_init h0 seeding is not supported with "
+                    "sequence parallelism: h0 must enter on shard 0 only "
+                    "and be carried across shards")
+            cond = self.cond_proj(cond_emb)
+            h0 = cond.float()[:, :, None].expand(
+                -1, -1, self.d_state).contiguous()
         if self.seq_group is not None:
             if reverse_tokens:
                 y = self._seq_parallel(x_in.flip(1), z.flip(1)).flip(1)
             else:
                 y = self._seq_parallel(x_in, z)
             return self.out_proj(y)
-        y = self._branch(x_in, z, "", reverse_tokens)
+        y = self._branch(x_in, z, "", reverse_tokens, h0)
         if self.scan_type == "v2":
             # with reverse_tokens the roles swap: "" runs reversed, "_b"
             # forward (the reference's flip(mixer_v2(flip(x))))
-            y = y + self._branch(x_in, z, "_b", not reverse_tokens)
+            y = y + self._branch(x_in, z, "_b", not reverse_tokens, h0)
         out = self.out_proj(y)
         if zig:
             out = out.index_select(1, self.perm_rev)
         return out
 
-    def _branch(self, x_in, z, suffix: str, reverse: bool):
+    def _branch(self, x_in, z, suffix: str, reverse: bool, h0=None):
         """conv -> x_proj -> selective scan of one direction: with
         `reverse`, flip_L(branch(flip_L(x))) from an anticausal conv and
-        the reverse-time scan."""
+        the reverse-time scan, or with `h0` (the seed of the scan state)
+        between explicit flips."""
+        if reverse and h0 is not None:
+            return self._branch(x_in.flip(1), z.flip(1), suffix, False,
+                                h0).flip(1)
         conv1d = getattr(self, f"conv1d{suffix}")
         x_proj = getattr(self, f"x_proj{suffix}")
         dt_proj = getattr(self, f"dt_proj{suffix}")
@@ -192,7 +214,7 @@ class Mamba(nn.Module):
             x_conv, dt_low.contiguous(), dt_w, A, Bm.contiguous(),
             Cm.contiguous(), getattr(self, f"D{suffix}"), z=z.contiguous(),
             delta_bias=dt_proj.bias, delta_softplus=True, reverse=reverse,
-            impl=self.scan_impl)
+            impl=self.scan_impl, h0=h0)
 
     def _seq_parallel(self, x_in, z):
         """halo conv -> x_proj -> dt in the compute dtype -> two-pass scan

@@ -1,5 +1,6 @@
 """Feed-forwards, port of `dimsum_tpu/models/mlp.py`: the gated `GatedMLP`
-(GLU) and the plain two-layer `Mlp` (`use_gated_mlp=False`)."""
+(GLU), the plain two-layer `Mlp` (`use_gated_mlp=False`) and the MoE
+expert `ExpertMLP`."""
 
 from __future__ import annotations
 
@@ -46,3 +47,30 @@ class Mlp(nn.Module):
 
     def forward(self, x):
         return self.fc2(gelu_tanh(self.fc1(x)))
+
+
+class ExpertMLP(nn.Module):
+    """An MoE expert's FFN (the JAX `ExpertMLP`, mlp.py:58-79):
+    linear_fc1 -> GLU (gelu(a) * b) or GELU -> linear_fc2, hidden 4 * dim.
+    Its GELU is the exact erf form, not the tanh form of the other MLPs."""
+
+    def __init__(self, dim: int, add_bias_linear: bool = False,
+                 gated_linear_unit: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        hidden = 4 * dim
+        self.gated_linear_unit = gated_linear_unit
+        self.linear_fc1 = Linear(dim, 2 * hidden if gated_linear_unit
+                                 else hidden, bias=add_bias_linear,
+                                 dtype=dtype)
+        self.linear_fc2 = Linear(hidden, dim, bias=add_bias_linear,
+                                 dtype=dtype)
+
+    def forward(self, x):
+        h = self.linear_fc1(x)
+        if self.gated_linear_unit:
+            a, b = h.chunk(2, dim=-1)
+            h = F.gelu(a) * b
+        else:
+            h = F.gelu(h)
+        return self.linear_fc2(h)

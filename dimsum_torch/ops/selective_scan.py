@@ -32,13 +32,17 @@ Layout as in the JAX package: u, delta, z (batch, L, dim); B, C
                              `_bwd_kernel` (`csrc/selective_scan_fwd_train.cu`,
                              `csrc/selective_scan_bwd.cu`); CPU tensors take
                              their plain versions (`..._ref`).
-  * `SelectiveScanDtLowFn` : the autograd Function over that pair.
+  * `SelectiveScanDtLowFn` : the autograd Function over that pair; an
+                             optional h0 (the `use_cond_init` seed) goes
+                             to both kernels' h0 entries, and dh0 comes
+                             back.
   * `selective_scan_dtlow` : the front end the mixer calls.  CPU tensors take
                              the plain version with ordinary autograd; CUDA
                              tensors take kernel 1 (its reverse entry for
                              `reverse=True`) when no gradient is needed and
                              the Function, between flips for `reverse`, when
-                             one is.
+                             one is; with h0 the state entry and the
+                             Function with h0.
 """
 
 from __future__ import annotations
@@ -323,12 +327,15 @@ def _dt_expand(dt_low, dt_w, delta_bias, delta_softplus):
 
 def selective_scan_fwd_train_ref(u, dt_low, dt_w, A, B, C, D=None, z=None,
                                  delta_bias=None, delta_softplus=False,
-                                 chunk: int = TRAIN_CHUNK, boundaries=None):
+                                 chunk: int = TRAIN_CHUNK, boundaries=None,
+                                 h0=None):
     """Plain version of kernel 2, the JAX `selective_scan_fwd_train`:
     returns (y, o, boundaries).  y is selective_scan's output in u's dtype;
     o = s + D*u is the fp32 pre-gate output (batch, L, dim); boundaries are
     the fp32 states at the start of each `chunk`-step chunk (the first one
-    zero), (batch, ceil(L / chunk), N, dim).
+    zero, or `h0` (batch, dim, N) when given: the state before step 0, as
+    in the JAX `selective_scan_xla(..., h0=h0)`), (batch, ceil(L / chunk),
+    N, dim).
 
     With `boundaries` (the state pass's, `selective_scan_fwd_train_states_
     ref`) every chunk starts from its own entry instead of the state the
@@ -338,8 +345,8 @@ def selective_scan_fwd_train_ref(u, dt_low, dt_w, A, B, C, D=None, z=None,
     dt, _ = _dt_expand(dt_low, dt_w, delta_bias, delta_softplus)
     uf, Af, Bf, Cf = u.float(), A.float(), B.float(), C.float()
     du = dt * uf
-    h = torch.zeros(batch, dim, A.shape[1], dtype=torch.float32,
-                    device=u.device)
+    h = (torch.zeros(batch, dim, A.shape[1], dtype=torch.float32,
+                     device=u.device) if h0 is None else h0.float())
     ys, bnd = [], []
     for t in range(L):
         if t % chunk == 0:
@@ -362,15 +369,16 @@ def selective_scan_fwd_train_ref(u, dt_low, dt_w, A, B, C, D=None, z=None,
 def selective_scan_fwd_train_states_ref(u, dt_low, dt_w, A, B,
                                         delta_bias=None,
                                         delta_softplus=False,
-                                        chunk: int = TRAIN_CHUNK):
+                                        chunk: int = TRAIN_CHUNK, h0=None):
     """Plain version of kernel 2's state pass: the states at the start of
     every `chunk`-step chunk, (batch, ceil(L / chunk), N, dim) fp32, the
     boundaries of `selective_scan_fwd_train_ref`.  A chunk's effect on the
     state is affine, h_end = alpha h_start + beta, with alpha =
     exp(A sum_t dt_t) and beta its end state from a zero seed; they need
     only dt, u and B, so every chunk's come in parallel; then
-    bnd_{c+1} = alpha_c bnd_c + beta_c from bnd_0 = 0.  A ragged last chunk
-    runs with dt = 0 past the end, as the kernel does."""
+    bnd_{c+1} = alpha_c bnd_c + beta_c from bnd_0 = 0 (or `h0`, (batch,
+    dim, N)).  A ragged last chunk runs with dt = 0 past the end, as the
+    kernel does."""
     batch, L, dim = u.shape
     n = A.shape[1]
     nc = -(-L // chunk)
@@ -389,7 +397,8 @@ def selective_scan_fwd_train_states_ref(u, dt_low, dt_w, A, B,
             + du[:, :, t, :, None] * Bf[:, :, t, None, :]
     alpha = torch.exp(dt.sum(2)[..., None] * Af)
     bnd = torch.empty(batch, nc, dim, n, device=u.device)
-    h = torch.zeros(batch, dim, n, device=u.device)
+    h = (torch.zeros(batch, dim, n, device=u.device) if h0 is None
+         else h0.float())
     for c in range(nc):
         bnd[:, c] = h
         h = alpha[:, c] * h + beta[:, c]
@@ -398,7 +407,8 @@ def selective_scan_fwd_train_states_ref(u, dt_low, dt_w, A, B,
 
 def selective_scan_bwd_carry_ref(dt_low, dt_w, A, C, delta_bias,
                                  delta_softplus, go,
-                                 chunk: int = TRAIN_CHUNK):
+                                 chunk: int = TRAIN_CHUNK,
+                                 return_dh0: bool = False):
     """Plain version of kernel 3's carry pass: w (batch, ceil(L / chunk), N,
     dim) fp32, the carry a_{t+1} e_{t+1} entering each chunk from the right
     at its last step t (zero for the last chunk).  The reverse recurrence
@@ -406,7 +416,10 @@ def selective_scan_bwd_carry_ref(dt_low, dt_w, A, C, delta_bias,
     chunk's decay alpha = exp(A sum_t dt_t) and its carry out of its first
     step from a zero seed, beta, come in parallel; then
     w_{c-1} = alpha_c w_c + beta_c from the right.  A ragged last chunk runs
-    with dt = 0 and go = 0 past the end, as the kernel does."""
+    with dt = 0 and go = 0 past the end, as the kernel does.  The chain's
+    one step more, alpha_0 w_0 + beta_0 = a_0 e_0, is the gradient of an
+    h0 seed (the state before step 0), (batch, dim, N): with `return_dh0`
+    it is returned beside w."""
     batch, L, _ = dt_low.shape
     dim, n = A.shape
     nc = -(-L // chunk)
@@ -429,13 +442,15 @@ def selective_scan_bwd_carry_ref(dt_low, dt_w, A, C, delta_bias,
     for c in reversed(range(nc)):
         w[:, c] = carry
         carry = alpha[:, c] * carry + beta[:, c]
-    return w.transpose(2, 3).contiguous()
+    w = w.transpose(2, 3).contiguous()
+    return (w, carry) if return_dh0 else w
 
 
 def selective_scan_bwd_core_ref(u, dt_low, dt_w, A, B, C, delta_bias,
                                 delta_softplus, go, boundaries,
                                 chunk: int = TRAIN_CHUNK, carries=None,
-                                return_carries: bool = False):
+                                return_carries: bool = False,
+                                return_dh0: bool = False):
     """Plain version of kernel 3: the reverse recurrence of the JAX
     `selective_scan_bwd` docstring (selective_scan_bwd.py:27-36), chunk by
     chunk from the last, each chunk's states replayed from its saved start.
@@ -443,9 +458,10 @@ def selective_scan_bwd_core_ref(u, dt_low, dt_w, A, B, C, delta_bias,
 
     The carry a_{t+1} e_{t+1} runs from chunk to chunk; with `carries`
     (the carry pass's w, `selective_scan_bwd_carry_ref`) each chunk starts
-    from its own instead, as the kernel's chunks do.  `return_carries`
-    appends the carries that entered the chunks, (batch, ceil(L / chunk),
-    N, dim)."""
+    from its own instead, as the kernel's chunks do.  `return_dh0` appends
+    the carry out of step 0, a_0 e_0, the gradient of an h0 seed (batch,
+    dim, N); `return_carries` then appends the carries that entered the
+    chunks, (batch, ceil(L / chunk), N, dim)."""
     batch, L, dim = u.shape
     n = A.shape[1]
     dt, raw = _dt_expand(dt_low, dt_w, delta_bias, delta_softplus)
@@ -480,17 +496,19 @@ def selective_scan_bwd_core_ref(u, dt_low, dt_w, A, B, C, delta_bias,
             dC[:, t] = (hs[t - t0 + 1] * go[:, t, :, None]).sum(1)
             dA += (da_a * dt[:, t, :, None]).sum(0)
             carry = a * e
+    out = (du_s, ddt, dA, dB, dC) + ((carry,) if return_dh0 else ())
     if return_carries:
-        return du_s, ddt, dA, dB, dC, seen.transpose(2, 3).contiguous()
-    return du_s, ddt, dA, dB, dC
+        return out + (seen.transpose(2, 3).contiguous(),)
+    return out
 
 
 def _bwd(core, u, dt_low, dt_w, A, B, C, D, z, delta_bias, delta_softplus,
-         o, boundaries, g):
+         o, boundaries, g, h0=None):
     """The JAX `selective_scan_bwd_pallas` around a reverse-scan core: the
     gate, D-skip and bias gradients in PyTorch, the dtype casts of
     selective_scan_bwd.py:277-280 (ddelta in the compute dtype of the
-    delta = dt_low @ dt_w it is the gradient of)."""
+    delta = dt_low @ dt_w it is the gradient of).  With `h0` the core also
+    gives dh0, appended in h0's dtype (fp32)."""
     gf = g.float()
     if z is not None:
         zf = z.float()
@@ -501,62 +519,77 @@ def _bwd(core, u, dt_low, dt_w, A, B, C, D, z, delta_bias, delta_softplus,
         go, dz = gf, None
     go = go.contiguous()
     dD = (go * u.float()).sum((0, 1)) if D is not None else None
-    du_s, ddt, dA, dB, dC = core(u, dt_low, dt_w, A, B, C, delta_bias,
-                                 delta_softplus, go, boundaries)
+    parts = core(u, dt_low, dt_w, A, B, C, delta_bias, delta_softplus, go,
+                 boundaries, **({} if h0 is None else {"return_dh0": True}))
+    du_s, ddt, dA, dB, dC = parts[:5]
     du = du_s + go * D.float() if D is not None else du_s
     dbias = ddt.sum((0, 1)) if delta_bias is not None else None
-    return (du.to(u.dtype), ddt.to(dt_low.dtype), dA.to(A.dtype),
-            dB.to(B.dtype), dC.to(C.dtype),
-            None if dD is None else dD.to(D.dtype), dz,
-            None if dbias is None else dbias.to(delta_bias.dtype))
+    out = (du.to(u.dtype), ddt.to(dt_low.dtype), dA.to(A.dtype),
+           dB.to(B.dtype), dC.to(C.dtype),
+           None if dD is None else dD.to(D.dtype), dz,
+           None if dbias is None else dbias.to(delta_bias.dtype))
+    return out if h0 is None else out + (parts[5].to(h0.dtype),)
 
 
 def selective_scan_bwd_ref(u, dt_low, dt_w, A, B, C, D=None, z=None,
                            delta_bias=None, delta_softplus=False, *, o,
-                           boundaries, g, chunk: int = TRAIN_CHUNK):
+                           boundaries, g, chunk: int = TRAIN_CHUNK, h0=None):
     """Plain version of the backward: given the forward's inputs, its o and
     boundaries, and g = dL/dy, returns (du, ddelta, dA, dB, dC, dD, dz,
-    dbias), None for an absent optional; ddelta is dL/d(dt_low @ dt_w)."""
+    dbias), None for an absent optional; ddelta is dL/d(dt_low @ dt_w).
+    With `h0` (the forward's seed) dh0 (batch, dim, N) fp32 follows."""
     return _bwd(functools.partial(selective_scan_bwd_core_ref, chunk=chunk),
                 u, dt_low, dt_w, A, B, C, D, z, delta_bias, delta_softplus, o,
-                boundaries, g)
+                boundaries, g, h0=h0)
 
 
 def selective_scan_fwd_train_cuda(u, dt_low, dt_w, A, B, C, D=None, z=None,
-                                  delta_bias=None, delta_softplus=False):
+                                  delta_bias=None, delta_softplus=False,
+                                  h0=None):
     """Launch kernel 2 (`csrc/selective_scan_fwd_train.cu`: its state
     pass, which writes the boundaries, then its main pass, the chunks in
     parallel from them), counted as one launch: kernel 1's y plus the fp32
     o and the states of `selective_scan_fwd_train_ref` at every
     TRAIN_CHUNK-th step (`selective_scan_fwd_train_states_ref`).  Takes
-    what `selective_scan_cuda` takes; raises on anything else."""
+    what `selective_scan_cuda` takes, and `h0` (batch, dim, N) float32,
+    the state before step 0 (the source's h0 entry; `h0_launches` counts
+    those); raises on anything else."""
     _check_kernel_args(u, dt_low, dt_w, A, B, C, D, z, delta_bias)
     batch, L, dim = u.shape
     rank, n_state = dt_w.shape[0], A.shape[1]
+    seed = ()
+    if h0 is not None:
+        check_tensor("h0", h0, u.device, torch.float32, (batch, dim, n_state))
+        seed = (h0,)
     y = torch.empty_like(u)
     o = torch.empty(batch, L, dim, device=u.device)
     bnd = torch.empty(batch, -(-L // TRAIN_CHUNK), n_state, dim,
                       device=u.device)
     _launch("selective_scan_fwd_train", u.device,
-            (u, dt_low, dt_w, A, B, C, D, z, delta_bias, y, o, bnd),
+            (u, dt_low, dt_w, A, B, C, D, z, delta_bias, y, o, bnd, *seed),
             (batch, L, dim, n_state, rank, DTYPE_CODE[u.dtype],
-             int(bool(delta_softplus))))
+             int(bool(delta_softplus))), entry="h0" if seed else None)
     selective_scan_fwd_train_cuda.launches += 1
+    selective_scan_fwd_train_cuda.h0_launches += bool(seed)
     return y, o, bnd
 
 
 selective_scan_fwd_train_cuda.launches = 0
+selective_scan_fwd_train_cuda.h0_launches = 0
 
 
 def selective_scan_bwd_core_cuda(u, dt_low, dt_w, A, B, C, delta_bias,
-                                 delta_softplus, go, boundaries):
+                                 delta_softplus, go, boundaries,
+                                 return_dh0: bool = False):
     """Launch kernel 3 (`csrc/selective_scan_bwd.cu`: its carry pass, then
     its main pass), the CUDA counterpart of `selective_scan_bwd_core_ref`.
     The carry pass leaves the carry entering each chunk in a workspace
     (`selective_scan_bwd_carry_ref`'s w, in tiles of 8 channels).  dB/dC
     come back as one partial per tile of _BWD_TILE channels and dA as one
     per batch row and group of _BWD_GROUP chunks; the sums here make them
-    deterministic (no float atomics)."""
+    deterministic (no float atomics).  `return_dh0` takes the source's h0
+    entry, whose carry pass also writes dh0 (batch, dim, N) fp32, appended
+    (`h0_launches` counts those)."""
     _check_kernel_args(u, dt_low, dt_w, A, B, C, None, None, delta_bias)
     batch, L, dim = u.shape
     rank, n_state = dt_w.shape[0], A.shape[1]
@@ -574,35 +607,40 @@ def selective_scan_bwd_core_cuda(u, dt_low, dt_w, A, B, C, delta_bias,
     dB_p = torch.empty(parts, batch, L, n_state, device=dev)
     dC_p = torch.empty(parts, batch, L, n_state, device=dev)
     dA_p = torch.empty(batch, groups, dim, n_state, device=dev)
+    dh0 = (torch.empty(batch, dim, n_state, device=dev),) if return_dh0 \
+        else ()
     _launch("selective_scan_bwd", dev,
             (u, dt_low, dt_w, A, B, C, delta_bias, go, boundaries, w, du_s,
-             ddt, dB_p, dC_p, dA_p),
+             ddt, dB_p, dC_p, dA_p, *dh0),
             (batch, L, dim, n_state, rank, DTYPE_CODE[u.dtype],
-             int(bool(delta_softplus))))
+             int(bool(delta_softplus))), entry="h0" if dh0 else None)
     selective_scan_bwd_core_cuda.launches += 1
-    return du_s, ddt, dA_p.sum((0, 1)), dB_p.sum(0), dC_p.sum(0)
+    selective_scan_bwd_core_cuda.h0_launches += bool(dh0)
+    return (du_s, ddt, dA_p.sum((0, 1)), dB_p.sum(0), dC_p.sum(0)) + dh0
 
 
 selective_scan_bwd_core_cuda.launches = 0
+selective_scan_bwd_core_cuda.h0_launches = 0
 
 
 def selective_scan_fwd_train(u, dt_low, dt_w, A, B, C, D=None, z=None,
-                             delta_bias=None, delta_softplus=False):
+                             delta_bias=None, delta_softplus=False, h0=None):
     """Kernel 2 for CUDA tensors, its plain version for CPU tensors."""
     fn = selective_scan_fwd_train_cuda if u.is_cuda else \
         selective_scan_fwd_train_ref
-    return fn(u, dt_low, dt_w, A, B, C, D, z, delta_bias, delta_softplus)
+    return fn(u, dt_low, dt_w, A, B, C, D, z, delta_bias, delta_softplus,
+              h0=h0)
 
 
 def selective_scan_bwd(u, dt_low, dt_w, A, B, C, D=None, z=None,
                        delta_bias=None, delta_softplus=False, *, o,
-                       boundaries, g):
+                       boundaries, g, h0=None):
     """`selective_scan_bwd_ref` with its reverse scan on kernel 3 for CUDA
     tensors (on the plain version for CPU tensors)."""
     core = selective_scan_bwd_core_cuda if u.is_cuda else \
         selective_scan_bwd_core_ref
     return _bwd(core, u, dt_low, dt_w, A, B, C, D, z, delta_bias,
-                delta_softplus, o, boundaries, g)
+                delta_softplus, o, boundaries, g, h0=h0)
 
 
 class SelectiveScanDtLowFn(torch.autograd.Function):
@@ -610,52 +648,65 @@ class SelectiveScanDtLowFn(torch.autograd.Function):
     rules (`_dtlow_fwd`/`_dtlow_bwd`, selective_scan.py:812-835): the
     forward saves o and the chunk-start states, the backward replays them;
     ddelta goes back through the expansion as two fp32 products,
-    ddt_low = ddelta @ dt_w^T and ddt_w = dt_low^T @ ddelta."""
+    ddt_low = ddelta @ dt_w^T and ddt_w = dt_low^T @ ddelta.
+
+    An optional last input `h0` (batch, dim, N) float32 seeds the state
+    before step 0 (the kernels' h0 entries), and its gradient dh0 comes
+    back.  This is the port's training route for the JAX XLA route
+    `selective_scan_xla(u, dt_low @ dt_w, ..., h0=h0)` (mamba.py:234-250),
+    which JAX differentiates by autograd: the expansion stays in fp32
+    inside the kernels, as on the h0-free route (in bf16 JAX rounds delta
+    to bf16 first; ROADMAP Queue 3, "kept by design")."""
 
     @staticmethod
     def forward(ctx, u, dt_low, dt_w, A, B, C, D, z, delta_bias,
-                delta_softplus):
+                delta_softplus, h0=None):
         # a remat site: a replay under a policy that keeps scan_out gets
         # the first forward's outputs back instead of a launch
         y, o, bnd = remat.kernel_outputs("scan_out", lambda: (
             selective_scan_fwd_train(u, dt_low, dt_w, A, B, C, D, z,
-                                     delta_bias, delta_softplus)))
+                                     delta_bias, delta_softplus, h0=h0)))
         ctx.delta_softplus = delta_softplus
         ctx.save_for_backward(u, dt_low, dt_w, A, B, C, D, z, delta_bias,
-                              o, bnd)
+                              o, bnd, h0)
         return y
 
     @staticmethod
     def backward(ctx, g):
-        u, dt_low, dt_w, A, B, C, D, z, delta_bias, o, bnd = \
+        u, dt_low, dt_w, A, B, C, D, z, delta_bias, o, bnd, h0 = \
             ctx.saved_tensors
-        du, ddelta, dA, dB, dC, dD, dz, dbias = selective_scan_bwd(
+        grads = selective_scan_bwd(
             u, dt_low, dt_w, A, B, C, D, z, delta_bias, ctx.delta_softplus,
-            o=o, boundaries=bnd, g=g.contiguous())
+            o=o, boundaries=bnd, g=g.contiguous(), h0=h0)
+        du, ddelta, dA, dB, dC, dD, dz, dbias = grads[:8]
         dd = ddelta.float()
         ddt_low = torch.matmul(dd, dt_w.float().t()).to(dt_low.dtype)
         ddt_w = torch.einsum("blr,bld->rd", dt_low.float(), dd).to(
             dt_w.dtype)
-        return du, ddt_low, ddt_w, dA, dB, dC, dD, dz, dbias, None
+        out = (du, ddt_low, ddt_w, dA, dB, dC, dD, dz, dbias, None,
+               grads[8] if h0 is not None else None)
+        return out[:len(ctx.needs_input_grad)]  # h0 may not have been given
 
 
 def selective_scan_dtlow_train(u, dt_low, dt_w, A, B, C, D=None, z=None,
                                delta_bias=None, delta_softplus=False,
-                               reverse: bool = False):
+                               reverse: bool = False, h0=None):
     """`SelectiveScanDtLowFn`, with `reverse` as flips around it (autograd
-    differentiates the flips), as `_dtlow_fwd`/`_dtlow_bwd` do.  Kernels 2
-    and 3 for CUDA tensors, their plain versions for CPU tensors."""
+    differentiates the flips), as `_dtlow_fwd`/`_dtlow_bwd` do; `h0` then
+    seeds the reversed walk.  Kernels 2 and 3 for CUDA tensors, their
+    plain versions for CPU tensors."""
     if reverse:
         u, dt_low, B, C, z = (_flip(u), _flip(dt_low), _flip(B), _flip(C),
                               _flip(z))
     y = SelectiveScanDtLowFn.apply(u, dt_low, dt_w, A, B, C, D, z,
-                                   delta_bias, delta_softplus)
+                                   delta_bias, delta_softplus, h0)
     return _flip(y) if reverse else y
 
 
 def selective_scan_dtlow(u, dt_low, dt_w, A, B, C, D=None, z=None,
                          delta_bias=None, delta_softplus=False,
-                         reverse: bool = False, impl: Optional[str] = None):
+                         reverse: bool = False, impl: Optional[str] = None,
+                         h0=None):
     """selective_scan(u, dt_low @ dt_w, ...), the JAX `selective_scan_dtlow`.
 
     `dt_low` (batch, L, r) is the dt_proj input and `dt_w` (r, dim) its
@@ -671,9 +722,39 @@ def selective_scan_dtlow(u, dt_low, dt_w, A, B, C, D=None, z=None,
     no flip (the JAX Pallas inference route), and
     `selective_scan_dtlow_train` (kernels 2 and 3, between flips for
     `reverse`, as `_dtlow_fwd`/`_dtlow_bwd`) when one does.  There is no
-    fallback: a shape or dtype the kernels do not take raises."""
+    fallback: a shape or dtype the kernels do not take raises.
+
+    `h0` (batch, dim, N) float32 seeds the state before step 0: the JAX
+    mixer's `use_cond_init` route, `selective_scan_xla(u, dt_low @ dt_w,
+    ..., h0=h0)` with delta materialized in the compute dtype
+    (mamba.py:234-250).  The plain route materializes delta so, and so
+    does the kernel route without a gradient, which takes the state entry
+    (`selective_scan_state_cuda`, h0 in); with a gradient it takes
+    `selective_scan_dtlow_train` with h0 (kernels 2 and 3's h0 entries,
+    the expansion in fp32).  With h0, `reverse` raises, as in JAX
+    (selective_scan.py:592-593): the mixer flips around the seeded scan
+    instead."""
     if impl is None:
         impl = "cuda" if u.is_cuda else "ref"
+    if h0 is not None and reverse:
+        raise NotImplementedError("reverse scan with h0: flip the inputs "
+                                  "and the output around the seeded scan")
+    if h0 is not None and impl in ("cuda", "ref"):
+        if impl == "cuda" and not u.is_cuda:
+            raise ValueError("impl='cuda' takes CUDA tensors only")
+        if impl == "cuda" and needs_grad(u, dt_low, dt_w, A, B, C, D, z,
+                                         delta_bias, h0):
+            return selective_scan_dtlow_train(
+                u, dt_low, dt_w, A, B, C, D=D, z=z, delta_bias=delta_bias,
+                delta_softplus=delta_softplus, h0=h0)
+        delta = torch.matmul(dt_low, dt_w)  # in the compute dtype
+        if impl == "cuda":
+            return selective_scan_state_cuda(
+                u, delta, A, B, C, D, z, delta_bias, delta_softplus, h0=h0)
+        with remat.tag("scan_out"):
+            return selective_scan_ref(u, delta, A, B, C, D=D, z=z,
+                                      delta_bias=delta_bias,
+                                      delta_softplus=delta_softplus, h0=h0)
     if impl == "cuda":
         if not u.is_cuda:
             raise ValueError("impl='cuda' takes CUDA tensors only")

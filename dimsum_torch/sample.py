@@ -1,5 +1,5 @@
-"""Sample DiM from a checkpoint on one card, the port of the top-level
-`sample.py` (the reference's `sample.py`), flag for flag:
+"""Sample a DiM or a DiT from a checkpoint on one card, the port of the
+top-level `sample.py` (the reference's `sample.py`), flag for flag:
 
     python -m dimsum_torch.sample ODE --model DiM-L/2 --image-size 256 \
         --ckpt dimsum-L2-imagenet256.pt --path-type GVP --num-classes 1001 \
@@ -23,8 +23,12 @@ through `--ppl-detector` (a local vgg16.pt, or `random-lpips[:seed]`) over
 `metric-<metric>.jsonl` in `--sample-dir`.  Runs on the card unless
 `--device cpu`.
 
-Not ported yet, and refused: `--pp` (ROADMAP.md Queue 1 item 8); the model
-flags `dimsum_torch.cli` refuses.
+`--model DiT-*` samples the DiT baseline through the same transport, as
+the JAX CLI does (the published DiT checkpoints are DDPM models, whose
+`gaussian_diffusion` sampler is ROADMAP.md Queue 1 item 9).
+
+Not ported yet, and refused: `--pp` (ROADMAP.md Queue 1 item 8); what
+`dimsum_torch.models.factory.model_config` refuses.
 """
 
 from __future__ import annotations
@@ -40,8 +44,9 @@ import torch
 from dimsum_torch.cli import (add_model_args, add_moe_args, add_ode_args,
                               add_sde_args, add_transport_args, add_vae_args,
                               build_transport, model_config)
-from dimsum_torch.models.dim import (DiM, forward_with_adacfg,
-                                     forward_with_cfg, random_init_)
+from dimsum_torch.models.dim import (forward_with_adacfg, forward_with_cfg,
+                                     random_init_)
+from dimsum_torch.models.factory import model_class
 from dimsum_torch.models.linear import cast_weights_
 from dimsum_torch.models.vae import load_vae
 from dimsum_torch.transport import Sampler
@@ -98,12 +103,12 @@ def parse_args(argv=None):
     return args
 
 
-def load_model(args, cfg, dev) -> DiM:
-    """The DiM on `dev` in eval mode with frozen weights (stored in the
-    compute dtype): the checkpoint's, or seeded random ones; with
-    `--scan-impl ref` every mixer takes the plain scan."""
+def load_model(args, cfg, dev) -> torch.nn.Module:
+    """The DiM or DiT of `cfg` on `dev` in eval mode with frozen weights
+    (stored in the compute dtype): the checkpoint's, or seeded random ones;
+    with `--scan-impl ref` every mixer takes the plain scan."""
     with torch.device(dev):
-        net = DiM(cfg)
+        net = model_class(cfg)(cfg)
     if args.ckpt is None:
         print("WARNING: no --ckpt given; using random init", file=sys.stderr)
         random_init_(net, 0)

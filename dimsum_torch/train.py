@@ -65,9 +65,8 @@ from torch.func import functional_call
 
 from dimsum_torch.cli import (_require, add_model_args, add_moe_args,
                               add_transport_args, add_vae_args,
-                              build_transport, model_config)
+                              build_transport, create_model)
 from dimsum_torch.data import Loader, device_batches, get_dataset
-from dimsum_torch.models.dim import build_dim
 from dimsum_torch.models.vae import load_vae
 from dimsum_torch.parallel import (create_optimizer, create_train_state,
                                    init_distributed, make_train_step)
@@ -190,8 +189,8 @@ class Trainer:
             from dimsum_torch.ops import cuda_build
 
             cuda_build.build()
-        self.cfg = model_config(args)
-        model = build_dim(self.cfg, dev, seed=args.global_seed, train=True)
+        model, self.cfg = create_model(args, dev, seed=args.global_seed,
+                                       train=True)
         if args.scan_impl == "ref":
             for m in model.modules():
                 if hasattr(m, "scan_impl"):

@@ -1,9 +1,13 @@
 """Checkpoints of the port, from `dimsum_tpu/utils/ckpt.py`:
 
   * `load_torch_checkpoint`: a reference `.pt` (published DiMSUM weights
-    under "ema", the raw weights under "model") into the port's `DiM`.  The
-    port's modules carry the reference's key names and layouts, so the
-    state dict loads as it is; the load is strict by default.
+    under "ema", the raw weights under "model") into the port's `DiM` or
+    `DiT`.  The port's modules carry the reference's key names and layouts
+    (the DiT's timm names `attn.qkv`, `attn.proj`, `mlp.fc1`, `mlp.fc2`;
+    the MoE blocks' `mixer.router`, `mixer.local_experts.<e>.linear_fc1`
+    and `linear_fc2`; the names `dimsum_tpu/utils/ckpt.py:36-51` maps to
+    flax), so the state dict loads as it is; the load is strict by
+    default.
   * `adapt_checkpoint`: the warm start across resolutions (256 -> 512 px):
     the position embedding resized bicubically as `jax.image.resize` does,
     the patch-embed and final-layer weights padded or sliced.

@@ -14,11 +14,16 @@ The inverse of `dimsum_tpu/utils/ckpt.py` (`_flax_path_for` and
   * t_embedder mlp_0 / mlp_2           -> t_embedder.mlp.0 / .2
   * mixer *_kernel / *_bias            -> dt_proj / conv1d .weight / .bias
                                           (v2's dt_proj_b / conv1d_b too)
-  * blocks_i, attn_block_i, fourier_blocks_i -> blocks.i, attn_block.i, ...
+  * blocks_i, attn_block_i, fourier_blocks_i, local_experts_e
+                                       -> blocks.i, attn_block.i, ...
+  * pos_cnn proj kernel (3, 3, 1, D)   -> pos_cnn.proj.0 Conv2d (D, 1, 3, 3)
+  * pos_cnn norm_scale / norm_bias     -> pos_cnn.norm.weight / .bias
 
 Every other leaf keeps its name and layout: v2's A_b_log and D_b, EinFFT's
-complex_weight_* / complex_bias_*, the LayerNorm biases, norm_f, and the
-plain MLP's fc1 / fc2 (Dense kernels, transposed as any other).
+complex_weight_* / complex_bias_*, the LayerNorm biases, norm_f, the
+plain MLP's fc1 / fc2, a DiT's blocks, the MoE router and experts'
+linear_fc1 / linear_fc2, and CondMamba's cond_proj (Dense kernels,
+transposed as any other).
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ import numpy as np
 import torch
 
 _INDEXED = ("blocks", "local_experts", "attn_block", "fourier_blocks")
+_POS_CNN_NORM = {"norm_scale": "pos_cnn.norm.weight",
+                 "norm_bias": "pos_cnn.norm.bias"}
 
 
 def _leaves(tree: Any, path: Tuple[str, ...] = ()) -> Iterator:
@@ -56,6 +63,12 @@ def _torch_entry(path: Tuple[str, ...], arr: np.ndarray, in_channels: int):
     if path == ("pos_embed",):
         return "pos_embed", arr
     *stem, last = path
+    if stem == ["pos_cnn", "proj"]:  # flax (kh, kw, 1, D) depthwise conv
+        if last == "kernel":
+            return "pos_cnn.proj.0.weight", arr.transpose(3, 2, 0, 1)
+        return "pos_cnn.proj.0.bias", arr
+    if stem == ["pos_cnn"] and last in _POS_CNN_NORM:
+        return _POS_CNN_NORM[last], arr
     m = re.fullmatch(r"(conv1d(?:_b)?|dt_proj(?:_b)?)_(kernel|bias)", last)
     if m and "mixer" in stem:
         mod, kind = m.groups()

@@ -1511,3 +1511,212 @@ def test_kid_and_pr_torch_on_card_match_numpy(cuda):
     k_np = compute_kid(real, gen, impl="numpy", **kw)
     k_t = compute_kid(real, gen, device=cuda, **kw)  # auto: torch on CUDA
     assert abs(k_t - k_np) <= 1e-6 * abs(k_np), (k_t, k_np)
+
+
+# ---------------------------------------------------------------------------
+# `use_cond_init` training: the scan's training kernels with the state
+# seeded before step 0 (kernel 2's h0 entry) and its gradient out (kernel
+# 3's h0 entry), against their plain versions
+# ---------------------------------------------------------------------------
+
+def _h0(x, seed=9):
+    batch, _, dim = x["u"].shape
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(batch, dim, x["A"].shape[1], generator=g).to(
+        x["u"].device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dim, n, r, L", [
+    (256, 16, 32, 300), (200, 16, 64, 40), (64, 16, 32, 7),
+    (1024, 16, 32, 1000), (130, 8, 5, 77)])
+def test_h0_training_kernels_match_plain_on_card(cuda, dtype, dim, n, r, L):
+    """Kernel 2 from h0 and kernel 3 with dh0 (L not a multiple of the
+    16-step chunk, a single ragged chunk at L 7, r 32 and 64): every output
+    within the tolerance of the plain versions', dh0 fp32; the first
+    saved state is h0 exactly."""
+    x = scan_inputs(cuda, dtype, batch=2, L=L, dim=dim, n=n, r=r)
+    h0 = _h0(x)
+    f0 = selective_scan_fwd_train_cuda.h0_launches
+    b0 = selective_scan_bwd_core_cuda.h0_launches
+    got_f = selective_scan_fwd_train_cuda(*_args(x), **_train_kw(x), h0=h0)
+    want_f = selective_scan_fwd_train_ref(*_args(x), **_train_kw(x), h0=h0)
+    g = torch.randn(x["u"].shape, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(4)).to(dtype)
+    kw = dict(_train_kw(x), o=want_f[1], boundaries=want_f[2], g=g, h0=h0)
+    got_b = selective_scan_bwd(*_args(x), **kw)
+    want_b = selective_scan_bwd_ref(*_args(x), **kw)
+    torch.cuda.synchronize()
+    assert selective_scan_fwd_train_cuda.h0_launches == f0 + 1
+    assert selective_scan_bwd_core_cuda.h0_launches == b0 + 1
+    assert torch.equal(got_f[2][:, 0], h0.transpose(1, 2))
+    assert got_b[-1].dtype == torch.float32 and got_b[-1].shape == h0.shape
+    names = ("y", "o", "boundaries", "du", "ddelta", "dA", "dB", "dC", "dD",
+             "dz", "dbias", "dh0")
+    for name, a, b in zip(names, got_f + got_b, want_f + want_b):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.isfinite(a.float()).all(), name
+        _close(a, b, 1.6e-2 if a.dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_zero_h0_kernels_equal_the_h0_free_entries_on_card(cuda, dtype):
+    """h0 = 0 through the h0 entries gives the h0-free entries' outputs
+    bit for bit (the training mixer shape, 16 x 256 x 1024)."""
+    x = scan_inputs(cuda, dtype, batch=16, L=256, dim=1024, n=16, r=32)
+    zero = torch.zeros(16, 1024, 16, device=cuda)
+    seeded = selective_scan_fwd_train_cuda(*_args(x), **_train_kw(x),
+                                           h0=zero)
+    free = selective_scan_fwd_train_cuda(*_args(x), **_train_kw(x))
+    for a, b in zip(seeded, free):
+        assert torch.equal(a, b)
+    go = torch.randn(x["u"].shape, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(2))
+    core = (*_args(x)[:6], x["delta_bias"], True, go, free[2])
+    seeded = selective_scan_bwd_core_cuda(*core, return_dh0=True)
+    free = selective_scan_bwd_core_cuda(*core)
+    torch.cuda.synchronize()
+    assert len(seeded) == 6
+    for a, b in zip(seeded, free):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_h0_route_on_card(cuda, grad):
+    """`selective_scan_dtlow(..., h0=h0)` on CUDA: without a gradient the
+    state entry (delta materialized in the compute dtype, h0 in), with
+    one the h0 training kernels once each; against the plain route (and
+    its autograd), h0's gradient included."""
+    from dimsum_torch.ops.selective_scan import selective_scan_state_cuda
+
+    x = scan_inputs(cuda, torch.float32, batch=2, L=96, dim=192, n=16, r=12)
+    x["h0"] = _h0(x)
+    names = ("u", "dt_low", "dt_w", "A", "B", "C", "D", "z", "delta_bias",
+             "h0")
+    leaves = [x[k].requires_grad_(grad) for k in names]
+    g = torch.randn(x["u"].shape, device=cuda)
+
+    def run(impl):
+        y = selective_scan_dtlow(*_args(x), **_train_kw(x), h0=x["h0"],
+                                 impl=impl)
+        return torch.autograd.grad(y, leaves, g) if grad else (y,)
+
+    counts = (selective_scan_state_cuda, selective_scan_fwd_train_cuda,
+              selective_scan_bwd_core_cuda, selective_scan_cuda)
+    before = [fn.launches for fn in counts]
+    with torch.set_grad_enabled(grad):
+        got = run("cuda")
+        want = run("ref")
+    torch.cuda.synchronize()
+    assert [fn.launches - b for fn, b in zip(counts, before)] == (
+        [0, 1, 1, 0] if grad else [1, 0, 0, 0])
+    for a, b in zip(got, want):
+        _close(a, b, 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# DiT-XL/2 at 512 px: Dh 72, the first attention kernel
+# (`csrc/full_attention.cu`), forward and the Function's backward
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_first_kernel_at_dit_xl_shape_on_card(cuda, dtype):
+    leaves = [t.detach().requires_grad_(True) for t in
+              attn_inputs(cuda, dtype, 2, 1024, 16, 72, seed=72)]
+    assert attention_kernel(dtype, 72) == "full_attention_first"
+    g = torch.randn(leaves[0].shape, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(7)).to(dtype)
+    before = attn_counts()
+    out = full_block_attention(*leaves, 72 ** -0.5)
+    got = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert_one_launch_of("full_attention_first", before)
+    ref = full_attention_ref(*leaves, 72 ** -0.5)
+    want = torch.autograd.grad(ref, leaves, g)
+    tol = 2e-5 if dtype == torch.float32 else 1.6e-2
+    _close(out.detach(), ref.detach(), tol)
+    for a, b in zip(got, want):
+        _close(a, b, tol)
+
+
+# ---------------------------------------------------------------------------
+# remat at the full-block attention: one fp32 step of a depth-2 DiT at
+# hidden 1152 (Dh 72) and of a depth-2 DiM at hidden 1024 (Dh 64), 512 px
+# (L 1024), with and without remat
+# ---------------------------------------------------------------------------
+
+def _remat_model(kind, remat_on, cuda):
+    import dataclasses
+
+    from dimsum_torch.models.dim import DiM, DiMConfig, random_init_
+    from dimsum_torch.models.dit import DiT, DiTConfig
+    from dimsum_torch.utils import remat
+
+    if kind == "dit":
+        cfg = DiTConfig(img_resolution=64, hidden_size=1152, depth=2,
+                        num_heads=16, num_classes=10)
+        with torch.device(cuda):
+            model = DiT(dataclasses.replace(cfg, grad_checkpoint=remat_on))
+    else:
+        cfg = DiMConfig(img_resolution=64, hidden_size=1024, depth=2,
+                        num_classes=10, use_attn_every_k_layers=2,
+                        grad_checkpoint=True)
+        with torch.device(cuda):
+            model = DiM(cfg)
+        model.remat_keep = remat.parse_policy(None) if remat_on else None
+    return random_init_(model, 0).train()
+
+
+@pytest.mark.parametrize("kind, attention_per_forward", [("dit", 2),
+                                                         ("dim", 5)])
+def test_remat_at_the_full_block_attention_on_card(cuda, kind,
+                                                   attention_per_forward):
+    """The loss and every gradient with full remat (each block replayed in
+    the backward, its attention kernel launched again) equal those
+    without, to 4 times the spread of two runs without (0 where they
+    agree); TF32 off, cuDNN deterministic."""
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((2, 4, 64, 64), generator=g, device=cuda)
+    t = torch.rand(2, generator=g, device=cuda)
+    y = torch.randint(0, 10, (2,), generator=g, device=cuda)
+    runs = []
+    try:
+        for remat_on in (False, False, True):
+            model = _remat_model(kind, remat_on, cuda)
+            full_block_attention_cuda.launches = 0
+            gen = torch.Generator(device=cuda).manual_seed(4)
+            loss = (model(x, t, y, train=True, generator=gen) ** 2).mean()
+            loss.backward()
+            torch.cuda.synchronize()
+            runs.append((loss.detach(), {
+                n: p.grad for n, p in model.named_parameters()
+                if p.grad is not None}, full_block_attention_cuda.launches))
+            del model
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+    base, again, got = runs
+
+    def err(run):
+        return max((run[1][n] - w).abs().max().item()
+                   / w.abs().max().clamp_min(1e-30).item()
+                   for n, w in base[1].items())
+
+    # the DiM's shared DiT block is not checkpointed: its attention runs
+    # once; the combined blocks' two cross attentions twice under remat
+    assert base[2] == attention_per_forward
+    assert got[2] == (2 * attention_per_forward if kind == "dit"
+                      else attention_per_forward + 4)
+    assert set(got[1]) == set(base[1])
+    assert err(got) <= 4 * err(again)
+    if err(again) == 0:
+        assert torch.equal(got[0], base[0])
+    else:
+        assert abs(got[0] - base[0]) <= 4 * abs(again[0] - base[0])

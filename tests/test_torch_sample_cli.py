@@ -9,7 +9,8 @@ layout:
   * `--params raw` samples with the checkpoint's "model" weights;
   * SDE mode runs and saves the latents; `--likelihood` gives finite
     bits/dim at cfg 1.0 and is refused with guidance;
-  * `--pp` and the model flags the port lacks raise (every DiM variant
+  * `--pp` and the JAX opt-in switches the port lacks raise, a DiT and a
+    MoE, cpe, cond_init DiM sample (every model of the JAX factory
     builds through `cli.model_config`), `--compute-ppl`
     without `--ppl-detector` exits asking for it (the metric itself:
     tests/test_torch_eval_ppl.py), and without `--device cpu` the CLI asks
@@ -134,19 +135,41 @@ def test_sde_mode_and_likelihood(files, tmp_path, capsys):
         cli.main(["ODE", *MODEL, "--likelihood", "--cfg-scale", "1.4"])
 
 
-@pytest.mark.parametrize("extra, error, match", [
-    (["--pp", "2"], NotImplementedError, "Queue 1 item 8"),
-    (["--compute-ppl", "ppl2_zend"], SystemExit, "ppl-detector"),
-    (["--pe-type", "cpe"], NotImplementedError, "Queue 1 item 7"),
-    (["--cond-init"], NotImplementedError, "Queue 1 item 7"),
-    (["--pe-type", "rope"], NotImplementedError, "Queue 1 item 7"),
-    (["--is-moe"], NotImplementedError, "MoE"),
-    (["--model", "DiT-XL/2"], NotImplementedError, "Queue 1 item 7"),
-    (["--scan-impl", "pallas"], NotImplementedError, "scan-impl"),
+# what the sampling CLI still refuses: --pp, and the JAX opt-in switches
+# (environment variables) that the port has not ported; --pe-type, MoE,
+# --cond-init and DiT models build (tests/test_torch_factory.py)
+@pytest.mark.parametrize("extra, env, error, match", [
+    (["--pp", "2"], None, NotImplementedError, "Queue 1 item 8"),
+    (["--compute-ppl", "ppl2_zend"], None, SystemExit, "ppl-detector"),
+    ([], "DIMSUM_FLASH_ATTN", NotImplementedError, "Queue 1 item 7"),
+    ([], "DIMSUM_FULL_ATTN", NotImplementedError, "Queue 1 item 7"),
+    ([], "DIMSUM_NORM_MXU", NotImplementedError, "Queue 1 item 7"),
+    ([], "DIMSUM_FUSED_WAVELET", NotImplementedError, "Queue 1 item 7"),
+    ([], "DIMSUM_DWT_CL", NotImplementedError, "Queue 1 item 7"),
+    (["--scan-impl", "pallas"], None, NotImplementedError, "scan-impl"),
 ])
-def test_unported_flags_raise(extra, error, match, tmp_path):
+def test_unported_flags_raise(extra, env, error, match, tmp_path,
+                              monkeypatch):
+    if env is not None:
+        monkeypatch.setenv(env, "1")
     with pytest.raises(error, match=match):
         cli.main(["ODE", *MODEL, *extra, "--sample-dir", str(tmp_path)])
+
+
+@pytest.mark.parametrize("extra", [
+    ["--model", "DiT-S/8"],
+    ["--is-moe", "--num-moe-experts", "2", "--cond-init", "--pe-type",
+     "cpe"],
+])
+def test_samples_dit_and_moe_cond_init_dim(extra, tmp_path):
+    """The CLI samples a DiT and a MoE, cpe, cond_init DiM (seeded random
+    weights, 2 Euler points, CFG) on the CPU."""
+    rec = cli.main(["ODE", *MODEL, *extra, "--sampling-method", "euler",
+                    "--num-sampling-steps", "2", "--cfg-scale", "1.4",
+                    "--global-batch-size", "2", "--sample-dir",
+                    str(tmp_path)])
+    assert rec["samples"].shape == (2, 4, 16, 16)
+    assert torch.isfinite(rec["samples"]).all()
 
 
 def test_the_card_unless_the_cpu_is_asked_for(tmp_path):
