@@ -963,9 +963,11 @@ def attn_inputs(B, L, H, Dh, dtype, seed, logit_scale=1.0):
 
 
 def _first_attention_kernel(q, k, v, scale):
-    """csrc/full_attention.cu on Dh-64 inputs, which the route sends to the
-    sm90 or the fp32 kernel: its body checked, and its time for comparison
-    in the same run."""
+    """csrc/full_attention.cu, the first design, on Dh-64 and Dh-72 inputs,
+    which the route sends to the Hopper redesigns (the sm90 kernel in
+    bf16, the fp32 kernel in fp32): its body checked, and its time beside
+    theirs and SDPA's on the same inputs in the same run (at Dh 72 the
+    times before the redesign)."""
     import torch
 
     from dimsum_torch.ops.full_attention import full_attention_first
@@ -989,10 +991,13 @@ def phase_kernel_attn():
         ("cross-bf16", 24, 1024, 8, 64, torch.bfloat16),
         ("dit-fp32", 24, 1024, 16, 64, torch.float32),
         ("cross-fp32", 24, 1024, 8, 64, torch.float32),
-        # DiT-XL/2 at 512 px (hidden 1152, 16 heads): the first kernel's
-        # route, at the models-rest phase's CFG batch of 8 rows
+        # every 1152-wide model at 512 px, at the models-rest phase's CFG
+        # batch of 8 rows: DiT-XL/2 and DiM-XL/2's DiT block (16 heads),
+        # DiM-XL/2's cross fusion (8 heads on a 576-wide half)
         ("dh72-bf16", 8, 1024, 16, 72, torch.bfloat16),
         ("dh72-fp32", 8, 1024, 16, 72, torch.float32),
+        ("dh72-cross-bf16", 8, 1024, 8, 72, torch.bfloat16),
+        ("dh72-cross-fp32", 8, 1024, 8, 72, torch.float32),
     ]
     results = {}
     for i, (name, B, L, H, Dh, dtype) in enumerate(cases):
@@ -1028,7 +1033,7 @@ def phase_kernel_attn():
                 iters=50)
             library_dev_ms = device_ms(
                 lambda: F.scaled_dot_product_attention(qt, kt, vt), None)
-            # the first kernel (csrc/full_attention.cu), which Dh 72-128
+            # the first kernel (csrc/full_attention.cu), which Dh 80-128
             # still takes, held to the same tolerance and timed on the
             # same inputs
             s = torch.tensor(scale, dtype=dtype).item()
@@ -1060,24 +1065,34 @@ def phase_kernel_attn():
         del q, k, v, got, want
         torch.cuda.empty_cache()
 
-    # logits of order 1e3 (q and k 40x N(0, 1)) at the DiT shape: the
-    # softmax near one-hot, where a row's two largest logits may nearly tie
-    for i, dtype in enumerate((torch.float32, torch.bfloat16)):
-        q, k, v = attn_inputs(24, 1024, 16, 64, dtype, seed=320 + i,
+    # logits of order 1e3 (q and k 40x N(0, 1)) at the DiT shape, Dh 64
+    # and Dh 72: the softmax near one-hot, where a row's two largest logits
+    # may nearly tie
+    for i, (B, Dh, dtype) in enumerate((
+            (24, 64, torch.float32), (24, 64, torch.bfloat16),
+            (8, 72, torch.float32), (8, 72, torch.bfloat16))):
+        q, k, v = attn_inputs(B, 1024, 16, Dh, dtype, seed=320 + i,
                               logit_scale=40.0)
         tol = 2e-5 if dtype == torch.float32 else 1.6e-2
+        kernel = attention_kernel(dtype, Dh)
+        counter = getattr(attention_ops, kernel)
         with torch.inference_mode():
-            got = full_block_attention_cuda(q, k, v, 0.125).float()
-            want = full_attention_ref(q, k, v, 0.125).float()
+            before = counter.launches
+            got = full_block_attention_cuda(q, k, v, Dh ** -0.5).float()
+            took_route = counter.launches - before == 1
+            want = full_attention_ref(q, k, v, Dh ** -0.5).float()
             torch.cuda.synchronize()
         scale_ref = want.abs().max().item()
         err = (got - want).abs().max().item()
-        rec = {"phase": "kernel-attn", "case": f"dit-{dtype}-logits40"
-               .replace("torch.", ""), "shape": [24, 1024, 16, 64],
-               "kernel": attention_kernel(dtype, 64), "max_abs_err": err,
+        rec = {"phase": "kernel-attn", "case": (
+            f"{'dit' if Dh == 64 else 'dh72'}-{dtype}-logits40"
+            .replace("torch.", "")), "shape": [B, 1024, 16, Dh],
+               "kernel": kernel, "max_abs_err": err,
                "max_abs_ref": scale_ref, "tol_rel": tol}
+        results[rec["case"]] = rec
         emit(rec)
-        if not (bool(torch.isfinite(got).all()) and err <= tol * scale_ref):
+        if not (bool(torch.isfinite(got).all()) and err <= tol * scale_ref
+                and took_route):
             raise AssertionError(f"attention kernel disagrees: {rec}")
         del q, k, v, got, want
         torch.cuda.empty_cache()
@@ -3419,15 +3434,16 @@ def _variant_config(name, dtype):
 def _variant_counts(zero: bool = False):
     """The launch counts the variants phase reads (set to 0 first with
     `zero`)."""
+    from dimsum_torch.ops import full_attention as attention_ops
     from dimsum_torch.ops.conv_xproj import conv_xproj_cuda
-    from dimsum_torch.ops.full_attention import full_attention_first
     from dimsum_torch.ops.norms import add_norm_cuda, norm_modulate_cuda
     from dimsum_torch.ops.selective_scan import (selective_scan_cuda,
                                                  selective_scan_state_cuda)
 
     fields = {"scan": (selective_scan_cuda, "launches"),
               "scan_state": (selective_scan_state_cuda, "launches"),
-              "full_attention_first": (full_attention_first, "launches"),
+              **{n: (getattr(attention_ops, n), "launches")
+                 for n in ATTENTION_KERNELS},
               "scan_reverse": (selective_scan_cuda, "reverse_launches"),
               "conv_xproj": (conv_xproj_cuda, "launches"),
               "conv_xproj_reverse": (conv_xproj_cuda, "reverse_launches"),
@@ -3812,12 +3828,25 @@ DIM_REST_ARGS = ["--model", "DiM-L/2", "--image-size", "256",
                  "cpe"]
 REST_STEPS = 10
 REST_TRAIN_STEPS = 3
-# a forward's launches: (a) 28 DiT blocks' attention through the first
-# kernel (Dh 72), with fused_norm two norm + modulate calls a block and the
-# FinalLayer's; (b) 8 combined blocks of two CondMamba mixers each (the 8
-# odd blocks are MoE), every scan seeded from h0 through the state entry
+# (c) DiM-XL/2 at 512 px, the published combined block at hidden 1152
+DIM_XL_ARGS = ["--model", "DiM-XL/2", "--image-size", "512",
+               "--num-classes", "1001", "--label-dropout", "0.1",
+               "--block-type", "combined", "--bimamba-type", "none",
+               *_PUBLISHED_FLAGS]
+# a forward's launches: (a) 28 DiT blocks' attention at Dh 72, through the
+# Hopper redesign of its dtype (none through the first kernel), with
+# fused_norm two norm + modulate calls a block and the FinalLayer's; (b) 8
+# combined blocks of two CondMamba mixers each (the 8 odd blocks are MoE),
+# every scan seeded from h0 through the state entry; (c) 24 combined
+# blocks, each two cross-fusion attentions (8 heads of Dh 72), and 6
+# calls of the shared DiT block (16 heads of Dh 72, every 4th block): 54
+# at Dh 72; with the three fused-kernel switches, add + norm at the 23
+# residual tops, norm + modulate at the 24 norm_2 sites, twice in each DiT
+# call and once in the FinalLayer, conv + x_proj in the 48 mixers
 DIT_XL_ATTENTION, DIT_XL_NORMS = 28, 57
 DIM_REST_SCANS = 16
+DIM_XL_ATTENTION = 54
+DIM_XL_FUSED = {"add_norm": 23, "norm_modulate": 37, "conv_xproj": 48}
 
 
 def _rest_config(argv, dtype):
@@ -3851,7 +3880,8 @@ def _rest_forward(name, cfg, x, t, y, seed=0):
         torch.cuda.synchronize()
         launches = _variant_counts()
         for m in net.modules():
-            for attr in ("attn_impl", "norm_impl", "scan_impl"):
+            for attr in ("attn_impl", "norm_impl", "scan_impl",
+                         "conv_impl"):
                 if hasattr(m, attr):
                     setattr(m, attr, "ref")
         want = forward_with_cfg(net, x, t, y, cfg_scale=1.4)
@@ -3923,10 +3953,13 @@ def phase_models_rest():
     (a) DiT-XL/2 at 512 px (28 blocks, hidden 1152, 16 heads of Dh 72, L
     1024): one fp32 CFG forward of 8 rows (TF32 off) through the kernels
     and through the plain routes, without and with `fused_norm` (28
-    launches of the first attention kernel, and 57 of norm + modulate);
+    launches of the fp32 attention kernel, none of the first one, and 57
+    of norm + modulate);
     then `python -m dimsum_torch.sample ODE --model DiT-XL/2 --image-size
     512 --bf16` in a process of its own (8 images, Euler over REST_STEPS
-    grid points, CFG 1.4).  (b) DiM-L/2 at 256 px, the published combined
+    grid points, CFG 1.4; 28 launches a drift call of the sm90 attention
+    kernel, none of the first one).  (b) DiM-L/2 at 256 px, the published
+    combined
     block with --is-moe --cond-init --pe-type cpe: one fp32 CFG forward of
     24 rows against the plain routes (16 launches of the scan's state
     entry with h0, none of kernel 1); a bf16 sample of 12 images (Euler
@@ -3934,8 +3967,14 @@ def phase_models_rest():
     training CLI's Trainer (16 launches a step of each h0 training
     kernel); and one fp32 training step of the same model at depth 2
     through the kernels and the plain routes: the loss and every
-    gradient, cond_proj's (dh0's path) among them.  Alone: python3 -c
-    "import chip_smoke as s; s.phase_models_rest()"."""
+    gradient, cond_proj's (dh0's path) among them.  (c) DiM-XL/2 at 512
+    px (24 published combined blocks at hidden 1152, full depth): one fp32
+    CFG forward of 8 rows through the kernels and the plain routes,
+    without and with the fused-kernel switches (`fused_norm`,
+    `pallas_norm`, `conv_xproj`: 23 add + norm, 37 norm + modulate and 48
+    conv + x_proj launches); 54 launches of the fp32 attention kernel at
+    Dh 72, none of the first one.
+    Alone: python3 -c "import chip_smoke as s; s.phase_models_rest()"."""
     import dataclasses
     import os
     import subprocess
@@ -3990,7 +4029,8 @@ def phase_models_rest():
         launches = rec["launches"]
         out[rec["case"]] = check(
             rec["finite"] and rec["max_abs_err"] <= rec["tol"]
-            and launches["full_attention_first"] == DIT_XL_ATTENTION
+            and launches["full_attention_f32"] == DIT_XL_ATTENTION
+            and launches["full_attention_first"] == 0
             and launches["norm_modulate"] == (DIT_XL_NORMS if fused else 0),
             rec)
     with tempfile.TemporaryDirectory() as tmp:
@@ -4012,8 +4052,27 @@ def phase_models_rest():
            "img_per_s": 8 / cli_rec["seconds"], **cli_rec}
     out[rec["case"]] = check(
         cli_rec["finite"] and cli_rec["shape"] == [8, 4, 64, 64]
-        and cli_rec["launches"]["full_attention_first"]
-        == DIT_XL_ATTENTION * calls, rec)
+        and cli_rec["launches"]["full_attention_sm90"]
+        == DIT_XL_ATTENTION * calls
+        and cli_rec["launches"]["full_attention_first"] == 0, rec)
+
+    # (c) DiM-XL/2 at 512 px, fp32, plain and with the three fused-kernel
+    # switches; 1e-4 of the output's scale, as (a)
+    dim_xl = _rest_config(DIM_XL_ARGS, torch.float32)
+    x, t, y, _ = cfg_batch(4, 64, 23)
+    for fused in (False, True):
+        rec = _rest_forward("DiM-XL/2-512" + ("-fused" if fused else ""),
+                            dataclasses.replace(
+                                dim_xl, **(FUSED_ON if fused else {})),
+                            x, t, y)
+        rec["tol"] = 1e-4 * max(1.0, rec["max_abs_ref"])
+        launches = rec["launches"]
+        out[rec["case"]] = check(
+            rec["finite"] and rec["max_abs_err"] <= rec["tol"]
+            and launches["full_attention_f32"] == DIM_XL_ATTENTION
+            and launches["full_attention_first"] == 0
+            and all(launches[k] == (v if fused else 0)
+                    for k, v in DIM_XL_FUSED.items()), rec)
 
     # (b) the MoE / cond_init / cpe DiM-L/2: fp32 forward, 1e-3 of scale
     # as the model phase (16 blocks of random weights)
@@ -4309,10 +4368,13 @@ def main() -> int:
     # the attention: bf16 at Dh 64 (the bf16 sampling paths) through the
     # sm90 kernel, fp32 at Dh 64 (the default fp32 sampling path,
     # sample-512-fp32) through the fp32 kernel, each with its cross-shape
-    # numbers beside the DiT ones.  The first kernel serves Dh 72-128:
-    # DiT-XL/2 at 512 px (models-rest), whose bf16 sampling CLI run gives
-    # its launches; its times at that shape (8 rows) in bf16, in fp32
-    # beside them, and on the fp32 kernel's Dh-64 inputs
+    # numbers beside the DiT ones, and its Dh-72 numbers (DiT-XL/2 and
+    # DiM-XL/2 at 512 px, 8 rows: their DiT heads and DiM-XL/2's cross
+    # heads) with the launches of models-rest (bf16: DiT-XL/2's sampling
+    # CLI run; fp32: the DiT-XL/2 and DiM-XL/2 forwards).  The first
+    # kernel serves Dh 80-128, on no main path (its launches 0): its times
+    # on the Dh-72 inputs (bf16, and fp32 beside them) and on the fp32
+    # kernel's Dh-64 inputs
     def attention_record(name, source, dit, cross, timed):
         return {
             "name": name, "route": "cuda", "source": source,
@@ -4332,22 +4394,48 @@ def main() -> int:
             "cross_library_ms": cross["library_ms"],
             "cross_library_device_ms": cross["library_device_ms"]}
 
-    for name, case in (("full_attention_sm90", "bf16"),
-                       ("full_attention_f32", "fp32")):
-        kernels.append(attention_record(
+    dh72_launches = {
+        "full_attention_sm90":
+            rest["DiT-XL/2-512-sample-cli"]["launches"][
+                "full_attention_sm90"],
+        "full_attention_f32": sum(
+            rest[c]["launches"]["full_attention_f32"] for c in (
+                "DiT-XL/2-512", "DiT-XL/2-512-fused", "DiM-XL/2-512",
+                "DiM-XL/2-512-fused"))}
+    for name, case, dtype in (("full_attention_sm90", "bf16", "bfloat16"),
+                              ("full_attention_f32", "fp32", "float32")):
+        rec = attention_record(
             name, f"dimsum_torch/csrc/{name}.cu", attn[f"dit-{case}"],
-            attn[f"cross-{case}"], lambda r: r))
+            attn[f"cross-{case}"], lambda r: r)
+        dh72 = attention_record(
+            name, "", attn[f"dh72-{case}"], attn[f"dh72-cross-{case}"],
+            lambda r: r)
+        rec.update({f"dh72_{k}": v for k, v in dh72.items()
+                    if k not in ("name", "route", "source", "replaces",
+                                 "launches", "bound_by")})
+        rec.update(dh72_shape=attn[f"dh72-{case}"]["shape"],
+                   dh72_cross_shape=attn[f"dh72-cross-{case}"]["shape"],
+                   dh72_launches=dh72_launches[name],
+                   max_abs_err=max(
+                       rec["max_abs_err"], dh72["max_abs_err"],
+                       attn[f"dh72-{dtype}-logits40"]["max_abs_err"]))
+        kernels.append(rec)
     dh72, dh72_fp32 = attn["dh72-bf16"], attn["dh72-fp32"]
     first = attention_record(
         "full_attention_first", "dimsum_torch/csrc/full_attention.cu",
-        dh72, dh72, lambda r: r)
+        dh72, dh72, lambda r: r["first_kernel"])
     first = {k: v for k, v in first.items() if not k.startswith("cross_")}
     first.update(
-        launches=rest["DiT-XL/2-512-sample-cli"]["launches"][
-            "full_attention_first"],
-        max_abs_err=max(dh72["max_abs_err"], dh72_fp32["max_abs_err"]),
+        launches=launches["full_attention_first"]
+        + sum(r["launches"]["full_attention_first"] for r in rest.values()
+              if isinstance(r, dict) and "launches" in r
+              and "full_attention_first" in r["launches"]),
+        main_path="none: Dh 80-128, which no model of the zoo has",
+        max_abs_err=max(dh72["first_kernel"]["max_abs_err"],
+                        dh72_fp32["first_kernel"]["max_abs_err"]),
         shape=dh72["shape"],
-        fp32_ms=dh72_fp32["ms"], fp32_device_ms=dh72_fp32["device_ms"],
+        fp32_ms=dh72_fp32["first_kernel"]["ms"],
+        fp32_device_ms=dh72_fp32["first_kernel"]["device_ms"],
         fp32_plain_ms=dh72_fp32["plain_ms"],
         fp32_bound_ms=dh72_fp32["bound_ms"],
         fp32_library_ms=dh72_fp32["library_ms"],

@@ -1,8 +1,13 @@
 // Softmax attention over a whole sequence for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel dimsum_tpu/ops/full_attention.py::_attn_kernel
-// (pallas_call in _build_call), the default attention of DiM at L >= 1024:
-// the 512-px DiTBlock (16 heads) and CrossAttentionFusion (8 heads), Dh 64.
+// (pallas_call in _build_call), the attention at L >= 1024, the first design:
+// the route sends it Dh 80-128 in both dtypes, a head size no model of the
+// zoo has.  Dh 64 (DiM-L/2) and 72 (DiT-XL/2, DiM-XL/2) go to the Hopper
+// redesigns, csrc/full_attention_sm90.cu (bf16) and full_attention_f32.cu
+// (fp32); this kernel still computes them, and chip_smoke.py times it there
+// beside them.
+//
 // Per (batch, head), with q pre-scaled in q's type as the JAX wrapper does:
 //
 //   S = (q * scale) k^T                      fp32 sums

@@ -1,29 +1,32 @@
-// Softmax attention over a whole sequence, fp32 at head size 64, for Hopper
-// (sm_90a).
+// Softmax attention over a whole sequence, fp32 at head size 64 or 72, for
+// Hopper (sm_90a).
 //
-// Replaces, for fp32 inputs with Dh 64, the Pallas TPU kernel
+// Replaces, for fp32 inputs with Dh 64 or 72, the Pallas TPU kernel
 // dimsum_tpu/ops/full_attention.py::_attn_kernel (pallas_call in
-// _build_call): the attention of DiM-L/2 at 512 px in the default fp32
-// sampling path, the DiTBlock (16 heads, every 4th block) and
+// _build_call).  Dh 64: the attention of DiM-L/2 at 512 px in the default
+// fp32 sampling path, the DiTBlock (16 heads, every 4th block) and
 // CrossAttentionFusion (8 heads on each half, twice per combined block), 36
-// calls a CFG forward.  bf16 at Dh 64 goes to csrc/full_attention_sm90.cu;
-// fp32 and bf16 at Dh 72-128 stay with csrc/full_attention.cu.  Per
-// (batch, head), as the plain version computes it:
+// calls a CFG forward.  Dh 72: DiT-XL/2 and DiM-XL/2 at 512 px (hidden
+// 1152; 28 and 54 calls a forward).  bf16 at Dh 64 and 72 goes to
+// csrc/full_attention_sm90.cu; fp32 and bf16 at Dh 80-128 stay with
+// csrc/full_attention.cu.  Per (batch, head), as the plain version computes
+// it:
 //
 //   S = (q * scale) k^T                        fp32, q * scale rounded first
 //   P = exp(S - rowmax(S))                     fp32
 //   O = P v / rowsum(P)                        fp32
 //
-// Layout: q, k, v are (batch, L, heads, 64) with each (heads, 64) row packed
+// Layout: q, k, v are (batch, L, heads, Dh) with each (heads, Dh) row packed
 // and any batch and row strides (multiples of 8 elements, 16-byte aligned):
-// the modules slice them out of qkv projections, rows 3 * heads * 64 apart,
-// and the kernel reads them there.  O is (batch, L, heads, 64), contiguous.
+// the modules slice them out of qkv projections, rows 3 * heads * Dh apart,
+// and the kernel reads them there.  O is (batch, L, heads, Dh), contiguous.
 //
 // What bounds it on an H100: 4 L^2 Dh flop per (batch, head), 103 GFLOP at
 // the DiT shape (24, 1024, 16, 64): 1.54 ms on the FP32 pipe (67 TFLOP/s),
 // or 0.625 ms as three TF32 tensor-core passes (3 x 103 GFLOP at 495
 // TFLOP/s); the bytes (403 MB, 0.120 ms) and the 403 M exponentials (0.096
 // ms) are far below.  The cross shape (24, 1024, 8, 64) is half of each.
+// DiT-XL/2's (8, 1024, 16, 72): 38.7 GFLOP, 0.234 ms as three TF32 passes.
 //
 // Why S stays on the FP32 pipe.  Split into a TF32 big and small part
 // (three passes), q k^T differs from the plain version's fp32 product by
@@ -33,8 +36,9 @@
 // (emulated on the card test's inputs), over the 2e-5 tolerance; even an
 // exactly rounded S misses it (3.3e-5).  So S is summed as the plain fp32
 // product sums it, bit for bit: one FMA chain a (row, key) over d = 0 ...
-// 63 from zero, the inner loop of the fp32 matrix product on the card (the
-// same bits as torch.matmul there), on q * scale rounded to fp32.  P V is
+// Dh - 1 from zero, the inner loop of the fp32 matrix product on the card
+// (the same bits as torch.matmul there, at K 64 and at K 72), on q * scale
+// rounded to fp32.  P V is
 // insensitive (P is in [0, 1] and no softmax follows: ~1e-7 of scale
 // emulated), so it runs on the tensor cores as three TF32 products,
 // P_small V_big + P_big V_small + P_big V_big, small terms first.
@@ -48,9 +52,10 @@
 //    memory and up to 255 registers a thread: an SM holds 2 blocks.
 //  * S phase: thread (rg, jg) = (tid / 16, tid % 16) holds an 8 x 4
 //    register tile of S, rows rg + 8 r and keys jg + 16 i: per 4 values of
-//    d, 12 float4 loads feed 128 FMAs.  Q (pre-scaled) and K rows are 68
-//    floats apart, so the K loads of 8 neighbouring lanes hit 8 different
-//    16-byte bank groups, and the Q loads are broadcasts.
+//    d, 12 float4 loads feed 128 FMAs.  Q (pre-scaled) and K rows are Dh +
+//    4 floats apart (68 or 76: an odd count of 16-byte groups), so the K
+//    loads of 8 neighbouring lanes hit 8 different 16-byte bank groups, and
+//    the Q loads are broadcasts.
 //  * The online softmax: a running row max (a shuffle reduction over the 16
 //    lanes of a row), P = exp2((S - max) log2 e), the running sums kept per
 //    lane and reduced at the end.  P and each row's rescale go to shared
@@ -59,10 +64,11 @@
 //    m16n8k8 TF32.  The A fragment's key order is free (a sum over keys),
 //    so logical column c of an 8-key step reads key 2 c and column c + 4 key
 //    2 c + 1: P comes in as one 8-byte load a row, and V's B fragments as
-//    plain 4-byte loads, conflict-free at the 68-float stride.  Each value
+//    plain 4-byte loads, conflict-free at either stride.  Each value
 //    is split in registers (integer rounding, no cvt).  Each tile's
 //    products are summed apart, from zero, and added to O with the rescale
-//    in one fp32 FMA: a chain of 24 tensor-core sums instead of 384.
+//    in one fp32 FMA: a chain of 24 tensor-core sums instead of 384.  Dh
+//    72 takes 9 n8 tiles a warp where Dh 64 takes 8.
 //
 // Measured on an H100 (PERF.md): 2.45 ms at the DiT shape, against SDPA's
 // 3.02 ms; alone, the S phase takes ~1.7 ms and the P V phase ~1.3 ms
@@ -75,8 +81,8 @@
 // S phase holds the kernel: on half the warps (the producer) it ran slower
 // than the overlap with P V could win back.
 //
-// L a multiple of 64 and batch * heads at most 65535; anything else returns
-// cudaErrorInvalidValue.
+// Dh 64 or 72, L a multiple of 64 and batch * heads at most 65535; anything
+// else returns cudaErrorInvalidValue.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -84,17 +90,21 @@
 
 namespace {
 
-constexpr int kDh = 64;
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kRows = 64;      // query rows a block
 constexpr int kKeys = 64;      // keys a tile
-constexpr int kLd = kDh + 4;   // row stride of every shared tile, in floats
 constexpr float kLog2e = 1.4426950408889634f;
+
+// The row stride of every shared tile, in floats.
+template <int kDh>
+constexpr int kRowStride = kDh + 4;
 
 // Shared memory, in floats: Q (pre-scaled), K, V, P (rows x keys), then
 // each row's rescale and, at the end, its sum.
+template <int kDh>
 struct Smem {
-  static constexpr int kTile = kRows * kLd;  // also kKeys * kLd
+  static_assert(kDh == 64 || kDh == 72, "Dh 64 or 72");
+  static constexpr int kTile = kRows * kRowStride<kDh>;  // also K's, V's
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + kTile;
   static constexpr int kV = kK + kTile;
@@ -167,11 +177,13 @@ __device__ __forceinline__ float row_sum(float v) {
 
 // acc = P V for one 64-key tile, three TF32 products an 8-key step, small
 // terms first: rows r_lo and r_hi = r_lo + 8, columns 8 nt + 2 c (+1).
-__device__ __forceinline__ void pv_tile(float (&acc)[8][4], const float* sP,
-                                        const float* sV, int r_lo, int r_hi,
-                                        int g, int c) {
+template <int kDh>
+__device__ __forceinline__ void pv_tile(float (&acc)[kDh / 8][4],
+                                        const float* sP, const float* sV,
+                                        int r_lo, int r_hi, int g, int c) {
+  constexpr int kLd = kRowStride<kDh>;
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
+  for (int nt = 0; nt < kDh / 8; ++nt) {
     acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
   }
 #pragma unroll
@@ -189,7 +201,7 @@ __device__ __forceinline__ void pv_tile(float (&acc)[8][4], const float* sP,
     split(p_hi.y, pb[3], ps[3]);
     const float* v0 = sV + (ks * 8 + 2 * c) * kLd + g;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int nt = 0; nt < kDh / 8; ++nt) {
       // B: (key 2 c, column 8 nt + g), (key 2 c + 1, the same column)
       uint32_t vb0, vs0, vb1, vs1;
       split(v0[nt * 8], vb0, vs0);
@@ -202,6 +214,7 @@ __device__ __forceinline__ void pv_tile(float (&acc)[8][4], const float* sP,
 }
 
 // Blocks: (L / 64, batch * heads), 128 threads; two blocks an SM.
+template <int kDh>
 __global__ void __launch_bounds__(kThreads, 2)
     attn_fp32_sm90_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
@@ -209,7 +222,9 @@ __global__ void __launch_bounds__(kThreads, 2)
                           long long q_sb, long long q_sl, long long k_sb,
                           long long k_sl, long long v_sb, long long v_sl,
                           int L, int heads, float scale) {
-  using S = Smem;
+  using S = Smem<kDh>;
+  constexpr int kLd = kRowStride<kDh>;
+  constexpr int kNt = kDh / 8;  // n8 tiles of P V a warp
   extern __shared__ __align__(16) float smem[];
   float* sQ = smem + S::kQ;
   float* sK = smem + S::kK;
@@ -264,9 +279,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     m[r] = -CUDART_INF_F;
     l[r] = 0.f;
   }
-  float acc_o[8][4];
+  float acc_o[kNt][4];
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
+  for (int nt = 0; nt < kNt; ++nt) {
     acc_o[nt][0] = acc_o[nt][1] = acc_o[nt][2] = acc_o[nt][3] = 0.f;
   }
 
@@ -277,7 +292,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();
     load_tile(sV, vb, v_sl, t);
 
-    // S = (q * scale) k^T: one FMA chain a (row, key) over d = 0 ... 63
+    // S = (q * scale) k^T: one FMA chain a (row, key) over d = 0 ... Dh - 1
     float s[8][4];
 #pragma unroll
     for (int r = 0; r < 8; ++r) s[r][0] = s[r][1] = s[r][2] = s[r][3] = 0.f;
@@ -331,11 +346,11 @@ __global__ void __launch_bounds__(kThreads, 2)
     // O = O * alpha + P V, the tile's products summed apart first (a chain
     // of 24 products: the tensor cores' sums, chained over all of L,
     // drifted to 1.6e-5 of scale at the DiT shape, against 1.7e-6 so)
-    float acc_t[8][4];
-    pv_tile(acc_t, sP, sV, r_lo, r_hi, g, c);
+    float acc_t[kNt][4];
+    pv_tile<kDh>(acc_t, sP, sV, r_lo, r_hi, g, c);
     const float a_lo = sAlpha[r_lo], a_hi = sAlpha[r_hi];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int nt = 0; nt < kNt; ++nt) {
       acc_o[nt][0] = fmaf(acc_o[nt][0], a_lo, acc_t[nt][0]);
       acc_o[nt][1] = fmaf(acc_o[nt][1], a_lo, acc_t[nt][1]);
       acc_o[nt][2] = fmaf(acc_o[nt][2], a_hi, acc_t[nt][2]);
@@ -355,7 +370,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   float* ob = o + static_cast<long long>(b) * L * o_sl +
               static_cast<long long>(h) * kDh;
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
+  for (int nt = 0; nt < kNt; ++nt) {
     const int col = nt * 8 + 2 * c;
     *reinterpret_cast<float2*>(ob + (row0 + r_lo) * o_sl + col) =
         make_float2(acc_o[nt][0] / l_lo, acc_o[nt][1] / l_lo);
@@ -364,34 +379,56 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+template <int kDh>
+cudaError_t launch(const float* q, const float* k, const float* v, float* o,
+                   long long q_sb, long long q_sl, long long k_sb,
+                   long long k_sl, long long v_sb, long long v_sl, int batch,
+                   int L, int heads, float scale, cudaStream_t stream) {
+  // two blocks an SM: all of the SM's memory as shared memory
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_fp32_sm90_kernel<kDh>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Smem<kDh>::kBytes);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(attn_fp32_sm90_kernel<kDh>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  }
+  if (err != cudaSuccess) return err;
+  const dim3 grid(L / kRows, batch * heads);
+  attn_fp32_sm90_kernel<kDh><<<grid, kThreads, Smem<kDh>::kBytes, stream>>>(
+      q, k, v, o, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, L, heads, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// q, k, v: (batch, L, heads, 64) fp32 with the given batch and row strides
-// (in elements); o: (batch, L, heads, 64) fp32, contiguous.  Returns a
-// cudaError_t (0 on success).
+// q, k, v: (batch, L, heads, head_dim) fp32 with the given batch and row
+// strides (in elements); o: (batch, L, heads, head_dim) fp32, contiguous;
+// head_dim 64 or 72.  Returns a cudaError_t (0 on success).
 extern "C" int dimsum_full_attention_f32(
     const void* q, const void* k, const void* v, void* o, long long q_sb,
     long long q_sl, long long k_sb, long long k_sl, long long v_sb,
-    long long v_sl, int batch, int L, int heads, float scale, void* stream) {
+    long long v_sl, int batch, int L, int heads, int head_dim, float scale,
+    void* stream) {
   if (L <= 0 || L % kRows != 0 || L % kKeys != 0 || batch <= 0 ||
       heads <= 0 || batch * heads > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // two blocks an SM: all of the SM's memory as shared memory
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_fp32_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Smem::kBytes);
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(attn_fp32_sm90_kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  float* of = static_cast<float*>(o);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 64:
+      return static_cast<int>(launch<64>(qf, kf, vf, of, q_sb, q_sl, k_sb,
+                                         k_sl, v_sb, v_sl, batch, L, heads,
+                                         scale, s));
+    case 72:
+      return static_cast<int>(launch<72>(qf, kf, vf, of, q_sb, q_sl, k_sb,
+                                         k_sl, v_sb, v_sl, batch, L, heads,
+                                         scale, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(L / kRows, batch * heads);
-  attn_fp32_sm90_kernel<<<grid, kThreads, Smem::kBytes,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), q_sb, q_sl, k_sb,
-      k_sl, v_sb, v_sl, L, heads, scale);
-  return static_cast<int>(cudaGetLastError());
 }

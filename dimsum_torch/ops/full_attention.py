@@ -9,12 +9,14 @@ layout.
   * `full_block_attention_cuda` : the hand-written CUDA kernels, each
                              launch-counted, the route fixed by dtype and
                              head size (`attention_kernel`): bf16 at Dh 64
-                             (DiM-L/2's heads) to `csrc/full_attention_sm90.cu`
+                             and 72 (DiM-L/2's heads; DiT-XL/2's and
+                             DiM-XL/2's) to `csrc/full_attention_sm90.cu`
                              (TMA + wgmma, `full_attention_sm90`), fp32 at Dh
-                             64 to `csrc/full_attention_f32.cu` (S on the FP32
-                             pipe, P V as three TF32 tensor-core products,
-                             `full_attention_f32`), the rest (bf16 and fp32 at
-                             Dh 72-128) to `csrc/full_attention.cu`
+                             64 and 72 to `csrc/full_attention_f32.cu` (S on
+                             the FP32 pipe, P V as three TF32 tensor-core
+                             products, `full_attention_f32`), the rest (bf16
+                             and fp32 at Dh 80-128) to
+                             `csrc/full_attention.cu`
                              (`full_attention_first`).
   * `full_block_attention` : the autograd Function the modules call: the
                              kernel for CUDA tensors, the plain version for
@@ -42,16 +44,17 @@ __all__ = ["full_block_supported", "full_attention_ref", "attention_kernel",
 # the JAX gate: S, exp(S) and P of one head fit the TPU's VMEM up to L 1024
 _MAX_FULL_BLOCK_L = 1024
 # the head sizes the kernels take (csrc/full_attention.cu is compiled for
-# each; the other two take 64)
+# each; the Hopper redesigns for those of `_REDESIGN_HEAD_DIMS`)
 _KERNEL_HEAD_DIMS = tuple(range(64, 129, 8))
+_REDESIGN_HEAD_DIMS = (64, 72)
 # csrc/full_attention.cu: q, k, v, out; the batch and row strides of q, k,
 # v; B, L, H, Dh, dtype; the scale
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 6
              + [ctypes.c_int] * 5 + [ctypes.c_float])
 # csrc/full_attention_sm90.cu and csrc/full_attention_f32.cu: q, k, v, out;
-# the strides; B, L, H; the scale
-_DH64_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 6
-                  + [ctypes.c_int] * 3 + [ctypes.c_float])
+# the strides; B, L, H, Dh; the scale
+_REDESIGN_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 6
+                      + [ctypes.c_int] * 4 + [ctypes.c_float])
 
 
 def full_block_supported(L: int, Dh: int) -> bool:
@@ -64,13 +67,13 @@ def attention_kernel(dtype: torch.dtype, Dh: int) -> str:
     """The route inside `full_block_attention_cuda`, fixed by dtype and head
     size before any launch: the name of the kernel (its source under
     `csrc/` and its launch-counted wrapper here) that takes the call.  bf16
-    at Dh 64 to the TMA + wgmma kernel (`full_attention_sm90`), fp32 at Dh
-    64 to `full_attention_f32`, all else to the first design
-    (`full_attention_first`).  Not a fallback: each kernel raises on
-    failure."""
-    if Dh == 64 and dtype == torch.bfloat16:
+    at Dh 64 and 72 to the TMA + wgmma kernel (`full_attention_sm90`), fp32
+    at Dh 64 and 72 to `full_attention_f32`, all else (Dh 80-128, which no
+    model of the zoo has) to the first design (`full_attention_first`).
+    Not a fallback: each kernel raises on failure."""
+    if Dh in _REDESIGN_HEAD_DIMS and dtype == torch.bfloat16:
         return "full_attention_sm90"
-    if Dh == 64 and dtype == torch.float32:
+    if Dh in _REDESIGN_HEAD_DIMS and dtype == torch.float32:
         return "full_attention_f32"
     return "full_attention_first"
 
@@ -107,28 +110,33 @@ def _check(name, t, device, dtype, shape):
                          "of 8 elements on a 16-byte aligned pointer")
 
 
-def _dh64_launch(name, q, k, v, out, scale) -> None:
-    B, L, H, _ = q.shape
+def _redesign_launch(name, q, k, v, out, scale) -> None:
+    """Launch a Hopper redesign, compiled for the head sizes of
+    `_REDESIGN_HEAD_DIMS` alone: any other raises here."""
+    B, L, H, Dh = q.shape
+    if Dh not in _REDESIGN_HEAD_DIMS:
+        raise NotImplementedError(
+            f"{name} is built for Dh in {_REDESIGN_HEAD_DIMS}, got Dh={Dh}")
     cuda_build.check_tensor("out", out, q.device, q.dtype, q.shape)
-    cuda_build.launch(name, _DH64_ARGTYPES, q.device, q, k, v, out,
+    cuda_build.launch(name, _REDESIGN_ARGTYPES, q.device, q, k, v, out,
                       q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-                      v.stride(0), v.stride(1), B, L, H, scale)
+                      v.stride(0), v.stride(1), B, L, H, Dh, scale)
 
 
 def full_attention_sm90(q, k, v, out, scale: float) -> None:
-    """Launch `csrc/full_attention_sm90.cu` on bf16 Dh-64 tensors that
-    `full_block_attention_cuda` has checked (q, k, v strided), writing
-    `out` (contiguous), `scale` already rounded to bf16.  Counts its
-    launches in `full_attention_sm90.launches`."""
-    _dh64_launch("full_attention_sm90", q, k, v, out, scale)
+    """Launch `csrc/full_attention_sm90.cu` on bf16 tensors of Dh 64 or
+    72 that `full_block_attention_cuda` has checked (q, k, v strided),
+    writing `out` (contiguous), `scale` already rounded to bf16.  Counts
+    its launches in `full_attention_sm90.launches`."""
+    _redesign_launch("full_attention_sm90", q, k, v, out, scale)
     full_attention_sm90.launches += 1
 
 
 def full_attention_f32(q, k, v, out, scale: float) -> None:
-    """Launch `csrc/full_attention_f32.cu` on fp32 Dh-64 tensors that
-    `full_block_attention_cuda` has checked, as `full_attention_sm90`
+    """Launch `csrc/full_attention_f32.cu` on fp32 tensors of Dh 64 or 72
+    that `full_block_attention_cuda` has checked, as `full_attention_sm90`
     does.  Counts its launches in `full_attention_f32.launches`."""
-    _dh64_launch("full_attention_f32", q, k, v, out, scale)
+    _redesign_launch("full_attention_f32", q, k, v, out, scale)
     full_attention_f32.launches += 1
 
 

@@ -3,11 +3,13 @@ card.
 
 Profiles with `torch.profiler` either the CFG forward of the bench protocol
 (DiM-L/2 at 256 px, or 512 px with `--image-size 512`, seeded random
-weights, 2 x batch rows) or, with `--train`, one train step of
+weights, 2 x batch rows; `--model` another model of the zoo, built as the
+sampling CLI builds it from its name and the CLI's defaults for the rest,
+e.g. DiT-XL/2) or, with `--train`, one train step of
 `dimsum_torch.train_bench` (batch rows, bf16 over fp32 weights, AdamW,
 clip, EMA).  Prints JSON lines: the host wall time per step
 (CUDA-synchronized, unprofiled), the device time per step by kernel class
-(the selective-scan kernels, the full-block attention kernel, matmul,
+(the selective-scan kernels, the full-block attention kernels, matmul,
 library attention, optimizer, the rest) and the device's idle share, then
 the top kernels by device time.  The flags of `dimsum_torch.bench` select
 the fused-kernel configuration, whose three kernels (add + norm, norm +
@@ -15,6 +17,8 @@ modulate, conv + x_proj) are classes of their own.
 
     python -m dimsum_torch.profile_forward --batch 12 --dtype bf16
     python -m dimsum_torch.profile_forward --image-size 512
+    python -m dimsum_torch.profile_forward --model DiT-XL/2 \
+        --image-size 512 --batch 4
     python -m dimsum_torch.profile_forward --train --batch 16
     python -m dimsum_torch.profile_forward --pallas-norm --fused-norm \
         --conv-xproj [--pending-tail 2]
@@ -27,6 +31,7 @@ The last profiles train steps under remat (`train_bench`'s flags).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -34,10 +39,11 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from dimsum_torch import train_bench
+from dimsum_torch import cli, train_bench
 from dimsum_torch.bench import (DTYPES, IMAGE_SIZES, add_fused_flags,
                                 fused_settings)
 from dimsum_torch.models.dim import DiM_models, build_dim, forward_with_cfg
+from dimsum_torch.models.factory import build_model
 from dimsum_torch.utils.device import card_name_and_power_limit, resolve_device
 
 ITERS = 5  # steps per timed and per profiled window
@@ -66,9 +72,32 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
+def zoo_config(model: str, image_size: int, dtype: str, fused: dict):
+    """The config the sampling CLI builds for `--model model --image-size
+    image_size` (1000 classes, label dropout 0.1 for CFG's null class, the
+    CLI's defaults otherwise), with the fused switches the config has."""
+    p = argparse.ArgumentParser()
+    cli.add_model_args(p)
+    cli.add_moe_args(p)
+    cfg = cli.model_config(p.parse_args(
+        ["--model", model, "--image-size", str(image_size), "--num-classes",
+         "1000", "--label-dropout", "0.1",
+         *(["--bf16"] if dtype == "bf16" else [])]))
+    fields = {f.name for f in dataclasses.fields(cfg)}
+    unknown = {k for k, on in fused.items() if on and k not in fields}
+    if unknown:
+        raise ValueError(f"{model} has no switch {sorted(unknown)}")
+    return dataclasses.replace(
+        cfg, **{k: v for k, v in fused.items() if k in fields})
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=12)
+    ap.add_argument("--model", default="DiM-L/2",
+                    help="without --train: DiM-L/2 (the bench protocol's "
+                         "configuration) or another model of the zoo, "
+                         "built from its name by the CLI's model_config")
     ap.add_argument("--dtype", default="bf16", choices=sorted(DTYPES))
     ap.add_argument("--train", action="store_true",
                     help="profile train steps (batch rows) instead of CFG "
@@ -82,6 +111,8 @@ def main(argv=None):
     ap.add_argument("--remat-policy", default=None,
                     help="with --grad-checkpoint: what remat keeps")
     args = ap.parse_args(argv)
+    if args.train and args.model != "DiM-L/2":
+        ap.error("--train profiles train_bench's DiM-L/2 only")
     fused = fused_settings(args)
     latent = args.image_size // 8
     dev = resolve_device("cuda")
@@ -93,11 +124,15 @@ def main(argv=None):
                                     grad_checkpoint=args.grad_checkpoint,
                                     remat_policy=args.remat_policy, **fused)
         rows, grad_mode = args.batch, torch.enable_grad()
-    else:
+    elif args.model == "DiM-L/2":
         cfg = DiM_models["DiM-L/2"](img_resolution=latent, num_classes=1000,
                                     use_attn_every_k_layers=4,
                                     dtype=DTYPES[args.dtype], **fused)
         net = build_dim(cfg, dev, seed=0)
+    else:
+        cfg = zoo_config(args.model, args.image_size, args.dtype, fused)
+        net = build_model(cfg, dev, seed=0)
+    if not args.train:
         g = torch.Generator(device=dev).manual_seed(0)
         half = torch.randn((args.batch, 4, latent, latent), generator=g,
                            device=dev)
@@ -143,6 +178,7 @@ def main(argv=None):
     print(json.dumps({
         "card": card_name_and_power_limit(dev.index or 0),
         "step": "train" if args.train else "cfg_forward",
+        "model": "DiM-L/2" if args.train else args.model,
         "image_size": args.image_size, "rows": rows, "dtype": args.dtype,
         "fused": fused, "grad_checkpoint": args.grad_checkpoint,
         "remat_policy": args.remat_policy,

@@ -4,8 +4,9 @@ numpy inputs:
 
   * `full_attention_ref` against the JAX `full_block_attention` running
     the Pallas `_attn_kernel` in interpret mode (DIMSUM_ATTN_INTERPRET=1),
-    at (2, 128, 4, 64) and (1, 1024, 2, 64), at logits of order 1e3, and in
-    bf16, where both round P to bf16 before P V;
+    at (2, 128, 4, 64) and (1, 1024, 2, 64), at logits of order 1e3 (also
+    at (1, 1024, 2, 72) in fp32), and in bf16, where both round P to bf16
+    before P V;
   * the port's Function (its CPU route) differentiated against `jax.grad`
     of the JAX function (its custom_vjp recomputes through XLA);
   * `Attention` (dim 256, 4 heads) and `CrossAttentionFusion` (dim 1024,
@@ -74,6 +75,18 @@ def test_full_attention_ref_large_logits_match_jax_kernel():
     q, k, v = _qkv(2, 1, 128, 1, 64, logit_scale=40.0)
     want = jax_full_block_attention(*map(jnp.asarray, (q, k, v)), 0.125)
     got = full_attention_ref(*map(torch.from_numpy, (q, k, v)), 0.125)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_full_attention_ref_large_logits_at_dh72_match_jax_kernel():
+    """fp32 at L 1024, Dh 72 (DiT-XL/2's and DiM-XL/2's heads) and its
+    scale 72^-1/2, at logits of order 1e3: the plain version at the shape
+    and logits the card holds the Dh-72 kernels to."""
+    q, k, v = _qkv(72, 1, 1024, 2, 72, logit_scale=40.0)
+    want = jax_full_block_attention(*map(jnp.asarray, (q, k, v)),
+                                    72 ** -0.5)
+    got = full_attention_ref(*map(torch.from_numpy, (q, k, v)), 72 ** -0.5)
     assert torch.isfinite(got).all()
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
@@ -181,18 +194,55 @@ def test_routing(monkeypatch, L, Dh, full):
 @pytest.mark.parametrize("dtype, Dh, kernel", [
     (torch.bfloat16, 64, "full_attention_sm90"),  # DiM-L/2 at 512 px
     (torch.float32, 64, "full_attention_f32"),    # the default fp32 sampling
-    (torch.bfloat16, 72, "full_attention_first"),  # DiM-XL/2's heads
+    (torch.bfloat16, 72, "full_attention_sm90"),  # DiT-XL/2's, DiM-XL/2's
     (torch.bfloat16, 128, "full_attention_first"),
-    (torch.float32, 72, "full_attention_first"),
+    (torch.float32, 72, "full_attention_f32"),
     (torch.float32, 128, "full_attention_first"),
+    (torch.bfloat16, 80, "full_attention_first"),  # no model of the zoo
+    (torch.float32, 80, "full_attention_first"),
     (torch.float16, 64, "full_attention_first"),  # refused later, by dtype
 ])
 def test_kernel_route_by_dtype_and_head_size(dtype, Dh, kernel):
-    """Inside the CUDA wrapper: bf16 at Dh 64 goes to the TMA + wgmma
-    kernel, fp32 at Dh 64 to `csrc/full_attention_f32.cu`, everything else
-    to `csrc/full_attention.cu`; a plain function of dtype and Dh, fixed
+    """Inside the CUDA wrapper: bf16 at Dh 64 and 72 goes to the TMA +
+    wgmma kernel, fp32 at Dh 64 and 72 to `csrc/full_attention_f32.cu`,
+    everything else (Dh 80-128) to `csrc/full_attention.cu`; a plain
+    function of dtype and Dh, fixed
     before any launch, that names a launch-counted wrapper."""
     from dimsum_torch.ops import full_attention
 
     assert attention_kernel(dtype, Dh) == kernel
     assert getattr(full_attention, kernel).launches >= 0
+
+
+@pytest.mark.parametrize("name", [
+    "attn_sm90_kernel<64>", "attn_sm90_kernel<72>",
+    "attn_fp32_sm90_kernel<64>", "attn_fp32_sm90_kernel<72>",
+    "attn_bf16_kernel<80>", "attn_f32_kernel<128>"])
+def test_profiler_class_of_each_attention_kernel(name):
+    """`profile_forward` counts every instantiation of the three
+    attention sources as the full-block attention, apart from the library
+    attention class."""
+    from dimsum_torch.profile_forward import kernel_class
+
+    assert kernel_class(f"void (anonymous namespace)::{name}(...)") \
+        == "full_block_attention"
+
+
+def test_profile_forward_builds_dit_xl_as_the_cli_does():
+    """`profile_forward --model DiT-XL/2 --image-size 512` profiles the
+    model the sampling CLI builds: hidden 1152, 16 heads (Dh 72), 28
+    blocks, latent 64 (L 1024), a null class for CFG; a fused switch the
+    model lacks is refused."""
+    from dimsum_torch.profile_forward import zoo_config
+
+    off = dict(pallas_norm=False, fused_norm=False, conv_xproj=False,
+               pending_tail=0)
+    cfg = zoo_config("DiT-XL/2", 512, "bf16", off)
+    assert (cfg.hidden_size // cfg.num_heads, cfg.depth, cfg.img_resolution,
+            cfg.dtype, cfg.num_classes) == (72, 28, 64, torch.bfloat16, 1000)
+    assert cfg.label_dropout > 0
+    assert takes_full_block(cfg.num_patches, 72)
+    assert zoo_config("DiT-XL/2", 512, "bf16",
+                      {**off, "fused_norm": True}).fused_norm
+    with pytest.raises(ValueError, match="no switch"):
+        zoo_config("DiT-XL/2", 512, "bf16", {**off, "conv_xproj": True})

@@ -772,6 +772,18 @@ def test_f32_kernel_arithmetic_holds_the_tolerance(B, L, H, seed,
            full_attention_ref(q, k, v, scale), 2e-5)
 
 
+@pytest.mark.parametrize("B, L, H, seed, logit_scale", [
+    (2, 1024, 2, 72, 40.0), (2, 256, 3, 73, 1.0)])
+def test_f32_kernel_arithmetic_holds_the_tolerance_at_dh72(B, L, H, seed,
+                                                            logit_scale):
+    """As above at Dh 72 (DiT-XL/2's and DiM-XL/2's heads) and its scale,
+    72^-1/2: the kernel's 9 n8 tiles of P V a warp change no sum."""
+    q, k, v = attn_inputs("cpu", torch.float32, B, L, H, 72, seed=seed,
+                          logit_scale=logit_scale)
+    _close(f32_kernel_emulated(q, k, v, 72 ** -0.5),
+           full_attention_ref(q, k, v, 72 ** -0.5), 2e-5)
+
+
 def test_f32_kernel_keeps_s_off_the_tensor_cores():
     """Why S is summed in fp32: as three TF32 products (~7e-7 of each term
     against fp32's ~6e-8), the logits of 40x inputs (~1e3) move by ~1e-3,
@@ -852,55 +864,67 @@ def test_sm90_attention_matches_plain_on_card(cuda, dtype, H, L, scale):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_sm90_attention_large_logits_at_L1024_on_card(cuda, dtype):
+@pytest.mark.parametrize("B, H, Dh", [
+    (2, 2, 64),
+    (8, 16, 72),  # DiT-XL/2 and DiM-XL/2's DiT block, 8 CFG rows
+    (8, 8, 72)])  # DiM-XL/2's cross fusion
+def test_sm90_attention_large_logits_at_L1024_on_card(cuda, dtype, B, H, Dh):
     """Logits of order 1e3 over 16 key tiles: the running max grows from
-    tile to tile and the output is rescaled each time."""
-    q, k, v = attn_inputs(cuda, dtype, 2, 1024, 2, 64, seed=3,
+    tile to tile and the output is rescaled each time.  The softmax is
+    near one-hot, where a row's two largest logits may nearly tie, so fp32
+    holds 2e-5 only if S carries the plain product's bits."""
+    q, k, v = attn_inputs(cuda, dtype, B, 1024, H, Dh, seed=3,
                           logit_scale=40.0)
+    before = attn_counts()
     with torch.no_grad():
-        got = full_block_attention(q, k, v, 0.125)
-    want = full_attention_ref(q, k, v, 0.125)
+        got = full_block_attention(q, k, v, Dh ** -0.5)
+    assert_one_launch_of(attention_kernel(dtype, Dh), before)
+    want = full_attention_ref(q, k, v, Dh ** -0.5)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     _close(got, want, _tol(dtype))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_sm90_attention_reads_cross_fusion_slices_on_card(cuda, dtype):
+@pytest.mark.parametrize("Dh", [64, 72])
+def test_sm90_attention_reads_cross_fusion_slices_on_card(cuda, dtype, Dh):
     """q from one projection and k, v from another, as the cross fusion
-    pairs q1 with k2 and v2: other base pointers and other row strides
-    (3 H Dh and, here, 5 H Dh)."""
+    pairs q1 with k2 and v2 (8 heads: DiM-L/2's and, at Dh 72,
+    DiM-XL/2's): other base pointers and other row strides (3 H Dh and,
+    here, 5 H Dh)."""
     B, L, H = 3, 1024, 8
-    q1 = attn_inputs(cuda, dtype, B, L, H, 64, seed=11)[0]
+    q1 = attn_inputs(cuda, dtype, B, L, H, Dh, seed=11)[0]
     g = torch.Generator().manual_seed(12)
-    wide = torch.randn(B, L, 5 * H * 64, generator=g).to(cuda, dtype)
-    k2 = wide[..., 2 * H * 64:3 * H * 64].reshape(B, L, H, 64)
-    v2 = wide[..., 4 * H * 64:].reshape(B, L, H, 64)
-    assert q1.stride(1) != k2.stride(1)
+    wide = torch.randn(B, L, 5 * H * Dh, generator=g).to(cuda, dtype)
+    k2 = wide[..., 2 * H * Dh:3 * H * Dh].reshape(B, L, H, Dh)
+    v2 = wide[..., 4 * H * Dh:].reshape(B, L, H, Dh)
+    assert q1.stride(1) == 3 * H * Dh and k2.stride(1) == 5 * H * Dh
     before = attn_counts()
     with torch.no_grad():
-        got = full_block_attention(q1, k2, v2, 0.125)
-    assert_one_launch_of(attention_kernel(dtype, 64), before)
-    want = full_attention_ref(q1, k2, v2, 0.125)
+        got = full_block_attention(q1, k2, v2, Dh ** -0.5)
+    assert_one_launch_of(attention_kernel(dtype, Dh), before)
+    want = full_attention_ref(q1, k2, v2, Dh ** -0.5)
     torch.cuda.synchronize()
     _close(got, want, _tol(dtype))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_sm90_attention_repeats_bit_for_bit_on_card(cuda, dtype):
-    q, k, v = attn_inputs(cuda, dtype, 4, 1024, 4, 64, seed=13)
+@pytest.mark.parametrize("B, H, Dh", [(4, 4, 64), (8, 16, 72)])
+def test_sm90_attention_repeats_bit_for_bit_on_card(cuda, dtype, B, H, Dh):
+    q, k, v = attn_inputs(cuda, dtype, B, 1024, H, Dh, seed=13)
     with torch.no_grad():
-        a = full_block_attention(q, k, v, 0.125)
-        b = full_block_attention(q, k, v, 0.125)
+        a = full_block_attention(q, k, v, Dh ** -0.5)
+        b = full_block_attention(q, k, v, Dh ** -0.5)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("dtype, Dh", [(torch.bfloat16, 72),
-                                       (torch.float32, 72)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Dh", [80, 128])
 def test_attention_other_cases_keep_the_first_kernel_on_card(cuda, dtype,
                                                              Dh):
-    """bf16 and fp32 at Dh 72 (DiM-XL/2) go to `csrc/full_attention.cu`."""
+    """bf16 and fp32 at Dh 80-128 (no model of the zoo) go to
+    `csrc/full_attention.cu`."""
     q, k, v = attn_inputs(cuda, dtype, 2, 1024, 2, Dh, seed=Dh)
     before, every = attn_counts(), full_block_attention_cuda.launches
     with torch.no_grad():
@@ -910,6 +934,79 @@ def test_attention_other_cases_keep_the_first_kernel_on_card(cuda, dtype,
     want = full_attention_ref(q, k, v, Dh ** -0.5)
     torch.cuda.synchronize()
     _close(got, want, 2e-5 if dtype == torch.float32 else 1.6e-2)
+
+
+# ---------------------------------------------------------------------------
+# Dh 72 (every 1152-wide model at 512 px) through the Hopper redesigns: bf16
+# on TMA + wgmma with each row in a 128-byte-swizzled head (columns 0-63)
+# and a 32-byte-swizzled tail (64-79, TMA's zero fill past 72); fp32 on the
+# FP32 pipe at a 76-float shared row stride, 9 n8 tiles of P V a warp.
+# The large-logit, cross-fusion and repeat tests above take Dh 72 too.
+# ---------------------------------------------------------------------------
+
+DH72_KERNELS = {torch.bfloat16: "full_attention_sm90",
+                torch.float32: "full_attention_f32"}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B, L, H", [
+    (8, 1024, 16),   # DiT-XL/2 and DiM-XL/2's DiT block, 8 CFG rows
+    (8, 1024, 8),    # DiM-XL/2's cross fusion (8 heads on a 576-wide half)
+    (2, 128, 3), (3, 256, 2), (1, 384, 1)])
+def test_dh72_redesign_matches_plain_on_card(cuda, dtype, B, L, H):
+    q, k, v = attn_inputs(cuda, dtype, B, L, H, 72, seed=L + H)
+    assert attention_kernel(dtype, 72) == DH72_KERNELS[dtype]
+    before = attn_counts()
+    with torch.no_grad():
+        got = full_block_attention(q, k, v, 72 ** -0.5)
+    assert_one_launch_of(DH72_KERNELS[dtype], before)
+    want = full_attention_ref(q, k, v, 72 ** -0.5)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, L, H, 72)
+    assert torch.isfinite(got).all()
+    _close(got, want, _tol(dtype))
+
+
+def _fma_chain(qt, kt):
+    """S = qt kt^T as one fp32 FMA chain a (row, key) over d from zero,
+    emulated exactly in fp64: each product is exact there; the sum with
+    the running value is rounded to fp64 and its rounding error kept
+    (TwoSum), and the fp32 rounding takes that error's sign where the fp64
+    sum lies on a midpoint between two fp32 values."""
+    s = torch.zeros(qt.shape[:-1] + (kt.shape[-2],), device=qt.device)
+    for d in range(qt.shape[-1]):
+        prod = qt[..., d:d + 1].double() * kt[..., d].unsqueeze(-2).double()
+        acc = s.double()
+        tot = prod + acc
+        t = tot - prod
+        err = (prod - (tot - t)) + (acc - t)
+        near = tot.float()
+        toward = torch.nextafter(near, torch.where(
+            err > 0, torch.tensor(math.inf, device=s.device),
+            torch.tensor(-math.inf, device=s.device)))
+        mid = (near.double() + toward.double()) * 0.5
+        s = torch.where((err != 0) & (tot == mid), toward, near)
+    return s
+
+
+@pytest.mark.parametrize("B, H, Dh", [(8, 16, 72), (8, 8, 72), (8, 16, 64)])
+def test_fp32_product_is_one_fma_chain_on_card(cuda, B, H, Dh):
+    """The fp32 kernel sums S as one FMA chain over d = 0 ... Dh - 1: on
+    the card that is the plain version's product (`torch.matmul` on fp32,
+    TF32 off) bit for bit, at Dh 72 as at Dh 64."""
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        q, k, _ = attn_inputs(cuda, torch.float32, B, 1024, H, Dh,
+                              seed=Dh + H)
+        qs = q * torch.tensor(Dh ** -0.5, dtype=q.dtype)
+        qt, kt = (t.transpose(1, 2).float() for t in (qs, k))
+        want = torch.matmul(qt, kt.transpose(-1, -2))
+        got = _fma_chain(qt, kt)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    assert torch.equal(got, want)
 
 
 def test_attention_kernel_counts_its_launches(cuda):
@@ -929,6 +1026,13 @@ def test_attention_kernel_raises_on_what_it_does_not_take(cuda):
                       (1024, 60)):
             with pytest.raises(NotImplementedError, match="takes"):
                 call(1, L, 1, Dh)
+        # the redesigns are built for Dh 64 and 72 alone; no fallback
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = attn_inputs(cuda, dtype, 1, 128, 1, 80)
+            for fn in (attention_ops.full_attention_sm90,
+                       attention_ops.full_attention_f32):
+                with pytest.raises(NotImplementedError, match="built for"):
+                    fn(q, k, v, torch.empty_like(q), 0.1)
         with pytest.raises(TypeError):
             call(1, 128, 1, 64, dtype=torch.float16)
         q, k, v = attn_inputs(cuda, torch.float32, 1, 128, 2, 64)
@@ -1615,28 +1719,42 @@ def test_h0_route_on_card(cuda, grad):
 
 
 # ---------------------------------------------------------------------------
-# DiT-XL/2 at 512 px: Dh 72, the first attention kernel
-# (`csrc/full_attention.cu`), forward and the Function's backward
+# DiT-XL/2's attention shape (2 rows here; L 1024, 16 heads): forward and
+# the Function's backward, at Dh 72 (DiT-XL/2 itself) through the Hopper
+# redesigns, and at Dh 80 and 128 through the first attention kernel
+# (`csrc/full_attention.cu`), which keeps those head sizes
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_first_kernel_at_dit_xl_shape_on_card(cuda, dtype):
+def _forward_and_grads_match(cuda, dtype, Dh, kernel):
     leaves = [t.detach().requires_grad_(True) for t in
-              attn_inputs(cuda, dtype, 2, 1024, 16, 72, seed=72)]
-    assert attention_kernel(dtype, 72) == "full_attention_first"
+              attn_inputs(cuda, dtype, 2, 1024, 16, Dh, seed=Dh)]
+    assert attention_kernel(dtype, Dh) == kernel
     g = torch.randn(leaves[0].shape, device=cuda,
                     generator=torch.Generator(cuda).manual_seed(7)).to(dtype)
     before = attn_counts()
-    out = full_block_attention(*leaves, 72 ** -0.5)
+    out = full_block_attention(*leaves, Dh ** -0.5)
     got = torch.autograd.grad(out, leaves, g)
     torch.cuda.synchronize()
-    assert_one_launch_of("full_attention_first", before)
-    ref = full_attention_ref(*leaves, 72 ** -0.5)
+    assert_one_launch_of(kernel, before)
+    ref = full_attention_ref(*leaves, Dh ** -0.5)
     want = torch.autograd.grad(ref, leaves, g)
     tol = 2e-5 if dtype == torch.float32 else 1.6e-2
     _close(out.detach(), ref.detach(), tol)
     for a, b in zip(got, want):
         _close(a, b, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dh", [80, 128])
+def test_first_kernel_at_dit_xl_shape_on_card(cuda, dtype, Dh):
+    _forward_and_grads_match(cuda, dtype, Dh, "full_attention_first")
+
+
+@pytest.mark.parametrize("dtype, kernel", [
+    (torch.float32, "full_attention_f32"),
+    (torch.bfloat16, "full_attention_sm90")])
+def test_redesign_at_dit_xl_shape_on_card(cuda, dtype, kernel):
+    _forward_and_grads_match(cuda, dtype, 72, kernel)
 
 
 # ---------------------------------------------------------------------------
