@@ -64,8 +64,9 @@
 //    leaves out.  S takes four k-steps of 16 on the heads and one on the
 //    tails (k 80: the padding adds 11% to S's tensor work); P V is an n64
 //    product on V's head and an n8 product on the tail's columns 64-71 (n
-//    72).  The ring stays at 4 stages: 20 KB a stage, 101 KB a block, two
-//    blocks an SM (124 registers a thread with an n16 tail product).
+//    72; n8 measured ~1% faster than n16 with the same bits, PERF.md).
+//    The ring stays at 4 stages: 20 KB a stage, 101 KB a block, two
+//    blocks an SM (120 registers a thread, no spill).
 //  * The softmax scale: where it is a power of two (Dh 64 gives 2^-3), q *
 //    scale is exact in bf16, so S = scale * (q k^T) exactly and the kernel
 //    folds scale * log2(e) into the one FFMA of each exponent.  Any other
@@ -101,17 +102,6 @@ constexpr int kKeys = 64;           // keys a K/V tile
 constexpr int kStages = 4;          // K/V tiles in the ring
 constexpr int kSlices = kKeys / 16; // 16-key slices of P V a tile
 constexpr float kLog2e = 1.4426950408889634f;
-
-// The width of P V's product on V's tail at Dh 72: 8 (columns 64-71) or
-// 16 (the tail's whole 32-byte rows, columns 64-79, of which 72-79 are
-// zero).  The same bits either way; n8 measured ~1% faster (PERF.md).  A
-// build may set it (-DDIMSUM_SM90_PV_TAIL_N=16): `python -m
-// dimsum_torch.tools.attn_tail_width` times the two on the card.
-#ifndef DIMSUM_SM90_PV_TAIL_N
-#define DIMSUM_SM90_PV_TAIL_N 8
-#endif
-constexpr int kPvTailN = DIMSUM_SM90_PV_TAIL_N;
-static_assert(kPvTailN == 8 || kPvTailN == 16, "a tail product of n8 or n16");
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -307,29 +297,17 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
 }
 
-// wgmma_rs on the V tail at N = 2 M (M accumulator registers): n16 or n8.
-// d (64 x N) holds, in d[4 j + e], the rows and columns of the n64 layout
-// for j < N / 8.
-template <int M>
-__device__ __forceinline__ void wgmma_rs_tail(float (&d)[M],
+// d += A B on V's tail: as wgmma_rs at n8, B 16 x 8 MN-major (columns
+// 64-71) from the tail's 32-byte rows.  d holds the columns of the n64
+// layout's first 8-column group.
+__device__ __forceinline__ void wgmma_rs_tail(float (&d)[4],
                                               const uint32_t (&a)[4],
                                               uint64_t db) {
-  static_assert(M == 8 || M == 4, "n16 or n8");
-  if constexpr (M == 8) {
-    asm volatile(
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, 1, 1, "
-        "1, 1;\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
-  } else {
-    asm volatile(
-        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, 1, 1, 1, 1;\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
-  }
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
 }
 
 // Two floats as one bf16x2 register, `lo` in the low half.
@@ -467,7 +445,7 @@ struct Products {
   // O += P V over the tile's 16-key slices, committed as one group: V's
   // k-step is 16 rows, 2048 bytes of the head and 512 of the tail.
   __device__ __forceinline__ void issue_pv(float (&o)[32],
-                                           float (&ot)[kPvTailN / 2],
+                                           float (&ot)[4],
                                            const uint32_t (&pf)[kSlices][4],
                                            uint32_t v_head,
                                            uint32_t v_tail) const {
@@ -614,13 +592,12 @@ __global__ void __launch_bounds__(kWarpgroups * 128, 2)
     if (lane == 0) mbar_arrive(empty0 + 8 * (t % kStages));
   };
 
-  // the output: columns 0-63 in o, at Dh 72 columns 64-71 (with an n16
-  // tail product also the zero columns 72-79) in ot
-  float o[32], ot[kPvTailN / 2];
+  // the output: columns 0-63 in o, at Dh 72 columns 64-71 in ot
+  float o[32], ot[4];
 #pragma unroll
   for (int i = 0; i < 32; ++i) o[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < kPvTailN / 2; ++i) ot[i] = 0.f;
+  for (int i = 0; i < 4; ++i) ot[i] = 0.f;
   // running max (in units of q k^T) and partial sum of rows g and g + 8
   float m_lo = -CUDART_INF_F, m_hi = -CUDART_INF_F, l_lo = 0.f, l_hi = 0.f;
   float sc[32];
