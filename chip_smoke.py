@@ -138,7 +138,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
               mixer shape (24, 256, 1024, W 4, R 64, x a strided slice of
               in_proj's output), forward and reversed, bf16 and fp32, plus
               L 1024, DiM-XL/2's R 68, ragged L (65, 127 reversed) and the
-              gate's widest R (512): the same fields.
+              gate's widest R (512): the same fields.  The fp32 route also
+              at the fused fp32 512-px shape (24 x 1024 x 1024) and at
+              DiM-XL/2's at 512 px (8 x 1024 x 1152, R 68), both ways; every
+              fp32 case with its device ms.
  18. model-fused  full-width DiM-L/2 at 256 px in fp32 with TF32 off, one
               CFG forward with the fused-kernel switches on (pallas_norm,
               fused_norm, conv_xproj) through the kernels and through their
@@ -214,7 +217,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
               mode in its default dtype, fp32 (TF32 off; Euler over
               FP32_512_STEPS grid points, CFG 1.4, 2 images): 32 scan and
               36 attention launches per drift call, all through the fp32
-              kernel; finite samples.
+              kernel; finite samples.  Then sample-512-fp32-fused: the same
+              run with the JAX switches DIMSUM_PALLAS_NORM,
+              DIMSUM_FUSED_NORM and DIMSUM_CONV_XPROJ set to "1" (32 conv +
+              x_proj launches a drift call, all on the fp32 route, 15 add +
+              norm, 25 norm + modulate), held to the plain run's samples;
+              seconds per drift call of both.
  27. likelihood  the CLI's `--likelihood` at cfg 1.0 (256 px, bf16, 2
               images, LIKELIHOOD_STEPS grid points): 32 launches of kernels
               2 and 3 per drift call of the augmented ODE, finite bits/dim;
@@ -1933,6 +1941,31 @@ def convx_bound(B, L, D, W, R, esize, peak):
                                  else "operations"), nbytes, flops
 
 
+def _first_f32_convx(x, cw, cb, w, reverse):
+    """The first fp32 design (the source's temporary second entry) on the
+    same inputs: its outputs, card ms and device ms."""
+    import torch
+
+    from dimsum_torch.ops import conv_xproj as convx_ops
+    from dimsum_torch.ops import cuda_build
+
+    B, L, D = x.shape
+    W, R = cw.shape[1], w.shape[0]
+
+    def run():
+        xc = torch.empty((B, L, D), device="cuda")
+        xd = torch.empty((B, L, R), device="cuda")
+        cuda_build.launch("conv_xproj", convx_ops._ARGTYPES, x.device, x, cw,
+                          cb, w, xc, xd, x.stride(0), x.stride(1), B, L, D, W,
+                          R, 0, int(reverse), entry="first")
+        return xc, xd
+
+    out = run()
+    torch.cuda.synchronize()
+    return {"out": out, "ms": cuda_ms(run, iters=20),
+            "device_ms": device_ms(run, None)}
+
+
 def phase_kernel_convx():
     import torch
 
@@ -1945,6 +1978,12 @@ def phase_kernel_convx():
         ("mixer-fp32-reverse", 24, 256, 1024, 64, torch.float32, True),
         ("L1024-bf16", 24, 1024, 1024, 64, torch.bfloat16, False),
         ("xl-R68-bf16", 24, 256, 1152, 68, torch.bfloat16, False),
+        # the fp32 route at the fused fp32 512-px shape (the sampling CLI's
+        # default dtype) and at DiM-XL/2's mixer at 512 px (8 CFG rows)
+        ("L1024-fp32", 24, 1024, 1024, 64, torch.float32, False),
+        ("L1024-fp32-reverse", 24, 1024, 1024, 64, torch.float32, True),
+        ("xl-R68-fp32", 8, 1024, 1152, 68, torch.float32, False),
+        ("xl-R68-fp32-reverse", 8, 1024, 1152, 68, torch.float32, True),
         # ragged L (one token past four 16-token units, and 127); the
         # gate's widest R
         ("ragged-L65-bf16", 24, 65, 1024, 64, torch.bfloat16, False),
@@ -1967,13 +2006,22 @@ def phase_kernel_convx():
             torch.cuda.synchronize()
             ms = cuda_ms(lambda: conv_xproj_cuda(x, cw, cb, w, reverse),
                          iters=20)
+            bf16 = dtype == torch.bfloat16
             dev_ms = (device_ms(lambda: conv_xproj_cuda(x, cw, cb, w,
                                                         reverse),
                                 "conv_xproj")
-                      if name in ("mixer-bf16", "L1024-bf16") else None)
+                      if name in ("mixer-bf16", "L1024-bf16") or not bf16
+                      else None)
             plain_ms = cuda_ms(lambda: conv_xproj_ref(x, cw, cb, w, reverse),
                                iters=5)
-        bf16 = dtype == torch.bfloat16
+            first = None
+            if not bf16:
+                first = _first_f32_convx(x, cw, cb, w, reverse)
+                first_out = first.pop("out")
+                first["max_abs_err"] = max(
+                    (a - b).abs().max().item()
+                    for a, b in zip(first_out, want))
+                del first_out
         bound = convx_bound(B, L, D, 4, R, x.element_size(),
                             BF16_TC_FLOP_PER_S if bf16 else FP32_FLOP_PER_S)
         # relative to each output's largest value: x_conv fp32 1e-5 (exp),
@@ -1983,6 +2031,8 @@ def phase_kernel_convx():
                            (1.6e-2, 1e-2) if bf16 else (1e-5, 1e-5), ms,
                            plain_ms, bound)
         rec.update(reverse=reverse, device_ms=dev_ms)
+        if first is not None:
+            rec["first_design"] = first
         emit({"phase": "kernel-convx", **rec})
         if not rec["ok"]:
             raise AssertionError(f"conv_xproj kernel disagrees on {name}")
@@ -2429,6 +2479,82 @@ def phase_sample_512_fp32(tmp, path):
             or launches != _attention_launches(calls, "full_attention_f32")):
         raise AssertionError(f"sample-512-fp32 phase failed: {out}")
     torch.cuda.empty_cache()
+    return launches, {**out, "samples": rec["samples"]}
+
+
+# the JAX package's fused-kernel switches that sample-512-fp32-fused sets
+FUSED_ENV = ("DIMSUM_PALLAS_NORM", "DIMSUM_FUSED_NORM", "DIMSUM_CONV_XPROJ")
+
+
+def phase_sample_512_fp32_fused(tmp, path, plain):
+    """sample-512-fp32's run (`plain`: its record and samples) under the
+    JAX package's fused-kernel switches, as a user runs the JAX sample.py
+    fused: DIMSUM_PALLAS_NORM, DIMSUM_FUSED_NORM and DIMSUM_CONV_XPROJ set
+    to "1" around `sample.main` and restored after, the same checkpoint,
+    grid, images and fp32.  Each drift call takes 32 conv + x_proj
+    launches, all on the fp32 route, 15 add + norm, 25 norm + modulate and
+    36 fp32 attention launches.  Counts set to 0 just before and read just
+    after; finite samples, held to the plain run's."""
+    import os
+
+    import torch
+
+    from dimsum_torch import sample
+    from dimsum_torch.ops.conv_xproj import conv_xproj_cuda
+
+    counts = {**_fused_counts(), **_zeroed_attention_counts()}
+    for c in counts.values():
+        c.launches = 0
+    conv_xproj_cuda.fp32_launches = 0
+    saved = {k: os.environ.get(k) for k in FUSED_ENV}
+    os.environ.update({k: "1" for k in FUSED_ENV})
+    try:
+        rec = sample.main([
+            "ODE", *[a for a in DIM_L2_ARGS if a != "--bf16"],
+            "--image-size", "512", "--ckpt", path,
+            "--sample-dir", os.path.join(tmp, "ode-fp32-fused"),
+            "--sampling-method", "euler",
+            "--num-sampling-steps", str(FP32_512_STEPS),
+            "--cfg-scale", "1.4", "--global-batch-size", "2"])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counts.items()}
+    launches["conv_xproj_fp32"] = conv_xproj_cuda.fp32_launches
+    calls = FP32_512_STEPS - 1
+    want = {k: n * calls for k, n in FUSED_LAUNCHES[0].items()}
+    want.update(_attention_launches(calls, "full_attention_f32"))
+    want["conv_xproj_fp32"] = want["conv_xproj"]
+    got, ref = rec["samples"], plain["samples"]
+    scale = ref.abs().max().item()
+    # the fused kernels and the plain routes differ by ~1e-6 relative a
+    # call (rsqrt, exp, summation order), which the 16 blocks of random
+    # weights amplify as in model-fused (1e-3 of scale a forward); Euler
+    # adds the calls' velocity errors times dt, whose sum is 1, so the
+    # samples stay within the same 1e-3 of scale
+    tol = 1e-3 * max(1.0, scale)
+    err = (got - ref).abs().max().item()
+    finite = bool(torch.isfinite(got).all())
+    out = {"phase": "sample-512-fp32-fused", "model": "DiM-L/2",
+           "image_size": 512, "dtype": str(got.dtype).split(".")[-1],
+           "switches": {k: "1" for k in FUSED_ENV},
+           "steps": FP32_512_STEPS, "model_calls": calls,
+           "seconds": rec["seconds"],
+           "seconds_per_call": rec["seconds"] / calls,
+           "plain_seconds_per_call": plain["seconds_per_call"],
+           "launches": launches, "shape": list(got.shape), "finite": finite,
+           "max_abs_err_vs_plain": err, "max_abs_ref": scale, "tol": tol,
+           "sample_std": got.float().std().item()}
+    emit(out)
+    if (not finite or out["shape"] != [2, 4, 64, 64]
+            or out["dtype"] != "float32" or launches != want
+            or not err <= tol):
+        raise AssertionError(f"sample-512-fp32-fused phase failed: {out}")
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2760,18 +2886,22 @@ def phase_eval(tmp=None, ckpt=None, vae_path=None):
 
 def phase_sampling_path():
     """The sampling path from a checkpoint (sample-dopri5, sample-sde-512,
-    sample-512-fp32, likelihood) and its evaluation (eval) on files
-    written into a temporary directory, removed after.  Returns
-    sample-512-fp32's launches."""
+    sample-512-fp32 and sample-512-fp32-fused, likelihood) and its
+    evaluation (eval) on files written into a temporary directory, removed
+    after.  Returns sample-512-fp32's launches and
+    sample-512-fp32-fused's."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
         ckpt, sds, vae_path = write_checkpoints(tmp)
         phase_sample_dopri5(tmp, ckpt, sds, vae_path)
-        launches = phase_sample_512_fp32(tmp, phase_sample_sde_512(tmp, sds))
+        path = phase_sample_sde_512(tmp, sds)
+        launches, plain = phase_sample_512_fp32(tmp, path)
+        fused = phase_sample_512_fp32_fused(tmp, path, plain)
+        del plain
         phase_likelihood(tmp, ckpt)
         phase_eval(tmp, ckpt, vae_path)
-        return launches
+        return launches, fused
 
 
 # ---------------------------------------------------------------------------
@@ -4248,7 +4378,7 @@ def main() -> int:
     phase_sample_fused_512()
     variants = phase_variants()
     rest = phase_models_rest()
-    fp32_launches = phase_sampling_path()
+    fp32_launches, fused_fp32_launches = phase_sampling_path()
     for name in ("full_attention_f32", "full_attention_first"):
         launches[name] = fp32_launches[name]
     cli_launches = phase_train_cli()
@@ -4476,6 +4606,16 @@ def main() -> int:
                               "L1024_bound_ms": long_case["bound_ms"]})
     by_name["norm_modulate"]["cold_device_ms"] = \
         mods["norm_2-bfloat16"]["cold_device_ms"]
+    # conv_xproj's fp32 route at the mixer, L 1024 and DiM-XL/2 shapes, and
+    # its launches in the fused fp32 512-px CLI run
+    for key, case in (("fp32", "mixer-fp32"), ("fp32_L1024", "L1024-fp32"),
+                      ("fp32_xl_R68", "xl-R68-fp32")):
+        by_name["conv_xproj"].update({
+            f"{key}_{k}": convx[case][v] for k, v in (
+                ("shape", "shape"), ("ms", "ms"), ("device_ms", "device_ms"),
+                ("plain_ms", "plain_ms"), ("bound_ms", "bound_ms"))})
+    by_name["conv_xproj"]["fp32_launches"] = \
+        fused_fp32_launches["conv_xproj_fp32"]
     emit({"phase": "smoke-seconds", "seconds": time.perf_counter() - smoke_t0,
           "variants_seconds": variants["seconds"],
           "models_rest_seconds": rest["seconds"]})

@@ -21,7 +21,9 @@ The JAX package's fused-kernel configuration runs with its four switches as
 flags: `--pallas-norm` (the add + norm kernel), `--fused-norm` (the norm +
 modulate kernel), `--conv-xproj` (the conv + SiLU + x_proj kernel) and
 `--pending-tail 1|2` (each block's tail FFN add deferred into the next
-block's top norm).
+block's top norm), or as the JAX environment switches `DIMSUM_PALLAS_NORM`,
+`DIMSUM_FUSED_NORM`, `DIMSUM_CONV_XPROJ` and `DIMSUM_PENDING_TAIL`, which
+every CLI of the port reads (`models/factory.py::fused_switches`).
 
     python -m dimsum_torch.bench --batch 12 --steps 250 --dtype bf16 \
         --cfg 1.4 --device cuda [--image-size 512] [--solver dopri5] \
@@ -41,7 +43,7 @@ import torch
 
 from dimsum_torch.models.dim import DiM_models, forward_with_cfg
 from dimsum_torch.models.dit import DiT_models
-from dimsum_torch.models.factory import build_model
+from dimsum_torch.models.factory import build_model, fused_switches
 from dimsum_torch.transport import Sampler, create_transport
 from dimsum_torch.utils.device import card_name_and_power_limit, resolve_device
 
@@ -66,8 +68,16 @@ def add_fused_flags(ap: argparse.ArgumentParser) -> None:
                          "top norm (2: through the norm + modulate kernel)")
 
 
-def fused_settings(args: argparse.Namespace) -> dict:
-    return {k: getattr(args, k) for k in FUSED_DEFAULTS}
+def fused_settings(args: argparse.Namespace, dit: bool = False) -> dict:
+    """The four switches from the flags and the environment: a switch is
+    on where its flag or its JAX environment switch turns it on
+    (`factory.fused_switches`, which the other CLIs build by), so a flag
+    and its `DIMSUM_*` variable set the same field; a `--pending-tail`
+    above 0 wins over the variable.  For a DiT (`dit`) the environment
+    gives only `fused_norm`, as in the factory."""
+    env = fused_switches(dit)
+    return {k: getattr(args, k) or env.get(k, FUSED_DEFAULTS[k])
+            for k in FUSED_DEFAULTS}
 
 
 def fused_config(**fused) -> dict:
@@ -193,7 +203,8 @@ def main(argv=None):
     record, _ = run(batch=args.batch, steps=args.steps, dtype=args.dtype,
                     cfg_scale=args.cfg, device=args.device, seed=args.seed,
                     model=args.model, image_size=args.image_size,
-                    solver=args.solver, **fused_settings(args))
+                    solver=args.solver,
+                    **fused_settings(args, dit=args.model in DiT_models))
     print(json.dumps(record))
 
 

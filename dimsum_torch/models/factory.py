@@ -9,7 +9,11 @@ not build raises `NotImplementedError` naming its ROADMAP item:
 `--scan-impl xla|pallas` (the port's scans are its CUDA kernels and the
 plain PyTorch scan), MoE with tensor parallelism (the JAX `ep_mesh`,
 expert parallelism: Queue 1 item 8) and the JAX opt-in environment
-switches the port lacks (`UNPORTED_SWITCHES`, item 7).
+switches the port lacks (`UNPORTED_SWITCHES`, item 7).  The four switches
+of the JAX fused-kernel configuration are read from the environment as
+the JAX package reads them at call time (`fused_switches`): each sets
+the config field of its name, and a DiT takes only `DIMSUM_FUSED_NORM`,
+the one of the four that reaches the JAX DiT (its norm + modulate sites).
 `--mamba-moe-layers` builds nothing, as in JAX: no module of
 `dimsum_tpu/models` reads it.  A DiT
 takes no DiM flag and no `--grad-checkpoint` from the namespace, as in
@@ -34,6 +38,33 @@ ModelConfig = Union[DiMConfig, DiTConfig]
 UNPORTED_SWITCHES = ("DIMSUM_WAVELET_ONE_REARRANGE", "DIMSUM_DWT_CL",
                      "DIMSUM_FUSED_WAVELET", "DIMSUM_NORM_MXU",
                      "DIMSUM_FLASH_ATTN", "DIMSUM_FULL_ATTN")
+# the JAX fused-kernel switches and the config fields they set
+FUSED_SWITCHES = {"DIMSUM_PALLAS_NORM": "pallas_norm",
+                  "DIMSUM_FUSED_NORM": "fused_norm",
+                  "DIMSUM_CONV_XPROJ": "conv_xproj",
+                  "DIMSUM_PENDING_TAIL": "pending_tail"}
+
+
+def fused_switches(dit: bool = False) -> dict:
+    """The config fields the JAX fused-kernel switches set, read from
+    `os.environ` as the JAX package reads them: "1" turns
+    `DIMSUM_PALLAS_NORM`, `DIMSUM_FUSED_NORM` and `DIMSUM_CONV_XPROJ` on
+    (norms.py:153, :378; conv_xproj.py:54); `DIMSUM_PENDING_TAIL` is an
+    integer, 0 where it is not one (blocks.py:100-111), and defers the
+    tail above 0, through the norm + modulate kernel at 2 (dim.py:344-355).
+    For a DiT (`dit`) only `fused_norm`: the JAX DiT has no add + norm,
+    conv or deferred-tail site."""
+    on = {field: os.environ.get(name, "0") == "1"
+          for name, field in FUSED_SWITCHES.items()
+          if field != "pending_tail"}
+    if dit:
+        return {"fused_norm": on["fused_norm"]}
+    try:
+        tail = int(os.environ.get("DIMSUM_PENDING_TAIL", "0"))
+    except ValueError:
+        tail = 0
+    on["pending_tail"] = 2 if tail == 2 else int(tail > 0)
+    return on
 
 
 def model_config(args: Any) -> ModelConfig:
@@ -79,7 +110,8 @@ def model_config(args: Any) -> ModelConfig:
             use_gated_mlp=not args.not_use_gated_mlp,
             dtype=dtype,
             grad_checkpoint=getattr(args, "grad_checkpoint", False),
-            remat_policy=getattr(args, "remat_policy", None))
+            remat_policy=getattr(args, "remat_policy", None),
+            **fused_switches())
     if "DiT" in args.model:
         return DiT_models[args.model](
             img_resolution=args.image_size // 8,
@@ -87,7 +119,8 @@ def model_config(args: Any) -> ModelConfig:
             label_dropout=args.label_dropout,
             num_classes=args.num_classes,
             learn_sigma=args.learn_sigma,
-            dtype=dtype)
+            dtype=dtype,
+            **fused_switches(dit=True))
     raise ValueError(f"unknown model {args.model}")
 
 

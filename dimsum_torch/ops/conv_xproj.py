@@ -54,11 +54,12 @@ def conv_xproj_supported(x, R: int) -> bool:
 
 
 def _tma_readable(x) -> bool:
-    """The bf16 kernel reads x through a TMA tensor map: its address must
-    be 16-byte aligned and its batch and row strides multiples of 16
-    bytes."""
-    return (x.data_ptr() % 16 == 0 and x.stride(0) % 8 == 0
-            and x.stride(1) % 8 == 0)
+    """The kernel reads x through a TMA tensor map: its address must be
+    16-byte aligned and its batch and row strides multiples of 16 bytes
+    (8 bf16 or 4 fp32 elements)."""
+    per16 = 16 // x.element_size()
+    return (x.data_ptr() % 16 == 0 and x.stride(0) % per16 == 0
+            and x.stride(1) % per16 == 0)
 
 
 def conv_xproj_ref(x, conv_w, conv_b, w_xp, reverse: bool = False):
@@ -77,13 +78,14 @@ def conv_xproj_cuda(x, conv_w, conv_b, w_xp, reverse: bool = False):
     """Launch the CUDA kernel: `conv_xproj_ref`'s function.  x (B, L, D) a
     CUDA tensor of float32 or bfloat16 whose channels are contiguous (the
     batch and row strides are free, so the first half of `in_proj`'s output
-    goes in without a copy; a bf16 x whose address or strides TMA cannot
-    take is copied first); conv_w (D, W) and conv_b (D,) float32
-    contiguous (conv_b may be None); w_xp (R, D), cast to x's dtype here.
-    D % 64 == 0 and W <= 8.  Returns new contiguous (x_conv, x_dbl).
-    Raises on anything else, and under grad mode with an input that
-    requires grad (the training route is `ConvXProjFn`).  `launches`
-    counts every launch, `reverse_launches` the anticausal ones."""
+    goes in without a copy; an x whose address or strides TMA cannot take
+    is copied first); conv_w (D, W) and conv_b (D,) float32 contiguous
+    (conv_b may be None); w_xp (R, D), cast to x's dtype here.  D % 64 == 0
+    and W <= 8.  Returns new contiguous (x_conv, x_dbl).  Raises on
+    anything else, and under grad mode with an input that requires grad
+    (the training route is `ConvXProjFn`).  `launches` counts every launch,
+    `reverse_launches` the anticausal ones, `fp32_launches` those of the
+    fp32 route."""
     if needs_grad(x, conv_w, conv_b, w_xp):
         raise RuntimeError("conv_xproj_cuda has no backward; take "
                            "ConvXProjFn or run under torch.no_grad()")
@@ -100,13 +102,15 @@ def conv_xproj_cuda(x, conv_w, conv_b, w_xp, reverse: bool = False):
             f"1 <= W <= {_KERNEL_MAX_W}; got D={D}, W={W}, R={R}")
     if x.stride(2) != 1:
         raise ValueError("x: the channels of each row must be contiguous")
-    if x.dtype == torch.bfloat16 and not _tma_readable(x):
-        x = x.contiguous()
+    if not _tma_readable(x):
+        x = x.clone(memory_format=torch.contiguous_format)
     dev = x.device
     check_tensor("conv_w", conv_w, dev, torch.float32, (D, W))
     if conv_b is not None:
         check_tensor("conv_b", conv_b, dev, torch.float32, (D,))
     w = w_xp.to(x.dtype).contiguous()
+    if w.data_ptr() % 16:
+        w = w.clone()
     check_tensor("w_xp", w, dev, x.dtype, (R, D))
     x_conv = torch.empty((B, L, D), device=dev, dtype=x.dtype)
     x_dbl = torch.empty((B, L, R), device=dev, dtype=torch.float32)
@@ -115,11 +119,13 @@ def conv_xproj_cuda(x, conv_w, conv_b, w_xp, reverse: bool = False):
                       DTYPE_CODE[x.dtype], int(bool(reverse)))
     conv_xproj_cuda.launches += 1
     conv_xproj_cuda.reverse_launches += bool(reverse)
+    conv_xproj_cuda.fp32_launches += x.dtype == torch.float32
     return x_conv, x_dbl
 
 
 conv_xproj_cuda.launches = 0
 conv_xproj_cuda.reverse_launches = 0
+conv_xproj_cuda.fp32_launches = 0
 
 
 class ConvXProjFn(torch.autograd.Function):

@@ -11,8 +11,9 @@ clip, EMA).  Prints JSON lines: the host wall time per step
 (CUDA-synchronized, unprofiled), the device time per step by kernel class
 (the selective-scan kernels, the full-block attention kernels, matmul,
 library attention, optimizer, the rest) and the device's idle share, then
-the top kernels by device time.  The flags of `dimsum_torch.bench` select
-the fused-kernel configuration, whose three kernels (add + norm, norm +
+the top kernels by device time.  The flags of `dimsum_torch.bench`, or
+the JAX environment switches they stand for, select the fused-kernel
+configuration, whose three kernels (add + norm, norm +
 modulate, conv + x_proj) are classes of their own.
 
     python -m dimsum_torch.profile_forward --batch 12 --dtype bf16
@@ -43,6 +44,7 @@ from dimsum_torch import cli, train_bench
 from dimsum_torch.bench import (DTYPES, IMAGE_SIZES, add_fused_flags,
                                 fused_settings)
 from dimsum_torch.models.dim import DiM_models, build_dim, forward_with_cfg
+from dimsum_torch.models.dit import DiT_models
 from dimsum_torch.models.factory import build_model
 from dimsum_torch.utils.device import card_name_and_power_limit, resolve_device
 
@@ -113,7 +115,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.train and args.model != "DiM-L/2":
         ap.error("--train profiles train_bench's DiM-L/2 only")
-    fused = fused_settings(args)
+    fused = fused_settings(args, dit=args.model in DiT_models)
     latent = args.image_size // 8
     dev = resolve_device("cuda")
 

@@ -1281,7 +1281,12 @@ def conv_inputs(device, dtype, B, L, D, W, R, seed=0, strided=False):
     (2, 70, 128, 8, 64, True),
     # the taps in shared memory at W 8 beside 64-row w_xp tiles, and read
     # from conv_w where they do not fit beside 72-row tiles
-    (2, 40, 1024, 8, 64, True), (2, 70, 1152, 8, 68, True)])
+    (2, 40, 1024, 8, 64, True), (2, 70, 1152, 8, 68, True),
+    # the fp32 route's main-path shapes: the fused fp32 512-px mixer and
+    # DiM-XL/2's at 512 px (8 CFG rows); the taps of D 4096 at W 8 beside
+    # its ring, which do not fit there
+    (24, 1024, 1024, 4, 64, True), (8, 1024, 1152, 4, 68, True),
+    (2, 40, 4096, 8, 64, True)])
 def test_conv_xproj_kernel_matches_plain_on_card(cuda, dtype, reverse, B, L,
                                                  D, W, R, strided):
     x, cw, cb, w = conv_inputs(cuda, dtype, B, L, D, W, R, seed=L + R,
@@ -1298,12 +1303,17 @@ def test_conv_xproj_kernel_matches_plain_on_card(cuda, dtype, reverse, B, L,
     _close(got_d, want_d, 1e-2 if dtype == torch.bfloat16 else 1e-5)
 
 
-def test_conv_xproj_kernel_without_bias_repeats_bit_for_bit(cuda):
-    x, cw, _, w = conv_inputs(cuda, torch.bfloat16, 2, 64, 256, 4, 64)
+def _convx_tols(dtype):
+    return (1.6e-2, 1e-2) if dtype == torch.bfloat16 else (1e-5, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_xproj_kernel_without_bias_repeats_bit_for_bit(cuda, dtype):
+    x, cw, _, w = conv_inputs(cuda, dtype, 2, 64, 256, 4, 64)
     a = conv_xproj_cuda(x, cw, None, w)
     b = conv_xproj_cuda(x, cw, None, w)
     want = conv_xproj_ref(x, cw, None, w)
-    for got, again, ref, tol in zip(a, b, want, (1.6e-2, 1e-2)):
+    for got, again, ref, tol in zip(a, b, want, _convx_tols(dtype)):
         assert torch.equal(got, again)
         _close(got, ref, tol)
 
@@ -1321,31 +1331,38 @@ def test_conv_xproj_kernel_without_bias_matches_plain_on_card(cuda, dtype,
     _close(got_d, want_d, 1e-2 if dtype == torch.bfloat16 else 1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("reverse", [False, True])
 def test_conv_xproj_kernel_with_bias_repeats_bit_for_bit_at_mixer_shape(
-        cuda, reverse):
-    x, cw, cb, w = conv_inputs(cuda, torch.bfloat16, 24, 256, 1024, 4, 64,
+        cuda, reverse, dtype):
+    x, cw, cb, w = conv_inputs(cuda, dtype, 24, 256, 1024, 4, 64,
                                seed=5, strided=True)
     a = conv_xproj_cuda(x, cw, cb, w, reverse)
     b = conv_xproj_cuda(x, cw, cb, w, reverse)
     want = conv_xproj_ref(x, cw, cb, w, reverse)
-    for got, again, ref, tol in zip(a, b, want, (1.6e-2, 1e-2)):
+    for got, again, ref, tol in zip(a, b, want, _convx_tols(dtype)):
         assert torch.equal(got, again)
         _close(got, ref, tol)
 
 
-def test_conv_xproj_kernel_takes_x_tma_cannot_read_on_card(cuda):
-    """A bf16 x at an odd element offset, or with a row stride that is no
-    multiple of 8, is copied before the kernel reads it."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_xproj_kernel_takes_x_tma_cannot_read_on_card(cuda, dtype):
+    """An x at an element offset that is no multiple of 16 bytes, or with a
+    row stride that is no multiple of 16 bytes, is copied before the kernel
+    reads it; so is a contiguous x at such an offset."""
     g = torch.Generator().manual_seed(9)
-    xz = torch.randn(2, 40, 2 * 128 + 4, generator=g).to(cuda, torch.bfloat16)
-    _, cw, cb, w = conv_inputs(cuda, torch.bfloat16, 2, 40, 128, 4, 64)
-    for x in (xz[..., 1:129], xz[..., :128]):
+    xz = torch.randn(2, 40, 2 * 128 + 2, generator=g).to(cuda, dtype)
+    flat = torch.randn(2 * 40 * 128 + 1, generator=g).to(cuda, dtype)
+    _, cw, cb, w = conv_inputs(cuda, dtype, 2, 40, 128, 4, 64)
+    for x in (xz[..., 1:129], xz[..., :128], flat[1:].view(2, 40, 128)):
+        before = conv_xproj_cuda.launches
         got_c, got_d = conv_xproj_cuda(x, cw, cb, w)
+        assert conv_xproj_cuda.launches == before + 1
         want_c, want_d = conv_xproj_ref(x, cw, cb, w)
         torch.cuda.synchronize()
-        _close(got_c, want_c, 1.6e-2)
-        _close(got_d, want_d, 1e-2)
+        for got, ref, tol in zip((got_c, got_d), (want_c, want_d),
+                                 _convx_tols(dtype)):
+            _close(got, ref, tol)
 
 
 def test_conv_xproj_tma_readable_checks_address_and_strides():
@@ -1357,6 +1374,18 @@ def test_conv_xproj_tma_readable_checks_address_and_strides():
     assert not _tma_readable(xz[..., 1:129])
     assert not _tma_readable(torch.zeros(2, 40, 260,
                                          dtype=torch.bfloat16)[..., :128])
+
+
+def test_conv_xproj_tma_readable_checks_fp32_address_and_strides():
+    """fp32: 16 bytes are 4 elements, so a row stride of 260 is readable
+    and one of 258 is not."""
+    from dimsum_torch.ops.conv_xproj import _tma_readable
+
+    xz = torch.zeros(2, 40, 2 * 128 + 4)
+    assert _tma_readable(xz[..., :128])
+    assert _tma_readable(xz[..., 4:132])
+    assert not _tma_readable(xz[..., 2:130])
+    assert not _tma_readable(torch.zeros(2, 40, 258)[..., :128])
 
 
 def test_fused_kernels_raise_on_what_they_do_not_take(cuda):
