@@ -1941,31 +1941,6 @@ def convx_bound(B, L, D, W, R, esize, peak):
                                  else "operations"), nbytes, flops
 
 
-def _first_f32_convx(x, cw, cb, w, reverse):
-    """The first fp32 design (the source's temporary second entry) on the
-    same inputs: its outputs, card ms and device ms."""
-    import torch
-
-    from dimsum_torch.ops import conv_xproj as convx_ops
-    from dimsum_torch.ops import cuda_build
-
-    B, L, D = x.shape
-    W, R = cw.shape[1], w.shape[0]
-
-    def run():
-        xc = torch.empty((B, L, D), device="cuda")
-        xd = torch.empty((B, L, R), device="cuda")
-        cuda_build.launch("conv_xproj", convx_ops._ARGTYPES, x.device, x, cw,
-                          cb, w, xc, xd, x.stride(0), x.stride(1), B, L, D, W,
-                          R, 0, int(reverse), entry="first")
-        return xc, xd
-
-    out = run()
-    torch.cuda.synchronize()
-    return {"out": out, "ms": cuda_ms(run, iters=20),
-            "device_ms": device_ms(run, None)}
-
-
 def phase_kernel_convx():
     import torch
 
@@ -2014,14 +1989,6 @@ def phase_kernel_convx():
                       else None)
             plain_ms = cuda_ms(lambda: conv_xproj_ref(x, cw, cb, w, reverse),
                                iters=5)
-            first = None
-            if not bf16:
-                first = _first_f32_convx(x, cw, cb, w, reverse)
-                first_out = first.pop("out")
-                first["max_abs_err"] = max(
-                    (a - b).abs().max().item()
-                    for a, b in zip(first_out, want))
-                del first_out
         bound = convx_bound(B, L, D, 4, R, x.element_size(),
                             BF16_TC_FLOP_PER_S if bf16 else FP32_FLOP_PER_S)
         # relative to each output's largest value: x_conv fp32 1e-5 (exp),
@@ -2031,8 +1998,6 @@ def phase_kernel_convx():
                            (1.6e-2, 1e-2) if bf16 else (1e-5, 1e-5), ms,
                            plain_ms, bound)
         rec.update(reverse=reverse, device_ms=dev_ms)
-        if first is not None:
-            rec["first_design"] = first
         emit({"phase": "kernel-convx", **rec})
         if not rec["ok"]:
             raise AssertionError(f"conv_xproj kernel disagrees on {name}")

@@ -107,9 +107,15 @@
 //  * R above one pass walks the unit again, A from the x_conv the lane
 //    stored in the first pass (L2 hits): the conv is never recomputed.
 //
-// Measured on an H100 80GB HBM3 at 700 W (PERF.md section 6): 0.069 ms at
-// the mixer shape, 0.18 ms at L 1024, 0.081 ms at DiM-XL/2's 512-px shape,
-// against 0.20 / 0.51 / 0.25 ms for the first design.
+// Measured on an H100 80GB HBM3 at 700 W (PERF.md section 6): 0.067 ms at
+// the mixer shape, 0.180 ms at L 1024, 0.082 ms at DiM-XL/2's 512-px shape
+// (8 x 1024 x 1152, R 68), against 0.197 / 0.525 / 0.243 ms for the first
+// design (commit 9252b98) in the same run.  Tried and dropped: a lane
+// owning 8 rows over half the chunk's channels (fewer shared loads, but
+// the shuffles and registers cost more), no loading warp (the last warp
+// off a stage refilling it), the A tile outside the ring, 3 stages with
+// the taps read from conv_w, and the correctly rounded reciprocal (a
+// fifth of the time).
 //
 // D a multiple of 64, 1 <= W <= 8; x 16-byte aligned with batch and row
 // strides multiples of 16 bytes; anything else returns
@@ -955,94 +961,6 @@ __global__ void __launch_bounds__(kF32Threads, 1) conv_xproj_f32_kernel(
   }
 }
 
-// The first fp32 design (PR 4), kept to be timed beside the redesign.
-// Rows of the chunk's input with the halo: row r of sX is token
-// t0 - (W-1) + r (causal) or t0 + r (reversed); zero outside [0, L).
-constexpr int kRows = 16;
-constexpr int kThreads = 128;
-constexpr int kNGroup = 80;
-constexpr int kLdF = kChan + 1;
-
-__device__ __forceinline__ void stage_x(float (*sX)[kChan], const float* xb,
-                                        long long x_sl, int t0, int L, int c0,
-                                        int W, int reverse) {
-  const int first = reverse ? t0 : t0 - (W - 1);
-  for (int i = threadIdx.x; i < (kRows + W - 1) * kChan; i += kThreads) {
-    const int r = i / kChan, ch = i % kChan, t = first + r;
-    sX[r][ch] = (t >= 0 && t < L) ? xb[t * x_sl + c0 + ch] : 0.f;
-  }
-}
-
-__device__ __forceinline__ float conv_silu(float (*sX)[kChan],
-                                           const float* w_d, float bias, int r,
-                                           int ch, int W, int reverse) {
-  float y = 0.f;
-  for (int k = 0; k < W; ++k) {
-    const int o = reverse ? W - 1 - k : k;
-    y = __fadd_rn(y, __fmul_rn(sX[r + o][ch], w_d[k]));
-  }
-  y = __fadd_rn(y, bias);
-  return __fmul_rn(y, 1.f / (1.f + expf(-y)));
-}
-
-__global__ void __launch_bounds__(kThreads) conv_xproj_first_f32(
-    const float* __restrict__ x, long long x_sb, long long x_sl,
-    const float* __restrict__ conv_w, const float* __restrict__ conv_b,
-    const float* __restrict__ w_xp, float* __restrict__ x_conv,
-    float* __restrict__ x_dbl, int L, int D, int W, int R, int reverse) {
-  __shared__ float sX[kRows + kMaxW - 1][kChan];
-  __shared__ float sA[kRows][kLdF];
-  __shared__ float sW[kNGroup][kLdF];
-
-  const int tid = threadIdx.x;
-  const int r_own = tid % kRows, n_own = tid / kRows;
-  const int t0 = blockIdx.x * kRows, b = blockIdx.y, n0 = blockIdx.z * kNGroup;
-  const float* xb = x + b * x_sb;
-
-  float acc[kNGroup / 8];
-#pragma unroll
-  for (int j = 0; j < kNGroup / 8; ++j) acc[j] = 0.f;
-
-  for (int c0 = 0; c0 < D; c0 += kChan) {
-    stage_x(sX, xb, x_sl, t0, L, c0, W, reverse);
-    for (int i = tid; i < kNGroup * kChan; i += kThreads) {
-      const int n = i / kChan, k = i % kChan;
-      sW[n][k] =
-          n0 + n < R ? w_xp[static_cast<long long>(n0 + n) * D + c0 + k] : 0.f;
-    }
-    __syncthreads();
-    for (int i = tid; i < kRows * kChan; i += kThreads) {
-      const int r = i / kChan, ch = i % kChan, d = c0 + ch, t = t0 + r;
-      const float v = conv_silu(sX, conv_w + static_cast<long long>(d) * W,
-                                conv_b != nullptr ? conv_b[d] : 0.f, r, ch, W,
-                                reverse);
-      sA[r][ch] = t < L ? v : 0.f;
-      if (t < L && blockIdx.z == 0) {
-        x_conv[(static_cast<long long>(b) * L + t) * D + d] = v;
-      }
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < kChan; ++k) {
-      const float a = sA[r_own][k];
-#pragma unroll
-      for (int j = 0; j < kNGroup / 8; ++j) {
-        acc[j] = fmaf(a, sW[n_own + 8 * j][k], acc[j]);
-      }
-    }
-    __syncthreads();
-  }
-
-  const int t = t0 + r_own;
-#pragma unroll
-  for (int j = 0; j < kNGroup / 8; ++j) {
-    const int n = n0 + n_own + 8 * j;
-    if (t < L && n < R) {
-      x_dbl[(static_cast<long long>(b) * L + t) * R + n] = acc[j];
-    }
-  }
-}
-
 // cuTensorMapEncodeTiled through the runtime's driver entry point, so the
 // library needs no link against libcuda.
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -1298,26 +1216,4 @@ extern "C" int dimsum_conv_xproj(const void* x, const void* conv_w,
       static_cast<const float*>(conv_b), static_cast<const float*>(w_xp),
       static_cast<float*>(x_conv), static_cast<float*>(x_dbl), x_sb, x_sl, B,
       L, D, W, R, reverse, s));
-}
-
-// The first fp32 design, on the same arguments (float32 only): kept to be
-// timed beside the redesign.
-extern "C" int dimsum_conv_xproj_first(const void* x, const void* conv_w,
-                                       const void* conv_b, const void* w_xp,
-                                       void* x_conv, void* x_dbl,
-                                       long long x_sb, long long x_sl, int B,
-                                       int L, int D, int W, int R, int dtype,
-                                       int reverse, void* stream) {
-  if (B <= 0 || B > 65535 || L <= 0 || D <= 0 || D % kChan != 0 || W < 1 ||
-      W > kMaxW || R <= 0 || dtype != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((L + kRows - 1) / kRows, B, (R + kNGroup - 1) / kNGroup);
-  conv_xproj_first_f32<<<grid, kThreads, 0, s>>>(
-      static_cast<const float*>(x), x_sb, x_sl,
-      static_cast<const float*>(conv_w), static_cast<const float*>(conv_b),
-      static_cast<const float*>(w_xp), static_cast<float*>(x_conv),
-      static_cast<float*>(x_dbl), L, D, W, R, reverse);
-  return static_cast<int>(cudaGetLastError());
 }
