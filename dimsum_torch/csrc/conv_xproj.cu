@@ -110,12 +110,14 @@
 // Measured on an H100 80GB HBM3 at 700 W (PERF.md section 6): 0.067 ms at
 // the mixer shape, 0.180 ms at L 1024, 0.082 ms at DiM-XL/2's 512-px shape
 // (8 x 1024 x 1152, R 68), against 0.197 / 0.525 / 0.243 ms for the first
-// design (commit 9252b98) in the same run.  Tried and dropped: a lane
-// owning 8 rows over half the chunk's channels (fewer shared loads, but
-// the shuffles and registers cost more), no loading warp (the last warp
-// off a stage refilling it), the A tile outside the ring, 3 stages with
-// the taps read from conv_w, and the correctly rounded reciprocal (a
-// fifth of the time).
+// design (commit 9252b98) in the same run.  Tried and dropped: the product
+// as three TF32 mma.sync products on a big/small split of both operands
+// (commit 7c1de48: 11-12% faster, but x_dbl 4e-6 of scale from the plain
+// fp32 sums against 1.4e-6), a lane owning 8 rows over half the chunk's
+// channels (fewer shared loads, but the shuffles and registers cost
+// more), no loading warp (the last warp off a stage refilling it), the A
+// tile outside the ring, 3 stages with the taps read from conv_w, and the
+// correctly rounded reciprocal (a fifth of the time).
 //
 // D a multiple of 64, 1 <= W <= 8; x 16-byte aligned with batch and row
 // strides multiples of 16 bytes; anything else returns
@@ -644,26 +646,6 @@ __device__ __forceinline__ float lane_of(const float4& v, int e) {
   return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
 }
 
-// x = big + small for three TF32 products: big rounded to TF32 (to
-// nearest, ties away, as cvt.rna) by integer arithmetic, small = x - big
-// exact in fp32 and passed whole (mma.sync reads a TF32 operand's top 19
-// bits only, so small is truncated there: |error| < 2^-21 |x|).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
-                                           uint32_t& small) {
-  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  small = __float_as_uint(x - __uint_as_float(big));
-}
-
-// d += a b: a 16 x 8 (row), b 8 x 8 (col), TF32 in, fp32 sums.
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ void f32_unit(const F32Params& p, int u, int& b,
                                          int& t0, int& rows) {
   b = u / p.nu;
@@ -752,7 +734,7 @@ __device__ __forceinline__ void conv_rows_f32(
 //   5. at a pass's end writes x_dbl (the pair's second warp first, then the
 //      first adds its own there);
 //   6. hands the stage back (an empty mbarrier of 8 arrivals).
-template <int NC, bool kTC>
+template <int NC>
 __global__ void __launch_bounds__(kF32Threads, 1) conv_xproj_f32_kernel(
     const __grid_constant__ CUtensorMap tx,
     const __grid_constant__ CUtensorMap tw, const float* __restrict__ conv_w,
@@ -830,18 +812,15 @@ __global__ void __launch_bounds__(kF32Threads, 1) conv_xproj_f32_kernel(
   }
 
   const int rg = lane / 8, cg = lane % 8;   // the product's rows and columns
-  const int g = lane / 4, t = lane % 4;     // the TF32 product's fragments
-  // the A tile's 16-byte chunk q of row r sits at q ^ a_swz(r): the FP32
-  // product reads rows 4 rg + m (rg = 0..3), the TF32 one rows g (0..7)
-  auto a_swz = [](int r) { return kTC ? r & 7 : (r >> 2) & 3; };
   const int q = lane % 16, hh = lane / 16;  // the conv's chunk and rows
   const bool rev = p.reverse != 0;
   const int half = warp % p.split;
-  // FP32: acc[m][j] is row 4 rg + m, column cg + 8 j; TF32: acc[j][e] is
-  // row g + 8 (e / 2), column 8 j + 2 t + e % 2
-  float acc[4 * NC];
+  float acc[4][NC];
 #pragma unroll
-  for (int i = 0; i < 4 * NC; ++i) acc[i] = 0.f;
+  for (int m = 0; m < 4; ++m) {
+#pragma unroll
+    for (int j = 0; j < NC; ++j) acc[m][j] = 0.f;
+  }
 
   F32Walk w;
   for (int i = 0; !w.done(p); ++i, w.advance(p)) {
@@ -903,72 +882,42 @@ __global__ void __launch_bounds__(kF32Threads, 1) conv_xproj_f32_kernel(
 #pragma unroll
         for (int m = 0; m < 4; ++m) {
           const int r = 8 * h + 4 * hh + m;
-          *reinterpret_cast<float4*>(box + r * kF32Row + ((q ^ a_swz(r)) << 4)) =
-              v[h][m];
+          *reinterpret_cast<float4*>(box + r * kF32Row +
+                                     ((q ^ ((r >> 2) & 3)) << 4)) = v[h][m];
         }
       }
       __syncwarp();
 
+      // acc[m][j] += sum over the chunk's 64 channels, in order, of
+      // A[4 rg + m][k] w_xp[pass column cg + 8 j][k]
+      const unsigned char* a_rows = box + 4 * rg * kF32Row;
       const unsigned char* tile =
           st + kF32Warps * p.box_bytes + half * p.tile_bytes;
       const int tile_half = p.tile_bytes / 2;
-      if (kTC) {
-        // three TF32 products a k step of 8 channels: A (rows g, g + 8;
-        // channels 8 ks + t, + 4) and each n8 tile's B (w_xp row 8 j + g,
-        // whose swizzle is g) split into big and small
 #pragma unroll 2
-        for (int ks = 0; ks < kChan / 8; ++ks) {
-          uint32_t ab[4], as[4];
+      for (int kq = 0; kq < kChan / 4; ++kq) {
+        float4 a[4], bw[NC];
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int r = g + 8 * (e % 2), ch = 2 * ks + e / 2;
-            split_tf32(*reinterpret_cast<const float*>(
-                           box + r * kF32Row + ((ch ^ a_swz(r)) << 4) + 4 * t),
-                       ab[e], as[e]);
-          }
-          const unsigned char* wk = tile + (ks / 4) * tile_half + 4 * t;
-#pragma unroll
-          for (int j = 0; j < NC; ++j) {
-            const unsigned char* wr = wk + (8 * j + g) * 128;
-            uint32_t bb0, bs0, bb1, bs1;
-            split_tf32(*reinterpret_cast<const float*>(
-                           wr + (((2 * (ks % 4)) ^ g) << 4)), bb0, bs0);
-            split_tf32(*reinterpret_cast<const float*>(
-                           wr + (((2 * (ks % 4) + 1) ^ g) << 4)), bb1, bs1);
-            mma_tf32(acc + 4 * j, as, bb0, bb1);
-            mma_tf32(acc + 4 * j, ab, bs0, bs1);
-            mma_tf32(acc + 4 * j, ab, bb0, bb1);
-          }
+        for (int m = 0; m < 4; ++m) {
+          a[m] = *reinterpret_cast<const float4*>(a_rows + m * kF32Row +
+                                                  ((kq ^ rg) << 4));
         }
-      } else {
-        // acc[m][j] += sum over the chunk's 64 channels, in order, of
-        // A[4 rg + m][k] w_xp[pass column cg + 8 j][k]
-        const unsigned char* a_rows = box + 4 * rg * kF32Row;
-#pragma unroll 2
-        for (int kq = 0; kq < kChan / 4; ++kq) {
-          float4 a[4], bw[NC];
+#pragma unroll
+        for (int j = 0; j < NC; ++j) {
+          bw[j] = *reinterpret_cast<const float4*>(
+              tile + (kq >> 3) * tile_half + (cg + 8 * j) * 128 +
+              (((kq & 7) ^ cg) << 4));
+        }
+        // the 4 channels in order, each over all 4 NC sums, so that 4 NC
+        // independent FMAs lie between two that depend
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
 #pragma unroll
           for (int m = 0; m < 4; ++m) {
-            a[m] = *reinterpret_cast<const float4*>(a_rows + m * kF32Row +
-                                                    ((kq ^ rg) << 4));
-          }
 #pragma unroll
-          for (int j = 0; j < NC; ++j) {
-            bw[j] = *reinterpret_cast<const float4*>(
-                tile + (kq >> 3) * tile_half + (cg + 8 * j) * 128 +
-                (((kq & 7) ^ cg) << 4));
-          }
-          // the 4 channels in order, each over all 4 NC sums, so that 4 NC
-          // independent FMAs lie between two that depend
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-#pragma unroll
-            for (int m = 0; m < 4; ++m) {
-#pragma unroll
-              for (int j = 0; j < NC; ++j) {
-                acc[m * NC + j] = fmaf(lane_of(a[m], e), lane_of(bw[j], e),
-                                       acc[m * NC + j]);
-              }
+            for (int j = 0; j < NC; ++j) {
+              acc[m][j] = fmaf(lane_of(a[m], e), lane_of(bw[j], e),
+                               acc[m][j]);
             }
           }
         }
@@ -981,15 +930,14 @@ __global__ void __launch_bounds__(kF32Threads, 1) conv_xproj_f32_kernel(
         auto each = [&](auto&& fn) {
 #pragma unroll
           for (int m = 0; m < 4; ++m) {
+            const int r = 4 * rg + m;
 #pragma unroll
             for (int j = 0; j < NC; ++j) {
-              const int r = kTC ? g + 8 * (m / 2) : 4 * rg + m;
-              const int col = w.pass * 8 * NC +
-                              (kTC ? 8 * j + 2 * t + m % 2 : cg + 8 * j);
+              const int col = w.pass * 8 * NC + cg + 8 * j;
               if (r < rows && col < p.R) {
                 fn(x_dbl + (static_cast<long long>(b) * p.L + t0 + r) * p.R +
                        col,
-                   acc[kTC ? 4 * j + m : m * NC + j]);
+                   acc[m][j]);
               }
             }
           }
@@ -1003,7 +951,10 @@ __global__ void __launch_bounds__(kF32Threads, 1) conv_xproj_f32_kernel(
         }
       }
 #pragma unroll
-      for (int i = 0; i < 4 * NC; ++i) acc[i] = 0.f;
+      for (int m = 0; m < 4; ++m) {
+#pragma unroll
+        for (int j = 0; j < NC; ++j) acc[m][j] = 0.f;
+      }
     }
     // the stage's plain writes and reads come before TMA refills it
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -1069,17 +1020,15 @@ cudaError_t prepare_device(int* sms) {
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  kSmemMax);
     }
-    const void* f32_kernels[] = {
-        reinterpret_cast<const void*>(conv_xproj_f32_kernel<8, false>),
-        reinterpret_cast<const void*>(conv_xproj_f32_kernel<9, false>),
-        reinterpret_cast<const void*>(conv_xproj_f32_kernel<8, true>),
-        reinterpret_cast<const void*>(conv_xproj_f32_kernel<9, true>)};
-    for (const void* k : f32_kernels) {
-      if (err == cudaSuccess) {
-        err = cudaFuncSetAttribute(k,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   kSmemMax);
-      }
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(conv_xproj_f32_kernel<8>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kSmemMax);
+    }
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(conv_xproj_f32_kernel<9>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kSmemMax);
     }
     if (err != cudaSuccess) return err;
     known[dev].store(n, std::memory_order_relaxed);
@@ -1154,7 +1103,7 @@ cudaError_t launch_bf16(const void* x, const float* conv_w,
 cudaError_t launch_f32(const float* x, const float* conv_w,
                        const float* conv_b, const float* w_xp, float* x_conv,
                        float* x_dbl, long long x_sb, long long x_sl, int B,
-                       int L, int D, int W, int R, int reverse, int tc,
+                       int L, int D, int W, int R, int reverse,
                        cudaStream_t stream) {
   if (x_sb % 4 != 0 || x_sl % 4 != 0 ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
@@ -1231,12 +1180,13 @@ cudaError_t launch_f32(const float* x, const float* conv_w,
     return cudaErrorInvalidValue;
   }
   const int grid = p.tasks < sms ? p.tasks : sms;
-  auto kernel = nc == 9 ? (tc ? conv_xproj_f32_kernel<9, true>
-                                : conv_xproj_f32_kernel<9, false>)
-                         : (tc ? conv_xproj_f32_kernel<8, true>
-                               : conv_xproj_f32_kernel<8, false>);
-  kernel<<<grid, kF32Threads, smem, stream>>>(tx, tw, conv_w, conv_b, x_conv,
-                                              x_dbl, p);
+  if (nc == 9) {
+    conv_xproj_f32_kernel<9><<<grid, kF32Threads, smem, stream>>>(
+        tx, tw, conv_w, conv_b, x_conv, x_dbl, p);
+  } else {
+    conv_xproj_f32_kernel<8><<<grid, kF32Threads, smem, stream>>>(
+        tx, tw, conv_w, conv_b, x_conv, x_dbl, p);
+  }
   return cudaGetLastError();
 }
 
@@ -1267,22 +1217,5 @@ extern "C" int dimsum_conv_xproj(const void* x, const void* conv_w,
       static_cast<const float*>(x), static_cast<const float*>(conv_w),
       static_cast<const float*>(conv_b), static_cast<const float*>(w_xp),
       static_cast<float*>(x_conv), static_cast<float*>(x_dbl), x_sb, x_sl, B,
-      L, D, W, R, reverse, 0, s));
-}
-
-// The fp32 route with its product on the FP32 pipe (tc 0) or as three TF32
-// mma.sync products (tc 1), float32 only: kept to time the two products.
-extern "C" int dimsum_conv_xproj_product(
-    const void* x, const void* conv_w, const void* conv_b, const void* w_xp,
-    void* x_conv, void* x_dbl, long long x_sb, long long x_sl, int B, int L,
-    int D, int W, int R, int dtype, int reverse, int tc, void* stream) {
-  if (B <= 0 || L <= 0 || D <= 0 || D % kChan != 0 || W < 1 ||
-      W > kMaxW || R <= 0 || dtype != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(launch_f32(
-      static_cast<const float*>(x), static_cast<const float*>(conv_w),
-      static_cast<const float*>(conv_b), static_cast<const float*>(w_xp),
-      static_cast<float*>(x_conv), static_cast<float*>(x_dbl), x_sb, x_sl, B,
-      L, D, W, R, reverse, tc, static_cast<cudaStream_t>(stream)));
+      L, D, W, R, reverse, s));
 }

@@ -5,18 +5,16 @@ turns, at the fp32 route's three main-path shapes.
 
     python -m dimsum_torch.tools.convx_ablate [--rounds 3]
 
-Variants: `source` (the kernel as it is), `tf32_product` (the source's
-product as three TF32 `mma.sync` products, through its entry
-`dimsum_conv_xproj_product`), `no_product` (the FMA loop skipped),
+Variants: `source` (the kernel as it is), `no_product` (the FMA loop
+skipped),
 `no_silu` (the conv without the SiLU), `no_conv` (x copied through, no
 arithmetic), `exact_rcp` (the correctly rounded reciprocal in the SiLU).
 Each is a shared library under `build/convx_ablate/`, called through its
 C entry with pre-allocated outputs; a call's time is CUDA events around 20
 launches queued behind a held stream, so the host's launch gaps are left
 out.  Prints one JSON line per shape and variant (median and least of 2 x
-`rounds` timings; for `source` and `tf32_product` the error against the
-plain version relative to its scale), with the card's name and power
-limit.  Needs a card and nvcc.
+`rounds` timings; for `source` its error against the plain version
+relative to its scale), with the card's name and power limit.  Needs a card and nvcc.
 """
 
 from __future__ import annotations
@@ -77,17 +75,10 @@ def build_variants():
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        lib = ctypes.CDLL(str(so))
-        fn = lib.dimsum_conv_xproj
+        fn = ctypes.CDLL(str(so)).dimsum_conv_xproj
         fn.argtypes = [*_ARGTYPES, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[name] = fn
-        if name == "source":
-            tc = lib.dimsum_conv_xproj_product
-            tc.argtypes = [*_ARGTYPES, ctypes.c_int, ctypes.c_void_p]
-            tc.restype = ctypes.c_int
-            fns["tf32_product"] = (
-                lambda *a, tc=tc: tc(*a[:-1], 1, a[-1]))
     return fns
 
 
@@ -129,12 +120,10 @@ def main(argv=None):
                 raise RuntimeError(f"launch failed: CUDA error {rc}")
 
         want = conv_xproj_ref(x, cw, cb, w)
-        err = {}
-        for name in ("source", "tf32_product"):
-            call(fns[name])
-            torch.cuda.synchronize()
-            err[name] = [((a - b).abs().max() / b.abs().max()).item()
-                         for a, b in zip((xc, xd), want)]
+        call(fns["source"])
+        torch.cuda.synchronize()
+        err = {"source": [((a - b).abs().max() / b.abs().max()).item()
+                          for a, b in zip((xc, xd), want)]}
         times = {name: [] for name in fns}
         order = list(fns) + list(fns)[::-1]
         for _ in range(args.rounds):
