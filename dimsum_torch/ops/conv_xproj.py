@@ -103,14 +103,12 @@ def conv_xproj_cuda(x, conv_w, conv_b, w_xp, reverse: bool = False):
     if x.stride(2) != 1:
         raise ValueError("x: the channels of each row must be contiguous")
     if not _tma_readable(x):
-        x = x.clone(memory_format=torch.contiguous_format)
+        x = x.contiguous()
     dev = x.device
     check_tensor("conv_w", conv_w, dev, torch.float32, (D, W))
     if conv_b is not None:
         check_tensor("conv_b", conv_b, dev, torch.float32, (D,))
     w = w_xp.to(x.dtype).contiguous()
-    if w.data_ptr() % 16:
-        w = w.clone()
     check_tensor("w_xp", w, dev, x.dtype, (R, D))
     x_conv = torch.empty((B, L, D), device=dev, dtype=x.dtype)
     x_dbl = torch.empty((B, L, R), device=dev, dtype=torch.float32)

@@ -13,8 +13,8 @@ clip, EMA).  Prints JSON lines: the host wall time per step
 library attention, optimizer, the rest) and the device's idle share, then
 the top kernels by device time.  The flags of `dimsum_torch.bench`, or
 the JAX environment switches they stand for, select the fused-kernel
-configuration, whose three kernels (add + norm, norm +
-modulate, conv + x_proj) are classes of their own.
+configuration, whose three kernels (add + norm, norm + modulate, conv +
+x_proj) are classes of their own.
 
     python -m dimsum_torch.profile_forward --batch 12 --dtype bf16
     python -m dimsum_torch.profile_forward --image-size 512

@@ -20,8 +20,9 @@ CUDA events.
     python -m dimsum_torch.train_bench --grad-checkpoint [--remat-policy scan]
 
 The third runs the JAX package's fused-kernel configuration (the flags of
-`dimsum_torch.bench`, or the JAX environment switches they stand for), the last remat (`DiMConfig.grad_checkpoint` and
-`remat_policy`), which trades step time for peak memory.
+`dimsum_torch.bench`, or the JAX environment switches they stand for),
+the last remat (`DiMConfig.grad_checkpoint` and `remat_policy`), which
+trades step time for peak memory.
 
 Prints one JSON line: s/step and img/s on this card, with the card's name
 and power limit, the loss and grad norm of every step, and the peak device
