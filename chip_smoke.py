@@ -4,7 +4,9 @@ its sampling and training paths at full DiM-L/2 width, at 256 px and, for
 sampling, at 512 px (also sequence-parallel over 4 ranks on the card),
 sampling from a checkpoint by the reference's eval protocol through
 `python -m dimsum_torch.sample`, the rest of the model zoo (DiT-XL/2 at
-512 px; a MoE, cond_init, cpe DiM-L/2), scoring samples (FID, KID,
+512 px; a MoE, cond_init, cpe DiM-L/2; DiM-XL/2 --block-type linear), the
+Mamba language model at mamba-2.8b's width and depth (scoring and
+generation), scoring samples (FID, KID,
 precision/recall with InceptionV3 on the card) through `python -m
 dimsum_torch.sample_ddp` and `calc_metrics`, and training for real
 through `python -m dimsum_torch.train` (with remat and data
@@ -178,7 +180,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
               compared.  Alone: python3 -c
               "import chip_smoke as s; s.phase_variants()"
               (`s.phase_reverse_route()` for the routes alone).
- 23. models-rest  the rest of the zoo from the JAX CLIs' flags
+ 23. xl-linear  DiM-XL/2 with the JAX CLI's --block-type linear and its
+              other defaults (Mamba v2, LayerNorm) at 256 px, full depth
+              24, dt_rank 72 (the scan kernels' RMAX 128): one fp32 CFG
+              forward of 24 rows through the kernels and the plain routes
+              (1e-3 of scale; 24 launches of the scan's forward entry and
+              24 of its reverse entry); `python -m dimsum_torch.sample ODE
+              --bf16` in a process of its own (4 images, XL_LINEAR_STEPS
+              Euler points: finite, the drift calls' launches); one fp32
+              step at depth 2 through kernels 2 and 3 (4 launches each)
+              and through the plain scan: loss and every gradient.  Alone:
+              python3 -c "import chip_smoke as s; s.phase_xl_linear()".
+ 24. models-rest  the rest of the zoo from the JAX CLIs' flags
               (`cli.model_config`), seeded random weights: DiT-XL/2 at 512
               px (28 blocks, hidden 1152, Dh 72, L 1024), one fp32 CFG
               forward of 8 rows through the kernels and the plain routes,
@@ -196,7 +209,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
               kernel), and one fp32 step at depth 2 whose loss and every
               gradient match the plain route.  Alone: python3 -c "import
               chip_smoke as s; s.phase_models_rest()".
- 24. sample-dopri5  the sampling path from a checkpoint: seeded random
+ 25. lm       the Mamba LM at mamba-2.8b's width and depth (d_model 2560,
+              64 layers, d_inner 5120, dt_rank 160, vocab 50280), seeded
+              weights built on the card.  First kernel-rank: kernels 1-3
+              at dt_rank 72 (DiM-XL/2 linear), 96, 128, 160 (the LM's 1 x
+              2048 x 5120) and 256 (the cap) against their plain versions
+              in bf16 and fp32 (the reverse entry at r 72; the h0 entries
+              at 256), each kernel's device ms beside its bound computed
+              from the case's inputs (the bf16 expansion on the tensor
+              cores, fp32's on the FP32 pipe); a rank of 257 must raise in
+              all three wrappers.  Then at 2 layers of full width in fp32:
+              the logits of a seeded 2048-token sequence through the scan
+              kernel and the plain scan (1e-3 of scale).  The full model in
+              fp32 (11 GB): `MambaScorer.loglikelihood` of the sequence
+              with 64 kernel-1 launches, finite; `generate` at batch 8, a
+              64-token prompt, 128 new tokens, greedy: the first new token
+              the argmax of the forward's last logits, tokens/s.  In bf16:
+              the scoring again, 64 launches.  Alone: python3 -c "import
+              chip_smoke as s; s.phase_lm()".
+ 26. sample-dopri5  the sampling path from a checkpoint: seeded random
               DiM-L/2 weights written in the reference's .pt layout (a
               different "ema" and "model") and a full-width SD-VAE (ch 128,
               ch_mult 1 2 4 4) with seeded random weights written as a
@@ -209,11 +240,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
               take the matching weights, and a checkpoint with one key
               removed must be refused.  Prints the NFE, the seconds and the
               decode seconds.
- 25. sample-sde-512  the checkpoint adapted to 512 px (`adapt_checkpoint`)
+ 27. sample-sde-512  the checkpoint adapted to 512 px (`adapt_checkpoint`)
               and sampled by the CLI's SDE mode (Euler-Maruyama over
               SDE_512_STEPS grid points, CFG 1.4, bf16): 32 scan and 36 sm90
               attention launches per model call; finite samples.
- 26. sample-512-fp32  the adapted checkpoint sampled by the CLI's ODE
+ 28. sample-512-fp32  the adapted checkpoint sampled by the CLI's ODE
               mode in its default dtype, fp32 (TF32 off; Euler over
               FP32_512_STEPS grid points, CFG 1.4, 2 images): 32 scan and
               36 attention launches per drift call, all through the fp32
@@ -223,13 +254,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
               x_proj launches a drift call, all on the fp32 route, 15 add +
               norm, 25 norm + modulate), held to the plain run's samples;
               seconds per drift call of both.
- 27. likelihood  the CLI's `--likelihood` at cfg 1.0 (256 px, bf16, 2
+ 29. likelihood  the CLI's `--likelihood` at cfg 1.0 (256 px, bf16, 2
               images, LIKELIHOOD_STEPS grid points): 32 launches of kernels
               2 and 3 per drift call of the augmented ODE, finite bits/dim;
               and one augmented drift call of the fp32 model (TF32 off)
               through the kernels and through the plain scan: they must
               agree.
- 28. eval     the evaluation path from the same checkpoint and SD-VAE
+ 30. eval     the evaluation path from the same checkpoint and SD-VAE
               (`phase_eval`): EVAL_REAL real PNGs (the VAE decode of
               seeded latents); `python -m dimsum_torch.sample_ddp ODE` in a
               process of its own (EVAL_SAMPLES samples in batches of
@@ -245,7 +276,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
               its terms' scale of its fp64 value; generation,
               decode and InceptionV3 images/s and the metric seconds.
               Alone: python3 -c "import chip_smoke as s; s.phase_eval()".
- 29. train-cli  `python -m dimsum_torch.train` on full-width DiM-L/2 at
+ 31. train-cli  `python -m dimsum_torch.train` on full-width DiM-L/2 at
               256 px with the published ImageNet flags (bf16 over fp32
               weights, global batch 16) from a seeded latent memmap of 128
               samples (latents.dat fp32 (N, 4, 32, 32), labels.dat int64,
@@ -267,7 +298,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
               only) over that window's steps; peak memory, beside train's
               s/step and peak memory; the phase's seconds.  Alone:
               python3 -c "import chip_smoke as s; s.phase_train_cli()".
- 30. train-remat  one fp32 step of full-width DiM-L/2 at batch 2 (TF32
+ 32. train-remat  one fp32 step of full-width DiM-L/2 at batch 2 (TF32
               off, cuDNN deterministic, the math SDPA; drop path and label
               dropout 0.1 from one generator seed) twice without remat and
               with --grad-checkpoint under None and "scan": the loss, every
@@ -278,16 +309,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
               under None and under "scan" (3 timed steps after 1 each):
               s/step, peak memory (remat's must be lower), launches a
               step.
- 31. train-ddp  2 gloo processes on the one card (NCCL takes one rank a
+ 33. train-ddp  2 gloo processes on the one card (NCCL takes one rank a
               device), DiM-L/2 at full width and depth 4, fp32: 2
               data-parallel steps of 2 samples a rank, each rank's
               generator, against rank 0 replaying both ranks' micro-batches
               in turn: loss, weights and EMA (tolerances in
               `phase_train_ddp`), the replicas equal, 16 launches of
               kernels 2 and 3 a rank.
- 32. kernels  the smoke's seconds (and the variants and models-rest
+ 34. kernels  the smoke's seconds (and the variants and models-rest
               phases'), then one
-              {"kernels": [...]} line (all ten kernels; the scan
+              {"kernels": [...]} line (all ten kernels; rows 1-3 with
+              their `rank_cases` from kernel-rank and their launches in the
+              LM's scoring and in xl-linear; the scan
               with its reverse entry's times, bound, plain time and error
               at the combined block's mixer shape and at linear + v2's,
               whose sampling run in the variants phase makes the reverse
@@ -455,47 +488,60 @@ def scan_inputs(batch, L, dim, n, r, dtype, seed):
             for k, v in x.items()}
 
 
-def _bound(nbytes, flops, n_sfu):
+def _bound(nbytes, flops, n_sfu, tc_flops=0):
     """(bound ms, "bytes" or "operations", which operations): the largest
     of the bytes over HBM bandwidth, the fp32 operations over the fp32
-    peak and the transcendentals over the special-function units."""
+    peak, the transcendentals over the special-function units and the
+    bf16 tensor-core operations (`tc_flops`) over their peak."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_fp32 = flops / FP32_FLOP_PER_S * 1e3
-    t_sfu = n_sfu / SFU_EXP_PER_S * 1e3
-    t = max(t_bytes, t_fp32, t_sfu)
-    if t == t_bytes:
-        return t, "bytes", None
-    return t, "operations", "sfu" if t_sfu >= t_fp32 else "fp32"
+    times = {"fp32": flops / FP32_FLOP_PER_S * 1e3,
+             "sfu": n_sfu / SFU_EXP_PER_S * 1e3,
+             "bf16_tc": tc_flops / BF16_TC_FLOP_PER_S * 1e3}
+    ops = max(times, key=times.get)
+    if t_bytes >= times[ops]:
+        return t_bytes, "bytes", None
+    return times[ops], "operations", ops
 
 
 def _bound_fields(bound):
     """A scan_bound / train_bounds tuple as record fields."""
     return dict(zip(("bound_ms", "bound_by", "bound_ops", "bytes", "flop",
-                     "transcendentals"), bound))
+                     "transcendentals", "tc_flop"), bound))
+
+
+def _expansion_flops(x, per_elem):
+    """(fp32 flop, bf16 tensor-core flop) of a scan kernel on x: the dt
+    expansion's 2r a (b, t, d) runs on the tensor cores (mma.sync) for
+    bf16 inputs and as fp32 FMAs for fp32 ones; `per_elem` more fp32 flop
+    a (b, t, d) besides."""
+    batch, L, dim = x["u"].shape
+    big, two_r = batch * L * dim, 2 * x["dt_w"].shape[0]
+    if x["u"].element_size() == 2:
+        return big * per_elem, big * two_r
+    return big * (two_r + per_elem), 0
 
 
 def scan_bound(x):
     """Least time for one scan call: each input read once and the output
-    written once, over HBM bandwidth; the fp32 operations, 2r (dt
-    expansion) + 7N (per state: dt*A, exp2, du*B, two FMAs) + 12 (bias,
-    softplus, du, skip, gate) per (b, t, d), over the fp32 peak; and the
-    N + 3 transcendentals per (b, t, d) (an exp2 per state; exp and log in
+    written once, over HBM bandwidth; the operations, 2r (dt expansion:
+    fp32 FMAs, or bf16 tensor-core products for bf16 inputs) + 7N (per
+    state: dt*A, exp2, du*B, two FMAs) + 12 (bias, softplus, du, skip,
+    gate) per (b, t, d), each over its unit's peak; and the N + 3
+    transcendentals per (b, t, d) (an exp2 per state; exp and log in
     softplus; exp in the gate) over the special-function units.  Returns
-    (ms, bound_by, which operations, bytes, flop, transcendentals)."""
+    (ms, bound_by, which operations, bytes, flop, transcendentals, bf16
+    tensor-core flop)."""
     batch, L, dim = x["u"].shape
-    r, n = x["dt_w"].shape[0], x["A"].shape[1]
+    n = x["A"].shape[1]
     nbytes = sum(v.numel() * v.element_size() for v in x.values())
     nbytes += x["u"].numel() * x["u"].element_size()  # the output
-    flops = batch * L * dim * (2 * r + 7 * n + 12)
+    flops, tc = _expansion_flops(x, 7 * n + 12)
     n_sfu = batch * L * dim * (n + 3)
-    return (*_bound(nbytes, flops, n_sfu), nbytes, flops, n_sfu)
+    return (*_bound(nbytes, flops, n_sfu, tc), nbytes, flops, n_sfu, tc)
 
 
 def phase_kernel():
     import torch
-
-    from dimsum_torch.ops.selective_scan import (selective_scan_cuda,
-                                                 selective_scan_dtlow)
 
     # the reverse cases take the reverse entry (the recurrence from the
     # last step to the first, no flips); ragged-L-reverse's ragged chunk is
@@ -517,43 +563,57 @@ def phase_kernel():
     ]
     timed = ("mixer-bf16", "L1024-bf16", "mixer-bf16-reverse",
              "L1024-bf16-reverse", "v2-bf16", "v2-bf16-reverse")
-    results = {}
-    for i, (name, batch, L, dim, r, dtype, reverse) in enumerate(cases):
-        x = scan_inputs(batch, L, dim, 16, r, dtype, seed=100 + i)
-        args = [x[k] for k in ("u", "dt_low", "dt_w", "A", "B", "C", "D")]
-        kw = dict(z=x["z"], delta_bias=x["delta_bias"], delta_softplus=True)
-        with torch.inference_mode():
-            got = selective_scan_dtlow(*args, reverse=reverse, impl="cuda",
-                                       **kw).float()
-            want = selective_scan_dtlow(*args, reverse=reverse, impl="ref",
-                                        **kw).float()
-            torch.cuda.synchronize()
-            # fp32: exp2 vs exp and summation order; bf16: one fp32 value
-            # may round to neighbouring bf16 numbers (2 ulp = 2^-6)
-            tol = 1e-4 if dtype == torch.float32 else 1.6e-2
-            err = (got - want).abs()
-            ok = bool(torch.isfinite(got).all()) and bool(
-                (err <= tol + tol * want.abs()).all())
-            ms = cuda_ms(lambda: selective_scan_cuda(
-                *args, reverse=reverse, **kw), iters=20)
-            dev_ms = (device_ms(lambda: selective_scan_cuda(
-                *args, reverse=reverse, **kw), "selective_scan")
-                if name in timed else None)
-            plain_ms = cuda_ms(lambda: selective_scan_dtlow(
-                *args, impl="ref", reverse=reverse, **kw), iters=3,
-                warmup=1)
-        rec = {"phase": "kernel", "case": name, "shape": [batch, L, dim,
-                                                          16, r],
-               "dtype": str(dtype).split(".")[-1], "reverse": reverse,
-               "max_abs_err": err.max().item(),
-               "max_abs_ref": want.abs().max().item(), "tol": tol,
-               "ok": ok, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-               **_bound_fields(scan_bound(x))}
-        emit(rec)
-        if not ok:
-            raise AssertionError(f"kernel disagrees with plain on {name}")
-        results[name] = rec
-    return results
+    return {name: _scan_case("kernel", name, (batch, L, dim, 16, r), dtype,
+                             reverse, 100 + i, name in timed)
+            for i, (name, batch, L, dim, r, dtype, reverse)
+            in enumerate(cases)}
+
+
+def _scan_case(phase, name, shape, dtype, reverse, seed, timed,
+               plain_timed=True):
+    """Kernel 1 (its reverse entry with `reverse`) against its plain
+    version on `scan_inputs(*shape)`: the error against the stated
+    tolerance, the kernel's time (CUDA events; with `timed` also its
+    device ms), the plain version's (with `plain_timed`) and the bound.
+    Raises if they disagree."""
+    import torch
+
+    from dimsum_torch.ops.selective_scan import (selective_scan_cuda,
+                                                 selective_scan_dtlow)
+
+    x = scan_inputs(*shape, dtype, seed=seed)
+    args = [x[k] for k in ("u", "dt_low", "dt_w", "A", "B", "C", "D")]
+    kw = dict(z=x["z"], delta_bias=x["delta_bias"], delta_softplus=True)
+    with torch.inference_mode():
+        got = selective_scan_dtlow(*args, reverse=reverse, impl="cuda",
+                                   **kw).float()
+        want = selective_scan_dtlow(*args, reverse=reverse, impl="ref",
+                                    **kw).float()
+        torch.cuda.synchronize()
+        # fp32: exp2 vs exp and summation order; bf16: one fp32 value
+        # may round to neighbouring bf16 numbers (2 ulp = 2^-6)
+        tol = 1e-4 if dtype == torch.float32 else 1.6e-2
+        err = (got - want).abs()
+        ok = bool(torch.isfinite(got).all()) and bool(
+            (err <= tol + tol * want.abs()).all())
+        ms = cuda_ms(lambda: selective_scan_cuda(
+            *args, reverse=reverse, **kw), iters=20)
+        dev_ms = (device_ms(lambda: selective_scan_cuda(
+            *args, reverse=reverse, **kw), "selective_scan")
+            if timed else None)
+        plain_ms = (cuda_ms(lambda: selective_scan_dtlow(
+            *args, impl="ref", reverse=reverse, **kw), iters=3, warmup=1)
+            if plain_timed else None)
+    rec = {"phase": phase, "case": name, "shape": list(shape),
+           "dtype": str(dtype).split(".")[-1], "reverse": reverse,
+           "max_abs_err": err.max().item(),
+           "max_abs_ref": want.abs().max().item(), "tol": tol,
+           "ok": ok, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+           **_bound_fields(scan_bound(x))}
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"kernel disagrees with plain on {name}")
+    return rec
 
 
 def _mixers(model):
@@ -632,7 +692,8 @@ def phase_sample():
 def train_bounds(x, chunk, h0=False):
     """Least time of the two training kernels on x's shapes: each input
     read once and each output written once over HBM bandwidth, the fp32
-    operations over the fp32 peak, and the transcendentals over the
+    operations over the fp32 peak (the dt expansion's 2r over the bf16
+    tensor-core peak for bf16 inputs), and the transcendentals over the
     special-function units (`_bound`).  Kernel 2: kernel 1's inputs, y
     (u's type), o and the states (fp32); 2r + 7N + 12 flop and N + 3
     transcendentals per (b, t, d), as kernel 1.  Kernel 3 (with its partial
@@ -647,7 +708,7 @@ def train_bounds(x, chunk, h0=False):
     kernels' own choices and not counted.  With `h0` kernel 2 also reads
     h0 and kernel 3 writes dh0, (batch, dim, N) fp32 each."""
     batch, L, dim = x["u"].shape
-    r, n = x["dt_w"].shape[0], x["A"].shape[1]
+    n = x["A"].shape[1]
     esize = x["u"].element_size()
     n_chunks = -(-L // chunk)
     big, small = batch * L * dim, batch * L * n
@@ -660,12 +721,13 @@ def train_bounds(x, chunk, h0=False):
     bwd_bytes = (common + big * 4 + states                  # go, states
                  + 2 * big * 4 + dim * n * 4 + 2 * small * 4 + seed)
     out = {}
-    for name, nbytes, flops, n_sfu in (
-            ("fwd_train", fwd_bytes, big * (2 * r + 7 * n + 12),
+    for name, nbytes, (flops, tc), n_sfu in (
+            ("fwd_train", fwd_bytes, _expansion_flops(x, 7 * n + 12),
              big * (n + 3)),
-            ("bwd", bwd_bytes, big * (2 * r + 20 * n + 18),
+            ("bwd", bwd_bytes, _expansion_flops(x, 20 * n + 18),
              big * (n + 3))):
-        out[name] = (*_bound(nbytes, flops, n_sfu), nbytes, flops, n_sfu)
+        out[name] = (*_bound(nbytes, flops, n_sfu, tc), nbytes, flops,
+                     n_sfu, tc)
     return out
 
 
@@ -678,8 +740,6 @@ def _scaled_err(got, want):
 
 def phase_kernel_train():
     import torch
-
-    from dimsum_torch.ops import selective_scan as ss
 
     cases = [
         ("train-bf16", 16, 256, 1024, torch.bfloat16, False, False),
@@ -698,78 +758,93 @@ def phase_kernel_train():
         ("h0-fp32", 16, 256, 1024, torch.float32, False, True),
         ("h0-ragged-L-bf16", 4, 1000, 1024, torch.bfloat16, False, True),
     ]
-    results = {}
-    for i, (name, batch, L, dim, dtype, reverse, seeded) in enumerate(cases):
-        x = scan_inputs(batch, L, dim, 16, 32, dtype, seed=200 + i)
-        if reverse:  # the Function flips around the kernels
-            x = {k: (v.flip(1) if v.ndim == 3 else v) for k, v in x.items()}
-        args = [x[k] for k in ("u", "dt_low", "dt_w", "A", "B", "C", "D")]
-        kw = dict(z=x["z"], delta_bias=x["delta_bias"], delta_softplus=True)
-        if seeded:
-            kw["h0"] = torch.randn(
-                (batch, dim, 16), device="cuda", generator=torch.Generator(
-                    device="cuda").manual_seed(100 + i))
-        g = torch.randn(x["u"].shape, device="cuda", generator=torch
-                        .Generator(device="cuda").manual_seed(i)).to(dtype)
-        low = dtype == torch.bfloat16
-        with torch.no_grad():
-            got_f = ss.selective_scan_fwd_train_cuda(*args, **kw)
-            want_f = ss.selective_scan_fwd_train_ref(*args, **kw)
-            bkw = dict(kw, o=want_f[1], boundaries=want_f[2], g=g)
-            got_b = ss.selective_scan_bwd(*args, **bkw)
-            want_b = ss.selective_scan_bwd_ref(*args, **bkw)
-            torch.cuda.synchronize()
-            # relative to each tensor's largest value: fp32 1e-4 (exp2
-            # against exp, summation order); outputs stored in bf16 1.6e-2
-            # (one rounding step either way)
-            errs, ok = {}, True
-            for key, a, b in zip(
-                    ("y", "o", "boundaries", "du", "ddelta", "dA", "dB",
-                     "dC", "dD", "dz", "dbias", "dh0"), got_f + got_b,
-                    want_f + want_b):
-                tol = 1.6e-2 if a.dtype == torch.bfloat16 else 1e-4
-                errs[key] = _scaled_err(a, b)
-                ok = ok and bool(torch.isfinite(a.float()).all()) and \
-                    errs[key] <= tol
-            fwd_err = max((a.float() - b.float()).abs().max().item()
-                          for a, b in zip(got_f, want_f))
-            bwd_err = max((a.float() - b.float()).abs().max().item()
-                          for a, b in zip(got_b, want_b))
-            go = torch.randn(x["u"].shape, device="cuda")
-            core = (*args[:6], x["delta_bias"], True, go, want_f[2])
-            ckw = dict(return_dh0=True) if seeded else {}
-            fwd_ms = cuda_ms(lambda: ss.selective_scan_fwd_train_cuda(
-                *args, **kw), iters=20)
-            fwd_plain = cuda_ms(lambda: ss.selective_scan_fwd_train_ref(
-                *args, **kw), iters=3, warmup=1)
-            bwd_ms = cuda_ms(lambda: ss.selective_scan_bwd_core_cuda(
-                *core, **ckw), iters=20)
-            bwd_plain = cuda_ms(lambda: ss.selective_scan_bwd_core_ref(
-                *core, **ckw), iters=3, warmup=1)
-            fwd_dev = bwd_dev = None
-            if name in ("train-bf16", "L1024-bf16", "h0-bf16"):
-                fwd_dev = device_ms(lambda: ss.selective_scan_fwd_train_cuda(
-                    *args, **kw), "selective_scan_fwd_train")
-                bwd_dev = device_ms(lambda: ss.selective_scan_bwd_core_cuda(
-                    *core, **ckw), "selective_scan_bwd")
-        bounds = train_bounds(x, ss.TRAIN_CHUNK, seeded)
-        rec = {"phase": "kernel-train", "case": name,
-               "shape": [batch, L, dim, 16, 32],
-               "dtype": str(dtype).split(".")[-1], "reverse": reverse,
-               "h0": seeded,
-               "scaled_err": errs, "tol_fp32": 1e-4, "tol_bf16": 1.6e-2,
-               "ok": ok, "low_precision_outputs": low,
-               "fwd_train": {"max_abs_err": fwd_err, "ms": fwd_ms,
-                             "device_ms": fwd_dev, "plain_ms": fwd_plain,
-                             **_bound_fields(bounds["fwd_train"])},
-               "bwd": {"max_abs_err": bwd_err, "ms": bwd_ms,
-                       "device_ms": bwd_dev, "plain_ms": bwd_plain,
-                       **_bound_fields(bounds["bwd"])}}
-        emit(rec)
-        if not ok:
-            raise AssertionError(f"training kernels disagree on {name}")
-        results[name] = rec
-    return results
+    timed = ("train-bf16", "L1024-bf16", "h0-bf16")
+    return {name: _train_case("kernel-train", name, (batch, L, dim, 16, 32),
+                              dtype, reverse, seeded, i, name in timed)
+            for i, (name, batch, L, dim, dtype, reverse, seeded)
+            in enumerate(cases)}
+
+
+def _train_case(phase, name, shape, dtype, reverse, seeded, i, timed,
+                plain_timed=True):
+    """Kernels 2 and 3 (their h0 entries with `seeded`) against their plain
+    versions on `scan_inputs(*shape)`, flipped along L with `reverse` (the
+    Function flips around the kernels): every output's scaled error, each
+    kernel's time (with `timed` also its device ms), the plain versions'
+    (with `plain_timed`) and the bounds.  Raises if they disagree."""
+    import torch
+
+    from dimsum_torch.ops import selective_scan as ss
+
+    batch, L, dim, n, r = shape
+    x = scan_inputs(batch, L, dim, n, r, dtype, seed=200 + i)
+    if reverse:  # the Function flips around the kernels
+        x = {k: (v.flip(1) if v.ndim == 3 else v) for k, v in x.items()}
+    args = [x[k] for k in ("u", "dt_low", "dt_w", "A", "B", "C", "D")]
+    kw = dict(z=x["z"], delta_bias=x["delta_bias"], delta_softplus=True)
+    if seeded:
+        kw["h0"] = torch.randn(
+            (batch, dim, n), device="cuda", generator=torch.Generator(
+                device="cuda").manual_seed(100 + i))
+    g = torch.randn(x["u"].shape, device="cuda", generator=torch
+                    .Generator(device="cuda").manual_seed(i)).to(dtype)
+    low = dtype == torch.bfloat16
+    with torch.no_grad():
+        got_f = ss.selective_scan_fwd_train_cuda(*args, **kw)
+        want_f = ss.selective_scan_fwd_train_ref(*args, **kw)
+        bkw = dict(kw, o=want_f[1], boundaries=want_f[2], g=g)
+        got_b = ss.selective_scan_bwd(*args, **bkw)
+        want_b = ss.selective_scan_bwd_ref(*args, **bkw)
+        torch.cuda.synchronize()
+        # relative to each tensor's largest value: fp32 1e-4 (exp2
+        # against exp, summation order); outputs stored in bf16 1.6e-2
+        # (one rounding step either way)
+        errs, ok = {}, True
+        for key, a, b in zip(
+                ("y", "o", "boundaries", "du", "ddelta", "dA", "dB",
+                 "dC", "dD", "dz", "dbias", "dh0"), got_f + got_b,
+                want_f + want_b):
+            tol = 1.6e-2 if a.dtype == torch.bfloat16 else 1e-4
+            errs[key] = _scaled_err(a, b)
+            ok = ok and bool(torch.isfinite(a.float()).all()) and \
+                errs[key] <= tol
+        fwd_err = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(got_f, want_f))
+        bwd_err = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(got_b, want_b))
+        go = torch.randn(x["u"].shape, device="cuda")
+        core = (*args[:6], x["delta_bias"], True, go, want_f[2])
+        ckw = dict(return_dh0=True) if seeded else {}
+        fwd_ms = cuda_ms(lambda: ss.selective_scan_fwd_train_cuda(
+            *args, **kw), iters=20)
+        fwd_plain = (cuda_ms(lambda: ss.selective_scan_fwd_train_ref(
+            *args, **kw), iters=3, warmup=1) if plain_timed else None)
+        bwd_ms = cuda_ms(lambda: ss.selective_scan_bwd_core_cuda(
+            *core, **ckw), iters=20)
+        bwd_plain = (cuda_ms(lambda: ss.selective_scan_bwd_core_ref(
+            *core, **ckw), iters=3, warmup=1) if plain_timed else None)
+        fwd_dev = bwd_dev = None
+        if timed:
+            fwd_dev = device_ms(lambda: ss.selective_scan_fwd_train_cuda(
+                *args, **kw), "selective_scan_fwd_train")
+            bwd_dev = device_ms(lambda: ss.selective_scan_bwd_core_cuda(
+                *core, **ckw), "selective_scan_bwd")
+    bounds = train_bounds(x, ss.TRAIN_CHUNK, seeded)
+    rec = {"phase": phase, "case": name, "shape": list(shape),
+           "dtype": str(dtype).split(".")[-1], "reverse": reverse,
+           "h0": seeded,
+           "scaled_err": errs, "tol_fp32": 1e-4, "tol_bf16": 1.6e-2,
+           "ok": ok, "low_precision_outputs": low,
+           "fwd_train": {"max_abs_err": fwd_err, "ms": fwd_ms,
+                         "device_ms": fwd_dev, "plain_ms": fwd_plain,
+                         **_bound_fields(bounds["fwd_train"])},
+           "bwd": {"max_abs_err": bwd_err, "ms": bwd_ms,
+                   "device_ms": bwd_dev, "plain_ms": bwd_plain,
+                   **_bound_fields(bounds["bwd"])}}
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"training kernels disagree on {name}")
+    return rec
 
 
 def _train_model(dtype, seed=0):
@@ -4296,6 +4371,374 @@ def phase_models_rest():
     return out
 
 
+# rows 1-3 above dt_rank 64 (the kernels' RMAX 128 and 256 templates):
+# (case, (batch, L, dim, N, r), dtype).  The LM's scoring and gradient shape
+# (mamba-2.8b: d_inner 5120, r 160, one 2048-token sequence); DiM-XL/2
+# --block-type linear's mixers (d_inner 2304, r 72: 24 CFG rows of 256
+# tokens to sample, 8 rows to train), forward and reversed (its v2 branch);
+# mamba-790m's (r 96) and mamba-1.4b's (r 128) ranks; the cap, r 256
+# (d_model 4096), in both dtypes and through the training kernels' h0
+# entries.  Plain times for DiM-XL/2's cases (the LM shape's plain
+# training pair takes seconds a call; PERF.md keeps PR 21's).
+RANK_SCAN_CASES = (
+    ("lm-r160-bf16", (1, 2048, 5120, 16, 160), "bfloat16", False),
+    ("lm-r160-fp32", (1, 2048, 5120, 16, 160), "float32", False),
+    ("xl-linear-r72-bf16", (24, 256, 2304, 16, 72), "bfloat16", False),
+    ("xl-linear-r72-bf16-reverse", (24, 256, 2304, 16, 72), "bfloat16",
+     True),
+    ("xl-linear-r72-fp32", (24, 256, 2304, 16, 72), "float32", False),
+    ("r96-bf16", (1, 2048, 3072, 16, 96), "bfloat16", False),
+    ("r128-bf16", (1, 2048, 4096, 16, 128), "bfloat16", False),
+    ("r256-bf16", (1, 2048, 8192, 16, 256), "bfloat16", False),
+    ("r256-fp32", (1, 2048, 8192, 16, 256), "float32", True),
+)
+RANK_TRAIN_CASES = (
+    ("lm-r160-bf16", (1, 2048, 5120, 16, 160), "bfloat16", False),
+    ("lm-r160-fp32", (1, 2048, 5120, 16, 160), "float32", False),
+    ("xl-linear-r72-bf16", (8, 256, 2304, 16, 72), "bfloat16", False),
+    ("r96-bf16", (1, 2048, 3072, 16, 96), "bfloat16", False),
+    ("r128-bf16", (1, 2048, 4096, 16, 128), "bfloat16", False),
+    ("r256-bf16", (1, 2048, 8192, 16, 256), "bfloat16", False),
+    ("r256-fp32-h0", (1, 2048, 8192, 16, 256), "float32", True),
+)
+
+
+def phase_kernel_rank():
+    """kernel-rank: kernels 1-3 at the ranks above 64 (RANK_SCAN_CASES,
+    RANK_TRAIN_CASES) against their plain versions, each kernel's device
+    ms beside its bound computed from the case's inputs; then a rank past
+    the cap (257) must raise NotImplementedError in all three wrappers."""
+    import torch
+
+    from dimsum_torch.ops import selective_scan as ss
+
+    timed_plain = ("xl-",)
+    scans = {name: _scan_case("kernel-rank", name, shape,
+                              getattr(torch, dtype), reverse, 400 + i, True,
+                              name.startswith(timed_plain))
+             for i, (name, shape, dtype, reverse)
+             in enumerate(RANK_SCAN_CASES)}
+    trains = {name: _train_case("kernel-rank-train", name, shape,
+                                getattr(torch, dtype), False, seeded, 60 + i,
+                                True, name.startswith(timed_plain))
+              for i, (name, shape, dtype, seeded)
+              in enumerate(RANK_TRAIN_CASES)}
+    x = scan_inputs(1, 64, 256, 16, 257, torch.bfloat16, seed=9)
+    args = [x[k] for k in ("u", "dt_low", "dt_w", "A", "B", "C")]
+    refused = []
+    with torch.no_grad():
+        for fn in (lambda: ss.selective_scan_cuda(*args),
+                   lambda: ss.selective_scan_fwd_train_cuda(*args),
+                   lambda: ss.selective_scan_bwd_core_cuda(
+                       *args, None, True, torch.zeros(1, 64, 256,
+                                                      device="cuda"),
+                       torch.zeros(1, 4, 16, 256, device="cuda"))):
+            try:
+                fn()
+            except NotImplementedError as e:
+                refused.append(str(e))
+    rec = {"phase": "kernel-rank-cap", "rank": 257, "refused": refused}
+    emit(rec)
+    if len(refused) != 3:
+        raise AssertionError(f"a rank past the cap was not refused: {rec}")
+    return {"scan": scans, "train": trains}
+
+
+LM_MODEL = "mamba-2.8b"
+LM_SCORE_LEN = 2048          # one sequence of the scorer's largest bucket
+LM_GEN_BATCH, LM_GEN_PROMPT, LM_GEN_NEW = 8, 64, 128
+LM_PLAIN_LAYERS = 2          # the plain-route check's depth (full width)
+
+
+def _lm_tokens(shape, vocab, seed):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, vocab, shape, generator=g, device="cuda")
+
+
+def _lm_score(model, ids):
+    """`MambaScorer.loglikelihood` of ids (1, L) as one prefix token and
+    the rest: (log-likelihood, greedy flag, seconds, kernel-1 launches),
+    the launches set to 0 just before and read just after."""
+    import torch
+
+    from dimsum_torch.eval.lm_harness import MambaScorer
+    from dimsum_torch.ops.selective_scan import selective_scan_cuda
+
+    scorer = MambaScorer(model, max_length=LM_SCORE_LEN)
+    tokens = ids[0].tolist()
+    scorer.loglikelihood(tokens[:1], tokens[1:64])  # untimed warm-up
+    torch.cuda.synchronize()
+    selective_scan_cuda.launches = 0
+    t0 = time.perf_counter()
+    ll, greedy = scorer.loglikelihood(tokens[:1], tokens[1:])
+    torch.cuda.synchronize()
+    return ll, greedy, time.perf_counter() - t0, selective_scan_cuda.launches
+
+
+def phase_lm():
+    """lm: the Mamba language model at mamba-2.8b's published width and
+    depth (d_model 2560, 64 layers, vocab 50277 padded to 50280, d_inner
+    5120, dt_rank 160), seeded random weights built on the card.  First
+    kernel-rank (the scan kernels at r > 64).  Then at LM_PLAIN_LAYERS
+    layers of full width in fp32 (TF32 off): the logits of a seeded
+    LM_SCORE_LEN-token sequence through the scan kernel and through the
+    plain scan (1e-3 of scale).  The full model in fp32 (11 GB of
+    weights): `MambaScorer.loglikelihood` of the sequence, 64 kernel-1
+    launches, finite; `generate` at batch LM_GEN_BATCH, a LM_GEN_PROMPT-
+    token prompt and LM_GEN_NEW new tokens, greedy (the prompt fed token by
+    token, then the plain one-token step): its first new token equal to
+    the argmax of the forward's last logits, tokens/s.  The full model in
+    bf16: the same scoring, 64 launches, finite.  Alone: python3 -c
+    "import chip_smoke as s; s.phase_lm()"."""
+    import dataclasses
+
+    import torch
+
+    from dimsum_torch.models.lm import (MAMBA_LM_CONFIGS, MambaLMConfig,
+                                        build_lm, generate)
+    from dimsum_torch.ops.selective_scan import selective_scan_cuda
+
+    phase_t0 = time.perf_counter()
+    ranks = phase_kernel_rank()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = MambaLMConfig(**MAMBA_LM_CONFIGS[LM_MODEL])
+    ids = _lm_tokens((1, LM_SCORE_LEN), cfg.vocab_size, seed=21)
+    out = {"ranks": ranks}
+
+    def check(ok, rec):
+        emit(rec)
+        if not ok:
+            raise AssertionError(f"lm failed: {rec}")
+        return rec
+
+    # full width, LM_PLAIN_LAYERS layers: the kernel against the plain scan
+    short = build_lm(dataclasses.replace(cfg, n_layer=LM_PLAIN_LAYERS),
+                     "cuda", seed=1)
+    with torch.inference_mode():
+        selective_scan_cuda.launches = 0
+        got = short(ids)
+        torch.cuda.synchronize()
+        launches = selective_scan_cuda.launches
+        for m in _mixers(short):
+            m.scan_impl = "ref"
+        want = short(ids)
+        torch.cuda.synchronize()
+    del short
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    rec = {"phase": "lm-plain", "model": LM_MODEL, "layers": LM_PLAIN_LAYERS,
+           "tokens": LM_SCORE_LEN, "dtype": "float32", "tf32": False,
+           "launches_per_forward": launches, "max_abs_err": err,
+           "max_abs_ref": scale, "tol": 1e-3 * max(1.0, scale),
+           "finite": bool(torch.isfinite(got).all())}
+    del got, want
+    out["plain"] = check(launches == LM_PLAIN_LAYERS and rec["finite"]
+                         and err <= rec["tol"], rec)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = build_lm(dataclasses.replace(cfg, dtype=dtype), "cuda",
+                         seed=0)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        name = str(dtype).split(".")[-1]
+        with torch.inference_mode():
+            ll, greedy, seconds, launches = _lm_score(model, ids)
+        rec = {"phase": "lm-score", "model": LM_MODEL, "dtype": name,
+               "layers": cfg.n_layer, "d_model": cfg.d_model,
+               "d_inner": cfg.d_inner, "dt_rank": cfg.dt_rank,
+               "vocab": cfg.padded_vocab,
+               "params": sum(p.numel() for p in model.parameters()),
+               "weights_GB": sum(p.numel() * p.element_size()
+                                 for p in model.parameters()) / 1e9,
+               "build_seconds": build_s, "tokens": LM_SCORE_LEN,
+               "loglikelihood": ll, "greedy": greedy, "seconds": seconds,
+               "tokens_per_s": LM_SCORE_LEN / seconds,
+               "launches": launches, "finite": math.isfinite(ll),
+               "max_memory_allocated_GB":
+                   torch.cuda.max_memory_allocated() / 1e9}
+        out[f"score-{name}"] = check(
+            launches == cfg.n_layer and rec["finite"], rec)
+        if dtype == torch.float32:
+            prompt = _lm_tokens((LM_GEN_BATCH, LM_GEN_PROMPT),
+                                cfg.vocab_size, seed=22)
+            with torch.inference_mode():
+                last = model(prompt)[:, -1]
+                top2 = last.topk(2, dim=-1).values
+                torch.cuda.synchronize()
+                selective_scan_cuda.launches = 0
+                t0 = time.perf_counter()
+                tokens = generate(model, prompt, LM_GEN_NEW, temperature=0.0)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+            first_ok = torch.equal(tokens[:, LM_GEN_PROMPT],
+                                   last.argmax(-1))
+            rec = {"phase": "lm-generate", "model": LM_MODEL,
+                   "dtype": name, "batch": LM_GEN_BATCH,
+                   "prompt": LM_GEN_PROMPT, "new_tokens": LM_GEN_NEW,
+                   "greedy": True, "seconds": seconds,
+                   "new_tokens_per_s": LM_GEN_BATCH * LM_GEN_NEW / seconds,
+                   "steps_per_s": (LM_GEN_PROMPT + LM_GEN_NEW) / seconds,
+                   "scan_launches": selective_scan_cuda.launches,
+                   "first_token_is_argmax": first_ok,
+                   "min_top2_gap": (top2[:, 0] - top2[:, 1]).min().item(),
+                   "shape": list(tokens.shape),
+                   "prompt_kept": torch.equal(tokens[:, :LM_GEN_PROMPT],
+                                              prompt)}
+            out["generate"] = check(
+                first_ok and rec["prompt_kept"]
+                and rec["shape"] == [LM_GEN_BATCH,
+                                     LM_GEN_PROMPT + LM_GEN_NEW]
+                and rec["scan_launches"] == 0, rec)
+        del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - phase_t0
+    emit({"phase": "lm-seconds", "seconds": out["seconds"]})
+    return out
+
+
+# DiM-XL/2 with the JAX CLI's --block-type linear and its other defaults
+# (Mamba v2: a forward and a reversed branch a mixer; LayerNorm; no DiT
+# block) at 256 px: 24 blocks at hidden 1152, d_inner 2304, dt_rank 72
+XL_LINEAR_ARGS = ["--model", "DiM-XL/2", "--image-size", "256",
+                  "--num-classes", "1000", "--label-dropout", "0.1",
+                  "--block-type", "linear"]
+XL_LINEAR_SCANS = 24    # scan launches a forward, each entry
+XL_LINEAR_STEPS = 4     # grid points of its sampling CLI run
+
+
+def phase_xl_linear():
+    """xl-linear: DiM-XL/2 --block-type linear (dt_rank 72, the kernels'
+    RMAX 128) at 256 px, full depth, seeded weights: one fp32 CFG forward
+    of 24 rows (TF32 off) through the kernels and the plain routes (1e-3
+    of scale; 24 launches of the scan's forward and 24 of its reverse
+    entry); `python -m dimsum_torch.sample ODE ... --bf16` in a process of
+    its own (random weights, Euler over XL_LINEAR_STEPS grid points, CFG
+    1.4, 4 images): finite, the launches of its drift calls; one fp32
+    training step at depth 2 through kernels 2 and 3 and through the plain
+    scan: the loss and every gradient (train-grad's tolerances), 4
+    launches of each.  Alone: python3 -c "import chip_smoke as s;
+    s.phase_xl_linear()"."""
+    import dataclasses
+    import os
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from dimsum_torch.models.dim import build_dim
+    from dimsum_torch.ops import selective_scan as ss
+    from dimsum_torch.transport import create_transport
+
+    phase_t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+
+    def check(ok, rec):
+        emit(rec)
+        if not ok:
+            raise AssertionError(f"xl-linear failed: {rec}")
+        return rec
+
+    cfg = _rest_config(XL_LINEAR_ARGS, torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(31)
+    half = torch.randn((12, 4, 32, 32), generator=g, device="cuda")
+    x = torch.cat([half, half])
+    t = torch.rand(12, generator=g, device="cuda").repeat(2)
+    y = torch.cat([torch.randint(0, 1000, (12,), generator=g,
+                                 device="cuda"),
+                   torch.full((12,), 1000, device="cuda")])
+    rec = _rest_forward("DiM-XL/2-linear", cfg, x, t, y)
+    rec.update(phase="xl-linear", block_type=cfg.block_type,
+               scan_type=cfg.scan_type, dt_rank=math.ceil(
+                   cfg.hidden_size / 16), tol=1e-3 * max(
+                       1.0, rec["max_abs_ref"]))
+    out["forward"] = check(
+        rec["launches"]["scan_fwd"] == XL_LINEAR_SCANS
+        and rec["launches"]["scan_reverse"] == XL_LINEAR_SCANS
+        and rec["finite"] and rec["max_abs_err"] <= rec["tol"], rec)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        res = os.path.join(tmp, "cli.json")
+        argv = ["ODE", *XL_LINEAR_ARGS, "--path-type", "GVP", "--bf16",
+                "--sample-dir", os.path.join(tmp, "out"),
+                "--sampling-method", "euler", "--num-sampling-steps",
+                str(XL_LINEAR_STEPS), "--cfg-scale", "1.4",
+                "--global-batch-size", "4"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke as s; "
+             "s._sample_run(sys.argv[1])", json.dumps([argv, res])],
+            cwd=root, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            raise AssertionError(f"xl-linear: the sampling CLI exited "
+                                 f"{proc.returncode}")
+        with open(res) as f:
+            cli_rec = json.load(f)
+    calls = XL_LINEAR_STEPS - 1
+    rec = {"phase": "xl-linear-cli", "argv": argv, "process_seconds": wall,
+           **cli_rec}
+    out["cli"] = check(
+        cli_rec["finite"] and cli_rec["shape"] == [4, 4, 32, 32]
+        and cli_rec["launches"]["scan_fwd"] == XL_LINEAR_SCANS * calls
+        and cli_rec["launches"]["scan_reverse"] == XL_LINEAR_SCANS * calls,
+        rec)
+
+    # one fp32 step at depth 2 through kernels 2 and 3 and through the
+    # plain scan; tolerances as train-grad
+    model = build_dim(dataclasses.replace(cfg, depth=2), "cuda", seed=0,
+                      train=True)
+    transport = create_transport("GVP", "velocity")
+    xs = torch.randn((2, 4, 32, 32), generator=g, device="cuda")
+    ys = torch.randint(0, 1000, (2,), generator=g, device="cuda")
+
+    def loss_and_grads():
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        model.zero_grad(set_to_none=True)
+        loss = transport.training_losses(
+            lambda xt, t_, **kw: model(xt, t_, train=True, generator=gen,
+                                       **kw), xs, gen, {"y": ys}
+        )["loss"].mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), {n: p.grad.clone() for n, p in
+                             model.named_parameters() if p.grad is not None}
+
+    counts = _zeroed_scan_counts()
+    loss, grads = loss_and_grads()
+    launches = {k: c.launches for k, c in counts.items()}
+    for m in _mixers(model):
+        m.scan_impl = "ref"
+    want_loss, want = loss_and_grads()
+    del model
+    torch.cuda.empty_cache()
+    errs = {k: _scaled_err(grads[k], want[k]) for k in want}
+    worst = max(errs, key=errs.get)
+    rec = {"phase": "xl-linear-train-grad", "depth": 2, "dtype": "float32",
+           "batch": 2, "loss": loss, "loss_plain": want_loss,
+           "loss_rel_err": abs(loss - want_loss) / abs(want_loss),
+           "n_grads": len(want), "same_grad_set": set(grads) == set(want),
+           "worst_grad": worst, "worst_grad_scaled_err": errs[worst],
+           "tol": 2e-3, "launches": launches}
+    out["train"] = check(
+        launches == {"selective_scan_fwd": 0, "selective_scan_fwd_train": 4,
+                     "selective_scan_bwd": 4}
+        and rec["same_grad_set"] and rec["loss_rel_err"] <= 1e-4
+        and errs[worst] <= 2e-3, rec)
+    out["seconds"] = time.perf_counter() - phase_t0
+    emit({"phase": "xl-linear-seconds", "seconds": out["seconds"]})
+    return out
+
+
 def main() -> int:
     smoke_t0 = time.perf_counter()
     import torch
@@ -4342,7 +4785,9 @@ def main() -> int:
     launches.update(phase_sample_fused())
     phase_sample_fused_512()
     variants = phase_variants()
+    xl_linear = phase_xl_linear()
     rest = phase_models_rest()
+    lm = phase_lm()
     fp32_launches, fused_fp32_launches = phase_sampling_path()
     for name in ("full_attention_f32", "full_attention_first"):
         launches[name] = fp32_launches[name]
@@ -4581,9 +5026,39 @@ def main() -> int:
                 ("plain_ms", "plain_ms"), ("bound_ms", "bound_ms"))})
     by_name["conv_xproj"]["fp32_launches"] = \
         fused_fp32_launches["conv_xproj_fp32"]
+    # the ranks above 64 (kernel-rank, in the lm phase): each case's
+    # numbers, and the launches of the LM's scoring forwards (fp32, bf16)
+    # and of DiM-XL/2 --block-type linear (its forward and sampling CLI
+    # run; its training step)
+    def rank_case(rec, sub=None):
+        r = rec if sub is None else rec[sub]
+        return {"case": rec["case"], "shape": rec["shape"],
+                "dtype": rec["dtype"], "reverse": rec["reverse"],
+                **{k: r[k] for k in ("max_abs_err", "ms", "device_ms",
+                                     "plain_ms", "bound_ms", "bound_by",
+                                     "bound_ops")}}
+
+    scan_rec = by_name["selective_scan_fwd"]
+    scan_rec["rank_cases"] = [rank_case(r)
+                              for r in lm["ranks"]["scan"].values()]
+    scan_rec["lm_launches"] = {k: lm[f"score-{k}"]["launches"]
+                               for k in ("float32", "bfloat16")}
+    scan_rec["xl_linear_launches"] = {
+        k: xl_linear["forward"]["launches"][k]
+        + xl_linear["cli"]["launches"][k]
+        for k in ("scan_fwd", "scan_reverse")}
+    for name, key in (("selective_scan_fwd_train", "fwd_train"),
+                      ("selective_scan_bwd", "bwd")):
+        by_name[name]["rank_cases"] = [
+            dict(rank_case(r, key), h0=r["h0"])
+            for r in lm["ranks"]["train"].values()]
+        by_name[name]["xl_linear_launches"] = \
+            xl_linear["train"]["launches"][name]
     emit({"phase": "smoke-seconds", "seconds": time.perf_counter() - smoke_t0,
           "variants_seconds": variants["seconds"],
-          "models_rest_seconds": rest["seconds"]})
+          "models_rest_seconds": rest["seconds"],
+          "xl_linear_seconds": xl_linear["seconds"],
+          "lm_seconds": lm["seconds"]})
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

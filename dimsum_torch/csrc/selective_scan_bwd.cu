@@ -74,6 +74,12 @@
 // 4 x 1024 (carry pass ~0.05, main pass ~0.14), 7.5x the bound.  Without
 // the dB/dC reduce-scatter (timing only) it takes 0.16; clock64 counters
 // put a third of a main-pass warp's chunk in the reverse walk.
+//
+// Ranks: 1 <= r <= 256 through RMAX 16, 32, 64, 128, 256 (the Pallas kernel
+// takes any; above 64, N <= 8 on the N-16 plan).  Above 64 the carry pass
+// keeps one stage a warp, as the training forward's state pass, the main
+// pass plans for one block an SM, and both skip the k-tiles past r; dt_low
+// rows of whole 16-byte runs copy as vectors.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -223,7 +229,8 @@ template <bool kMma, int RMAX>
 __device__ __forceinline__ void expand_dt(const float* s_dtl,
                                           const float* w_rows,
                                           const uint32_t (&bfr)[RMAX / 16][2],
-                                          int g, int q, float (&raw)[4]) {
+                                          int g, int q, int R,
+                                          float (&raw)[4]) {
 #pragma unroll
   for (int e = 0; e < 4; ++e) raw[e] = 0.f;
   if constexpr (kMma) {
@@ -231,6 +238,10 @@ __device__ __forceinline__ void expand_dt(const float* s_dtl,
     const __nv_bfloat16* dtl = reinterpret_cast<const __nv_bfloat16*>(s_dtl);
 #pragma unroll
     for (int k0 = 0; k0 < RMAX; k0 += 16) {
+      // above RMAX 64 the k-tiles past r hold zeros: skipped
+      if constexpr (RMAX > 64) {
+        if (k0 >= R) break;
+      }
       const __nv_bfloat16* ap = dtl + g * LDB + k0 + 2 * q;
       const uint32_t a[4] = {ld32(ap), ld32(ap + 8 * LDB), ld32(ap + 8),
                              ld32(ap + 8 * LDB + 8)};
@@ -240,6 +251,9 @@ __device__ __forceinline__ void expand_dt(const float* s_dtl,
     constexpr int LDF = RMAX + 4;
 #pragma unroll
     for (int k = 0; k < RMAX; k += 4) {
+      if constexpr (RMAX > 64) {
+        if (k >= R) break;
+      }
       const float4 x0 = *reinterpret_cast<const float4*>(s_dtl + g * LDF + k);
       const float4 x1 =
           *reinterpret_cast<const float4*>(s_dtl + (g + 8) * LDF + k);
@@ -322,7 +336,7 @@ __device__ __forceinline__ void stage(bool vec, int tid, Src src_of,
     for (int v = tid; v < COUNT / kPer; v += NT) {
       cp_async16(dst_of(v * kPer), src_of(v * kPer));
     }
-  } else {
+  } else if constexpr ((COUNT + NT - 1) / NT <= 32) {
     constexpr int M = (COUNT + NT - 1) / NT;
     T r[M];
 #pragma unroll
@@ -334,6 +348,20 @@ __device__ __forceinline__ void stage(bool vec, int tid, Src src_of,
 #pragma unroll
     for (int m = 0; m < M; ++m)
       if (tid + m * NT < COUNT) *dst_of(tid + m * NT) = r[m];
+  } else {
+    // dt_low rows above RMAX 64: 32 loads in flight at a time
+    for (int m0 = 0; m0 < COUNT; m0 += 32 * NT) {
+      T r[32];
+#pragma unroll
+      for (int m = 0; m < 32; ++m) {
+        const int i = m0 + tid + m * NT;
+        const T* src = i < COUNT ? src_of(i) : nullptr;
+        r[m] = src != nullptr ? *src : zero_of<T>();
+      }
+#pragma unroll
+      for (int m = 0; m < 32; ++m)
+        if (m0 + tid + m * NT < COUNT) *dst_of(m0 + tid + m * NT) = r[m];
+    }
   }
 }
 
@@ -346,9 +374,12 @@ __device__ __forceinline__ void stage(bool vec, int tid, Src src_of,
 // in T, go 16 x 8 in fp32), C in fp32, (dt', go) per (t, c) and (alpha,
 // beta) per (c, n).  kWarps chunks at once, at least 8 N threads for the
 // chain.
+// Above RMAX 64 one stage a warp (no copy ahead), as the training
+// forward's state pass.
 template <int NMAX, int RMAX, bool kMma>
 struct CarryPlan {
   static constexpr int kWarps = NMAX / 4 > 4 ? NMAX / 4 : 4;
+  static constexpr int kStages = RMAX <= 64 ? 2 : 1;
   static constexpr int kWSize = kMma ? 0 : kWarpCh * (RMAX + 4);
   static constexpr int kDtlW = kMma ? kChunk * (RMAX + 8) / 2
                                     : kChunk * (RMAX + 4);
@@ -359,15 +390,15 @@ struct CarryPlan {
   static constexpr int kAbW = kWarpCh * NMAX * 2;
   static constexpr int kW = 0;
   static constexpr int kStage = kW + kWSize;
-  static constexpr int kC = kStage + kWarps * 2 * kStageW;
+  static constexpr int kC = kStage + kWarps * kStages * kStageW;
   static constexpr int kSt = kC + kWarps * kCW;
   static constexpr int kAb = kSt + kWarps * kStW;
   static constexpr int kBytes = (kAb + kWarps * kAbW) * 4;
 };
 
 // grid (ceil(dim / 8), batch), CarryPlan::kWarps warps: the chunks from the
-// last, kWarps at once, a warp a chunk; the next kWarps chunks' rows are
-// copied in while these are walked.
+// last, kWarps at once, a warp a chunk; up to RMAX 64 the next kWarps
+// chunks' rows are copied in while these are walked.
 template <typename T, int NMAX, int RMAX, bool kH0>
 __global__ void __launch_bounds__(CarryPlan<NMAX, RMAX, true>::kWarps * 32)
 scan_bwd_carry_kernel(const T* __restrict__ dt_low,
@@ -381,6 +412,7 @@ scan_bwd_carry_kernel(const T* __restrict__ dt_low,
   using P = CarryPlan<NMAX, RMAX, kMma>;
   constexpr int NPL = NMAX / kLanes;
   constexpr int nw = P::kWarps, kNT = nw * 32;
+  constexpr bool kPipe = P::kStages == 2;  // next chunks copied in ahead
   constexpr int LDF = RMAX + 4, LDB = RMAX + 8, kPitch = kMma ? LDB : LDF;
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -389,7 +421,7 @@ scan_bwd_carry_kernel(const T* __restrict__ dt_low,
   const int nc = (L + kChunk - 1) / kChunk;
   const size_t row0 = (size_t)b * L;
   float* s_w = smem + P::kW;
-  float* stage0 = smem + P::kStage + warp * 2 * P::kStageW;
+  float* stage0 = smem + P::kStage + warp * P::kStages * P::kStageW;
   float* s_c = smem + P::kC + warp * P::kCW;
   float2* s_st = reinterpret_cast<float2*>(smem + P::kSt + warp * P::kStW);
   const float2* s_ab_all = reinterpret_cast<const float2*>(smem + P::kAb);
@@ -445,7 +477,7 @@ scan_bwd_carry_kernel(const T* __restrict__ dt_low,
   }
 
   float W = 0.f;  // the chain's carry, for thread (n, c) = (tid / 8, tid % 8)
-  if (vec) {
+  if (kPipe && vec) {
     const int c = max(0, nc - nw) + warp;
     if (c < nc) stage_chunk(c, stage0);
     cp_async_commit();
@@ -454,9 +486,9 @@ scan_bwd_carry_kernel(const T* __restrict__ dt_low,
   for (int hi = nc; hi > 0; hi -= nw, ++it) {
     const int lo = max(0, hi - nw);
     const int c = lo + warp;
-    float* buf = stage0 + (it & 1) * P::kStageW;
+    float* buf = stage0 + (kPipe ? (it & 1) * P::kStageW : 0);
     __syncthreads();  // the previous chain's reads are done; s_w is ready
-    if (vec) {
+    if (kPipe && vec) {
       const int c_next = max(0, hi - 2 * nw) + warp;
       if (hi - nw > 0 && c_next < hi - nw)
         stage_chunk(c_next, stage0 + ((it + 1) & 1) * P::kStageW);
@@ -464,6 +496,10 @@ scan_bwd_carry_kernel(const T* __restrict__ dt_low,
       cp_async_wait<1>();
     } else if (c < hi) {
       stage_chunk(c, buf);
+      if (!kPipe && vec) {
+        cp_async_commit();
+        cp_async_wait<0>();
+      }
     }
     __syncwarp();
     if (c < hi) {
@@ -474,7 +510,7 @@ scan_bwd_carry_kernel(const T* __restrict__ dt_low,
       for (int m = 0; m < kChunk * NMAX / 32; ++m)
         s_c[lane + 32 * m] = to_f32(craw[lane + 32 * m]);
       float raw[4];
-      expand_dt<kMma, RMAX>(buf, s_w + 2 * q * LDF, bfr, g, q, raw);
+      expand_dt<kMma, RMAX>(buf, s_w + 2 * q * LDF, bfr, g, q, R, raw);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int tt = g + 8 * (e >> 1), cc = 2 * q + (e & 1);
@@ -552,8 +588,10 @@ struct MainPlan {
 };
 
 // grid (ceil(dim / 64), ceil(n_chunks / kGroup), batch); two blocks an SM
+// up to RMAX 64, one above (dt_w's RMAX / 8 fragments and the RMAX / 16
+// dt_low values a thread; fp32 at RMAX 256 takes 150 KB of shared memory)
 template <typename T, int NMAX, int RMAX>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, RMAX <= 64 ? 2 : 1)
 scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
                 const T* __restrict__ dt_w, const float* __restrict__ A,
                 const T* __restrict__ Bm, const T* __restrict__ Cm,
@@ -690,7 +728,7 @@ scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
     // A: dt', sigmoid, dt' u for the warp's 16 x 8 (t, d)
     float raw[4], uf[4], dtr[4], sgr[4];
     expand_dt<kMma, RMAX>(s_dtl, s_w + (warp * kWarpCh + 2 * q) * LDF, bfr,
-                          g, q, raw);
+                          g, q, R, raw);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int tt = g + 8 * (e >> 1), cc = 2 * q + (e & 1);
@@ -843,7 +881,10 @@ int launch(const void* const* p, int batch, int L, int dim, int N, int R,
   auto a16 = [](const void* v) {
     return reinterpret_cast<uintptr_t>(v) % 16 == 0;
   };
-  bool vec = R == RMAX && N == NMAX && dim % (16 / (int)sizeof(T)) == 0;
+  constexpr int kPer = 16 / (int)sizeof(T);
+  // above RMAX 64, dt_low rows of whole 16-byte runs copy as vectors too
+  bool vec = (R == RMAX || (RMAX > 64 && R % kPer == 0)) && N == NMAX &&
+             dim % kPer == 0;
   for (int i : {0, 1, 4, 5, 7, 8, 9}) vec = vec && a16(p[i]);
   dim3 cgrid((dim + kWarpCh - 1) / kWarpCh, batch);
   carry_kernel<<<cgrid, CP::kWarps * 32, CP::kBytes, stream>>>(
@@ -872,7 +913,16 @@ int dispatch_r(const void* const* p, int batch, int L, int dim, int N, int R,
   if (R <= 16) return launch<T, NMAX, 16, kH0>(p, batch, L, dim, N, R, sp, s);
   if (R <= 32) return launch<T, NMAX, 32, kH0>(p, batch, L, dim, N, R, sp, s);
   if (R <= 64) return launch<T, NMAX, 64, kH0>(p, batch, L, dim, N, R, sp, s);
-  return cudaErrorInvalidValue;
+  // above 64, N <= 8 runs on the N-16 plan (its padded states are zero)
+  if constexpr (NMAX < 16) {
+    return dispatch_r<T, 16, kH0>(p, batch, L, dim, N, R, sp, s);
+  } else {
+    if (R <= 128)
+      return launch<T, NMAX, 128, kH0>(p, batch, L, dim, N, R, sp, s);
+    if (R <= 256)
+      return launch<T, NMAX, 256, kH0>(p, batch, L, dim, N, R, sp, s);
+    return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T, bool kH0>
@@ -904,7 +954,7 @@ int run(const void* const* p, int batch, int L, int dim, int n_state,
 // pass's workspace, batch x ceil(L / 16) x ceil(dim / 8) x N x 8 fp32.
 // Launches the carry pass, then the main pass, on `stream`.  Returns the CUDA error of the
 // launches (0 on success), or cudaErrorInvalidValue for shapes the kernels
-// do not take (1 <= N <= 32, 1 <= r <= 64).
+// do not take (1 <= N <= 32, 1 <= r <= 256).
 extern "C" int dimsum_selective_scan_bwd(
     const void* u, const void* dt_low, const void* dt_w, const void* A,
     const void* B, const void* C, const void* bias, const void* go,

@@ -62,6 +62,18 @@
 // inside chunk i's recurrence (double buffers), or producer warps; and the
 // variants the route refuses (grouped B/C, N > 32).
 //
+// Ranks.  The Pallas kernel takes any dt_rank (its (1, chunk, r) and (r,
+// d_block) blocks, selective_scan.py:687-693); this kernel takes 1 <= r <=
+// 256 (d_model up to 4096) through RMAX 16, 32, 64, 128 and 256, the
+// smallest that holds r.  Up to 64 the instantiations are those measured in
+// PERF.md; above it (DiM-XL/2's linear mixers r 72, mamba-790m 96,
+// mamba-1.4b 128, mamba-2.8b 160) the same phases run, N <= 8 on the N-16
+// plan, with the k-tiles past r skipped, fewer blocks an SM (fwd_min_blocks:
+// the RMAX / 8 dt_low values a thread holds, and 64 KB of shared memory at
+// 256), and at r 160 the expansion's 2r = 320 flop a (b, t, d) is as long on
+// the FP32 pipe (fp32) as the N + 3 transcendentals on the SFU, so
+// chip_smoke.py computes the bound of each rank from its own counts.
+//
 // The reverse entry, dimsum_selective_scan_fwd_reverse, is _scan_body's
 // reverse=True case (selective_scan.py:447, :499-503; the grid's L-chunks
 // visited last to first): h_t = exp(dt_t A) h_{t+1} + dt_t u_t B_t, the
@@ -187,6 +199,7 @@ __device__ __forceinline__ void lds(const float* p, float* v) {
 // Shared memory of a block, in floats, each array 16-byte aligned.  bf16
 // inputs keep dt_w (transposed) and dt_low as bf16 mma operands, with rows
 // of RMAX + 8 (conflict-free fragments), inside the fp32 arrays' room.
+// <= 28 KB up to RMAX 64; 39 KB at 128 and 64 KB at 256 (N 16).
 template <int NMAX, int RMAX>
 struct Plan {
   static constexpr int kW = 0;                            // [RMAX][32]
@@ -195,11 +208,19 @@ struct Plan {
   static constexpr int kC = kB + kChunk * NMAX;           // [16][NMAX]
   static constexpr int kDd = kC + kChunk * NMAX;          // [16][32] float2
   static constexpr int kY = kDd + 2 * kChunk * kChannels; // [16][128]
-  static constexpr int kBytes = (kY + kChunk * kThreads) * 4;  // <= 28 KB
+  static constexpr int kBytes = (kY + kChunk * kThreads) * 4;
 };
 
-// 6 blocks of 128 threads an SM (80 registers a thread): the 768 blocks of
-// the DiM-L/2 mixer (24 x 1024 / 32) in one wave on 132 SMs
+// Blocks an SM the compiler plans registers for.  Up to RMAX 64, 6 blocks
+// of 128 threads (80 registers a thread): the 768 blocks of the DiM-L/2
+// mixer (24 x 1024 / 32) in one wave on 132 SMs.  RMAX 128 and 256 (the
+// ranks above 64: mamba-790m to mamba-2.8b and d_model 4096) hold RMAX / 8
+// dt_low values a thread in registers and more shared memory, so 4 and 3
+// (5 and 3 fit in shared memory at N 16).
+constexpr int fwd_min_blocks(int rmax) {
+  return rmax <= 64 ? 6 : rmax <= 128 ? 4 : 3;
+}
+
 // kDelta: dt_low is the full delta (batch, L, dim) and dt_w is unused;
 // kH0: h0 (batch, dim, N) seeds the state; kLast: last (batch, dim, N)
 // takes the state after step L - 1.  h0 and last are unused without them.
@@ -207,7 +228,7 @@ struct Plan {
 // arguments only).
 template <typename T, int NMAX, int RMAX, bool kDelta = false,
           bool kH0 = false, bool kLast = false, bool kRev = false>
-__global__ void __launch_bounds__(kThreads, 6)
+__global__ void __launch_bounds__(kThreads, fwd_min_blocks(RMAX))
 scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
                 const T* __restrict__ dt_w, const float* __restrict__ A,
                 const T* __restrict__ Bm, const T* __restrict__ Cm,
@@ -359,6 +380,10 @@ scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
         c4[j][0] = c4[j][1] = c4[j][2] = c4[j][3] = 0.f;
 #pragma unroll
       for (int k0 = 0; k0 < RMAX; k0 += 16) {
+        // above RMAX 64 the k-tiles past r hold zeros: skipped
+        if constexpr (RMAX > 64) {
+          if (k0 >= R) break;
+        }
         const __nv_bfloat16* ap = &dtl_bf[row * LDB + k0 + 2 * q];
         const uint32_t a[4] = {
             own ? *reinterpret_cast<const uint32_t*>(ap) : 0u, 0u,
@@ -386,6 +411,9 @@ scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
       for (int i = 0; i < kSteps; ++i) acc[i] = 0.f;
 #pragma unroll
       for (int k = 0; k < RMAX; k += 4) {
+        if constexpr (RMAX > 64) {
+          if (k >= R) break;
+        }
         const float w0 = s_w[k * kChannels + ca];
         const float w1 = s_w[(k + 1) * kChannels + ca];
         const float w2 = s_w[(k + 2) * kChannels + ca];
@@ -463,6 +491,16 @@ cudaError_t launch(const void* u, const void* dt_low, const void* dt_w,
                    cudaStream_t stream, const void* h0 = nullptr,
                    void* last = nullptr) {
   constexpr int kBytes = Plan<NMAX, RMAX>::kBytes;
+  if constexpr (kBytes > 48 * 1024) {  // RMAX 256: set once
+    static bool done = false;
+    if (!done) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          scan_fwd_kernel<T, NMAX, RMAX, kDelta, kH0, kLast, kRev>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+      if (err != cudaSuccess) return err;
+      done = true;
+    }
+  }
   dim3 grid(batch, (dim + kChannels - 1) / kChannels);
   scan_fwd_kernel<T, NMAX, RMAX, kDelta, kH0, kLast, kRev>
       <<<grid, kThreads, kBytes, stream>>>(
@@ -489,7 +527,15 @@ cudaError_t dispatch_r(SCAN_PARAMS) {
   if (R <= 16) return launch<T, NMAX, 16, f, f, f, kRev>(SCAN_ARGS);
   if (R <= 32) return launch<T, NMAX, 32, f, f, f, kRev>(SCAN_ARGS);
   if (R <= 64) return launch<T, NMAX, 64, f, f, f, kRev>(SCAN_ARGS);
-  return cudaErrorInvalidValue;
+  // above 64, N <= 8 runs on the N-16 plan (its padded states are zero),
+  // which halves the instantiations' build time for no model of the zoo
+  if constexpr (NMAX < 16) {
+    return dispatch_r<T, 16, kRev>(SCAN_ARGS);
+  } else {
+    if (R <= 128) return launch<T, NMAX, 128, f, f, f, kRev>(SCAN_ARGS);
+    if (R <= 256) return launch<T, NMAX, 256, f, f, f, kRev>(SCAN_ARGS);
+    return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T, bool kRev = false>
@@ -534,7 +580,7 @@ cudaError_t dispatch_state(STATE_PARAMS) {
 
 // dtype: 0 = float32, 1 = bfloat16.  D, z and bias may be null.
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
-// shapes the kernel does not take (1 <= N <= 32, 1 <= r <= 64).
+// shapes the kernel does not take (1 <= N <= 32, 1 <= r <= 256).
 extern "C" int dimsum_selective_scan_fwd(
     const void* u, const void* dt_low, const void* dt_w, const void* A,
     const void* B, const void* C, const void* D, const void* z,

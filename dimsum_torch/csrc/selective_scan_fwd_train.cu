@@ -76,6 +76,15 @@
 // the main pass ~0.040.  clock64 counters put half of a main-pass chunk in
 // gathering its rows (load latency and barriers); the state pass spreads
 // over its copies, dt phase, walk and chain.
+//
+// Ranks: 1 <= r <= 256 through RMAX 16, 32, 64, 128, 256 (the Pallas kernel
+// takes any; above 64, N <= 8 on the N-16 plan).  Above 64 the state pass
+// keeps one stage a warp (no copy ahead: two stages of fp32 rows at RMAX
+// 256, N 32 would need 340 KB), plans for fewer warps an SM
+// (states_min_blocks: dt_w's RMAX / 8 bf16 fragments a thread), skips the
+// k-tiles past r, copies dt_low rows as 16-byte vectors whenever r is a
+// multiple of 16 bytes' elements, and stages them in runs of 32 loads a
+// thread otherwise.  The main pass does not depend on r.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -228,7 +237,8 @@ template <bool kMma, int RMAX>
 __device__ __forceinline__ void expand_dt(const float* s_dtl,
                                           const float* w_rows,
                                           const uint32_t (&bfr)[RMAX / 16][2],
-                                          int g, int q, float (&raw)[4]) {
+                                          int g, int q, int R,
+                                          float (&raw)[4]) {
 #pragma unroll
   for (int e = 0; e < 4; ++e) raw[e] = 0.f;
   if constexpr (kMma) {
@@ -236,6 +246,10 @@ __device__ __forceinline__ void expand_dt(const float* s_dtl,
     const __nv_bfloat16* dtl = reinterpret_cast<const __nv_bfloat16*>(s_dtl);
 #pragma unroll
     for (int k0 = 0; k0 < RMAX; k0 += 16) {
+      // above RMAX 64 the k-tiles past r hold zeros: skipped
+      if constexpr (RMAX > 64) {
+        if (k0 >= R) break;
+      }
       const __nv_bfloat16* ap = dtl + g * LDB + k0 + 2 * q;
       const uint32_t a[4] = {ld32(ap), ld32(ap + 8 * LDB), ld32(ap + 8),
                              ld32(ap + 8 * LDB + 8)};
@@ -245,6 +259,9 @@ __device__ __forceinline__ void expand_dt(const float* s_dtl,
     constexpr int LDF = RMAX + 4;
 #pragma unroll
     for (int k = 0; k < RMAX; k += 4) {
+      if constexpr (RMAX > 64) {
+        if (k >= R) break;
+      }
       const float4 x0 = *reinterpret_cast<const float4*>(s_dtl + g * LDF + k);
       const float4 x1 =
           *reinterpret_cast<const float4*>(s_dtl + (g + 8) * LDF + k);
@@ -318,7 +335,7 @@ __device__ __forceinline__ void stage(bool vec, int tid, Src src_of,
     for (int v = tid; v < COUNT / kPer; v += NT) {
       cp_async16(dst_of(v * kPer), src_of(v * kPer));
     }
-  } else {
+  } else if constexpr ((COUNT + NT - 1) / NT <= 32) {
     constexpr int M = (COUNT + NT - 1) / NT;
     T r[M];
 #pragma unroll
@@ -330,16 +347,33 @@ __device__ __forceinline__ void stage(bool vec, int tid, Src src_of,
 #pragma unroll
     for (int m = 0; m < M; ++m)
       if (tid + m * NT < COUNT) *dst_of(tid + m * NT) = r[m];
+  } else {
+    // dt_low rows above RMAX 64: 32 loads in flight at a time
+    for (int m0 = 0; m0 < COUNT; m0 += 32 * NT) {
+      T r[32];
+#pragma unroll
+      for (int m = 0; m < 32; ++m) {
+        const int i = m0 + tid + m * NT;
+        const T* src = i < COUNT ? src_of(i) : nullptr;
+        r[m] = src != nullptr ? *src : zero_of<T>();
+      }
+#pragma unroll
+      for (int m = 0; m < 32; ++m)
+        if (m0 + tid + m * NT < COUNT) *dst_of(m0 + tid + m * NT) = r[m];
+    }
   }
 }
 
 // Shared memory of a state-pass block, in floats: dt_w rows (fp32 only),
-// then per warp two stages of its chunk (dt_low rows as the mma reads them,
-// B rows and u 16 x 8 in T), (dt, dt u) per (t, c) and (alpha, beta) per
-// (c, n).  kWarps chunks at once, at least 8 N threads for the chain.
+// then per warp kStages stages of its chunk (dt_low rows as the mma reads
+// them, B rows and u 16 x 8 in T), (dt, dt u) per (t, c) and (alpha, beta)
+// per (c, n).  kWarps chunks at once, at least 8 N threads for the chain.
+// Above RMAX 64 one stage a warp (the next chunks' rows are not copied in
+// ahead): two would take 340 KB for fp32 at RMAX 256, N 32.
 template <int NMAX, int RMAX, bool kMma>
 struct StatePlan {
   static constexpr int kWarps = NMAX / 4 > 4 ? NMAX / 4 : 4;
+  static constexpr int kStages = RMAX <= 64 ? 2 : 1;
   static constexpr int kWSize = kMma ? 0 : kWarpCh * (RMAX + 4);
   static constexpr int kDtlW = kMma ? kChunk * (RMAX + 8) / 2
                                     : kChunk * (RMAX + 4);
@@ -350,20 +384,27 @@ struct StatePlan {
   static constexpr int kAbW = kWarpCh * NMAX * 2;
   static constexpr int kW = 0;
   static constexpr int kStage = kW + kWSize;
-  static constexpr int kSt = kStage + kWarps * 2 * kStageW;
+  static constexpr int kSt = kStage + kWarps * kStages * kStageW;
   static constexpr int kAb = kSt + kWarps * kStW;
   static constexpr int kBytes = (kAb + kWarps * kAbW) * 4;
 };
 
-// grid (ceil(dim / 8), batch), StatePlan::kWarps warps and 24 warps an SM
-// (80 registers a thread; without the bound the compiler takes ~150 and
-// the pass runs ~20% slower): the chunks from the first, kWarps at once, a
-// warp a chunk; the next kWarps chunks' rows are copied in while these are
-// walked.
+// Warps an SM the compiler plans registers for: 24 up to RMAX 64 (80
+// registers a thread; without the bound the compiler takes ~150 and the
+// pass runs ~20% slower); above it dt_w's RMAX / 8 fragments a thread
+// need more, so 12 at 128 and 8 at 256 (at least one block).
+constexpr int states_min_blocks(int warps, int rmax) {
+  const int per_sm = rmax <= 64 ? 24 : rmax <= 128 ? 12 : 8;
+  return per_sm / warps > 0 ? per_sm / warps : 1;
+}
+
+// grid (ceil(dim / 8), batch), StatePlan::kWarps warps: the chunks from
+// the first, kWarps at once, a warp a chunk; up to RMAX 64 the next kWarps
+// chunks' rows are copied in while these are walked.
 template <typename T, int NMAX, int RMAX, bool kH0>
 __global__ void __launch_bounds__(
     StatePlan<NMAX, RMAX, true>::kWarps * 32,
-    24 / StatePlan<NMAX, RMAX, true>::kWarps)
+    states_min_blocks(StatePlan<NMAX, RMAX, true>::kWarps, RMAX))
 scan_fwd_train_states_kernel(const T* __restrict__ u,
                              const T* __restrict__ dt_low,
                              const T* __restrict__ dt_w,
@@ -378,6 +419,7 @@ scan_fwd_train_states_kernel(const T* __restrict__ u,
   using P = StatePlan<NMAX, RMAX, kMma>;
   constexpr int NPL = NMAX / kLanes;
   constexpr int nw = P::kWarps, kNT = nw * 32;
+  constexpr bool kPipe = P::kStages == 2;  // next chunks copied in ahead
   constexpr int LDF = RMAX + 4, LDB = RMAX + 8, kPitch = kMma ? LDB : LDF;
   static_assert(RMAX % 16 == 0 && NPL >= 2, "plan");
   extern __shared__ __align__(16) float smem[];
@@ -387,7 +429,7 @@ scan_fwd_train_states_kernel(const T* __restrict__ u,
   const int nc = (L + kChunk - 1) / kChunk;
   const size_t row0 = (size_t)b * L;
   float* s_w = smem + P::kW;
-  float* stage0 = smem + P::kStage + warp * 2 * P::kStageW;
+  float* stage0 = smem + P::kStage + warp * P::kStages * P::kStageW;
   float2* s_st = reinterpret_cast<float2*>(smem + P::kSt + warp * P::kStW);
   const float2* s_ab_all = reinterpret_cast<const float2*>(smem + P::kAb);
   float2* s_ab = reinterpret_cast<float2*>(smem + P::kAb + warp * P::kAbW);
@@ -453,7 +495,7 @@ scan_fwd_train_states_kernel(const T* __restrict__ u,
     const int n = tid / kWarpCh, d = d0 + tid % kWarpCh;
     if (tid < kWarpCh * N && d < dim) H = h0[((size_t)b * dim + d) * N + n];
   }
-  if (vec) {
+  if (kPipe && vec) {
     if (warp < nc) stage_chunk(warp, stage0);
     cp_async_commit();
   }
@@ -461,15 +503,19 @@ scan_fwd_train_states_kernel(const T* __restrict__ u,
   for (int lo = 0; lo < nc; lo += nw, ++it) {
     const int hi = min(nc, lo + nw);
     const int c = lo + warp;
-    float* buf = stage0 + (it & 1) * P::kStageW;
+    float* buf = stage0 + (kPipe ? (it & 1) * P::kStageW : 0);
     __syncthreads();  // the previous chain's reads are done; s_w is ready
-    if (vec) {
+    if (kPipe && vec) {
       if (hi + warp < nc)
         stage_chunk(hi + warp, stage0 + ((it + 1) & 1) * P::kStageW);
       cp_async_commit();
       cp_async_wait<1>();
     } else if (c < hi) {
       stage_chunk(c, buf);
+      if (!kPipe && vec) {
+        cp_async_commit();
+        cp_async_wait<0>();
+      }
     }
     __syncwarp();
     if (c < hi) {
@@ -477,7 +523,7 @@ scan_fwd_train_states_kernel(const T* __restrict__ u,
       const T* braw = reinterpret_cast<const T*>(buf + P::kDtlW);
       const T* uraw = reinterpret_cast<const T*>(buf + P::kDtlW + P::kBRawW);
       float raw[4], dts[4];
-      expand_dt<kMma, RMAX>(buf, s_w + 2 * q * LDF, bfr, g, q, raw);
+      expand_dt<kMma, RMAX>(buf, s_w + 2 * q * LDF, bfr, g, q, R, raw);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int tt = g + 8 * (e >> 1), cc = 2 * q + (e & 1);
@@ -708,7 +754,10 @@ int launch(const void* const* p, int batch, int L, int dim, int N, int R,
   auto a16 = [](const void* v) {
     return reinterpret_cast<uintptr_t>(v) % 16 == 0;
   };
-  bool vec = R == RMAX && N == NMAX && dim % (16 / (int)sizeof(T)) == 0;
+  constexpr int kPer = 16 / (int)sizeof(T);
+  // above RMAX 64, dt_low rows of whole 16-byte runs copy as vectors too
+  bool vec = (R == RMAX || (RMAX > 64 && R % kPer == 0)) && N == NMAX &&
+             dim % kPer == 0;
   for (int i : {0, 1, 4, 10}) vec = vec && a16(p[i]);
   dim3 sgrid((dim + kWarpCh - 1) / kWarpCh, batch);
   states_kernel<<<sgrid, SP::kWarps * 32, SP::kBytes, stream>>>(
@@ -733,7 +782,16 @@ int dispatch_r(const void* const* p, int batch, int L, int dim, int N, int R,
   if (R <= 16) return launch<T, NMAX, 16, kH0>(p, batch, L, dim, N, R, sp, s);
   if (R <= 32) return launch<T, NMAX, 32, kH0>(p, batch, L, dim, N, R, sp, s);
   if (R <= 64) return launch<T, NMAX, 64, kH0>(p, batch, L, dim, N, R, sp, s);
-  return cudaErrorInvalidValue;
+  // above 64, N <= 8 runs on the N-16 plan (its padded states are zero)
+  if constexpr (NMAX < 16) {
+    return dispatch_r<T, 16, kH0>(p, batch, L, dim, N, R, sp, s);
+  } else {
+    if (R <= 128)
+      return launch<T, NMAX, 128, kH0>(p, batch, L, dim, N, R, sp, s);
+    if (R <= 256)
+      return launch<T, NMAX, 256, kH0>(p, batch, L, dim, N, R, sp, s);
+    return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T, bool kH0>
@@ -764,7 +822,7 @@ int run(const void* const* p, int batch, int L, int dim, int n_state,
 // the state pass (which writes bnd, and dt into o), then the main pass
 // (which reads them and writes y and o), on `stream`.  Returns the CUDA
 // error of the launches (0 on success), or cudaErrorInvalidValue for
-// shapes the kernels do not take (1 <= N <= 32, 1 <= r <= 64).
+// shapes the kernels do not take (1 <= N <= 32, 1 <= r <= 256).
 extern "C" int dimsum_selective_scan_fwd_train(
     const void* u, const void* dt_low, const void* dt_w, const void* A,
     const void* B, const void* C, const void* D, const void* z,

@@ -2,7 +2,9 @@
 `dimsum_tpu/ops/causal_conv1d.py`.  Layout (batch, L, dim).
 
 `causal_conv1d_halo` is the sequence-sharded conv of sequence parallelism:
-each rank of a process group holds one L-shard, in rank order."""
+each rank of a process group holds one L-shard, in rank order.
+`causal_conv1d_update` is the one-token decode step (plain jnp in JAX,
+plain PyTorch here)."""
 
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ import torch.nn.functional as F
 
 from dimsum_torch.parallel.mesh import all_gather
 
-__all__ = ["causal_conv1d", "causal_conv1d_halo"]
+__all__ = ["causal_conv1d", "causal_conv1d_halo", "causal_conv1d_update"]
 
 
 def causal_conv1d(x, weight, bias=None, activation: str | None = "silu",
@@ -66,3 +68,22 @@ def causal_conv1d_halo(x, weight, bias=None, activation: str | None = "silu",
     prev = halos[my - 1] if my > 0 else torch.zeros_like(halos[0])
     xp = torch.cat([prev, x], dim=1)
     return causal_conv1d(xp, weight, bias, activation)[:, W - 1:].contiguous()
+
+
+def causal_conv1d_update(x, conv_state, weight, bias=None,
+                         activation: str | None = "silu"):
+    """One decode step (the JAX `causal_conv1d_update`, reference
+    causal_conv1d_update.cu:26-66): x (B, D) the new token, conv_state
+    (B, W, D) the last W inputs.  The state shifts by one and takes x; y
+    = sum_w state[:, w] weight[:, w] (+ bias, SiLU) in fp32.  Returns (y
+    in x's dtype, the new state in conv_state's dtype)."""
+    if activation not in (None, "silu", "swish"):
+        raise NotImplementedError(f"activation {activation}")
+    new_state = torch.cat([conv_state[:, 1:], x[:, None].to(conv_state.dtype)],
+                          dim=1)
+    y = torch.einsum("bwd,dw->bd", new_state.float(), weight.float())
+    if bias is not None:
+        y = y + bias.float()
+    if activation in ("silu", "swish"):
+        y = y * torch.sigmoid(y)
+    return y.to(x.dtype), new_state

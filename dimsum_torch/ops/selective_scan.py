@@ -36,6 +36,8 @@ Layout as in the JAX package: u, delta, z (batch, L, dim); B, C
                              optional h0 (the `use_cond_init` seed) goes
                              to both kernels' h0 entries, and dh0 comes
                              back.
+  * `selective_state_update` : one decode step of the recurrence, plain
+                             PyTorch (plain jnp in JAX).
   * `selective_scan_dtlow` : the front end the mixer calls.  CPU tensors take
                              the plain version with ordinary autograd; CUDA
                              tensors take kernel 1 (its reverse entry for
@@ -65,7 +67,7 @@ __all__ = ["selective_scan_ref", "selective_scan_cuda", "selective_scan_dtlow",
            "selective_scan_bwd_ref", "selective_scan_bwd_core_ref",
            "selective_scan_bwd_core_cuda", "selective_scan_bwd_carry_ref",
            "SelectiveScanDtLowFn", "selective_scan_dtlow_train",
-           "TRAIN_CHUNK"]
+           "selective_state_update", "TRAIN_CHUNK"]
 
 # Timesteps between the chunk-start states that the training forward saves
 # and the backward replays from: the contract between kernels 2 and 3.  The
@@ -135,7 +137,10 @@ def selective_scan_ref(u, delta, A, B, C, D=None, z=None, delta_bias=None,
 # CUDA kernels: one wrapper per source, each counting its launches
 # ---------------------------------------------------------------------------
 
-_MAX_STATE, _MAX_RANK = 32, 64
+# The kernels' largest N and dt_rank: RMAX 256 is their largest template
+# (d_model 4096 at dt_rank = ceil(d_model / 16)); the Pallas kernel takes
+# any rank, and a rank above this one raises.
+_MAX_STATE, _MAX_RANK = 32, 256
 
 
 def _launch(name: str, dev, tensors, ints, entry: Optional[str] = None):
@@ -182,7 +187,7 @@ def _check_common_args(u, A, B, C, D, z, delta_bias):
 def _check_kernel_args(u, dt_low, dt_w, A, B, C, D, z, delta_bias):
     """The layout, types and sizes the dt_low route's kernels take: those
     of `_check_common_args`, and dt_low (batch, L, r), dt_w (r, dim) in
-    u's dtype, 1 <= r <= 64."""
+    u's dtype, 1 <= r <= 256 (`_MAX_RANK`; above it NotImplementedError)."""
     _check_common_args(u, A, B, C, D, z, delta_bias)
     if dt_low.ndim != 3 or dt_w.ndim != 2:
         raise ValueError("dt_low: (batch, L, r); dt_w: (r, dim)")
@@ -777,3 +782,28 @@ def selective_scan_dtlow(u, dt_low, dt_w, A, B, C, D=None, z=None,
                                delta_bias=delta_bias,
                                delta_softplus=delta_softplus)
     return _flip(y) if reverse else y
+
+
+def selective_state_update(state, x, dt, A, B, C, D=None, z=None,
+                           dt_bias=None, dt_softplus=False):
+    """One decode step of the recurrence (the JAX `selective_state_update`,
+    plain jnp there and plain PyTorch here; the reference's Triton
+    kernel): state (batch, dim, N); x, dt, z (batch, dim); B, C (batch,
+    N); A (dim, N).  In fp32: dt (+ bias, softplus), h = exp(dt A) h +
+    dt x B, y = <h, C> + D x, times silu(z).  Returns (y in x's dtype, the
+    new state in state's dtype)."""
+    dtf = dt.float()
+    if dt_bias is not None:
+        dtf = dtf + dt_bias.float()
+    if dt_softplus:
+        dtf = softplus(dtf)
+    dA = torch.exp(dtf[..., None] * A.float())
+    dB = dtf[..., None] * B.float()[:, None, :]
+    new_state = state.float() * dA + x.float()[..., None] * dB
+    y = torch.einsum("bdn,bn->bd", new_state, C.float())
+    if D is not None:
+        y = y + D.float() * x.float()
+    if z is not None:
+        zf = z.float()
+        y = y * (zf * torch.sigmoid(zf))
+    return y.to(x.dtype), new_state.to(state.dtype)

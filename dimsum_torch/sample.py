@@ -24,8 +24,10 @@ through `--ppl-detector` (a local vgg16.pt, or `random-lpips[:seed]`) over
 `--device cpu`.
 
 `--model DiT-*` samples the DiT baseline through the same transport, as
-the JAX CLI does (the published DiT checkpoints are DDPM models, whose
-`gaussian_diffusion` sampler is ROADMAP.md Queue 1 item 9).
+the JAX CLI does.  The published DiT checkpoints are DDPM models; their
+sampler, `dimsum_torch.diffusion` (`create_diffusion`, `p_sample_loop`,
+`ddim_sample_loop`), is ported as a module, and as in JAX no CLI samples
+through it.
 
 Not ported yet, and refused: `--pp` (ROADMAP.md Queue 1 item 8); what
 `dimsum_torch.models.factory.model_config` refuses.

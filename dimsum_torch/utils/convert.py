@@ -1,5 +1,6 @@
 """JAX params trees -> the port's torch state dicts: the DiM
-(`state_dict_from_jax_params`) and the FID InceptionV3
+(`state_dict_from_jax_params`), the Mamba LM
+(`lm_state_dict_from_jax_params`) and the FID InceptionV3
 (`inception_state_dict_from_flax`).
 
 The inverse of `dimsum_tpu/utils/ckpt.py` (`_flax_path_for` and
@@ -105,6 +106,40 @@ def state_dict_from_jax_params(params: Dict, in_channels: int = 4
         if name in out:
             raise ValueError(f"two flax leaves map to {name!r}")
         out[name] = torch.from_numpy(np.ascontiguousarray(value).copy())
+    return out
+
+
+def lm_state_dict_from_jax_params(params: Dict) -> Dict[str, torch.Tensor]:
+    """The JAX `MambaLMHeadModel`'s params tree (with or without the
+    top-level "params") -> the port's LM state dict, which carries the HF
+    checkpoint names: embedding/embedding -> backbone.embedding.weight (and
+    lm_head.weight, tied, unless the tree has its own lm_head kernel),
+    layers_N/norm_weight (norm_bias) -> backbone.layers.N.norm.weight
+    (.bias), layers_N/mixer/... -> backbone.layers.N.mixer.... (the DiM
+    mixer's layout maps), norm_f_weight -> backbone.norm_f.weight."""
+    if set(params.keys()) == {"params"}:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for path, arr in _leaves(params):
+        head, *rest = path
+        if path == ("embedding", "embedding"):
+            name, value = "backbone.embedding.weight", arr
+        elif path == ("norm_f_weight",):
+            name, value = "backbone.norm_f.weight", arr
+        elif path == ("lm_head", "kernel"):
+            name, value = "lm_head.weight", arr.T
+        elif re.fullmatch(r"layers_\d+", head):
+            stem = f"backbone.layers.{head.split('_')[1]}."
+            if rest in (["norm_weight"], ["norm_bias"]):
+                name = stem + "norm." + rest[0].split("_")[1]
+                value = arr
+            else:
+                name, value = _torch_entry(tuple(rest), arr, in_channels=0)
+                name = stem + name
+        else:
+            raise ValueError(f"unexpected LM param {'/'.join(path)}")
+        out[name] = torch.from_numpy(np.ascontiguousarray(value).copy())
+    out.setdefault("lm_head.weight", out["backbone.embedding.weight"])
     return out
 
 

@@ -1286,7 +1286,10 @@ def conv_inputs(device, dtype, B, L, D, W, R, seed=0, strided=False):
     # DiM-XL/2's at 512 px (8 CFG rows); the taps of D 4096 at W 8 beside
     # its ring, which do not fit there
     (24, 1024, 1024, 4, 64, True), (8, 1024, 1152, 4, 68, True),
-    (2, 40, 4096, 8, 64, True)])
+    (2, 40, 4096, 8, 64, True),
+    # DiM-XL/2 --block-type linear's mixer under DIMSUM_CONV_XPROJ=1:
+    # d_inner 2304, R = dt_rank 72 + 2 N
+    (24, 256, 2304, 4, 104, True)])
 def test_conv_xproj_kernel_matches_plain_on_card(cuda, dtype, reverse, B, L,
                                                  D, W, R, strided):
     x, cw, cb, w = conv_inputs(cuda, dtype, B, L, D, W, R, seed=L + R,
@@ -1866,3 +1869,72 @@ def test_remat_at_the_full_block_attention_on_card(cuda, kind,
         assert torch.equal(got[0], base[0])
     else:
         assert abs(got[0] - base[0]) <= 4 * abs(again[0] - base[0])
+
+
+# ---------------------------------------------------------------------------
+# Ranks above 64 (rows 1-3 at RMAX 128 and 256): DiM-XL/2's linear mixers
+# (r 72), mamba-790m (96), mamba-1.4b (128), mamba-2.8b (160) and the cap
+# (256); r 100 is not a multiple of 16 bytes' elements in bf16, so the
+# training kernels stage its rows by plain loads.  Held to the plain
+# versions at the tolerances above; a rank past the cap raises.
+# ---------------------------------------------------------------------------
+
+HIGH_RANKS = [(72, 16), (96, 8), (100, 16), (128, 32), (160, 16), (256, 16),
+              (256, 32)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("r, n", HIGH_RANKS)
+def test_high_rank_kernel_matches_plain_on_card(cuda, dtype, reverse, r, n):
+    x = scan_inputs(cuda, dtype, batch=2, L=300, dim=200, n=n, r=r)
+    kw = dict(z=x["z"], delta_bias=x["delta_bias"], delta_softplus=True,
+              reverse=reverse)
+    before = selective_scan_cuda.launches
+    with torch.no_grad():
+        got = selective_scan_dtlow(*_args(x), impl="cuda", **kw).float()
+        want = selective_scan_dtlow(*_args(x), impl="ref", **kw).float()
+    torch.cuda.synchronize()
+    assert selective_scan_cuda.launches == before + 1
+    tol = 1e-4 if dtype == torch.float32 else 1.6e-2
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("r, n", HIGH_RANKS)
+def test_high_rank_training_kernels_match_plain_on_card(cuda, dtype, with_h0,
+                                                        r, n):
+    """Kernel 2 (y, o, the saved states) and kernel 3 (every gradient,
+    dh0 with h0) against their plain versions, L 300 (ragged chunk and
+    group), dim 200 (ragged channel tiles)."""
+    x = scan_inputs(cuda, dtype, batch=2, L=300, dim=200, n=n, r=r)
+    h0 = _h0(x) if with_h0 else None
+    got_f = selective_scan_fwd_train_cuda(*_args(x), **_train_kw(x), h0=h0)
+    want_f = selective_scan_fwd_train_ref(*_args(x), **_train_kw(x), h0=h0)
+    g = torch.randn(x["u"].shape, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(5)).to(dtype)
+    kw = dict(_train_kw(x), o=want_f[1], boundaries=want_f[2], g=g, h0=h0)
+    b0 = selective_scan_bwd_core_cuda.launches
+    got_b = selective_scan_bwd(*_args(x), **kw)
+    want_b = selective_scan_bwd_ref(*_args(x), **kw)
+    torch.cuda.synchronize()
+    assert selective_scan_bwd_core_cuda.launches == b0 + 1
+    names = ("y", "o", "boundaries", "du", "ddelta", "dA", "dB", "dC", "dD",
+             "dz", "dbias", "dh0")
+    for name, a, b in zip(names, got_f + got_b, want_f + want_b):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.isfinite(a.float()).all(), name
+        _close(a, b, 1.6e-2 if a.dtype == torch.bfloat16 else 1e-4)
+
+
+def test_rank_above_the_cap_raises_on_card(cuda):
+    x = scan_inputs(cuda, torch.float32, r=257)
+    with pytest.raises(NotImplementedError, match="dt_rank <= 256"):
+        selective_scan_cuda(*_args(x))
+    with pytest.raises(NotImplementedError, match="dt_rank <= 256"):
+        selective_scan_fwd_train_cuda(*_args(x))
+    go = torch.zeros(x["u"].shape, device=cuda)
+    bnd = torch.zeros(2, 4, 16, 16, device=cuda)
+    with pytest.raises(NotImplementedError, match="dt_rank <= 256"):
+        selective_scan_bwd_core_cuda(*_args(x)[:6], None, True, go, bnd)
