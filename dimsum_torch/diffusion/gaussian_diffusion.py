@@ -20,6 +20,8 @@ from typing import Any, Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from dimsum_torch.utils.device import resolve_device
+
 __all__ = ["ModelMeanType", "ModelVarType", "LossType",
            "get_named_beta_schedule", "GaussianDiffusion", "space_timesteps",
            "spaced_diffusion", "UniformSampler", "LossSecondMomentResampler",
@@ -223,7 +225,8 @@ class GaussianDiffusion:
 
     def _loop(self, step, shape, generator, draw, device):
         """x_T ~ N(0, I), then `step(x, t, noise)` for t = T-1 .. 0; every
-        draw through `draw(shape)` (default: `generator`)."""
+        draw through `draw(shape)` (default: `generator` on `device`)."""
+        device = resolve_device(device)
         if draw is None:
             def draw(s):
                 return torch.randn(s, generator=generator, device=device)
@@ -236,7 +239,7 @@ class GaussianDiffusion:
     @torch.no_grad()
     def p_sample_loop(self, model_fn, shape, generator=None,
                       clip_denoised=True, model_kwargs=None,
-                      draw: Optional[Callable] = None, device="cpu"):
+                      draw: Optional[Callable] = None, device="cuda"):
         """Ancestral (DDPM) sampling from x_T ~ N(0, I) on `device`, all
         num_timesteps steps."""
         return self._loop(
@@ -264,7 +267,7 @@ class GaussianDiffusion:
     @torch.no_grad()
     def ddim_sample_loop(self, model_fn, shape, generator=None, eta=0.0,
                          clip_denoised=True, model_kwargs=None,
-                         draw: Optional[Callable] = None, device="cpu"):
+                         draw: Optional[Callable] = None, device="cuda"):
         """DDIM sampling from x_T ~ N(0, I) on `device` (a step's noise is
         drawn even at eta 0, as JAX draws it)."""
         return self._loop(
@@ -365,8 +368,9 @@ class UniformSampler:
     def __init__(self, diffusion: GaussianDiffusion):
         self.n = diffusion.num_timesteps
 
-    def sample(self, batch: int, generator=None, device="cpu"):
-        """(t (batch,) int64 uniform in [0, n), weights 1)."""
+    def sample(self, batch: int, generator=None, device="cuda"):
+        """(t (batch,) int64 uniform in [0, n), weights 1) on `device`."""
+        device = resolve_device(device)
         t = torch.randint(0, self.n, (batch,), generator=generator,
                           device=device)
         return t, torch.ones(batch, device=device)
@@ -392,9 +396,12 @@ class LossSecondMomentResampler:
         w = w / w.sum()
         return w * (1 - self.uniform_prob) + self.uniform_prob / self.n
 
-    def sample(self, batch: int, generator=None, device="cpu"):
+    def sample(self, batch: int, generator=None, device="cuda"):
         """(t (batch,) int64 drawn by the weights, their importance
-        weights 1 / (n w_t) as float32)."""
+        weights 1 / (n w_t) as float32) on `device`; the draw is made on
+        the host, from `generator` (a CPU generator), as the weights live
+        there."""
+        device = resolve_device(device)
         w = self.weights()
         t = torch.multinomial(torch.as_tensor(w), batch, replacement=True,
                               generator=generator).to(device)

@@ -161,7 +161,7 @@ def test_sampling_loops_match_jax_with_its_draws(loop, var):
         draws.append(np.asarray(jax.random.normal(sub, shape)))
     it = iter(draws)
     got = getattr(tgd, loop)(tfn, shape, draw=lambda s: torch.from_numpy(
-        next(it)), **extra)
+        next(it)), device="cpu", **extra)
     assert next(it, None) is None
     _close(got, want, dict(rtol=1e-5, atol=1e-5))
 
@@ -173,13 +173,33 @@ def test_sampling_loops_draw_from_their_generator():
     def run(loop, seed):
         return getattr(tgd, loop)(tfn, (2, 3, 4, 4),
                                   generator=torch.Generator().manual_seed(
-                                      seed))
+                                      seed), device="cpu")
 
     for loop in ("p_sample_loop", "ddim_sample_loop"):
         a = run(loop, 1)
         assert torch.isfinite(a).all() and a.shape == (2, 3, 4, 4)
         assert torch.equal(a, run(loop, 1))
         assert not torch.equal(a, run(loop, 2))
+
+
+@pytest.mark.parametrize("entry", ["p_sample_loop", "ddim_sample_loop",
+                                   "UniformSampler",
+                                   "LossSecondMomentResampler"])
+def test_sampling_entry_points_default_to_the_card(entry):
+    """Without `device` the loops and the timestep samplers run on the
+    card: with none present they refuse rather than drop to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    _, tgd = pair("cosine", 8)
+    _, tfn = model_pair(False)
+    if entry.endswith("loop"):
+        def call():
+            getattr(tgd, entry)(tfn, (2, 3, 4, 4))
+    else:
+        def call():
+            getattr(td, entry)(tgd).sample(4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call()
 
 
 @pytest.mark.parametrize("mean, var, loss", [
@@ -246,19 +266,20 @@ def test_respacing_matches_jax(spec):
 
 def test_timestep_samplers_match_jax():
     jgd, tgd = pair("linear", 50)
-    t, w = td.UniformSampler(tgd).sample(16, torch.Generator().manual_seed(0))
+    t, w = td.UniformSampler(tgd).sample(16, torch.Generator().manual_seed(0),
+                                        device="cpu")
     assert t.shape == (16,) and t.dtype == torch.long
     assert ((t >= 0) & (t < 50)).all() and torch.equal(w, torch.ones(16))
     ports = td.LossSecondMomentResampler(tgd, history=2)
     jaxs = jd.LossSecondMomentResampler(jgd, history=2)
-    _, w = ports.sample(8, torch.Generator().manual_seed(1))
+    _, w = ports.sample(8, torch.Generator().manual_seed(1), device="cpu")
     _close(w, np.ones(8), dict(rtol=1e-6))
     for _ in range(2):
         for rs in (ports, jaxs):
             rs.update(np.arange(50), np.linspace(0.1, 5.0, 50))
     np.testing.assert_array_equal(ports.weights(), jaxs.weights())
     np.testing.assert_allclose(ports.weights().sum(), 1.0, rtol=1e-8)
-    t, w = ports.sample(64, torch.Generator().manual_seed(2))
+    t, w = ports.sample(64, torch.Generator().manual_seed(2), device="cpu")
     _close(w, (1.0 / (50 * ports.weights())).astype(np.float32)[t.numpy()])
     assert ports.weights()[-1] > ports.weights()[0]
 
