@@ -73,6 +73,10 @@
 // 256), and at r 160 the expansion's 2r = 320 flop a (b, t, d) is as long on
 // the FP32 pipe (fp32) as the N + 3 transcendentals on the SFU, so
 // chip_smoke.py computes the bound of each rank from its own counts.
+// RMAX 256 alone would serve every r above 64 (the break skips the same
+// k-tiles), but at r 72-128 it takes 9-31% longer than RMAX 128 in this
+// kernel and 4-60% in the training pair (fewer blocks an SM; PERF.md), so
+// both stay.
 //
 // The reverse entry, dimsum_selective_scan_fwd_reverse, is _scan_body's
 // reverse=True case (selective_scan.py:447, :499-503; the grid's L-chunks

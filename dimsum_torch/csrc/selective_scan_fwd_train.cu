@@ -326,7 +326,8 @@ template <typename T> __device__ __forceinline__ T zero_of() {
 // Copies `count` elements of a chunk's arrays into shared memory: element i
 // of `src_of(i)` (nullptr: zero) to `dst_of(i)`.  As 16-byte cp.async
 // vectors of kPer elements when `vec` (every run of kPer is whole and
-// aligned), else as plain loads, all issued before any store.
+// aligned), else as plain loads, each run of up to 32 issued before its
+// stores.
 template <typename T, int COUNT, int NT, typename Src, typename Dst>
 __device__ __forceinline__ void stage(bool vec, int tid, Src src_of,
                                       Dst dst_of) {
@@ -335,31 +336,20 @@ __device__ __forceinline__ void stage(bool vec, int tid, Src src_of,
     for (int v = tid; v < COUNT / kPer; v += NT) {
       cp_async16(dst_of(v * kPer), src_of(v * kPer));
     }
-  } else if constexpr ((COUNT + NT - 1) / NT <= 32) {
-    constexpr int M = (COUNT + NT - 1) / NT;
-    T r[M];
-#pragma unroll
-    for (int m = 0; m < M; ++m) {
-      const int i = tid + m * NT;
-      const T* src = i < COUNT ? src_of(i) : nullptr;
-      r[m] = src != nullptr ? *src : zero_of<T>();
-    }
-#pragma unroll
-    for (int m = 0; m < M; ++m)
-      if (tid + m * NT < COUNT) *dst_of(tid + m * NT) = r[m];
   } else {
-    // dt_low rows above RMAX 64: 32 loads in flight at a time
-    for (int m0 = 0; m0 < COUNT; m0 += 32 * NT) {
-      T r[32];
+    // runs of K loads a thread (one run up to RMAX 64)
+    constexpr int M = (COUNT + NT - 1) / NT, K = M < 32 ? M : 32;
+    for (int m0 = 0; m0 < M; m0 += K) {
+      T r[K];
 #pragma unroll
-      for (int m = 0; m < 32; ++m) {
-        const int i = m0 + tid + m * NT;
+      for (int m = 0; m < K; ++m) {
+        const int i = tid + (m0 + m) * NT;
         const T* src = i < COUNT ? src_of(i) : nullptr;
         r[m] = src != nullptr ? *src : zero_of<T>();
       }
 #pragma unroll
-      for (int m = 0; m < 32; ++m)
-        if (m0 + tid + m * NT < COUNT) *dst_of(m0 + tid + m * NT) = r[m];
+      for (int m = 0; m < K; ++m)
+        if (tid + (m0 + m) * NT < COUNT) *dst_of(tid + (m0 + m) * NT) = r[m];
     }
   }
 }

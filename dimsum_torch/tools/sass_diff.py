@@ -1,10 +1,10 @@
 """Compare the SASS of two versions of one CUDA source, kernel by kernel:
 what `nvcc -cubin` (the port's flags, sm_90a) makes of each, through
 `cuobjdump -sass` and `cu++filt`.  A kernel of the old source is matched
-to the new source's kernel of the same name and template arguments, where
-the new one may carry one more trailing template argument of `false` (a
-compile-time switch added, in its off position); its instructions, without
-addresses and encodings, must be the same.
+to the new source's kernel of the same name and template arguments, or,
+where there is none, to one that carries one more trailing template
+argument of `false` (a compile-time switch added, in its off position);
+its instructions, without addresses and encodings, must be the same.
 
     python -m dimsum_torch.tools.sass_diff OLD.cu NEW.cu
 
@@ -75,9 +75,11 @@ def compare(old: str, new: str) -> dict:
            for n, code in after.items()}
     same, differ, missing = [], [], []
     for name, code in before.items():
-        if name not in off:
+        # the same name first; else the new kernel with its switch off
+        code_new = after.get(name, off.get(name))
+        if code_new is None:
             missing.append(name)
-        elif off[name] == code:
+        elif code_new == code:
             same.append(name)
         else:
             differ.append(name)
