@@ -263,7 +263,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
  30. eval     the evaluation path from the same checkpoint and SD-VAE
               (`phase_eval`): EVAL_REAL real PNGs (the VAE decode of
               seeded latents); `python -m dimsum_torch.sample_ddp ODE` in a
-              process of its own (EVAL_SAMPLES samples in batches of
+              process of its own, with its rerun (EVAL_SAMPLES samples in
+              batches of
               EVAL_BATCH, Euler over EVAL_STEPS grid points, CFG 1.4, bf16,
               the VAE decode, the port's InceptionV3 on the card with
               seeded weights, fid50k_full, kid50k_full, pr50k3_full,
@@ -280,17 +281,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
               256 px with the published ImageNet flags (bf16 over fp32
               weights, global batch 16) from a seeded latent memmap of 128
               samples (latents.dat fp32 (N, 4, 32, 32), labels.dat int64,
-              2 MB) in a temporary directory: epochs 0-1 as a process of
-              its own (the content checkpoint each epoch, a sample grid at
-              epoch 0 through `--vae-ckpt random`), then `--resume` in a
-              process of its own for epoch 2 (`train.Trainer`, what the
-              module's main runs).  It must start at step 16, epoch 2, with
+              2 MB) in a temporary directory: epoch 0 as a process of
+              its own (the content checkpoint, a sample grid at epoch 0
+              through `--vae-ckpt random`), then `--resume` in a
+              process of its own for epoch 1 (`train.Trainer`, what the
+              module's main runs).  It must start at step 8, epoch 1, with
               its weights, EMA and AdamW state equal to the saved file bit
               for bit; the native gather runs; counts set to 0 just before
               and read just after its epoch (in its process): 32 launches
               of kernels 2 and 3 a step, none of kernel 1; finite losses;
-              the content checkpoints rotated to 2 (three 7.4-GB saves, the
-              fewest that show it).
+              two content checkpoints (two 7.4-GB saves; the keep-2
+              rotation is the CPU test's, `test_trains_and_rotates_
+              checkpoints`, for the smoke's time).
               Records s/step (the last log window of the CLI's own
               process); for the resumed run, itself a process of its own,
               the s/step, kernels' device ms a step and idle share of its
@@ -316,7 +318,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
               in turn: loss, weights and EMA (tolerances in
               `phase_train_ddp`), the replicas equal, 16 launches of
               kernels 2 and 3 a rank.
- 34. kernels  the smoke's seconds (and the variants and models-rest
+ 34. parallel  full-width DiM-L/2 at 256 px through the parallel CLIs as
+              2 gloo ranks on the one card, in one group of processes: (a)
+              `train --tp 2 --is-moe` (2 fp32 steps, experts 4 a rank,
+              capacity dispatch) against the same steps unsharded (loss,
+              grad_norm, gradients and weights leaf by leaf); (b)
+              `sample_ddp --tp 2` under the four fused switches and (c)
+              `sample --pp 2` against the unsharded run; then (d) `bench
+              --bf16-residual` under DIMSUM_PALLAS_NORM / FUSED_NORM (and
+              DIMSUM_PENDING_TAIL=2) held to the fp32 plain route, (e) one
+              fp32 forward under each JAX switch against the default
+              route, and timed beside it (DIMSUM_FULL_ATTN=1 at 512 px:
+              36 launches of the fp32 attention kernel).  Tolerances in
+              `phase_parallel`.
+ 35. kernels  the smoke's seconds (and the variants and models-rest
               phases'), then one
               {"kernels": [...]} line (all ten kernels; rows 1-3 with
               their `rank_cases` from kernel-rank and their launches in the
@@ -335,7 +350,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
               models-rest's DiT-XL/2 sampling launches and its times at
               DiT-XL/2's heads (bf16; fp32 and its Dh-64 times beside);
               kernels 2 and 3 also with train-cli's launches and their h0
-              entries' times, error and models-rest launches),
+              entries' times, error and models-rest launches; add + norm
+              and norm + modulate with their bf16-residual case's times,
+              bound and the parallel phase's launches),
               then the nvidia-smi line, then {"ok": true, "device": {...}}
               as the last line.  Each record's `ms` (CUDA events around
               back-to-back launches, which below ~0.05 ms can read the
@@ -1899,12 +1916,13 @@ NORM_SITES_L1024 = ("norm_2", "dit-h2")
 L2_FLUSH_BYTES = 128 * 2**20
 
 
-def _norm_site_record(site, v, dtype, low, flush=None):
+def _norm_site_record(site, v, dtype, low, flush=None, bf16_res=False):
     """One norm + modulate site on the inputs `v`: the kernel against its
     plain version, `cuda_ms`, `device_ms`, the plain time and the bound; with
     `flush` (a tensor), also `cold_device_ms`: the kernel's device time when
     `flush` is written before each launch, so that its inputs and outputs
-    come from device memory and not from the L2."""
+    come from device memory and not from the L2.  `bf16_res`: the residual
+    and the total in x's dtype (the bf16 residual stream)."""
     import torch
 
     from dimsum_torch.ops.norms import norm_modulate_cuda, norm_modulate_ref
@@ -1912,15 +1930,16 @@ def _norm_site_record(site, v, dtype, low, flush=None):
     name, br, gt, res, mod, rms, w = site
     B, L, D = v["x"].shape
     esize = v["x"].element_size()
+    residual = v["residual"].to(dtype) if bf16_res else v["residual"]
     kw = dict(weight=v["weight"] if w else None,
               bias=v["bias"] if w and not rms else None,
               branch=v["branch"] if br else None,
               gate=v["gate"] if gt else None,
-              residual=v["residual"] if res else None,
+              residual=residual if res else None,
               shift=v["shift"] if mod else None,
               scale=v["scale"] if mod else None,
               eps=1e-5 if rms else 1e-6, is_rms=rms,
-              total_dtype=torch.float32 if res else None)
+              total_dtype=torch.float32 if res and not bf16_res else None)
     with torch.inference_mode():
         got = norm_modulate_cuda(v["x"], **kw)
         want = norm_modulate_ref(v["x"], **kw)
@@ -1932,19 +1951,56 @@ def _norm_site_record(site, v, dtype, low, flush=None):
             lambda: (flush.add_(1), norm_modulate_cuda(v["x"], **kw)),
             "norm_modulate")
         plain_ms = cuda_ms(lambda: norm_modulate_ref(v["x"], **kw), iters=5)
-    tot_size = 4 if res else esize
+    res_size = esize if bf16_res else 4
+    tot_size = res_size if res else esize
     bound = norm_bound(B * L * D, B, D, esize, dict(
-        branch=esize * br, gate=esize * gt, res=4 * res,
+        branch=esize * br, gate=esize * gt, res=res_size * res,
         shift=esize * mod, scale=esize * mod, w=4 * w,
         b=4 * (w and not rms), total=tot_size, rms=rms))
     rec = _case_record(name, dtype, [B, L, D], got, want,
-                       (low, 1e-5 if res else low), ms, plain_ms, bound)
+                       (low, 1e-5 if res and not bf16_res else low), ms,
+                       plain_ms, bound)
     rec["device_ms"] = dev_ms
+    rec["residual_dtype"] = str(residual.dtype).split(".")[-1]
     if flush is not None:
         rec["cold_device_ms"] = cold_ms
     emit({"phase": "kernel-norm", "kernel": "norm_modulate", **rec})
     if not rec["ok"]:
         raise AssertionError(f"norm_modulate kernel disagrees: {rec}")
+    return rec
+
+
+def _add_norm_bf16_residual(v, B, L, D, low):
+    """add + norm on a bf16 residual with its total rounded to bf16, the
+    case of the bf16 residual stream (residual_in_fp32=False): the kernel
+    against its plain version, its times and its bound (x, res, out and
+    total, 2 bytes each)."""
+    import torch
+
+    from dimsum_torch.ops.norms import add_norm_cuda, add_norm_ref
+
+    bf16 = torch.bfloat16
+    x2 = v["x"].reshape(-1, D)
+    r2 = v["residual"].reshape(-1, D).to(bf16)
+    args = (x2, r2, v["weight"], None, 1e-5, True, bf16)
+    with torch.inference_mode():
+        got = add_norm_cuda(*args)
+        want = add_norm_ref(*args[:6], bf16, bf16)
+        torch.cuda.synchronize()
+        exact = torch.equal(got[1], want[1])
+        ms = cuda_ms(lambda: add_norm_cuda(*args), iters=20)
+        dev_ms = device_ms(lambda: add_norm_cuda(*args), "add_norm")
+        plain_ms = cuda_ms(lambda: add_norm_ref(*args[:6], bf16, bf16),
+                           iters=5)
+    bound = norm_bound(B * L * D, B, D, 2, dict(res=2, total=2, w=4,
+                                                rms=True))
+    rec = _case_record("add_norm-bf16-residual", bf16, [B, L, D], got, want,
+                       (low, 0.0), ms, plain_ms, bound)
+    rec.update(device_ms=dev_ms, residual_dtype="bfloat16",
+               total_bit_for_bit=exact)
+    emit({"phase": "kernel-norm", "kernel": "add_norm", **rec})
+    if not (rec["ok"] and exact):
+        raise AssertionError(f"add_norm bf16-residual case disagrees: {rec}")
     return rec
 
 
@@ -1981,12 +2037,20 @@ def phase_kernel_norm():
         if not rec["ok"]:
             raise AssertionError(f"add_norm kernel disagrees: {rec}")
         results["add_norm"][rec["dtype"]] = rec
+        if dtype == torch.bfloat16:
+            # the bf16 residual stream: the residual read and the total
+            # written in bf16 (8 bytes a value against 12)
+            rec = _add_norm_bf16_residual(v, B, L, D, low)
+            results["add_norm"]["bf16-residual"] = rec
 
         for site in NORM_SITES:
             # the main case (norm_2, bf16) also read with a cold L2
             cold = flush if site[0] == "norm_2" and i == 0 else None
             rec = _norm_site_record(site, v, dtype, low, cold)
             results["norm_modulate"][f"{site[0]}-{rec['dtype']}"] = rec
+            if site[0] == "deferred-top" and dtype == torch.bfloat16:
+                rec = _norm_site_record(site, v, dtype, low, bf16_res=True)
+                results["norm_modulate"]["deferred-top-bf16-residual"] = rec
         del v, x2, r2
         torch.cuda.empty_cache()
     # the 512-px shape, bf16: the inputs (100 MB at norm_2) exceed the L2
@@ -2683,22 +2747,24 @@ EVAL_DETECTOR = "jax-random"  # the JAX CLIs' spec: the port's InceptionV3
 
 
 def _eval_run(spec):
-    """`python -m dimsum_torch.sample_ddp` in a process of its own (its
-    `main`, what the module runs), the scan launch counts set to 0 just
-    before and read just after in this process.  `spec` is a JSON [argv,
-    output path]; the CLI's record and the launches go to the output
-    path."""
+    """`python -m dimsum_torch.sample_ddp` runs one after the other in a
+    process of their own (its `main`, what the module runs), the scan
+    launch counts set to 0 just before and read just after each.  `spec`
+    is a JSON list of [argv, output path]; each run's record, its
+    launches and its seconds go to its output path."""
     import torch
 
     from dimsum_torch import sample_ddp
 
-    argv, out = json.loads(spec)
-    counts = _zeroed_scan_counts()
-    rec = sample_ddp.main(argv)
-    torch.cuda.synchronize()
-    rec["launches"] = {k: c.launches for k, c in counts.items()}
-    with open(out, "w") as f:
-        json.dump(rec, f)
+    for argv, out in json.loads(spec):
+        counts = _zeroed_scan_counts()
+        t0 = time.perf_counter()
+        rec = sample_ddp.main(argv)
+        torch.cuda.synchronize()
+        rec["run_seconds"] = time.perf_counter() - t0
+        rec["launches"] = {k: c.launches for k, c in counts.items()}
+        with open(out, "w") as f:
+            json.dump(rec, f)
 
 
 def _metric_values(run_dir):
@@ -2806,15 +2872,17 @@ def phase_eval(tmp=None, ckpt=None, vae_path=None):
             str(EVAL_BATCH), "--eval-refdir", real_dir, "--eval-metric",
             EVAL_METRICS, "--eval-detector", EVAL_DETECTOR,
             "--eval-streaming", "--save-images", "--sample-dir", sample_dir]
-    recs, walls = [], []
-    for i in range(2):  # 2. streaming, 3. resumed
-        out = os.path.join(tmp, f"eval-run{i}.json")
-        walls.append(run(["-c", "import sys, chip_smoke as s; "
-                          "s._eval_run(sys.argv[1])",
-                          json.dumps([argv, out])],
-                         ["streaming run", "resumed run"][i]))
+    # 2. streaming, 3. resumed: one process for both (one start fewer)
+    outs = [os.path.join(tmp, f"eval-run{i}.json") for i in range(2)]
+    process_wall = run(["-c", "import sys, chip_smoke as s; "
+                        "s._eval_run(sys.argv[1])",
+                        json.dumps([[argv, out] for out in outs])],
+                       "streaming and resumed runs")
+    recs = []
+    for out in outs:
         with open(out) as f:
             recs.append(json.load(f))
+    walls = [r["run_seconds"] for r in recs]
     streamed = {k: v for r in recs[0]["results"]
                 for k, v in r["results"].items()}
     resumed = {k: v for r in recs[1]["results"]
@@ -2899,6 +2967,7 @@ def phase_eval(tmp=None, ckpt=None, vae_path=None):
            "metric_math_s": sum(r["total_time"]
                                 for r in first["results"]),
            "cli_seconds": {"streaming": walls[0], "resumed": walls[1],
+                           "process": process_wall,
                            "calc_metrics": disk_wall},
            "seconds": time.perf_counter() - phase_t0}
     emit(rec)
@@ -2951,7 +3020,7 @@ def phase_sampling_path():
 # results a later phase reads (train-cli reads train's record)
 RESULTS = {}
 # train-cli: a seeded latent memmap of TRAIN_CLI_SAMPLES rows, global batch
-# 16: 8 steps an epoch; epochs 0-1, then resumed for epoch 2.  The loss is
+# 16: 8 steps an epoch; epoch 0, then resumed for epoch 1.  The loss is
 # logged every half epoch: the last window's s/step is the steady one
 TRAIN_CLI_SAMPLES, TRAIN_CLI_STEPS = 128, 8
 # the published ImageNet recipe (scripts/train.sh), bf16 over fp32 weights,
@@ -3077,12 +3146,13 @@ def _train_cli_resumed(spec: str):
 def phase_train_cli():
     """train-cli: `python -m dimsum_torch.train` on full-width DiM-L/2 at
     256 px with the published flags (TRAIN_CLI_ARGS) from a seeded latent
-    memmap, epochs 0-1 in a process of its own; then resumed for epoch 2
-    in another (`_train_cli_resumed`), whose last log window gives the
+    memmap, epoch 0 in a process of its own; then resumed for epoch 1 in
+    another (`_train_cli_resumed`), whose last log window gives the
     device idle share: its kernels' time against its wall time, with the
-    profiler's own host cost in it.  Three content checkpoints of 7.4 GB
-    are written (keep 2: the third shows the rotation).  Alone: python3
-    -c "import chip_smoke as s; s.phase_train_cli()"."""
+    profiler's own host cost in it.  Two content checkpoints of 7.4 GB
+    are written (the keep-2 rotation is left to the CPU test
+    `test_trains_and_rotates_checkpoints`, for the smoke's time limit).
+    Alone: python3 -c "import chip_smoke as s; s.phase_train_cli()"."""
     import os
     import re
     import subprocess
@@ -3111,7 +3181,7 @@ def phase_train_cli():
                 os.path.join(tmp, "results"), *TRAIN_CLI_ARGS]
         exp = os.path.join(tmp, "results", "cli")
         log, first_seconds = run(
-            ["-m", "dimsum_torch.train", *argv, "--epochs", "1"],
+            ["-m", "dimsum_torch.train", *argv, "--epochs", "0"],
             "first run")
         first_losses = [float(v) for v in re.findall(r"loss=(\S+)", log)]
         first_rates = [float(v) for v in
@@ -3121,7 +3191,7 @@ def phase_train_cli():
         grid = read_png(grid_path) if os.path.exists(grid_path) else None
 
         out = os.path.join(tmp, "resumed.json")
-        spec = json.dumps([[*argv, "--epochs", "2", "--resume"], out])
+        spec = json.dumps([[*argv, "--epochs", "1", "--resume"], out])
         _, second_seconds = run(
             ["-c", "import sys, chip_smoke as s; "
                    "s._train_cli_resumed(sys.argv[1])", spec],
@@ -3132,7 +3202,7 @@ def phase_train_cli():
         snapshots = checkpoint_steps(os.path.join(exp, "checkpoints"))
     steps = TRAIN_CLI_STEPS
     # the CLI's s/step: the last log window of its own process (steps
-    # 13-16), as a user's run reads it
+    # 5-8), as a user's run reads it
     s_per_step = 1 / first_rates[-1] if first_rates else math.inf
     launches, losses = resumed["launches"], resumed["losses"]
     last = resumed["windows"][-1] if resumed["windows"] else None
@@ -3141,7 +3211,7 @@ def phase_train_cli():
     rec = {"phase": "train-cli", "model": "DiM-L/2", "image_size": 256,
            "batch": 16, "dtype": "bf16 over fp32 weights",
            "samples": TRAIN_CLI_SAMPLES, "steps_per_epoch": steps,
-           "first_run": {"epochs": [0, 1], "seconds": first_seconds,
+           "first_run": {"epochs": [0], "seconds": first_seconds,
                          "losses": first_losses,
                          "steps_per_sec": first_rates,
                          "content_steps": content_after_first,
@@ -3166,7 +3236,7 @@ def phase_train_cli():
     emit(rec)
     finite = bool(losses and first_losses
                   and all(math.isfinite(v) for v in losses + first_losses))
-    if (not finite or resumed["resumed_at_step_epoch"] != [2 * steps, 2]
+    if (not finite or resumed["resumed_at_step_epoch"] != [steps, 1]
             or not all(resumed["resumed_state_equals_file"].values())
             or launches["selective_scan_fwd"] != 0
             or launches["selective_scan_fwd_train"] != 32 * steps
@@ -3174,8 +3244,8 @@ def phase_train_cli():
             or not resumed["native_gather"]
             or [w["steps"] for w in resumed["windows"]]
             != [steps // 2, steps // 2]
-            or content_after_first != [steps, 2 * steps]
-            or content != [2 * steps, 3 * steps]
+            or content_after_first != [steps]
+            or content != [steps, 2 * steps]
             or snapshots != [] or grid is None
             or grid.shape != (1024, 1024, 3) or grid.std() == 0):
         raise AssertionError(f"train-cli phase failed: {rec}")
@@ -3542,6 +3612,568 @@ def phase_train_ddp(ranks: int = DDP_RANKS, backend: str = "gloo"):
 
 
 # ---------------------------------------------------------------------------
+# parallel: tensor, expert and pipeline parallelism as ranks on the one card,
+# the bf16 residual stream, the JAX opt-in switches
+# ---------------------------------------------------------------------------
+
+PAR_RANKS = 2
+PAR_TIMEOUT, PAR_DEADLINE = 420, 480
+PAR_TRAIN_STEPS, PAR_TRAIN_BATCH, PAR_TRAIN_LR = 2, 2, 1e-4
+PAR_SAMPLE_STEPS = 4  # Euler grid points of the TP, PP and bf16 runs
+# DiM-L/2's published flags beside --model and --image-size, fp32 (the
+# CLIs' default)
+PAR_MODEL_ARGS = ["--num-classes", "1000", "--label-dropout", "0.1",
+                  "--block-type", "combined",
+                  "--bimamba-type", "none", "--rms-norm", "--cond-mamba",
+                  "--learnable-pe", "--use-attn-every-k-layers", "4"]
+PAR_ARGS = ["--model", "DiM-L/2", "--image-size", "256", *PAR_MODEL_ARGS,
+            "--path-type", "GVP"]
+PAR_SAMPLE_ARGS = [*PAR_ARGS, "--sampling-method", "euler",
+                   "--num-sampling-steps", str(PAR_SAMPLE_STEPS),
+                   "--cfg-scale", "1.4", "--device", "cuda"]
+# the four fused-kernel switches of leg (b), as a user sets them (the
+# deferred tail through the norm + modulate kernel: FUSED_LAUNCHES[2])
+PAR_FUSED_ENV = {"DIMSUM_PALLAS_NORM": "1", "DIMSUM_FUSED_NORM": "1",
+                 "DIMSUM_CONV_XPROJ": "1", "DIMSUM_PENDING_TAIL": "2"}
+
+
+def _par_counts(zero: bool = False):
+    """Every kernel's launch count the parallel phase reads (set to 0
+    first with `zero`)."""
+    from dimsum_torch.ops import full_attention as attention_ops
+    from dimsum_torch.ops import selective_scan as ss
+    from dimsum_torch.ops.conv_xproj import conv_xproj_cuda
+    from dimsum_torch.ops.norms import add_norm_cuda, norm_modulate_cuda
+
+    fields = {
+        "selective_scan_fwd": (ss.selective_scan_cuda, "launches"),
+        "selective_scan_fwd_train": (ss.selective_scan_fwd_train_cuda,
+                                     "launches"),
+        "selective_scan_bwd": (ss.selective_scan_bwd_core_cuda, "launches"),
+        "conv_xproj": (conv_xproj_cuda, "launches"),
+        "add_norm": (add_norm_cuda, "launches"),
+        "add_norm_bf16_residual": (add_norm_cuda, "bf16_residual_launches"),
+        "norm_modulate": (norm_modulate_cuda, "launches"),
+        "norm_modulate_bf16_residual": (norm_modulate_cuda,
+                                        "bf16_residual_launches"),
+        **{n: (getattr(attention_ops, n), "launches")
+           for n in ATTENTION_KERNELS}}
+    if zero:
+        for fn, attr in fields.values():
+            setattr(fn, attr, 0)
+    return {k: getattr(fn, attr) for k, (fn, attr) in fields.items()}
+
+
+def _rel_err(got, want):
+    """max |got - want| over max |want|."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+class _env:
+    """A context that sets environment variables and restores them."""
+
+    def __init__(self, **env):
+        self.env, self.saved = env, {}
+
+    def __enter__(self):
+        import os
+
+        for k, v in self.env.items():
+            self.saved[k] = os.environ.get(k)
+            os.environ[k] = v
+
+    def __exit__(self, *exc):
+        import os
+
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _par_train(rank, k, port, tmp):
+    """Leg (a): `python -m dimsum_torch.train --tp 2 --is-moe` (its
+    argument parsing and Trainer) for PAR_TRAIN_STEPS fp32 steps (TF32
+    off), stopped before the epoch's end (the epoch's content save would
+    write this model's 10 GB state); then, on rank 0, the same steps of
+    the unsharded model (all 8 experts on one rank, the same capacity
+    dispatch: the JAX `switch_ep_gspmd` with mesh=None) from the same
+    weights, batches and generator.  Held (`_par_train_errors`): each
+    step's loss and grad_norm, the first step's gradients leaf by leaf
+    (gathered from the shards; AdamW's steps hide a gradient's scale),
+    and the weights after the steps leaf by leaf.  Returns the record
+    (rank 0)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from dimsum_torch import train as train_cli
+    from dimsum_torch.data import device_batches
+    from dimsum_torch.models.factory import build_model
+    from dimsum_torch.parallel import (create_optimizer, create_train_state,
+                                       gather_state_dict, make_train_step)
+    from dimsum_torch.utils.ckpt import full_names
+
+    argv = ["--exp", "tp", "--datadir", tmp, "--results-dir",
+            f"{tmp}/results", "--dataset", "latent_memmap", *PAR_ARGS,
+            "--is-moe", "--global-batch-size", str(PAR_TRAIN_BATCH),
+            "--num-workers", "1", "--log-every", "1000", "--lr",
+            str(PAR_TRAIN_LR), "--tp", str(k), "--num-processes", str(k),
+            "--process-id", str(rank), "--coordinator",
+            f"localhost:{port}", "--device", "cuda"]
+    trainer = train_cli.Trainer(train_cli.parse_args(argv))
+    try:
+        batches, losses, norms, grads = [], [], [], None
+        _par_counts(zero=True)
+        trainer.loader.set_epoch(0)
+        t0 = time.perf_counter()
+        for x, y in device_batches(trainer.loader, trainer.device):
+            if len(losses) == PAR_TRAIN_STEPS:
+                break
+            batches.append((x, y))
+            out = trainer.train_step(trainer.state, x, y, trainer.generator)
+            losses.append(out["loss"].item())
+            norms.append(out["grad_norm"].item())
+            if grads is None:  # the first step's (clipped) gradients
+                grads = {n: p.grad.clone() for n, p in
+                         trainer.state.model.named_parameters()}
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _par_counts()
+        tp_sd = gather_state_dict(trainer.state.model.state_dict(),
+                                  trainer.tp_group,
+                                  order=full_names(trainer.state.model)[1])
+        tp_grads = gather_state_dict(grads, trainer.tp_group)
+        del grads
+        cfg, args = trainer.cfg, trainer.args
+        local_params = sum(p.numel() for p in
+                           trainer.state.model.parameters())
+        trainer.state = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        ones = [dist.new_group([r]) for r in range(k)]  # every rank calls
+        rec = None
+        if rank != 0:
+            del tp_sd, tp_grads
+        else:
+            model = build_model(dataclasses_replace(cfg, tp_group=ones[0]),
+                                trainer.device, seed=args.global_seed,
+                                train=True)
+            opt = create_optimizer(model, lr=args.lr, weight_decay=0.0)
+            state = create_train_state(model, opt)
+            step = make_train_step(model, trainer.transport, opt,
+                                   max_grad_norm=args.max_grad_norm,
+                                   ema_decay=args.ema_decay,
+                                   tp_group=ones[0])
+            gen = torch.Generator(trainer.device).manual_seed(
+                args.global_seed)
+            errs = _par_train_errors(model, state, step, batches, gen,
+                                     tp_sd, tp_grads)
+            rec = {"leg": "a", "cli": "python -m dimsum_torch.train --tp 2 "
+                   "--is-moe", "steps": len(losses), "losses": losses,
+                   "grad_norms": norms,
+                   "loss_rel_err": max(abs(a - b) / abs(b) for a, b in
+                                       zip(losses, errs["ref_losses"])),
+                   "grad_norm_rel_err": max(
+                       abs(a - b) / abs(b)
+                       for a, b in zip(norms, errs["ref_grad_norms"])),
+                   **errs, "launches_rank0": launches, "seconds": seconds,
+                   "params_rank0": local_params,
+                   "params_full": sum(p.numel() for p in model.parameters()),
+                   "gathered_keys_equal": list(tp_sd)
+                   == list(model.state_dict())}
+            del model, state, opt, tp_sd, tp_grads
+        dist.barrier()
+        return rec
+    finally:
+        trainer.close()
+
+
+def _par_train_errors(model, state, step, batches, gen, tp_sd, tp_grads):
+    """The unsharded steps of leg (a) and the TP run's distance from them,
+    each leaf's worst reported by name:
+
+    * `grad_err`: the first step's gradients, max |g_tp - g| over the
+      leaf's largest |g|, floored at 1e-2 of the model's largest (a leaf
+      whose true gradient is 0, such as attention key biases, is rounding
+      noise); limit 1e-4;
+    * `weights_err`: the weights after the steps in units of 2e-6 +
+      1e-5 |w| (the CPU test's), over the entries whose gradient is
+      above noise in every step (above 1e-3 of its leaf's largest, as
+      phase train-ddp); limit 1.  The others take AdamW steps of
+      lr * noise / eps that hang on the order of the sums: their share is
+      reported."""
+    import torch
+
+    params = dict(model.named_parameters())
+    noise = {n: torch.zeros_like(p, dtype=torch.bool)
+             for n, p in params.items()}
+    ref_losses, ref_norms = [], []
+    grad_err, grad_leaf = 0.0, None
+    for i, (x, y) in enumerate(batches):
+        out = step(state, x, y, gen)
+        ref_losses.append(out["loss"].item())
+        ref_norms.append(out["grad_norm"].item())
+        with torch.no_grad():
+            peak = {n: p.grad.abs().max().item() for n, p in params.items()}
+            for n, p in params.items():
+                noise[n] |= p.grad.abs() <= 1e-3 * max(peak[n], 1e-30)
+            if i == 0:
+                floor = 1e-2 * max(peak.values())
+                for n, p in params.items():
+                    d = (tp_grads[n] - p.grad).abs().max().item()
+                    e = d / max(peak[n], floor, 1e-30)
+                    if e > grad_err:
+                        grad_err, grad_leaf = e, n
+    weights_err, weights_leaf, noisy, total = 0.0, None, 0, 0
+    with torch.no_grad():
+        for n, want in model.state_dict().items():
+            rel = (tp_sd[n] - want).abs() / (2e-6 + 1e-5 * want.abs())
+            mask = noise.get(n)
+            if mask is not None:
+                noisy += int(mask.sum())
+                rel = rel[~mask]
+            total += want.numel()
+            if rel.numel() and rel.max().item() > weights_err:
+                weights_err, weights_leaf = rel.max().item(), n
+    return {"ref_losses": ref_losses, "ref_grad_norms": ref_norms,
+            "grad_err": grad_err, "grad_worst_leaf": grad_leaf,
+            "weights_err": weights_err, "weights_worst_leaf": weights_leaf,
+            "noise_share": noisy / total}
+
+
+def dataclasses_replace(obj, **kw):
+    import dataclasses
+
+    return dataclasses.replace(obj, **kw)
+
+
+def _par_sample_tp(rank, k, port, tmp):
+    """Leg (b): `python -m dimsum_torch.sample_ddp --tp 2` with the fused
+    switches in the environment (rows 1, 5, 6 and 7 on the ranks'
+    shards); rank 0 then runs the same command without --tp.  Returns the
+    record (rank 0)."""
+    import torch
+
+    from dimsum_torch import sample_ddp
+
+    argv = ["ODE", *PAR_SAMPLE_ARGS, "--per-proc-batch-size", "2",
+            "--num-fid-samples", "2"]
+    with _env(**PAR_FUSED_ENV):
+        _par_counts(zero=True)
+        t0 = time.perf_counter()
+        got = sample_ddp.main([*argv, "--sample-dir", f"{tmp}/tp", "--tp",
+                               str(k), "--num-processes", str(k),
+                               "--process-id", str(rank), "--coordinator",
+                               f"localhost:{port}"])
+        seconds = time.perf_counter() - t0
+        launches = _par_counts()
+        if rank != 0:
+            return None
+        want = sample_ddp.main([*argv, "--sample-dir", f"{tmp}/one"])
+    got_t, want_t = (torch.as_tensor(r["latents"]) for r in (got, want))
+    return {"leg": "b", "cli": "python -m dimsum_torch.sample_ddp --tp 2",
+            "env": PAR_FUSED_ENV, "shape": list(got_t.shape),
+            "rel_err": _rel_err(got_t, want_t),
+            "finite": bool(torch.isfinite(got_t).all()),
+            "launches_rank0": launches, "seconds": seconds}
+
+
+def _par_sample_pp(rank, k, port, tmp):
+    """Leg (c): `python -m dimsum_torch.sample --pp 2` (2 stages of 8
+    blocks, 2 microbatches), its stages being these ranks; rank 0 then
+    runs the command without --pp.  Returns the record (rank 0)."""
+    import torch
+
+    from dimsum_torch import sample
+
+    argv = ["ODE", *PAR_SAMPLE_ARGS, "--global-batch-size", "2"]
+    _par_counts(zero=True)
+    t0 = time.perf_counter()
+    got = sample.main([*argv, "--sample-dir", f"{tmp}/pp", "--pp", str(k),
+                       "--pp-microbatches", "2"], _stage=(rank, k, port))
+    seconds = time.perf_counter() - t0
+    launches = _par_counts()
+    if rank != 0:
+        return None
+    want = sample.main([*argv, "--sample-dir", f"{tmp}/pp-one"])
+    return {"leg": "c", "cli": "python -m dimsum_torch.sample --pp 2",
+            "stages": k, "microbatches": 2,
+            "rel_err": _rel_err(got["samples"], want["samples"]),
+            "finite": bool(torch.isfinite(got["samples"]).all()),
+            "launches_rank0": launches, "seconds": seconds}
+
+
+def _par_rank(rank, k, ports, tmp):
+    """One rank of the parallel phase: legs (a), (b) and (c) in turn, each
+    in its own process group (the CLIs make and end theirs), TF32 off;
+    rank 0 writes the records."""
+    import os
+
+    import torch
+
+    torch.cuda.set_device(0)
+    recs = []
+    with _deterministic():
+        for leg, port in zip((_par_train, _par_sample_tp, _par_sample_pp),
+                             ports):
+            t0 = time.perf_counter()
+            rec = leg(rank, k, port, tmp)
+            if rank == 0:
+                rec["leg_seconds"] = time.perf_counter() - t0
+                recs.append(rec)
+            torch.cuda.empty_cache()
+    if rank == 0:
+        with open(os.path.join(tmp, "par.json"), "w") as f:
+            json.dump(recs, f)
+
+
+def _par_bf16_residual():
+    """Leg (d): `python -m dimsum_torch.bench --bf16-residual` under
+    DIMSUM_PALLAS_NORM=1 DIMSUM_FUSED_NORM=1 (and with
+    DIMSUM_PENDING_TAIL=2, whose deferred top sites take the norm +
+    modulate kernel on the bf16 residual): a short bf16 sample, its
+    launches, then one CFG forward of the same bf16 model held to the fp32
+    plain route (fp32 weights and residual, the plain norms) on the same
+    inputs."""
+    import torch
+
+    from dimsum_torch import bench
+    from dimsum_torch.models.dim import DiM_models, forward_with_cfg
+    from dimsum_torch.models.factory import build_model, fused_switches
+
+    recs = []
+    for tail in ("0", "2"):
+        with _env(DIMSUM_PALLAS_NORM="1", DIMSUM_FUSED_NORM="1",
+                  DIMSUM_PENDING_TAIL=tail):
+            fused = fused_switches()
+        _par_counts(zero=True)
+        rec, out = bench.run(batch=4, steps=PAR_SAMPLE_STEPS, dtype="bf16",
+                             device="cuda", residual_in_fp32=False,
+                             **fused)
+        torch.cuda.synchronize()
+        launches = _par_counts()
+        cfg = DiM_models["DiM-L/2"](img_resolution=32, num_classes=1000,
+                                    use_attn_every_k_layers=4,
+                                    dtype=torch.bfloat16,
+                                    residual_in_fp32=False, **fused)
+        net = build_model(cfg, "cuda", seed=0)
+        ref = build_model(dataclasses_replace(
+            cfg, dtype=torch.float32, residual_in_fp32=True,
+            pallas_norm=False, fused_norm=False, pending_tail=0), "cuda",
+            seed=0)
+        g = torch.Generator(device="cuda").manual_seed(3)
+        x = torch.randn(8, 4, 32, 32, generator=g, device="cuda")
+        t = torch.rand(8, generator=g, device="cuda")
+        y = torch.randint(0, 1000, (8,), generator=g, device="cuda")
+        with torch.inference_mode(), _deterministic():
+            got = forward_with_cfg(net, x, t, y, cfg_scale=1.4)
+            for m in ref.modules():
+                for attr in ("attn_impl", "norm_impl", "scan_impl",
+                             "conv_impl"):
+                    if hasattr(m, attr):
+                        setattr(m, attr, "ref")
+            want = forward_with_cfg(ref, x, t, y, cfg_scale=1.4)
+        del net, ref
+        torch.cuda.empty_cache()
+        recs.append({"leg": "d", "cli": "python -m dimsum_torch.bench "
+                     "--bf16-residual", "pending_tail": int(tail),
+                     "img_per_s": rec["value"], "seconds": rec["seconds"],
+                     "sample_finite": bool(torch.isfinite(out).all()),
+                     "launches": launches,
+                     "forward_rel_err_vs_fp32_plain": _rel_err(got, want),
+                     "forward_finite": bool(torch.isfinite(got).all())})
+    return recs
+
+
+# leg (e): each JAX opt-in switch, its value, the image size it acts at
+PAR_SWITCHES = (
+    ("DIMSUM_DWT_CL", "1", 256), ("DIMSUM_FUSED_WAVELET", "1", 256),
+    ("DIMSUM_NORM_MXU", "1", 256), ("DIMSUM_FLASH_ATTN", "1", 256),
+    ("DIMSUM_DWT_CL", "1", 512), ("DIMSUM_WAVELET_ONE_REARRANGE", "1", 512),
+    ("DIMSUM_FULL_ATTN", "1", 512), ("DIMSUM_FULL_ATTN", "0", 512))
+PAR_SWITCH_REPEATS = 3  # timed warm forwards a route (the median)
+
+
+def _par_switches():
+    """Leg (e): one fp32 CFG forward (TF32 off, 4 rows) of DiM-L/2 under
+    each JAX switch: the config that `cli.model_config` reads under the
+    variable, its switch fields set on the model
+    (`blocks.apply_switches`, as `DiM` sets them), held to the default
+    route's forward on the same model and inputs, and timed beside it (the
+    median wall s of PAR_SWITCH_REPEATS warm forwards each); at 512 px
+    DIMSUM_FULL_ATTN=1 takes the full-block kernel (row 4) and =0 SDPA."""
+    import torch
+
+    from dimsum_torch.models.blocks import apply_switches
+    from dimsum_torch.models.dim import forward_with_cfg
+    from dimsum_torch.models.factory import ENV_SWITCHES, build_model
+
+    recs = []
+    for size in (256, 512):
+        argv = ["--model", "DiM-L/2", "--image-size", str(size),
+                *PAR_MODEL_ARGS]
+        base = _rest_config(argv, torch.float32)
+        net = build_model(base, "cuda", seed=0)
+        g = torch.Generator(device="cuda").manual_seed(size)
+        lat = size // 8
+        x = torch.randn(2, 4, lat, lat, generator=g, device="cuda")
+        x = torch.cat([x, x])
+        t = torch.rand(2, generator=g, device="cuda").repeat(2)
+        y = torch.cat([torch.randint(0, 1000, (2,), generator=g,
+                                     device="cuda"),
+                       torch.full((2,), 1000, device="cuda")])
+        default = {f: getattr(base, f) for f in ENV_SWITCHES.values()}
+
+        def timed():
+            """The median wall s of PAR_SWITCH_REPEATS warm forwards."""
+            times = []
+            for _ in range(PAR_SWITCH_REPEATS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                forward_with_cfg(net, x, t, y, cfg_scale=1.4)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            return sorted(times)[len(times) // 2]
+
+        with torch.inference_mode(), _deterministic():
+            want = forward_with_cfg(net, x, t, y, cfg_scale=1.4)
+            recs.append({"leg": "e", "switch": "default",
+                         "image_size": size, "seconds": timed()})
+            for name, value, at in PAR_SWITCHES:
+                if at != size:
+                    continue
+                with _env(**{name: value}):
+                    cfg = _rest_config(argv, torch.float32)
+                field = ENV_SWITCHES[name]
+                fields = {f: getattr(cfg, f) for f in ENV_SWITCHES.values()}
+                apply_switches(net, **fields)
+                _par_counts(zero=True)
+                got = forward_with_cfg(net, x, t, y, cfg_scale=1.4)
+                torch.cuda.synchronize()
+                launches = _par_counts()
+                seconds = timed()
+                apply_switches(net, **default)
+                recs.append({"leg": "e", "switch": f"{name}={value}",
+                             "image_size": size, "field": field,
+                             "value": getattr(cfg, field),
+                             "rel_err": _rel_err(got, want),
+                             "finite": bool(torch.isfinite(got).all()),
+                             "launches": launches, "seconds": seconds})
+        del net
+        torch.cuda.empty_cache()
+    return recs
+
+
+def phase_parallel():
+    """parallel: full-width DiM-L/2 at 256 px (hidden 1024, d_inner 2048,
+    depth 16, the shared DiT block every 4th) through the parallel CLIs
+    as 2 ranks on the one card (gloo, which `init_distributed` takes for
+    ranks that share a card: each sum an all_reduce and the hop an
+    all_gather through host memory), the bf16 residual stream and the JAX
+    switches.  Each leg is held to the port's single-process, unsharded
+    run on the same weights, seed and inputs:
+    (a) `train --tp 2 --is-moe`: each step's loss rtol 1e-5 and grad_norm
+    rtol 1e-4, the first step's gradients leaf by leaf 1e-4 of the leaf's
+    scale, the weights leaf by leaf within 2e-6 + 1e-5 |w| where the
+    gradients are above noise (`_par_train_errors`; fp32, TF32 off);
+    (b) `sample_ddp --tp 2` under the four fused switches (the deferred
+    tail at 2) and (c) `sample --pp 2`: 1e-5 of the samples' scale
+    (fp32); (d) `bench --bf16-residual`: the bf16 CFG forward 5e-2 of
+    scale from the fp32 plain route (the port's bf16 tolerance); (e) each
+    switch 1e-5 of scale from the default route (fp32).
+    Rows 2 and 3 run in (a), rows 1, 5, 6 and 7 in (b) on the ranks'
+    d_inner / 2 = 512 channels a mixer, row 1 in (c), rows 5 and 6 on a
+    bf16 residual in (d), row 4 under DIMSUM_FULL_ATTN=1 at 512 px in (e).
+    Alone: python3 -c "import chip_smoke as s; s.phase_parallel()"."""
+    import os
+    import socket
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from dimsum_torch.ops import cuda_build
+
+    phase_t0 = time.perf_counter()
+    cuda_build.build()  # here, not in each rank
+    torch.cuda.empty_cache()
+    ports = []
+    for _ in range(3):
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            ports.append(s.getsockname()[1])
+    with tempfile.TemporaryDirectory() as tmp:
+        _write_latent_memmap(tmp, 4 * PAR_TRAIN_BATCH)
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_par_rank, args=(PAR_RANKS, ports, tmp),
+                                 nprocs=PAR_RANKS, join=False,
+                                 start_method="spawn")
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > PAR_DEADLINE:
+                    raise TimeoutError(f"parallel: ranks still running "
+                                       f"after {PAR_DEADLINE} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                    p.join(10)
+        with open(os.path.join(tmp, "par.json")) as f:
+            legs = json.load(f)
+    group_seconds = time.perf_counter() - t0
+    for rec in legs:
+        emit({"phase": "parallel", **rec})
+    t0 = time.perf_counter()
+    bf16 = _par_bf16_residual()
+    for rec in bf16:
+        emit({"phase": "parallel", **rec})
+    bf16_seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    switches = _par_switches()
+    for rec in switches:
+        emit({"phase": "parallel", **rec})
+    a, b, c = legs
+    rec = {"phase": "parallel", "ranks": PAR_RANKS,
+           "group_seconds": group_seconds, "bf16_seconds": bf16_seconds,
+           "switches_seconds": time.perf_counter() - t0,
+           "seconds": time.perf_counter() - phase_t0}
+    emit(rec)
+    la, lb, lc = (r["launches_rank0"] for r in legs)
+    calls = lb["selective_scan_fwd"] // 32
+    ok = (a["loss_rel_err"] <= 1e-5 and a["grad_norm_rel_err"] <= 1e-4
+          and a["grad_err"] <= 1e-4 and a["weights_err"] <= 1
+          and a["gathered_keys_equal"]
+          and all(math.isfinite(v) for v in a["losses"])
+          and la["selective_scan_fwd_train"] > 0
+          and la["selective_scan_bwd"] == la["selective_scan_fwd_train"]
+          and b["rel_err"] <= 1e-5 and b["finite"] and calls > 0
+          and lb["selective_scan_fwd"] == 32 * calls
+          and all(lb[n] == v * calls
+                  for n, v in FUSED_LAUNCHES[2].items())
+          and c["rel_err"] <= 1e-5 and c["finite"]
+          and lc["selective_scan_fwd"] > 0
+          and all(r["forward_rel_err_vs_fp32_plain"] <= 5e-2
+                  and r["forward_finite"] and r["sample_finite"]
+                  and r["launches"]["add_norm_bf16_residual"] > 0
+                  for r in bf16)
+          and bf16[1]["launches"]["norm_modulate_bf16_residual"] > 0
+          and all(r["rel_err"] <= 1e-5 and r["finite"] for r in switches
+                  if r["switch"] != "default"))
+    full = [r for r in switches if r["switch"] == "DIMSUM_FULL_ATTN=1"]
+    ok = ok and full and full[0]["launches"]["full_attention_f32"] == 36 \
+        and [r for r in switches if r["switch"] == "DIMSUM_FULL_ATTN=0"][
+            0]["launches"]["full_attention_f32"] == 0
+    if not ok:
+        raise AssertionError(f"parallel phase failed: {legs} {bf16} "
+                             f"{switches}")
+    return {"legs": legs, "bf16": bf16, "switches": switches, **rec}
+
+
+# ---------------------------------------------------------------------------
 # variants: the DiM zoo's other configurations at full DiM-L/2 width
 # ---------------------------------------------------------------------------
 
@@ -3825,8 +4457,8 @@ def phase_variants():
 # inside the mixers, False: the block's flips; timed windows, then as many
 # profiled ones), forwards a window
 REVERSE_ROUTE_CELLS = ((256, {}), (512, {}), (512, FUSED_ON))
-REVERSE_ROUTE_ORDER = (True, False, False, True, True, False, False, True)
-REVERSE_ROUTE_PROFILED = (True, False, False, True)
+REVERSE_ROUTE_ORDER = (True, False, False, True)
+REVERSE_ROUTE_PROFILED = (True, False)
 REVERSE_ROUTE_ITERS = 5
 
 
@@ -4794,6 +5426,7 @@ def main() -> int:
     cli_launches = phase_train_cli()
     phase_train_remat()
     phase_train_ddp()
+    parallel = phase_parallel()
 
     # the scan at the 256-px mixer shape, with the 512-px one (L 1024) and
     # linear + v2's (dim 2048, r 64) beside it; its reverse entry at the
@@ -5004,6 +5637,21 @@ def main() -> int:
             "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
             "library_ms": None})
+    # the bf16 residual stream's case of rows 5 and 6 (add + norm at the
+    # blocks' top sites, norm + modulate at the deferred top), timed in
+    # kernel-norm; their launches in the parallel phase's bench runs
+    bf16_legs = parallel["bf16"]
+    for name, case in (
+            ("add_norm", norms["add_norm"]["bf16-residual"]),
+            ("norm_modulate",
+             norms["norm_modulate"]["deferred-top-bf16-residual"])):
+        rec = next(r for r in kernels if r["name"] == name)
+        rec.update({f"bf16_residual_{k}": case[k] for k in (
+            "shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err")})
+        rec["bf16_residual_launches"] = sum(
+            r["launches"][f"{name}_bf16_residual"] for r in bf16_legs)
+        rec["max_abs_err"] = max(rec["max_abs_err"], case["max_abs_err"])
     # norm_2 and conv_xproj at the fused 512-px sampling shape (L 1024);
     # norm_2 at 256 px also with a cold L2
     by_name = {rec["name"]: rec for rec in kernels}
@@ -5058,7 +5706,8 @@ def main() -> int:
           "variants_seconds": variants["seconds"],
           "models_rest_seconds": rest["seconds"],
           "xl_linear_seconds": xl_linear["seconds"],
-          "lm_seconds": lm["seconds"]})
+          "lm_seconds": lm["seconds"],
+          "parallel_seconds": parallel["seconds"]})
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -14,8 +14,10 @@ drift call precedes the timed run.
 
 `--model` takes another entry of the DiM zoo or of the DiT zoo (`DiT-XL/2`
 at 512 px: Dh 72, the full-block attention's first kernel); a DiT takes
-only `--fused-norm` of the switches below.  The JAX bench's
-`--bf16-residual` probe is refused (ROADMAP.md Queue 1 item 7).
+only `--fused-norm` of the switches below.  `--bf16-residual` is the JAX
+bench's probe (bench.py:55-59, :87): the DiM's residual stream carried in
+the compute dtype (`residual_in_fp32=False`), through the add + norm and
+norm + modulate kernels' bf16-residual case where their switches are on.
 
 The JAX package's fused-kernel configuration runs with its four switches as
 flags: `--pallas-norm` (the add + norm kernel), `--fused-norm` (the norm +
@@ -97,11 +99,13 @@ def _sync(dev):
 def run(batch: int = 12, steps: int = 250, dtype: str = "bf16",
         cfg_scale: float = 1.4, device="cuda", seed: int = 0,
         model: str = "DiM-L/2", image_size: int = 256,
-        solver: str = "euler", **fused):
+        solver: str = "euler", residual_in_fp32: bool = True, **fused):
     """Build the model (`model` names a zoo entry: DiM-L/2, or a narrower
     one for a rehearsal on the CPU, or a DiT) at `image_size` pixels, with the
     fused-kernel switches `fused` (pallas_norm, fused_norm, conv_xproj,
-    pending_tail; off by default), sample once untimed for one drift call,
+    pending_tail; off by default) and the residual stream in fp32 or (not
+    `residual_in_fp32`) in the compute dtype, sample once untimed for one
+    drift call,
     then time one full sample by `solver` (Euler over `steps` grid points,
     or dopri5, whose NFE goes into the record).  Returns (record, samples
     of the conditional half)."""
@@ -115,13 +119,16 @@ def run(batch: int = 12, steps: int = 250, dtype: str = "bf16",
     if model in DiT_models:
         if any(v for k, v in fused.items() if k != "fused_norm"):
             raise ValueError("a DiT takes only the fused_norm switch")
+        if not residual_in_fp32:
+            raise ValueError("a DiT has no residual stream to carry in bf16")
         cfg = DiT_models[model](img_resolution=latent, num_classes=1000,
                                 dtype=DTYPES[dtype],
                                 fused_norm=fused["fused_norm"])
     else:
         cfg = DiM_models[model](img_resolution=latent, num_classes=1000,
                                 use_attn_every_k_layers=4,
-                                dtype=DTYPES[dtype], **fused)
+                                dtype=DTYPES[dtype],
+                                residual_in_fp32=residual_in_fp32, **fused)
     net = build_model(cfg, dev, seed)
     g = torch.Generator(device=dev).manual_seed(seed)
     z = torch.randn((batch, cfg.in_channels, latent, latent), generator=g,
@@ -166,6 +173,7 @@ def run(batch: int = 12, steps: int = 250, dtype: str = "bf16",
         "dtype": dtype,
         "cfg_scale": cfg_scale,
         "fused": fused,
+        "residual_in_fp32": residual_in_fp32,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
         "card": (card_name_and_power_limit(dev.index or 0)
@@ -192,18 +200,15 @@ def main(argv=None):
     ap.add_argument("--model", default="DiM-L/2",
                     choices=sorted(DiM_models) + sorted(DiT_models))
     ap.add_argument("--bf16-residual", action="store_true",
-                    help="the JAX bench's probe of a bf16 residual stream: "
-                         "not ported")
+                    help="carry the residual stream in the compute dtype "
+                         "instead of fp32 (the JAX bench's probe)")
     add_fused_flags(ap)
     args = ap.parse_args(argv)
-    if args.bf16_residual:
-        raise NotImplementedError(
-            "--bf16-residual (residual_in_fp32=False): not ported to "
-            "dimsum_torch yet (ROADMAP.md Queue 1 item 7)")
     record, _ = run(batch=args.batch, steps=args.steps, dtype=args.dtype,
                     cfg_scale=args.cfg, device=args.device, seed=args.seed,
                     model=args.model, image_size=args.image_size,
                     solver=args.solver,
+                    residual_in_fp32=not args.bf16_residual,
                     **fused_settings(args, dit=args.model in DiT_models))
     print(json.dumps(record))
 

@@ -5,10 +5,15 @@
 // switch at the top of every combined block that has a residual.  Per row
 // of D channels:
 //
-//   total = x + res                 fp32 (x fp32 or bf16, res fp32)
+//   total = x + res                 fp32 (x fp32 or bf16; res fp32 or x's)
 //   out   = Norm(total) * w (+ b)   fp32, then x's type
 //
-// and it emits (out, total).
+// and it emits (out, total), total in fp32 or rounded once to x's type
+// (the bf16 residual stream, residual_in_fp32=False: the JAX package's
+// total.astype(x.dtype) of the fp32 total; the norm reads the fp32 total,
+// as the TPU kernel's does).  The residual's and the total's types are
+// compile-time switches of one kernel: a bf16 residual moves 8 bytes a
+// value where an fp32 one moves 12.
 //
 // What bounds it on an H100: device memory.  At DiM-L/2's 256-px rows
 // (24 x 256 x 1024) with x in bf16 it reads x and res and writes out and
@@ -69,11 +74,12 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // Lane l holds columns 128 c + 4 l .. + 3 of the row for c < D / 128.
-template <typename T, int MAXC>
+// R: the residual's type, S: the total's (float or T).
+template <typename T, typename R, typename S, int MAXC>
 __global__ void __launch_bounds__(kWarps * 32)
-    add_norm_kernel(const T* __restrict__ x, const float* __restrict__ res,
+    add_norm_kernel(const T* __restrict__ x, const R* __restrict__ res,
                     const float* __restrict__ w, const float* __restrict__ b,
-                    T* __restrict__ out, float* __restrict__ total, int rows,
+                    T* __restrict__ out, S* __restrict__ total, int rows,
                     int D, int is_rms, float eps) {
   const int lane = threadIdx.x % 32;
   const long long row =
@@ -134,51 +140,66 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-template <typename T, int MAXC>
+template <typename T, typename R, typename S, int MAXC>
 cudaError_t launch(const void* x, const void* res, const void* w,
                    const void* b, void* out, void* total, int rows, int D,
                    int is_rms, float eps, cudaStream_t stream) {
   const int grid = (rows + kWarps - 1) / kWarps;
-  add_norm_kernel<T, MAXC><<<grid, kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(res),
+  add_norm_kernel<T, R, S, MAXC><<<grid, kWarps * 32, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const R*>(res),
       static_cast<const float*>(w), static_cast<const float*>(b),
-      static_cast<T*>(out), static_cast<float*>(total), rows, D, is_rms, eps);
+      static_cast<T*>(out), static_cast<S*>(total), rows, D, is_rms, eps);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename R, typename S>
 cudaError_t dispatch(const void* x, const void* res, const void* w,
                      const void* b, void* out, void* total, int rows, int D,
                      int is_rms, float eps, cudaStream_t stream) {
   const int nc = D / 128;
   if (nc <= 8)
-    return launch<T, 8>(x, res, w, b, out, total, rows, D, is_rms, eps,
-                        stream);
+    return launch<T, R, S, 8>(x, res, w, b, out, total, rows, D, is_rms, eps,
+                              stream);
   if (nc <= 16)
-    return launch<T, 16>(x, res, w, b, out, total, rows, D, is_rms, eps,
-                         stream);
-  return launch<T, 32>(x, res, w, b, out, total, rows, D, is_rms, eps,
-                       stream);
+    return launch<T, R, S, 16>(x, res, w, b, out, total, rows, D, is_rms,
+                               eps, stream);
+  return launch<T, R, S, 32>(x, res, w, b, out, total, rows, D, is_rms, eps,
+                             stream);
 }
 
 }  // namespace
 
-// x, out: (rows, D) of type dtype (0 float32, 1 bfloat16); res, total:
-// (rows, D) float32; w, b: (D,) float32 (b may be null).  Returns a
-// cudaError_t (0 on success).
+// x, out: (rows, D) of type dtype (0 float32, 1 bfloat16); res: (rows, D)
+// float32 when res_f32, else of type dtype; total: (rows, D) float32 when
+// total_f32, else of type dtype; w, b: (D,) float32 (b may be null).
+// Returns a cudaError_t (0 on success).
 extern "C" int dimsum_add_norm(const void* x, const void* res, const void* w,
                                const void* b, void* out, void* total,
                                int rows, int D, int dtype, int is_rms,
-                               float eps, void* stream) {
+                               int res_f32, int total_f32, float eps,
+                               void* stream) {
   if (rows <= 0 || D <= 0 || D % 128 != 0 || D > 4096 || w == nullptr ||
       (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using bf16 = __nv_bfloat16;
+  cudaError_t err;
   if (dtype == 0) {
-    return static_cast<int>(
-        dispatch<float>(x, res, w, b, out, total, rows, D, is_rms, eps, s));
+    err = dispatch<float, float, float>(x, res, w, b, out, total, rows, D,
+                                        is_rms, eps, s);
+  } else if (res_f32 && total_f32) {
+    err = dispatch<bf16, float, float>(x, res, w, b, out, total, rows, D,
+                                       is_rms, eps, s);
+  } else if (res_f32) {
+    err = dispatch<bf16, float, bf16>(x, res, w, b, out, total, rows, D,
+                                      is_rms, eps, s);
+  } else if (total_f32) {
+    err = dispatch<bf16, bf16, float>(x, res, w, b, out, total, rows, D,
+                                      is_rms, eps, s);
+  } else {
+    err = dispatch<bf16, bf16, bf16>(x, res, w, b, out, total, rows, D,
+                                     is_rms, eps, s);
   }
-  return static_cast<int>(dispatch<__nv_bfloat16>(x, res, w, b, out, total,
-                                                  rows, D, is_rms, eps, s));
+  return static_cast<int>(err);
 }

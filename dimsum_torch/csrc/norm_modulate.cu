@@ -15,7 +15,9 @@
 //                                             evaluate it in bf16
 //
 // base, branch, gate, shift, scale and out share one type (fp32 or bf16);
-// res, w and b are fp32; total is fp32 or base's type.  A null pointer
+// w and b are fp32; res and total are fp32 or base's type (a bf16 residual
+// stream, residual_in_fp32=False: the residual's type is a compile-time
+// switch, kResT).  A null pointer
 // leaves its operand out.  The per-batch vectors come with their own row
 // strides: DiM slices them out of one adaLN projection (row stride 3 D or
 // 6 D), and the kernel reads them where they lie.
@@ -96,7 +98,7 @@ struct Params {
   const void* base;
   const void* branch;
   const void* gate;
-  const float* res;
+  const void* res;
   const float* w;
   const float* b;
   const void* shift;
@@ -247,8 +249,8 @@ __device__ __forceinline__ void load_staged(const float* vec, int c, int lane,
 }
 
 // NCH: the most chunks of 32 16-byte vectors a row spans (lane values
-// NCH * V).
-template <typename T, int NCH>
+// NCH * V).  kResT: the residual is of type T (else fp32).
+template <typename T, int NCH, bool kResT>
 __global__ void __launch_bounds__(kMaxWarps * 32)
     norm_mod_kernel(const Params p) {
   constexpr int V = 16 / sizeof(T);
@@ -281,7 +283,15 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     if (branch != nullptr) {
       bulk_load(dst + p.off_branch, branch + off, row_in, bar);
     }
-    if (p.res != nullptr) bulk_load(dst + p.off_res, p.res + off, 4 * D, bar);
+    if (p.res != nullptr) {
+      if constexpr (kResT) {
+        bulk_load(dst + p.off_res, static_cast<const T*>(p.res) + off,
+                  row_in, bar);
+      } else {
+        bulk_load(dst + p.off_res, static_cast<const float*>(p.res) + off,
+                  4 * D, bar);
+      }
+    }
   };
   if (lane == 0) {
     mbar_init(bar, 1);
@@ -343,7 +353,14 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 #pragma unroll
         for (int e = 0; e < V; ++e) v[c][e] = __fadd_rn(v[c][e], br[e]);
       }
-      if (p.res != nullptr) {
+      if (p.res != nullptr && kResT) {
+        float r[V];
+        unpack(*reinterpret_cast<const uint4*>(stage + p.off_res +
+                                               col * sizeof(T)),
+               r);
+#pragma unroll
+        for (int e = 0; e < V; ++e) v[c][e] = __fadd_rn(v[c][e], r[e]);
+      } else if (p.res != nullptr) {
 #pragma unroll
         for (int h = 0; h < V / 4; ++h) {
           float r[4];
@@ -438,7 +455,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 // The current device's SM count; on a device's first call, also lets the
 // kernel ask for kSmemMax bytes of shared memory.  Once a device and
 // instantiation, so that a launch adds no queries.
-template <typename T, int NCH>
+template <typename T, int NCH, bool kResT>
 cudaError_t prepare_device(int* sms) {
   constexpr int kMaxDevices = 64;
   static std::atomic<int> known[kMaxDevices];
@@ -450,7 +467,7 @@ cudaError_t prepare_device(int* sms) {
   if (n == 0) {
     err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess) {
-      err = cudaFuncSetAttribute(norm_mod_kernel<T, NCH>,
+      err = cudaFuncSetAttribute(norm_mod_kernel<T, NCH, kResT>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  kSmemMax);
     }
@@ -463,7 +480,7 @@ cudaError_t prepare_device(int* sms) {
 
 // Lay out shared memory for nw warps; the bytes, or -1 when they exceed
 // kSmemMax.
-template <typename T>
+template <typename T, bool kResT>
 long long layout(Params& p, int nw) {
   constexpr int V = 16 / sizeof(T);
   const int D = p.D;
@@ -478,7 +495,8 @@ long long layout(Params& p, int nw) {
   p.stage_off = 4 * p.dp * n;
   p.off_branch = D * static_cast<int>(sizeof(T));
   p.off_res = p.off_branch * (p.branch != nullptr ? 2 : 1);
-  p.row_bytes = p.off_res + (p.res != nullptr ? 4 * D : 0);
+  const int res_size = kResT ? static_cast<int>(sizeof(T)) : 4;
+  p.row_bytes = p.off_res + (p.res != nullptr ? res_size * D : 0);
   p.nw = nw;
   p.bars_off = p.stage_off + nw * p.row_bytes;
   const long long bytes = p.bars_off + 8LL * nw;
@@ -488,18 +506,19 @@ long long layout(Params& p, int nw) {
 // Launch with the most warps a block of 8, 4, 2, 1 whose shared memory
 // fits, and k runs a batch: as many blocks as the card holds at once (at
 // least one a batch, at most one a row).
-template <typename T, int NCH>
+template <typename T, int NCH, bool kResT>
 cudaError_t launch(Params p, int B, cudaStream_t stream) {
   long long smem = -1;
   for (int nw = kMaxWarps; nw >= 1 && smem < 0; nw /= 2) {
-    smem = layout<T>(p, nw);
+    smem = layout<T, kResT>(p, nw);
   }
   if (smem < 0) return cudaErrorInvalidValue;
   int sms = 0, fit = 0;
-  cudaError_t err = prepare_device<T, NCH>(&sms);
+  cudaError_t err = prepare_device<T, NCH, kResT>(&sms);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &fit, norm_mod_kernel<T, NCH>, p.nw * 32, static_cast<size_t>(smem));
+      &fit, norm_mod_kernel<T, NCH, kResT>, p.nw * 32,
+      static_cast<size_t>(smem));
   if (err != cudaSuccess) return err;
   if (fit < 1) return cudaErrorInvalidConfiguration;
   long long k = static_cast<long long>(sms) * fit / B;
@@ -507,25 +526,26 @@ cudaError_t launch(Params p, int B, cudaStream_t stream) {
   p.k = static_cast<int>(k);
   const long long grid = B * k;
   if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
-  norm_mod_kernel<T, NCH><<<static_cast<unsigned>(grid), p.nw * 32,
-                            static_cast<size_t>(smem), stream>>>(p);
+  norm_mod_kernel<T, NCH, kResT><<<static_cast<unsigned>(grid), p.nw * 32,
+                                   static_cast<size_t>(smem), stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kResT>
 cudaError_t dispatch(const Params& p, int B, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   const int nc = (p.D + 32 * V - 1) / (32 * V);  // chunks a lane
-  if (nc * V <= 32) return launch<T, 32 / V>(p, B, stream);
-  if (nc * V <= 64) return launch<T, 64 / V>(p, B, stream);
-  return launch<T, 128 / V>(p, B, stream);
+  if (nc * V <= 32) return launch<T, 32 / V, kResT>(p, B, stream);
+  if (nc * V <= 64) return launch<T, 64 / V, kResT>(p, B, stream);
+  return launch<T, 128 / V, kResT>(p, B, stream);
 }
 
 }  // namespace
 
 // base, branch, out: (rows, D); gate, shift, scale: (rows / L, D) with row
 // strides gate_sb, shift_sb, scale_sb (elements); all of type dtype
-// (0 float32, 1 bfloat16).  res: (rows, D) float32; w, b: (D,) float32;
+// (0 float32, 1 bfloat16).  res: (rows, D), float32 when res_f32 else of
+// type dtype; w, b: (D,) float32;
 // total: (rows, D), float32 when total_f32 else of type dtype.  A null
 // branch, gate, res, w, b or shift/scale pair leaves that operand out.
 // Returns a cudaError_t (0 on success).
@@ -536,8 +556,8 @@ extern "C" int dimsum_norm_modulate(const void* base, const void* branch,
                                     void* out, void* total, long long gate_sb,
                                     long long shift_sb, long long scale_sb,
                                     int rows, int L, int D, int dtype,
-                                    int total_f32, int is_rms, float eps,
-                                    void* stream) {
+                                    int total_f32, int res_f32, int is_rms,
+                                    float eps, void* stream) {
   auto misaligned = [](const void* q) {
     return reinterpret_cast<uintptr_t>(q) % 16 != 0;
   };
@@ -552,7 +572,7 @@ extern "C" int dimsum_norm_modulate(const void* base, const void* branch,
   p.base = base;
   p.branch = branch;
   p.gate = gate;
-  p.res = static_cast<const float*>(res);
+  p.res = res;
   p.w = static_cast<const float*>(w);
   p.b = static_cast<const float*>(b);
   p.shift = shift;
@@ -570,6 +590,7 @@ extern "C" int dimsum_norm_modulate(const void* base, const void* branch,
   p.eps = eps;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int B = rows / L;
-  return static_cast<int>(dtype == 0 ? dispatch<float>(p, B, s)
-                                     : dispatch<__nv_bfloat16>(p, B, s));
+  if (dtype == 0) return static_cast<int>(dispatch<float, false>(p, B, s));
+  return static_cast<int>(res_f32 ? dispatch<__nv_bfloat16, false>(p, B, s)
+                                  : dispatch<__nv_bfloat16, true>(p, B, s));
 }

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 
 from dimsum_torch.eval.fid import FeatureStats, no_tf32
 from dimsum_torch.eval.inception import InceptionDetector
+from dimsum_torch.utils.device import resolve_device
 
 
 def _as_numpy(images) -> np.ndarray:
@@ -109,15 +110,16 @@ class RandomLPIPS:
     2 / fan_in) come from a seeded CPU generator when the first images
     give the channel count; `weights` holds them (conv weights OIHW, the
     projection (256, F)).  For exercising PPL without weights files; the
-    real vgg16.pt gives reference-comparable numbers."""
+    real vgg16.pt gives reference-comparable numbers.  It runs on the card
+    unless `device` asks for the CPU."""
 
     LAYERS = ((5, 32, 4), (3, 64, 2), (3, 128, 2))  # kernel, out, stride
 
     def __init__(self, num_features: int = 128, seed: int = 0,
-                 device="cpu"):
+                 device="cuda"):
         self.num_features = num_features
         self.seed = seed
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.weights = None
 
     def _build(self, channels: int):

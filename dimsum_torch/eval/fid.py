@@ -13,7 +13,9 @@ package is read by the other.  KID and precision/recall take `impl`:
     row chunks of at most 4096 with `torch.topk` for the k-th neighbour;
   * "auto": "torch" when `device` is a CUDA device, else "numpy".
 
-The device is always the caller's; nothing here reads it from the
+The device is the caller's, the card by default (`utils/device.py::
+resolve_device`: it raises where there is none); the CPU runs them only
+when asked for with device="cpu".  Nothing here reads it from the
 environment.
 """
 
@@ -25,6 +27,8 @@ from typing import Optional
 import numpy as np
 import scipy.linalg
 import torch
+
+from dimsum_torch.utils.device import resolve_device
 
 ROW_CHUNK = 4096  # rows of a distance chunk on the device
 
@@ -150,7 +154,7 @@ def _impl(impl: str, device) -> str:
 def compute_kid(feats_real: np.ndarray, feats_gen: np.ndarray,
                 num_subsets: int = 100, max_subset_size: int = 1000,
                 seed: int = 0, impl: str = "auto",
-                device="cpu") -> float:
+                device="cuda") -> float:
     """Kernel Inception Distance (the reference's
     kernel_inception_distance.py): the polynomial kernel (x.y/d + 1)^3
     averaged over random subsets.  Both routes draw the subsets from one
@@ -165,6 +169,7 @@ def compute_kid(feats_real: np.ndarray, feats_gen: np.ndarray,
     m = min(min(feats_real.shape[0], feats_gen.shape[0]), max_subset_size)
 
     if impl == "torch":
+        device = resolve_device(device)
         xis, yis = [], []
         for _ in range(num_subsets):
             xis.append(rng.choice(feats_gen.shape[0], m, replace=False))
@@ -221,7 +226,7 @@ def _pairwise_sq_dists(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 def compute_precision_recall(feats_real: np.ndarray, feats_gen: np.ndarray,
                              nhood_size: int = 3,
                              row_batch: int = 10000,
-                             impl: str = "auto", device="cpu"):
+                             impl: str = "auto", device="cuda"):
     """Improved precision & recall (the reference's precision_recall.py):
     membership of the other set's k-NN manifold in feature space.
 
@@ -266,6 +271,7 @@ def _sq_dists(rows: torch.Tensor, feats: torch.Tensor,
 @torch.no_grad()
 def _pr_torch(feats_real, feats_gen, nhood_size: int, row_batch: int,
               device):
+    device = resolve_device(device)
     with no_tf32():
         real = torch.as_tensor(np.asarray(feats_real, np.float32),
                                device=device)

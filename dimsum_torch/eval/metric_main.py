@@ -8,8 +8,9 @@ opts of every metric:
   detector      callable uint8 NCHW -> (B, F) features
   gen_stats / real_stats   precomputed FeatureStats, shared by metrics
   cache_dir / dataset_id / detector_id / batch_size
-  device        where KID's and precision/recall's products run ("auto":
-                the torch route on a CUDA device, numpy on the CPU)
+  device        where KID's and precision/recall's products run: the card
+                unless "cpu" is given ("auto": the torch route on a CUDA
+                device, numpy on the CPU)
 """
 
 from __future__ import annotations
@@ -159,7 +160,7 @@ def kid50k_full(opts):
     real = _real_stats(opts, capture_all=True)
     gen = _gen_stats(opts, 50_000, capture_all=True)
     return {"kid50k_full": compute_kid(real.get_all(), gen.get_all(),
-                                       device=opts.get("device", "cpu"))}
+                                       device=opts.get("device", "cuda"))}
 
 
 @register_metric
@@ -167,7 +168,7 @@ def pr50k3_full(opts):
     real = _real_stats(opts, capture_all=True)
     gen = _gen_stats(opts, 50_000, capture_all=True)
     p, r = compute_precision_recall(real.get_all(), gen.get_all(),
-                                    device=opts.get("device", "cpu"))
+                                    device=opts.get("device", "cuda"))
     return {"pr50k3_full_precision": p, "pr50k3_full_recall": r}
 
 

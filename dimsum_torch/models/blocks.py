@@ -38,7 +38,13 @@ kernel there).  A `norm_impl` attribute of "ref" on a Norm, DiTBlock or
 FinalLayer selects the kernels' plain versions on any device.
 `seq_group` (the model's `DiMConfig.seq_group`) runs every mixer's conv and
 scan sequence-parallel in island mode (`models/mamba.py`); the blocks'
-token reorderings and flips stay outside the islands.
+token reorderings and flips stay outside the islands.  `tp_group` (the
+model's `DiMConfig.tp_group`) shards the mixers, the gated MLPs and the
+attentions' heads over a model group and splits a MoE block's experts
+over it (`parallel/mesh.py`, `parallel/moe_ep.py`); the norms, adaLN and
+the token orders run whole on every rank.  `residual_in_fp32` (the JAX
+field) reaches each block's top norm, the one that makes the residual;
+the JAX switches that act inside blocks are set by `apply_switches`.
 """
 
 from __future__ import annotations
@@ -58,9 +64,14 @@ from dimsum_torch.ops.cuda_build import needs_grad
 from dimsum_torch.ops.dct import dct_patch, idct_patch
 from dimsum_torch.ops.norms import fused_add_norm, modulate, norm_modulate
 from dimsum_torch.ops.scan_orders import local_reverse, local_scan
-from dimsum_torch.ops.wavelet import (dwt_tokens, dwt_tokens_windowed,
-                                      idwt_tokens, idwt_tokens_windowed,
-                                      windows_are_blocks)
+from dimsum_torch.ops.wavelet import (dwt_tokens, dwt_tokens_cl,
+                                      dwt_tokens_windowed, idwt_tokens,
+                                      idwt_tokens_cl, idwt_tokens_windowed,
+                                      wavelet_pack_windowed,
+                                      wavelet_unpack_windowed,
+                                      windows_are_blocks, windows_compose)
+from dimsum_torch.parallel.mesh import tp_rank, tp_size
+from dimsum_torch.parallel.moe_ep import switch_ep
 
 
 def drop_path_fn(x, rate: float, generator: torch.Generator | None = None):
@@ -89,32 +100,41 @@ class Norm(nn.Module):
     norm + modulate kernel when `fuse` (default: the `fused_norm` switch)
     says so; otherwise fused add + norm, through the add + norm kernel
     with the `pallas_norm` switch (the JAX `Norm.__call__`, blocks.py:55-74).
-    The kernels take both norms."""
+    The kernels take both norms.  `residual_in_fp32` (the JAX field) keeps
+    the new residual in fp32; off, it is carried in x's dtype (the bf16
+    residual stream), rounded once where it is made.  The attribute
+    `norm_mxu` (the JAX `DIMSUM_NORM_MXU`) takes the composition's
+    reductions as ones-column products."""
 
     def __init__(self, dim: int, eps: float = 1e-5, pallas_norm: bool = False,
-                 fused_norm: bool = False, rms: bool = True):
+                 fused_norm: bool = False, rms: bool = True,
+                 residual_in_fp32: bool = True):
         super().__init__()
         self.eps = eps
         self.rms = rms
         self.pallas_norm, self.fused_norm = pallas_norm, fused_norm
+        self.residual_in_fp32 = residual_in_fp32
         self.norm_impl: str | None = None
+        self.norm_mxu = False
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = None if rms else nn.Parameter(torch.zeros(dim))
 
     def forward(self, x, residual=None, prenorm=True, branch=None, gate=None,
                 shift=None, scale=None, fuse: bool | None = None):
         if branch is not None or shift is not None:
-            total_dtype = torch.float32 if residual is not None else x.dtype
+            total_dtype = (torch.float32 if residual is not None
+                           and self.residual_in_fp32 else x.dtype)
             return norm_modulate(
                 x, self.weight, self.bias, branch=branch, gate=gate,
                 residual=residual, shift=shift, scale=scale, eps=self.eps,
                 is_rms=self.rms, total_dtype=total_dtype,
                 fuse=self.fused_norm if fuse is None else fuse,
-                impl=self.norm_impl)
+                impl=self.norm_impl, mxu=self.norm_mxu)
         return fused_add_norm(x, self.weight, self.bias, residual=residual,
                               eps=self.eps, prenorm=prenorm,
+                              residual_in_fp32=self.residual_in_fp32,
                               is_rms=self.rms, kernel=self.pallas_norm,
-                              impl=self.norm_impl)
+                              impl=self.norm_impl, mxu=self.norm_mxu)
 
 
 def AdaLN(c_dim: int, dim: int, n_chunks: int,
@@ -158,7 +178,8 @@ class _InnerMixerBlock(nn.Module):
                  rms_norm: bool = True, pallas_norm: bool = False,
                  fused_norm: bool = False, scanning_continuity: bool = False,
                  use_gated_mlp: bool = True, drop_path_rate: float = 0.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 residual_in_fp32: bool = True):
         super().__init__()
         self.reverse = reverse
         self.native = (reverse and mixer_kwargs.get("seq_group") is None
@@ -170,13 +191,15 @@ class _InnerMixerBlock(nn.Module):
         norm_kw = dict(pallas_norm=pallas_norm, fused_norm=fused_norm,
                        rms=rms_norm)
         if not identity_norm:
-            self.norm = Norm(dim, **norm_kw)
+            self.norm = Norm(dim, residual_in_fp32=residual_in_fp32,
+                             **norm_kw)
         self.mixer = Mamba(dim, dtype=dtype, **mixer_kwargs)
         self.adaLN_modulation = AdaLN(c_dim, dim, 3 if no_ffn else 6, dtype)
         if not no_ffn:
             self.norm_2 = Norm(dim, **norm_kw)
-            mlp_cls = GatedMLP if use_gated_mlp else Mlp
-            self.mlp = mlp_cls(dim, 4 * dim, dtype=dtype)
+            tp = mixer_kwargs.get("tp_group")
+            self.mlp = (GatedMLP(dim, 4 * dim, dtype=dtype, tp_group=tp)
+                        if use_gated_mlp else Mlp(dim, 4 * dim, dtype=dtype))
 
     def forward(self, hidden_states, residual=None, c=None,
                 train: bool = False,
@@ -272,7 +295,14 @@ class WaveDiMBlock(_InnerMixerBlock):
     windows.  Without `window_scan` (the standalone "wave" block and the
     auxiliary fourier blocks) the packed tokens are transposed when
     `transpose`.  The combined block's frequency half has no norm and no
-    FFN; the other uses have both."""
+    FFN; the other uses have both.
+
+    The JAX opt-in packs are attributes (the model's `DiMConfig` fields
+    `dwt_cl`, `fused_wavelet`, `wavelet_one_rearrange`), taken under the
+    JAX gates in the JAX order (blocks.py:385-436): the channel-last pack
+    (`ops/wavelet.py::dwt_tokens_cl`), the basis pack
+    (`wavelet_pack_windowed`), the one-rearrange pack also where the
+    window is a multiple of the block (512 px), else the routes above."""
 
     def __init__(self, dim: int, c_dim: int, mixer_kwargs: Dict[str, Any],
                  transpose: bool = False, window_scan: bool = True,
@@ -281,16 +311,45 @@ class WaveDiMBlock(_InnerMixerBlock):
         self.transpose = bool(transpose)
         self.window_scan = window_scan
         self.num_lv = num_lv
+        self.dwt_cl = self.fused_wavelet = False
+        self.wavelet_one_rearrange = False
 
     def _window(self, side):
         return dict(w=side // 2 ** self.num_lv, H=side, W=side,
                     column_first=self.transpose)
 
-    def _one_rearrange(self, L):
-        return self.window_scan and windows_are_blocks(L, self.num_lv)
+    def _route(self, L, C):
+        """"cl", "fused", "one" or "default", by the JAX gates."""
+        side = int(round(L ** 0.5))
+        patch = 2 ** self.num_lv
+        packs = C % patch ** 2 == 0 and side % patch == 0
+        fused = self.window_scan and packs and self.fused_wavelet
+        if (self.dwt_cl and not fused and self.num_lv in (1, 2) and packs
+                and (not self.window_scan or (side // patch) % patch == 0
+                     or side // patch == patch)):
+            return "cl"
+        if fused:
+            return "fused"
+        if self.window_scan and (
+                windows_are_blocks(L, self.num_lv)
+                or (self.wavelet_one_rearrange
+                    and windows_compose(L, self.num_lv))):
+            return "one"
+        return "default"
+
+    def _cl_kw(self):
+        return dict(window_scan=self.window_scan,
+                    grid_transpose=self.transpose and not self.window_scan,
+                    column_first=self.transpose)
 
     def _order(self, x, side):
-        if self._one_rearrange(x.shape[1]):
+        route = self._route(x.shape[1], x.shape[2])
+        if route == "cl":
+            return dwt_tokens_cl(x, self.num_lv, **self._cl_kw())
+        if route == "fused":
+            return wavelet_pack_windowed(x, self.num_lv,
+                                         column_first=self.transpose)
+        if route == "one":
             return dwt_tokens_windowed(x, self.num_lv,
                                        column_first=self.transpose)
         x = dwt_tokens(x, self.num_lv)
@@ -299,7 +358,13 @@ class WaveDiMBlock(_InnerMixerBlock):
         return _transpose_tokens(x, side, side) if self.transpose else x
 
     def _unorder(self, x, side):
-        if self._one_rearrange(x.shape[1]):
+        route = self._route(x.shape[1], x.shape[2])
+        if route == "cl":
+            return idwt_tokens_cl(x, self.num_lv, **self._cl_kw())
+        if route == "fused":
+            return wavelet_unpack_windowed(x, self.num_lv,
+                                           column_first=self.transpose)
+        if route == "one":
             return idwt_tokens_windowed(x, self.num_lv,
                                         column_first=self.transpose)
         if self.window_scan:
@@ -396,23 +461,51 @@ class SwitchMLP(nn.Module):
     and the argmax expert's output, picked by a one-hot in x's dtype, is
     scaled by its probability.  The output is fp32, as JAX promotes it.
     The other modes of the CLI ("top2", "sinkhorn_top2") take the top1
-    path, as in JAX.  Expert parallelism (the JAX `ep_axis`) is not here:
-    the CLIs refuse it (ROADMAP Queue 1 item 8)."""
+    path, as in JAX.
+
+    With `tp_group` it is the JAX expert-parallel route (`ep_axis`, which
+    JAX takes whenever --tp > 1 with --is-moe): this rank holds experts
+    [m E / k, (m + 1) E / k) of the group's k ranks (`local_experts`, a
+    ModuleDict keyed by the global index, so the names stay the
+    reference's), and tokens go through capacity dispatch at
+    `capacity_factor` (`parallel/moe_ep.py::switch_ep`)."""
 
     def __init__(self, dim: int, num_moe_experts: int = 8,
                  add_bias_linear: bool = False,
                  gated_linear_unit: bool = True, routing_mode: str = "top1",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 capacity_factor: float = 2.0, tp_group=None):
         super().__init__()
         self.num_moe_experts = num_moe_experts
         self.routing_mode = routing_mode
+        self.capacity_factor = capacity_factor
+        self.tp_group = tp_group
         self.router = Linear(dim, num_moe_experts, dtype=torch.float32)
-        self.local_experts = nn.ModuleList([
-            ExpertMLP(dim, add_bias_linear, gated_linear_unit, dtype=dtype)
-            for _ in range(num_moe_experts)])
+
+        def expert():
+            return ExpertMLP(dim, add_bias_linear, gated_linear_unit,
+                             dtype=dtype)
+
+        if tp_group is None:
+            self.local_experts = nn.ModuleList(
+                [expert() for _ in range(num_moe_experts)])
+            return
+        k, m = tp_size(tp_group), tp_rank(tp_group)
+        if num_moe_experts % k:
+            raise ValueError(f"{num_moe_experts} experts do not split over "
+                             f"{k} ranks")
+        per = num_moe_experts // k
+        self.local_experts = nn.ModuleDict(
+            {str(e): expert() for e in range(m * per, (m + 1) * per)})
 
     def forward(self, x, c=None):
         logits = self.router(x)
+        if self.tp_group is not None:
+            return switch_ep(
+                x, logits, {int(e): mlp for e, mlp in
+                            self.local_experts.items()},
+                self.num_moe_experts, self.tp_group, self.capacity_factor,
+                self.routing_mode)
         route = (torch.sigmoid(logits) if self.routing_mode == "sinkhorn"
                  else torch.softmax(logits, dim=-1))
         max_prob, max_ind = route.max(dim=-1, keepdim=True)
@@ -432,12 +525,16 @@ class MoEBlock(nn.Module):
                  num_moe_experts: int = 8, add_bias_linear: bool = False,
                  gated_linear_unit: bool = True, routing_mode: str = "top1",
                  pallas_norm: bool = False, fused_norm: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 residual_in_fp32: bool = True, capacity_factor: float = 2.0,
+                 tp_group=None):
         super().__init__()
         self.norm = Norm(dim, pallas_norm=pallas_norm, fused_norm=fused_norm,
-                         rms=rms_norm)
+                         rms=rms_norm, residual_in_fp32=residual_in_fp32)
         self.mixer = SwitchMLP(dim, num_moe_experts, add_bias_linear,
-                               gated_linear_unit, routing_mode, dtype=dtype)
+                               gated_linear_unit, routing_mode, dtype=dtype,
+                               capacity_factor=capacity_factor,
+                               tp_group=tp_group)
 
     def forward(self, hidden_states, residual=None, c=None,
                 train: bool = False,
@@ -448,26 +545,32 @@ class MoEBlock(nn.Module):
 
 class DiTBlock(nn.Module):
     """adaLN-Zero attention block; its LayerNorms use eps 1e-6, no affine,
-    each fused with its modulate (through the kernel with `fused_norm`)."""
+    each fused with its modulate (through the kernel with `fused_norm`;
+    `norm_mxu` as `Norm`'s).  `tp_group` splits the attention's heads and
+    the gated MLP over the group (timm's `Mlp` stays whole, as under the
+    JAX rules)."""
 
     def __init__(self, hidden_size: int, num_heads: int,
                  mlp_ratio: float = 4.0, dtype: torch.dtype = torch.float32,
-                 fused_norm: bool = False, use_gated_mlp: bool = True):
+                 fused_norm: bool = False, use_gated_mlp: bool = True,
+                 tp_group=None):
         super().__init__()
         self.fused_norm = fused_norm
         self.norm_impl: str | None = None
+        self.norm_mxu = False
         self.attn = Attention(hidden_size, num_heads, qkv_bias=True,
-                              dtype=dtype)
-        mlp_cls = GatedMLP if use_gated_mlp else Mlp
-        self.mlp = mlp_cls(hidden_size, int(hidden_size * mlp_ratio),
-                           dtype=dtype)
+                              dtype=dtype, tp_group=tp_group)
+        hidden = int(hidden_size * mlp_ratio)
+        self.mlp = (GatedMLP(hidden_size, hidden, dtype=dtype,
+                             tp_group=tp_group) if use_gated_mlp
+                    else Mlp(hidden_size, hidden, dtype=dtype))
         self.adaLN_modulation = AdaLN(hidden_size, hidden_size, 6, dtype)
 
     def forward(self, x, c):
         (shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp,
          gate_mlp) = self.adaLN_modulation(c).chunk(6, -1)
         kw = dict(eps=1e-6, is_rms=False, fuse=self.fused_norm,
-                  impl=self.norm_impl)
+                  impl=self.norm_impl, mxu=self.norm_mxu)
         h1, _ = norm_modulate(x, None, shift=shift_msa, scale=scale_msa, **kw)
         h2, x = norm_modulate(x, None, branch=self.attn(h1), gate=gate_msa,
                               shift=shift_mlp, scale=scale_mlp, **kw)
@@ -503,7 +606,8 @@ class DiMBlockCombined(nn.Module):
                  scanning_continuity: bool = False,
                  freq_variant: str = "wave",
                  mixer_kwargs: Optional[Dict[str, Any]] = None,
-                 mixer_kwargs_2: Optional[Dict[str, Any]] = None):
+                 mixer_kwargs_2: Optional[Dict[str, Any]] = None,
+                 residual_in_fp32: bool = True, tp_group=None):
         super().__init__()
         self.drop_path_rate = drop_path_rate
         self.pending_tail = pending_tail
@@ -515,7 +619,7 @@ class DiMBlockCombined(nn.Module):
                                 seq_group=seq_group,
                                 seq_island=seq_group is not None)
         inner = dict(dtype=dtype, scanning_continuity=scanning_continuity)
-        self.norm = Norm(dim, **norm_kw)
+        self.norm = Norm(dim, residual_in_fp32=residual_in_fp32, **norm_kw)
         self.spatial_mamba = MixerBlockCore(
             half, dim, mixer_kwargs, reverse=reverse, transpose=transpose,
             **inner)
@@ -530,11 +634,11 @@ class DiMBlockCombined(nn.Module):
         else:
             raise ValueError(f"unknown freq_variant {freq_variant!r}")
         self.proj = CrossAttentionFusion(dim, num_heads=8, qkv_bias=True,
-                                         dtype=dtype)
+                                         dtype=dtype, tp_group=tp_group)
         self.adaLN_modulation = AdaLN(dim, dim, 3, dtype)
         self.norm_2 = Norm(dim, **norm_kw)
-        mlp_cls = GatedMLP if use_gated_mlp else Mlp
-        self.mlp = mlp_cls(dim, 4 * dim, dtype=dtype)
+        self.mlp = (GatedMLP(dim, 4 * dim, dtype=dtype, tp_group=tp_group)
+                    if use_gated_mlp else Mlp(dim, 4 * dim, dtype=dtype))
 
     def forward(self, hidden_states, residual=None, c=None,
                 train: bool = False,
@@ -566,3 +670,26 @@ class DiMBlockCombined(nn.Module):
             return hidden_states, residual, (mlp_out, gate_mlp)
         hidden_states = hidden_states + gate_mlp[:, None, :] * mlp_out
         return hidden_states, residual
+
+
+def apply_switches(model: nn.Module, norm_mxu: bool = False,
+                   flash_attn: str = "auto", full_attn: str = "auto",
+                   dwt_cl: bool = False, fused_wavelet: bool = False,
+                   wavelet_one_rearrange: bool = False) -> nn.Module:
+    """Set the JAX opt-in switches that act inside modules (the model's
+    config fields, from the environment through
+    `models/factory.py::env_switches`) on every module they reach:
+    `norm_mxu` on the norms (Norm, DiTBlock, FinalLayer), `flash_attn` and
+    `full_attn` on the attentions, the wavelet packs on WaveDiMBlock."""
+    from dimsum_torch.models.attention import _Routed
+    from dimsum_torch.models.embedders import FinalLayer
+
+    for m in model.modules():
+        if isinstance(m, (Norm, DiTBlock, FinalLayer)):
+            m.norm_mxu = norm_mxu
+        if isinstance(m, _Routed):
+            m.flash_attn, m.full_attn = flash_attn, full_attn
+        if isinstance(m, WaveDiMBlock):
+            m.dwt_cl, m.fused_wavelet = dwt_cl, fused_wavelet
+            m.wavelet_one_rearrange = wavelet_one_rearrange
+    return model

@@ -19,8 +19,11 @@ embedding; "cpe", `AdaInPosCNN`, dim.py:304-321; only "ape" has a
 from cond_proj(c), `models/mamba.py`) and the MoE group: `is_moe` makes
 every odd block a `MoEBlock` (add + norm, then the routed `SwitchMLP`
 with `num_moe_experts`, `routing_mode`, `gated_linear_unit`,
-`add_bias_linear`; `moe_capacity_factor` is the JAX expert-parallel
-dispatch's, which the port does not have: ROADMAP Queue 1 item 8).  The
+`add_bias_linear`; `moe_capacity_factor` is the expert-parallel
+dispatch's, taken with `tp_group`).  `residual_in_fp32` (the JAX field;
+False is the JAX bench's --bf16-residual) carries the residual stream in
+the compute dtype: each block's top norm rounds the new residual once, the
+kernels read and write it so (dim.py:64, :218, :233).  The
 port's defaults are the published configuration (combined, CondMamba,
 RMSNorm, a learnable APE, a DiT block after every 4th block); the CLIs
 (`models/factory.py::model_config`) set every field from the JAX flags.
@@ -51,6 +54,23 @@ model runs whole on every rank: each rank passes the same inputs and gets
 the same output.  It adds no parameters, so weights load as without it.
 Forward only.
 
+The JAX package's other opt-in environment switches are fields too, read
+by `models/factory.py::env_switches` for every CLI: `norm_mxu`
+(DIMSUM_NORM_MXU), `flash_attn` and `full_attn` (DIMSUM_FLASH_ATTN,
+DIMSUM_FULL_ATTN: "1", "0" or "auto"), `dwt_cl`, `fused_wavelet` and
+`wavelet_one_rearrange` (DIMSUM_DWT_CL, DIMSUM_FUSED_WAVELET,
+DIMSUM_WAVELET_ONE_REARRANGE); `blocks.apply_switches` sets them on the
+modules they reach.
+
+`tp_group`, the model group of `parallel.make_mesh_groups` (the JAX
+`--tp` mesh's model axis with `tp_param_specs`), holds each rank's shard
+of the parameters that `parallel/mesh.py::TP_RULES` names (the mixers, the
+gated MLPs, the attentions' heads) and, with `is_moe`, its experts
+(expert parallelism with capacity dispatch); every rank of the group takes
+the same inputs and returns the same output.  `build_dim` draws the full
+model's weights and keeps the rank's shards, so a TP model holds the
+unsharded model's weights.
+
 `grad_checkpoint` recomputes each main block in the backward
 (`torch.utils.checkpoint`, non-reentrant; the JAX `nn.remat`, dim.py:344-
 353), keeping what `remat_policy` names: None (nothing), "dots", "scan",
@@ -74,8 +94,8 @@ import torch.nn as nn
 
 from dimsum_torch.models.blocks import (DiMBlockCombined, DiMBlockWindow,
                                        DiTBlock, MixerBlockCore, MoEBlock,
-                                       Norm, WaveDiMBlock, drop_path_fn,
-                                       materialize_pending)
+                                       Norm, WaveDiMBlock, apply_switches,
+                                       drop_path_fn, materialize_pending)
 from dimsum_torch.models.embedders import (AdaInPosCNN, FinalLayer,
                                            LabelEmbedder, PatchEmbed,
                                            TimestepEmbedder, apply_rotary,
@@ -123,7 +143,15 @@ class DiMConfig:
     routing_mode: str = "top1"    # "top1": softmax; "sinkhorn": sigmoid
     gated_linear_unit: bool = True
     add_bias_linear: bool = False
-    moe_capacity_factor: float = 2.0  # the JAX EP dispatch's (not ported)
+    moe_capacity_factor: float = 2.0  # the EP dispatch's (with tp_group)
+    residual_in_fp32: bool = True  # False: the residual stream in dtype
+    norm_mxu: bool = False     # norm reductions as ones-column products
+    flash_attn: str = "auto"   # DIMSUM_FLASH_ATTN: "1", "0" or "auto"
+    full_attn: str = "auto"    # DIMSUM_FULL_ATTN: "1", "0" or "auto"
+    dwt_cl: bool = False       # the channel-last wavelet pack
+    fused_wavelet: bool = False  # the basis wavelet pack
+    wavelet_one_rearrange: bool = False  # one rearrange at 512 px too
+    tp_group: Any = None       # tensor (and expert) parallelism
     pallas_norm: bool = False  # add + norm kernel at the blocks' top norm
     fused_norm: bool = False   # norm + modulate kernel at the other norms
     conv_xproj: bool = False   # conv + SiLU + x_proj kernel in every mixer
@@ -176,6 +204,7 @@ def _mixer_kwargs_for(i: int, cfg: DiMConfig, paths, paths2):
     (dim.py:183-205)."""
     mk = dict(layer_idx=i, scan_type=cfg.scan_type, conv_xproj=cfg.conv_xproj,
               seq_group=cfg.seq_group, seq_island=cfg.seq_group is not None,
+              tp_group=cfg.tp_group,
               d_cond=cfg.hidden_size if cfg.cond_mamba else None,
               use_cond_init=cfg.cond_mamba and cfg.use_cond_init)
     if is_zigzag(cfg.scan_type):
@@ -183,6 +212,7 @@ def _mixer_kwargs_for(i: int, cfg: DiMConfig, paths, paths2):
     mk2 = None
     if cfg.block_type == "combined_fourier":
         mk2 = dict(layer_idx=i, scan_type="jpeg_2", conv_xproj=cfg.conv_xproj,
+                   tp_group=cfg.tp_group,
                    d_cond=cfg.hidden_size, zigzag_paths=paths2[0],
                    zigzag_paths_reverse=paths2[1])
     return mk, mk2
@@ -198,7 +228,10 @@ def make_dim_block(i: int, cfg: DiMConfig, paths=None, paths2=None,
                         gated_linear_unit=cfg.gated_linear_unit,
                         routing_mode=cfg.routing_mode,
                         pallas_norm=cfg.pallas_norm,
-                        fused_norm=cfg.fused_norm, dtype=cfg.dtype)
+                        fused_norm=cfg.fused_norm, dtype=cfg.dtype,
+                        residual_in_fp32=cfg.residual_in_fp32,
+                        capacity_factor=cfg.moe_capacity_factor,
+                        tp_group=cfg.tp_group)
     mk, mk2 = _mixer_kwargs_for(i, cfg, paths, paths2)
     alternate = cfg.scan_type == "none"
     reverse = alternate and i % 2 > 0
@@ -206,7 +239,8 @@ def make_dim_block(i: int, cfg: DiMConfig, paths=None, paths2=None,
     D = cfg.hidden_size
     common = dict(rms_norm=cfg.rms_norm, pallas_norm=cfg.pallas_norm,
                   fused_norm=cfg.fused_norm, dtype=cfg.dtype,
-                  drop_path_rate=drop_path_rate)
+                  drop_path_rate=drop_path_rate,
+                  residual_in_fp32=cfg.residual_in_fp32)
     bt = cfg.block_type
     if bt in ("raw", "linear"):
         return MixerBlockCore(
@@ -230,7 +264,7 @@ def make_dim_block(i: int, cfg: DiMConfig, paths=None, paths2=None,
             scanning_continuity=cfg.scanning_continuity,
             use_gated_mlp=cfg.use_gated_mlp, freq_variant=variant,
             mixer_kwargs=mk, mixer_kwargs_2=mk2, pending_tail=pending_tail,
-            **common)
+            tp_group=cfg.tp_group, **common)
     raise ValueError(f"unknown block_type {bt!r}: one of {BLOCK_TYPES}")
 
 
@@ -287,15 +321,18 @@ class DiM(nn.Module):
             self.fourier_blocks = nn.ModuleList([
                 WaveDiMBlock(
                     D, D, dict(layer_idx=i, d_cond=D,
-                               conv_xproj=cfg.conv_xproj),
+                               conv_xproj=cfg.conv_xproj,
+                               tp_group=cfg.tp_group),
                     reverse=i % 2 > 0, window_scan=False,
                     identity_norm=False, no_ffn=False,
                     rms_norm=cfg.rms_norm, pallas_norm=cfg.pallas_norm,
                     fused_norm=cfg.fused_norm,
                     scanning_continuity=cfg.scanning_continuity,
-                    drop_path_rate=dpr[i], dtype=dt) for i in range(n)])
+                    drop_path_rate=dpr[i], dtype=dt,
+                    residual_in_fp32=cfg.residual_in_fp32)
+                for i in range(n)])
         attn = dict(dtype=dt, fused_norm=cfg.fused_norm,
-                    use_gated_mlp=cfg.use_gated_mlp)
+                    use_gated_mlp=cfg.use_gated_mlp, tp_group=cfg.tp_group)
         if cfg.use_attn_every_k_layers > 0:
             if cfg.use_independent_attn:
                 self.attn_block = nn.ModuleList([
@@ -308,6 +345,9 @@ class DiM(nn.Module):
                                fused_norm=cfg.fused_norm, rms=cfg.rms_norm)
         self.final_layer = FinalLayer(D, cfg.patch_size, cfg.out_channels,
                                       dt, fused_norm=cfg.fused_norm)
+        apply_switches(self, cfg.norm_mxu, cfg.flash_attn, cfg.full_attn,
+                       cfg.dwt_cl, cfg.fused_wavelet,
+                       cfg.wavelet_one_rearrange)
 
     def forward(self, x, t, y=None, train: bool = False,
                 generator: torch.Generator | None = None,
@@ -318,23 +358,7 @@ class DiM(nn.Module):
         `force_drop_ids` (N,), 1 = drop, replaces the label draw.  Returns
         (N, out_channels, H, W)."""
         cfg = self.cfg
-        if y is None:
-            y = torch.full((x.shape[0],),
-                           self.y_embedder.embedding_table.num_embeddings - 1,
-                           dtype=torch.long, device=x.device)
-        y_emb = self.y_embedder(y, train=train, force_drop_ids=force_drop_ids,
-                                generator=generator)
-        c = (self.t_embedder(t) + y_emb).to(cfg.dtype)
-        x = self.x_embedder(x.to(cfg.dtype))
-        if cfg.pe_type == "ape":
-            pos_embed = self.pos_embed if cfg.learnable_pe else \
-                self.pos_embed.detach()
-            x = x + pos_embed.to(cfg.dtype)
-        elif cfg.pe_type == "rope":
-            x = apply_rotary(x, self.emb_sin.to(cfg.dtype),
-                             self.emb_cos.to(cfg.dtype))
-        else:
-            x = self.pos_cnn(x, c, cfg.grid_size, cfg.grid_size)
+        x, c = self.embed(x, t, y, train, generator, force_drop_ids)
         residual = pending = freq_residual = None
         k = cfg.use_attn_every_k_layers
         checkpointed = (self.remat_keep is not None
@@ -374,8 +398,38 @@ class DiM(nn.Module):
             if train and cfg.drop_path > 0.0 and residual is not None:
                 x = drop_path_fn(x, cfg.drop_path, generator)
             x = self.norm_f(x, residual, prenorm=False)
+        return self.final(x, c)
+
+    def embed(self, x, t, y=None, train: bool = False,
+              generator: torch.Generator | None = None,
+              force_drop_ids=None):
+        """The tokens and the condition before the blocks: (x (N, L, D), c
+        (N, D)), both in the compute dtype."""
+        cfg = self.cfg
+        if y is None:
+            y = torch.full((x.shape[0],),
+                           self.y_embedder.embedding_table.num_embeddings - 1,
+                           dtype=torch.long, device=x.device)
+        y_emb = self.y_embedder(y, train=train, force_drop_ids=force_drop_ids,
+                                generator=generator)
+        c = (self.t_embedder(t) + y_emb).to(cfg.dtype)
+        x = self.x_embedder(x.to(cfg.dtype))
+        if cfg.pe_type == "ape":
+            pos_embed = self.pos_embed if cfg.learnable_pe else \
+                self.pos_embed.detach()
+            x = x + pos_embed.to(cfg.dtype)
+        elif cfg.pe_type == "rope":
+            x = apply_rotary(x, self.emb_sin.to(cfg.dtype),
+                             self.emb_cos.to(cfg.dtype))
+        else:
+            x = self.pos_cnn(x, c, cfg.grid_size, cfg.grid_size)
+        return x, c
+
+    def final(self, x, c):
+        """The FinalLayer and unpatchify: (N, out_channels, H, W) fp32."""
         x = self.final_layer(x, c)
-        return unpatchify(x.float(), cfg.patch_size, cfg.out_channels)
+        return unpatchify(x.float(), self.cfg.patch_size,
+                          self.cfg.out_channels)
 
 
 def forward_with_cfg(model, x, t, y, cfg_scale: float = 1.0,
@@ -467,10 +521,24 @@ def random_init_(model: nn.Module, seed: int) -> nn.Module:
     return model
 
 
+def init_sharded_(model: nn.Module, full: nn.Module, seed: int) -> nn.Module:
+    """Give a tensor-parallel `model` its rank's shards of the seeded
+    `random_init_` weights of `full`, the same model without a group (the
+    full model's draws, so every --tp builds the same weights)."""
+    from dimsum_torch.parallel.mesh import shard_state_dict, tp_rank, tp_size
+
+    group = model.cfg.tp_group
+    random_init_(full, seed)
+    sd = shard_state_dict(full.state_dict(), tp_rank(group), tp_size(group))
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
 def build_dim(cfg: DiMConfig, device="cuda", seed: int = 0,
               train: bool = False) -> DiM:
     """A DiM on `device` (CUDA unless the caller asks for the CPU) with the
-    seeded `random_init_` weights.  For inference (the default) the Linear
+    seeded `random_init_` weights (with `cfg.tp_group`, the rank's shards
+    of the full model's).  For inference (the default) the Linear
     weights are stored in cfg.dtype and the model is in eval mode; with
     `train=True` every parameter stays fp32 (the master weights the
     optimizer updates; `Linear` casts to cfg.dtype at each call, as the JAX
@@ -478,7 +546,11 @@ def build_dim(cfg: DiMConfig, device="cuda", seed: int = 0,
     dev = resolve_device(device)
     with torch.device(dev):
         model = DiM(cfg)
-    random_init_(model, seed)
+        if cfg.tp_group is None:
+            random_init_(model, seed)
+        else:
+            init_sharded_(model, DiM(dataclasses.replace(cfg, tp_group=None)),
+                          seed)
     if train:
         return model.train()
     return cast_weights_(model).eval()

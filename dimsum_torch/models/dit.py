@@ -10,17 +10,22 @@ CFG wrappers of `models/dim.py` serve it as they serve the DiM.
 `grad_checkpoint` recomputes each block in the backward with nothing kept
 (the JAX `nn.remat`, dit.py:84-85), through `utils/remat.py`.
 `fused_norm` (the JAX `DIMSUM_FUSED_NORM`) runs the blocks' two norms and
-the FinalLayer's through the norm + modulate kernel.
+the FinalLayer's through the norm + modulate kernel; `norm_mxu`,
+`flash_attn` and `full_attn` are the other JAX switches that reach a DiT
+(`models/blocks.py::apply_switches`), and `tp_group` splits the
+attentions' heads over a model group (timm's MLP stays whole, as under
+the JAX rules).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 import torch.nn as nn
 
-from dimsum_torch.models.blocks import DiTBlock
+from dimsum_torch.models.blocks import DiTBlock, apply_switches
 from dimsum_torch.models.embedders import (FinalLayer, LabelEmbedder,
                                            PatchEmbed, TimestepEmbedder,
                                            get_2d_sincos_pos_embed,
@@ -45,6 +50,10 @@ class DiTConfig:
     dtype: torch.dtype = torch.float32
     grad_checkpoint: bool = False  # remat each block, keeping nothing
     fused_norm: bool = False       # norm + modulate kernel at every norm
+    norm_mxu: bool = False         # the JAX DIMSUM_NORM_MXU
+    flash_attn: str = "auto"       # the JAX DIMSUM_FLASH_ATTN
+    full_attn: str = "auto"        # the JAX DIMSUM_FULL_ATTN
+    tp_group: Any = None           # the attentions' heads over a group
 
     @property
     def out_channels(self) -> int:
@@ -72,10 +81,12 @@ class DiT(nn.Module):
             requires_grad=False)
         self.blocks = nn.ModuleList([
             DiTBlock(D, cfg.num_heads, cfg.mlp_ratio, dtype=dt,
-                     fused_norm=cfg.fused_norm, use_gated_mlp=False)
+                     fused_norm=cfg.fused_norm, use_gated_mlp=False,
+                     tp_group=cfg.tp_group)
             for _ in range(cfg.depth)])
         self.final_layer = FinalLayer(D, cfg.patch_size, cfg.out_channels,
                                       dt, fused_norm=cfg.fused_norm)
+        apply_switches(self, cfg.norm_mxu, cfg.flash_attn, cfg.full_attn)
 
     def forward(self, x, t, y=None, train: bool = False,
                 generator: torch.Generator | None = None,
@@ -133,12 +144,16 @@ def build_dit(cfg: DiTConfig, device="cuda", seed: int = 0,
     `build_dim` builds a DiM: for inference the Linear weights in
     cfg.dtype and eval mode, with `train=True` fp32 weights and train
     mode."""
-    from dimsum_torch.models.dim import random_init_
+    from dimsum_torch.models.dim import init_sharded_, random_init_
 
     dev = resolve_device(device)
     with torch.device(dev):
         model = DiT(cfg)
-    random_init_(model, seed)
+        if cfg.tp_group is None:
+            random_init_(model, seed)
+        else:
+            init_sharded_(model, DiT(dataclasses.replace(cfg, tp_group=None)),
+                          seed)
     if train:
         return model.train()
     return cast_weights_(model).eval()

@@ -149,13 +149,14 @@ class LabelEmbedder(nn.Module):
 class FinalLayer(nn.Module):
     """adaLN-modulated LayerNorm (eps 1e-6, no affine) -> Linear; the norm
     and its modulate through the norm + modulate kernel with `fused_norm`
-    (`norm_impl = "ref"`: its plain version)."""
+    (`norm_impl = "ref"`: its plain version; `norm_mxu` as `Norm`'s)."""
 
     def __init__(self, hidden_size: int, patch_size: int, out_channels: int,
                  dtype: torch.dtype = torch.float32, fused_norm: bool = False):
         super().__init__()
         self.fused_norm = fused_norm
         self.norm_impl: str | None = None
+        self.norm_mxu = False
         self.adaLN_modulation = nn.Sequential(
             nn.SiLU(), Linear(hidden_size, 2 * hidden_size, dtype=dtype))
         self.linear = Linear(hidden_size,
@@ -166,7 +167,7 @@ class FinalLayer(nn.Module):
         shift, scale = self.adaLN_modulation(c).chunk(2, dim=-1)
         x, _ = norm_modulate(x, None, shift=shift, scale=scale, eps=1e-6,
                              is_rms=False, fuse=self.fused_norm,
-                             impl=self.norm_impl)
+                             impl=self.norm_impl, mxu=self.norm_mxu)
         return self.linear(x)
 
 

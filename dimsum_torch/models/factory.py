@@ -4,16 +4,17 @@ the JAX CLIs'), with the latent resolution image_size // 8.
 
 `model_config` is the config half of the JAX `create_model` (the same
 fields from the same flags), `build_model` builds a config's module with
-seeded random weights, and `create_model` does both.  What the port does
-not build raises `NotImplementedError` naming its ROADMAP item:
-`--scan-impl xla|pallas` (the port's scans are its CUDA kernels and the
-plain PyTorch scan), MoE with tensor parallelism (the JAX `ep_mesh`,
-expert parallelism: Queue 1 item 8) and the JAX opt-in environment
-switches the port lacks (`UNPORTED_SWITCHES`, item 7).  The four switches
-of the JAX fused-kernel configuration are read from the environment as
-the JAX package reads them at call time (`fused_switches`): each sets
-the config field of its name, and a DiT takes only `DIMSUM_FUSED_NORM`,
-the one of the four that reaches the JAX DiT (its norm + modulate sites).
+seeded random weights, and `create_model` does both.  `--scan-impl
+xla|pallas` raises `NotImplementedError` (the port's scans are its CUDA
+kernels and the plain PyTorch scan).  The JAX package's opt-in
+environment switches are read from the environment as the JAX package
+reads them at call time, each setting the config field of its name: the
+four of the fused-kernel configuration (`fused_switches`; a DiT takes only
+`DIMSUM_FUSED_NORM`, the one of the four that reaches the JAX DiT, its
+norm + modulate sites) and the six others (`env_switches`: the wavelet
+packs, `DIMSUM_NORM_MXU` and the attention routes; a DiT takes the
+norm and attention ones).  With --tp the CLI builds the model group and
+sets `tp_group` on the config (with --is-moe, expert parallelism).
 `--mamba-moe-layers` builds nothing, as in JAX: no module of
 `dimsum_tpu/models` reads it.  A DiT
 takes no DiM flag and no `--grad-checkpoint` from the namespace, as in
@@ -33,11 +34,16 @@ from dimsum_torch.models.dit import DiT, DiT_models, DiTConfig, build_dit
 
 ModelConfig = Union[DiMConfig, DiTConfig]
 
-# the JAX package's opt-in environment switches that the port has not
-# ported (ROADMAP Queue 1 item 7); set to "1" they are refused, not ignored
-UNPORTED_SWITCHES = ("DIMSUM_WAVELET_ONE_REARRANGE", "DIMSUM_DWT_CL",
-                     "DIMSUM_FUSED_WAVELET", "DIMSUM_NORM_MXU",
-                     "DIMSUM_FLASH_ATTN", "DIMSUM_FULL_ATTN")
+# the JAX package's other opt-in switches: "1" turns each boolean field on
+# (blocks.py:385-416, norms.py:163-170); the attention's two are "1", "0"
+# or anything else, "auto" (attention.py:35-54)
+ENV_SWITCHES = {"DIMSUM_WAVELET_ONE_REARRANGE": "wavelet_one_rearrange",
+                "DIMSUM_DWT_CL": "dwt_cl",
+                "DIMSUM_FUSED_WAVELET": "fused_wavelet",
+                "DIMSUM_NORM_MXU": "norm_mxu",
+                "DIMSUM_FLASH_ATTN": "flash_attn",
+                "DIMSUM_FULL_ATTN": "full_attn"}
+_ATTN_SWITCHES = ("flash_attn", "full_attn")
 # the JAX fused-kernel switches and the config fields they set
 FUSED_SWITCHES = {"DIMSUM_PALLAS_NORM": "pallas_norm",
                   "DIMSUM_FUSED_NORM": "fused_norm",
@@ -67,22 +73,30 @@ def fused_switches(dit: bool = False) -> dict:
     return on
 
 
+def env_switches(dit: bool = False) -> dict:
+    """The config fields of the JAX opt-in switches besides the fused four,
+    read from `os.environ` as the JAX package reads them: "1" turns
+    `DIMSUM_WAVELET_ONE_REARRANGE`, `DIMSUM_DWT_CL`, `DIMSUM_FUSED_WAVELET`
+    and `DIMSUM_NORM_MXU` on; `DIMSUM_FLASH_ATTN` and `DIMSUM_FULL_ATTN`
+    are "1", "0" or "auto" (any other value).  For a DiT (`dit`) the norm
+    and attention ones: the JAX DiT has no wavelet pack."""
+    out = {}
+    for name, field in ENV_SWITCHES.items():
+        value = os.environ.get(name, "auto" if field in _ATTN_SWITCHES
+                               else "0")
+        if field in _ATTN_SWITCHES:
+            out[field] = value if value in ("0", "1") else "auto"
+        elif not dit or field == "norm_mxu":
+            out[field] = value == "1"
+    return out
+
+
 def model_config(args: Any) -> ModelConfig:
     """The config the JAX `create_model` builds from `args`."""
-    for name in UNPORTED_SWITCHES:
-        if os.environ.get(name, "0") == "1":
-            raise NotImplementedError(
-                f"{name}=1: the JAX opt-in switch is not ported to "
-                "dimsum_torch yet (ROADMAP.md Queue 1 item 7)")
     if args.scan_impl not in (None, "ref"):
         raise NotImplementedError(
             f"--scan-impl {args.scan_impl}: the port's scans are its CUDA "
             "kernels (None) and the plain PyTorch scan (ref)")
-    if getattr(args, "tp", 1) > 1 and args.is_moe:
-        raise NotImplementedError(
-            "--is-moe with --tp (experts sharded over the model axis, the "
-            "JAX parallel/moe_ep.py): not ported to dimsum_torch yet "
-            "(ROADMAP.md Queue 1 item 8)")
     dtype = torch.bfloat16 if getattr(args, "bf16", False) else torch.float32
     if "DiM" in args.model:
         return DiM_models[args.model](
@@ -111,7 +125,7 @@ def model_config(args: Any) -> ModelConfig:
             dtype=dtype,
             grad_checkpoint=getattr(args, "grad_checkpoint", False),
             remat_policy=getattr(args, "remat_policy", None),
-            **fused_switches())
+            **fused_switches(), **env_switches())
     if "DiT" in args.model:
         return DiT_models[args.model](
             img_resolution=args.image_size // 8,
@@ -120,7 +134,7 @@ def model_config(args: Any) -> ModelConfig:
             num_classes=args.num_classes,
             learn_sigma=args.learn_sigma,
             dtype=dtype,
-            **fused_switches(dit=True))
+            **fused_switches(dit=True), **env_switches(dit=True))
     raise ValueError(f"unknown model {args.model}")
 
 

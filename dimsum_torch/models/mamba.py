@@ -51,6 +51,18 @@ flips around it, as JAX falls back to (mamba.py:143-147).  As in the JAX
 `elif` chain, the halo branch comes before the fused `conv_xproj`.  Forward
 only: with a parameter that needs a gradient it raises.  v2 and zigzag
 with `seq_group` raise, as in JAX (mamba.py:291-295).
+
+With `tp_group` (tensor parallelism, `DiMConfig.tp_group`; the JAX
+`tp_param_specs` rules under GSPMD) the mixer holds its rank's d_inner / k
+channels (`parallel/mesh.py::TP_RULES`): in_proj's rows of both halves
+(the rank's x and z channels), conv1d, dt_proj, A_log and D cut by channel,
+x_proj's and out_proj's columns.  The input enters by `tp_copy`; x_proj's
+product on the rank's channels is a partial x_dbl, summed over the group
+(`tp_sum_sharded`) before dt_low, B and C are cut from it (after the
+conv + x_proj kernel's fp32 product, with `conv_xproj`); out_proj's
+partial outputs are summed (`tp_sum`).  The scan kernels and the conv +
+x_proj kernel run on the rank's channels as on a narrower mixer; h0 (from
+the replicated cond_proj) is cut to them.  With `seq_group` it raises.
 """
 
 from __future__ import annotations
@@ -67,7 +79,8 @@ from dimsum_torch.ops.causal_conv1d import causal_conv1d, causal_conv1d_halo
 from dimsum_torch.ops.conv_xproj import conv_xproj, conv_xproj_supported
 from dimsum_torch.ops.selective_scan import selective_scan_dtlow
 from dimsum_torch.ops.selective_scan_sp import selective_scan_seq_parallel
-from dimsum_torch.parallel.mesh import all_gather
+from dimsum_torch.parallel.mesh import (all_gather, tp_copy, tp_rank,
+                                        tp_size, tp_sum, tp_sum_sharded)
 from dimsum_torch.utils import remat
 
 
@@ -96,9 +109,19 @@ class Mamba(nn.Module):
                  conv_xproj: bool = False, seq_group=None,
                  seq_island: bool = False, scan_type: str = "none",
                  layer_idx: int = 0, zigzag_paths=None,
-                 zigzag_paths_reverse=None, use_cond_init: bool = False):
+                 zigzag_paths_reverse=None, use_cond_init: bool = False,
+                 tp_group=None):
         super().__init__()
-        self.d_inner = d_inner = expand * d_model
+        k = tp_size(tp_group)
+        if (expand * d_model) % k:
+            raise ValueError(f"d_inner {expand * d_model} does not split "
+                             f"over {k} tensor-parallel ranks")
+        if tp_group is not None and seq_group is not None:
+            raise NotImplementedError(
+                "tensor and sequence parallelism together: no JAX CLI "
+                "builds that mesh")
+        self.tp_group = tp_group
+        self.d_inner = d_inner = expand * d_model // k
         self.d_state = d_state
         self.dt_rank = math.ceil(d_model / 16) if dt_rank is None else dt_rank
         self.conv_xproj = conv_xproj
@@ -117,8 +140,8 @@ class Mamba(nn.Module):
         for suffix in ("", "_b") if scan_type == "v2" else ("",):
             self._add_branch(suffix, d_conv, dtype)
         self.out_proj = Linear(d_inner, d_model, bias=False, dtype=dtype)
-        if d_cond is not None:
-            self.cond_proj = Linear(d_cond, d_inner, dtype=dtype)
+        if d_cond is not None:  # whole on every rank (no TP rule)
+            self.cond_proj = Linear(d_cond, d_inner * k, dtype=dtype)
         if zig:
             # the layer's permutation and its inverse (not in the state
             # dict: the reference's frozen zigzag buffers are regenerated)
@@ -151,7 +174,7 @@ class Mamba(nn.Module):
             raise NotImplementedError(
                 "reverse_tokens composes with zigzag gathers only through "
                 "explicit flips; apply the flip at the block level instead")
-        xz = self.in_proj(x)
+        xz = self.in_proj(tp_copy(x, self.tp_group))
         if zig:
             xz = xz.index_select(1, self.perm)
         x_in, z = xz.chunk(2, dim=-1)
@@ -164,7 +187,10 @@ class Mamba(nn.Module):
                     "use_cond_init h0 seeding is not supported with "
                     "sequence parallelism: h0 must enter on shard 0 only "
                     "and be carried across shards")
-            cond = self.cond_proj(cond_emb)
+            cond = tp_copy(self.cond_proj(cond_emb), self.tp_group)
+            if self.tp_group is not None:
+                r0 = tp_rank(self.tp_group) * self.d_inner
+                cond = cond[:, r0:r0 + self.d_inner]
             h0 = cond.float()[:, :, None].expand(
                 -1, -1, self.d_state).contiguous()
         if self.seq_group is not None:
@@ -178,7 +204,7 @@ class Mamba(nn.Module):
             # with reverse_tokens the roles swap: "" runs reversed, "_b"
             # forward (the reference's flip(mixer_v2(flip(x))))
             y = y + self._branch(x_in, z, "_b", not reverse_tokens, h0)
-        out = self.out_proj(y)
+        out = tp_sum(self.out_proj(y), self.tp_group)
         if zig:
             out = out.index_select(1, self.perm_rev)
         return out
@@ -201,12 +227,13 @@ class Mamba(nn.Module):
             x_conv, x_dbl = conv_xproj(x_in, conv_w, conv1d.bias,
                                        x_proj.weight, reverse=reverse,
                                        impl=self.conv_impl)
+            x_dbl = tp_sum_sharded(x_dbl, self.tp_group)
             x_dbl = x_dbl.to(x_proj.compute_dtype)
         else:
             with remat.tag("conv_out"):  # a remat site, as ConvXProjFn
                 x_conv = causal_conv1d(x_in, conv_w, conv1d.bias,
                                        activation="silu", reverse=reverse)
-            x_dbl = x_proj(x_conv)
+            x_dbl = tp_sum_sharded(x_proj(x_conv), self.tp_group)
         dt_low, Bm, Cm = x_dbl.split([r, n, n], dim=-1)
         dt_w = dt_proj.weight.t().to(dt_low.dtype).contiguous()
         A = -torch.exp(getattr(self, f"A{suffix}_log").float())

@@ -24,6 +24,15 @@ flattened all-reduce before the clip, AdamW and EMA, which then run the
 same on every rank.  Each rank draws from its own generator, seeded
 `global_seed * world_size + rank`, as the reference seeds its ranks
 (train.py:155); the caller creates it.
+
+Tensor parallelism (`make_train_step(..., tp_group=g)`, the model built
+with `DiMConfig.tp_group`; the JAX step under `tp_shardings`,
+train.py:144-160): the model group's ranks take the same batch and the same
+draws, each holds its shards of the sharded parameters, and the step is the
+unsharded one: AdamW and the EMA act element by element on each shard, and
+the global norm of the clip sums the shards' squares over the group
+(`clip_by_global_norm(..., tp_group=g)`).  `group` is then the data group:
+the gradients are averaged over the data ways only.
 """
 
 from __future__ import annotations
@@ -36,6 +45,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn as nn
+
+from dimsum_torch.parallel.mesh import group_sum, is_sharded
 
 
 @dataclasses.dataclass
@@ -109,13 +120,26 @@ def ema_update(ema_params: Dict[str, torch.Tensor], model: nn.Module,
 
 @torch.no_grad()
 def clip_by_global_norm(params: Iterable[nn.Parameter],
-                        max_norm: float) -> torch.Tensor:
+                        max_norm: float, tp_group=None,
+                        sharded: Optional[Iterable[bool]] = None
+                        ) -> torch.Tensor:
     """Scale every gradient by min(1, max_norm / max(norm, 1e-12)), the JAX
     formula, in place; returns the norm before clipping.  Parameters
-    without a gradient count as zero."""
+    without a gradient count as zero.  With `tp_group`, the parameters
+    marked in `sharded` are a rank's shards: their squares are summed over
+    the group, the others' (the same on every rank) counted once."""
+    params = list(params)
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(g.float()) for g in grads]))
+    if tp_group is None:
+        norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g.float()) for g in grads]))
+    else:
+        # [replicated, sharded] squares; a shard's are summed over the group
+        sq = [torch.zeros((), device=grads[0].device) for _ in range(2)]
+        for p, shard in zip(params, sharded):
+            if p.grad is not None:
+                sq[shard] = sq[shard] + p.grad.float().square().sum()
+        norm = torch.sqrt(sq[0] + group_sum(sq[1], tp_group))
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     for g in grads:
         g.mul_(scale.to(g.dtype))
@@ -142,7 +166,8 @@ def all_reduce_mean(params, loss, group) -> torch.Tensor:
 def make_train_step(model: nn.Module, transport, optimizer:
                     torch.optim.Optimizer, max_grad_norm: float = 1.0,
                     ema_decay: float = 0.9999, use_labels: bool = True,
-                    grad_accum: int = 1, group=None) -> Callable:
+                    grad_accum: int = 1, group=None,
+                    tp_group=None) -> Callable:
     """Returns train_step(state, x, y, generator) -> {"loss", "grad_norm"}
     (device scalars; reading them waits for the step).
 
@@ -159,8 +184,13 @@ def make_train_step(model: nn.Module, transport, optimizer:
     micro-batches first) and the loss are averaged over the group before
     the update (`all_reduce_mean`).  The step then equals one process
     stepping every rank's micro-batches in turn with the same draws, up to
-    the order of the sums."""
-    params = list(model.parameters())
+    the order of the sums.  `tp_group` (the model built with it) makes the
+    clip's norm the whole model's (see the module docstring)."""
+    from dimsum_torch.parallel.mesh import is_sharded
+
+    named = list(model.named_parameters())
+    params = [p for _, p in named]
+    sharded = [is_sharded(n) for n, _ in named]
 
     def micro_loss(x, y, generator):
         def model_fn(xt, t, **kw):
@@ -198,7 +228,8 @@ def make_train_step(model: nn.Module, transport, optimizer:
                 p.grad = torch.zeros_like(p)
         if group is not None:
             loss = all_reduce_mean(params, loss, group)
-        grad_norm = clip_by_global_norm(params, max_grad_norm)
+        grad_norm = clip_by_global_norm(params, max_grad_norm, tp_group,
+                                        sharded)
         optimizer.step()
         ema_update(state.ema_params, model, ema_decay)
         state.step += 1

@@ -29,19 +29,29 @@ sampler, `dimsum_torch.diffusion` (`create_diffusion`, `p_sample_loop`,
 `ddim_sample_loop`), is ported as a module, and as in JAX no CLI samples
 through it.
 
-Not ported yet, and refused: `--pp` (ROADMAP.md Queue 1 item 8); what
-`dimsum_torch.models.factory.model_config` refuses.
+`--pp k` (the JAX CLI's pipeline-parallel sampling, sample.py:57-62,
+:143-165) runs the DiM's blocks as a GPipe pipeline of k stage ranks
+(`parallel/pipeline.py::dim_pipeline_forward`, `--pp-microbatches`
+microbatches, clamped to a divisor of the batch): the command starts k - 1
+more processes of itself (spawned; ranks 1 .. k - 1, joined over a free
+localhost port by `parallel.init_distributed`: one card a rank with NCCL
+where there are k cards, else gloo, the ranks sharing a card as the JAX
+mesh's devices do not), each rank holds its stage's blocks and samples the same
+batch, and rank 0 writes the outputs and returns the record.  A DiT, and
+`--compute-ppl` with `--pp`, raise.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dimsum_torch.cli import (add_model_args, add_moe_args, add_ode_args,
                               add_sde_args, add_transport_args, add_vae_args,
@@ -51,6 +61,8 @@ from dimsum_torch.models.dim import (forward_with_adacfg, forward_with_cfg,
 from dimsum_torch.models.factory import model_class
 from dimsum_torch.models.linear import cast_weights_
 from dimsum_torch.models.vae import load_vae
+from dimsum_torch.parallel.mesh import (init_distributed, shard_state_dict,
+                                        tp_rank, tp_size)
 from dimsum_torch.transport import Sampler
 from dimsum_torch.utils.ckpt import load_torch_checkpoint
 from dimsum_torch.utils.device import card_name_and_power_limit, resolve_device
@@ -86,8 +98,9 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--sample-dir", type=str, default="samples")
     p.add_argument("--pp", type=int, default=1,
-                   help="pipeline-parallel ways (not ported: ROADMAP.md "
-                        "Queue 1 item 8)")
+                   help="pipeline-parallel ways: the block stack staged "
+                        "over this many processes (GPipe microbatches); "
+                        "needs depth / pp %% 4 == 0")
     p.add_argument("--pp-microbatches", type=int, default=4)
     p.add_argument("--measure-time", action="store_true")
     p.add_argument("--compute-nfe", action="store_true")
@@ -109,15 +122,23 @@ def load_model(args, cfg, dev) -> torch.nn.Module:
     """The DiM or DiT of `cfg` on `dev` in eval mode with frozen weights
     (stored in the compute dtype): the checkpoint's, or seeded random ones;
     with `--scan-impl ref` every mixer takes the plain scan."""
+    tp = getattr(cfg, "tp_group", None)
     with torch.device(dev):
         net = model_class(cfg)(cfg)
+        # a tensor-parallel model takes its shards of the full model's
+        full = net if tp is None else model_class(cfg)(
+            dataclasses.replace(cfg, tp_group=None))
     if args.ckpt is None:
         print("WARNING: no --ckpt given; using random init", file=sys.stderr)
-        random_init_(net, 0)
+        random_init_(full, 0)
     else:
-        load_torch_checkpoint(args.ckpt, net,
+        load_torch_checkpoint(args.ckpt, full,
                               key="ema" if args.params == "ema" else "model")
         print(f"loaded {args.ckpt} ({args.params} params)", file=sys.stderr)
+    if tp is not None:
+        net.load_state_dict(shard_state_dict(full.state_dict(), tp_rank(tp),
+                                             tp_size(tp)), strict=True)
+        del full
     if args.scan_impl == "ref":
         for m in net.modules():
             if hasattr(m, "scan_impl"):
@@ -207,15 +228,81 @@ def compute_ppl(args, cfg, model_fn, dev) -> dict:
     return result
 
 
-def main(argv=None) -> dict:
+class PipelinedModel:
+    """The DiM as its stage ranks run it (`dim_pipeline_forward`), called
+    as the model: (x, t, y) -> output."""
+
+    def __init__(self, net, group, num_microbatches: int):
+        from dimsum_torch.parallel.pipeline import keep_stage_blocks_
+
+        self.net = keep_stage_blocks_(net, group)
+        self.group, self.num_microbatches = group, num_microbatches
+
+    def __call__(self, x, t, y=None):
+        from dimsum_torch.parallel.pipeline import dim_pipeline_forward
+
+        return dim_pipeline_forward(self.net, x, t, y, self.group,
+                                    self.num_microbatches)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def _pp_rank(argv, rank: int, k: int, port: int):
+    """A stage rank > 0 of `--pp k`: the CLI's run, writing nothing."""
+    torch.set_num_threads(max(1, torch.get_num_threads() // k))
+    main(argv, _stage=(rank, k, port))
+
+
+def main(argv=None, _stage=None) -> dict:
     """Run the CLI; returns a record of the run: the samples (latents of
     the conditional half), labels, NFE, sampling and decode seconds,
-    log-likelihood, the PPL result and the files written."""
+    log-likelihood, the PPL result and the files written.  With --pp k it
+    starts ranks 1 .. k - 1 and is rank 0 itself."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
+    procs, rank = [], 0
     if args.pp > 1:
-        raise NotImplementedError(
-            "--pp (pipeline-parallel sampling): not ported to dimsum_torch "
-            "yet (ROADMAP.md Queue 1 item 8)")
+        from dimsum_torch.parallel.pipeline import check_pipeline
+
+        if args.compute_ppl:
+            raise NotImplementedError("--compute-ppl with --pp: run the "
+                                      "metric without the pipeline")
+        if "DiM" not in args.model:
+            raise NotImplementedError("--pp stages a DiM's blocks")
+        check_pipeline(model_config(args), args.pp)  # before any rank
+        if _stage is None:  # rank 0: start the other stages
+            import torch.multiprocessing as mp
+
+            port = _free_port()
+            ctx = mp.get_context("spawn")
+            procs = [ctx.Process(target=_pp_rank,
+                                 args=(argv, r, args.pp, port))
+                     for r in range(1, args.pp)]
+            for p in procs:
+                p.start()
+            _stage = (0, args.pp, port)
+        rank, k, port = _stage
+        init_distributed(f"localhost:{port}", k, rank, args.device,
+                         timeout_s=900.0)
+    try:
+        return _main(args, rank)
+    finally:
+        if args.pp > 1:
+            dist.destroy_process_group()
+        for p in procs:
+            p.join()
+            if p.exitcode != 0:
+                raise RuntimeError(f"--pp stage process exited with "
+                                   f"{p.exitcode}")
+
+
+def _main(args, rank: int) -> dict:
     ppl = args.mode == "ODE" and args.compute_ppl
     if ppl and not args.ppl_detector:
         raise SystemExit("--compute-ppl needs --ppl-detector (vgg16.pt or "
@@ -233,7 +320,16 @@ def main(argv=None) -> dict:
     cfg = model_config(args)
     transport = build_transport(args)
     dev = resolve_device(args.device)
+    if args.pp > 1 and dev.type == "cuda":
+        from dimsum_torch.ops import cuda_build
+        from dimsum_torch.utils.device import rank_device
+
+        dev = rank_device(args.device, rank)
+        torch.cuda.set_device(dev)
+        cuda_build.build()
     net = load_model(args, cfg, dev)
+    if args.pp > 1:
+        net = PipelinedModel(net, dist.group.WORLD, args.pp_microbatches)
     sampler = Sampler(transport)
 
     n = args.global_batch_size
@@ -278,7 +374,8 @@ def main(argv=None) -> dict:
         record["seconds"] = time.perf_counter() - t0
     if isinstance(out, tuple):
         out, record["nfe"] = out
-        print(f"NFE: {record['nfe']}")
+        if rank == 0:
+            print(f"NFE: {record['nfe']}")
     samples = out[:n] if use_cfg else out
     record.update(samples=samples, labels=y[:n])
 
@@ -313,6 +410,8 @@ def main(argv=None) -> dict:
         print(f"sampling time: {dt:.3f}s / batch ({n / dt:.3f} img/s) on "
               f"{card}")
 
+    if rank != 0:  # a stage rank of --pp: rank 0 writes
+        return record
     os.makedirs(args.sample_dir, exist_ok=True)
     if args.vae_ckpt:
         vae = load_vae(args.vae_ckpt, dev)

@@ -27,14 +27,23 @@ the model, CFG and transport of `dimsum_torch.sample`.  Three routes:
 Metrics go to `metric-<name>.jsonl` in --sample-dir; the real side's
 feature stats are cached in `<sample-dir>/../stats-cache`.  Several
 processes: --num-processes, --process-id and --coordinator (host:port of
-rank 0), one process a card (NCCL; gloo on the CPU).  Runs on the card
-unless --device cpu.  Not ported yet, and refused: --tp (ROADMAP.md Queue
-1 item 8).
+rank 0), one process a card (NCCL; gloo on the CPU and for ranks that
+share a card).  Runs on the card unless --device cpu.
+
+--tp k (the JAX CLI's, sample_ddp.py:122-135): the processes form a (data,
+model) mesh of num-processes / k data rows (`parallel.make_mesh_groups`),
+each row one tensor-parallel model (`DiMConfig.tp_group`; with --is-moe,
+expert parallelism); the rows split the samples as the processes do
+without --tp (the global batch is the per-process batch times the data
+ways), a row's ranks draw the row's noise and compute the same samples,
+and only the row's first rank writes them (latents, PNGs, feature chunks);
+the other ranks take part in the metrics with no samples of their own.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 import time
@@ -43,11 +52,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from dimsum_torch.cli import (_require, add_model_args, add_moe_args,
+from dimsum_torch.cli import (add_model_args, add_moe_args,
                               add_ode_args, add_sde_args, add_transport_args,
                               add_vae_args, build_transport, model_config)
 from dimsum_torch.models.vae import load_vae
-from dimsum_torch.parallel import init_distributed
+from dimsum_torch.parallel import init_distributed, make_mesh_groups
 from dimsum_torch.sample import load_model, model_fn_for, with_null_class
 from dimsum_torch.transport import Sampler
 from dimsum_torch.utils.device import rank_device
@@ -82,8 +91,8 @@ def parse_args(argv=None):
                    help="the images are PNG files (utils/png.py)")
     p.add_argument("--use-even-classes", action="store_true")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel ways (not ported: ROADMAP.md "
-                        "Queue 1 item 8)")
+                   help="tensor-parallel ways: the processes form a "
+                        "(num-processes / tp, tp) mesh")
     p.add_argument("--eval-refdir", type=str, default=None,
                    help="folder (or .zip) of real images")
     p.add_argument("--eval-metric", type=str, default="fid50k_full",
@@ -126,11 +135,12 @@ class Generator:
     order whether or not the batch is generated, so that a rerun that
     skips batches gives the others unchanged."""
 
-    def __init__(self, args, rank: int, world: int, dev):
+    def __init__(self, args, rank: int, world: int, dev, tp_group=None):
         self.args, self.dev = args, dev
         if args.label_dropout < 0:
             args.label_dropout = 0.1 if args.num_classes > 1 else 0.0
-        self.cfg = cfg = model_config(args)
+        self.cfg = cfg = dataclasses.replace(model_config(args),
+                                             tp_group=tp_group)
         self.net = load_model(args, cfg, dev)
         self.model_fn = model_fn_for(args, self.net, cfg)
         sampler = Sampler(build_transport(args))
@@ -200,11 +210,11 @@ def main(argv=None) -> dict:
     the batches it generated, the seconds of each stage and the metric
     results (rank 0)."""
     args = parse_args(argv)
-    _require(args.tp == 1, f"--tp {args.tp}",
-             "ROADMAP.md Queue 1 item 8 (tensor parallelism)")
     rank = init_distributed(args.coordinator, args.num_processes,
                             args.process_id, args.device)
     world = max(args.num_processes, 1)
+    if world % args.tp:
+        raise ValueError(f"--tp {args.tp} does not divide {world} processes")
     try:
         return _run(args, rank, world, rank_device(args.device, rank))
     finally:
@@ -219,12 +229,19 @@ def _run(args, rank: int, world: int, dev) -> dict:
 
         torch.cuda.set_device(dev)
         cuda_build.build()
-    gen = Generator(args, rank, world, dev)
+    mesh = make_mesh_groups(world // args.tp, args.tp) if args.tp > 1 \
+        else None
+    # the data row (the samples' slice) and whether this rank writes them
+    row, rows = (mesh.data_index, mesh.data_ways) if mesh else (rank, world)
+    writer = mesh is None or mesh.model_index == 0
+    wrank = row * args.tp  # the rank that writes the row's files
+    gen = Generator(args, row, rows, dev, mesh.model if mesh else None)
     vae = load_vae(args.vae_ckpt, dev) if args.vae_ckpt else None
     os.makedirs(args.sample_dir, exist_ok=True)
     seconds = {"decode": 0.0, "features": 0.0, "write": 0.0, "metrics": 0.0}
     record = {"rank": rank, "world": world, "samples": gen.samples,
-              "batches": gen.iters, "seconds": seconds, "results": []}
+              "batches": gen.iters, "seconds": seconds, "results": [],
+              "data_ways": rows, "writer": writer}
 
     def finish():
         _barrier(world)
@@ -240,7 +257,10 @@ def _run(args, rank: int, world: int, dev) -> dict:
         lat = (np.concatenate(lat) if lat else
                np.zeros((0, gen.cfg.in_channels, gen.cfg.img_resolution,
                          gen.cfg.img_resolution), np.float32))
-        suffix = f"_rank{rank}" if world > 1 else ""
+        record["latents"] = lat
+        if not writer:
+            return finish()
+        suffix = f"_rank{row}" if rows > 1 else ""
         path = os.path.join(args.sample_dir, f"latents{suffix}.npz")
         np.savez(path, latents=lat)
         record["latents_path"] = path
@@ -254,7 +274,7 @@ def _run(args, rank: int, world: int, dev) -> dict:
         asked for."""
         from dimsum_torch.eval.features import latents_to_uint8
 
-        save = not args.eval_streaming or args.save_images
+        save = (not args.eval_streaming or args.save_images) and writer
         for it, out in gen.batches(skip):
             t0 = time.perf_counter()
             with torch.no_grad():
@@ -279,8 +299,8 @@ def _run(args, rank: int, world: int, dev) -> dict:
         detector = make_detector(args.eval_detector, dev)
         # numpy detectors (randproj) run on the host
         record["detector_device"] = str(getattr(detector, "device", "cpu"))
-        record["results"] = _streaming(args, rank, gen, decoded, detector,
-                                       metrics, image_size, seconds)
+        record["results"] = _streaming(args, wrank, gen, decoded, detector,
+                                       metrics, image_size, seconds, writer)
         return finish()
 
     for _ in decoded():
@@ -303,10 +323,12 @@ def _cache_dir(args) -> str:
 
 
 def _streaming(args, rank, gen, decoded, detector, metrics, image_size,
-               seconds):
-    """The streaming route: features of each decoded batch into this
-    rank's chunk files (batches whose chunk is on disk are not generated),
-    then the metrics over the combined features."""
+               seconds, writer: bool = True):
+    """The streaming route: features of each decoded batch into rank
+    `rank`'s chunk files (batches whose chunk is on disk are not
+    generated), then the metrics over the combined features; a rank that
+    is not its row's `writer` generates the same batches and adds no
+    samples of its own."""
     from dimsum_torch.data import ImageFolderDataset
     from dimsum_torch.eval import (FeatureStats, calc_metrics_multiprocess,
                                    detector_id, report_metric)
@@ -317,11 +339,14 @@ def _streaming(args, rank, gen, decoded, detector, metrics, image_size,
     def chunk(it):
         return os.path.join(feat_dir, f"chunk{it:06d}.npy")
 
-    on_disk = [it for it in range(gen.iters) if os.path.exists(chunk(it))]
+    # fixed before the first batch, so that a row's ranks skip alike
+    on_disk = {it for it in range(gen.iters) if os.path.exists(chunk(it))}
     if on_disk:
         print(f"[rank {rank}] resuming: {len(on_disk)}/{gen.iters} feature "
               "chunks on disk", file=sys.stderr)
-    for it, imgs in decoded(skip=lambda it: os.path.exists(chunk(it))):
+    for it, imgs in decoded(skip=lambda it: it in on_disk):
+        if not writer:
+            continue
         t0 = time.perf_counter()
         feats = detector(imgs)
         seconds["features"] += time.perf_counter() - t0
@@ -333,7 +358,7 @@ def _streaming(args, rank, gen, decoded, detector, metrics, image_size,
     need_all = any(not m.strip().startswith("fid") for m in metrics)
     gen_stats = FeatureStats(capture_all=need_all, capture_mean_cov=True,
                              max_items=gen.samples)
-    for it in range(gen.iters):
+    for it in range(gen.iters if writer else 0):
         gen_stats.append(np.load(chunk(it)))
     real = ImageFolderDataset(args.eval_refdir, image_size, raw_uint8=True)
     results = calc_metrics_multiprocess(

@@ -29,7 +29,8 @@ process a rank with --num-processes, --process-id and --coordinator
 global-batch / num-processes samples with its own generator (seeded
 global_seed * num_processes + rank), and the gradients and the loss are
 averaged over the ranks before the update.  The backend is NCCL on the
-card and gloo on the CPU.
+card and gloo on the CPU or where ranks share a card
+(`parallel.init_distributed`).
 
 A pixel dataset (an image folder, an LMDB) needs --vae-ckpt: each batch
 is encoded on the card (a draw from the posterior, from the process's
@@ -41,9 +42,20 @@ of --eval-detector, made once for the run; the result goes to
 `metric-fid2k_full.jsonl` and the real side's stats to `stats-cache/` in
 the run's directory.
 
+Tensor parallelism (--tp k, the JAX CLI's, train.py:144-160): the
+processes form a (data, model) mesh of num-processes / k data rows of k
+ranks (`parallel.make_mesh_groups`); a row's ranks hold the shards of the
+sharded parameters (`parallel/mesh.py::TP_RULES`; with --is-moe the experts
+split over them, expert parallelism with capacity dispatch at
+`moe_capacity_factor`), take the row's batch and draws (seeded
+global_seed * data_ways + row) and step the unsharded model's update; the
+gradients are averaged over the data ways only.  Saves, resume and the
+EMA go through the gathered, unsharded state (`utils/ckpt.py`), so a
+--tp run's checkpoint loads at --tp 1 and into JAX.  The log line is the
+JAX CLI's.
+
 On the CPU: --device cpu.  The kernels are built (nvcc, in parallel)
-before the first step.  Not ported yet, and refused: --tp (ROADMAP.md
-Queue 1 item 8).  --no-lr-decay, --min-lr and --warmup-epochs
+before the first step.  --no-lr-decay, --min-lr and --warmup-epochs
 are the reference's dead flags, as in the JAX CLI: the lr is constant
 (`parallel.warmup_cosine_schedule` exists, off).  A resumed run starts its
 generators from their seeds again, as the reference's and the JAX CLI's
@@ -53,6 +65,7 @@ do.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import os
 import sys
@@ -63,16 +76,19 @@ import torch
 import torch.distributed as dist
 from torch.func import functional_call
 
-from dimsum_torch.cli import (_require, add_model_args, add_moe_args,
+from dimsum_torch.cli import (add_model_args, add_moe_args,
                               add_transport_args, add_vae_args,
-                              build_transport, create_model)
+                              build_transport, model_config)
 from dimsum_torch.data import Loader, device_batches, get_dataset
+from dimsum_torch.models.factory import build_model
 from dimsum_torch.models.vae import load_vae
 from dimsum_torch.parallel import (create_optimizer, create_train_state,
-                                   init_distributed, make_train_step)
+                                   init_distributed, make_mesh_groups,
+                                   make_train_step)
 from dimsum_torch.transport import Sampler
 from dimsum_torch.utils.ckpt import (load_torch_checkpoint,
-                                     restore_checkpoint, save_checkpoint)
+                                     restore_checkpoint, save_checkpoint,
+                                     unsharded_meta)
 from dimsum_torch.utils.device import rank_device
 from dimsum_torch.utils.png import write_png
 
@@ -107,8 +123,8 @@ def parse_args(argv=None):
     p.add_argument("--coordinator", type=str, default="localhost:29512",
                    help="host:port of rank 0's rendezvous")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel ways (not ported: ROADMAP.md "
-                        "Queue 1 item 8)")
+                   help="tensor-parallel ways: the processes form a "
+                        "(num-processes / tp, tp) mesh")
     p.add_argument("--grad-accum", type=int, default=1,
                    help="micro-batches folded into one optimizer update")
     p.add_argument("--lr", type=float, default=1e-4)
@@ -143,12 +159,19 @@ class Trainer:
     stands."""
 
     def __init__(self, args):
-        _require(args.tp == 1, f"--tp {args.tp}",
-                 "ROADMAP.md Queue 1 item 8 (tensor parallelism)")
         self.args = args
         self.rank = init_distributed(args.coordinator, args.num_processes,
                                      args.process_id, args.device)
         self.world = max(args.num_processes, 1)
+        if self.world % args.tp:
+            raise ValueError(f"--tp {args.tp} does not divide "
+                             f"{self.world} processes")
+        self.mesh = (make_mesh_groups(self.world // args.tp, args.tp)
+                     if args.tp > 1 else None)
+        # the data row of this process and the rows' count
+        self.row, self.rows = ((self.mesh.data_index, self.mesh.data_ways)
+                               if self.mesh else (self.rank, self.world))
+        self.tp_group = self.mesh.model if self.mesh else None
         self.device = dev = rank_device(args.device, self.rank)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
@@ -171,31 +194,39 @@ class Trainer:
             raise SystemExit("--eval-refdir needs --vae-ckpt to decode the "
                              "samples")
         self.dataset = get_dataset(args)
-        if args.global_batch_size % self.world:
+        if args.global_batch_size % self.rows:
             raise ValueError(f"--global-batch-size {args.global_batch_size}"
-                             f" does not split over {self.world} processes")
-        batch = args.global_batch_size // self.world
+                             f" does not split over {self.rows} data rows")
+        batch = args.global_batch_size // self.rows
         if batch % args.grad_accum:
             raise ValueError(f"per-process batch {batch} not divisible by "
                              f"--grad-accum {args.grad_accum}")
         self.loader = Loader(self.dataset, batch, shuffle=True,
                              seed=args.global_seed,
                              num_workers=args.num_workers,
-                             shard_id=self.rank, num_shards=self.world)
+                             shard_id=self.row, num_shards=self.rows)
         self.log(f"dataset: {len(self.dataset)} samples, {len(self.loader)} "
                  f"steps/epoch, {self.world} process(es), {dev}")
+        if self.mesh:
+            self.log(f"tensor-parallel: params sharded over model={args.tp}"
+                     f" ({self.rows} data row(s))")
 
         if dev.type == "cuda":
             from dimsum_torch.ops import cuda_build
 
             cuda_build.build()
-        model, self.cfg = create_model(args, dev, seed=args.global_seed,
-                                       train=True)
+        self.cfg = dataclasses.replace(model_config(args),
+                                       tp_group=self.tp_group)
+        model = build_model(self.cfg, dev, seed=args.global_seed, train=True)
         if args.scan_impl == "ref":
             for m in model.modules():
                 if hasattr(m, "scan_impl"):
                     m.scan_impl = "ref"
         if args.model_ckpt:
+            if self.tp_group is not None:
+                raise NotImplementedError(
+                    "--model-ckpt with --tp: warm-start at --tp 1, save, and "
+                    "resume the snapshot at --tp")
             load_torch_checkpoint(args.model_ckpt, model, key="model",
                                   adapt=True)
             self.log(f"warm-started from {args.model_ckpt}")
@@ -203,13 +234,17 @@ class Trainer:
         optimizer = create_optimizer(model, lr=args.lr, weight_decay=0.0)
         self.state = create_train_state(model, optimizer)
         n_params = sum(p.numel() for p in model.parameters())
+        if self.mesh:  # the whole model's, as JAX counts it
+            n_params = sum(p.numel() for p in
+                           unsharded_meta(model).parameters())
         self.log(f"model params: {n_params / 1e6:.1f}M")
         self.vae = load_vae(args.vae_ckpt, dev) if args.vae_ckpt else None
 
         self.train_steps = self.init_epoch = 0
         self.content_dir = os.path.join(self.exp_dir, "content")
         if args.resume:
-            restored, step = restore_checkpoint(self.content_dir, self.state)
+            restored, step = restore_checkpoint(self.content_dir, self.state,
+                                                tp_group=self.tp_group)
             if restored is not None:
                 self.train_steps = step
                 self.init_epoch = step // max(len(self.loader), 1)
@@ -218,9 +253,10 @@ class Trainer:
             model, self.transport, optimizer,
             max_grad_norm=args.max_grad_norm, ema_decay=args.ema_decay,
             use_labels=self.use_labels, grad_accum=args.grad_accum,
-            group=dist.group.WORLD if self.world > 1 else None)
+            group=(self.mesh.data if self.mesh else dist.group.WORLD)
+            if self.rows > 1 else None, tp_group=self.tp_group)
         self.generator = torch.Generator(dev).manual_seed(
-            args.global_seed * self.world + self.rank)
+            args.global_seed * self.rows + self.row)
         self.history = []
         self.detector = None  # in-training FID's, made at its first use
 
@@ -272,18 +308,20 @@ class Trainer:
             paused = time.perf_counter()
             if epoch % args.save_content_every == 0:
                 save_checkpoint(self.content_dir, state,
-                                step=self.train_steps, keep=2, args=args)
+                                step=self.train_steps, keep=2, args=args,
+                                tp_group=self.tp_group)
                 self.log(f"saved content checkpoint at step "
                          f"{self.train_steps}")
             if epoch % args.ckpt_every == 0 and epoch > 0:
                 save_checkpoint(os.path.join(self.exp_dir, "checkpoints"),
                                 state, step=self.train_steps, keep=10,
-                                args=args)
+                                args=args, tp_group=self.tp_group)
                 self.log(f"saved snapshot at step {self.train_steps}")
+            # rank 0's work; its model group samples beside it
             if (epoch % args.plot_every == 0 and self.vae is not None
-                    and self.rank == 0):
+                    and self.row == 0):
                 self.plot_samples(epoch)
-            if (args.eval_refdir and self.rank == 0
+            if (args.eval_refdir and self.row == 0
                     and epoch % args.eval_every == 0 and epoch > 0):
                 self.evaluate()
             # the steps/sec of a window leave out the saves and the plots
@@ -303,6 +341,8 @@ class Trainer:
         g = torch.Generator(dev).manual_seed(epoch)
         imgs = torch.cat([self.ema_images(chunk, g)
                           for _ in range(0, n, chunk)])
+        if self.rank != 0:  # a model rank beside rank 0
+            return None
         imgs = ((imgs + 1) / 2 * 255).clamp(0, 255).to(torch.uint8).cpu()
         side = int(np.ceil(np.sqrt(n)))
         H, W = imgs.shape[2], imgs.shape[3]
@@ -354,6 +394,11 @@ class Trainer:
         def gen_batches():
             for _ in range(0, args.eval_nsamples, args.eval_bs):
                 yield latents_to_uint8(self.ema_images(args.eval_bs, g))
+
+        if self.rank != 0:  # a model rank samples beside rank 0
+            for _ in gen_batches():
+                pass
+            return {}
 
         real = ImageFolderDataset(args.eval_refdir, args.image_size,
                                   raw_uint8=True)

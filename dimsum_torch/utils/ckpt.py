@@ -20,6 +20,11 @@
     rotated to the newest `keep`, and the latest restored (the JAX
     functions of the same names, :226-252, over orbax).  Rank 0 writes;
     every rank reads.
+  * With a tensor-parallel state (`tp_group`), a snapshot holds the full,
+    unsharded state (`gather_train_state`: the model, the EMA and the
+    AdamW moments gathered over the group, in the unsharded model's
+    parameter order), so it loads at any --tp and into the JAX package;
+    `shard_train_state` cuts it back to a rank's shards.
 
 Checkpoints are read from a local path only.
 """
@@ -194,26 +199,118 @@ def adapt_checkpoint(state_dict: Mapping[str, torch.Tensor],
 # ---------------------------------------------------------------------------
 
 
-def save_train_state(path: str, state, args=None) -> None:
+def unsharded_meta(model: nn.Module) -> nn.Module:
+    """A tensor-parallel model's unsharded twin on the meta device (its
+    names, order and shapes; no memory)."""
+    import dataclasses
+
+    with torch.device("meta"):
+        return type(model)(dataclasses.replace(model.cfg, tp_group=None))
+
+
+def full_names(model: nn.Module):
+    """The unsharded model's parameter names and state-dict keys, in its
+    order."""
+    full = unsharded_meta(model)
+    return [n for n, _ in full.named_parameters()], list(full.state_dict())
+
+
+def gather_train_state(state, tp_group) -> dict:
+    """The full payload of a tensor-parallel `TrainState` ("model", "ema",
+    "opt" in the unsharded model's order, "step"), on every rank of the
+    model group (a collective: every rank calls it)."""
+    from dimsum_torch.parallel.mesh import gather_state_dict
+
+    names, keys = full_names(state.model)
+    model_full = gather_state_dict(state.model.state_dict(), tp_group,
+                                   order=keys)
+    ema = gather_state_dict(state.ema_params, tp_group, order=names)
+    opt = state.optimizer.state_dict()
+    local = [n for n, _ in state.model.named_parameters()]
+    moments = {}
+    for key in ("exp_avg", "exp_avg_sq"):
+        per_name = {n: opt["state"][i][key] for i, n in enumerate(local)
+                    if i in opt["state"]}
+        if per_name:
+            moments[key] = gather_state_dict(per_name, tp_group, order=names)
+    full_state = {}
+    if moments:
+        step = next(iter(opt["state"].values()))["step"]
+        full_state = {i: {"step": step.clone(),
+                          "exp_avg": moments["exp_avg"][n],
+                          "exp_avg_sq": moments["exp_avg_sq"][n]}
+                      for i, n in enumerate(names)}
+    groups = [dict(g, params=list(range(len(names))))
+              for g in opt["param_groups"]]
+    return {"model": model_full, "ema": ema,
+            "opt": {"state": full_state, "param_groups": groups},
+            "step": state.step}
+
+
+def shard_train_state(payload: Mapping, state, tp_group) -> None:
+    """Load a full payload (`gather_train_state`'s, or an unsharded run's
+    snapshot) into a tensor-parallel `state`, in place: each rank keeps
+    its shards."""
+    from dimsum_torch.parallel.mesh import (shard_state_dict, tp_rank,
+                                            tp_size)
+
+    r, k = tp_rank(tp_group), tp_size(tp_group)
+    names, _ = full_names(state.model)
+    model_sd = shard_state_dict(payload["model"], r, k)
+    check_state_dict(model_sd, state.model.state_dict())
+    state.model.load_state_dict(model_sd, strict=True)
+    ema = shard_state_dict(payload["ema"], r, k)
+    check_state_dict(ema, state.ema_params)
+    with torch.no_grad():
+        for name, e in state.ema_params.items():
+            e.copy_(ema[name])
+    opt = payload["opt"]
+    local = [n for n, _ in state.model.named_parameters()]
+    per_key = {}
+    for key in ("exp_avg", "exp_avg_sq"):
+        full = {n: opt["state"][i][key] for i, n in enumerate(names)
+                if i in opt["state"]}
+        per_key[key] = shard_state_dict(full, r, k) if full else {}
+    new_state = {}
+    if per_key["exp_avg"]:
+        step = next(iter(opt["state"].values()))["step"]
+        new_state = {i: {"step": step.clone(),
+                         "exp_avg": per_key["exp_avg"][n],
+                         "exp_avg_sq": per_key["exp_avg_sq"][n]}
+                     for i, n in enumerate(local)}
+    groups = [dict(g, params=list(range(len(local))))
+              for g in opt["param_groups"]]
+    state.optimizer.load_state_dict({"state": new_state,
+                                     "param_groups": groups})
+    state.step = int(payload["step"])
+
+
+def save_train_state(path: str, state, args=None, payload=None) -> None:
     """Save a `parallel.TrainState` as one `.pt` in the reference's layout:
     "model" (the fp32 master weights), "ema", "opt" (the optimizer's state
     dict), "step", and `args` (the reference stores its argparse
-    namespace there)."""
+    namespace there).  `payload` (a tensor-parallel state's gathered one)
+    replaces the state's own tensors."""
     _refuse_directory(path)
-    torch.save({"model": state.model.state_dict(),
-                "ema": dict(state.ema_params),
-                "opt": state.optimizer.state_dict(),
-                "step": state.step,
-                "args": args}, path)
+    if payload is None:
+        payload = {"model": state.model.state_dict(),
+                   "ema": dict(state.ema_params),
+                   "opt": state.optimizer.state_dict(),
+                   "step": state.step}
+    torch.save({**payload, "args": args}, path)
 
 
-def load_train_state(path: str, state):
+def load_train_state(path: str, state, tp_group=None):
     """Resume `state` (a `parallel.TrainState` built for the same model and
     optimizer) from `save_train_state`'s file, in place: the weights
     strictly, the EMA copy, the optimizer's moments and step counts, and
-    the step.  Returns the state."""
+    the step (with `tp_group`, each rank's shards of them).  Returns the
+    state."""
     _refuse_directory(path)
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if tp_group is not None:
+        shard_train_state(ckpt, state, tp_group)
+        return state
     own = state.model.state_dict()
     check_state_dict(ckpt["model"], own)
     state.model.load_state_dict(ckpt["model"], strict=True)
@@ -246,17 +343,20 @@ def _rank() -> int:
 
 
 def save_checkpoint(ckpt_dir: str, state, step: int, keep: int = 5,
-                    args=None) -> None:
+                    args=None, tp_group=None) -> None:
     """Write `state` as `<ckpt_dir>/<step:07d>.pt` (`save_train_state`'s
     layout; written to a temporary name and renamed, so a snapshot is
     whole or absent), then delete all but the `keep` newest snapshots.  In
     a multi-process run only rank 0 writes (the state is the same on every
-    rank), and every rank returns after the write."""
+    rank; with `tp_group` the model group first gathers it), and every
+    rank returns after the write."""
+    payload = (gather_train_state(state, tp_group)
+               if tp_group is not None else None)
     if _rank() == 0:
         os.makedirs(ckpt_dir, exist_ok=True)
         path = os.path.join(ckpt_dir, f"{step:07d}.pt")
         tmp = f"{path}.tmp"
-        save_train_state(tmp, state, args)
+        save_train_state(tmp, state, args, payload)
         os.replace(tmp, path)
         for old in checkpoint_steps(ckpt_dir)[:-keep]:
             os.remove(os.path.join(ckpt_dir, f"{old:07d}.pt"))
@@ -264,14 +364,17 @@ def save_checkpoint(ckpt_dir: str, state, step: int, keep: int = 5,
         dist.barrier()
 
 
-def restore_checkpoint(ckpt_dir: str, state, step: Optional[int] = None):
+def restore_checkpoint(ckpt_dir: str, state, step: Optional[int] = None,
+                       tp_group=None):
     """Resume `state` in place from the snapshot at `step` in `ckpt_dir`
-    (None: the latest).  Returns (state, step), or (None, None) when the
-    directory holds no snapshot."""
+    (None: the latest; with `tp_group`, each rank's shards).  Returns
+    (state, step), or (None, None) when the directory holds no
+    snapshot."""
     steps = checkpoint_steps(ckpt_dir)
     if step is None:
         if not steps:
             return None, None
         step = steps[-1]
-    load_train_state(os.path.join(ckpt_dir, f"{step:07d}.pt"), state)
+    load_train_state(os.path.join(ckpt_dir, f"{step:07d}.pt"), state,
+                     tp_group)
     return state, step

@@ -58,7 +58,7 @@ def test_random_lpips_matches_jax(hw):
     x = np.random.default_rng(1).uniform(0, 255, (2, 3, *hw)).astype(
         np.float32)
     want = ref.RandomLPIPS(seed=2)(x)
-    lp = port.RandomLPIPS(seed=2)
+    lp = port.RandomLPIPS(seed=2, device="cpu")
     ws = _jax_lpips_weights(2, 3)
     lp.weights = [torch.from_numpy(np.ascontiguousarray(
         w.transpose(3, 2, 0, 1))).float() for w in ws[:3]]
@@ -71,12 +71,13 @@ def test_random_lpips_matches_jax(hw):
 
 def test_random_lpips_own_weights():
     x = np.random.default_rng(3).uniform(0, 255, (2, 3, 32, 32))
-    a, b = port.RandomLPIPS(seed=0), port.RandomLPIPS(seed=0)
+    a, b = (port.RandomLPIPS(seed=0, device="cpu"),
+            port.RandomLPIPS(seed=0, device="cpu"))
     np.testing.assert_array_equal(a(x), b(x))
     w = a.weights[1]
     assert w.shape == (64, 32, 3, 3)
     np.testing.assert_allclose(w.var().item(), 2 / (9 * 32), rtol=0.1)
-    assert not np.array_equal(port.RandomLPIPS(seed=1)(x), a(x))
+    assert not np.array_equal(port.RandomLPIPS(seed=1, device="cpu")(x), a(x))
 
 
 class _Scripted(torch.nn.Module):

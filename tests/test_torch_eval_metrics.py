@@ -17,6 +17,7 @@ package's (`dimsum_tpu/eval/fid.py`) on seeded numpy features:
 
 import numpy as np
 import pytest
+import torch
 
 from dimsum_torch.eval import fid as port
 from dimsum_tpu.eval import fid as ref
@@ -94,10 +95,10 @@ def test_inception_score_matches_jax():
 def test_kid_and_pr_numpy_equal_jax():
     real, gen = _feats(5, 310, 24), _feats(6, 260, 24, 0.4, 0.9)
     kw = dict(num_subsets=7, max_subset_size=120, seed=3)
-    assert (port.compute_kid(real, gen, impl="numpy", **kw)
+    assert (port.compute_kid(real, gen, impl="numpy", device="cpu", **kw)
             == ref.compute_kid(real, gen, impl="numpy", **kw))
     assert (port.compute_precision_recall(real, gen, impl="numpy",
-                                          row_batch=100)
+                                          row_batch=100, device="cpu")
             == ref.compute_precision_recall(real, gen, impl="numpy",
                                             row_batch=100))
 
@@ -107,7 +108,8 @@ def test_pr_torch_matches_numpy():
     rng = np.random.default_rng(0)
     real = rng.standard_normal((1203, 48)).astype(np.float32)
     gen = (0.8 * rng.standard_normal((911, 48)) + 0.7).astype(np.float32)
-    p_np, r_np = port.compute_precision_recall(real, gen, impl="numpy")
+    p_np, r_np = port.compute_precision_recall(real, gen, impl="numpy",
+                                               device="cpu")
     p_t, r_t = port.compute_precision_recall(real, gen, impl="torch",
                                              row_batch=256, device="cpu")
     assert 0.0 < p_np < 1.0 and 0.0 < r_np < 1.0
@@ -119,9 +121,10 @@ def test_pr_torch_row_chunking_invariance():
     rng = np.random.default_rng(1)
     real = rng.standard_normal((300, 16)).astype(np.float32)
     gen = rng.standard_normal((257, 16)).astype(np.float32) + 0.3
-    a = port.compute_precision_recall(real, gen, impl="torch", row_batch=64)
+    a = port.compute_precision_recall(real, gen, impl="torch", row_batch=64,
+                                      device="cpu")
     b = port.compute_precision_recall(real, gen, impl="torch",
-                                      row_batch=10_000)
+                                      row_batch=10_000, device="cpu")
     assert a == b
 
 
@@ -130,7 +133,7 @@ def test_kid_torch_matches_numpy():
     real = rng.standard_normal((700, 64)).astype(np.float32)
     gen = (rng.standard_normal((650, 64)) * 1.1 + 0.2).astype(np.float32)
     kw = dict(num_subsets=20, max_subset_size=300)
-    k_np = port.compute_kid(real, gen, impl="numpy", **kw)
+    k_np = port.compute_kid(real, gen, impl="numpy", device="cpu", **kw)
     k_t = port.compute_kid(real, gen, impl="torch", device="cpu", **kw)
     assert k_np > 0.01
     assert abs(k_t - k_np) <= 1e-6 * abs(k_np), (k_t, k_np)
@@ -147,3 +150,38 @@ def test_auto_follows_the_device(monkeypatch):
     assert called == ["cuda"]
     with pytest.raises(ValueError, match="impl"):
         port.compute_kid(real, gen, impl="jax")
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """KID, precision/recall, RandomLPIPS and metric_main's KID / PR run on
+    the card unless device="cpu" is given: without a card the default
+    raises, as `resolve_device` does, and never falls back to the CPU."""
+    import inspect
+
+    from dimsum_torch.eval import features, metric_main
+
+    for fn in (port.compute_kid, port.compute_precision_recall):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert inspect.signature(
+        features.RandomLPIPS).parameters["device"].default == "cuda"
+    real, gen = _feats(9, 40, 8), _feats(10, 40, 8)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port.compute_kid(real, gen, num_subsets=2, max_subset_size=20)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port.compute_precision_recall(real, gen)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        features.RandomLPIPS(seed=0)
+    seen = []
+    monkeypatch.setattr(metric_main, "compute_kid",
+                        lambda *a, **kw: seen.append(kw["device"]) or 0.0)
+    monkeypatch.setattr(metric_main, "compute_precision_recall",
+                        lambda *a, **kw: seen.append(kw["device"]) or (0, 0))
+    stats = port.FeatureStats(capture_all=True)
+    stats.append(gen)
+    monkeypatch.setattr(metric_main, "_real_stats", lambda o, **kw: stats)
+    monkeypatch.setattr(metric_main, "_gen_stats", lambda o, n, **kw: stats)
+    metric_main.kid50k_full({})
+    metric_main.pr50k3_full({})
+    metric_main.kid50k_full({"device": "cpu"})
+    assert seen == ["cuda", "cuda", "cpu"]

@@ -66,6 +66,8 @@ def _run(pkg, root, many: bool, cache):
     opts = dict(real_dataset=real, gen_batches=gen_batches, detector=det(),
                 batch_size=8, cache_dir=str(cache),
                 dataset_id=str(root / "real"), detector_id="randproj")
+    if pkg == "port":  # KID and PR run on the card unless asked for the CPU
+        opts["device"] = "cpu"
     if many:
         out = mod.calc_metrics_many(METRICS, **opts)
     else:

@@ -5,10 +5,10 @@ flag of the JAX CLIs (DiT, MoE with its group, `--pe-type`, `--cond-init`,
 share is equal, and the port's module has the JAX module's parameters:
 the JAX tree's shapes (`jax.eval_shape`, no init) converted by
 `state_dict_from_jax_params` give the port's state dict's names and
-shapes.  What stays refused raises `NotImplementedError` naming its
-ROADMAP item: the JAX opt-in environment switches (Queue 1 item 7), MoE
-with tensor parallelism (item 8) and the bench's `--bf16-residual` (item
-7)."""
+shapes.  What the port refused until it was ported now builds: the JAX
+opt-in environment switches set their config fields, MoE with tensor
+parallelism gives the expert-parallel config, and the bench's
+`--bf16-residual` samples with a bf16 residual stream."""
 
 import argparse
 import dataclasses
@@ -22,7 +22,8 @@ import jax.numpy as jnp
 from dimsum_tpu import cli as jax_cli
 from dimsum_tpu.models.factory import create_model as jax_create_model
 from dimsum_torch import cli
-from dimsum_torch.models.factory import UNPORTED_SWITCHES, create_model
+from dimsum_torch.models.factory import (ENV_SWITCHES, create_model,
+                                         env_switches)
 from dimsum_torch.utils.convert import state_dict_from_jax_params
 from tests.test_torch_convert import torch_one_thread  # noqa: F401
 
@@ -85,22 +86,46 @@ def test_mamba_moe_layers_builds_nothing():
     assert with_layers == without
 
 
-@pytest.mark.parametrize("switch", UNPORTED_SWITCHES)
+@pytest.mark.parametrize("switch", sorted(ENV_SWITCHES))
 def test_unported_switches_raise(switch, monkeypatch):
+    """Each JAX opt-in switch, which the port refused until it was
+    ported, sets its config field from the environment, for a DiM and
+    (the norm and attention ones) for a DiT."""
+    field = ENV_SWITCHES[switch]
+    on = "1" if field in ("flash_attn", "full_attn") else True
+    off = "auto" if on == "1" else False
+    base = cli.model_config(_parse(cli, ["--model", "DiM-S/2"] + BASE))
+    assert getattr(base, field) == off
     monkeypatch.setenv(switch, "1")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        cli.model_config(_parse(cli, ["--model", "DiM-S/2"] + BASE))
+    cfg = cli.model_config(_parse(cli, ["--model", "DiM-S/2"] + BASE))
+    assert getattr(cfg, field) == on
+    assert dataclasses.replace(cfg, **{field: off}) == base
+    dit = cli.model_config(_parse(cli, ARGVS["dit"] + BASE))
+    assert getattr(dit, field, off) == (
+        on if field in env_switches(dit=True) else off)
+    if on == "1":
+        monkeypatch.setenv(switch, "0")
+        assert getattr(cli.model_config(_parse(
+            cli, ["--model", "DiM-S/2"] + BASE)), field) == "0"
 
 
 def test_moe_with_tensor_parallelism_raises():
+    """--is-moe with --tp no longer raises: the config is the MoE one,
+    and the CLI's model group (`tp_group`) makes it expert-parallel at
+    `moe_capacity_factor`."""
     args = _parse(cli, ["--model", "DiM-S/2", "--is-moe"] + BASE)
     args.tp = 2
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        cli.model_config(args)
+    cfg = cli.model_config(args)
+    assert cfg.is_moe and cfg.moe_capacity_factor == 2.0
+    assert cfg.tp_group is None
 
 
 def test_bench_refuses_bf16_residual():
-    from dimsum_torch.bench import main
+    """bench --bf16-residual samples with the residual stream in bf16 (the
+    JAX bench's residual_in_fp32=False)."""
+    from dimsum_torch.bench import run
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        main(["--bf16-residual", "--device", "cpu"])
+    record, out = run(batch=1, steps=2, dtype="bf16", device="cpu",
+                      model="DiM-S/2", residual_in_fp32=False)
+    assert record["residual_in_fp32"] is False
+    assert out.shape == (1, 4, 32, 32) and torch.isfinite(out).all()

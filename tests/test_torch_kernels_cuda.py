@@ -1252,6 +1252,53 @@ def test_add_norm_kernel_matches_plain_on_card(cuda, dtype, is_rms, rows, D):
     torch.testing.assert_close(tot, want_tot, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("is_rms", [True, False])
+@pytest.mark.parametrize("total_f32", [False, True])
+@pytest.mark.parametrize("rows, D", [(120, 128), (6144, 1024), (24, 4096),
+                                     (5, 1152)])
+def test_add_norm_kernel_bf16_residual_on_card(cuda, is_rms, total_f32, rows,
+                                               D):
+    """The bf16 residual stream (residual_in_fp32=False): a bf16 residual
+    in, the total out rounded once to bf16 (or fp32), bit for bit the
+    plain version's; the output within a bf16 ulp."""
+    g = torch.Generator().manual_seed(rows + D + 1)
+    x2 = torch.randn(rows, D, generator=g).to(cuda, torch.bfloat16)
+    r2 = (3 * torch.randn(rows, D, generator=g)).to(cuda, torch.bfloat16)
+    w = (1 + 0.1 * torch.randn(D, generator=g)).to(cuda)
+    b = None if is_rms else (0.1 * torch.randn(D, generator=g)).to(cuda)
+    td = torch.float32 if total_f32 else torch.bfloat16
+    before = add_norm_cuda.launches
+    out, tot = add_norm_cuda(x2, r2, w, b, 1e-5, is_rms, td)
+    assert add_norm_cuda.launches == before + 1
+    want_out, want_tot = add_norm_ref(x2, r2, w, b, 1e-5, is_rms,
+                                      torch.bfloat16, td)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and tot.dtype == td
+    _close(out, want_out, _low(out))
+    torch.testing.assert_close(tot, want_tot, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case", [c for c in NORM_CASES if c[2]])
+@pytest.mark.parametrize("B, L, D", [(3, 40, 128), (3, 40, 1152),
+                                     (24, 256, 1024), (2, 1000, 1152)])
+def test_norm_modulate_kernel_bf16_residual_on_card(cuda, case, B, L, D):
+    """A bf16 residual (the deferred top site of a bf16 stream) with the
+    total in bf16, as `Norm` asks for it without residual_in_fp32, and in
+    fp32: against the plain version on the same inputs."""
+    v = norm_inputs(cuda, torch.bfloat16, B=B, L=L, D=D, seed=D + 3)
+    v["residual"] = v["residual"].to(torch.bfloat16)
+    for td in (torch.bfloat16, torch.float32):
+        kw = {**norm_kwargs(v, case), "total_dtype": td}
+        before = norm_modulate_cuda.launches
+        out, tot = norm_modulate_cuda(v["x"], **kw)
+        assert norm_modulate_cuda.launches == before + 1
+        want_out, want_tot = norm_modulate_ref(v["x"], **kw)
+        torch.cuda.synchronize()
+        assert tot.dtype == td
+        _close(out, want_out, _low(out))
+        torch.testing.assert_close(tot, want_tot, rtol=0, atol=0)
+
+
 def conv_inputs(device, dtype, B, L, D, W, R, seed=0, strided=False):
     """x (B, L, D), as the first half of a (B, L, 2 D) projection when
     `strided`; conv_w (D, W), conv_b (D,) fp32; w_xp (R, D) fp32."""

@@ -135,17 +135,15 @@ def test_sde_mode_and_likelihood(files, tmp_path, capsys):
         cli.main(["ODE", *MODEL, "--likelihood", "--cfg-scale", "1.4"])
 
 
-# what the sampling CLI still refuses: --pp, and the JAX opt-in switches
-# (environment variables) that the port has not ported; --pe-type, MoE,
-# --cond-init and DiT models build (tests/test_torch_factory.py)
+# what the sampling CLI refuses: a pipeline the model cannot be staged
+# over (DiM-S/2: 2 blocks a stage; checked before any stage rank starts),
+# --compute-ppl with --pp, and what it always refused; --pp and the JAX
+# switches run (below and tests/test_torch_parallel_cli.py)
 @pytest.mark.parametrize("extra, env, error, match", [
-    (["--pp", "2"], None, NotImplementedError, "Queue 1 item 8"),
+    (["--pp", "2"], None, ValueError, "breaks the i%4"),
     (["--compute-ppl", "ppl2_zend"], None, SystemExit, "ppl-detector"),
-    ([], "DIMSUM_FLASH_ATTN", NotImplementedError, "Queue 1 item 7"),
-    ([], "DIMSUM_FULL_ATTN", NotImplementedError, "Queue 1 item 7"),
-    ([], "DIMSUM_NORM_MXU", NotImplementedError, "Queue 1 item 7"),
-    ([], "DIMSUM_FUSED_WAVELET", NotImplementedError, "Queue 1 item 7"),
-    ([], "DIMSUM_DWT_CL", NotImplementedError, "Queue 1 item 7"),
+    (["--pp", "2", "--compute-ppl", "ppl2_zend"], None, NotImplementedError,
+     "compute-ppl with --pp"),
     (["--scan-impl", "pallas"], None, NotImplementedError, "scan-impl"),
 ])
 def test_unported_flags_raise(extra, env, error, match, tmp_path,
@@ -154,6 +152,21 @@ def test_unported_flags_raise(extra, env, error, match, tmp_path,
         monkeypatch.setenv(env, "1")
     with pytest.raises(error, match=match):
         cli.main(["ODE", *MODEL, *extra, "--sample-dir", str(tmp_path)])
+
+
+@pytest.mark.parametrize("env", ["DIMSUM_FLASH_ATTN", "DIMSUM_FULL_ATTN",
+                                 "DIMSUM_NORM_MXU", "DIMSUM_FUSED_WAVELET",
+                                 "DIMSUM_DWT_CL"])
+def test_samples_under_the_jax_switches(env, tmp_path, monkeypatch):
+    """Each JAX opt-in switch, which the CLI refused until it was ported,
+    samples (held to JAX model for model in
+    tests/test_torch_model_switches.py)."""
+    monkeypatch.setenv(env, "1")
+    rec = cli.main(["ODE", *MODEL, "--sampling-method", "euler",
+                    "--num-sampling-steps", "2", "--global-batch-size", "2",
+                    "--sample-dir", str(tmp_path)])
+    assert rec["samples"].shape == (2, 4, 16, 16)
+    assert torch.isfinite(rec["samples"]).all()
 
 
 @pytest.mark.parametrize("extra", [

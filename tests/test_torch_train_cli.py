@@ -205,7 +205,7 @@ def test_warm_start_and_sample_grid(datadir):
 
 
 @pytest.mark.parametrize("flags,error,match", [
-    (("--tp", "2"), NotImplementedError, "item 8"),
+    (("--tp", "2"), ValueError, "does not divide 1 processes"),
     (("--eval-refdir", "ref"), SystemExit, "needs --vae-ckpt"),
     (("--dataset", "imagenet"), SystemExit, "in pixels")])
 def test_unported_flags_raise(datadir, flags, error, match):
