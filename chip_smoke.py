@@ -331,7 +331,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
               route, and timed beside it (DIMSUM_FULL_ATTN=1 at 512 px:
               36 launches of the fp32 attention kernel).  Tolerances in
               `phase_parallel`.
- 35. kernels  the smoke's seconds (and the variants and models-rest
+ 35. kernel-cases  the cases the Pallas scan kernels take beyond the model
+              zoo's (`phase_kernel_cases`): kernel 1 at N 64 and 256
+              (the split entry: 32-state tiles and their combine) and
+              grouped B/C, the state entry grouped (G 2, 4) and at N 256
+              with h0 and the last state, kernels 2 and 3 on a full
+              delta (their delta entries) and at N 64 / 256, each against
+              its plain version with device, kernel and plain times and
+              the bound; then the JAX front end `selective_scan` through
+              autograd at the training mixer shape, grouped (G 2, fp32),
+              on a full delta (bf16) and kernel 1 at N 64 without a
+              gradient, held to the plain route, with the launch counts
+              set to 0 just before and read just after.
+ 36. kernels  the smoke's seconds (and the variants and models-rest
               phases'), then one
               {"kernels": [...]} line (all ten kernels; rows 1-3 with
               their `rank_cases` from kernel-rank and their launches in the
@@ -429,7 +441,8 @@ def held_stream_ms(fn, iters: int = 20, hold_ms: float = 20.0) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, cls, iters: int = 20, tries: int = 5) -> float:
+def device_ms(fn, cls, iters: int = 20, tries: int = 5,
+              kernels: int = 1) -> float:
     """Device time per call of `fn` in the kernels of `profile_forward`'s
     class `cls` (None: every kernel), from torch.profiler's CUDA activity over `iters` calls
     after one untimed: the kernels alone, without the host's launch gaps,
@@ -442,7 +455,11 @@ def device_ms(fn, cls, iters: int = 20, tries: int = 5) -> float:
     0.0140 ms in one smoke, 0.0292 in every fresh window).  If `tries`
     windows in a row record no kernel of the class (one smoke saw three
     empty windows in a row for the first attention kernel), the time is
-    `held_stream_ms`'s, and a `device-ms-fallback` record says so."""
+    `held_stream_ms`'s, and a `device-ms-fallback` record says so.  A
+    window with fewer than `kernels` kernels of the class (the distinct
+    kernels a call launches) counts as empty: one smoke's window of the
+    training forward's split entry held its combine kernel alone, 0.0339
+    ms against the call's 0.4452."""
     import statistics
 
     import torch
@@ -469,7 +486,7 @@ def device_ms(fn, cls, iters: int = 20, tries: int = 5) -> float:
                     and not getattr(e, "is_user_annotation", False)
                     and cls in (None, kernel_class(e.name))):
                 durations.setdefault(e.name, []).append(us)
-        if durations:
+        if len(durations) >= kernels:
             return sum(statistics.median(v) for v in durations.values()) / 1e3
         windows.append(n_cuda)
     ms = held_stream_ms(fn, iters)
@@ -530,8 +547,10 @@ def _expansion_flops(x, per_elem):
     """(fp32 flop, bf16 tensor-core flop) of a scan kernel on x: the dt
     expansion's 2r a (b, t, d) runs on the tensor cores (mma.sync) for
     bf16 inputs and as fp32 FMAs for fp32 ones; `per_elem` more fp32 flop
-    a (b, t, d) besides."""
+    a (b, t, d) besides.  A full delta (x["delta"]) has no expansion."""
     batch, L, dim = x["u"].shape
+    if "delta" in x:
+        return batch * L * dim * per_elem, 0
     big, two_r = batch * L * dim, 2 * x["dt_w"].shape[0]
     if x["u"].element_size() == 2:
         return big * per_elem, big * two_r
@@ -587,23 +606,24 @@ def phase_kernel():
 
 
 def _scan_case(phase, name, shape, dtype, reverse, seed, timed,
-               plain_timed=True):
+               plain_timed=True, inputs=None):
     """Kernel 1 (its reverse entry with `reverse`) against its plain
-    version on `scan_inputs(*shape)`: the error against the stated
-    tolerance, the kernel's time (CUDA events; with `timed` also its
-    device ms), the plain version's (with `plain_timed`) and the bound.
-    Raises if they disagree."""
+    version on `scan_inputs(*shape)` (passed through `inputs` where given):
+    the error against the stated tolerance, the kernel's time (CUDA events;
+    with `timed` also its device ms), the plain version's (with
+    `plain_timed`) and the bound.  Raises if they disagree."""
     import torch
 
     from dimsum_torch.ops.selective_scan import (selective_scan_cuda,
                                                  selective_scan_dtlow)
 
     x = scan_inputs(*shape, dtype, seed=seed)
+    if inputs is not None:
+        x = inputs(x)
     args = [x[k] for k in ("u", "dt_low", "dt_w", "A", "B", "C", "D")]
     kw = dict(z=x["z"], delta_bias=x["delta_bias"], delta_softplus=True)
     with torch.inference_mode():
-        got = selective_scan_dtlow(*args, reverse=reverse, impl="cuda",
-                                   **kw).float()
+        got = selective_scan_cuda(*args, reverse=reverse, **kw).float()
         want = selective_scan_dtlow(*args, reverse=reverse, impl="ref",
                                     **kw).float()
         torch.cuda.synchronize()
@@ -615,9 +635,10 @@ def _scan_case(phase, name, shape, dtype, reverse, seed, timed,
             (err <= tol + tol * want.abs()).all())
         ms = cuda_ms(lambda: selective_scan_cuda(
             *args, reverse=reverse, **kw), iters=20)
+        # the split entry above 32 states: the scan and its combine
         dev_ms = (device_ms(lambda: selective_scan_cuda(
-            *args, reverse=reverse, **kw), "selective_scan")
-            if timed else None)
+            *args, reverse=reverse, **kw), "selective_scan",
+            kernels=1 + (shape[3] > 32)) if timed else None)
         plain_ms = (cuda_ms(lambda: selective_scan_dtlow(
             *args, impl="ref", reverse=reverse, **kw), iters=3, warmup=1)
             if plain_timed else None)
@@ -723,13 +744,17 @@ def train_bounds(x, chunk, h0=False):
     sigmoid's exp anew, and that kernel 2's state and main passes each
     compute every state's exp2 and hand dt over through o, are the
     kernels' own choices and not counted.  With `h0` kernel 2 also reads
-    h0 and kernel 3 writes dh0, (batch, dim, N) fp32 each."""
+    h0 and kernel 3 writes dh0, (batch, dim, N) fp32 each.  With a full
+    "delta" in x (the delta entries) it is read in place of dt_low and dt_w,
+    and there is no expansion."""
     batch, L, dim = x["u"].shape
     n = x["A"].shape[1]
     esize = x["u"].element_size()
     n_chunks = -(-L // chunk)
     big, small = batch * L * dim, batch * L * n
-    common = (x["u"].numel() + x["dt_low"].numel() + x["dt_w"].numel()
+    dt_in = (x["delta"].numel() if "delta" in x
+             else x["dt_low"].numel() + x["dt_w"].numel())
+    common = (x["u"].numel() + dt_in
               + 2 * small) * esize + x["A"].numel() * 4 + dim * 4
     states = batch * n_chunks * n * dim * 4
     seed = batch * dim * n * 4 if h0 else 0
@@ -783,12 +808,14 @@ def phase_kernel_train():
 
 
 def _train_case(phase, name, shape, dtype, reverse, seeded, i, timed,
-                plain_timed=True):
-    """Kernels 2 and 3 (their h0 entries with `seeded`) against their plain
-    versions on `scan_inputs(*shape)`, flipped along L with `reverse` (the
-    Function flips around the kernels): every output's scaled error, each
-    kernel's time (with `timed` also its device ms), the plain versions'
-    (with `plain_timed`) and the bounds.  Raises if they disagree."""
+                plain_timed=True, full_delta=False):
+    """Kernels 2 and 3 (their h0 entries with `seeded`; their delta entries
+    with `full_delta`, on delta = dt_low @ dt_w in `dtype`) against their
+    plain versions on `scan_inputs(*shape)`, flipped along L with `reverse`
+    (the Function flips around the kernels): every output's scaled error,
+    each kernel's time (with `timed` also its device ms), the plain
+    versions' (with `plain_timed`) and the bounds.  Raises if they
+    disagree."""
     import torch
 
     from dimsum_torch.ops import selective_scan as ss
@@ -797,7 +824,11 @@ def _train_case(phase, name, shape, dtype, reverse, seeded, i, timed,
     x = scan_inputs(batch, L, dim, n, r, dtype, seed=200 + i)
     if reverse:  # the Function flips around the kernels
         x = {k: (v.flip(1) if v.ndim == 3 else v) for k, v in x.items()}
-    args = [x[k] for k in ("u", "dt_low", "dt_w", "A", "B", "C", "D")]
+    if full_delta:
+        x["delta"] = (x.pop("dt_low") @ x.pop("dt_w")).contiguous()
+    args = ([x[k] for k in ("u", "delta")] + [None] if full_delta else
+            [x[k] for k in ("u", "dt_low", "dt_w")]) + [
+        x[k] for k in ("A", "B", "C", "D")]
     kw = dict(z=x["z"], delta_bias=x["delta_bias"], delta_softplus=True)
     if seeded:
         kw["h0"] = torch.randn(
@@ -842,14 +873,16 @@ def _train_case(phase, name, shape, dtype, reverse, seeded, i, timed,
             *core, **ckw), iters=3, warmup=1) if plain_timed else None)
         fwd_dev = bwd_dev = None
         if timed:
+            # kernel 2: its state and main passes, and above 32 states the
+            # combine; kernel 3: its carry and main passes
             fwd_dev = device_ms(lambda: ss.selective_scan_fwd_train_cuda(
-                *args, **kw), "selective_scan_fwd_train")
+                *args, **kw), "selective_scan_fwd_train", kernels=2 + (n > 32))
             bwd_dev = device_ms(lambda: ss.selective_scan_bwd_core_cuda(
-                *core, **ckw), "selective_scan_bwd")
+                *core, **ckw), "selective_scan_bwd", kernels=2)
     bounds = train_bounds(x, ss.TRAIN_CHUNK, seeded)
     rec = {"phase": phase, "case": name, "shape": list(shape),
            "dtype": str(dtype).split(".")[-1], "reverse": reverse,
-           "h0": seeded,
+           "h0": seeded, "full_delta": full_delta,
            "scaled_err": errs, "tol_fp32": 1e-4, "tol_bf16": 1.6e-2,
            "ok": ok, "low_precision_outputs": low,
            "fwd_train": {"max_abs_err": fwd_err, "ms": fwd_ms,
@@ -5076,6 +5109,277 @@ def phase_kernel_rank():
     return {"scan": scans, "train": trains}
 
 
+# kernel-cases: the cases the Pallas scan kernels take beyond the zoo's.
+# Kernel 1 at the sampling mixer shape (24 x 256 x 1024, r 32): N past 32
+# and grouped B/C (name, N, G, dtype, reverse); the state entry, grouped at
+# that shape and at N 256 with h0 and the last state at the SP shape (8 x
+# 256 x 1024) (name, shape, G, dtype, h0 and last); kernels 2 and 3 at the
+# training mixer shape (16 x 256 x 1024) on a full delta and at N past 32
+# (name, N, dtype, full delta).
+CASE_SCANS = (
+    ("n64-bf16", 64, None, "bfloat16", False),
+    ("n64-bf16-reverse", 64, None, "bfloat16", True),
+    ("n64-fp32", 64, None, "float32", False),
+    ("n256-bf16", 256, None, "bfloat16", False),
+    ("n256-fp32", 256, None, "float32", False),
+    ("g2-bf16", 16, 2, "bfloat16", False),
+)
+CASE_STATES = (
+    ("g2-bf16", (24, 256, 1024, 16), 2, "bfloat16", False),
+    ("g4-bf16", (24, 256, 1024, 16), 4, "bfloat16", False),
+    ("g4-fp32", (24, 256, 1024, 16), 4, "float32", False),
+    ("g2-n64-bf16", (24, 256, 1024, 64), 2, "bfloat16", False),
+    ("n256-h0-last-bf16", (8, 256, 1024, 256), None, "bfloat16", True),
+)
+CASE_TRAINS = (
+    ("delta-bf16", 16, "bfloat16", True),
+    ("delta-fp32", 16, "float32", True),
+    ("n64-bf16", 64, "bfloat16", False),
+    ("n256-fp32", 256, "float32", False),
+)
+# the JAX op API on the card: (name, N, G, dtype, needs a gradient, op):
+# `selective_scan` on a full delta through autograd, grouped (the state
+# entry, the backward through the plain scan) and not (kernels 2 and 3's
+# delta entries); `selective_scan_dtlow` at N 64 without a gradient
+# (kernel 1's split entry)
+CASE_FRONT = (
+    ("grouped-g2-fp32", 16, 2, "float32", True, "selective_scan"),
+    ("delta-bf16", 16, None, "bfloat16", True, "selective_scan"),
+    ("dtlow-n64-bf16", 64, None, "bfloat16", False, "selective_scan_dtlow"),
+)
+
+
+def _grouped(x, groups, seed):
+    """x with B and C replaced by grouped ones, (batch, L, G, N) ~ N(0, 1)
+    in B's dtype."""
+    import torch
+
+    if groups is None:
+        return x
+    batch, L, n = x["B"].shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for k in ("B", "C"):
+        x[k] = torch.randn((batch, L, groups, n), generator=g,
+                           device="cuda").to(x["u"].dtype)
+    return x
+
+
+def _state_case(name, shape, groups, dtype, seeded, seed):
+    """The state entry on `state_inputs(*shape)` (grouped B/C with
+    `groups`; with `seeded` h0 in and the last state out) against the
+    plain scan: the errors against the stated tolerances, kernel, device
+    and plain times, and the bound."""
+    import torch
+
+    from dimsum_torch.ops.selective_scan import (selective_scan_ref,
+                                                 selective_scan_state_cuda)
+
+    x, h0 = state_inputs(*shape, dtype, seed=seed)
+    x = _grouped(x, groups, seed + 7)
+    args = [x[k] for k in ("u", "delta", "A", "B", "C", "D")]
+    kw = dict(z=x["z"], delta_bias=x["delta_bias"], delta_softplus=True)
+    if seeded:
+        kw.update(h0=h0, return_last_state=True)
+    with torch.inference_mode():
+        got = selective_scan_state_cuda(*args, **kw)
+        want = selective_scan_ref(*args, **kw)
+        got, want = ((got, want) if seeded else ((got,), (want,)))
+        torch.cuda.synchronize()
+        # the output as phase kernel's, relative to its largest value; the
+        # fp32 last state to 1e-4 of its scale in both dtypes
+        tols = [1e-4 if dtype == torch.float32 else 1.6e-2, 1e-4]
+        errs = [_scaled_err(a, b) for a, b in zip(got, want)]
+        ok = all(bool(torch.isfinite(a.float()).all()) and e <= t
+                 for a, e, t in zip(got, errs, tols))
+        run = lambda: selective_scan_state_cuda(*args, **kw)  # noqa: E731
+        ms = cuda_ms(run, iters=20)
+        dev_ms = device_ms(run, "selective_scan", kernels=1 + (shape[3] > 32))
+        plain_ms = cuda_ms(lambda: selective_scan_ref(*args, **kw), iters=2,
+                           warmup=1)
+    rec = {"phase": "kernel-cases-state", "case": name, "shape": list(shape),
+           "groups": groups, "dtype": str(dtype).split(".")[-1],
+           "h0_and_last": seeded,
+           "max_abs_err": max((a.float() - b.float()).abs().max().item()
+                              for a, b in zip(got, want)),
+           "scaled_err": errs, "tol": tols[:len(errs)], "ok": ok, "ms": ms,
+           "device_ms": dev_ms, "plain_ms": plain_ms,
+           **_bound_fields(state_bound(x, seeded, seeded))}
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"state entry disagrees on {name}: {rec}")
+    return rec
+
+
+def _front_case(name, n, groups, dtype, grad, op, seed):
+    """The JAX op `op` (`selective_scan` on a full delta, or
+    `selective_scan_dtlow`) at the training mixer shape 16 x 256 x 1024 on
+    the card against its plain route (impl="ref"), forward and, with
+    `grad`, backward through autograd: y and every input's gradient, each
+    relative to its largest value."""
+    import torch
+
+    from dimsum_torch.ops import selective_scan as ss
+
+    if op == "selective_scan":
+        x, _ = state_inputs(16, 256, 1024, n, dtype, seed=seed)
+        keys = ("u", "delta", "A", "B", "C", "D", "z", "delta_bias")
+    else:
+        x = scan_inputs(16, 256, 1024, n, 32, dtype, seed=seed)
+        keys = ("u", "dt_low", "dt_w", "A", "B", "C", "D", "z",
+                "delta_bias")
+    x = _grouped(x, groups, seed + 7)
+    w = torch.randn(x["u"].shape, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(seed + 1))
+
+    def run(impl):
+        leaves = {k: x[k].clone().requires_grad_(grad) for k in keys}
+        with torch.set_grad_enabled(grad):
+            y = getattr(ss, op)(*(leaves[k] for k in keys),
+                                delta_softplus=True, impl=impl)
+            if grad:
+                (y.float() * w).sum().backward()
+        return {"y": y.detach(), **{f"d{k}": leaves[k].grad for k in keys
+                                    if grad}}
+
+    got = run("cuda")
+    torch.cuda.synchronize()
+    want = run("ref")
+    # relative to each tensor's largest value: fp32 1e-4; bf16 outputs and
+    # gradients 1.6e-2 (one bf16 rounding step)
+    tol = 1e-4 if dtype == torch.float32 else 1.6e-2
+    errs = {k: _scaled_err(got[k], want[k]) for k in got}
+    ok = all(bool(torch.isfinite(got[k].float()).all()) and errs[k] <= tol
+             for k in got)
+    rec = {"phase": "kernel-cases-front", "case": name, "op": op,
+           "shape": [16, 256, 1024, n], "groups": groups,
+           "dtype": str(dtype).split(".")[-1], "grad": grad,
+           "scaled_err": errs, "tol": tol, "ok": ok}
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"selective_scan disagrees on {name}: {rec}")
+    return rec
+
+
+def phase_kernel_cases():
+    """kernel-cases: the scan kernels' cases beyond the zoo's (CASE_SCANS,
+    CASE_STATES, CASE_TRAINS) against their plain versions, each kernel's
+    device ms beside its bound from the case's inputs; then the front end
+    (CASE_FRONT) through autograd with the launch counts set to 0 just
+    before and read just after; N 257 and a G that does not divide dim
+    must raise."""
+    import torch
+
+    from dimsum_torch.ops import selective_scan as ss
+
+    t0 = time.perf_counter()
+    scans = {}
+    for i, (name, n, groups, dtype, reverse) in enumerate(CASE_SCANS):
+        scans[name] = _scan_case(
+            "kernel-cases", name, (24, 256, 1024, n, 32),
+            getattr(torch, dtype), reverse, 800 + i, True,
+            inputs=lambda x, g=groups, i=i: _grouped(x, g, 850 + i))
+        scans[name]["groups"] = groups
+    states = {name: _state_case(name, shape, groups, getattr(torch, dtype),
+                                seeded, 900 + 2 * i)
+              for i, (name, shape, groups, dtype, seeded)
+              in enumerate(CASE_STATES)}
+    trains = {name: _train_case("kernel-cases-train", name,
+                                (16, 256, 1024, n, 32), getattr(torch, dtype),
+                                False, False, 90 + i, True,
+                                full_delta=full)
+              for i, (name, n, dtype, full) in enumerate(CASE_TRAINS)}
+    counts = {"selective_scan_fwd": ss.selective_scan_cuda,
+              "selective_scan_fwd_state": ss.selective_scan_state_cuda,
+              "selective_scan_fwd_train": ss.selective_scan_fwd_train_cuda,
+              "selective_scan_bwd": ss.selective_scan_bwd_core_cuda}
+    keys = ("launches", "split_launches", "grouped_launches",
+            "delta_launches")
+    for fn in counts.values():
+        for k in keys:
+            if hasattr(fn, k):
+                setattr(fn, k, 0)
+    front = {name: _front_case(name, n, groups, getattr(torch, dtype), grad,
+                               op, 950 + 3 * i)
+             for i, (name, n, groups, dtype, grad, op)
+             in enumerate(CASE_FRONT)}
+    launches = {name: {k: getattr(fn, k) for k in keys if hasattr(fn, k)}
+                for name, fn in counts.items()}
+    # the op API's run: the grouped forward on the state entry, the delta
+    # pair once each, kernel 1's split entry once
+    expect = {"selective_scan_fwd_state": 1, "selective_scan_fwd_train": 1,
+              "selective_scan_bwd": 1, "selective_scan_fwd": 1}
+    refused = []
+    x = scan_inputs(1, 32, 64, 257, 8, torch.float32, seed=9)
+    args = [x[k] for k in ("u", "dt_low", "dt_w", "A", "B", "C")]
+    bad_g = _grouped(scan_inputs(1, 32, 64, 16, 8, torch.float32, seed=9),
+                     3, 9)
+    with torch.no_grad():
+        for exc, fn in (
+                (NotImplementedError, lambda: ss.selective_scan_cuda(*args)),
+                (NotImplementedError,
+                 lambda: ss.selective_scan_fwd_train_cuda(*args)),
+                (ValueError, lambda: ss.selective_scan_cuda(
+                    *[bad_g[k] for k in ("u", "dt_low", "dt_w", "A", "B",
+                                         "C")]))):
+            try:
+                fn()
+            except exc as e:
+                refused.append(str(e))
+    rec = {"phase": "kernel-cases-launches", "launches": launches,
+           "expected": expect, "refused": refused,
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    if any(launches[k]["launches"] != v for k, v in expect.items()):
+        raise AssertionError(f"the front end's run missed a kernel: {rec}")
+    if len(refused) != 3:
+        raise AssertionError(f"N 257 or G 3 of dim 64 was not refused: "
+                             f"{rec}")
+    return {"scan": scans, "state": states, "train": trains, "front": front,
+            "launches": launches, "seconds": rec["seconds"]}
+
+
+def _add_case_fields(by_name, cases):
+    """Rows 1, 2, 3 and 8 of the kernels line (`by_name`) with the cases
+    beyond the zoo from `phase_kernel_cases` (`cases`): N past 32
+    (`state_cases`), grouped B/C (`grouped_cases`) and a full delta
+    (`delta_cases`; every case of the state entry is one), each with its
+    numbers, and each kernel's launches in the op API's run
+    (`cases_launches`); kernels 2 and 3 take no groups (the grouped route's
+    backward is the plain scan's), kernel 1 no full delta (the state
+    entry's).  The rows' max_abs_err takes the cases' in."""
+    def case_list(recs, sub=None):
+        return [{"case": r["case"], "shape": r["shape"], "dtype": r["dtype"],
+                 **{k: r.get(k) for k in ("reverse", "groups", "full_delta",
+                                          "h0_and_last")},
+                 **{k: (r if sub is None else r[sub])[k] for k in (
+                     "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                     "bound_by", "bound_ops")}}
+                for r in recs]
+
+    scans, states = cases["scan"].values(), cases["state"].values()
+    rows = {
+        "selective_scan_fwd": (
+            case_list(r for r in scans if not r["groups"]),
+            case_list(r for r in scans if r["groups"]), []),
+        "selective_scan_fwd_state": (
+            case_list(r for r in states if not r["groups"]),
+            case_list(r for r in states if r["groups"]),
+            case_list(states))}
+    for name, key in (("selective_scan_fwd_train", "fwd_train"),
+                      ("selective_scan_bwd", "bwd")):
+        trains = cases["train"].values()
+        rows[name] = (
+            case_list((r for r in trains if not r["full_delta"]), key), [],
+            case_list((r for r in trains if r["full_delta"]), key))
+    for name, (more, grouped, delta) in rows.items():
+        rec = by_name[name]
+        rec.update(state_cases=more, grouped_cases=grouped,
+                   delta_cases=delta,
+                   cases_launches=cases["launches"][name])
+        rec["max_abs_err"] = max([rec["max_abs_err"]] + [
+            c["max_abs_err"] for c in more + grouped + delta])
+
+
 LM_MODEL = "mamba-2.8b"
 LM_SCORE_LEN = 2048          # one sequence of the scorer's largest bucket
 LM_GEN_BATCH, LM_GEN_PROMPT, LM_GEN_NEW = 8, 64, 128
@@ -5391,7 +5695,9 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = cuda_build.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "sources": sorted(logs), "ptxas": [
+          "sources": sorted(logs),
+          "source_seconds": getattr(cuda_build.build, "seconds", {}),
+          "ptxas": [
               line.strip() for log in logs.values() for line in
               log.splitlines() if "registers" in line or "spill" in line]})
 
@@ -5427,6 +5733,7 @@ def main() -> int:
     phase_train_remat()
     phase_train_ddp()
     parallel = phase_parallel()
+    beyond = phase_kernel_cases()
 
     # the scan at the 256-px mixer shape, with the 512-px one (L 1024) and
     # linear + v2's (dim 2048, r 64) beside it; its reverse entry at the
@@ -5702,12 +6009,14 @@ def main() -> int:
             for r in lm["ranks"]["train"].values()]
         by_name[name]["xl_linear_launches"] = \
             xl_linear["train"]["launches"][name]
+    _add_case_fields(by_name, beyond)
     emit({"phase": "smoke-seconds", "seconds": time.perf_counter() - smoke_t0,
           "variants_seconds": variants["seconds"],
           "models_rest_seconds": rest["seconds"],
           "xl_linear_seconds": xl_linear["seconds"],
           "lm_seconds": lm["seconds"],
-          "parallel_seconds": parallel["seconds"]})
+          "parallel_seconds": parallel["seconds"],
+          "kernel_cases_seconds": beyond["seconds"]})
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -80,6 +80,19 @@
 // keeps one stage a warp, as the training forward's state pass, the main
 // pass plans for one block an SM, and both skip the k-tiles past r; dt_low
 // rows of whole 16-byte runs copy as vectors.
+//
+// Two compile-time switches, off in every instantiation above.  kDelta, the
+// full-delta entry (dimsum_selective_scan_bwd_delta; the JAX _pallas_bwd
+// runs this kernel on a full delta, selective_scan_bwd.py:202): the carry
+// pass stages the chunk's delta rows where it staged dt_low, the main pass
+// loads its 16 x 8 (t, d) of delta beside u's, and neither reads dt_w nor
+// expands.  kSplit, N from 33 (the delta entry: 17) to 256: dA, dB, dC, w
+// and dh0 are per state and du, ddt sums over n, so both passes take one
+// tile of 32 states, n_off = 32 (grid index) .. + 31, at NMAX 32, and write
+// du and ddt to their tile's slice of (tiles, batch, L, dim) buffers, which
+// the wrapper adds (as it adds the dB, dC and dA partials); dh0 is written
+// where given.  Entry:
+// dimsum_selective_scan_bwd_split; the delta entry takes kSplit too.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -389,7 +402,10 @@ struct CarryPlan {
 // grid (ceil(dim / 8), batch), CarryPlan::kWarps warps: the chunks from the
 // last, kWarps at once, a warp a chunk; up to RMAX 64 the next kWarps
 // chunks' rows are copied in while these are walked.
-template <typename T, int NMAX, int RMAX, bool kH0>
+// kSplit: the tile of NMAX states at NMAX blockIdx.z, dh0 where not null;
+// kDelta: dt_low is the full delta (batch, L, dim), dt_w unused.
+template <typename T, int NMAX, int RMAX, bool kH0, bool kSplit = false,
+          bool kDelta = false>
 __global__ void __launch_bounds__(CarryPlan<NMAX, RMAX, true>::kWarps * 32)
 scan_bwd_carry_kernel(const T* __restrict__ dt_low,
                       const T* __restrict__ dt_w, const float* __restrict__ A,
@@ -416,26 +432,42 @@ scan_bwd_carry_kernel(const T* __restrict__ dt_low,
   float2* s_st = reinterpret_cast<float2*>(smem + P::kSt + warp * P::kStW);
   const float2* s_ab_all = reinterpret_cast<const float2*>(smem + P::kAb);
   float2* s_ab = reinterpret_cast<float2*>(smem + P::kAb + warp * P::kAbW);
+  // kSplit: the tile's first state and its count
+  const int n_off = kSplit ? blockIdx.z * NMAX : 0;
+  const int Nt = kSplit ? min(NMAX, N - n_off) : N;
 
-  // chunk c's dt_low, C and go into the warp's stage buffer
+  // chunk c's dt_low (kDelta: delta [16][8]), C and go into the warp's
+  // stage buffer
   auto stage_chunk = [&](int c, float* buf) {
     const int t0 = c * kChunk, nt = min(kChunk, L - t0);
     T* dtl = reinterpret_cast<T*>(buf);
     T* craw = reinterpret_cast<T*>(buf + P::kDtlW);
     float* gob = buf + P::kDtlW + P::kCRawW;
-    stage<T, kChunk * RMAX, 32>(
-        vec, lane,
-        [&](int i) -> const T* {
-          const int tt = i / RMAX, k = i % RMAX;
-          return tt < nt && k < R ? dt_low + (row0 + t0 + tt) * R + k
-                                  : nullptr;
-        },
-        [&](int i) { return dtl + i / RMAX * kPitch + i % RMAX; });
+    if constexpr (kDelta) {
+      stage<T, kChunk * kWarpCh, 32>(
+          vec, lane,
+          [&](int i) -> const T* {
+            const int tt = i / kWarpCh, d = d0 + i % kWarpCh;
+            return tt < nt && d < dim ? dt_low + (row0 + t0 + tt) * dim + d
+                                      : nullptr;
+          },
+          [&](int i) { return dtl + i; });
+    } else {
+      stage<T, kChunk * RMAX, 32>(
+          vec, lane,
+          [&](int i) -> const T* {
+            const int tt = i / RMAX, k = i % RMAX;
+            return tt < nt && k < R ? dt_low + (row0 + t0 + tt) * R + k
+                                    : nullptr;
+          },
+          [&](int i) { return dtl + i / RMAX * kPitch + i % RMAX; });
+    }
     stage<T, kChunk * NMAX, 32>(
         vec, lane,
         [&](int i) -> const T* {
           const int tt = i / NMAX, n = i % NMAX;
-          return tt < nt && n < N ? Cm + (row0 + t0 + tt) * N + n : nullptr;
+          return tt < nt && n < Nt ? Cm + (row0 + t0 + tt) * N + n_off + n
+                                   : nullptr;
         },
         [&](int i) { return craw + i; });
     stage<float, kChunk * kWarpCh, 32>(
@@ -449,8 +481,8 @@ scan_bwd_carry_kernel(const T* __restrict__ dt_low,
   };
 
   uint32_t bfr[RMAX / 16][2];
-  load_w_frags<T, RMAX>(dt_w, d0 + g, dim, R, q, bfr);
-  if constexpr (!kMma)
+  if constexpr (!kDelta) load_w_frags<T, RMAX>(dt_w, d0 + g, dim, R, q, bfr);
+  if constexpr (!kMma && !kDelta)
     load_w_rows<T, RMAX>(dt_w, s_w, d0, kWarpCh, dim, R, tid, kNT);
   float bias2[2];
 #pragma unroll
@@ -462,8 +494,9 @@ scan_bwd_carry_kernel(const T* __restrict__ dt_low,
 #pragma unroll
   for (int j = 0; j < NPL; ++j) {
     const int n = q * NPL + j;
-    a2[j] = (d0 + g < dim && n < N) ? A[(size_t)(d0 + g) * N + n] * kLog2e
-                                    : 0.f;
+    a2[j] = (d0 + g < dim && n < Nt)
+                ? A[(size_t)(d0 + g) * N + n_off + n] * kLog2e
+                : 0.f;
   }
 
   float W = 0.f;  // the chain's carry, for thread (n, c) = (tid / 8, tid % 8)
@@ -500,7 +533,14 @@ scan_bwd_carry_kernel(const T* __restrict__ dt_low,
       for (int m = 0; m < kChunk * NMAX / 32; ++m)
         s_c[lane + 32 * m] = to_f32(craw[lane + 32 * m]);
       float raw[4];
-      expand_dt<kMma, RMAX>(buf, s_w + 2 * q * LDF, bfr, g, q, R, raw);
+      if constexpr (kDelta) {
+        const T* draw = reinterpret_cast<const T*>(buf);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          raw[e] = to_f32(draw[(g + 8 * (e >> 1)) * kWarpCh + 2 * q + (e & 1)]);
+      } else {
+        expand_dt<kMma, RMAX>(buf, s_w + 2 * q * LDF, bfr, g, q, R, raw);
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int tt = g + 8 * (e >> 1), cc = 2 * q + (e & 1);
@@ -534,10 +574,10 @@ scan_bwd_carry_kernel(const T* __restrict__ dt_low,
     // the chain from the right: w_c, then w_{c-1} = alpha_c w_c + beta_c;
     // w is [b][chunk][channel tile of 8][n][8], so a chunk's N x 8 carries
     // of the block are one run
-    if (tid < kWarpCh * N) {
+    if (tid < kWarpCh * Nt) {
       const int n = tid / kWarpCh, cc = tid % kWarpCh;
       float* wb = wcar + ((size_t)b * nc * gridDim.x + blockIdx.x) * N *
-                             kWarpCh + tid;
+                             kWarpCh + n_off * kWarpCh + tid;
       for (int cw = hi - 1; cw >= lo; --cw) {
         wb[(size_t)cw * gridDim.x * N * kWarpCh] = W;
         const float2 ab = s_ab_all[(cw - lo) * (P::kAbW / 2) + cc * NMAX + n];
@@ -549,6 +589,10 @@ scan_bwd_carry_kernel(const T* __restrict__ dt_low,
   if constexpr (kH0) {
     const int n = tid / kWarpCh, d = d0 + tid % kWarpCh;
     if (tid < kWarpCh * N && d < dim) dh0[((size_t)b * dim + d) * N + n] = W;
+  } else if constexpr (kSplit) {
+    const int n = tid / kWarpCh, d = d0 + tid % kWarpCh;
+    if (dh0 != nullptr && tid < kWarpCh * Nt && d < dim)
+      dh0[((size_t)b * dim + d) * N + n_off + n] = W;
   }
 }
 
@@ -579,8 +623,12 @@ struct MainPlan {
 
 // grid (ceil(dim / 64), ceil(n_chunks / kGroup), batch); two blocks an SM
 // up to RMAX 64, one above (dt_w's RMAX / 8 fragments and the RMAX / 16
-// dt_low values a thread; fp32 at RMAX 256 takes 150 KB of shared memory)
-template <typename T, int NMAX, int RMAX>
+// dt_low values a thread; fp32 at RMAX 256 takes 150 KB of shared memory).
+// kSplit: grid z batch x tiles, the tile of NMAX states at NMAX (z /
+// batch), du and ddt into the tile's slice; kDelta: dt_low is the full
+// delta (batch, L, dim), dt_w unused.
+template <typename T, int NMAX, int RMAX, bool kSplit = false,
+          bool kDelta = false>
 __global__ void __launch_bounds__(kThreads, RMAX <= 64 ? 2 : 1)
 scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
                 const T* __restrict__ dt_w, const float* __restrict__ A,
@@ -608,7 +656,14 @@ scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
   // accumulator layout: steps g, g + 8 of channels 2q, 2q + 1; state
   // layout: channel g, states q * NPL .. q * NPL + NPL - 1
   const int g = lane >> 2, q = lane & 3;
-  const int tile = blockIdx.x, grp = blockIdx.y, b = blockIdx.z;
+  const int tile = blockIdx.x, grp = blockIdx.y;
+  const int b = kSplit ? blockIdx.z % batch : blockIdx.z;
+  const int st = kSplit ? blockIdx.z / batch : 0;  // the state tile
+  const int n_off = st * NMAX, Nt = kSplit ? min(NMAX, N - n_off) : N;
+  if constexpr (kSplit) {
+    du += (size_t)st * batch * L * dim;
+    ddt += (size_t)st * batch * L * dim;
+  }
   const int d0 = tile * kBlockCh, dw = d0 + warp * kWarpCh;
   const int nc = (L + kChunk - 1) / kChunk;
   const int c_begin = grp * kGroup, c_end = min(nc, c_begin + kGroup);
@@ -621,8 +676,8 @@ scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
   float2* s_e = reinterpret_cast<float2*>(smem + P::kE);     // [w][16][32]
 
   uint32_t bfr[RMAX / 16][2];
-  load_w_frags<T, RMAX>(dt_w, dw + g, dim, R, q, bfr);
-  if constexpr (!kMma)
+  if constexpr (!kDelta) load_w_frags<T, RMAX>(dt_w, dw + g, dim, R, q, bfr);
+  if constexpr (!kMma && !kDelta)
     load_w_rows<T, RMAX>(dt_w, s_w, d0, kBlockCh, dim, R, tid, kThreads);
   float bias2[2];
 #pragma unroll
@@ -644,28 +699,31 @@ scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
 #pragma unroll
   for (int j = 0; j < NPL; ++j) {
     const int n = q * NPL + j;
-    a2[j] = (s_live && n < N) ? A[(size_t)ds * N + n] * kLog2e : 0.f;
+    a2[j] = (s_live && n < Nt) ? A[(size_t)ds * N + n_off + n] * kLog2e
+                               : 0.f;
     dA[j] = 0.f;
   }
 
   // a chunk's global loads into registers, all issued before any is used
   constexpr int NDT = (kChunk * RMAX + kThreads - 1) / kThreads;
   constexpr int NBC = (kChunk * NMAX + kThreads - 1) / kThreads;
-  T r_dt[NDT], r_b[NBC], r_c[NBC], r_u[4];
+  T r_dt[NDT], r_b[NBC], r_c[NBC], r_u[4], r_dl[4];
   float r_go[4], r_h0[NPL], r_w[NPL];
   auto load = [&](int c) {
     const int t0 = c * kChunk, nt = min(kChunk, L - t0);
+    if constexpr (!kDelta) {
 #pragma unroll
-    for (int j = 0; j < NDT; ++j) {
-      const int i = tid + j * kThreads, tt = i / RMAX, k = i % RMAX;
-      r_dt[j] = (i < kChunk * RMAX && tt < nt && k < R)
-                    ? dt_low[(row0 + t0 + tt) * R + k] : zero_of<T>();
+      for (int j = 0; j < NDT; ++j) {
+        const int i = tid + j * kThreads, tt = i / RMAX, k = i % RMAX;
+        r_dt[j] = (i < kChunk * RMAX && tt < nt && k < R)
+                      ? dt_low[(row0 + t0 + tt) * R + k] : zero_of<T>();
+      }
     }
 #pragma unroll
     for (int j = 0; j < NBC; ++j) {
       const int i = tid + j * kThreads, tt = i / NMAX, n = i % NMAX;
-      const bool ok = i < kChunk * NMAX && tt < nt && n < N;
-      const size_t src = (row0 + t0 + tt) * N + n;
+      const bool ok = i < kChunk * NMAX && tt < nt && n < Nt;
+      const size_t src = (row0 + t0 + tt) * N + n_off + n;
       r_b[j] = ok ? Bm[src] : zero_of<T>();
       r_c[j] = ok ? Cm[src] : zero_of<T>();
     }
@@ -676,15 +734,16 @@ scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
       const size_t idx = (row0 + t0 + tt) * dim + d;
       r_u[e] = ok ? u[idx] : zero_of<T>();
       r_go[e] = ok ? go[idx] : 0.f;
+      if constexpr (kDelta) r_dl[e] = ok ? dt_low[idx] : zero_of<T>();
     }
 #pragma unroll
     for (int j = 0; j < NPL; ++j) {
       const int n = q * NPL + j;
-      const bool ok = s_live && n < N;
-      const size_t o = (((size_t)b * nc + c) * N + n) * dim + ds;
+      const bool ok = s_live && n < Nt;
+      const size_t o = (((size_t)b * nc + c) * N + n_off + n) * dim + ds;
       const size_t ow =
           (((size_t)b * nc + c) * n_tiles8 + (ds >> 3)) * N * kWarpCh +
-          n * kWarpCh + (ds & 7);
+          (n_off + n) * kWarpCh + (ds & 7);
       r_h0[j] = ok ? bnd[o] : 0.f;
       r_w[j] = ok ? wcar[ow] : 0.f;
     }
@@ -694,14 +753,16 @@ scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
     const int t0 = c * kChunk, nt = min(kChunk, L - t0);
     load(c);          // in flight while the block gathers
     __syncthreads();  // the previous chunk's readers are done
+    if constexpr (!kDelta) {
 #pragma unroll
-    for (int j = 0; j < NDT; ++j) {
-      const int i = tid + j * kThreads, tt = i / RMAX, k = i % RMAX;
-      if (i < kChunk * RMAX) {
-        if constexpr (kMma) {
-          dtl_bf[tt * LDB + k] = r_dt[j];
-        } else {
-          s_dtl[tt * LDF + k] = r_dt[j];
+      for (int j = 0; j < NDT; ++j) {
+        const int i = tid + j * kThreads, tt = i / RMAX, k = i % RMAX;
+        if (i < kChunk * RMAX) {
+          if constexpr (kMma) {
+            dtl_bf[tt * LDB + k] = r_dt[j];
+          } else {
+            s_dtl[tt * LDF + k] = r_dt[j];
+          }
         }
       }
     }
@@ -717,8 +778,13 @@ scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
 
     // A: dt', sigmoid, dt' u for the warp's 16 x 8 (t, d)
     float raw[4], uf[4], dtr[4], sgr[4];
-    expand_dt<kMma, RMAX>(s_dtl, s_w + (warp * kWarpCh + 2 * q) * LDF, bfr,
-                          g, q, R, raw);
+    if constexpr (kDelta) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) raw[e] = to_f32(r_dl[e]);
+    } else {
+      expand_dt<kMma, RMAX>(s_dtl, s_w + (warp * kWarpCh + 2 * q) * LDF, bfr,
+                            g, q, R, raw);
+    }
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int tt = g + 8 * (e >> 1), cc = 2 * q + (e & 1);
@@ -786,13 +852,13 @@ scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
     for (int i = tid; i < kChunk * 2 * NMAX; i += kThreads) {
       const int tt = i / (2 * NMAX), r = i % (2 * NMAX);
       const int type = r / NMAX, n = r % NMAX;
-      if (tt < nt && n < N) {
+      if (tt < nt && n < Nt) {
         const float* pr = smem + P::kRed + tt * 2 * NMAX + r;
         float s = 0.f;
 #pragma unroll
         for (int w = 0; w < kWarps; ++w) s += pr[w * kChunk * 2 * NMAX];
         float* out = type ? dC_part : dB_part;
-        out[(((size_t)tile * batch + b) * L + t0 + tt) * N + n] = s;
+        out[(((size_t)tile * batch + b) * L + t0 + tt) * N + n_off + n] = s;
       }
     }
 #pragma unroll
@@ -832,8 +898,9 @@ scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
 #pragma unroll
   for (int j = 0; j < NPL; ++j) {
     const int n = q * NPL + j;
-    if (s_live && n < N)
-      dA_part[(((size_t)b * gridDim.y + grp) * dim + ds) * N + n] = dA[j];
+    if (s_live && n < Nt)
+      dA_part[(((size_t)b * gridDim.y + grp) * dim + ds) * N + n_off + n] =
+          dA[j];
   }
 }
 
@@ -847,14 +914,18 @@ cudaError_t allow_smem(K kernel, int bytes, bool& done) {
   return err;
 }
 
-template <typename T, int NMAX, int RMAX, bool kH0>
+// p: u, dt_low (kDelta: delta), dt_w, A, B, C, bias, go, bnd, w, du, ddt,
+// dB_part, dC_part, dA_part, dh0
+template <typename T, int NMAX, int RMAX, bool kH0, bool kSplit = false,
+          bool kDelta = false>
 int launch(const void* const* p, int batch, int L, int dim, int N, int R,
            int use_softplus, cudaStream_t stream) {
   constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
   using CP = CarryPlan<NMAX, RMAX, kMma>;
   using MP = MainPlan<NMAX, RMAX, kMma>;
-  auto carry_kernel = scan_bwd_carry_kernel<T, NMAX, RMAX, kH0>;
-  auto main_kernel = scan_bwd_kernel<T, NMAX, RMAX>;
+  auto carry_kernel =
+      scan_bwd_carry_kernel<T, NMAX, RMAX, kH0, kSplit, kDelta>;
+  auto main_kernel = scan_bwd_kernel<T, NMAX, RMAX, kSplit, kDelta>;
   static bool carry_set = false, main_set = false;
   cudaError_t err = allow_smem(carry_kernel, CP::kBytes, carry_set);
   if (err == cudaSuccess) err = allow_smem(main_kernel, MP::kBytes, main_set);
@@ -872,18 +943,20 @@ int launch(const void* const* p, int batch, int L, int dim, int N, int R,
     return reinterpret_cast<uintptr_t>(v) % 16 == 0;
   };
   constexpr int kPer = 16 / (int)sizeof(T);
-  // above RMAX 64, dt_low rows of whole 16-byte runs copy as vectors too
-  bool vec = (R == RMAX || (RMAX > 64 && R % kPer == 0)) && N == NMAX &&
-             dim % kPer == 0;
+  // above RMAX 64, dt_low rows of whole 16-byte runs copy as vectors too;
+  // kDelta's rows are go's; kSplit's C rows are whole where N's are
+  bool vec = (kDelta || R == RMAX || (RMAX > 64 && R % kPer == 0)) &&
+             (kSplit ? N % kPer == 0 : N == NMAX) && dim % kPer == 0;
   for (int i : {0, 1, 4, 5, 7, 8, 9}) vec = vec && a16(p[i]);
-  dim3 cgrid((dim + kWarpCh - 1) / kWarpCh, batch);
+  const int tiles = kSplit ? (N + NMAX - 1) / NMAX : 1;
+  dim3 cgrid((dim + kWarpCh - 1) / kWarpCh, batch, tiles);
   carry_kernel<<<cgrid, CP::kWarps * 32, CP::kBytes, stream>>>(
       dt_low, dt_w, A, Cm, bias, go, wcar, L, dim, N, R, use_softplus, vec,
       static_cast<float*>(const_cast<void*>(p[15])));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dim3 grid((dim + kBlockCh - 1) / kBlockCh, (nc + kGroup - 1) / kGroup,
-            batch);
+            batch * tiles);
   main_kernel<<<grid, kThreads, MP::kBytes, stream>>>(
       static_cast<const T*>(p[0]), dt_low, dt_w, A,
       static_cast<const T*>(p[4]), static_cast<const T*>(p[5]), bias, go,
@@ -937,6 +1010,33 @@ int run(const void* const* p, int batch, int L, int dim, int n_state,
                                                    dt_rank, use_softplus, s);
 }
 
+// kSplit (N 33 to 256): 32-state tiles, RMAX 256 for every r (the k-tiles
+// past r are skipped); one plan, where the other two sources also take
+// RMAX 64 at r <= 64, because this source's build is the longest of the
+// port's; dh0 where not null
+template <typename T>
+int dispatch_split(const void* const* p, int batch, int L, int dim, int N,
+                   int R, int sp, cudaStream_t s) {
+  if (R <= 256)
+    return launch<T, 32, 256, false, true>(p, batch, L, dim, N, R, sp, s);
+  return cudaErrorInvalidValue;
+}
+
+// kDelta: the N-16 plan up to 16 states (N <= 8 on it too), the split one
+// (32-state tiles, one at N <= 32) above
+template <typename T>
+int dispatch_delta(const void* const* p, int batch, int L, int dim, int N,
+                   int sp, cudaStream_t s) {
+  constexpr bool f = false, t = true;
+  if (N <= 16) return launch<T, 16, 16, f, f, t>(p, batch, L, dim, N, 1, sp, s);
+  return launch<T, 32, 16, f, t, t>(p, batch, L, dim, N, 1, sp, s);
+}
+
+bool shape_ok(int batch, int L, int dim, int N, int dtype) {
+  return batch >= 1 && L >= 1 && dim >= 1 && N >= 1 && N <= 256 &&
+         (dtype == 0 || dtype == 1);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  bias may be null.  bnd holds the
@@ -971,4 +1071,45 @@ extern "C" int dimsum_selective_scan_bwd_h0(
                        dh0};
   return run<true>(p, batch, L, dim, n_state, dt_rank, dtype, use_softplus,
                    stream);
+}
+
+// N from 1 to 256 (the first entry's instantiations take N <= 32): the h0
+// entry's arguments (dh0 may be null), with du and ddt ceil(N / 32) x batch
+// x L x dim fp32, one slice a tile of 32 states, which the caller adds.
+extern "C" int dimsum_selective_scan_bwd_split(
+    const void* u, const void* dt_low, const void* dt_w, const void* A,
+    const void* B, const void* C, const void* bias, const void* go,
+    const void* bnd, void* w, void* du, void* ddt, void* dB_part,
+    void* dC_part, void* dA_part, void* dh0, int batch, int L, int dim,
+    int n_state, int dt_rank, int dtype, int use_softplus, void* stream) {
+  if (!shape_ok(batch, L, dim, n_state, dtype) || dt_rank < 1)
+    return cudaErrorInvalidValue;
+  const void* p[16] = {u,   dt_low, dt_w, A,   B,       C,       bias,    go,
+                       bnd, w,      du,   ddt, dB_part, dC_part, dA_part,
+                       dh0};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0
+             ? dispatch_split<float>(p, batch, L, dim, n_state, dt_rank,
+                                     use_softplus, s)
+             : dispatch_split<__nv_bfloat16>(p, batch, L, dim, n_state,
+                                             dt_rank, use_softplus, s);
+}
+
+// The full-delta entry: delta (batch, L, dim) in u's type in place of
+// dt_low and dt_w, 1 <= N <= 256, du and ddt as the split entry's.
+extern "C" int dimsum_selective_scan_bwd_delta(
+    const void* u, const void* delta, const void* A, const void* B,
+    const void* C, const void* bias, const void* go, const void* bnd, void* w,
+    void* du, void* ddt, void* dB_part, void* dC_part, void* dA_part,
+    int batch, int L, int dim, int n_state, int dtype, int use_softplus,
+    void* stream) {
+  if (!shape_ok(batch, L, dim, n_state, dtype)) return cudaErrorInvalidValue;
+  const void* p[16] = {u,   delta, nullptr, A,   B,       C,       bias,
+                       go,  bnd,   w,       du,  ddt,     dB_part, dC_part,
+                       dA_part, nullptr};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? dispatch_delta<float>(p, batch, L, dim, n_state,
+                                            use_softplus, s)
+                    : dispatch_delta<__nv_bfloat16>(p, batch, L, dim, n_state,
+                                                    use_softplus, s);
 }

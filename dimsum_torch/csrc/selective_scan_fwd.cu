@@ -103,6 +103,26 @@
 // past L, so the state stored is the state at step L - 1.  Its bound is
 // the first entry's (N + 3 transcendentals a (b, t, d), the SFU) with the
 // delta, h0 and last state added to the bytes.
+//
+// States past 32 and grouped B/C (the reference's ngroups mode, _scan_body's
+// grouped case, selective_scan.py:444, :478, :663-669) take a fifth
+// compile-time switch, kSplit, off in every instantiation above.  The N axis
+// is separable: each state's recurrence is its own, and y is a sum over n.
+// So a block takes one tile of NMAX (32; 16 for a grouped N <= 16) states,
+// n_off = NMAX blockIdx.z .. + NMAX - 1, and runs the phases above on it;
+// at one tile it stores y as before, at more it stores the tile's fp32 sum
+// of C h (no skip, no gate) in a workspace part[tile], and a second
+// kernel, scan_fwd_combine_kernel, adds the tiles in order, the skip and the
+// gate.  Each tile expands dt for itself (its share of the SFU work is 3 of
+// N + 3).
+// Grouped B and C are (batch, L, G, N), channel d reading group d / (dim /
+// G); G = 1 is the ungrouped layout.  Where a block's 32 channels are in one
+// group (dim / G a multiple of 32) the block stages that group's rows as
+// above; else each lane of phase B reads its channel's group's B and C from
+// global memory.  h0 and the last state are read and written where given
+// (runtime checks).  Entries: dimsum_selective_scan_fwd_split (dt_low . dt_w,
+// forward or reverse time) and dimsum_selective_scan_fwd_state_split (the
+// state entry's arguments), each with G and part.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -229,9 +249,12 @@ constexpr int fwd_min_blocks(int rmax) {
 // kH0: h0 (batch, dim, N) seeds the state; kLast: last (batch, dim, N)
 // takes the state after step L - 1.  h0 and last are unused without them.
 // kRev: reverse time (chunks and steps last to first; the first entry's
-// arguments only).
+// arguments only).  kSplit: the tile of NMAX states at NMAX blockIdx.z, B
+// and C in G groups, h0 and last where not null, and with more than one
+// tile the tile's sums into part (see the head of the file).
 template <typename T, int NMAX, int RMAX, bool kDelta = false,
-          bool kH0 = false, bool kLast = false, bool kRev = false>
+          bool kH0 = false, bool kLast = false, bool kRev = false,
+          bool kSplit = false>
 __global__ void __launch_bounds__(kThreads, fwd_min_blocks(RMAX))
 scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
                 const T* __restrict__ dt_w, const float* __restrict__ A,
@@ -239,7 +262,8 @@ scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
                 const float* __restrict__ Dv, const T* __restrict__ z,
                 const float* __restrict__ bias, T* __restrict__ out, int L,
                 int dim, int N, int R, int use_softplus,
-                const float* __restrict__ h0, float* __restrict__ last) {
+                const float* __restrict__ h0, float* __restrict__ last, int G,
+                float* __restrict__ part_out) {
   using P = Plan<NMAX, RMAX>;
   constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
   constexpr int NPL = NMAX / kLanes;  // states a lane
@@ -266,6 +290,13 @@ scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
   // phase B: channel cb, states kb * NPL .. + NPL
   const int cb = tid / kLanes, kb = tid % kLanes;
   const int db = d0 + cb;
+  // kSplit: the tile's first state and its count; gw channels a group, the
+  // block's group grp, staged when all the block's channels are in it
+  const int n_off = kSplit ? blockIdx.z * NMAX : 0;
+  const int Nt = kSplit ? min(NMAX, N - n_off) : N;
+  const int gw = kSplit ? dim / G : dim;
+  const int grp = kSplit ? d0 / gw : 0;
+  const bool staged = !kSplit || G == 1 || gw % kChannels == 0;
 
   if constexpr (!kDelta) {
     for (int i = tid; i < RMAX * kChannels; i += kThreads) {
@@ -280,15 +311,17 @@ scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
     }
   }
   // this lane's states of channel db in h0 and last
-  const size_t state0 = ((size_t)b * dim + db) * N + kb * NPL;
+  const size_t state0 = ((size_t)b * dim + db) * N + n_off + kb * NPL;
   float a2[NPL], h[NPL];
 #pragma unroll
   for (int j = 0; j < NPL; ++j) {
     const int n = kb * NPL + j;
-    const bool real = db < dim && n < N;
-    a2[j] = real ? A[(size_t)db * N + n] * kLog2e : 0.f;
+    const bool real = db < dim && n < Nt;
+    a2[j] = real ? A[(size_t)db * N + n_off + n] * kLog2e : 0.f;
     if constexpr (kH0) {
       h[j] = real ? h0[state0 + j] : 0.f;
+    } else if constexpr (kSplit) {
+      h[j] = (real && h0 != nullptr) ? h0[state0 + j] : 0.f;
     } else {
       h[j] = 0.f;
     }
@@ -314,14 +347,27 @@ scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
         r_dt[j] = (tt < n_t && k < R) ? pd[tt * R + k] : zero;
       }
     }
-    const T* pb = Bm + (row0 + c0) * N;
-    const T* pc = Cm + (row0 + c0) * N;
+    if constexpr (kSplit) {
+      // the block's group's rows, G N apart, from state n_off (unstaged:
+      // phase B reads its own)
+      const size_t ld = (size_t)G * N, at = (row0 + c0) * ld + grp * N + n_off;
 #pragma unroll
-    for (int j = 0; j < NBC; ++j) {
-      const int i = tid + j * kThreads, tt = i / NMAX, n = i % NMAX;
-      const bool ok = tt < n_t && n < N;
-      r_b[j] = ok ? pb[tt * N + n] : zero;
-      r_c[j] = ok ? pc[tt * N + n] : zero;
+      for (int j = 0; j < NBC; ++j) {
+        const int i = tid + j * kThreads, tt = i / NMAX, n = i % NMAX;
+        const bool ok = staged && tt < n_t && n < Nt;
+        r_b[j] = ok ? Bm[at + tt * ld + n] : zero;
+        r_c[j] = ok ? Cm[at + tt * ld + n] : zero;
+      }
+    } else {
+      const T* pb = Bm + (row0 + c0) * N;
+      const T* pc = Cm + (row0 + c0) * N;
+#pragma unroll
+      for (int j = 0; j < NBC; ++j) {
+        const int i = tid + j * kThreads, tt = i / NMAX, n = i % NMAX;
+        const bool ok = tt < n_t && n < N;
+        r_b[j] = ok ? pb[tt * N + n] : zero;
+        r_c[j] = ok ? pc[tt * N + n] : zero;
+      }
     }
     const size_t base = (row0 + c0) * dim + da;
 #pragma unroll
@@ -455,8 +501,22 @@ scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
       const int tt = kRev ? kChunk - 1 - i : i;
       const float2 dd = s_dd[tt * kChannels + cb];
       float bv[NPL], cv[NPL];
-      lds<NPL>(s_B + tt * NMAX + kb * NPL, bv);
-      lds<NPL>(s_C + tt * NMAX + kb * NPL, cv);
+      if (staged) {
+        lds<NPL>(s_B + tt * NMAX + kb * NPL, bv);
+        lds<NPL>(s_C + tt * NMAX + kb * NPL, cv);
+      } else {
+        // kSplit, the block's channels in several groups: channel db's own
+        // group's rows (past L the last row: dt is 0 there)
+        const size_t at =
+            ((row0 + min(t0 + tt, L - 1)) * G + db / gw) * N + n_off +
+            kb * NPL;
+#pragma unroll
+        for (int j = 0; j < NPL; ++j) {
+          const bool ok = db < dim && kb * NPL + j < Nt;
+          bv[j] = ok ? to_f32(Bm[at + j]) : 0.f;
+          cv[j] = ok ? to_f32(Cm[at + j]) : 0.f;
+        }
+      }
       float y = 0.f;
 #pragma unroll
       for (int j = 0; j < NPL; ++j) {
@@ -474,39 +534,91 @@ scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt_low,
       float part[kLanes];
       lds<kLanes>(s_y + tt * kThreads + ca * kLanes, part);
       const float s = ((part[0] + part[1]) + part[2]) + part[3];
-      if (active && tt < nt)
-        out[(row0 + t0) * dim + da + tt * dim] =
-            from_f32<T>((s + skip[i]) * gate[i]);
+      if constexpr (kSplit) {
+        // one tile: y; more: the tile's sum of C h, for the combine
+        const size_t idx = (row0 + t0 + tt) * dim + da;
+        if (active && tt < nt) {
+          if (gridDim.z == 1) {
+            out[idx] = from_f32<T>((s + skip[i]) * gate[i]);
+          } else {
+            part_out[blockIdx.z * (size_t)gridDim.x * L * dim + idx] = s;
+          }
+        }
+      } else {
+        if (active && tt < nt)
+          out[(row0 + t0) * dim + da + tt * dim] =
+              from_f32<T>((s + skip[i]) * gate[i]);
+      }
     }
   }
   if constexpr (kLast) {
 #pragma unroll
     for (int j = 0; j < NPL; ++j)
       if (db < dim && kb * NPL + j < N) last[state0 + j] = h[j];
+  } else if constexpr (kSplit) {
+    if (last != nullptr) {
+#pragma unroll
+      for (int j = 0; j < NPL; ++j)
+        if (db < dim && kb * NPL + j < Nt) last[state0 + j] = h[j];
+    }
   }
 }
 
+// kSplit at more than one tile: out = (the tiles' sums of C h, added in
+// tile order, + D u) silu(z), the arithmetic of phase C; with o (the
+// training forward's) also o = the sum + D u
+template <typename T>
+__global__ void __launch_bounds__(256)
+scan_fwd_combine_kernel(const float* __restrict__ part, int tiles,
+                    const T* __restrict__ u, const float* __restrict__ Dv,
+                    const T* __restrict__ z, T* __restrict__ out,
+                    float* __restrict__ o, size_t total, int dim) {
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += stride) {
+    float s = part[i];
+    for (int k = 1; k < tiles; ++k) s += part[k * total + i];
+    s += to_f32(u[i]) * (Dv != nullptr ? Dv[i % dim] : 0.f);
+    if (o != nullptr) o[i] = s;
+    out[i] = from_f32<T>(s * (z != nullptr ? silu(to_f32(z[i])) : 1.f));
+  }
+}
+
+template <typename T>
+cudaError_t combine(const float* part, int tiles, const void* u,
+                    const void* D, const void* z, void* out, float* o,
+                    size_t total, int dim, cudaStream_t stream) {
+  const size_t blocks = (total + 255) / 256;
+  const unsigned grid = blocks < 1056 ? (unsigned)blocks : 1056u;
+  scan_fwd_combine_kernel<T><<<grid, 256, 0, stream>>>(
+      part, tiles, static_cast<const T*>(u), static_cast<const float*>(D),
+      static_cast<const T*>(z), static_cast<T*>(out), o, total, dim);
+  return cudaGetLastError();
+}
+
 template <typename T, int NMAX, int RMAX, bool kDelta = false,
-          bool kH0 = false, bool kLast = false, bool kRev = false>
+          bool kH0 = false, bool kLast = false, bool kRev = false,
+          bool kSplit = false>
 cudaError_t launch(const void* u, const void* dt_low, const void* dt_w,
                    const void* A, const void* B, const void* C, const void* D,
                    const void* z, const void* bias, void* out, int batch,
                    int L, int dim, int N, int R, int use_softplus,
                    cudaStream_t stream, const void* h0 = nullptr,
-                   void* last = nullptr) {
+                   void* last = nullptr, int G = 1, void* part = nullptr) {
   constexpr int kBytes = Plan<NMAX, RMAX>::kBytes;
   if constexpr (kBytes > 48 * 1024) {  // RMAX 256: set once
     static bool done = false;
     if (!done) {
       const cudaError_t err = cudaFuncSetAttribute(
-          scan_fwd_kernel<T, NMAX, RMAX, kDelta, kH0, kLast, kRev>,
+          scan_fwd_kernel<T, NMAX, RMAX, kDelta, kH0, kLast, kRev, kSplit>,
           cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
       if (err != cudaSuccess) return err;
       done = true;
     }
   }
-  dim3 grid(batch, (dim + kChannels - 1) / kChannels);
-  scan_fwd_kernel<T, NMAX, RMAX, kDelta, kH0, kLast, kRev>
+  const int tiles = kSplit ? (N + NMAX - 1) / NMAX : 1;
+  dim3 grid(batch, (dim + kChannels - 1) / kChannels, tiles);
+  scan_fwd_kernel<T, NMAX, RMAX, kDelta, kH0, kLast, kRev, kSplit>
       <<<grid, kThreads, kBytes, stream>>>(
           static_cast<const T*>(u), static_cast<const T*>(dt_low),
           static_cast<const T*>(dt_w), static_cast<const float*>(A),
@@ -514,8 +626,11 @@ cudaError_t launch(const void* u, const void* dt_low, const void* dt_w,
           static_cast<const float*>(D), static_cast<const T*>(z),
           static_cast<const float*>(bias), static_cast<T*>(out), L, dim, N,
           R, use_softplus, static_cast<const float*>(h0),
-          static_cast<float*>(last));
-  return cudaGetLastError();
+          static_cast<float*>(last), G, static_cast<float*>(part));
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || tiles == 1) return err;
+  return combine<T>(static_cast<const float*>(part), tiles, u, D, z, out,
+                    nullptr, (size_t)batch * L * dim, dim, stream);
 }
 
 #define SCAN_ARGS u, dt_low, dt_w, A, B, C, D, z, bias, out, batch, L, dim, \
@@ -580,6 +695,35 @@ cudaError_t dispatch_state(STATE_PARAMS) {
   return cudaErrorInvalidValue;
 }
 
+// kSplit: 32-state tiles (a grouped N <= 16 on one 16-state tile), RMAX 64
+// or 256 (the k-tiles past r are zero: RMAX 64 serves every r <= 64)
+template <typename T, bool kRev>
+cudaError_t dispatch_split(SCAN_PARAMS, int G, void* part) {
+  constexpr bool f = false;
+  if (R <= 64)
+    return launch<T, 32, 64, f, f, f, kRev, true>(SCAN_ARGS, nullptr, nullptr,
+                                                  G, part);
+  if (R <= 256)
+    return launch<T, 32, 256, f, f, f, kRev, true>(SCAN_ARGS, nullptr,
+                                                   nullptr, G, part);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t dispatch_state_split(STATE_PARAMS, int G, void* part) {
+  if (N <= 16 && G > 1)
+    return launch<T, 16, 16, true, false, false, false, true>(STATE_ARGS, G,
+                                                              part);
+  return launch<T, 32, 16, true, false, false, false, true>(STATE_ARGS, G,
+                                                            part);
+}
+
+// the split entries' shapes: 1 <= N <= 256, G >= 1 dividing dim
+bool split_ok(int batch, int L, int dim, int N, int G, int dtype) {
+  return batch >= 1 && L >= 1 && dim >= 1 && N >= 1 && N <= 256 && G >= 1 &&
+         dim % G == 0 && (dtype == 0 || dtype == 1);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  D, z and bias may be null.
@@ -634,4 +778,43 @@ extern "C" int dimsum_selective_scan_fwd_state(
   const int N = n_state;
   return dtype == 0 ? dispatch_state<float>(STATE_FWD)
                     : dispatch_state<__nv_bfloat16>(STATE_FWD);
+}
+
+// States past 32 or grouped B/C: the first (reverse = 0) or reverse entry's
+// arguments, with B and C (batch, L, G, N) (G = 1: (batch, L, N)), 1 <= N
+// <= 256, and part, a workspace of ceil(N / 32) x batch x L x dim fp32 (not
+// read or written at one tile).  Returns as the first entry.
+extern "C" int dimsum_selective_scan_fwd_split(
+    const void* u, const void* dt_low, const void* dt_w, const void* A,
+    const void* B, const void* C, const void* D, const void* z,
+    const void* bias, void* out, void* part, int batch, int L, int dim,
+    int n_state, int dt_rank, int n_groups, int dtype, int use_softplus,
+    int reverse, void* stream) {
+  if (!split_ok(batch, L, dim, n_state, n_groups, dtype) || dt_rank < 1)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int N = n_state, R = dt_rank, G = n_groups;
+  if (dtype == 0)
+    return reverse ? dispatch_split<float, true>(SCAN_ARGS, G, part)
+                   : dispatch_split<float, false>(SCAN_ARGS, G, part);
+  return reverse ? dispatch_split<__nv_bfloat16, true>(SCAN_ARGS, G, part)
+                 : dispatch_split<__nv_bfloat16, false>(SCAN_ARGS, G, part);
+}
+
+// The state entry's arguments, with B and C (batch, L, G, N) (G = 1:
+// (batch, L, N)), 1 <= N <= 256, and part, a workspace of ceil(N / 32) x
+// batch x L x dim fp32 (not read or written at one tile).
+extern "C" int dimsum_selective_scan_fwd_state_split(
+    const void* u, const void* delta, const void* A, const void* B,
+    const void* C, const void* D, const void* z, const void* bias,
+    const void* h0, void* out, void* last, void* part, int batch, int L,
+    int dim, int n_state, int n_groups, int dtype, int use_softplus,
+    void* stream) {
+  if (!split_ok(batch, L, dim, n_state, n_groups, dtype))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int N = n_state, G = n_groups;
+  return dtype == 0
+             ? dispatch_state_split<float>(STATE_FWD, G, part)
+             : dispatch_state_split<__nv_bfloat16>(STATE_FWD, G, part);
 }

@@ -85,6 +85,22 @@
 // k-tiles past r, copies dt_low rows as 16-byte vectors whenever r is a
 // multiple of 16 bytes' elements, and stages them in runs of 32 loads a
 // thread otherwise.  The main pass does not depend on r.
+//
+// Two compile-time switches, off in every instantiation above, serve the
+// cases the Pallas kernel takes beyond these.  kDelta, the full-delta entry
+// (dimsum_selective_scan_fwd_train_delta; the JAX _pallas_fwd runs this
+// kernel on a full delta, selective_scan.py:756-768): the state pass stages
+// the chunk's delta rows (batch, L, dim) in u's type where it staged dt_low,
+// and skips dt_w and the expansion; the bias and softplus stay in fp32.
+// kSplit, N from 33 (the delta entry: 17) to 256 (the reference kernel's
+// largest): each state's recurrence is its own and o is a sum over n, so
+// both passes take one tile of 32 states, n_off = 32 (grid index) .. + 31,
+// through their plans at NMAX 32; the state pass's tile 0 alone writes dt;
+// at one tile the main pass stores o and y as above, at more its tile's sum
+// of C h (no skip) in a workspace part[tile], and a third kernel,
+// scan_fwd_train_combine_kernel, adds the tiles in order: o = sum + D u, y =
+// o silu(z).  h0 is read where given (a runtime check).  Entry:
+// dimsum_selective_scan_fwd_train_split; the delta entry takes kSplit too.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -391,7 +407,11 @@ constexpr int states_min_blocks(int warps, int rmax) {
 // grid (ceil(dim / 8), batch), StatePlan::kWarps warps: the chunks from
 // the first, kWarps at once, a warp a chunk; up to RMAX 64 the next kWarps
 // chunks' rows are copied in while these are walked.
-template <typename T, int NMAX, int RMAX, bool kH0>
+// kSplit: the tile of NMAX states at NMAX blockIdx.z, h0 where not null,
+// dt written by tile 0 alone; kDelta: dt_low is the full delta (batch, L,
+// dim), dt_w unused.
+template <typename T, int NMAX, int RMAX, bool kH0, bool kSplit = false,
+          bool kDelta = false>
 __global__ void __launch_bounds__(
     StatePlan<NMAX, RMAX, true>::kWarps * 32,
     states_min_blocks(StatePlan<NMAX, RMAX, true>::kWarps, RMAX))
@@ -423,26 +443,42 @@ scan_fwd_train_states_kernel(const T* __restrict__ u,
   float2* s_st = reinterpret_cast<float2*>(smem + P::kSt + warp * P::kStW);
   const float2* s_ab_all = reinterpret_cast<const float2*>(smem + P::kAb);
   float2* s_ab = reinterpret_cast<float2*>(smem + P::kAb + warp * P::kAbW);
+  // kSplit: the tile's first state and its count
+  const int n_off = kSplit ? blockIdx.z * NMAX : 0;
+  const int Nt = kSplit ? min(NMAX, N - n_off) : N;
 
-  // chunk c's dt_low, B and u into the warp's stage buffer
+  // chunk c's dt_low (kDelta: delta [16][8], as u), B and u into the warp's
+  // stage buffer
   auto stage_chunk = [&](int c, float* buf) {
     const int t0 = c * kChunk, nt = min(kChunk, L - t0);
     T* dtl = reinterpret_cast<T*>(buf);
     T* braw = reinterpret_cast<T*>(buf + P::kDtlW);
     T* uraw = reinterpret_cast<T*>(buf + P::kDtlW + P::kBRawW);
-    stage<T, kChunk * RMAX, 32>(
-        vec, lane,
-        [&](int i) -> const T* {
-          const int tt = i / RMAX, k = i % RMAX;
-          return tt < nt && k < R ? dt_low + (row0 + t0 + tt) * R + k
-                                  : nullptr;
-        },
-        [&](int i) { return dtl + i / RMAX * kPitch + i % RMAX; });
+    if constexpr (kDelta) {
+      stage<T, kChunk * kWarpCh, 32>(
+          vec, lane,
+          [&](int i) -> const T* {
+            const int tt = i / kWarpCh, d = d0 + i % kWarpCh;
+            return tt < nt && d < dim ? dt_low + (row0 + t0 + tt) * dim + d
+                                      : nullptr;
+          },
+          [&](int i) { return dtl + i; });
+    } else {
+      stage<T, kChunk * RMAX, 32>(
+          vec, lane,
+          [&](int i) -> const T* {
+            const int tt = i / RMAX, k = i % RMAX;
+            return tt < nt && k < R ? dt_low + (row0 + t0 + tt) * R + k
+                                    : nullptr;
+          },
+          [&](int i) { return dtl + i / RMAX * kPitch + i % RMAX; });
+    }
     stage<T, kChunk * NMAX, 32>(
         vec, lane,
         [&](int i) -> const T* {
           const int tt = i / NMAX, n = i % NMAX;
-          return tt < nt && n < N ? Bm + (row0 + t0 + tt) * N + n : nullptr;
+          return tt < nt && n < Nt ? Bm + (row0 + t0 + tt) * N + n_off + n
+                                   : nullptr;
         },
         [&](int i) { return braw + i; });
     stage<T, kChunk * kWarpCh, 32>(
@@ -456,8 +492,8 @@ scan_fwd_train_states_kernel(const T* __restrict__ u,
   };
 
   uint32_t bfr[RMAX / 16][2];
-  load_w_frags<T, RMAX>(dt_w, d0 + g, dim, R, q, bfr);
-  if constexpr (!kMma) {
+  if constexpr (!kDelta) load_w_frags<T, RMAX>(dt_w, d0 + g, dim, R, q, bfr);
+  if constexpr (!kMma && !kDelta) {
     for (int i = tid; i < kWarpCh * RMAX; i += kNT) {
       const int k = i / kWarpCh, c = i % kWarpCh;
       s_w[c * LDF + k] = (k < R && d0 + c < dim)
@@ -474,8 +510,9 @@ scan_fwd_train_states_kernel(const T* __restrict__ u,
 #pragma unroll
   for (int j = 0; j < NPL; ++j) {
     const int n = q * NPL + j;
-    a2[j] = (d0 + g < dim && n < N) ? A[(size_t)(d0 + g) * N + n] * kLog2e
-                                    : 0.f;
+    a2[j] = (d0 + g < dim && n < Nt)
+                ? A[(size_t)(d0 + g) * N + n_off + n] * kLog2e
+                : 0.f;
   }
 
   // the chain's state, for thread (n, c) = (tid / 8, tid % 8): zero, or
@@ -484,6 +521,10 @@ scan_fwd_train_states_kernel(const T* __restrict__ u,
   if constexpr (kH0) {
     const int n = tid / kWarpCh, d = d0 + tid % kWarpCh;
     if (tid < kWarpCh * N && d < dim) H = h0[((size_t)b * dim + d) * N + n];
+  } else if constexpr (kSplit) {
+    const int n = tid / kWarpCh, d = d0 + tid % kWarpCh;
+    if (h0 != nullptr && tid < kWarpCh * Nt && d < dim)
+      H = h0[((size_t)b * dim + d) * N + n_off + n];
   }
   if (kPipe && vec) {
     if (warp < nc) stage_chunk(warp, stage0);
@@ -513,7 +554,14 @@ scan_fwd_train_states_kernel(const T* __restrict__ u,
       const T* braw = reinterpret_cast<const T*>(buf + P::kDtlW);
       const T* uraw = reinterpret_cast<const T*>(buf + P::kDtlW + P::kBRawW);
       float raw[4], dts[4];
-      expand_dt<kMma, RMAX>(buf, s_w + 2 * q * LDF, bfr, g, q, R, raw);
+      if constexpr (kDelta) {
+        const T* draw = reinterpret_cast<const T*>(buf);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          raw[e] = to_f32(draw[(g + 8 * (e >> 1)) * kWarpCh + 2 * q + (e & 1)]);
+      } else {
+        expand_dt<kMma, RMAX>(buf, s_w + 2 * q * LDF, bfr, g, q, R, raw);
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int tt = g + 8 * (e >> 1), cc = 2 * q + (e & 1);
@@ -524,11 +572,12 @@ scan_fwd_train_states_kernel(const T* __restrict__ u,
         s_st[tt * kWarpCh + cc] =
             make_float2(dt, dt * to_f32(uraw[tt * kWarpCh + cc]));
       }
-      // dt for the main pass, in o's place (channel pairs 2q, 2q + 1)
+      // dt for the main pass, in o's place (channel pairs 2q, 2q + 1);
+      // kSplit: tile 0's
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int tt = g + 8 * i, d = d0 + 2 * q;
-        if (tt >= nt || d >= dim) continue;
+        if (tt >= nt || d >= dim || (kSplit && blockIdx.z != 0)) continue;
         float* dst = dt_out + (row0 + t0 + tt) * dim + d;
         if (vec) {  // dim even: the pair is 8-byte aligned
           *reinterpret_cast<float2*>(dst) =
@@ -561,9 +610,9 @@ scan_fwd_train_states_kernel(const T* __restrict__ u,
     __syncthreads();
     // the chain from the left: bnd_c, then bnd_{c+1} = alpha_c bnd_c +
     // beta_c; a chunk's 8 channels of one state are one 32-byte run
-    if (tid < kWarpCh * N) {
+    if (tid < kWarpCh * Nt) {
       const int n = tid / kWarpCh, cc = tid % kWarpCh, d = d0 + cc;
-      float* dst = bnd + ((size_t)b * nc * N + n) * dim + d;
+      float* dst = bnd + ((size_t)b * nc * N + n_off + n) * dim + d;
       for (int cw = lo; cw < hi; ++cw) {
         if (d < dim) dst[(size_t)cw * N * dim] = H;
         const float2 ab = s_ab_all[(cw - lo) * (P::kAbW / 2) + cc * NMAX + n];
@@ -589,14 +638,17 @@ struct MainPlan {
 };
 
 // grid (ceil(dim / 32), ceil(n_chunks / kGroup), batch); 6 blocks of 128
-// threads an SM at least (the kernel takes 64 registers: 8 fit)
-template <typename T, int NMAX>
+// threads an SM at least (the kernel takes 64 registers: 8 fit).  kSplit:
+// grid y ceil(n_chunks / kGroup) x tiles, the tile of NMAX states at NMAX
+// (y / the groups), each (t, d)'s sum of the tile's C h into part_out[tile]
+template <typename T, int NMAX, bool kSplit = false>
 __global__ void __launch_bounds__(kThreads, 6)
 scan_fwd_train_kernel(const T* __restrict__ u, const float* __restrict__ A,
                       const T* __restrict__ Bm, const T* __restrict__ Cm,
                       const float* __restrict__ Dv, const T* __restrict__ z,
                       T* __restrict__ out, float* __restrict__ o,
-                      const float* __restrict__ bnd, int L, int dim, int N) {
+                      const float* __restrict__ bnd, int L, int dim, int N,
+                      float* __restrict__ part_out) {
   using P = MainPlan<NMAX>;
   constexpr int NPL = NMAX / kLanes;  // states a lane
   static_assert(NPL >= 2, "plan");
@@ -609,7 +661,10 @@ scan_fwd_train_kernel(const T* __restrict__ u, const float* __restrict__ A,
   const int tid = threadIdx.x;
   const int d0 = blockIdx.x * kChannels, b = blockIdx.z;
   const int nc = (L + kChunk - 1) / kChunk;
-  const int c_begin = blockIdx.y * kGroup;
+  const int groups = (nc + kGroup - 1) / kGroup;
+  const int tile = kSplit ? blockIdx.y / groups : 0;
+  const int n_off = tile * NMAX, Nt = kSplit ? min(NMAX, N - n_off) : N;
+  const int c_begin = (kSplit ? blockIdx.y % groups : blockIdx.y) * kGroup;
   const int c_end = min(nc, c_begin + kGroup);
   // phases A and C: channel ca, timesteps tg * kSteps .. + kSteps
   const int ca = tid % kChannels, tg = tid / kChannels;
@@ -624,9 +679,10 @@ scan_fwd_train_kernel(const T* __restrict__ u, const float* __restrict__ A,
 #pragma unroll
   for (int j = 0; j < NPL; ++j) {
     const int n = kb * NPL + j;
-    const bool ok = db < dim && n < N;
-    a2[j] = ok ? A[(size_t)db * N + n] * kLog2e : 0.f;
-    h[j] = ok ? bnd[(((size_t)b * nc + c_begin) * N + n) * dim + db] : 0.f;
+    const bool ok = db < dim && n < Nt;
+    a2[j] = ok ? A[(size_t)db * N + n_off + n] * kLog2e : 0.f;
+    h[j] = ok ? bnd[(((size_t)b * nc + c_begin) * N + n_off + n) * dim + db]
+              : 0.f;
   }
   const float skip_w = (Dv != nullptr && active) ? Dv[da] : 0.f;
   const size_t row0 = (size_t)b * L;
@@ -639,12 +695,12 @@ scan_fwd_train_kernel(const T* __restrict__ u, const float* __restrict__ A,
   const T zero = from_f32<T>(0.f);
   auto load_chunk = [&](int c0) {
     const int n_t = min(kChunk, L - c0);
-    const T* pb = Bm + (row0 + c0) * N;
-    const T* pc = Cm + (row0 + c0) * N;
+    const T* pb = Bm + (row0 + c0) * N + n_off;
+    const T* pc = Cm + (row0 + c0) * N + n_off;
 #pragma unroll
     for (int j = 0; j < NBC; ++j) {
       const int i = tid + j * kThreads, tt = i / NMAX, n = i % NMAX;
-      const bool ok = tt < n_t && n < N;
+      const bool ok = tt < n_t && n < Nt;
       r_b[j] = ok ? pb[tt * N + n] : zero;
       r_c[j] = ok ? pc[tt * N + n] : zero;
     }
@@ -705,13 +761,47 @@ scan_fwd_train_kernel(const T* __restrict__ u, const float* __restrict__ A,
       const int tt = tg * kSteps + i;
       float part[kLanes];
       lds<kLanes>(s_y + tt * kThreads + ca * kLanes, part);
-      const float s = (((part[0] + part[1]) + part[2]) + part[3]) + skip[i];
-      if (active && tt < nt) {
-        const size_t idx = (row0 + t0 + tt) * dim + da;
-        o[idx] = s;
-        out[idx] = from_f32<T>(s * gate[i]);
+      if constexpr (kSplit) {
+        // one tile: o and y; more: the tile's sum, for the combine
+        const float s = ((part[0] + part[1]) + part[2]) + part[3];
+        if (active && tt < nt) {
+          const size_t idx = (row0 + t0 + tt) * dim + da;
+          if (gridDim.y == groups) {
+            o[idx] = s + skip[i];
+            out[idx] = from_f32<T>((s + skip[i]) * gate[i]);
+          } else {
+            part_out[(size_t)tile * gridDim.z * L * dim + idx] = s;
+          }
+        }
+      } else {
+        const float s =
+            (((part[0] + part[1]) + part[2]) + part[3]) + skip[i];
+        if (active && tt < nt) {
+          const size_t idx = (row0 + t0 + tt) * dim + da;
+          o[idx] = s;
+          out[idx] = from_f32<T>(s * gate[i]);
+        }
       }
     }
+  }
+}
+
+// kSplit: o = the tiles' sums of C h (added in tile order) + D u, y = o
+// silu(z), the arithmetic of phase C
+template <typename T>
+__global__ void __launch_bounds__(256)
+scan_fwd_train_combine_kernel(const float* __restrict__ part, int tiles,
+                    const T* __restrict__ u, const float* __restrict__ Dv,
+                    const T* __restrict__ z, T* __restrict__ out,
+                    float* __restrict__ o, size_t total, int dim) {
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += stride) {
+    float s = part[i];
+    for (int k = 1; k < tiles; ++k) s += part[k * total + i];
+    s += to_f32(u[i]) * (Dv != nullptr ? Dv[i % dim] : 0.f);
+    o[i] = s;
+    out[i] = from_f32<T>(s * (z != nullptr ? silu(to_f32(z[i])) : 1.f));
   }
 }
 
@@ -725,12 +815,16 @@ cudaError_t allow_smem(K kernel, int bytes, bool& done) {
   return err;
 }
 
-template <typename T, int NMAX, int RMAX, bool kH0>
+// p: u, dt_low (kDelta: delta), dt_w, A, B, C, D, z, bias, out, o, bnd, h0,
+// part (kSplit's workspace)
+template <typename T, int NMAX, int RMAX, bool kH0, bool kSplit = false,
+          bool kDelta = false>
 int launch(const void* const* p, int batch, int L, int dim, int N, int R,
            int use_softplus, cudaStream_t stream) {
   constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
   using SP = StatePlan<NMAX, RMAX, kMma>;
-  auto states_kernel = scan_fwd_train_states_kernel<T, NMAX, RMAX, kH0>;
+  auto states_kernel =
+      scan_fwd_train_states_kernel<T, NMAX, RMAX, kH0, kSplit, kDelta>;
   static bool states_set = false;
   cudaError_t err = allow_smem(states_kernel, SP::kBytes, states_set);
   if (err != cudaSuccess) return err;
@@ -745,24 +839,35 @@ int launch(const void* const* p, int batch, int L, int dim, int N, int R,
     return reinterpret_cast<uintptr_t>(v) % 16 == 0;
   };
   constexpr int kPer = 16 / (int)sizeof(T);
-  // above RMAX 64, dt_low rows of whole 16-byte runs copy as vectors too
-  bool vec = (R == RMAX || (RMAX > 64 && R % kPer == 0)) && N == NMAX &&
-             dim % kPer == 0;
+  // above RMAX 64, dt_low rows of whole 16-byte runs copy as vectors too;
+  // kDelta's rows are u's; kSplit's B rows are whole where N's are
+  bool vec = (kDelta || R == RMAX || (RMAX > 64 && R % kPer == 0)) &&
+             (kSplit ? N % kPer == 0 : N == NMAX) && dim % kPer == 0;
   for (int i : {0, 1, 4, 10}) vec = vec && a16(p[i]);
-  dim3 sgrid((dim + kWarpCh - 1) / kWarpCh, batch);
+  const int tiles = kSplit ? (N + NMAX - 1) / NMAX : 1;
+  dim3 sgrid((dim + kWarpCh - 1) / kWarpCh, batch, tiles);
   states_kernel<<<sgrid, SP::kWarps * 32, SP::kBytes, stream>>>(
       u, static_cast<const T*>(p[1]), static_cast<const T*>(p[2]), A, Bm,
       static_cast<const float*>(p[8]), bnd, o, L, dim, N, R, use_softplus,
       vec, static_cast<const float*>(p[12]));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dim3 grid((dim + kChannels - 1) / kChannels, (nc + kGroup - 1) / kGroup,
-            batch);
-  scan_fwd_train_kernel<T, NMAX><<<grid, kThreads, MainPlan<NMAX>::kBytes,
-                                   stream>>>(
-      u, A, Bm, static_cast<const T*>(p[5]), static_cast<const float*>(p[6]),
-      static_cast<const T*>(p[7]), static_cast<T*>(const_cast<void*>(p[9])),
-      o, bnd, L, dim, N);
+  dim3 grid((dim + kChannels - 1) / kChannels,
+            (nc + kGroup - 1) / kGroup * tiles, batch);
+  float* part = static_cast<float*>(const_cast<void*>(p[13]));
+  T* y = static_cast<T*>(const_cast<void*>(p[9]));
+  const float* Dv = static_cast<const float*>(p[6]);
+  const T* z = static_cast<const T*>(p[7]);
+  scan_fwd_train_kernel<T, NMAX, kSplit>
+      <<<grid, kThreads, MainPlan<NMAX>::kBytes, stream>>>(
+          u, A, Bm, static_cast<const T*>(p[5]), Dv, z, y, o, bnd, L, dim, N,
+          part);
+  err = cudaGetLastError();
+  if (!kSplit || err != cudaSuccess || tiles == 1) return err;
+  const size_t total = (size_t)batch * L * dim, blocks = (total + 255) / 256;
+  const unsigned cgrid = blocks < 1056 ? (unsigned)blocks : 1056u;
+  scan_fwd_train_combine_kernel<T><<<cgrid, 256, 0, stream>>>(
+      part, tiles, u, Dv, z, y, o, total, dim);
   return cudaGetLastError();
 }
 
@@ -806,6 +911,33 @@ int run(const void* const* p, int batch, int L, int dim, int n_state,
                                                    dt_rank, use_softplus, s);
 }
 
+// kSplit (N 33 to 256): 32-state tiles, RMAX 64 or 256 (the k-tiles past r
+// are zero: RMAX 64 serves every r <= 64); h0 where not null
+template <typename T>
+int dispatch_split(const void* const* p, int batch, int L, int dim, int N,
+                   int R, int sp, cudaStream_t s) {
+  if (R <= 64)
+    return launch<T, 32, 64, false, true>(p, batch, L, dim, N, R, sp, s);
+  if (R <= 256)
+    return launch<T, 32, 256, false, true>(p, batch, L, dim, N, R, sp, s);
+  return cudaErrorInvalidValue;
+}
+
+// kDelta: the N-16 plan up to 16 states (N <= 8 on it too), the split one
+// (32-state tiles, one at N <= 32) above
+template <typename T>
+int dispatch_delta(const void* const* p, int batch, int L, int dim, int N,
+                   int sp, cudaStream_t s) {
+  constexpr bool f = false, t = true;
+  if (N <= 16) return launch<T, 16, 16, f, f, t>(p, batch, L, dim, N, 1, sp, s);
+  return launch<T, 32, 16, f, t, t>(p, batch, L, dim, N, 1, sp, s);
+}
+
+bool shape_ok(int batch, int L, int dim, int N, int dtype) {
+  return batch >= 1 && L >= 1 && dim >= 1 && N >= 1 && N <= 256 &&
+         (dtype == 0 || dtype == 1);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  D, z and bias may be null.  Launches
@@ -819,8 +951,8 @@ extern "C" int dimsum_selective_scan_fwd_train(
     const void* bias, void* out, void* o, void* bnd, int batch, int L,
     int dim, int n_state, int dt_rank, int dtype, int use_softplus,
     void* stream) {
-  const void* p[13] = {u,    dt_low, dt_w, A, B,   C,      D,
-                       z,    bias,   out,  o, bnd, nullptr};
+  const void* p[14] = {u,    dt_low, dt_w, A, B,   C,       D,
+                       z,    bias,   out,  o, bnd, nullptr, nullptr};
   return run<false>(p, batch, L, dim, n_state, dt_rank, dtype, use_softplus,
                     stream);
 }
@@ -834,7 +966,46 @@ extern "C" int dimsum_selective_scan_fwd_train_h0(
     const void* bias, void* out, void* o, void* bnd, const void* h0,
     int batch, int L, int dim, int n_state, int dt_rank, int dtype,
     int use_softplus, void* stream) {
-  const void* p[13] = {u, dt_low, dt_w, A, B, C, D, z, bias, out, o, bnd, h0};
+  const void* p[14] = {u, dt_low, dt_w, A,   B,   C,  D,
+                       z, bias,   out,  o,   bnd, h0, nullptr};
   return run<true>(p, batch, L, dim, n_state, dt_rank, dtype, use_softplus,
                    stream);
+}
+
+// N from 1 to 256 (the first entry's instantiations take N <= 32): the h0
+// entry's arguments (h0 may be null) and part, a workspace of ceil(N / 32) x
+// batch x L x dim fp32 (not used at one tile).
+extern "C" int dimsum_selective_scan_fwd_train_split(
+    const void* u, const void* dt_low, const void* dt_w, const void* A,
+    const void* B, const void* C, const void* D, const void* z,
+    const void* bias, void* out, void* o, void* bnd, const void* h0,
+    void* part, int batch, int L, int dim, int n_state, int dt_rank,
+    int dtype, int use_softplus, void* stream) {
+  if (!shape_ok(batch, L, dim, n_state, dtype) || dt_rank < 1)
+    return cudaErrorInvalidValue;
+  const void* p[14] = {u, dt_low, dt_w, A, B, C, D, z, bias, out, o, bnd, h0,
+                       part};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0
+             ? dispatch_split<float>(p, batch, L, dim, n_state, dt_rank,
+                                     use_softplus, s)
+             : dispatch_split<__nv_bfloat16>(p, batch, L, dim, n_state,
+                                             dt_rank, use_softplus, s);
+}
+
+// The full-delta entry: delta (batch, L, dim) in u's type in place of
+// dt_low and dt_w, 1 <= N <= 256, part as the split entry's.
+extern "C" int dimsum_selective_scan_fwd_train_delta(
+    const void* u, const void* delta, const void* A, const void* B,
+    const void* C, const void* D, const void* z, const void* bias, void* out,
+    void* o, void* bnd, void* part, int batch, int L, int dim, int n_state,
+    int dtype, int use_softplus, void* stream) {
+  if (!shape_ok(batch, L, dim, n_state, dtype)) return cudaErrorInvalidValue;
+  const void* p[14] = {u, delta, nullptr, A,   B,       C, D,
+                       z, bias,  out,     o,   bnd,     nullptr, part};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? dispatch_delta<float>(p, batch, L, dim, n_state,
+                                            use_softplus, s)
+                    : dispatch_delta<__nv_bfloat16>(p, batch, L, dim, n_state,
+                                                    use_softplus, s);
 }

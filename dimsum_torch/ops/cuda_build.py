@@ -17,6 +17,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable, Sequence
 
@@ -64,20 +66,28 @@ def _start_build(name: str):
 def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     """Build every named source, one nvcc each, all started together.
     Returns each source's compiler output ("" when it was already built);
-    raises if any build fails."""
+    raises if any build fails.  `build.seconds` holds each source's
+    seconds from the start to its nvcc's exit (the last build's)."""
+    t0 = time.monotonic()
     started = {n: _start_build(n) for n in names}
-    logs, failed = {}, []
-    for name, job in started.items():
-        if job is None:
-            logs[name] = ""
-            continue
-        proc, tmp, out = job
+    logs, failed = {n: "" for n, job in started.items() if job is None}, []
+    build.seconds = {}
+
+    def finish(name, proc, tmp, out):
         logs[name], _ = proc.communicate()
+        build.seconds[name] = time.monotonic() - t0
         if proc.returncode != 0:
             failed.append(name)
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)
+
+    waits = [threading.Thread(target=finish, args=(name, *job))
+             for name, job in started.items() if job is not None]
+    for w in waits:
+        w.start()
+    for w in waits:
+        w.join()
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
                            + "\n".join(logs[n] for n in failed))

@@ -36,8 +36,17 @@ Layout as in the JAX package: u, delta, z (batch, L, dim); B, C
                              optional h0 (the `use_cond_init` seed) goes
                              to both kernels' h0 entries, and dh0 comes
                              back.
+  * `selective_scan`       : the JAX front end, a full delta: CUDA tensors
+                             take the state entry without a gradient,
+                             `SelectiveScanFn` (kernels 2 and 3 on a full
+                             delta) with one, `SelectiveScanGroupedFn`
+                             (the state entry, its backward through the
+                             plain scan) for grouped B/C with one.
   * `selective_state_update` : one decode step of the recurrence, plain
                              PyTorch (plain jnp in JAX).
+
+The kernels take N up to 256 (the reference kernel's largest), grouped B/C
+in kernel 1's and the state entry's split instantiations.
   * `selective_scan_dtlow` : the front end the mixer calls.  CPU tensors take
                              the plain version with ordinary autograd; CUDA
                              tensors take kernel 1 (its reverse entry for
@@ -59,7 +68,8 @@ from dimsum_torch.ops import cuda_build
 from dimsum_torch.ops.cuda_build import DTYPE_CODE, check_tensor, needs_grad
 from dimsum_torch.utils import remat
 
-__all__ = ["selective_scan_ref", "selective_scan_cuda", "selective_scan_dtlow",
+__all__ = ["selective_scan", "selective_scan_ref", "selective_scan_cuda",
+           "selective_scan_dtlow", "SelectiveScanFn", "SelectiveScanGroupedFn",
            "selective_scan_state", "selective_scan_state_cuda",
            "selective_scan_fwd_train", "selective_scan_fwd_train_ref",
            "selective_scan_fwd_train_states_ref",
@@ -137,10 +147,26 @@ def selective_scan_ref(u, delta, A, B, C, D=None, z=None, delta_bias=None,
 # CUDA kernels: one wrapper per source, each counting its launches
 # ---------------------------------------------------------------------------
 
-# The kernels' largest N and dt_rank: RMAX 256 is their largest template
-# (d_model 4096 at dt_rank = ceil(d_model / 16)); the Pallas kernel takes
-# any rank, and a rank above this one raises.
-_MAX_STATE, _MAX_RANK = 32, 256
+# The kernels' largest N and dt_rank: N 256 is the reference CUDA kernel's
+# largest (selective_scan.cpp:262), RMAX 256 their largest template (d_model
+# 4096 at dt_rank = ceil(d_model / 16)); the Pallas kernel takes any rank,
+# and a rank or N above these raises.  Up to _TILE states run on the
+# sources' first instantiations; more, and grouped B/C, on their split ones
+# (kSplit: tiles of _TILE states, a workspace of fp32 partial sums).
+_MAX_STATE, _MAX_RANK, _TILE = 256, 256, 32
+
+
+def _tiles(n_state: int) -> int:
+    """The split instantiations' state tiles: one up to _TILE states."""
+    return -(-n_state // _TILE)
+
+
+def _workspace(n_state: int, shape, device):
+    """The split instantiations' partial sums, (tiles, *shape) fp32, or
+    None at one tile (the kernel then stores its outputs itself)."""
+    tiles = _tiles(n_state)
+    return (torch.empty(tiles, *shape, device=device) if tiles > 1
+            else None)
 
 
 def _launch(name: str, dev, tensors, ints, entry: Optional[str] = None):
@@ -153,16 +179,16 @@ def _launch(name: str, dev, tensors, ints, entry: Optional[str] = None):
 
 def _check_common_args(u, A, B, C, D, z, delta_bias):
     """What every selective-scan kernel takes besides dt: u, z
-    (batch, L, dim); B, C (batch, L, N), all in u's dtype (float32 or
-    bfloat16); A (dim, N), D and delta_bias (dim,) in float32; contiguous,
-    on u's CUDA device; 1 <= N <= 32."""
+    (batch, L, dim); B, C (batch, L, N) or grouped (batch, L, G, N), G
+    dividing dim, all in u's dtype (float32 or bfloat16); A (dim, N), D and
+    delta_bias (dim,) in float32; contiguous, on u's CUDA device;
+    1 <= N <= 256.  Returns G (1 for a 3-D B)."""
     if not u.is_cuda:
         raise ValueError("the CUDA selective scan takes CUDA tensors only")
-    if B.ndim != 3 or C.ndim != 3:
-        raise NotImplementedError(
-            "grouped B/C is not implemented in the CUDA selective scan")
-    if u.ndim != 3 or A.ndim != 2:
-        raise ValueError("u: (batch, L, dim); A: (dim, N)")
+    if u.ndim != 3 or A.ndim != 2 or B.ndim not in (3, 4) \
+            or C.ndim != B.ndim:
+        raise ValueError("u: (batch, L, dim); A: (dim, N); B, C: "
+                         "(batch, L, N) or (batch, L, G, N)")
     batch, L, dim = u.shape
     n_state = A.shape[1]
     if u.dtype not in DTYPE_CODE:
@@ -171,24 +197,34 @@ def _check_common_args(u, A, B, C, D, z, delta_bias):
         raise NotImplementedError(
             f"CUDA selective scan takes 1 <= N <= {_MAX_STATE}; "
             f"got N={n_state}")
+    groups = B.shape[2] if B.ndim == 4 else 1
+    if groups < 1 or dim % groups:
+        raise ValueError(f"{groups} groups of B/C do not divide dim {dim}")
+    bc = (batch, L, groups, n_state) if B.ndim == 4 else (batch, L, n_state)
     dev, dt = u.device, u.dtype
     check_tensor("u", u, dev, dt, (batch, L, dim))
     check_tensor("A", A, dev, torch.float32, (dim, n_state))
-    check_tensor("B", B, dev, dt, (batch, L, n_state))
-    check_tensor("C", C, dev, dt, (batch, L, n_state))
+    check_tensor("B", B, dev, dt, bc)
+    check_tensor("C", C, dev, dt, bc)
     if D is not None:
         check_tensor("D", D, dev, torch.float32, (dim,))
     if z is not None:
         check_tensor("z", z, dev, dt, (batch, L, dim))
     if delta_bias is not None:
         check_tensor("delta_bias", delta_bias, dev, torch.float32, (dim,))
+    return groups
 
 
 def _check_kernel_args(u, dt_low, dt_w, A, B, C, D, z, delta_bias):
     """The layout, types and sizes the dt_low route's kernels take: those
     of `_check_common_args`, and dt_low (batch, L, r), dt_w (r, dim) in
-    u's dtype, 1 <= r <= 256 (`_MAX_RANK`; above it NotImplementedError)."""
-    _check_common_args(u, A, B, C, D, z, delta_bias)
+    u's dtype, 1 <= r <= 256 (`_MAX_RANK`; above it NotImplementedError).
+    dt_w None: dt_low is a full delta (batch, L, dim) in u's dtype.
+    Returns G."""
+    groups = _check_common_args(u, A, B, C, D, z, delta_bias)
+    if dt_w is None:
+        check_tensor("delta", dt_low, u.device, u.dtype, u.shape)
+        return groups
     if dt_low.ndim != 3 or dt_w.ndim != 2:
         raise ValueError("dt_low: (batch, L, r); dt_w: (r, dim)")
     batch, L, dim = u.shape
@@ -199,18 +235,31 @@ def _check_kernel_args(u, dt_low, dt_w, A, B, C, D, z, delta_bias):
             f"got r={rank}")
     check_tensor("dt_low", dt_low, u.device, u.dtype, (batch, L, rank))
     check_tensor("dt_w", dt_w, u.device, u.dtype, (rank, dim))
+    return groups
 
 
 def _check_state_args(u, delta, A, B, C, D, z, delta_bias, h0):
     """The layout, types and sizes the state entry takes: those of
     `_check_common_args`, a full delta (batch, L, dim) in u's dtype and,
-    where given, h0 (batch, dim, N) in float32."""
-    _check_common_args(u, A, B, C, D, z, delta_bias)
+    where given, h0 (batch, dim, N) in float32.  Returns G."""
+    groups = _check_common_args(u, A, B, C, D, z, delta_bias)
     batch, L, dim = u.shape
     check_tensor("delta", delta, u.device, u.dtype, (batch, L, dim))
     if h0 is not None:
         check_tensor("h0", h0, u.device, torch.float32,
                      (batch, dim, A.shape[1]))
+    return groups
+
+
+def _check_train_args(u, dt_low, dt_w, A, B, C, D, z, delta_bias):
+    """`_check_kernel_args` for the training pair, which takes one B/C a
+    step: grouped B/C raises (selective_scan's grouped route runs its
+    backward through the plain scan, as the JAX `_grouped_bwd`)."""
+    if B.ndim == 4:
+        raise NotImplementedError(
+            "grouped B/C: the training kernels take B, C (batch, L, N); "
+            "selective_scan's grouped route recomputes the backward")
+    _check_kernel_args(u, dt_low, dt_w, A, B, C, D, z, delta_bias)
 
 
 def selective_scan_cuda(u, dt_low, dt_w, A, B, C, D=None, z=None,
@@ -226,9 +275,11 @@ def selective_scan_cuda(u, dt_low, dt_w, A, B, C, D=None, z=None,
     u, z: (batch, L, dim); dt_low: (batch, L, r); dt_w: (r, dim); B, C:
     (batch, L, N) -- all contiguous, on one CUDA device, in one dtype
     (float32 or bfloat16).  A: (dim, N), D and delta_bias: (dim,), float32.
-    Raises on anything else; grouped B/C is not implemented here.  It has
-    no backward: under grad mode with an input that requires grad it
-    raises (the training route is `selective_scan_dtlow_train`)."""
+    B, C may be grouped, (batch, L, G, N).  Above 32 states, or grouped,
+    the source's split entry runs (`split_launches` counts those).  Raises
+    on anything else.  It has no backward: under grad mode with an input
+    that requires grad it raises (the training route is
+    `selective_scan_dtlow_train`)."""
     if needs_grad(u, dt_low, dt_w, A, B, C, D, z, delta_bias):
         raise RuntimeError(
             "selective_scan_cuda is the inference kernel and has no "
@@ -236,24 +287,34 @@ def selective_scan_cuda(u, dt_low, dt_w, A, B, C, D=None, z=None,
             "or run under torch.no_grad()")
     if not u.is_cuda:
         raise ValueError("selective_scan_cuda takes CUDA tensors only")
-    _check_kernel_args(u, dt_low, dt_w, A, B, C, D, z, delta_bias)
+    groups = _check_kernel_args(u, dt_low, dt_w, A, B, C, D, z, delta_bias)
     batch, L, dim = u.shape
     rank, n_state = dt_w.shape[0], A.shape[1]
     dev, dt = u.device, u.dtype
 
     out = torch.empty_like(u)
-    _launch("selective_scan_fwd", dev,
-            (u, dt_low, dt_w, A, B, C, D, z, delta_bias, out),
-            (batch, L, dim, n_state, rank, DTYPE_CODE[dt],
-             int(bool(delta_softplus))),
-            entry="reverse" if reverse else None)
+    flags = (DTYPE_CODE[dt], int(bool(delta_softplus)))
+    split = B.ndim == 4 or n_state > _TILE
+    if split:
+        _launch("selective_scan_fwd", dev,
+                (u, dt_low, dt_w, A, B, C, D, z, delta_bias, out,
+                 _workspace(n_state, u.shape, dev)),
+                (batch, L, dim, n_state, rank, groups, *flags, int(reverse)),
+                entry="split")
+    else:
+        _launch("selective_scan_fwd", dev,
+                (u, dt_low, dt_w, A, B, C, D, z, delta_bias, out),
+                (batch, L, dim, n_state, rank, *flags),
+                entry="reverse" if reverse else None)
     selective_scan_cuda.launches += 1
     selective_scan_cuda.reverse_launches += bool(reverse)
+    selective_scan_cuda.split_launches += split
     return out
 
 
 selective_scan_cuda.launches = 0
 selective_scan_cuda.reverse_launches = 0
+selective_scan_cuda.split_launches = 0
 
 
 def selective_scan_state_cuda(u, delta, A, B, C, D=None, z=None,
@@ -264,28 +325,44 @@ def selective_scan_state_cuda(u, delta, A, B, C, D=None, z=None,
     dtype (the bias and softplus in fp32 inside the kernel), the state
     seeded from `h0` (batch, dim, N) fp32 (zero without it), and with
     `return_last_state` also the state after the last step, (batch, dim, N)
-    fp32.  The other arguments as `selective_scan_cuda`.  Raises on
-    anything else, and under grad mode with an input that requires grad
-    (it has no backward)."""
+    fp32.  The other arguments as `selective_scan_cuda`; grouped B/C
+    (batch, L, G, N) is `_scan_kernel_with_state`'s grouped case, with h0
+    and the last state as without groups.  Above 32 states, or grouped,
+    the source's split state entry runs (`split_launches` counts those,
+    `grouped_launches` the grouped ones).  Raises on anything else, and
+    under grad mode with an input that requires grad (it has no
+    backward)."""
     if needs_grad(u, delta, A, B, C, D, z, delta_bias, h0):
         raise RuntimeError(
             "selective_scan_state_cuda is an inference kernel and has no "
             "backward; run it under torch.no_grad()")
-    _check_state_args(u, delta, A, B, C, D, z, delta_bias, h0)
+    groups = _check_state_args(u, delta, A, B, C, D, z, delta_bias, h0)
     batch, L, dim = u.shape
     n_state = A.shape[1]
     out = torch.empty_like(u)
     last = (torch.empty(batch, dim, n_state, device=u.device)
             if return_last_state else None)
-    _launch("selective_scan_fwd", u.device,
-            (u, delta, A, B, C, D, z, delta_bias, h0, out, last),
-            (batch, L, dim, n_state, DTYPE_CODE[u.dtype],
-             int(bool(delta_softplus))), entry="state")
+    flags = (DTYPE_CODE[u.dtype], int(bool(delta_softplus)))
+    split = B.ndim == 4 or n_state > _TILE
+    if split:
+        _launch("selective_scan_fwd", u.device,
+                (u, delta, A, B, C, D, z, delta_bias, h0, out, last,
+                 _workspace(n_state, u.shape, u.device)),
+                (batch, L, dim, n_state, groups, *flags),
+                entry="state_split")
+    else:
+        _launch("selective_scan_fwd", u.device,
+                (u, delta, A, B, C, D, z, delta_bias, h0, out, last),
+                (batch, L, dim, n_state, *flags), entry="state")
     selective_scan_state_cuda.launches += 1
+    selective_scan_state_cuda.split_launches += split
+    selective_scan_state_cuda.grouped_launches += B.ndim == 4
     return (out, last) if return_last_state else out
 
 
 selective_scan_state_cuda.launches = 0
+selective_scan_state_cuda.split_launches = 0
+selective_scan_state_cuda.grouped_launches = 0
 
 
 def selective_scan_state(u, delta, A, B, C, D=None, z=None, delta_bias=None,
@@ -319,8 +396,10 @@ def _flip(v):
 
 def _dt_expand(dt_low, dt_w, delta_bias, delta_softplus):
     """(dt, raw) in fp32: raw = dt_low @ dt_w (+ bias), dt = softplus(raw)
-    or raw, the expansion the kernels make in fp32."""
-    raw = torch.einsum("blr,rd->bld", dt_low.float(), dt_w.float())
+    or raw, the expansion the kernels make in fp32.  dt_w None: dt_low is
+    the full delta (batch, L, dim), raw = delta (+ bias)."""
+    raw = (dt_low.float() if dt_w is None else
+           torch.einsum("blr,rd->bld", dt_low.float(), dt_w.float()))
     if delta_bias is not None:
         raw = raw + delta_bias.float()
     return (softplus(raw) if delta_softplus else raw), raw
@@ -334,8 +413,9 @@ def selective_scan_fwd_train_ref(u, dt_low, dt_w, A, B, C, D=None, z=None,
                                  delta_bias=None, delta_softplus=False,
                                  chunk: int = TRAIN_CHUNK, boundaries=None,
                                  h0=None):
-    """Plain version of kernel 2, the JAX `selective_scan_fwd_train`:
-    returns (y, o, boundaries).  y is selective_scan's output in u's dtype;
+    """Plain version of kernel 2, the JAX `selective_scan_fwd_train`
+    (dt_w None: dt_low is a full delta, as there): returns (y, o,
+    boundaries).  y is selective_scan's output in u's dtype;
     o = s + D*u is the fp32 pre-gate output (batch, L, dim); boundaries are
     the fp32 states at the start of each `chunk`-step chunk (the first one
     zero, or `h0` (batch, dim, N) when given: the state before step 0, as
@@ -556,31 +636,54 @@ def selective_scan_fwd_train_cuda(u, dt_low, dt_w, A, B, C, D=None, z=None,
     parallel from them), counted as one launch: kernel 1's y plus the fp32
     o and the states of `selective_scan_fwd_train_ref` at every
     TRAIN_CHUNK-th step (`selective_scan_fwd_train_states_ref`).  Takes
-    what `selective_scan_cuda` takes, and `h0` (batch, dim, N) float32,
-    the state before step 0 (the source's h0 entry; `h0_launches` counts
-    those); raises on anything else."""
-    _check_kernel_args(u, dt_low, dt_w, A, B, C, D, z, delta_bias)
+    what `selective_scan_cuda` takes but grouped B/C, and `h0` (batch,
+    dim, N) float32, the state before step 0 (the source's h0 entry;
+    `h0_launches` counts those); raises on anything else.  Above 32 states
+    the split entry runs (`split_launches`).  dt_w None: dt_low is a full
+    delta (batch, L, dim) in u's dtype, the JAX `_pallas_fwd`'s input (the
+    source's delta entry, `delta_launches`; no h0)."""
+    _check_train_args(u, dt_low, dt_w, A, B, C, D, z, delta_bias)
     batch, L, dim = u.shape
-    rank, n_state = dt_w.shape[0], A.shape[1]
-    seed = ()
+    n_state = A.shape[1]
     if h0 is not None:
+        if dt_w is None:
+            raise NotImplementedError("the full-delta entry takes no h0")
         check_tensor("h0", h0, u.device, torch.float32, (batch, dim, n_state))
-        seed = (h0,)
     y = torch.empty_like(u)
     o = torch.empty(batch, L, dim, device=u.device)
     bnd = torch.empty(batch, -(-L // TRAIN_CHUNK), n_state, dim,
                       device=u.device)
-    _launch("selective_scan_fwd_train", u.device,
-            (u, dt_low, dt_w, A, B, C, D, z, delta_bias, y, o, bnd, *seed),
-            (batch, L, dim, n_state, rank, DTYPE_CODE[u.dtype],
-             int(bool(delta_softplus))), entry="h0" if seed else None)
-    selective_scan_fwd_train_cuda.launches += 1
-    selective_scan_fwd_train_cuda.h0_launches += bool(seed)
-    return y, o, bnd
+    flags = (DTYPE_CODE[u.dtype], int(bool(delta_softplus)))
+    outs = (y, o, bnd)
+    counts = selective_scan_fwd_train_cuda
+    if dt_w is None:
+        _launch("selective_scan_fwd_train", u.device,
+                (u, dt_low, A, B, C, D, z, delta_bias, *outs,
+                 _workspace(n_state, u.shape, u.device)),
+                (batch, L, dim, n_state, *flags), entry="delta")
+        counts.delta_launches += 1
+    elif n_state > _TILE:
+        _launch("selective_scan_fwd_train", u.device,
+                (u, dt_low, dt_w, A, B, C, D, z, delta_bias, *outs, h0,
+                 _workspace(n_state, u.shape, u.device)),
+                (batch, L, dim, n_state, dt_w.shape[0], *flags),
+                entry="split")
+        counts.split_launches += 1
+    else:
+        seed = () if h0 is None else (h0,)
+        _launch("selective_scan_fwd_train", u.device,
+                (u, dt_low, dt_w, A, B, C, D, z, delta_bias, *outs, *seed),
+                (batch, L, dim, n_state, dt_w.shape[0], *flags),
+                entry="h0" if seed else None)
+    counts.launches += 1
+    counts.h0_launches += h0 is not None
+    return outs
 
 
 selective_scan_fwd_train_cuda.launches = 0
 selective_scan_fwd_train_cuda.h0_launches = 0
+selective_scan_fwd_train_cuda.split_launches = 0
+selective_scan_fwd_train_cuda.delta_launches = 0
 
 
 def selective_scan_bwd_core_cuda(u, dt_low, dt_w, A, B, C, delta_bias,
@@ -594,10 +697,16 @@ def selective_scan_bwd_core_cuda(u, dt_low, dt_w, A, B, C, delta_bias,
     per batch row and group of _BWD_GROUP chunks; the sums here make them
     deterministic (no float atomics).  `return_dh0` takes the source's h0
     entry, whose carry pass also writes dh0 (batch, dim, N) fp32, appended
-    (`h0_launches` counts those)."""
-    _check_kernel_args(u, dt_low, dt_w, A, B, C, None, None, delta_bias)
+    (`h0_launches` counts those).  Above 32 states the split entry runs
+    (`split_launches`): du and ddt come back one slice a tile of 32 states,
+    summed here.  dt_w None: dt_low is a full delta (batch, L, dim), the
+    JAX `_pallas_bwd`'s input (the delta entry, `delta_launches`; no
+    dh0)."""
+    _check_train_args(u, dt_low, dt_w, A, B, C, None, None, delta_bias)
     batch, L, dim = u.shape
-    rank, n_state = dt_w.shape[0], A.shape[1]
+    n_state = A.shape[1]
+    if return_dh0 and dt_w is None:
+        raise NotImplementedError("the full-delta entry takes no h0")
     n_chunks = -(-L // TRAIN_CHUNK)
     check_tensor("go", go, u.device, torch.float32, (batch, L, dim))
     check_tensor("boundaries", boundaries, u.device, torch.float32,
@@ -607,25 +716,46 @@ def selective_scan_bwd_core_cuda(u, dt_low, dt_w, A, B, C, delta_bias,
     # the carry pass's w, in tiles of 8 channels: (batch, n_chunks,
     # ceil(dim / 8), N, 8)
     w = torch.empty(batch, n_chunks, -(-dim // 8) * n_state * 8, device=dev)
-    du_s = torch.empty(batch, L, dim, device=dev)
-    ddt = torch.empty(batch, L, dim, device=dev)
+    # du and ddt a slice a tile of 32 states (the split entries')
+    tiles = _tiles(n_state)
+    du_t = torch.empty(tiles, batch, L, dim, device=dev)
+    ddt_t = torch.empty_like(du_t)
     dB_p = torch.empty(parts, batch, L, n_state, device=dev)
     dC_p = torch.empty(parts, batch, L, n_state, device=dev)
     dA_p = torch.empty(batch, groups, dim, n_state, device=dev)
     dh0 = (torch.empty(batch, dim, n_state, device=dev),) if return_dh0 \
         else ()
-    _launch("selective_scan_bwd", dev,
-            (u, dt_low, dt_w, A, B, C, delta_bias, go, boundaries, w, du_s,
-             ddt, dB_p, dC_p, dA_p, *dh0),
-            (batch, L, dim, n_state, rank, DTYPE_CODE[u.dtype],
-             int(bool(delta_softplus))), entry="h0" if dh0 else None)
-    selective_scan_bwd_core_cuda.launches += 1
-    selective_scan_bwd_core_cuda.h0_launches += bool(dh0)
+    flags = (DTYPE_CODE[u.dtype], int(bool(delta_softplus)))
+    outs = (boundaries, w, du_t, ddt_t, dB_p, dC_p, dA_p)
+    counts = selective_scan_bwd_core_cuda
+    if dt_w is None:
+        _launch("selective_scan_bwd", dev,
+                (u, dt_low, A, B, C, delta_bias, go, *outs),
+                (batch, L, dim, n_state, *flags), entry="delta")
+        counts.delta_launches += 1
+    elif n_state > _TILE:
+        _launch("selective_scan_bwd", dev,
+                (u, dt_low, dt_w, A, B, C, delta_bias, go, *outs,
+                 dh0[0] if dh0 else None),
+                (batch, L, dim, n_state, dt_w.shape[0], *flags),
+                entry="split")
+        counts.split_launches += 1
+    else:
+        _launch("selective_scan_bwd", dev,
+                (u, dt_low, dt_w, A, B, C, delta_bias, go, *outs, *dh0),
+                (batch, L, dim, n_state, dt_w.shape[0], *flags),
+                entry="h0" if dh0 else None)
+    du_s, ddt = ((du_t[0], ddt_t[0]) if tiles == 1
+                 else (du_t.sum(0), ddt_t.sum(0)))
+    counts.launches += 1
+    counts.h0_launches += bool(dh0)
     return (du_s, ddt, dA_p.sum((0, 1)), dB_p.sum(0), dC_p.sum(0)) + dh0
 
 
 selective_scan_bwd_core_cuda.launches = 0
 selective_scan_bwd_core_cuda.h0_launches = 0
+selective_scan_bwd_core_cuda.split_launches = 0
+selective_scan_bwd_core_cuda.delta_launches = 0
 
 
 def selective_scan_fwd_train(u, dt_low, dt_w, A, B, C, D=None, z=None,
@@ -708,6 +838,124 @@ def selective_scan_dtlow_train(u, dt_low, dt_w, A, B, C, D=None, z=None,
     return _flip(y) if reverse else y
 
 
+class SelectiveScanFn(torch.autograd.Function):
+    """selective_scan(u, delta, ...) with a full delta and the JAX Pallas
+    route's training rules (`_pallas_fwd` / `_pallas_bwd`,
+    selective_scan.py:749-785): kernel 2's delta entry saves o and the
+    chunk-start states, kernel 3's delta entry replays them; ddelta comes
+    back in delta's dtype and dbias as the sum of ddt, as in `_bwd`.  CPU
+    tensors take the pair's plain versions."""
+
+    @staticmethod
+    def forward(ctx, u, delta, A, B, C, D, z, delta_bias, delta_softplus):
+        y, o, bnd = selective_scan_fwd_train(u, delta, None, A, B, C, D, z,
+                                             delta_bias, delta_softplus)
+        ctx.delta_softplus = delta_softplus
+        ctx.save_for_backward(u, delta, A, B, C, D, z, delta_bias, o, bnd)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        u, delta, A, B, C, D, z, delta_bias, o, bnd = ctx.saved_tensors
+        grads = selective_scan_bwd(u, delta, None, A, B, C, D, z, delta_bias,
+                                   ctx.delta_softplus, o=o, boundaries=bnd,
+                                   g=g.contiguous())
+        return (*grads, None)
+
+
+class SelectiveScanGroupedFn(torch.autograd.Function):
+    """Grouped B/C (batch, L, G, N) with a gradient, the JAX
+    `_selective_scan_pallas_grouped` (selective_scan.py:893-920): the
+    forward on the state entry's grouped case, the backward recomputed
+    through the plain scan under autograd (`_grouped_bwd`, which takes the
+    XLA scan's VJP).  An optional h0 seeds the state, as the plain scan's
+    (the port's dt_low route with `use_cond_init`)."""
+
+    @staticmethod
+    def forward(ctx, u, delta, A, B, C, D, z, delta_bias, delta_softplus,
+                h0=None):
+        ctx.delta_softplus = delta_softplus
+        ctx.save_for_backward(u, delta, A, B, C, D, z, delta_bias, h0)
+        return selective_scan_state(u, delta, A, B, C, D, z, delta_bias,
+                                    delta_softplus, h0=h0)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        # the inputs' flags without delta_softplus's (h0 may not be given)
+        flags = ctx.needs_input_grad[:8] + (ctx.needs_input_grad[9:] or
+                                            (False,))
+        want = [t is not None and need for t, need in zip(saved, flags)]
+        with torch.enable_grad():
+            inputs = [None if t is None else t.detach().requires_grad_(w)
+                      for t, w in zip(saved, want)]
+            u, delta, A, B, C, D, z, bias, h0 = inputs
+            y = selective_scan_ref(u, delta, A, B, C, D, z, bias,
+                                   ctx.delta_softplus, h0=h0)
+            wrt = [t for t, w in zip(inputs, want) if w]
+            got = iter(torch.autograd.grad(y, wrt, g) if wrt else ())
+        grads = [next(got) if w else None for w in want]
+        return (*grads[:8], None, grads[8])[:len(ctx.needs_input_grad)]
+
+
+def selective_scan(u, delta, A, B, C, D=None, z=None, delta_bias=None,
+                   delta_softplus=False, return_last_state=False,
+                   impl: Optional[str] = None):
+    """The JAX `selective_scan` front end (selective_scan.py:969-987): a
+    full delta (batch, L, dim) in u's dtype, B/C (batch, L, N) or grouped
+    (batch, L, G, N); returns y, and with `return_last_state` also the
+    state after the last step, (batch, dim, N) fp32.
+
+    `impl`: None takes the kernels for CUDA tensors and the plain version
+    for CPU tensors; "ref" the plain version on any device, differentiated
+    by autograd (the JAX XLA route); "cuda" the kernels, which raises for
+    CPU tensors.  On the kernel route, with no input needing a gradient the
+    state entry runs (`selective_scan_state_cuda`, grouped or not); with
+    one, `SelectiveScanFn` (kernels 2 and 3's delta entries, the JAX
+    `_selective_scan_pallas`), or for grouped B/C `SelectiveScanGroupedFn`;
+    `return_last_state` with a gradient runs the plain scan under autograd,
+    as JAX sends it to its XLA scan (:927-931).  A shape the kernels do not
+    take raises."""
+    if impl is None:
+        impl = "cuda" if u.is_cuda else "ref"
+    args = (u, delta, A, B, C, D, z, delta_bias, delta_softplus)
+    if impl == "ref":
+        return selective_scan_ref(*args, return_last_state=return_last_state)
+    if impl != "cuda":
+        raise ValueError(f"unknown selective scan impl {impl!r}")
+    if not u.is_cuda:
+        raise ValueError("impl='cuda' takes CUDA tensors only")
+    if not needs_grad(u, delta, A, B, C, D, z, delta_bias):
+        return selective_scan_state_cuda(
+            *args, return_last_state=return_last_state)
+    if return_last_state:
+        return selective_scan_ref(*args, return_last_state=True)
+    if B.ndim == 4:
+        return SelectiveScanGroupedFn.apply(*args)
+    return SelectiveScanFn.apply(*args)
+
+
+def _selective_scan_grouped_dtlow(u, dt_low, dt_w, A, B, C, D, z, delta_bias,
+                                  delta_softplus, reverse, h0):
+    """`selective_scan_dtlow` on the kernel route with grouped B/C, as the
+    JAX `selective_scan_dtlow` sends a 4-D B (selective_scan.py:862-876):
+    delta = dt_low @ dt_w in the compute dtype, then `selective_scan`
+    (flipped around it for `reverse`); with h0 the state entry, or under a
+    gradient `SelectiveScanGroupedFn` with h0."""
+    delta = torch.matmul(dt_low, dt_w)
+    if reverse:
+        u, delta, B, C, z = (_flip(u), _flip(delta), _flip(B), _flip(C),
+                             _flip(z))
+    args = (u, delta, A, B, C, D, z, delta_bias, delta_softplus)
+    if h0 is None:
+        y = selective_scan(*args, impl="cuda")
+    elif needs_grad(*args[:8], h0):
+        y = SelectiveScanGroupedFn.apply(*args, h0)
+    else:
+        y = selective_scan_state_cuda(*args, h0=h0)
+    return _flip(y) if reverse else y
+
+
 def selective_scan_dtlow(u, dt_low, dt_w, A, B, C, D=None, z=None,
                          delta_bias=None, delta_softplus=False,
                          reverse: bool = False, impl: Optional[str] = None,
@@ -738,12 +986,22 @@ def selective_scan_dtlow(u, dt_low, dt_w, A, B, C, D=None, z=None,
     `selective_scan_dtlow_train` with h0 (kernels 2 and 3's h0 entries,
     the expansion in fp32).  With h0, `reverse` raises, as in JAX
     (selective_scan.py:592-593): the mixer flips around the seeded scan
-    instead."""
+    instead.
+
+    Grouped B/C (batch, L, G, N) on the kernel route expands delta in the
+    compute dtype and takes `selective_scan`, as the JAX function does
+    (`_selective_scan_grouped_dtlow`)."""
     if impl is None:
         impl = "cuda" if u.is_cuda else "ref"
     if h0 is not None and reverse:
         raise NotImplementedError("reverse scan with h0: flip the inputs "
                                   "and the output around the seeded scan")
+    if impl == "cuda" and B.ndim == 4:
+        if not u.is_cuda:
+            raise ValueError("impl='cuda' takes CUDA tensors only")
+        return _selective_scan_grouped_dtlow(
+            u, dt_low, dt_w, A, B, C, D, z, delta_bias, delta_softplus,
+            reverse, h0)
     if h0 is not None and impl in ("cuda", "ref"):
         if impl == "cuda" and not u.is_cuda:
             raise ValueError("impl='cuda' takes CUDA tensors only")

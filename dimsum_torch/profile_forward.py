@@ -50,9 +50,10 @@ from dimsum_torch.utils.device import card_name_and_power_limit, resolve_device
 
 ITERS = 5  # steps per timed and per profiled window
 CLASSES = (
-    ("selective_scan", ("scan_fwd_kernel",)),
+    ("selective_scan", ("scan_fwd_kernel", "scan_fwd_combine_kernel")),
     ("selective_scan_fwd_train", ("scan_fwd_train_kernel",
-                                  "scan_fwd_train_states_kernel")),
+                                  "scan_fwd_train_states_kernel",
+                                  "scan_fwd_train_combine_kernel")),
     ("selective_scan_bwd", ("scan_bwd_kernel", "scan_bwd_carry_kernel")),
     ("full_block_attention", ("attn_sm90_kernel", "attn_fp32_sm90_kernel",
                               "attn_bf16_kernel", "attn_f32_kernel")),

@@ -2,20 +2,24 @@
 what `nvcc -cubin` (the port's flags, sm_90a) makes of each, through
 `cuobjdump -sass` and `cu++filt`.  A kernel of the old source is matched
 to the new source's kernel of the same name and template arguments, or,
-where there is none, to one that carries one more trailing template
-argument of `false` (a compile-time switch added, in its off position);
-its instructions, without addresses and encodings, must be the same.
+where there is none, to the one whose template arguments are the same
+once the trailing `false` ones are left off both (compile-time switches
+added, in their off position); its instructions, without addresses and
+encodings, must be the same.
 
-    python -m dimsum_torch.tools.sass_diff OLD.cu NEW.cu
+    python -m dimsum_torch.tools.sass_diff OLD.cu NEW.cu [--show N]
 
 Prints one JSON line: the kernels compared, those with the same SASS,
 those that differ or have no counterpart, and how many new kernels take
-the switch on.  Needs the CUDA toolkit (the card's machine has it under
+the switch on; with --show, also the first N lines of each differing
+kernel's unified diff (`diffs`).  Needs the CUDA toolkit (the card's machine has it under
 /usr/local/cuda/bin).
 """
 
 from __future__ import annotations
 
+import argparse
+import difflib
 import json
 import os
 import re
@@ -68,31 +72,47 @@ def kernel_sass(source: str) -> Dict[str, List[str]]:
 _SWITCH = r", (?:{}|\(bool\){})>$"  # cu++filt writes false or (bool)0
 
 
-def compare(old: str, new: str) -> dict:
+def _switches_off(name: str) -> str:
+    """The name without its trailing `false` template arguments."""
+    off = _SWITCH.format("false", 0)
+    while re.search(off, name):
+        name = re.sub(off, ">", name)
+    return name
+
+
+def compare(old: str, new: str, show: int = 0) -> dict:
     before, after = kernel_sass(old), kernel_sass(new)
-    # a new kernel with its trailing switch off stands for the old kernel
-    off = {re.sub(_SWITCH.format("false", 0), ">", n): code
-           for n, code in after.items()}
-    same, differ, missing = [], [], []
+    # a new kernel with its trailing switches off stands for the old kernel
+    off = {_switches_off(n): code for n, code in after.items()}
+    same, differ, missing, diffs = [], [], [], {}
     for name, code in before.items():
-        # the same name first; else the new kernel with its switch off
-        code_new = after.get(name, off.get(name))
+        # the same name first; else the new kernel with its switches off
+        code_new = after.get(name, off.get(_switches_off(name)))
         if code_new is None:
             missing.append(name)
         elif code_new == code:
             same.append(name)
         else:
             differ.append(name)
-    return {"old": old, "new": new, "old_kernels": len(before),
-            "new_kernels": len(after), "same_sass": len(same),
-            "differ": differ, "missing": missing,
-            "switch_on": sum(bool(re.search(_SWITCH.format("true", 1), n))
-                             for n in after)}
+            if show:
+                diffs[name] = list(difflib.unified_diff(
+                    code, code_new, lineterm="", n=0))[:show]
+    rec = {"old": old, "new": new, "old_kernels": len(before),
+           "new_kernels": len(after), "same_sass": len(same),
+           "differ": differ, "missing": missing,
+           "switch_on": sum(bool(re.search(_SWITCH.format("true", 1), n))
+                            for n in after)}
+    return dict(rec, diffs=diffs) if show else rec
 
 
 def main(argv=None) -> int:
-    old, new = (argv if argv is not None else sys.argv[1:])
-    rec = compare(old, new)
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("old")
+    p.add_argument("new")
+    p.add_argument("--show", type=int, default=0,
+                   help="lines of each differing kernel's diff to print")
+    args = p.parse_args(argv)
+    rec = compare(args.old, args.new, args.show)
     print(json.dumps(rec))
     return 0 if not rec["differ"] and not rec["missing"] else 1
 

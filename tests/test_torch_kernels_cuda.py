@@ -18,16 +18,18 @@ from dimsum_torch.ops.selective_scan import (selective_scan_cuda,
                                              selective_scan_dtlow)
 
 
-def scan_inputs(device, dtype, batch=2, L=64, dim=16, n=16, r=8, seed=0):
+def scan_inputs(device, dtype, batch=2, L=64, dim=16, n=16, r=8, seed=0,
+                groups=None):
+    """Seeded inputs; with `groups` B and C are (batch, L, groups, n)."""
     g = torch.Generator().manual_seed(seed)
+    bc = (batch, L, n) if groups is None else (batch, L, groups, n)
     dt = torch.exp(torch.rand(dim, generator=g)
                    * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
     x = dict(u=torch.randn(batch, L, dim, generator=g),
              dt_low=torch.randn(batch, L, r, generator=g),
              dt_w=torch.randn(r, dim, generator=g) / math.sqrt(r),
              A=-torch.exp(0.5 * torch.randn(dim, n, generator=g)),
-             B=torch.randn(batch, L, n, generator=g),
-             C=torch.randn(batch, L, n, generator=g),
+             B=torch.randn(*bc, generator=g), C=torch.randn(*bc, generator=g),
              D=1 + 0.1 * torch.randn(dim, generator=g),
              z=torch.randn(batch, L, dim, generator=g),
              delta_bias=dt + torch.log(-torch.expm1(-dt)))
@@ -171,9 +173,9 @@ def test_kernel_raises_on_what_it_does_not_take(cuda):
     x = scan_inputs(cuda, torch.float32)
     args = dict(u=x["u"], dt_low=x["dt_low"], dt_w=x["dt_w"], A=x["A"],
                 B=x["B"], C=x["C"])
-    with pytest.raises(NotImplementedError, match="grouped"):
-        selective_scan_cuda(**{**args, "B": x["B"][:, :, None].expand(
-            -1, -1, 2, -1)})
+    with pytest.raises(ValueError, match="groups"):  # 3 does not divide 16
+        g3 = x["B"][:, :, None].expand(-1, -1, 3, -1).contiguous()
+        selective_scan_cuda(**{**args, "B": g3, "C": g3})
     with pytest.raises(TypeError):
         selective_scan_cuda(**{k: v if k == "A" else v.half()
                                for k, v in args.items()})
@@ -185,9 +187,31 @@ def test_kernel_raises_on_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="shape"):
         selective_scan_cuda(**{**args, "dt_low": x["dt_low"][:, :-1]
                                .contiguous()})
-    big = scan_inputs(cuda, torch.float32, n=64)
-    with pytest.raises(NotImplementedError, match="N <="):
+    big = scan_inputs(cuda, torch.float32, n=257)
+    with pytest.raises(NotImplementedError, match="N <= 256"):
         selective_scan_cuda(*_args(big)[:6])
+
+
+# N past 32 (the split entry: 32-state tiles and their combine) and grouped
+# B/C (a block's 32 channels in one group for G 2 at dim 256, in several
+# for G 16 or at dim 200), forward and reversed, against the plain scan
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dim, n, groups, r", [
+    (256, 40, None, 32), (200, 64, None, 32), (256, 128, None, 16),
+    (256, 256, None, 72), (256, 16, 2, 32), (200, 64, 4, 32),
+    (256, 8, 16, 32), (96, 40, 2, 8)])
+def test_kernel_takes_more_states_and_groups_on_card(cuda, dtype, reverse,
+                                                     dim, n, groups, r):
+    x = scan_inputs(cuda, dtype, batch=2, L=77, dim=dim, n=n, r=r,
+                    groups=groups)
+    kw = dict(z=x["z"], delta_bias=x["delta_bias"], delta_softplus=True,
+              reverse=reverse)
+    before = selective_scan_cuda.split_launches
+    got = selective_scan_cuda(*_args(x), **kw).float()
+    assert selective_scan_cuda.split_launches == before + 1
+    want = selective_scan_dtlow(*_args(x), impl="ref", **kw).float()
+    _close(got, want, 1e-4 if dtype == torch.float32 else 1.6e-2)
 
 
 # ---------------------------------------------------------------------------
@@ -305,15 +329,15 @@ def test_reverse_entry_raises_on_what_it_does_not_take(cuda):
     """No quiet flip: what the forward entry refuses, the reverse one does
     too."""
     x = scan_inputs(cuda, torch.float32)
-    with pytest.raises(NotImplementedError, match="grouped"):
-        selective_scan_cuda(*_args({**x, "B": x["B"][:, :, None].expand(
-            -1, -1, 2, -1)}), reverse=True)
+    g3 = x["B"][:, :, None].expand(-1, -1, 3, -1).contiguous()
+    with pytest.raises(ValueError, match="groups"):
+        selective_scan_cuda(*_args({**x, "B": g3, "C": g3}), reverse=True)
     with pytest.raises(ValueError, match="contiguous"):
         selective_scan_cuda(*_args({**x, "u": x["u"].transpose(0, 1)
                                     .contiguous().transpose(0, 1)}),
                             reverse=True)
-    big = scan_inputs(cuda, torch.float32, n=64)
-    with pytest.raises(NotImplementedError, match="N <="):
+    big = scan_inputs(cuda, torch.float32, n=257)
+    with pytest.raises(NotImplementedError, match="N <= 256"):
         selective_scan_dtlow(*_args(big), impl="cuda", reverse=True)
 
 
@@ -328,11 +352,12 @@ from dimsum_torch.ops.selective_scan import (  # noqa: E402
     selective_scan_state, selective_scan_state_cuda)
 
 
-def state_inputs(device, dtype, batch=2, L=64, dim=16, n=16, seed=0):
+def state_inputs(device, dtype, batch=2, L=64, dim=16, n=16, seed=0,
+                 groups=None):
     """scan_inputs with the full delta = dt_low @ dt_w in `dtype` (as the
     SP mixer makes it) and an fp32 h0 (batch, dim, n)."""
     x = scan_inputs(device, dtype, batch=batch, L=L, dim=dim, n=n, r=8,
-                    seed=seed)
+                    seed=seed, groups=groups)
     x["delta"] = (x.pop("dt_low") @ x.pop("dt_w")).contiguous()
     g = torch.Generator().manual_seed(seed + 1)
     x["h0"] = torch.randn(batch, dim, n, generator=g).to(device)
@@ -439,9 +464,9 @@ def test_state_kernel_repeats_and_counts_its_launches(cuda):
 def test_state_kernel_raises_on_what_it_does_not_take(cuda):
     x = state_inputs(cuda, torch.float32)
     args = dict(u=x["u"], delta=x["delta"], A=x["A"], B=x["B"], C=x["C"])
-    with pytest.raises(NotImplementedError, match="grouped"):
-        selective_scan_state_cuda(**{**args, "B": x["B"][:, :, None].expand(
-            -1, -1, 2, -1)})
+    g3 = x["B"][:, :, None].expand(-1, -1, 3, -1).contiguous()
+    with pytest.raises(ValueError, match="groups"):
+        selective_scan_state_cuda(**{**args, "B": g3, "C": g3})
     with pytest.raises(TypeError, match="delta"):
         selective_scan_state_cuda(**{**args, "delta": x["delta"].bfloat16()})
     with pytest.raises(TypeError, match="h0"):
@@ -453,9 +478,32 @@ def test_state_kernel_raises_on_what_it_does_not_take(cuda):
             0, 1).contiguous().transpose(0, 1)})
     with pytest.raises(RuntimeError, match="no backward"):
         selective_scan_state_cuda(**{**args, "u": x["u"].requires_grad_()})
-    big = state_inputs(cuda, torch.float32, n=64)
-    with pytest.raises(NotImplementedError, match="N <="):
+    big = state_inputs(cuda, torch.float32, n=257)
+    with pytest.raises(NotImplementedError, match="N <= 256"):
         selective_scan_state_cuda(*_state_args(big)[:5])
+
+
+# the state entry's split instantiations: N past 32 and grouped B/C (one
+# group a block of channels at dim 256 G 2, several at G 16 or dim 200),
+# with h0 and the last state
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seeded", [False, True])
+@pytest.mark.parametrize("dim, n, groups", [
+    (256, 40, None), (200, 64, None), (256, 128, None), (256, 256, None),
+    (256, 16, 2), (256, 16, 4), (200, 64, 4), (256, 8, 16), (96, 40, 2)])
+def test_state_kernel_takes_more_states_and_groups_on_card(
+        cuda, dtype, seeded, dim, n, groups):
+    x = state_inputs(cuda, dtype, batch=2, L=77, dim=dim, n=n,
+                     groups=groups)
+    kw = dict(z=x["z"], delta_bias=x["delta_bias"], delta_softplus=True,
+              h0=x["h0"] if seeded else None, return_last_state=True)
+    before = selective_scan_state_cuda.grouped_launches
+    got = selective_scan_state(*_state_args(x), impl="cuda", **kw)
+    assert selective_scan_state_cuda.grouped_launches == \
+        before + (groups is not None)
+    want = selective_scan_state(*_state_args(x), impl="ref", **kw)
+    _close(got[0], want[0], 1e-4 if dtype == torch.float32 else 1.6e-2)
+    _close(got[1], want[1], 1e-4)
 
 
 # ---------------------------------------------------------------------------
@@ -650,6 +698,101 @@ def test_train_route_grads_match_plain_autograd_on_card(cuda, reverse):
     want = grads("ref")
     for a, b in zip(got, want):
         _close(a, b, 1e-4)
+
+
+# kernels 2 and 3 past 32 states (the split entries: 32-state tiles; o and y
+# through the combine, du and ddt summed over the tiles), with and without
+# h0, and on a full delta (the delta entries, N 8 to 256)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n, r, full, seeded", [
+    (40, 32, False, False), (64, 64, False, True), (128, 16, False, False),
+    (256, 72, False, True), (8, 8, True, False), (16, 8, True, False),
+    (24, 8, True, False), (64, 8, True, False), (256, 8, True, False)])
+def test_training_kernels_take_more_states_and_a_full_delta_on_card(
+        cuda, dtype, n, r, full, seeded):
+    x = scan_inputs(cuda, dtype, batch=2, L=77, dim=200, n=n, r=r)
+    if full:
+        x["dt_low"], x["dt_w"] = (x["dt_low"] @ x["dt_w"]).contiguous(), None
+    h0 = _h0(x) if seeded else None
+    key = "delta_launches" if full else "split_launches"
+    f0 = getattr(selective_scan_fwd_train_cuda, key)
+    b0 = getattr(selective_scan_bwd_core_cuda, key)
+    got_f = selective_scan_fwd_train_cuda(*_args(x), **_train_kw(x), h0=h0)
+    want_f = selective_scan_fwd_train_ref(*_args(x), **_train_kw(x), h0=h0)
+    g = torch.randn(x["u"].shape, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(4)).to(dtype)
+    kw = dict(_train_kw(x), o=want_f[1], boundaries=want_f[2], g=g, h0=h0)
+    got_b = selective_scan_bwd(*_args(x), **kw)
+    want_b = selective_scan_bwd_ref(*_args(x), **kw)
+    torch.cuda.synchronize()
+    assert getattr(selective_scan_fwd_train_cuda, key) == f0 + (n > 32
+                                                                or full)
+    assert getattr(selective_scan_bwd_core_cuda, key) == b0 + (n > 32
+                                                               or full)
+    for a, b in zip(got_f + got_b, want_f + want_b):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.isfinite(a.float()).all()
+        _close(a, b, 1.6e-2 if a.dtype == torch.bfloat16 else 1e-4)
+
+
+def test_training_kernels_refuse_groups_and_257_states_on_card(cuda):
+    x = scan_inputs(cuda, torch.float32, groups=2)
+    with pytest.raises(NotImplementedError, match="grouped"):
+        selective_scan_fwd_train_cuda(*_args(x))
+    big = scan_inputs(cuda, torch.float32, n=257)
+    with pytest.raises(NotImplementedError, match="N <= 256"):
+        selective_scan_fwd_train_cuda(*_args(big))
+
+
+# the JAX front end `selective_scan` on the card: grouped B/C (the state
+# entry; the backward through the plain scan), a full delta (kernels 2 and
+# 3's delta entries), the last state under a gradient (the plain scan),
+# and without a gradient (the state entry), against the plain route and
+# its autograd
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n, groups, last, grad", [
+    (16, 2, False, True), (64, 4, False, True), (16, None, False, True),
+    (64, None, False, True), (16, None, True, True), (40, 2, True, False)])
+def test_selective_scan_front_end_on_card(cuda, dtype, n, groups, last,
+                                          grad):
+    from dimsum_torch.ops.selective_scan import selective_scan
+
+    x = state_inputs(cuda, dtype, batch=2, L=77, dim=128, n=n,
+                     groups=groups)
+    keys = ("u", "delta", "A", "B", "C", "D", "z", "delta_bias")
+    w = torch.randn(x["u"].shape, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(3))
+
+    def run(impl):
+        leaves = [x[k].detach().clone().requires_grad_(grad) for k in keys]
+        with torch.set_grad_enabled(grad):
+            out = selective_scan(*leaves, delta_softplus=True,
+                                 return_last_state=last, impl=impl)
+            y = out[0] if last else out
+            if grad:
+                (y.float() * w).sum().backward()
+        return ([y.detach()] + ([out[1].detach()] if last else [])
+                + [t.grad for t in leaves if grad])
+
+    got, want = run("cuda"), run("ref")
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        _close(a, b, 1.6e-2 if a.dtype == torch.bfloat16 else 1e-4)
+
+
+def test_dtlow_with_grouped_b_takes_the_front_end_on_card(cuda):
+    """selective_scan_dtlow with a 4-D B: delta expanded, the state entry
+    (no gradient), flipped around it for reverse."""
+    x = scan_inputs(cuda, torch.float32, batch=2, L=77, dim=128, groups=4)
+    kw = dict(z=x["z"], delta_bias=x["delta_bias"], delta_softplus=True)
+    for reverse in (False, True):
+        before = selective_scan_state_cuda.grouped_launches
+        got = selective_scan_dtlow(*_args(x), impl="cuda", reverse=reverse,
+                                   **kw)
+        assert selective_scan_state_cuda.grouped_launches == before + 1
+        want = selective_scan_dtlow(*_args(x), impl="ref", reverse=reverse,
+                                    **kw)
+        _close(got, want, 1e-4)
 
 
 # ---------------------------------------------------------------------------

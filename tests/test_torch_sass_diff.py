@@ -17,6 +17,12 @@ OLD = {"k<float, 16, 32, false>": ["A"], "k<float, 16, 32, true>": ["B"],
       "k<float, 16, 32, true, false>": ["B"],
       "k<float, 16, 32, true, true>": ["X"],
       "c<float, 16, (bool)0>": ["C"], "gone<int, false>": ["D"]}, 4, [], []),
+    # two switches added: the old kernel matches its both-off counterpart
+    ({"k<float, 16, 32, false, false, false>": ["A"],
+      "k<float, 16, 32, true, false, false>": ["B"],
+      "k<float, 16, 32, false, true, false>": ["X"],
+      "c<float, 16, false, (bool)0>": ["C"],
+      "gone<int, false, false>": ["D"]}, 4, [], []),
     # same names, one kernel's code changed, one kernel gone, one added
     ({"k<float, 16, 32, false>": ["A"], "k<float, 16, 32, true>": ["B2"],
       "c<float, 16>": ["C"], "k<float, 16, 128, false>": ["E"]}, 2,
